@@ -1,0 +1,140 @@
+"""Shared transformer building blocks, as plain functions on tensors.
+
+Counterpart of ``deepspeed_tpu/models/transformer.py`` for what the paged
+serving path uses.  Layouts follow the JAX package: activations
+``[B, S, H, D]``, weight matrices ``[in, out]``, stacked ``[L, ...]`` layer
+leaves, KV pool ``[L, NB, KV, bs, Dh]``.  Casting order is kept so fp32 runs
+match the JAX functions: ``rms_norm`` works in fp32 inside, and rotary cos/sin
+are cast to the activation dtype before the rotate-half multiply.
+"""
+
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+# ----------------------------------------------------------------- norms
+def rms_norm(x, weight, eps=1e-6):
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * weight.float()).to(dtype)
+
+
+# ----------------------------------------------------------------- rotary
+def rotary_tables(head_dim: int, max_seq: int, theta: float = 10000.0):
+    """numpy cos/sin tables [max_seq, head_dim / 2], bit-identical to the JAX
+    package's (the same float32 numpy arithmetic)."""
+    inv_freq = 1.0 / (theta**(np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+    t = np.arange(max_seq, dtype=np.float32)
+    freqs = np.outer(t, inv_freq)
+    return np.cos(freqs), np.sin(freqs)
+
+
+@functools.lru_cache(maxsize=8)
+def device_rotary_tables(head_dim: int, max_seq: int, theta: float, device: str):
+    """:func:`rotary_tables` as fp32 tensors on ``device``, uploaded once per
+    process and configuration instead of at every forward."""
+    cos, sin = rotary_tables(head_dim, max_seq, theta)
+    return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+
+
+def apply_rotary(x, cos, sin, positions=None):
+    """x: [B, S, H, D]; cos/sin: [maxS, D/2] (numpy or tensor); positions
+    [B, S] absolute positions (default 0..S-1)."""
+    cos = torch.as_tensor(cos, device=x.device)
+    sin = torch.as_tensor(sin, device=x.device)
+    if positions is None:
+        c = cos[:x.shape[1]][None, :, None, :]
+        s = sin[:x.shape[1]][None, :, None, :]
+    else:
+        c = cos[positions.long()][:, :, None, :]
+        s = sin[positions.long()][:, :, None, :]
+    return rotate_half(x, c, s)
+
+
+def rotate_half(x, c, s):
+    """The rotate-half product with gathered cos/sin ``c``/``s`` broadcastable
+    to [B, S, 1, D/2]; both are cast to x's dtype before the multiply."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    c = c.to(x.dtype)
+    s = s.to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+# ----------------------------------------------------------------- attention
+def sdpa(q, k, v, causal=True, mask=None, softmax_scale=None, bias=None):
+    """Scaled dot-product attention. q,k,v: [B, S, H, D] (k/v may have fewer
+    heads — GQA — repeated per group).  fp32 softmax.  ``bias``: additive
+    logit bias broadcastable to [B, H, Sq, Sk] (ALiBi)."""
+    b, sq, hq, d = q.shape
+    hk = k.shape[2]
+    if hk != hq:
+        k = torch.repeat_interleave(k, hq // hk, dim=2)
+        v = torch.repeat_interleave(v, hq // hk, dim=2)
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    sk = k.shape[1]
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        logits = torch.where((kpos <= qpos)[None, None], logits, -1e30)
+    if mask is not None:
+        logits = torch.where(mask, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+# ----------------------------------------------------------------- mlp
+def swiglu_mlp(params, x):
+    """Llama-style gated MLP: down(silu(gate(x)) * up(x))."""
+    gate = F.silu(x @ params["w_gate"].to(x.dtype))
+    up = x @ params["w_up"].to(x.dtype)
+    return (gate * up) @ params["w_down"].to(x.dtype)
+
+
+# ------------------------------------------------------------- params / pools
+def init_linear(generator, in_dim, out_dim, scale=None, dtype=torch.float32, device=None,
+                layers: Optional[int] = None):
+    """Normal(0, scale^2) weight [in, out] (or [layers, in, out] stacked),
+    scale defaulting to 1/sqrt(in), drawn from ``generator``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    shape = (in_dim, out_dim) if layers is None else (layers, in_dim, out_dim)
+    w = torch.randn(shape, generator=generator, dtype=dtype, device=device)
+    return w.mul_(scale)
+
+
+def init_paged_kv_pool(num_layers: int, num_kv_heads: int, head_dim: int, num_blocks: int,
+                       block_size: int, dtype=torch.bfloat16, device=None):
+    """Paged KV pool [L, NB, KV, bs, Dh]; the last block is the trash target
+    for padded-token writes."""
+    shape = (num_layers, num_blocks, num_kv_heads, block_size, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# -------------------------------------------------------- paged-serving shared
+def paged_chunk_indices(tokens, n_tokens, start_pos, block_tables, num_blocks: int,
+                        block_size: int):
+    """Maps the ragged chunk's absolute positions onto paged-KV pool
+    coordinates.  Returns (safe_pos [N,T], valid [N,T], lengths [N], blk [N,T],
+    off [N,T]): ``blk``/``off`` address pool[blk, :, off] for each token's KV
+    write, with padded tokens routed to the trash block (``num_blocks - 1``)."""
+    tchunk = tokens.shape[1]
+    trash = num_blocks - 1
+    ar = torch.arange(tchunk, device=tokens.device, dtype=start_pos.dtype)
+    positions = start_pos[:, None] + ar[None, :]
+    valid = ar[None, :] < n_tokens[:, None]
+    safe_pos = torch.where(valid, positions, 0)
+    lengths = start_pos + n_tokens
+    blk = torch.gather(block_tables, 1, (safe_pos // block_size).long())
+    blk = torch.where(valid, blk, trash)
+    off = torch.where(valid, safe_pos % block_size, 0)
+    return safe_pos, valid, lengths, blk, off
