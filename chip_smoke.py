@@ -4,25 +4,38 @@
     python3 chip_smoke.py
 
 Phases, each of which raises (and the script exits non-zero) on failure:
-  1. device: the card's name and power limit, and the paged-attention kernel's
-     build (nvcc, sm_90a, into deepspeed_tpu_torch/build/) with its seconds;
-  2. kernel vs plain: ``paged_attention`` (the hand-written kernel) against
-     ``paged_attention_reference`` (the plain PyTorch version) on CUDA tensors,
-     at Mistral-7B and Llama-2-7B shapes and on small edge cases, with times
-     for the kernel, the plain version, torch's scaled_dot_product_attention
-     over the gathered context (a yardstick only; the port never calls it)
-     and the card's bound for the same work;
+  1. device: the card's name and power limit, and the build of the three
+     kernel sources (nvcc, sm_90a, into deepspeed_tpu_torch/build/, one nvcc
+     each, all started together) with their seconds and ptxas lines;
+  2. kernel vs plain, each on CUDA tensors against its plain PyTorch version,
+     with times for the kernel, the plain version, a PyTorch library call
+     that computes the same function (a yardstick only; the port never calls
+     it) and the card's bound for the same work:
+     ``paged_attention`` at Mistral-7B and Llama-2-7B shapes and on small edge
+     cases; the flash forward and both backward kernels at the training shape
+     (B=2, S=2048, 32 heads, head dim 128, bf16, causal), GQA, sq < sk and
+     unaligned lengths; the fused AdamW kernel over the training run's
+     largest leaf (w_gate of 8 layers, 360.7 M elements) with an fp32 and a
+     bf16 grad;
   3. serve: ``build_engine("mistral", MistralConfig.mistral_7b(), ...)`` in
      bf16 with seeded random weights answers 16 requests through greedy
      ``generate``, and every forward step goes through the kernel; the same
      serve again under torch.profiler splits the device time by kernel;
-  4. the slice against its plain version: a 2-layer, full-width Mistral in
-     fp32, one prefill and three decode steps of ``forward_paged`` on CUDA
-     (kernel) and on a CPU copy (plain path) with the same weights and KV.
+  4. slice: a 2-layer, full-width Mistral in fp32, one prefill and three
+     decode steps of ``forward_paged`` on CUDA (kernel) and on a CPU copy
+     (plain path) with the same weights and KV;
+  5. train: ``initialize`` with Llama-2-7B at full width cut to 8 layers, bf16,
+     remat, fused AdamW, WarmupLR, clipping; 6 optimizer steps of 2 x 2 x 2048
+     tokens through the flash and fused-AdamW kernels, launch counts checked
+     against the step formula, one more step under torch.profiler;
+  6. train slice: 2 full-width layers in fp32, the CUDA engine (kernels)
+     against the CPU engine (plain versions) from the same params: losses,
+     step-1 grads and the params after 3 steps.
 
 fp32 matrix products and convolutions run in full fp32 (TF32 is switched
 off), so fp32 comparisons differ only by the order of summation.  The last
-lines are the kernels' JSON record, then ``{"ok": true, "device": ...}``.
+lines are the card's name and power limit, the kernels' JSON record, then
+``{"ok": true, "device": ...}``.
 """
 
 import dataclasses
@@ -40,6 +53,16 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float16": 989e12, "torch.float32"
 TIMED_RUNS = 25
 REPLACES = "deepspeed_tpu/ops/attention/paged.py:40"  # _paged_kernel, pl.pallas_call at :141
 SOURCE = "deepspeed_tpu_torch/csrc/paged_attention.cu"
+FLASH_SOURCE = "deepspeed_tpu_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {  # bodies in deepspeed_tpu/ops/attention/flash.py (pallas_call at :104, :252, :285)
+    "flash_fwd": "deepspeed_tpu/ops/attention/flash.py:37",
+    "flash_bwd_dkdv": "deepspeed_tpu/ops/attention/flash.py:133",
+    "flash_bwd_dq": "deepspeed_tpu/ops/attention/flash.py:177",
+}
+ADAM_SOURCE = "deepspeed_tpu_torch/csrc/fused_adam.cu"
+ADAM_REPLACES = "deepspeed_tpu/ops/adam/fused_adam.py:53"  # _adamw_kernel, pallas_call at :41
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_adam")
+TRAIN_LAYERS = 8  # Llama-2-7B width; 32 layers' fp32 state (~108 GB) exceeds one card
 
 
 def log(*parts):
@@ -57,17 +80,21 @@ def phase_device():
     import torch
 
     from deepspeed_tpu_torch.ops import _build
-    from deepspeed_tpu_torch.ops.attention import paged
+    from deepspeed_tpu_torch.ops.adam import fused_adam
+    from deepspeed_tpu_torch.ops.attention import flash, paged
     card = nvidia_smi_line()
     log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    paged._lib()
-    log(f"[device] paged_attention kernel ready in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.build_seconds.get('paged_attention', 0.0):.2f} s)")
-    for line in _build.build_log.get("paged_attention", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[device] ptxas: {line.strip()}")
+    _build.build_all(KERNEL_SOURCES)
+    paged._lib(), flash._lib(), fused_adam._lib()
+    log(f"[device] {len(KERNEL_SOURCES)} kernel libraries ready in "
+        f"{time.perf_counter() - t0:.2f} s, built in parallel")
+    for name in KERNEL_SOURCES:
+        log(f"[device] {name}: nvcc {_build.build_seconds.get(name, 0.0):.2f} s")
+        for line in _build.build_log.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[device] ptxas: {line.strip()}")
     return card
 
 
@@ -273,9 +300,276 @@ def phase_kernel(card):
     return recs, max(errs["mistral_decode"], errs["mistral_prefill"])
 
 
+def bound(nbytes, flops, dtype):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate for the inputs' type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_case(seed, *, B, Sq, Sk, H, KV, D, dtype):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(dtype)
+    return {"q": rand(B, Sq, H, D), "k": rand(B, Sk, KV, D), "v": rand(B, Sk, KV, D),
+            "do": rand(B, Sq, H, D)}
+
+
+def flash_backward_inputs(c, causal):
+    """The plain forward's out and lse, and delta = rowsum(do * out), shared by
+    the backward kernels and their plain versions."""
+    from deepspeed_tpu_torch.ops.attention.flash import flash_fwd_reference
+    scale = 1.0 / np.sqrt(c["q"].shape[-1])
+    out, lse = flash_fwd_reference(c["q"], c["k"], c["v"], scale, causal)
+    delta = (c["do"].float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return scale, lse, delta
+
+
+def _rms(t):
+    """Root mean square of ``t``: the typical magnitude a limit is set against."""
+    return t.float().square().mean().sqrt().item()
+
+
+def _max_err(name, got, ref, atol, rtol):
+    """Largest |got - ref|; raises where it passes atol + rtol * |ref| or got
+    is not finite."""
+    import torch
+    got32, ref32 = got.float(), ref.float()
+    err = (got32 - ref32).abs()
+    bad = err > atol + rtol * ref32.abs()
+    if not bool(torch.isfinite(got32).all()) or bad.any():
+        raise AssertionError(f"{name}: kernel disagrees with the plain version: max abs err "
+                             f"{err.max().item():.3e}, {int(bad.sum())} elements beyond "
+                             f"atol={atol:.3e} rtol={rtol} (rms of the plain result "
+                             f"{_rms(ref32):.3e})")
+    return err.max().item()
+
+
+def check_adamw(name, bufs, plain):
+    """Each of p, m, v against its plain version, at rtol 1e-6 and an atol of
+    1e-6 of that buffer's own largest value, so that a v left unchanged, or
+    without its (1 - beta2) g^2 term, does not pass; returns the largest
+    error."""
+    err = 0.0
+    for part, got, ref in zip("pmv", bufs, plain):
+        err = max(err, _max_err(f"{name} {part}", got, ref,
+                                1e-6 * ref.abs().max().item(), 1e-6))
+    return err
+
+
+def compare_flash(name, c, causal):
+    """Each flash kernel once against its plain version; returns the largest
+    error of each kernel's outputs."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention import flash
+    q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+    scale, lse_ref, delta = flash_backward_inputs(c, causal)
+    counts = (flash.flash_fwd.launches, flash.flash_bwd_dkdv.launches, flash.flash_bwd_dq.launches)
+    out, lse = flash.flash_fwd(q, k, v, scale, causal)
+    dk, dv = flash.flash_bwd_dkdv(q, k, v, do, lse_ref, delta, scale, causal)
+    dq = flash.flash_bwd_dq(q, k, v, do, lse_ref, delta, scale, causal)
+    torch.cuda.synchronize()
+    if (flash.flash_fwd.launches, flash.flash_bwd_dkdv.launches,
+            flash.flash_bwd_dq.launches) != tuple(n + 1 for n in counts):
+        raise AssertionError(f"{name}: a flash kernel did not launch")
+    out_ref, _ = flash.flash_fwd_reference(q, k, v, scale, causal)
+    dk_ref, dv_ref = flash.flash_bwd_dkdv_reference(q, k, v, do, lse_ref, delta, scale, causal)
+    dq_ref = flash.flash_bwd_dq_reference(q, k, v, do, lse_ref, delta, scale, causal)
+    refs = {"out": out_ref, "dk": dk_ref, "dv": dv_ref, "dq": dq_ref}
+    rms = {part: _rms(ref) for part, ref in refs.items()}
+    if q.dtype == torch.float32:
+        limits = {part: (1e-4, 1e-4) for part in refs}
+        rule = "atol=rtol=1e-4"
+    else:
+        # both sides round the same fp32 value once on the store: at most one
+        # ulp apart (2^-7 of the value in bf16), far below 1 % of a typical value
+        limits = {part: (1e-2 * rms[part], 1e-2) for part in refs}
+        rule = "rtol 1e-2, atol 1e-2 x rms of each plain result"
+    got = {"out": out, "dk": dk, "dv": dv, "dq": dq}
+    err = {part: _max_err(f"{name} {part}", got[part], refs[part], *limits[part])
+           for part in refs}
+    errs = {"flash_fwd": max(err["out"], _max_err(f"{name} lse", lse, lse_ref, 1e-4, 1e-4)),
+            "flash_bwd_dkdv": max(err["dk"], err["dv"]),
+            "flash_bwd_dq": err["dq"]}
+    log(f"[kernel] {name}: ok, max abs err out/lse {errs['flash_fwd']:.3e} dk/dv "
+        f"{errs['flash_bwd_dkdv']:.3e} dq {errs['flash_bwd_dq']:.3e} ({rule}; rms out "
+        f"{rms['out']:.3e} dk {rms['dk']:.3e} dv {rms['dv']:.3e} dq {rms['dq']:.3e}; lse "
+        f"atol=rtol=1e-4; {q.dtype}, causal={causal})")
+    return errs
+
+
+def flash_work(c, causal):
+    """(bytes, operations) of each flash kernel for this case: each input read
+    once and each output written once; 4 D operations per visible (query,
+    key) pair forward, 8 D for dK/dV, 6 D for dQ."""
+    B, Sq, H, D = c["q"].shape
+    Sk, KV = c["k"].shape[1], c["k"].shape[2]
+    if causal:
+        pairs = sum(min(Sk, max(0, i + Sk - Sq + 1)) for i in range(Sq))
+    else:
+        pairs = Sq * Sk
+    pairs *= B * H
+    elt = c["q"].element_size()
+    qo = B * Sq * H * D * elt      # one [B, Sq, H, D] tensor
+    kv = B * Sk * KV * D * elt     # one [B, Sk, KV, D] tensor
+    rows = B * H * Sq * 4          # one fp32 [B, H, Sq] vector
+    return {"flash_fwd": (2 * qo + 2 * kv + rows, 4.0 * D * pairs),
+            "flash_bwd_dkdv": (2 * qo + 4 * kv + 2 * rows, 8.0 * D * pairs),
+            "flash_bwd_dq": (3 * qo + 2 * kv + 2 * rows, 6.0 * D * pairs)}
+
+
+def measure_flash(name, c, causal):
+    """Times of the three flash kernels, their plain versions, the bound and
+    torch's scaled_dot_product_attention (forward; backward computing dq, dk
+    and dv in one call) as the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.attention import flash
+    q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+    scale, lse, delta = flash_backward_inputs(c, causal)
+    group = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt = torch.repeat_interleave(k, group, dim=2).transpose(1, 2).contiguous().requires_grad_(True)
+    vt = torch.repeat_interleave(v, group, dim=2).transpose(1, 2).contiguous().requires_grad_(True)
+    dot = do.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        sdpa_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        fwd_lib = time_ms(sdpa_fwd)
+    with torch.enable_grad():
+        out_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        bwd_lib = time_ms(lambda: torch.autograd.grad(out_lib, (qt, kt, vt), dot,
+                                                      retain_graph=True))
+    del out_lib
+    runs = {
+        "flash_fwd": (lambda: flash.flash_fwd(q, k, v, scale, causal),
+                      lambda: flash.flash_fwd_reference(q, k, v, scale, causal), fwd_lib),
+        "flash_bwd_dkdv": (lambda: flash.flash_bwd_dkdv(q, k, v, do, lse, delta, scale, causal),
+                           lambda: flash.flash_bwd_dkdv_reference(q, k, v, do, lse, delta, scale,
+                                                                  causal), bwd_lib),
+        "flash_bwd_dq": (lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal),
+                         lambda: flash.flash_bwd_dq_reference(q, k, v, do, lse, delta, scale,
+                                                              causal), bwd_lib),
+    }
+    work_by_kernel = flash_work(c, causal)
+    recs = {}
+    for kname, (kernel, plain, library_ms) in runs.items():
+        nbytes, flops = work_by_kernel[kname]
+        bound_ms, bound_by = bound(nbytes, flops, q.dtype)
+        ms = time_ms(kernel)
+        recs[kname] = {"ms": ms, "plain_ms": time_ms(plain, runs=5), "library_ms": library_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+                       "flops": flops, "tflops": flops / ms / 1e9}
+        r = recs[kname]
+        log(f"[kernel] {name} {kname}: kernel_ms {ms:.4f} plain_ms {r['plain_ms']:.4f} "
+            f"library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; kernel {r['tflops']:.2f} TFLOP/s)")
+    # the autograd path the model runs: forward, delta, both backward kernels
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+
+    def fwd_bwd():
+        out = flash.flash_attention(qg, kg, vg, causal=causal)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    with torch.enable_grad():
+        both, both_lib = time_ms(fwd_bwd, runs=10), time_ms(sdpa_fwd_bwd, runs=10)
+    log(f"[kernel] {name} flash_attention forward + backward (autograd): {both:.4f} ms, "
+        f"sdpa {both_lib:.4f} ms")
+    return recs
+
+
+def measure_adamw(name, n, grad_dtype, seed):
+    """The fused AdamW kernel against its plain version over one flat leaf of
+    ``n`` elements; torch.optim.AdamW(fused=True).step() on an fp32 copy of the
+    grad is the library yardstick (it decays p before the update, so it is the
+    same work, not the same rounding)."""
+    import torch
+    from deepspeed_tpu_torch.ops.adam.fused_adam import (fused_adamw_flat,
+                                                         fused_adamw_flat_reference)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.randn(n, generator=g, device="cuda") * 0.02
+    m = torch.randn(n, generator=g, device="cuda") * 1e-3
+    v = torch.rand(n, generator=g, device="cuda") * 1e-6
+    grad = (torch.randn(n, generator=g, device="cuda") * 1e-3).to(grad_dtype)
+    hyper = dict(lr=3e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.1, step=3)
+    bufs = [x.clone() for x in (p, m, v)]
+    plain = [x.clone() for x in (p, m, v)]
+    before = fused_adamw_flat.launches
+    fused_adamw_flat(*bufs, grad, **hyper)
+    torch.cuda.synchronize()
+    if fused_adamw_flat.launches != before + 1:
+        raise AssertionError(f"{name}: the fused AdamW kernel did not launch")
+    fused_adamw_flat_reference(*plain, grad, **hyper)
+    err = check_adamw(name, bufs, plain)
+    log(f"[kernel] {name}: ok, max abs err {err:.3e} (rtol 1e-6, atol 1e-6 x max|plain| of each "
+        f"buffer; max|p| {plain[0].abs().max().item():.3e} max|m| "
+        f"{plain[1].abs().max().item():.3e} max|v| {plain[2].abs().max().item():.3e}, "
+        f"(1 - beta2) g^2 up to {(1 - hyper['beta2']) * grad.float().square().max().item():.3e}; "
+        f"{grad_dtype} grad)")
+    nbytes = n * (6 * 4 + grad.element_size())
+    bound_ms, bound_by = bound(nbytes, 16.0 * n, torch.float32)
+    ms = time_ms(lambda: fused_adamw_flat(*bufs, grad, **hyper))
+    plain_ms = time_ms(lambda: fused_adamw_flat_reference(*plain, grad, **hyper))
+    lib_p = p.clone().requires_grad_(False)
+    lib_p.grad = grad.float()
+    opt = torch.optim.AdamW([lib_p], lr=3e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1,
+                            fused=True)
+    library_ms = time_ms(opt.step)
+    rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes, "max_abs_err": err}
+    log(f"[kernel] {name}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}: {nbytes / 1e9:.3f} GB; kernel "
+        f"{nbytes / ms / 1e6:.0f} GB/s)")
+    return rec
+
+
+def phase_train_kernels(card):
+    """The training path's kernels against their plain versions on the card:
+    flash at the training shape, GQA and edge cases; fused AdamW over one
+    7B-width leaf.  Returns the measured records and the largest errors."""
+    import torch
+    bf16 = torch.bfloat16
+    cases = {
+        "train_causal_bf16": (flash_case(11, B=2, Sq=2048, Sk=2048, H=32, KV=32, D=128,
+                                         dtype=bf16), True),
+        "gqa_h32_kv8_bf16": (flash_case(12, B=2, Sq=1024, Sk=1024, H=32, KV=8, D=128,
+                                        dtype=bf16), True),
+        "sq100_lt_sk300_d64_fp32": (flash_case(13, B=1, Sq=100, Sk=300, H=4, KV=2, D=64,
+                                               dtype=torch.float32), True),
+        "unaligned_s200_d128_fp16": (flash_case(14, B=2, Sq=200, Sk=200, H=2, KV=2, D=128,
+                                                dtype=torch.float16), True),
+        "noncausal_s130_d64_fp32": (flash_case(15, B=1, Sq=130, Sk=70, H=4, KV=1, D=64,
+                                               dtype=torch.float32), False),
+        "unaligned_s77_d128_bf16": (flash_case(16, B=1, Sq=77, Sk=77, H=8, KV=4, D=128,
+                                               dtype=bf16), True),
+    }
+    errs = {}
+    for name, (c, causal) in cases.items():
+        for kname, e in compare_flash(name, c, causal).items():
+            errs[kname] = max(errs.get(kname, 0.0), e)
+    recs = measure_flash("train_causal_bf16", *cases["train_causal_bf16"])
+    del cases
+    torch.cuda.empty_cache()
+    n = TRAIN_LAYERS * 4096 * 11008  # the [train] run's stacked w_gate leaf, one launch
+    adam_f32 = measure_adamw("adamw_w_gate_fp32_grad", n, torch.float32, 21)
+    adam_bf16 = measure_adamw("adamw_w_gate_bf16_grad", n, bf16, 22)
+    recs["fused_adamw"] = adam_f32
+    recs["fused_adamw_bf16_grad"] = adam_bf16
+    errs["fused_adamw"] = max(adam_f32["max_abs_err"], adam_bf16["max_abs_err"])
+    torch.cuda.empty_cache()
+    for name, rec in recs.items():
+        log(f"[kernel] {name} on {card}: {json.dumps({k: rec[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')})}")
+    return recs, errs
+
+
 # ------------------------------------------------------------------ phase 3
 def phase_serve(card, seed=0):
     import torch
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves
     from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
     from deepspeed_tpu_torch.models.mistral import MistralConfig, init_params, num_params
     from deepspeed_tpu_torch.ops.attention.paged import paged_attention
@@ -283,7 +577,7 @@ def phase_serve(card, seed=0):
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
-    n_params = sum(p.numel() for p in _leaves(params))
+    n_params = sum(p.numel() for p in tree_leaves(params))
     if n_params != num_params(cfg):
         raise AssertionError(f"init_params made {n_params} params, num_params says "
                              f"{num_params(cfg)}")
@@ -293,7 +587,7 @@ def phase_serve(card, seed=0):
                           max_blocks_per_seq=256, token_budget=512, max_seqs_per_step=32)
     torch.cuda.synchronize()
     log(f"[serve] mistral_7b: {n_params / 1e9:.3f} B params "
-        f"({sum(p.numel() * p.element_size() for p in _leaves(params)) / 1e9:.2f} GB bf16), "
+        f"({sum(p.numel() * p.element_size() for p in tree_leaves(params)) / 1e9:.2f} GB bf16), "
         f"KV pool {sum(v.numel() * v.element_size() for v in engine.kv.values()) / 2**30:.2f} "
         f"GiB, set up in {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(seed)
@@ -380,24 +674,17 @@ def profile_serve(engine, prompts, max_new, card, wall_s, top=12):
         log(f"[profile]   {ms:9.2f} ms {count:6d} calls  {name[:110]}")
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 # ------------------------------------------------------------------ phase 4
 def phase_slice(seed=1):
     """2-layer full-width Mistral in fp32: kernel path on CUDA vs plain path
     on a CPU copy, same weights and KV state."""
     import torch
+    from deepspeed_tpu_torch.runtime.tree import tree_map
     from deepspeed_tpu_torch.models import mistral
     cfg = dataclasses.replace(mistral.MistralConfig.mistral_7b(), num_layers=2)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = mistral.init_params(cfg, gen, dtype=torch.float32, device="cuda")
-    params_cpu = _to(params, "cpu")
+    params_cpu = tree_map(lambda t: t.cpu(), params)
     bs, nb = 16, 40
     kv = mistral.init_paged_cache(cfg, nb, bs, dtype=torch.float32, device="cuda")
     kv_cpu = mistral.init_paged_cache(cfg, nb, bs, dtype=torch.float32, device="cpu")
@@ -441,10 +728,205 @@ def phase_slice(seed=1):
         f"{kv_err:.3e}, greedy picks identical")
 
 
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+# ------------------------------------------------------------------ phase 5
+TRAIN_PEAK_FLOPS = 989e12  # bf16 dense tensor-core peak of the H100 SXM
+
+
+def train_config(*, micro, gas, bf16, seed, lr=3e-4):
+    return {"train_micro_batch_size_per_gpu": micro, "gradient_accumulation_steps": gas,
+            "gradient_clipping": 1.0, "bf16": {"enabled": bf16}, "steps_per_print": 1000,
+            "seed": seed,
+            "optimizer": {"type": "fused_adam", "params": {"lr": lr, "weight_decay": 0.1}},
+            "scheduler": {"type": "WarmupLR",
+                          "params": {"warmup_min_lr": 0.0, "warmup_max_lr": lr,
+                                     "warmup_num_steps": 10, "warmup_type": "linear"}}}
+
+
+def launch_counts():
+    from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adamw_flat
+    from deepspeed_tpu_torch.ops.attention import flash
+    return {"flash_fwd": flash.flash_fwd.launches,
+            "flash_bwd_dkdv": flash.flash_bwd_dkdv.launches,
+            "flash_bwd_dq": flash.flash_bwd_dq.launches,
+            "fused_adamw": fused_adamw_flat.launches}
+
+
+def reset_launch_counts():
+    from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adamw_flat
+    from deepspeed_tpu_torch.ops.attention import flash
+    flash.flash_fwd.launches = flash.flash_bwd_dkdv.launches = flash.flash_bwd_dq.launches = 0
+    fused_adamw_flat.launches = 0
+
+
+def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=2048):
+    """Llama-2-7B width, cut to ``layers`` layers, trained in bf16 for
+    ``steps`` optimizer steps on one seeded batch through ``initialize`` and
+    ``train_batch``; returns the kernels' launch counts over those steps."""
+    import torch
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), num_layers=layers, remat=True)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                               dtype=torch.float32, device="cuda")
+    n_leaves = len(tree_leaves(params))
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        loss_fn=llama.make_loss_fn(cfg), model_parameters=params,
+        config=train_config(micro=micro, gas=gas, bf16=True, seed=seed))
+    del params
+    torch.cuda.empty_cache()
+    n_params = llama.num_params(cfg)
+    rng = np.random.default_rng(seed)
+    batch = llama.causal_lm_batch(rng.integers(0, cfg.vocab_size, (micro * gas, seq)))
+    tokens = micro * gas * seq
+    step_flops = llama.flops_per_token(cfg, seq) * tokens
+    log(f"[train] llama2_7b width x {layers} layers: {n_params / 1e9:.3f} B params, set up in "
+        f"{time.perf_counter() - t0:.2f} s; bf16, remat, fused_adam, WarmupLR, clip 1.0, "
+        f"micro {micro} x gas {gas} x seq {seq} = {tokens} tokens a step, "
+        f"{step_flops / 1e12:.1f} TFLOP a step (flops_per_token)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        metrics = engine.train_batch(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics.loss))
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = {"flash_fwd": steps * gas * layers * 2,  # forward + the remat recompute
+                "flash_bwd_dkdv": steps * gas * layers, "flash_bwd_dq": steps * gas * layers,
+                "fused_adamw": steps * n_leaves}
+    if launches != expected:
+        raise AssertionError(f"[train] launch counts {launches} != step formula {expected}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] losses not finite and falling: {losses}")
+    step_s = statistics.mean(times[1:])
+    mfu = step_flops / step_s / TRAIN_PEAK_FLOPS
+    log(f"[train] {steps} steps on {card}: losses {[round(x, 4) for x in losses]}; step ms "
+        f"{[round(t * 1e3, 1) for t in times]} (first includes warm-up); steps 2-{steps}: "
+        f"{step_s * 1e3:.1f} ms a step, {tokens / step_s:.1f} tokens/s, mfu {mfu:.4f} "
+        f"(of {TRAIN_PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16), peak memory {peak_gb:.2f} GB; "
+        f"launches {launches} = step formula")
+    profile_train(engine, batch, card, step_s)
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_train(engine, batch, card, step_s, top=12):
+    """One more step under torch.profiler: device time by flash forward,
+    flash backward, AdamW, matrix products and the rest; the idle share is
+    the busy time against the unprofiled mean step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {"flash_fwd": 0.0, "flash_bwd": 0.0, "adamw": 0.0, "matmul": 0.0, "other": 0.0}
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        kernels.append((us / 1e3, evt.count, evt.key))
+        name = evt.key.lower()
+        if "flash_fwd" in name:
+            key = "flash_fwd"
+        elif "flash_bwd" in name:
+            key = "flash_bwd"
+        elif "adamw_kernel" in name:
+            key = "adamw"
+        elif any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass", "sm90")):
+            key = "matmul"
+        else:
+            key = "other"
+        groups[key] += us / 1e3
+    busy = sum(groups.values())
+    if busy == 0.0:
+        log("[profile-train] device time not measured: the profiler saw no CUDA kernels")
+        return
+    shares = ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in groups.items())
+    log(f"[profile-train] one step under torch.profiler on {card}: device busy {busy:.1f} ms, "
+        f"{busy / (step_s * 1e3):.1%} of the unprofiled step's {step_s * 1e3:.1f} ms (idle "
+        f"{1 - busy / (step_s * 1e3):.1%}; the profiled step took {wall_ms:.1f} ms); {shares}")
+    for ms, count, name in sorted(kernels, reverse=True)[:top]:
+        log(f"[profile-train]   {ms:9.2f} ms {count:6d} calls  {name[:110]}")
+
+
+# ------------------------------------------------------------------ phase 6
+def phase_train_slice(seed=1, steps=3, micro=2, gas=2, seq=256):
+    """2 full-width Llama-2-7B layers in fp32: the CUDA engine (kernels)
+    against the CPU engine (plain versions), same params and batch."""
+    import torch
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves, tree_map
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), num_layers=2, remat=True)
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                               dtype=torch.float32, device="cuda")
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    engines = {}
+    for dev, p in (("cuda", params), ("cpu", params_cpu)):
+        engines[dev], _, _, _ = deepspeed_tpu_torch.initialize(
+            loss_fn=llama.make_loss_fn(cfg), model_parameters=p,
+            config=train_config(micro=micro, gas=gas, bf16=False, seed=seed), device=dev)
+    del params, params_cpu
+    rng = np.random.default_rng(seed)
+    batch = llama.causal_lm_batch(rng.integers(0, cfg.vocab_size, (micro * gas, seq)))
+    t0 = time.perf_counter()
+    grads = {dev: engines[dev].accumulate_gradients(batch)[0] for dev in engines}
+    # per leaf: rtol 1e-4 and an atol of 1e-4 of that leaf's largest grad
+    grad_err, grad_rel, grad_rms = 0.0, 0.0, []
+    for i, (g_gpu, g_cpu) in enumerate(zip(tree_leaves(grads["cuda"]),
+                                           tree_leaves(grads["cpu"]))):
+        top = g_cpu.abs().max().item()
+        err = _max_err(f"[train-slice] step-1 grad of leaf {i}", g_gpu.cpu(), g_cpu,
+                       1e-4 * top, 1e-4)
+        grad_err, grad_rel = max(grad_err, err), max(grad_rel, err / top if top else 0.0)
+        grad_rms.append(_rms(g_cpu))
+    del grads
+    losses, lrs = {"cuda": [], "cpu": []}, []
+    for _ in range(steps):
+        for dev, engine in engines.items():
+            metrics = engine.train_batch(batch)
+            losses[dev].append(float(metrics.loss))
+        lrs.append(metrics.lr)
+    for lg, lc in zip(losses["cuda"], losses["cpu"]):
+        if not abs(lg - lc) <= 1e-4 * abs(lc):
+            raise AssertionError(f"[train-slice] losses differ: CUDA {losses['cuda']} vs CPU "
+                                 f"{losses['cpu']} (rtol 1e-4)")
+    # Adam's m/sqrt(v) turns a sign flip of a near-zero grad into a full-lr
+    # step, so params may differ by up to 2 lr a step; nearly all agree closely
+    limit = 2.0 * sum(lrs)
+    worst, n_close, n_total = 0.0, 0, 0
+    for p_gpu, p_cpu in zip(tree_leaves(engines["cuda"].state.params),
+                            tree_leaves(engines["cpu"].state.params)):
+        diff = (p_gpu.cpu() - p_cpu).abs()
+        worst = max(worst, diff.max().item())
+        n_close += int((diff <= 1e-5).sum())
+        n_total += diff.numel()
+    if worst > limit or n_close < 0.999 * n_total:
+        raise AssertionError(f"[train-slice] params after {steps} steps: max abs diff "
+                             f"{worst:.3e} (limit {limit:.3e}), {n_close / n_total:.5%} within "
+                             f"1e-5 (need 99.9 %)")
+    log(f"[train-slice] llama2_7b width, 2 layers, fp32, seq {seq}, micro {micro} x gas {gas}, "
+        f"{steps} steps, CUDA kernels vs CPU plain versions in {time.perf_counter() - t0:.1f} s: "
+        f"losses {losses['cuda']} vs {losses['cpu']} (rtol 1e-4); step-1 grads max abs err "
+        f"{grad_err:.3e}, at most {grad_rel:.3e} of its leaf's largest grad (rtol 1e-4, atol "
+        f"1e-4 x max|leaf|; rms per leaf {min(grad_rms):.3e} to {max(grad_rms):.3e}); params "
+        f"max abs diff {worst:.3e} (limit 2 x sum(lr) "
+        f"= {limit:.3e}), {n_close / n_total:.5%} within 1e-5")
+    del engines
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ main
@@ -466,18 +948,35 @@ def main() -> int:
     with torch.no_grad():
         card = phase_device()
         recs, max_err = phase_kernel(card)
+    train_recs, train_errs = phase_train_kernels(card)
+    with torch.no_grad():
         launches = phase_serve(card)
         phase_slice()
+    train_launches = phase_train(card)
+    phase_train_slice()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s on {card}")
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     dec, pre = recs["mistral_decode"], recs["mistral_prefill"]
-    kernel = {"name": "paged_attention", "route": "cuda", "source": SOURCE,
-              "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-              **{k: dec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-              "shape": "mistral_7b decode N=32 T=1 lengths 1-4096 bf16",
-              "prefill": {k: pre[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                              "library_ms")}}
+    kernels = [{"name": "paged_attention", "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
+                **{k: dec[k] for k in fields},
+                "shape": "mistral_7b decode N=32 T=1 lengths 1-4096 bf16",
+                "prefill": {k: pre[k] for k in fields}}]
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        kernels.append({"name": name, "route": "cuda", "source": FLASH_SOURCE,
+                        "replaces": FLASH_REPLACES[name], "launches": train_launches[name],
+                        "max_abs_err": train_errs[name],
+                        **{k: train_recs[name][k] for k in fields},
+                        "shape": "B=2 S=2048 H=KV=32 D=128 bf16 causal"})
+    adam = train_recs["fused_adamw"]
+    kernels.append({"name": "fused_adamw", "route": "cuda", "source": ADAM_SOURCE,
+                    "replaces": ADAM_REPLACES, "launches": train_launches["fused_adamw"],
+                    "max_abs_err": train_errs["fused_adamw"], **{k: adam[k] for k in fields},
+                    "shape": f"n={TRAIN_LAYERS * 4096 * 11008} (the stacked w_gate leaf of "
+                             f"[train]) fp32 p/m/v, fp32 grad",
+                    "bf16_grad": {k: train_recs["fused_adamw_bf16_grad"][k] for k in fields}})
     log(card)
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -6,3 +6,21 @@ tensor code is PyTorch; every Pallas kernel of the JAX package becomes a
 kernel written by hand for Hopper (``csrc/``), built at first use.  Entry
 points run on ``device="cuda"`` unless the caller asks for the CPU.
 """
+
+
+def initialize(args=None, model=None, loss_fn=None, model_parameters=None, training_data=None,
+               config=None, device="cuda", **kwargs):
+    """Build a single-GPU training engine (``deepspeed_tpu.initialize``).
+
+    The model is a loss function ``loss_fn(params, batch, rng) -> loss`` over
+    a params tree of tensors (nested dicts), e.g.
+    ``models.llama.make_loss_fn(config)`` with ``models.llama.init_params``.
+    Returns ``(engine, optimizer, None, lr_scheduler)``: the dataloader is not
+    ported, and ``training_data`` raises ``NotImplementedError``.  The engine
+    runs on ``device`` ("cuda" unless the caller passes "cpu") and raises when
+    asked for CUDA without a GPU.
+    """
+    from .runtime.engine import initialize as _initialize
+    return _initialize(args=args, model=model, loss_fn=loss_fn,
+                       model_parameters=model_parameters, training_data=training_data,
+                       config=config, device=device, **kwargs)

@@ -1,22 +1,27 @@
-"""Llama-family causal LM: the paged (ragged) serving forward.
+"""Llama-family causal LM: the dense training forward and the paged (ragged)
+serving forward.
 
-Counterpart of ``deepspeed_tpu/models/llama.py`` for the v2 serving path.
-Params are the JAX package's pytree as nested dicts of tensors: per-layer
-leaves stacked on dim 0, weight matrices ``[in, out]``, so
+Counterpart of ``deepspeed_tpu/models/llama.py`` for the training and v2
+serving paths.  Params are the JAX package's pytree as nested dicts of
+tensors: per-layer leaves stacked on dim 0, weight matrices ``[in, out]``, so
 :func:`params_from_jax` carries JAX weights across without reshuffling.  The
 layer stack is a Python loop over those stacked leaves.
 """
 
 import dataclasses
+import functools
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..ops.attention.paged import paged_attention
-from .transformer import (device_rotary_tables, init_linear, init_paged_kv_pool,
-                          paged_chunk_indices, rms_norm, rotate_half, swiglu_mlp)
+from ..runtime.activation_checkpointing import checkpoint
+from ..runtime.tree import tree_map
+from .transformer import (attention_block, cross_entropy_loss, device_rotary_tables,
+                          init_linear, init_paged_kv_pool, paged_chunk_indices, rms_norm,
+                          rotate_half, swiglu_mlp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +36,9 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     tie_embeddings: bool = False
+    # recompute each layer in the backward (torch.utils.checkpoint); the JAX
+    # package's named remat policies are not ported yet
+    remat: bool = True
 
     @staticmethod
     def llama2_7b():
@@ -85,10 +93,66 @@ def num_params(config: LlamaConfig) -> int:
     return total
 
 
+def flops_per_token(config: LlamaConfig, seq_len: int) -> float:
+    """Approximate training FLOPs per token (6N + attention terms) for MFU."""
+    attn = 12 * config.num_layers * config.hidden_size * seq_len  # qk + av, fwd + bwd
+    return 6.0 * num_params(config) + attn
+
+
+# ------------------------------------------------------------------ training
+def _layer(config: LlamaConfig, cos, sin, attention_fn, x, layer_params):
+    attn_in = rms_norm(x, layer_params["attn_norm"], config.rms_eps)
+    attn_out, _ = attention_block(layer_params["attn"], attn_in, n_heads=config.num_heads,
+                                  n_kv_heads=config.num_kv_heads, cos=cos, sin=sin, causal=True,
+                                  attention_fn=attention_fn)
+    x = x + attn_out
+    mlp_in = rms_norm(x, layer_params["mlp_norm"], config.rms_eps)
+    return x + swiglu_mlp(layer_params["mlp"], mlp_in)
+
+
+def forward(config: LlamaConfig, params, input_ids, attention_fn=None):
+    """input_ids [B, S] -> logits [B, S, V], in the dtype of the params (the
+    engine hands in its compute-dtype copy).  With ``config.remat`` each layer
+    is recomputed in the backward instead of keeping its activations."""
+    device = params["embed"].device
+    cos, sin = device_rotary_tables(config.hidden_size // config.num_heads, config.max_seq_len,
+                                    config.rope_theta, str(device))
+    x = params["embed"][input_ids.long()]
+    layer = functools.partial(_layer, config, cos, sin, attention_fn)
+    if config.remat:
+        layer = checkpoint(layer)
+    # one unbind per stacked leaf: its backward stacks the L layer grads once,
+    # where indexing leaf[i] per layer would build and sum L full-size grads
+    per_layer = tree_map(lambda w: w.unbind(0), params["layers"])
+    for i in range(config.num_layers):
+        x = layer(x, tree_map(lambda ws: ws[i], per_layer))
+    x = rms_norm(x, params["final_norm"], config.rms_eps)
+    head = params["embed"].T if config.tie_embeddings else params["lm_head"]
+    return x @ head.to(x.dtype)
+
+
+def make_loss_fn(config: LlamaConfig, attention_fn=None) -> Callable:
+    """loss_fn(params, batch, rng) for the engine; batch: {input_ids, labels}
+    (-100 = ignore).  ``rng`` is unused: the dense forward draws nothing."""
+
+    def loss_fn(params, batch, rng):
+        logits = forward(config, params, batch["input_ids"], attention_fn=attention_fn)
+        return cross_entropy_loss(logits, batch["labels"])
+
+    return loss_fn
+
+
+def causal_lm_batch(input_ids: np.ndarray):
+    """{input_ids, labels} with next-token labels from raw token rows: both
+    keep length S, and the last label is -100 (``transformer.causal_lm_batch``
+    instead drops a token)."""
+    labels = np.full_like(input_ids, -100)
+    labels[:, :-1] = input_ids[:, 1:]
+    return {"input_ids": input_ids, "labels": labels}
+
+
 def _tree_to_torch(tree, device, dtype):
-    if isinstance(tree, dict):
-        return {k: _tree_to_torch(v, device, dtype) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree)).to(device=device, dtype=dtype)
+    return tree_map(lambda x: torch.from_numpy(np.array(x)).to(device=device, dtype=dtype), tree)
 
 
 def params_from_jax(config: LlamaConfig, params_np, device, dtype=torch.float32):

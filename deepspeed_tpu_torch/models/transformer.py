@@ -1,7 +1,8 @@
 """Shared transformer building blocks, as plain functions on tensors.
 
 Counterpart of ``deepspeed_tpu/models/transformer.py`` for what the paged
-serving path uses.  Layouts follow the JAX package: activations
+serving path and the dense training forward use.  Layouts follow the JAX
+package: activations
 ``[B, S, H, D]``, weight matrices ``[in, out]``, stacked ``[L, ...]`` layer
 leaves, KV pool ``[L, NB, KV, bs, Dh]``.  Casting order is kept so fp32 runs
 match the JAX functions: ``rms_norm`` works in fp32 inside, and rotary cos/sin
@@ -92,12 +93,68 @@ def sdpa(q, k, v, causal=True, mask=None, softmax_scale=None, bias=None):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def default_attention(device):
+    """The attention function for tensors on ``device``: the flash kernels
+    (``ops/attention/flash.py``) on CUDA, plain ``sdpa`` on the CPU, as the
+    JAX package takes its Pallas kernel on the TPU and XLA elsewhere."""
+    if torch.device(device).type == "cuda":
+        from ..ops.attention.flash import flash_attention
+        return flash_attention
+    return sdpa
+
+
+def _resolve_attention(attention_fn, device):
+    return attention_fn if attention_fn is not None else default_attention(device)
+
+
+def attention_block(params, x, *, n_heads, n_kv_heads, cos, sin, causal=True,
+                    attention_fn=None, positions=None):
+    """Multi-head attention with rotary + GQA over a whole sequence.
+
+    params: {wq, wk, wv, wo}, [model, heads*dim] / [heads*dim, model].  Returns
+    (out, None); the JAX function's ``kv_cache`` branch is not ported yet.
+    """
+    b, s, _ = x.shape
+    head_dim = params["wq"].shape[1] // n_heads
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, n_heads, head_dim)
+    k = (x @ params["wk"].to(x.dtype)).reshape(b, s, n_kv_heads, head_dim)
+    v = (x @ params["wv"].to(x.dtype)).reshape(b, s, n_kv_heads, head_dim)
+    q = apply_rotary(q, cos, sin, positions)
+    k = apply_rotary(k, cos, sin, positions)
+    out = _resolve_attention(attention_fn, x.device)(q, k, v, causal=causal)
+    return out.reshape(b, s, n_heads * head_dim) @ params["wo"].to(x.dtype), None
+
+
 # ----------------------------------------------------------------- mlp
 def swiglu_mlp(params, x):
     """Llama-style gated MLP: down(silu(gate(x)) * up(x))."""
     gate = F.silu(x @ params["w_gate"].to(x.dtype))
     up = x @ params["w_up"].to(x.dtype)
     return (gate * up) @ params["w_down"].to(x.dtype)
+
+
+# ------------------------------------------------------------------ losses
+def cross_entropy_loss(logits, labels, ignore_index=-100, z_loss=0.0):
+    """Token cross entropy in fp32 with masking; logits [B, S, V], labels
+    [B, S] int."""
+    logits = logits.float()
+    labels = labels.long()
+    mask = labels != ignore_index
+    safe_labels = torch.where(mask, labels, 0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe_labels[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    loss = nll.sum() / torch.clamp(mask.sum(), min=1)
+    if z_loss > 0.0:
+        loss = loss + z_loss * torch.mean((logz * mask)**2)
+    return loss
+
+
+def causal_lm_batch(ids):
+    """Shift token ids into (input_ids, labels) next-token pairs: both keep
+    S - 1 tokens."""
+    ids = np.asarray(ids)
+    return {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
 
 
 # ------------------------------------------------------------- params / pools

@@ -9,6 +9,7 @@ rebuilt and a stale build is never loaded.  Nothing is compiled when a module
 is imported: the CPU-only test box has no ``nvcc``.
 """
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -68,6 +69,15 @@ def build(name: str) -> Path:
                                f"{' '.join(cmd)}\n{build_log[name]}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees the whole library or none
     return out
+
+
+def build_all(names) -> None:
+    """Build several kernel sources at once, one nvcc process each, all
+    started together; raises the first failure after every build ended."""
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = [pool.submit(build, name) for name in names]
+    for future in futures:
+        future.result()
 
 
 def load(name: str) -> ctypes.CDLL:

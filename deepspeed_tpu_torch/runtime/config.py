@@ -1,10 +1,14 @@
 """Config sections shared by training and serving.
 
-Counterpart of ``deepspeed_tpu/runtime/config.py``; the port so far carries
-the ``serving_resilience`` section only.
+Counterpart of ``deepspeed_tpu/runtime/config.py``; the port carries the
+``serving_resilience`` section and the training sections its single-GPU
+engine reads (:class:`TrainingConfig`).
 """
 
-from typing import Optional
+import json
+from typing import Any, Dict, Optional, Union
+
+import torch
 
 from .config_utils import ConfigModel, Field
 
@@ -37,3 +41,137 @@ class ServingResilienceConfig(ConfigModel):
     preemption: bool = True
     max_preemptions: int = Field(2, ge=0)
     stall_watchdog_steps: int = Field(100, ge=1)
+
+
+# ------------------------------------------------------------------ training
+class FP16Config(ConfigModel):
+    """Only ``enabled: false`` is accepted: fp16 loss scaling is not ported."""
+    enabled: bool = False
+
+
+class BF16Config(ConfigModel):
+    """bf16 compute; on unless fp16 is asked for, as in the JAX package."""
+    enabled: bool = True
+
+
+class OffloadConfig(ConfigModel):
+    """``offload_param`` / ``offload_optimizer``: only ``device: none`` is
+    accepted; offload is not ported."""
+    device: str = Field("none", choices=("none", "cpu", "nvme"))
+
+
+class ZeroConfig(ConfigModel):
+    """ZeRO stage.  Every stage is accepted: the port trains on one device,
+    where ZeRO has no data-parallel group to partition params, grads or
+    optimizer state over, so each stage runs the same step."""
+    stage: int = Field(0, ge=0, le=3)
+    offload_param: Optional[OffloadConfig] = None
+    offload_optimizer: Optional[OffloadConfig] = None
+
+
+class OptimizerConfig(ConfigModel):
+    type: str = "adamw"
+    params: Dict[str, Any] = Field(dict)
+
+
+class SchedulerConfig(ConfigModel):
+    type: Optional[str] = None
+    params: Dict[str, Any] = Field(dict)
+
+
+# sections of the JAX TrainingConfig that change what a step computes and are
+# not ported yet; any other key the port does not know raises ValueError
+UNPORTED_TRAINING_SECTIONS = ("sparse_attention", "data_efficiency", "telemetry", "ops_server")
+
+
+class TrainingConfig(ConfigModel):
+    """The training config the port's engine reads: the batch triple,
+    optimizer, scheduler, precision (bf16 by default, fp32 with
+    ``"bf16": {"enabled": false}``), gradient clipping, seed, print cadence and
+    the ZeRO stage.  Load it with :func:`load_config`, which refuses the JAX
+    package's other sections."""
+    train_batch_size: Optional[int] = Field(None, ge=1)
+    train_micro_batch_size_per_gpu: Optional[int] = Field(None, ge=1)
+    gradient_accumulation_steps: Optional[int] = Field(None, ge=1)
+    steps_per_print: int = Field(10, ge=1)
+    gradient_clipping: float = Field(0.0, ge=0.0)
+    seed: int = 1234
+    optimizer: Optional[OptimizerConfig] = None
+    scheduler: Optional[SchedulerConfig] = None
+    fp16: FP16Config = Field(FP16Config)
+    bf16: Optional[BF16Config] = None
+    zero_optimization: ZeroConfig = Field(ZeroConfig)
+
+    def model_validate(self):
+        if self.fp16.enabled:
+            raise NotImplementedError("fp16 training (dynamic loss scaling) is not ported to "
+                                      "PyTorch yet: use bf16 or fp32")
+        if self.bf16 is None:
+            object.__setattr__(self, "bf16", BF16Config(enabled=True))
+        for name in ("offload_param", "offload_optimizer"):
+            section = getattr(self.zero_optimization, name)
+            if section is not None and section.device != "none":
+                raise NotImplementedError(f"zero_optimization.{name} (device "
+                                          f"{section.device!r}) is not ported to PyTorch yet")
+
+    def resolve_batch_sizes(self, dp_world_size: int):
+        """(train_batch, micro_batch, gas), solving for any missing member of
+        train_batch = micro_batch * gas * dp_world_size; raises on an
+        inconsistent triple."""
+        tb, mb, gas = (self.train_batch_size, self.train_micro_batch_size_per_gpu,
+                       self.gradient_accumulation_steps)
+        if tb is not None and mb is not None and gas is not None:
+            if tb != mb * gas * dp_world_size:
+                raise ValueError(f"train_batch_size={tb} != micro_batch({mb}) * gas({gas}) * "
+                                 f"dp_world({dp_world_size})")
+        elif tb is not None and mb is not None:
+            if tb % (mb * dp_world_size) != 0:
+                raise ValueError(f"train_batch_size={tb} not divisible by micro_batch*dp="
+                                 f"{mb * dp_world_size}")
+            gas = tb // (mb * dp_world_size)
+        elif tb is not None and gas is not None:
+            if tb % (gas * dp_world_size) != 0:
+                raise ValueError(f"train_batch_size={tb} not divisible by gas*dp="
+                                 f"{gas * dp_world_size}")
+            mb = tb // (gas * dp_world_size)
+        elif mb is not None:
+            gas = gas or 1
+            tb = mb * gas * dp_world_size
+        elif tb is not None:
+            mb = tb // dp_world_size
+            if mb == 0 or tb % dp_world_size != 0:
+                raise ValueError(f"train_batch_size={tb} not divisible by dp_world_size="
+                                 f"{dp_world_size}")
+            gas = 1
+        else:
+            raise ValueError("One of train_batch_size or train_micro_batch_size_per_gpu must "
+                             "be set")
+        object.__setattr__(self, "train_batch_size", tb)
+        object.__setattr__(self, "train_micro_batch_size_per_gpu", mb)
+        object.__setattr__(self, "gradient_accumulation_steps", gas)
+        return tb, mb, gas
+
+    @property
+    def precision_dtype(self):
+        return torch.bfloat16 if self.bf16.enabled else torch.float32
+
+
+def load_config(config: Union[str, dict, TrainingConfig, None]) -> TrainingConfig:
+    """A TrainingConfig from a JSON file path, a dict or a TrainingConfig.
+    A section in ``UNPORTED_TRAINING_SECTIONS`` raises ``NotImplementedError``
+    naming it and any other unknown key raises ``ValueError``, so a config is
+    never half-applied."""
+    if config is None:
+        return TrainingConfig()
+    if isinstance(config, TrainingConfig):
+        return config
+    if isinstance(config, str):
+        with open(config, "r") as fh:
+            config = json.load(fh)
+    if not isinstance(config, dict):
+        raise TypeError(f"config must be a path, dict, or TrainingConfig; got {type(config)}")
+    unported = [k for k in UNPORTED_TRAINING_SECTIONS if k in config]
+    if unported:
+        raise NotImplementedError(f"the PyTorch port does not implement the training config "
+                                  f"section(s) {unported} yet")
+    return TrainingConfig(**config)

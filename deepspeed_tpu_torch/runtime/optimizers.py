@@ -1,0 +1,155 @@
+"""Optimizers: Adam/AdamW in delta form and the fused AdamW step.
+
+Counterpart of ``deepspeed_tpu/runtime/optimizers.py`` for adam, adamw and
+fused_adam.  Interface as in JAX: ``opt = get_optimizer(name, **hyper)``;
+``state = opt.init(params)``; ``updates, state = opt.update(grads, state,
+params, lr)`` with ``updates`` deltas for the master params, or, where
+``opt.step_fn`` is set, ``params, state = opt.step_fn(grads, state, params,
+lr)``, which updates params and state IN PLACE through the fused AdamW kernel
+(``ops/adam/fused_adam.py``), one launch per leaf as in JAX.  Trees are
+nested dicts of tensors.  Scalars (bias corrections, 1 - beta) are float32
+as the JAX code computes them.
+"""
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..ops.adam.fused_adam import fused_adamw_flat
+from .tree import tree_leaves, tree_map
+
+f32 = np.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable
+    update: Callable  # (grads, state, params, lr) -> (updates, new_state)
+    name: str = "optimizer"
+    # fused whole step: (grads, state, params, lr) -> (params, state), in place
+    step_fn: Optional[Callable] = None
+
+
+class AdamState(NamedTuple):
+    step: int
+    exp_avg: Any  # m
+    exp_avg_sq: Any  # v
+
+
+def _bias_corrections(b1, b2, step, bias_correction):
+    if not bias_correction:
+        return f32(1.0), f32(1.0)
+    stepf = f32(step)
+    return f32(1.0) - np.power(f32(b1), stepf), f32(1.0) - np.power(f32(b2), stepf)
+
+
+def adam(betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0, adam_w_mode=True,
+         bias_correction=True) -> Optimizer:
+    """FusedAdam semantics: ``adam_w_mode`` decouples the weight decay
+    (AdamW); otherwise it is added to the grad (L2)."""
+    b1, b2 = betas
+
+    def init(params):
+        return AdamState(step=0, exp_avg=tree_map(torch.zeros_like, params),
+                         exp_avg_sq=tree_map(torch.zeros_like, params))
+
+    def update(grads, state, params, lr):
+        step = state.step + 1
+        bc1, bc2 = (float(x) for x in _bias_corrections(b1, b2, step, bias_correction))
+        lr = float(f32(lr))
+        # Python constants the JAX code folds in double precision, then rounds
+        c1, c2 = float(f32(1.0 - b1)), float(f32(1.0 - b2))
+        fb1, fb2, feps, fwd = (float(f32(x)) for x in (b1, b2, eps, weight_decay))
+
+        def leaf(g, m, v, p):
+            if not adam_w_mode and weight_decay != 0.0:
+                g = g + fwd * p
+            m_new = fb1 * m + c1 * g
+            v_new = fb2 * v + c2 * (g * g)
+            denom = torch.sqrt(v_new / bc2) + feps
+            upd = -lr * (m_new / bc1) / denom
+            if adam_w_mode and weight_decay != 0.0:
+                upd = upd - float(f32(lr) * f32(weight_decay)) * p
+            return upd, m_new, v_new
+
+        out = tree_map(leaf, grads, state.exp_avg, state.exp_avg_sq, params)
+        updates, m, v = (tree_map(lambda t, i=i: t[i], out) for i in range(3))
+        return updates, AdamState(step=step, exp_avg=m, exp_avg_sq=v)
+
+    return Optimizer(init=init, update=update, name="adamw" if adam_w_mode else "adam")
+
+
+def fused_adam(betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0, adam_w_mode=True,
+               bias_correction=True) -> Optimizer:
+    """FusedAdam backed by the fused AdamW kernel: ``step_fn`` updates each
+    leaf's flat p/m/v in place, one kernel launch per leaf.  The kernel
+    hard-codes decoupled decay and bias correction; other modes keep only the
+    delta-form ``update``."""
+    base = adam(betas=betas, eps=eps, weight_decay=weight_decay, adam_w_mode=adam_w_mode,
+                bias_correction=bias_correction)
+    b1, b2 = betas
+
+    def step_fn(grads, state, params, lr):
+        step = state.step + 1
+        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.exp_avg),
+                              tree_leaves(state.exp_avg_sq), tree_leaves(params)):
+            fused_adamw_flat(p.view(-1), m.view(-1), v.view(-1), g.reshape(-1), lr=lr,
+                             beta1=b1, beta2=b2, eps=eps, weight_decay=weight_decay, step=step)
+        return params, AdamState(step=step, exp_avg=state.exp_avg, exp_avg_sq=state.exp_avg_sq)
+
+    return Optimizer(init=base.init, update=base.update, name="fused_adam",
+                     step_fn=step_fn if (adam_w_mode and bias_correction) else None)
+
+
+_OPTIMIZERS = {
+    "adam": lambda **kw: adam(adam_w_mode=False, **kw),
+    "adamw": lambda **kw: adam(adam_w_mode=True, **kw),
+    "fusedadam": fused_adam,
+    "fused_adam": fused_adam,
+}
+# the JAX package's other optimizer types, not ported yet (ROADMAP Queue 1)
+_UNPORTED = ("fusedadam8bit", "fused_adam8bit", "adam8bit", "sgd", "lion", "fusedlion",
+             "adagrad", "lamb", "fusedlamb", "onebitadam", "onebit_adam", "onebitlamb",
+             "onebit_lamb", "zerooneadam", "zero_one_adam")
+# torch-style kwargs that do not map (dropped, as the JAX package drops them)
+_DROPPED = {"lr", "torch_adam", "fused", "cuda_aware", "adam_w_mode", "comm_backend_name",
+            "check_overflow", "pipeline_enabled"}
+
+
+def get_optimizer(name: str, **params) -> Optimizer:
+    key = name.lower()
+    if key in _UNPORTED:
+        raise NotImplementedError(f"optimizer {name!r} is not ported to PyTorch yet (ROADMAP "
+                                  f"Queue 1); ported: {sorted(_OPTIMIZERS)}")
+    if key not in _OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {name!r}; supported: {sorted(_OPTIMIZERS)}")
+    kw = {k: v for k, v in params.items() if k not in _DROPPED}
+    if "betas" in kw:
+        kw["betas"] = tuple(kw["betas"])
+    return _OPTIMIZERS[key](**kw)
+
+
+def adam_state_from_jax(state_np, device, dtype=torch.float32) -> AdamState:
+    """A JAX ``AdamState`` (``step``, ``exp_avg``, ``exp_avg_sq``; leaves as numpy
+    arrays or anything ``np.array`` takes) -> this package's, on ``device``."""
+    to = lambda x: torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+    return AdamState(step=int(np.asarray(state_np.step)),
+                     exp_avg=tree_map(to, state_np.exp_avg),
+                     exp_avg_sq=tree_map(to, state_np.exp_avg_sq))
+
+
+def global_grad_norm(grads) -> torch.Tensor:
+    """fp32 L2 norm over every leaf of the gradient tree."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
+
+
+def clip_by_global_norm(grads, max_norm: float, precomputed_norm=None):
+    """Scale every leaf IN PLACE by min(1, max_norm / (norm + 1e-6)); returns
+    (grads, norm).  The engine owns its fp32 grad sums, so no copy is made."""
+    norm = precomputed_norm if precomputed_norm is not None else global_grad_norm(grads)
+    coef = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    for g in tree_leaves(grads):
+        g.mul_(coef)
+    return grads, norm

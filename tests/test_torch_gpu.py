@@ -1,6 +1,7 @@
-"""The port's CUDA path on an NVIDIA GPU: the paged-attention kernel against
-its plain PyTorch version on the same CUDA tensors, and a tiny engine on the
-GPU against the same engine on the CPU.  Every test here needs a card and
+"""The port's CUDA path on an NVIDIA GPU: the paged-attention, flash and
+fused-AdamW kernels against their plain PyTorch versions on the same CUDA
+tensors, and a tiny serving engine and a tiny training engine on the GPU
+against the same engines on the CPU.  Every test here needs a card and
 skips without one.  This file imports no JAX, so it runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest tests/test_torch_gpu.py``
 (the suite's conftest imports JAX)."""
@@ -9,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
 from deepspeed_tpu_torch.models import llama, mistral
+from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adamw_flat, fused_adamw_flat_reference
+from deepspeed_tpu_torch.ops.attention import flash
 from deepspeed_tpu_torch.ops.attention.paged import paged_attention, paged_attention_reference
 
 pytestmark = pytest.mark.gpu
@@ -115,3 +119,122 @@ def test_engine_on_gpu_matches_engine_on_cpu(cuda, module, config):
     got = engine.generate(prompts, max_new_tokens=6)
     assert got == ref
     assert paged_attention.launches - before == engine.forward_steps * config.num_layers
+
+
+# ----------------------------------------------------------- training path
+FLASH_GRID = [(dtype, d, causal) for dtype in (torch.float32, torch.bfloat16, torch.float16)
+              for d in (64, 128) for causal in (True, False)]
+
+
+@pytest.mark.parametrize("dtype,D,causal", FLASH_GRID,
+                         ids=[f"{str(t)[6:]}-d{d}-{'causal' if c else 'full'}"
+                              for t, d, c in FLASH_GRID])
+def test_flash_kernels_match_plain_versions(cuda, dtype, D, causal):
+    rng = np.random.default_rng(D + int(causal))
+    B, Sq, Sk, H, KV = 2, 90, 130, 4, 2  # GQA, sq < sk, lengths not multiples of the tile
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, dtype)
+                   for shape in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D), (B, Sq, H, D)))
+    scale = 1.0 / np.sqrt(D)
+    counts = (flash.flash_fwd.launches, flash.flash_bwd_dkdv.launches,
+              flash.flash_bwd_dq.launches)
+    out, lse = flash.flash_fwd(q, k, v, scale, causal)
+    ref_out, ref_lse = flash.flash_fwd_reference(q, k, v, scale, causal)
+    delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, ref_lse, delta, scale, causal)
+    dk, dv = flash.flash_bwd_dkdv(*args)
+    dq = flash.flash_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert (flash.flash_fwd.launches, flash.flash_bwd_dkdv.launches,
+            flash.flash_bwd_dq.launches) == tuple(n + 1 for n in counts)
+    ref_dk, ref_dv = flash.flash_bwd_dkdv_reference(*args)
+    pairs = ((out, ref_out), (dk, ref_dk), (dv, ref_dv),
+             (dq, flash.flash_bwd_dq_reference(*args)))
+    for got, ref in pairs:
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            atol = rtol = 1e-4
+        else:  # one rounding of the same fp32 value on each side: at most an ulp apart
+            atol, rtol = 1e-2 * float(ref.float().square().mean().sqrt()), 1e-2
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_attention_autograd_on_gpu_matches_cpu(cuda):
+    rng = np.random.default_rng(0)
+    x = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+         for s in ((2, 70, 4, 64), (2, 70, 2, 64), (2, 70, 2, 64))]
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().clone().to(dev).requires_grad_(True) for t in x]
+        out, lse = flash.flash_attention_with_lse(*leaves, causal=True)
+        (out.pow(2).sum() + lse.sin().sum()).backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    for got, ref in zip(grads[1], grads[0]):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        flash.flash_fwd(q, q, q, 1.0, True)
+    k = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="3 q heads over 2"):
+        flash.flash_fwd(torch.zeros((1, 8, 3, 64), device=cuda), k, k, 1.0, True)
+    q = torch.zeros((1, 8, 4, 64), device=cuda)
+    with pytest.raises(TypeError, match="share one of"):
+        flash.flash_fwd(q, k.half(), k, 1.0, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, k, 1.0, True)
+
+
+@pytest.mark.parametrize("n", [1000, 4099])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
+def test_fused_adamw_kernel_matches_plain_version(cuda, n, grad_dtype):
+    rng = np.random.default_rng(n)
+    p, m, g = (torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda) for _ in range(3))
+    v = m.abs() * 1e-2
+    g = g.to(grad_dtype)
+    hyper = dict(lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1, step=5)
+    kernel = [x.clone() for x in (p, m, v)]
+    plain = [x.clone() for x in (p, m, v)]
+    before = fused_adamw_flat.launches
+    fused_adamw_flat(*kernel, g, **hyper)
+    torch.cuda.synchronize()
+    assert fused_adamw_flat.launches == before + 1
+    fused_adamw_flat_reference(*plain, g, **hyper)
+    for got, ref in zip(kernel, plain):
+        torch.testing.assert_close(got, ref, atol=1e-6, rtol=1e-6)
+
+
+def test_train_batch_on_gpu_matches_cpu(cuda):
+    cfg = llama.LlamaConfig.tiny(vocab=128, hidden=128, layers=2, heads=2, kv_heads=1, seq=64)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    conf = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+            "gradient_clipping": 1.0, "bf16": {"enabled": False},
+            "optimizer": {"type": "fused_adam", "params": {"lr": 1e-3, "weight_decay": 0.1}},
+            "scheduler": {"type": "WarmupLR", "params": {"warmup_max_lr": 1e-3,
+                                                         "warmup_num_steps": 4}}}
+    engines = {dev: deepspeed_tpu_torch.initialize(loss_fn=llama.make_loss_fn(cfg),
+                                                   model_parameters=params, config=conf,
+                                                   device=dev)[0] for dev in ("cpu", "cuda")}
+    batch = llama.causal_lm_batch(np.random.default_rng(1).integers(0, 128, (4, 64)))
+    before = (flash.flash_fwd.launches, flash.flash_bwd_dq.launches, fused_adamw_flat.launches)
+    lrs = []
+    for _ in range(2):
+        losses = [float(engines[dev].train_batch(batch).loss) for dev in ("cpu", "cuda")]
+        assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[0])
+        lrs.append(engines["cuda"].lr)
+    n_leaves = len(list(_leaves(params)))
+    # 2 steps x gas 2 x 2 layers, the forward twice (remat)
+    assert (flash.flash_fwd.launches - before[0], flash.flash_bwd_dq.launches - before[1],
+            fused_adamw_flat.launches - before[2]) == (16, 8, 2 * n_leaves)
+    for a, b in zip(_leaves(engines["cuda"].state.params), _leaves(engines["cpu"].state.params)):
+        assert float((a.cpu() - b).abs().max()) <= 2 * 2e-3
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

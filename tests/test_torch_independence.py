@@ -36,7 +36,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert report["leaked"] == []
     for expected in ("deepspeed_tpu_torch.ops.attention.paged",
                      "deepspeed_tpu_torch.models.mistral",
-                     "deepspeed_tpu_torch.inference.v2.engine_v2"):
+                     "deepspeed_tpu_torch.inference.v2.engine_v2",
+                     "deepspeed_tpu_torch.ops.attention.flash",
+                     "deepspeed_tpu_torch.ops.adam.fused_adam",
+                     "deepspeed_tpu_torch.runtime.engine"):
         assert expected in report["modules"]
 
 
