@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each of which raises (and the script exits non-zero) on failure:
-  1. device: the card's name and power limit, and the build of the three
+  1. device: the card's name and power limit, and the build of the five
      kernel sources (nvcc, sm_90a, into deepspeed_tpu_torch/build/, one nvcc
      each, all started together) with their seconds and ptxas lines;
   2. kernel vs plain, each on CUDA tensors against its plain PyTorch version,
@@ -16,7 +16,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      (B=2, S=2048, 32 heads, head dim 128, bf16, causal), GQA, sq < sk and
      unaligned lengths; the fused AdamW kernel over the training run's
      largest leaf (w_gate of 8 layers, 360.7 M elements) with an fp32 and a
-     bf16 grad;
+     bf16 grad; the three block-sparse kernels at the sparse training shape
+     (B=1, S=4096, 32 heads, head dim 128, bf16, causal, the documented
+     ``fixed`` layout at block 16, and at blocks 64 and 128), GQA, a padded
+     tail, non-causal bigbird and block 24; the AdamW-8bit kernel over the
+     same w_gate leaf with an fp32 and a bf16 grad, and a tail group;
   3. serve: ``build_engine("mistral", MistralConfig.mistral_7b(), ...)`` in
      bf16 with seeded random weights answers 16 requests through greedy
      ``generate``, and every forward step goes through the kernel; the same
@@ -28,9 +32,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      remat, fused AdamW, WarmupLR, clipping; 6 optimizer steps of 2 x 2 x 2048
      tokens through the flash and fused-AdamW kernels, launch counts checked
      against the step formula, one more step under torch.profiler;
-  6. train slice: 2 full-width layers in fp32, the CUDA engine (kernels)
+  6. train-8bit: the same run with ``fused_adam8bit`` (int8 moments) through
+     the AdamW-8bit kernel; train-sparse: the config's ``sparse_attention``
+     section (DeepSpeed's documented ``fixed`` example, unidirectional) with
+     ``fused_adam8bit``, micro 1 x gas 2 x seq 4096, through the three sparse
+     kernels and no flash launch; each with launch counts checked against
+     the step formula and one more step under torch.profiler;
+  7. train slice: 2 full-width layers in fp32, the CUDA engine (kernels)
      against the CPU engine (plain versions) from the same params: losses,
-     step-1 grads and the params after 3 steps.
+     step-1 grads and the params after 3 steps; once with fused_adam and
+     dense attention, once with the sparse section and fused_adam8bit.
 
 fp32 matrix products and convolutions run in full fp32 (TF32 is switched
 off), so fp32 comparisons differ only by the order of summation.  The last
@@ -61,8 +72,23 @@ FLASH_REPLACES = {  # bodies in deepspeed_tpu/ops/attention/flash.py (pallas_cal
 }
 ADAM_SOURCE = "deepspeed_tpu_torch/csrc/fused_adam.cu"
 ADAM_REPLACES = "deepspeed_tpu/ops/adam/fused_adam.py:53"  # _adamw_kernel, pallas_call at :41
-KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_adam")
+SPARSE_SOURCE = "deepspeed_tpu_torch/csrc/sparse_attention.cu"
+SPARSE_REPLACES = {  # bodies in deepspeed_tpu/ops/sparse_attention/attention.py (pallas_call at :155, :307, :340)
+    "sparse_fwd": "deepspeed_tpu/ops/sparse_attention/attention.py:75",
+    "sparse_bwd_dkdv": "deepspeed_tpu/ops/sparse_attention/attention.py:170",
+    "sparse_bwd_dq": "deepspeed_tpu/ops/sparse_attention/attention.py:217",
+}
+ADAM8_SOURCE = "deepspeed_tpu_torch/csrc/adam8bit.cu"
+ADAM8_REPLACES = "deepspeed_tpu/ops/adam/adam8bit.py:59"  # _adamw8_kernel, pallas_call at :118
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_adam", "sparse_attention",
+                  "adam8bit")
 TRAIN_LAYERS = 8  # Llama-2-7B width; 32 layers' fp32 state (~108 GB) exceeds one card
+W_GATE = TRAIN_LAYERS * 4096 * 11008  # the [train] run's stacked w_gate leaf, one launch
+# DeepSpeed's documented sparse_attention example (config-json docs), causal for Llama
+SPARSE_CONFIG = {"mode": "fixed", "block": 16, "different_layout_per_head": True,
+                 "num_local_blocks": 4, "num_global_blocks": 1,
+                 "num_different_global_patterns": 4, "horizontal_global_attention": False,
+                 "attention": "unidirectional"}
 
 
 def log(*parts):
@@ -80,14 +106,15 @@ def phase_device():
     import torch
 
     from deepspeed_tpu_torch.ops import _build
-    from deepspeed_tpu_torch.ops.adam import fused_adam
+    from deepspeed_tpu_torch.ops.adam import adam8bit, fused_adam
     from deepspeed_tpu_torch.ops.attention import flash, paged
+    from deepspeed_tpu_torch.ops.sparse_attention import attention as sparse
     card = nvidia_smi_line()
     log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
     _build.build_all(KERNEL_SOURCES)
-    paged._lib(), flash._lib(), fused_adam._lib()
+    paged._lib(), flash._lib(), fused_adam._lib(), sparse._lib(), adam8bit._lib()
     log(f"[device] {len(KERNEL_SOURCES)} kernel libraries ready in "
         f"{time.perf_counter() - t0:.2f} s, built in parallel")
     for name in KERNEL_SOURCES:
@@ -554,9 +581,8 @@ def phase_train_kernels(card):
     recs = measure_flash("train_causal_bf16", *cases["train_causal_bf16"])
     del cases
     torch.cuda.empty_cache()
-    n = TRAIN_LAYERS * 4096 * 11008  # the [train] run's stacked w_gate leaf, one launch
-    adam_f32 = measure_adamw("adamw_w_gate_fp32_grad", n, torch.float32, 21)
-    adam_bf16 = measure_adamw("adamw_w_gate_bf16_grad", n, bf16, 22)
+    adam_f32 = measure_adamw("adamw_w_gate_fp32_grad", W_GATE, torch.float32, 21)
+    adam_bf16 = measure_adamw("adamw_w_gate_bf16_grad", W_GATE, bf16, 22)
     recs["fused_adamw"] = adam_f32
     recs["fused_adamw_bf16_grad"] = adam_bf16
     errs["fused_adamw"] = max(adam_f32["max_abs_err"], adam_bf16["max_abs_err"])
@@ -564,6 +590,280 @@ def phase_train_kernels(card):
     for name, rec in recs.items():
         log(f"[kernel] {name} on {card}: {json.dumps({k: rec[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')})}")
     return recs, errs
+
+
+# ------------------------------------------------------ phase 2, sparse kernels
+def sparse_layout(heads, seq, **over):
+    """The layout of ``SPARSE_CONFIG`` (with ``over`` replacing its keys) for
+    ``heads`` heads, covering ``seq`` rounded up to the block."""
+    from deepspeed_tpu_torch.runtime.config import SparseAttentionConfig
+    cfg = SparseAttentionConfig(**{**SPARSE_CONFIG, **over})
+    return cfg.build(heads).make_layout(-(-seq // cfg.block) * cfg.block), cfg.block
+
+
+def sparse_case(seed, *, B, S, H, KV, D, dtype, causal, **layout):
+    from deepspeed_tpu_torch.ops.sparse_attention.attention import _get_tables
+    c = flash_case(seed, B=B, Sq=S, Sk=S, H=H, KV=KV, D=D, dtype=dtype)
+    lay, block = sparse_layout(H, S, **layout)
+    c.update(layout=lay, tables=_get_tables(lay, H, block, KV), causal=causal)
+    return c
+
+
+def sparse_backward_inputs(c):
+    """The plain forward's lse and delta = rowsum(do * out), shared by the
+    backward kernels and their plain versions."""
+    from deepspeed_tpu_torch.ops.sparse_attention.attention import sparse_fwd_reference
+    scale = 1.0 / np.sqrt(c["q"].shape[-1])
+    out, lse = sparse_fwd_reference(c["q"], c["k"], c["v"], c["tables"], scale, c["causal"])
+    delta = (c["do"].float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return scale, lse, delta
+
+
+def compare_sparse(name, c):
+    """Each sparse kernel once against its plain version, limits as flash's;
+    returns the largest error of each kernel's outputs."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import attention as sp
+    q, k, v, do, tb, causal = c["q"], c["k"], c["v"], c["do"], c["tables"], c["causal"]
+    scale, lse_ref, delta = sparse_backward_inputs(c)
+    counts = (sp.sparse_fwd.launches, sp.sparse_bwd_dkdv.launches, sp.sparse_bwd_dq.launches)
+    out, lse = sp.sparse_fwd(q, k, v, tb, scale, causal)
+    dk, dv = sp.sparse_bwd_dkdv(q, k, v, do, lse_ref, delta, tb, scale, causal)
+    dq = sp.sparse_bwd_dq(q, k, v, do, lse_ref, delta, tb, scale, causal)
+    torch.cuda.synchronize()
+    if (sp.sparse_fwd.launches, sp.sparse_bwd_dkdv.launches,
+            sp.sparse_bwd_dq.launches) != tuple(n + 1 for n in counts):
+        raise AssertionError(f"{name}: a sparse kernel did not launch")
+    out_ref, _ = sp.sparse_fwd_reference(q, k, v, tb, scale, causal)
+    dk_ref, dv_ref = sp.sparse_bwd_dkdv_reference(q, k, v, do, lse_ref, delta, tb, scale, causal)
+    dq_ref = sp.sparse_bwd_dq_reference(q, k, v, do, lse_ref, delta, tb, scale, causal)
+    refs = {"out": out_ref, "dk": dk_ref, "dv": dv_ref, "dq": dq_ref}
+    rms = {part: _rms(ref) for part, ref in refs.items()}
+    if q.dtype == torch.float32:
+        limits = {part: (1e-4, 1e-4) for part in refs}
+        rule = "atol=rtol=1e-4"
+    else:  # both sides round the same fp32 value once on the store
+        limits = {part: (1e-2 * rms[part], 1e-2) for part in refs}
+        rule = "rtol 1e-2, atol 1e-2 x rms of each plain result"
+    got = {"out": out, "dk": dk, "dv": dv, "dq": dq}
+    err = {part: _max_err(f"{name} {part}", got[part], refs[part], *limits[part])
+           for part in refs}
+    errs = {"sparse_fwd": max(err["out"], _max_err(f"{name} lse", lse, lse_ref, 1e-4, 1e-4)),
+            "sparse_bwd_dkdv": max(err["dk"], err["dv"]), "sparse_bwd_dq": err["dq"]}
+    B, S, H, D = q.shape
+    log(f"[kernel] {name}: ok, max abs err out/lse {errs['sparse_fwd']:.3e} dk/dv "
+        f"{errs['sparse_bwd_dkdv']:.3e} dq {errs['sparse_bwd_dq']:.3e} ({rule}; rms out "
+        f"{rms['out']:.3e} dk {rms['dk']:.3e} dv {rms['dv']:.3e} dq {rms['dq']:.3e}; lse "
+        f"atol=rtol=1e-4; {q.dtype}, B={B} S={S} H={H} KV={k.shape[2]} D={D} block "
+        f"{tb.block}, causal={causal})")
+    return errs
+
+
+def sparse_work(c):
+    """(bytes, operations) of each sparse kernel for this case: each input
+    read once (the tables it walks included) and each output written once;
+    4 D operations per live (query, key) pair forward, 8 D for dK/dV, 6 D for
+    dQ, counted from the layout (``live_pairs``)."""
+    from deepspeed_tpu_torch.ops.sparse_attention.attention import live_pairs
+    B, S, H, D = c["q"].shape
+    KV, tb = c["k"].shape[2], c["tables"]
+    pairs = B * live_pairs(tb.layout, tb.block, S, c["causal"], H)
+    elt = c["q"].element_size()
+    qo, kv, rows = B * S * H * D * elt, B * S * KV * D * elt, B * H * S * 4
+    fwd_tables = tb.layout.nbytes + tb.q_order.nbytes + tb.k_walk.nbytes + tb.k_cnt.nbytes
+    bwd_tables = tb.layout.nbytes + tb.k_order.nbytes + tb.q_walk.nbytes + tb.q_cnt.nbytes
+    return {"sparse_fwd": (2 * qo + 2 * kv + rows + fwd_tables, 4.0 * D * pairs),
+            "sparse_bwd_dkdv": (2 * qo + 4 * kv + 2 * rows + bwd_tables, 8.0 * D * pairs),
+            "sparse_bwd_dq": (3 * qo + 2 * kv + 2 * rows + fwd_tables, 6.0 * D * pairs)}, pairs
+
+
+def measure_sparse(name, c, plain=True):
+    """Times of the three sparse kernels against the bound; with ``plain``
+    also their plain versions and torch's scaled_dot_product_attention with
+    the layout's boolean element mask (the same function computed dense:
+    forward; backward computing dq, dk and dv in one call) as the library
+    yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.sparse_attention import attention as sp
+    q, k, v, do, tb, causal = c["q"], c["k"], c["v"], c["do"], c["tables"], c["causal"]
+    scale, lse, delta = sparse_backward_inputs(c)
+    work, pairs = sparse_work(c)
+    lib = {"sparse_fwd": None, "sparse_bwd_dkdv": None, "sparse_bwd_dq": None}
+    if plain:
+        group = q.shape[2] // k.shape[2]
+        qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+        kt = torch.repeat_interleave(k, group, 2).transpose(1, 2).contiguous().requires_grad_(True)
+        vt = torch.repeat_interleave(v, group, 2).transpose(1, 2).contiguous().requires_grad_(True)
+        dot = do.transpose(1, 2).contiguous()
+        mask = tb.element_mask(q.shape[1], causal, q.device)[None]
+        with torch.no_grad():
+            fwd_lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        with torch.enable_grad():
+            out_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+            bwd_lib = time_ms(lambda: torch.autograd.grad(out_lib, (qt, kt, vt), dot,
+                                                          retain_graph=True), runs=10)
+        del out_lib, mask
+        lib = {"sparse_fwd": fwd_lib, "sparse_bwd_dkdv": bwd_lib, "sparse_bwd_dq": bwd_lib}
+    args = (q, k, v, do, lse, delta, tb, scale, causal)
+    runs = {
+        "sparse_fwd": (lambda: sp.sparse_fwd(q, k, v, tb, scale, causal),
+                       lambda: sp.sparse_fwd_reference(q, k, v, tb, scale, causal)),
+        "sparse_bwd_dkdv": (lambda: sp.sparse_bwd_dkdv(*args),
+                            lambda: sp.sparse_bwd_dkdv_reference(*args)),
+        "sparse_bwd_dq": (lambda: sp.sparse_bwd_dq(*args),
+                          lambda: sp.sparse_bwd_dq_reference(*args)),
+    }
+    recs = {}
+    for kname, (kernel, plain_fn) in runs.items():
+        nbytes, flops = work[kname]
+        bound_ms, bound_by = bound(nbytes, flops, q.dtype)
+        ms = time_ms(kernel)
+        recs[kname] = {"ms": ms, "plain_ms": time_ms(plain_fn, runs=5) if plain else None,
+                       "library_ms": lib[kname], "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bytes": nbytes, "flops": flops, "tflops": flops / ms / 1e9}
+        r = recs[kname]
+        extra = (f" plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f}"
+                 if plain else "")
+        log(f"[kernel] {name} {kname}: kernel_ms {ms:.4f}{extra} bound_ms {bound_ms:.4f} "
+            f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP over {pairs} live "
+            f"pairs; kernel {r['tflops']:.2f} TFLOP/s)")
+    return recs
+
+
+def phase_sparse_kernels(card):
+    """The three sparse kernels against their plain versions on the card, at
+    the sparse training shape and on edge cases; times at the training
+    shape.  Returns the records at block 16 and the largest errors."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    train = dict(B=1, S=4096, H=32, KV=32, D=128, dtype=bf16, causal=True)
+    cases = {
+        "sparse_train_b16_bf16": sparse_case(31, **train),
+        "sparse_train_b64_bf16": sparse_case(32, **train, block=64),
+        "sparse_train_b128_bf16": sparse_case(33, **train, block=128),
+        "sparse_gqa_h32_kv8_bf16": sparse_case(34, B=1, S=2048, H=32, KV=8, D=128, dtype=bf16,
+                                               causal=True),
+        "sparse_tail_s1000_d64_fp32": sparse_case(35, B=2, S=1000, H=4, KV=2, D=64, dtype=f32,
+                                                  causal=True),
+        "sparse_bigbird_noncausal_fp32": sparse_case(
+            36, B=1, S=512, H=4, KV=4, D=128, dtype=f32, causal=False, mode="bigbird", block=32,
+            attention="bidirectional", num_random_blocks=2),
+        "sparse_block24_s209_fp32": sparse_case(37, B=1, S=209, H=4, KV=2, D=64, dtype=f32,
+                                                causal=True, block=24),
+        "sparse_block8_s100_fp16": sparse_case(38, B=2, S=100, H=2, KV=1, D=128,
+                                               dtype=torch.float16, causal=True, block=8,
+                                               num_local_blocks=2, num_different_global_patterns=2),
+    }
+    errs = {}
+    for name, c in cases.items():
+        for kname, e in compare_sparse(name, c).items():
+            errs[kname] = max(errs.get(kname, 0.0), e)
+    recs = measure_sparse("sparse_train_b16_bf16", cases["sparse_train_b16_bf16"])
+    for block in (64, 128):
+        measure_sparse(f"sparse_train_b{block}_bf16", cases[f"sparse_train_b{block}_bf16"],
+                       plain=False)
+    del cases
+    torch.cuda.empty_cache()
+    for name, rec in recs.items():
+        log(f"[kernel] {name} on {card}: {json.dumps({k: rec[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')})}")
+    return recs, errs
+
+
+# ------------------------------------------------------ phase 2, AdamW-8bit
+ADAMW8_HYPER = dict(lr=3e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.1, step=3)
+
+
+def adamw8_state(gen, n, device, grad_dtype=None):
+    """[p, m8, v8, sm, sv, grad] of a state some steps in: p ~ 0.02, |m| up
+    to 1e-3, sqrt(v) up to 1e-3, grad ~ 1e-3 (fp32 unless ``grad_dtype``)."""
+    import torch
+    groups = -(-n // 1024)
+    codes = lambda lo: torch.randint(lo, 128, (groups, 1024), generator=gen, device=device,
+                                     dtype=torch.int8)
+    scales = lambda: torch.rand((groups, 1), generator=gen, device=device) * (1e-3 / 127)
+    p = torch.randn(n, generator=gen, device=device) * 0.02
+    m8, v8, sm, sv = codes(-127), codes(0), scales(), scales()
+    grad = torch.randn(n, generator=gen, device=device) * 1e-3
+    return [p, m8, v8, sm, sv, grad.to(grad_dtype or torch.float32)]
+
+
+def check_adamw8(name, bufs, plain, n):
+    """The kernel's p, codes and scales against the plain version's: the int8
+    codes equal, p and the scales at rtol 1e-6 plus 1e-6 of each buffer's
+    largest value, and the dequantized m and v nonzero for most elements
+    (so that codes never written back, or all zero, do not pass); returns the
+    largest error."""
+    import torch
+    from deepspeed_tpu_torch.ops.adam.adam8bit import dequantize_moments
+    for part, i in (("m codes", 1), ("sqrt(v) codes", 2)):
+        if not torch.equal(bufs[i], plain[i]):
+            diff = (bufs[i].int() - plain[i].int()).abs()
+            raise AssertionError(f"{name} {part}: kernel disagrees with the plain version: "
+                                 f"{int((diff != 0).sum())} codes differ, by up to "
+                                 f"{int(diff.max())}")
+    err = max(_max_err(f"{name} {part}", bufs[i], plain[i], 1e-6 * plain[i].abs().max().item(),
+                       1e-6) for part, i in (("p", 0), ("m scales", 3), ("sqrt(v) scales", 4)))
+    m, v = dequantize_moments(*bufs[1:5], n)
+    live = min(float((m != 0).float().mean()), float((v != 0).float().mean()))
+    if live < 0.5:
+        raise AssertionError(f"{name}: only {live:.1%} of the dequantized moments are nonzero")
+    return err
+
+
+def measure_adamw8(name, n, grad_dtype, seed, time_it=True):
+    """The AdamW-8bit kernel against its plain version over one flat leaf of
+    ``n`` elements; no PyTorch call computes this function, so there is no
+    library time."""
+    import torch
+    from deepspeed_tpu_torch.ops.adam.adam8bit import (fused_adamw8bit_flat,
+                                                       fused_adamw8bit_flat_reference)
+    *state, grad = adamw8_state(torch.Generator(device="cuda").manual_seed(seed), n, "cuda",
+                                grad_dtype)
+    bufs = [x.clone() for x in state]
+    plain = [x.clone() for x in state]
+    before = fused_adamw8bit_flat.launches
+    fused_adamw8bit_flat(*bufs, grad, **ADAMW8_HYPER)
+    torch.cuda.synchronize()
+    if fused_adamw8bit_flat.launches != before + 1:
+        raise AssertionError(f"{name}: the AdamW-8bit kernel did not launch")
+    fused_adamw8bit_flat_reference(*plain, grad, **ADAMW8_HYPER)
+    err = check_adamw8(name, bufs, plain, n)
+    log(f"[kernel] {name}: ok, int8 codes equal, max abs err of p and scales {err:.3e} (rtol "
+        f"1e-6, atol 1e-6 x max|plain| of each buffer; max|p| {plain[0].abs().max().item():.3e} "
+        f"max m scale {plain[3].max().item():.3e} max sqrt(v) scale "
+        f"{plain[4].max().item():.3e}; {grad_dtype} grad, n={n})")
+    if not time_it:
+        return {"max_abs_err": err}
+    groups = state[1].shape[0]
+    nbytes = n * (2 * 4 + grad.element_size() + 4) + groups * 16
+    bound_ms, bound_by = bound(nbytes, 30.0 * n, torch.float32)
+    ms = time_ms(lambda: fused_adamw8bit_flat(*bufs, grad, **ADAMW8_HYPER))
+    plain_ms = time_ms(lambda: fused_adamw8bit_flat_reference(*plain, grad, **ADAMW8_HYPER),
+                       runs=5)
+    rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes, "max_abs_err": err}
+    log(f"[kernel] {name}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms none "
+        f"bound_ms {bound_ms:.4f} ({bound_by}: {nbytes / 1e9:.3f} GB; kernel "
+        f"{nbytes / ms / 1e6:.0f} GB/s)")
+    return rec
+
+
+def phase_adamw8_kernels(card):
+    """The AdamW-8bit kernel against its plain version on the [train] run's
+    stacked w_gate leaf (fp32 and bf16 grad) and on a tail group."""
+    import torch
+    recs = {"adamw8bit": measure_adamw8("adamw8_w_gate_fp32_grad", W_GATE, torch.float32, 41),
+            "adamw8bit_bf16_grad": measure_adamw8("adamw8_w_gate_bf16_grad", W_GATE,
+                                                  torch.bfloat16, 42)}
+    torch.cuda.empty_cache()
+    err = max(recs["adamw8bit"]["max_abs_err"], recs["adamw8bit_bf16_grad"]["max_abs_err"])
+    for dtype in (torch.float32, torch.bfloat16):
+        err = max(err, measure_adamw8(f"adamw8_tail_n1000_{str(dtype)[6:]}_grad", 1000, dtype,
+                                      43, time_it=False)["max_abs_err"])
+    for name, rec in recs.items():
+        log(f"[kernel] {name} on {card}: {json.dumps({k: rec[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')})}")
+    return recs, err
 
 
 # ------------------------------------------------------------------ phase 3
@@ -730,38 +1030,62 @@ def phase_slice(seed=1):
 
 # ------------------------------------------------------------------ phase 5
 TRAIN_PEAK_FLOPS = 989e12  # bf16 dense tensor-core peak of the H100 SXM
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "fused_adamw", "sparse_fwd",
+                 "sparse_bwd_dkdv", "sparse_bwd_dq", "adamw8bit")
 
 
-def train_config(*, micro, gas, bf16, seed, lr=3e-4):
-    return {"train_micro_batch_size_per_gpu": micro, "gradient_accumulation_steps": gas,
+def train_config(*, micro, gas, bf16, seed, lr=3e-4, optimizer="fused_adam", sparse=None):
+    conf = {"train_micro_batch_size_per_gpu": micro, "gradient_accumulation_steps": gas,
             "gradient_clipping": 1.0, "bf16": {"enabled": bf16}, "steps_per_print": 1000,
             "seed": seed,
-            "optimizer": {"type": "fused_adam", "params": {"lr": lr, "weight_decay": 0.1}},
+            "optimizer": {"type": optimizer, "params": {"lr": lr, "weight_decay": 0.1}},
             "scheduler": {"type": "WarmupLR",
                           "params": {"warmup_min_lr": 0.0, "warmup_max_lr": lr,
                                      "warmup_num_steps": 10, "warmup_type": "linear"}}}
+    if sparse is not None:
+        conf["sparse_attention"] = dict(sparse)
+    return conf
+
+
+def _train_kernels():
+    from deepspeed_tpu_torch.ops.adam.adam8bit import fused_adamw8bit_flat
+    from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adamw_flat
+    from deepspeed_tpu_torch.ops.attention import flash
+    from deepspeed_tpu_torch.ops.sparse_attention import attention as sp
+    return dict(zip(TRAIN_KERNELS, (flash.flash_fwd, flash.flash_bwd_dkdv, flash.flash_bwd_dq,
+                                    fused_adamw_flat, sp.sparse_fwd, sp.sparse_bwd_dkdv,
+                                    sp.sparse_bwd_dq, fused_adamw8bit_flat)))
 
 
 def launch_counts():
-    from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adamw_flat
-    from deepspeed_tpu_torch.ops.attention import flash
-    return {"flash_fwd": flash.flash_fwd.launches,
-            "flash_bwd_dkdv": flash.flash_bwd_dkdv.launches,
-            "flash_bwd_dq": flash.flash_bwd_dq.launches,
-            "fused_adamw": fused_adamw_flat.launches}
+    return {name: fn.launches for name, fn in _train_kernels().items()}
 
 
 def reset_launch_counts():
-    from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adamw_flat
-    from deepspeed_tpu_torch.ops.attention import flash
-    flash.flash_fwd.launches = flash.flash_bwd_dkdv.launches = flash.flash_bwd_dq.launches = 0
-    fused_adamw_flat.launches = 0
+    for fn in _train_kernels().values():
+        fn.launches = 0
 
 
-def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=2048):
+def expected_launches(*, steps, gas, layers, n_leaves, optimizer, sparse):
+    """Each kernel's launches over ``steps`` train steps: the attention forward
+    twice a layer and micro-batch (forward and the remat recompute), each
+    backward kernel once, the optimizer kernel once a leaf and step."""
+    attn = "sparse" if sparse is not None else "flash"
+    counts = dict.fromkeys(TRAIN_KERNELS, 0)
+    counts.update({f"{attn}_fwd": steps * gas * layers * 2,
+                   f"{attn}_bwd_dkdv": steps * gas * layers,
+                   f"{attn}_bwd_dq": steps * gas * layers,
+                   "adamw8bit" if optimizer == "fused_adam8bit" else "fused_adamw": steps * n_leaves})
+    return counts
+
+
+def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=2048,
+                tag="train", optimizer="fused_adam", sparse=None, baseline=None):
     """Llama-2-7B width, cut to ``layers`` layers, trained in bf16 for
     ``steps`` optimizer steps on one seeded batch through ``initialize`` and
-    ``train_batch``; returns the kernels' launch counts over those steps."""
+    ``train_batch``, with ``optimizer`` and, where given, the ``sparse``
+    attention section; ``baseline`` is an earlier run's summary to print
+    beside this one's.  Returns (launch counts over the steps, summary)."""
     import torch
     from deepspeed_tpu_torch.runtime.tree import tree_leaves
     import deepspeed_tpu_torch
@@ -773,18 +1097,33 @@ def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=
     n_leaves = len(tree_leaves(params))
     engine, _, _, _ = deepspeed_tpu_torch.initialize(
         loss_fn=llama.make_loss_fn(cfg), model_parameters=params,
-        config=train_config(micro=micro, gas=gas, bf16=True, seed=seed))
+        config=train_config(micro=micro, gas=gas, bf16=True, seed=seed, optimizer=optimizer,
+                            sparse=sparse))
     del params
     torch.cuda.empty_cache()
     n_params = llama.num_params(cfg)
     rng = np.random.default_rng(seed)
     batch = llama.causal_lm_batch(rng.integers(0, cfg.vocab_size, (micro * gas, seq)))
     tokens = micro * gas * seq
-    step_flops = llama.flops_per_token(cfg, seq) * tokens
-    log(f"[train] llama2_7b width x {layers} layers: {n_params / 1e9:.3f} B params, set up in "
-        f"{time.perf_counter() - t0:.2f} s; bf16, remat, fused_adam, WarmupLR, clip 1.0, "
-        f"micro {micro} x gas {gas} x seq {seq} = {tokens} tokens a step, "
-        f"{step_flops / 1e12:.1f} TFLOP a step (flops_per_token)")
+    head_dim = cfg.hidden_size // cfg.num_heads
+    if sparse is None:
+        step_flops = llama.flops_per_token(cfg, seq) * tokens
+        work = "flops_per_token"
+    else:
+        from deepspeed_tpu_torch.ops.sparse_attention.attention import live_pairs
+        lay, block = sparse_layout(cfg.num_heads, seq, **sparse)
+        pairs = live_pairs(lay, block, seq, True, cfg.num_heads)  # one row, all heads
+        # forward 4 D, remat recompute 4 D, dK/dV 8 D, dQ 6 D a live pair
+        attn_flops = (4 + 4 + 8 + 6) * head_dim * pairs * micro * gas * layers
+        step_flops = 6.0 * n_params * tokens + attn_flops
+        work = (f"6 N a token + {attn_flops / 1e12:.2f} TFLOP of live-block attention "
+                f"(forward, recompute, backward; {pairs} live pairs a sequence), not "
+                f"flops_per_token's dense attention term")
+    log(f"[{tag}] llama2_7b width x {layers} layers: {n_params / 1e9:.3f} B params, set up in "
+        f"{time.perf_counter() - t0:.2f} s; bf16, remat, {optimizer}, WarmupLR, clip 1.0, "
+        f"{'sparse_attention ' + json.dumps(sparse) + ', ' if sparse else ''}micro {micro} x "
+        f"gas {gas} x seq {seq} = {tokens} tokens a step, {step_flops / 1e12:.1f} TFLOP a step "
+        f"({work})")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -797,30 +1136,41 @@ def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=
         losses.append(float(metrics.loss))
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expected = {"flash_fwd": steps * gas * layers * 2,  # forward + the remat recompute
-                "flash_bwd_dkdv": steps * gas * layers, "flash_bwd_dq": steps * gas * layers,
-                "fused_adamw": steps * n_leaves}
+    expected = expected_launches(steps=steps, gas=gas, layers=layers, n_leaves=n_leaves,
+                                 optimizer=optimizer, sparse=sparse)
     if launches != expected:
-        raise AssertionError(f"[train] launch counts {launches} != step formula {expected}")
+        raise AssertionError(f"[{tag}] launch counts {launches} != step formula {expected}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"[train] losses not finite and falling: {losses}")
+        raise AssertionError(f"[{tag}] losses not finite and falling: {losses}")
     step_s = statistics.mean(times[1:])
-    mfu = step_flops / step_s / TRAIN_PEAK_FLOPS
-    log(f"[train] {steps} steps on {card}: losses {[round(x, 4) for x in losses]}; step ms "
+    summary = {"step_ms": step_s * 1e3, "tokens_s": tokens / step_s,
+               "mfu": step_flops / step_s / TRAIN_PEAK_FLOPS, "peak_gb": peak_gb}
+    beside = ""
+    if baseline is not None:
+        beside = (f" ([train]: {baseline['step_ms']:.1f} ms, {baseline['tokens_s']:.1f} "
+                  f"tokens/s, mfu {baseline['mfu']:.4f}, peak {baseline['peak_gb']:.2f} GB)")
+    log(f"[{tag}] {steps} steps on {card}: losses {[round(x, 4) for x in losses]}; step ms "
         f"{[round(t * 1e3, 1) for t in times]} (first includes warm-up); steps 2-{steps}: "
-        f"{step_s * 1e3:.1f} ms a step, {tokens / step_s:.1f} tokens/s, mfu {mfu:.4f} "
-        f"(of {TRAIN_PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16), peak memory {peak_gb:.2f} GB; "
-        f"launches {launches} = step formula")
-    profile_train(engine, batch, card, step_s)
+        f"{summary['step_ms']:.1f} ms a step, {summary['tokens_s']:.1f} tokens/s, mfu "
+        f"{summary['mfu']:.4f} (of {TRAIN_PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16), peak memory "
+        f"{peak_gb:.2f} GB{beside}; launches "
+        f"{ {k: v for k, v in launches.items() if v} } = step formula, every other kernel 0")
+    profile_train(engine, batch, card, step_s, tag=f"profile-{tag}")
     del engine
     torch.cuda.empty_cache()
-    return launches
+    return launches, summary
 
 
-def profile_train(engine, batch, card, step_s, top=12):
-    """One more step under torch.profiler: device time by flash forward,
-    flash backward, AdamW, matrix products and the rest; the idle share is
-    the busy time against the unprofiled mean step."""
+PROFILE_GROUPS = (("flash_fwd", "flash_fwd"), ("flash_bwd", "flash_bwd"),
+                  ("sparse_fwd", "sparse_fwd"), ("sparse_bwd", "sparse_bwd"),
+                  ("adamw8", "adamw8bit_kernel"), ("adamw", "adamw_kernel"))
+
+
+def profile_train(engine, batch, card, step_s, tag="profile-train", top=12):
+    """One more step under torch.profiler: device time by kernel group (flash
+    and sparse forward and backward, AdamW, AdamW-8bit), matrix products and
+    the rest; the idle share is the busy time against the unprofiled mean
+    step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -829,7 +1179,8 @@ def profile_train(engine, batch, card, step_s, top=12):
         engine.train_batch(batch)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {"flash_fwd": 0.0, "flash_bwd": 0.0, "adamw": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {key: 0.0 for key, _ in PROFILE_GROUPS}
+    groups.update(matmul=0.0, other=0.0)
     kernels = []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -839,33 +1190,28 @@ def profile_train(engine, batch, card, step_s, top=12):
             us = evt.self_cuda_time_total
         kernels.append((us / 1e3, evt.count, evt.key))
         name = evt.key.lower()
-        if "flash_fwd" in name:
-            key = "flash_fwd"
-        elif "flash_bwd" in name:
-            key = "flash_bwd"
-        elif "adamw_kernel" in name:
-            key = "adamw"
-        elif any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass", "sm90")):
-            key = "matmul"
-        else:
-            key = "other"
+        key = next((key for key, needle in PROFILE_GROUPS if needle in name), None)
+        if key is None:
+            matmul = any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass", "sm90"))
+            key = "matmul" if matmul else "other"
         groups[key] += us / 1e3
     busy = sum(groups.values())
     if busy == 0.0:
-        log("[profile-train] device time not measured: the profiler saw no CUDA kernels")
+        log(f"[{tag}] device time not measured: the profiler saw no CUDA kernels")
         return
-    shares = ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in groups.items())
-    log(f"[profile-train] one step under torch.profiler on {card}: device busy {busy:.1f} ms, "
+    shares = ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in groups.items() if v)
+    log(f"[{tag}] one step under torch.profiler on {card}: device busy {busy:.1f} ms, "
         f"{busy / (step_s * 1e3):.1%} of the unprofiled step's {step_s * 1e3:.1f} ms (idle "
         f"{1 - busy / (step_s * 1e3):.1%}; the profiled step took {wall_ms:.1f} ms); {shares}")
     for ms, count, name in sorted(kernels, reverse=True)[:top]:
-        log(f"[profile-train]   {ms:9.2f} ms {count:6d} calls  {name[:110]}")
+        log(f"[{tag}]   {ms:9.2f} ms {count:6d} calls  {name[:110]}")
 
 
-# ------------------------------------------------------------------ phase 6
-def phase_train_slice(seed=1, steps=3, micro=2, gas=2, seq=256):
+def phase_train_slice(seed=1, steps=3, micro=2, gas=2, seq=256, tag="train-slice",
+                      optimizer="fused_adam", sparse=None):
     """2 full-width Llama-2-7B layers in fp32: the CUDA engine (kernels)
-    against the CPU engine (plain versions), same params and batch."""
+    against the CPU engine (plain versions), same params and batch, with
+    ``optimizer`` and, where given, the ``sparse`` attention section."""
     import torch
     from deepspeed_tpu_torch.runtime.tree import tree_leaves, tree_map
     import deepspeed_tpu_torch
@@ -875,22 +1221,23 @@ def phase_train_slice(seed=1, steps=3, micro=2, gas=2, seq=256):
                                dtype=torch.float32, device="cuda")
     params_cpu = tree_map(lambda t: t.cpu(), params)
     engines = {}
+    conf = train_config(micro=micro, gas=gas, bf16=False, seed=seed, optimizer=optimizer,
+                        sparse=sparse)
     for dev, p in (("cuda", params), ("cpu", params_cpu)):
         engines[dev], _, _, _ = deepspeed_tpu_torch.initialize(
-            loss_fn=llama.make_loss_fn(cfg), model_parameters=p,
-            config=train_config(micro=micro, gas=gas, bf16=False, seed=seed), device=dev)
+            loss_fn=llama.make_loss_fn(cfg), model_parameters=p, config=conf, device=dev)
     del params, params_cpu
     rng = np.random.default_rng(seed)
     batch = llama.causal_lm_batch(rng.integers(0, cfg.vocab_size, (micro * gas, seq)))
     t0 = time.perf_counter()
+    reset_launch_counts()
     grads = {dev: engines[dev].accumulate_gradients(batch)[0] for dev in engines}
     # per leaf: rtol 1e-4 and an atol of 1e-4 of that leaf's largest grad
     grad_err, grad_rel, grad_rms = 0.0, 0.0, []
     for i, (g_gpu, g_cpu) in enumerate(zip(tree_leaves(grads["cuda"]),
                                            tree_leaves(grads["cpu"]))):
         top = g_cpu.abs().max().item()
-        err = _max_err(f"[train-slice] step-1 grad of leaf {i}", g_gpu.cpu(), g_cpu,
-                       1e-4 * top, 1e-4)
+        err = _max_err(f"[{tag}] step-1 grad of leaf {i}", g_gpu.cpu(), g_cpu, 1e-4 * top, 1e-4)
         grad_err, grad_rel = max(grad_err, err), max(grad_rel, err / top if top else 0.0)
         grad_rms.append(_rms(g_cpu))
     del grads
@@ -900,9 +1247,15 @@ def phase_train_slice(seed=1, steps=3, micro=2, gas=2, seq=256):
             metrics = engine.train_batch(batch)
             losses[dev].append(float(metrics.loss))
         lrs.append(metrics.lr)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    attn = "sparse" if sparse is not None else "flash"
+    adam = "adamw8bit" if optimizer == "fused_adam8bit" else "fused_adamw"
+    if set(launches) != {f"{attn}_fwd", f"{attn}_bwd_dkdv", f"{attn}_bwd_dq", adam}:
+        raise AssertionError(f"[{tag}] the CUDA engine launched {launches}, not the "
+                             f"{attn} and {adam} kernels alone")
     for lg, lc in zip(losses["cuda"], losses["cpu"]):
         if not abs(lg - lc) <= 1e-4 * abs(lc):
-            raise AssertionError(f"[train-slice] losses differ: CUDA {losses['cuda']} vs CPU "
+            raise AssertionError(f"[{tag}] losses differ: CUDA {losses['cuda']} vs CPU "
                                  f"{losses['cpu']} (rtol 1e-4)")
     # Adam's m/sqrt(v) turns a sign flip of a near-zero grad into a full-lr
     # step, so params may differ by up to 2 lr a step; nearly all agree closely
@@ -915,15 +1268,16 @@ def phase_train_slice(seed=1, steps=3, micro=2, gas=2, seq=256):
         n_close += int((diff <= 1e-5).sum())
         n_total += diff.numel()
     if worst > limit or n_close < 0.999 * n_total:
-        raise AssertionError(f"[train-slice] params after {steps} steps: max abs diff "
+        raise AssertionError(f"[{tag}] params after {steps} steps: max abs diff "
                              f"{worst:.3e} (limit {limit:.3e}), {n_close / n_total:.5%} within "
                              f"1e-5 (need 99.9 %)")
-    log(f"[train-slice] llama2_7b width, 2 layers, fp32, seq {seq}, micro {micro} x gas {gas}, "
-        f"{steps} steps, CUDA kernels vs CPU plain versions in {time.perf_counter() - t0:.1f} s: "
-        f"losses {losses['cuda']} vs {losses['cpu']} (rtol 1e-4); step-1 grads max abs err "
-        f"{grad_err:.3e}, at most {grad_rel:.3e} of its leaf's largest grad (rtol 1e-4, atol "
-        f"1e-4 x max|leaf|; rms per leaf {min(grad_rms):.3e} to {max(grad_rms):.3e}); params "
-        f"max abs diff {worst:.3e} (limit 2 x sum(lr) "
+    log(f"[{tag}] llama2_7b width, 2 layers, fp32, seq {seq}, micro {micro} x gas {gas}, "
+        f"{optimizer}{', sparse ' + sparse['mode'] + ' block ' + str(sparse['block']) if sparse else ''}, "
+        f"{steps} steps, CUDA kernels ({launches}) vs CPU plain versions in "
+        f"{time.perf_counter() - t0:.1f} s: losses {losses['cuda']} vs {losses['cpu']} (rtol "
+        f"1e-4); step-1 grads max abs err {grad_err:.3e}, at most {grad_rel:.3e} of its leaf's "
+        f"largest grad (rtol 1e-4, atol 1e-4 x max|leaf|; rms per leaf {min(grad_rms):.3e} to "
+        f"{max(grad_rms):.3e}); params max abs diff {worst:.3e} (limit 2 x sum(lr) "
         f"= {limit:.3e}), {n_close / n_total:.5%} within 1e-5")
     del engines
     torch.cuda.empty_cache()
@@ -949,11 +1303,19 @@ def main() -> int:
         card = phase_device()
         recs, max_err = phase_kernel(card)
     train_recs, train_errs = phase_train_kernels(card)
+    sparse_recs, sparse_errs = phase_sparse_kernels(card)
+    adam8_recs, adam8_err = phase_adamw8_kernels(card)
     with torch.no_grad():
         launches = phase_serve(card)
         phase_slice()
-    train_launches = phase_train(card)
+    train_launches, dense = phase_train(card)
+    adam8_launches, _ = phase_train(card, tag="train-8bit", optimizer="fused_adam8bit",
+                                    baseline=dense)
+    sparse_launches, _ = phase_train(card, tag="train-sparse", optimizer="fused_adam8bit",
+                                     sparse=SPARSE_CONFIG, micro=1, gas=2, seq=4096,
+                                     baseline=dense)
     phase_train_slice()
+    phase_train_slice(tag="train-slice-sparse", optimizer="fused_adam8bit", sparse=SPARSE_CONFIG)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s on {card}")
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     dec, pre = recs["mistral_decode"], recs["mistral_prefill"]
@@ -972,9 +1334,23 @@ def main() -> int:
     kernels.append({"name": "fused_adamw", "route": "cuda", "source": ADAM_SOURCE,
                     "replaces": ADAM_REPLACES, "launches": train_launches["fused_adamw"],
                     "max_abs_err": train_errs["fused_adamw"], **{k: adam[k] for k in fields},
-                    "shape": f"n={TRAIN_LAYERS * 4096 * 11008} (the stacked w_gate leaf of "
-                             f"[train]) fp32 p/m/v, fp32 grad",
+                    "shape": f"n={W_GATE} (the stacked w_gate leaf of [train]) fp32 p/m/v, "
+                             f"fp32 grad",
                     "bf16_grad": {k: train_recs["fused_adamw_bf16_grad"][k] for k in fields}})
+    for name in ("sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq"):
+        kernels.append({"name": name, "route": "cuda", "source": SPARSE_SOURCE,
+                        "replaces": SPARSE_REPLACES[name], "launches": sparse_launches[name],
+                        "max_abs_err": sparse_errs[name],
+                        **{k: sparse_recs[name][k] for k in fields},
+                        "shape": "B=1 S=4096 H=KV=32 D=128 bf16 causal, fixed layout block 16 "
+                                 "([train-sparse]'s)"})
+    adam8 = adam8_recs["adamw8bit"]
+    kernels.append({"name": "adamw8bit", "route": "cuda", "source": ADAM8_SOURCE,
+                    "replaces": ADAM8_REPLACES, "launches": adam8_launches["adamw8bit"],
+                    "max_abs_err": adam8_err, **{k: adam8[k] for k in fields},
+                    "shape": f"n={W_GATE} (the stacked w_gate leaf of [train-8bit]) fp32 p, int8 "
+                             f"m/sqrt(v), fp32 grad",
+                    "bf16_grad": {k: adam8_recs["adamw8bit_bf16_grad"][k] for k in fields}})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,8 +20,8 @@ from ..ops.attention.paged import paged_attention
 from ..runtime.activation_checkpointing import checkpoint
 from ..runtime.tree import tree_map
 from .transformer import (attention_block, cross_entropy_loss, device_rotary_tables,
-                          init_linear, init_paged_kv_pool, paged_chunk_indices, rms_norm,
-                          rotate_half, swiglu_mlp)
+                          init_linear, init_paged_kv_pool, paged_chunk_indices,
+                          resolve_attention, rms_norm, rotate_half, swiglu_mlp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,8 +113,14 @@ def _layer(config: LlamaConfig, cos, sin, attention_fn, x, layer_params):
 def forward(config: LlamaConfig, params, input_ids, attention_fn=None):
     """input_ids [B, S] -> logits [B, S, V], in the dtype of the params (the
     engine hands in its compute-dtype copy).  With ``config.remat`` each layer
-    is recomputed in the backward instead of keeping its activations."""
+    is recomputed in the backward instead of keeping its activations.
+
+    The attention function is resolved once, here, and bound into the layer:
+    the recompute runs in the backward, after the engine's configured
+    attention scope (``transformer.scoped_default_attention``) has closed, and
+    must run the same attention as the forward."""
     device = params["embed"].device
+    attention_fn = resolve_attention(attention_fn, device)
     cos, sin = device_rotary_tables(config.hidden_size // config.num_heads, config.max_seq_len,
                                     config.rope_theta, str(device))
     x = params["embed"][input_ids.long()]

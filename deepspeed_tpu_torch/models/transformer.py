@@ -103,8 +103,52 @@ def default_attention(device):
     return sdpa
 
 
-def _resolve_attention(attention_fn, device):
-    return attention_fn if attention_fn is not None else default_attention(device)
+# Config-installed attention: the engine wraps its loss function so that the
+# function built from the config's ``sparse_attention`` section is the
+# default while that loss function runs (models/transformer.py:128-164 of the
+# JAX package); "engaged" records that a forward took it.
+_CONFIGURED_ATTENTION = {"fn": None, "engaged": False}
+
+
+def set_default_attention(fn):
+    """Install (or clear, fn=None) the process-wide configured attention."""
+    _CONFIGURED_ATTENTION["fn"] = fn
+    _CONFIGURED_ATTENTION["engaged"] = False
+
+
+def scoped_default_attention(loss_fn, attention_fn):
+    """``loss_fn`` wrapped so that ``attention_fn`` (possibly None) is the
+    configured attention exactly while its body runs: each engine keeps its
+    own choice, and one that configured none never inherits another's.  A
+    forward must take the function while the scope holds (``llama.forward``
+    resolves it once, at its top): the recompute of a checkpointed layer runs
+    in the backward, after the scope has closed."""
+
+    def scoped(*args, **kwargs):
+        prev = _CONFIGURED_ATTENTION["fn"]
+        _CONFIGURED_ATTENTION["fn"] = attention_fn
+        try:
+            return loss_fn(*args, **kwargs)
+        finally:
+            _CONFIGURED_ATTENTION["fn"] = prev
+
+    return scoped
+
+
+def configured_attention_engaged() -> bool:
+    return _CONFIGURED_ATTENTION["engaged"]
+
+
+def resolve_attention(attention_fn, device):
+    """The attention a forward on ``device`` runs: ``attention_fn`` when
+    given, else the configured function in scope, else
+    :func:`default_attention`."""
+    if attention_fn is not None:
+        return attention_fn
+    if _CONFIGURED_ATTENTION["fn"] is not None:
+        _CONFIGURED_ATTENTION["engaged"] = True
+        return _CONFIGURED_ATTENTION["fn"]
+    return default_attention(device)
 
 
 def attention_block(params, x, *, n_heads, n_kv_heads, cos, sin, causal=True,
@@ -121,7 +165,7 @@ def attention_block(params, x, *, n_heads, n_kv_heads, cos, sin, causal=True,
     v = (x @ params["wv"].to(x.dtype)).reshape(b, s, n_kv_heads, head_dim)
     q = apply_rotary(q, cos, sin, positions)
     k = apply_rotary(k, cos, sin, positions)
-    out = _resolve_attention(attention_fn, x.device)(q, k, v, causal=causal)
+    out = resolve_attention(attention_fn, x.device)(q, k, v, causal=causal)
     return out.reshape(b, s, n_heads * head_dim) @ params["wo"].to(x.dtype), None
 
 

@@ -2,11 +2,11 @@
 
 Counterpart of ``deepspeed_tpu/runtime/config.py``; the port carries the
 ``serving_resilience`` section and the training sections its single-GPU
-engine reads (:class:`TrainingConfig`).
+engine reads (:class:`TrainingConfig`), ``sparse_attention`` among them.
 """
 
 import json
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 
@@ -79,16 +79,81 @@ class SchedulerConfig(ConfigModel):
     params: Dict[str, Any] = Field(dict)
 
 
+class SparseAttentionConfig(ConfigModel):
+    """Block-sparse attention section (``deepspeed_tpu/runtime/config.py``
+    SparseAttentionConfig: mode and per-mode knobs).  ``build(num_heads)``
+    resolves the matching SparsityConfig from ``ops/sparse_attention``."""
+    mode: str = Field("fixed", choices=("dense", "fixed", "variable", "bigbird", "bslongformer",
+                                        "local"))
+    block: int = Field(16, ge=8)  # a multiple of 8; see model_validate
+    different_layout_per_head: bool = False
+    # fixed / variable
+    num_local_blocks: int = Field(4, ge=1)
+    num_global_blocks: int = Field(1, ge=1)
+    # None -> per-mode default: "unidirectional" for local, "bidirectional" elsewhere
+    attention: Optional[str] = Field(None, choices=(None, "unidirectional", "bidirectional"))
+    horizontal_global_attention: bool = False
+    num_different_global_patterns: int = Field(1, ge=1)
+    # variable / bigbird; None -> per-mode default (bigbird: 1, variable: 0)
+    num_random_blocks: Optional[int] = Field(None, ge=0)
+    local_window_blocks: Optional[List[int]] = None
+    global_block_indices: Optional[List[int]] = None
+    global_block_end_indices: Optional[List[int]] = None
+    # bigbird / bslongformer / local
+    num_sliding_window_blocks: int = Field(3, ge=1)
+    # seeds the random-block placement (variable / bigbird), so that every
+    # process derives the same layout from the config alone
+    seed: int = Field(1234, ge=0)
+
+    def model_validate(self):
+        if self.block % 8 != 0:
+            raise ValueError(f"sparse_attention.block={self.block} must be a multiple of 8, as in "
+                             f"the JAX package; the kernels take any multiple of 8")
+
+    def build(self, num_heads: int):
+        from ..ops.sparse_attention import (BigBirdSparsityConfig, BSLongformerSparsityConfig,
+                                            DenseSparsityConfig, FixedSparsityConfig,
+                                            LocalSlidingWindowSparsityConfig,
+                                            VariableSparsityConfig)
+        attention = self.attention or ("unidirectional" if self.mode == "local" else
+                                       "bidirectional")
+        if self.mode == "dense":
+            return DenseSparsityConfig(num_heads, self.block, self.different_layout_per_head)
+        if self.mode == "fixed":
+            return FixedSparsityConfig(
+                num_heads, self.block, self.different_layout_per_head, self.num_local_blocks,
+                self.num_global_blocks, attention, self.horizontal_global_attention,
+                self.num_different_global_patterns)
+        if self.mode == "variable":
+            return VariableSparsityConfig(
+                num_heads, self.block, self.different_layout_per_head,
+                self.num_random_blocks or 0, self.local_window_blocks, self.global_block_indices,
+                self.global_block_end_indices, attention, self.horizontal_global_attention,
+                seed=self.seed)
+        if self.mode == "bigbird":
+            num_random = self.num_random_blocks if self.num_random_blocks is not None else 1
+            return BigBirdSparsityConfig(
+                num_heads, self.block, self.different_layout_per_head, num_random,
+                self.num_sliding_window_blocks, self.num_global_blocks, attention, seed=self.seed)
+        if self.mode == "bslongformer":
+            return BSLongformerSparsityConfig(
+                num_heads, self.block, self.different_layout_per_head,
+                self.num_sliding_window_blocks, self.global_block_indices,
+                self.global_block_end_indices, attention)
+        return LocalSlidingWindowSparsityConfig(num_heads, self.block,
+                                                self.num_sliding_window_blocks, attention)
+
+
 # sections of the JAX TrainingConfig that change what a step computes and are
 # not ported yet; any other key the port does not know raises ValueError
-UNPORTED_TRAINING_SECTIONS = ("sparse_attention", "data_efficiency", "telemetry", "ops_server")
+UNPORTED_TRAINING_SECTIONS = ("data_efficiency", "telemetry", "ops_server")
 
 
 class TrainingConfig(ConfigModel):
     """The training config the port's engine reads: the batch triple,
     optimizer, scheduler, precision (bf16 by default, fp32 with
-    ``"bf16": {"enabled": false}``), gradient clipping, seed, print cadence and
-    the ZeRO stage.  Load it with :func:`load_config`, which refuses the JAX
+    ``"bf16": {"enabled": false}``), gradient clipping, seed, print cadence,
+    the ZeRO stage and block-sparse attention.  Load it with :func:`load_config`, which refuses the JAX
     package's other sections."""
     train_batch_size: Optional[int] = Field(None, ge=1)
     train_micro_batch_size_per_gpu: Optional[int] = Field(None, ge=1)
@@ -101,6 +166,7 @@ class TrainingConfig(ConfigModel):
     fp16: FP16Config = Field(FP16Config)
     bf16: Optional[BF16Config] = None
     zero_optimization: ZeroConfig = Field(ZeroConfig)
+    sparse_attention: Optional[SparseAttentionConfig] = None
 
     def model_validate(self):
         if self.fp16.enabled:

@@ -16,8 +16,9 @@ On one device the JAX engine takes the fused step too (``engine.py:544``),
 and ZeRO partitions nothing, so every ZeRO stage runs this same step.  The
 engine runs on ``device="cuda"`` unless the caller passes ``device="cpu"``
 (then every kernel's plain version runs); it raises when asked for CUDA
-without a GPU.  Not ported yet: fp16 loss scaling, offload, checkpoints,
-telemetry and the watchdog (ROADMAP Queue 1).
+without a GPU.  ``initialize`` makes the config's ``sparse_attention``
+section the loss function's default attention.  Not ported yet: fp16 loss
+scaling, offload, checkpoints, telemetry and the watchdog (ROADMAP Queue 1).
 """
 
 import logging
@@ -26,6 +27,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..models import transformer
 from . import lr_schedules, optimizers
 from .config import TrainingConfig, load_config
 from .grad_accum import accumulate_micro_grads
@@ -205,5 +207,18 @@ def initialize(args=None, model=None, loss_fn: Optional[Callable] = None,
         model_parameters = getattr(model, "params", None)
     if model_parameters is None:
         raise ValueError("initialize() needs model_parameters (the params tree)")
+    # The config's sparse_attention section makes the block-sparse kernels
+    # this engine's default attention (deepspeed_tpu/__init__.py:73-89): the
+    # loss function is wrapped so that the function is in scope while it
+    # runs, and None (the backend default) is in scope for an engine without
+    # the section.
+    sparse_fn = None
+    if cfg.sparse_attention is not None:
+        from ..ops.sparse_attention.attention import make_config_attention_fn
+        sparse_fn = make_config_attention_fn(cfg.sparse_attention)
+        logger.info(f"sparse_attention: block-sparse kernels (mode={cfg.sparse_attention.mode}, "
+                    f"block={cfg.sparse_attention.block}) are this engine's default attention for "
+                    f"models routed through models.transformer.attention_block")
+    fn = transformer.scoped_default_attention(fn, sparse_fn)
     engine = Engine(fn, model_parameters, cfg, device=device)
     return engine, engine.optimizer, None, engine.lr_scheduler

@@ -1,22 +1,27 @@
-"""Optimizers: Adam/AdamW in delta form and the fused AdamW step.
+"""Optimizers: Adam/AdamW in delta form, the fused AdamW step and AdamW with
+8-bit moments.
 
-Counterpart of ``deepspeed_tpu/runtime/optimizers.py`` for adam, adamw and
-fused_adam.  Interface as in JAX: ``opt = get_optimizer(name, **hyper)``;
-``state = opt.init(params)``; ``updates, state = opt.update(grads, state,
-params, lr)`` with ``updates`` deltas for the master params, or, where
-``opt.step_fn`` is set, ``params, state = opt.step_fn(grads, state, params,
-lr)``, which updates params and state IN PLACE through the fused AdamW kernel
-(``ops/adam/fused_adam.py``), one launch per leaf as in JAX.  Trees are
-nested dicts of tensors.  Scalars (bias corrections, 1 - beta) are float32
-as the JAX code computes them.
+Counterpart of ``deepspeed_tpu/runtime/optimizers.py`` for adam, adamw,
+fused_adam and fused_adam8bit.  Interface as in JAX: ``opt =
+get_optimizer(name, **hyper)``; ``state = opt.init(params)``; ``updates, state
+= opt.update(grads, state, params, lr)`` with ``updates`` deltas for the
+master params, or, where ``opt.step_fn`` is set, ``params, state =
+opt.step_fn(grads, state, params, lr)``, which updates params and state IN
+PLACE through the fused AdamW kernel (``ops/adam/fused_adam.py``) or the
+AdamW-8bit kernel (``ops/adam/adam8bit.py``), one launch per leaf as in JAX.
+Trees are nested dicts of tensors.  Scalars (bias corrections, 1 - beta) are
+float32 as the JAX code computes them.
 """
 
 import dataclasses
+import functools
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..ops.adam.adam8bit import (GROUP, fused_adamw8bit_flat,
+                                 fused_adamw8bit_flat_reference, init_quantized_moment)
 from ..ops.adam.fused_adam import fused_adamw_flat
 from .tree import tree_leaves, tree_map
 
@@ -103,16 +108,67 @@ def fused_adam(betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0, adam_w_mode=True,
                      step_fn=step_fn if (adam_w_mode and bias_correction) else None)
 
 
+class Adam8bitState(NamedTuple):
+    step: int
+    exp_avg: Any  # int8 [groups, group_size] per leaf
+    exp_avg_sq: Any  # int8 codes of sqrt(v), [groups, group_size] per leaf
+    scale_m: Any  # fp32 [groups, 1] per leaf
+    scale_v: Any  # fp32 [groups, 1] per leaf
+
+
+def fused_adam8bit(betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0, group_size: int = GROUP,
+                   bias_correction: bool = True) -> Optimizer:
+    """AdamW with blockwise int8 moments (``ops/adam/adam8bit.py``): the
+    optimizer state shrinks from 8 to about 2.01 bytes a param.  ``step_fn``
+    updates each leaf's p, codes and scales in place, one kernel launch per
+    leaf; ``update`` is the delta form over the plain version (JAX: over its
+    XLA fallback).  Decoupled decay and bias correction only, as the kernel."""
+    if not bias_correction:
+        raise ValueError("fused_adam8bit implements AdamW with bias correction; "
+                         "set bias_correction true or use adamw/fused_adam")
+    if group_size != GROUP:
+        raise NotImplementedError(f"fused_adam8bit: the kernel's group is {GROUP} elements, "
+                                  f"got group_size={group_size}")
+    b1, b2 = betas
+
+    def init(params):
+        def moment(i):
+            return tree_map(lambda p: init_quantized_moment(p.numel(), group_size, p.device)[i],
+                            params)
+
+        return Adam8bitState(step=0, exp_avg=moment(0), exp_avg_sq=moment(0), scale_m=moment(1),
+                             scale_v=moment(1))
+
+    def apply(step_leaf, grads, state, params, lr):
+        step = state.step + 1
+        for g, m8, v8, sm, sv, p in zip(tree_leaves(grads), *map(tree_leaves, state[1:]),
+                                        tree_leaves(params)):
+            step_leaf(p.view(-1), m8, v8, sm, sv, g.reshape(-1), lr=lr, beta1=b1, beta2=b2,
+                      eps=eps, weight_decay=weight_decay, step=step)
+        return params, state._replace(step=step)
+
+    def update(grads, state, params, lr):
+        copies = Adam8bitState(state.step, *(tree_map(torch.clone, t) for t in state[1:]))
+        new_params, new_state = apply(fused_adamw8bit_flat_reference, grads, copies,
+                                      tree_map(lambda p: p.detach().clone(), params), lr)
+        return tree_map(torch.sub, new_params, params), new_state
+
+    return Optimizer(init=init, update=update, name="fused_adam8bit",
+                     step_fn=functools.partial(apply, fused_adamw8bit_flat))
+
+
 _OPTIMIZERS = {
     "adam": lambda **kw: adam(adam_w_mode=False, **kw),
     "adamw": lambda **kw: adam(adam_w_mode=True, **kw),
     "fusedadam": fused_adam,
     "fused_adam": fused_adam,
+    "fusedadam8bit": fused_adam8bit,
+    "fused_adam8bit": fused_adam8bit,
+    "adam8bit": fused_adam8bit,
 }
 # the JAX package's other optimizer types, not ported yet (ROADMAP Queue 1)
-_UNPORTED = ("fusedadam8bit", "fused_adam8bit", "adam8bit", "sgd", "lion", "fusedlion",
-             "adagrad", "lamb", "fusedlamb", "onebitadam", "onebit_adam", "onebitlamb",
-             "onebit_lamb", "zerooneadam", "zero_one_adam")
+_UNPORTED = ("sgd", "lion", "fusedlion", "adagrad", "lamb", "fusedlamb", "onebitadam",
+             "onebit_adam", "onebitlamb", "onebit_lamb", "zerooneadam", "zero_one_adam")
 # torch-style kwargs that do not map (dropped, as the JAX package drops them)
 _DROPPED = {"lr", "torch_adam", "fused", "cuda_aware", "adam_w_mode", "comm_backend_name",
             "check_overflow", "pipeline_enabled"}
@@ -138,6 +194,18 @@ def adam_state_from_jax(state_np, device, dtype=torch.float32) -> AdamState:
     return AdamState(step=int(np.asarray(state_np.step)),
                      exp_avg=tree_map(to, state_np.exp_avg),
                      exp_avg_sq=tree_map(to, state_np.exp_avg_sq))
+
+
+def adam8bit_state_from_jax(state_np, device) -> Adam8bitState:
+    """A JAX ``Adam8bitState`` (``step``, int8 ``exp_avg``/``exp_avg_sq``, fp32
+    ``scale_m``/``scale_v``; leaves as numpy arrays or anything ``np.array``
+    takes) -> this package's, on ``device``."""
+    to = lambda dtype: lambda x: torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+    return Adam8bitState(step=int(np.asarray(state_np.step)),
+                         exp_avg=tree_map(to(torch.int8), state_np.exp_avg),
+                         exp_avg_sq=tree_map(to(torch.int8), state_np.exp_avg_sq),
+                         scale_m=tree_map(to(torch.float32), state_np.scale_m),
+                         scale_v=tree_map(to(torch.float32), state_np.scale_v))
 
 
 def global_grad_norm(grads) -> torch.Tensor:

@@ -134,7 +134,7 @@ def test_get_optimizer_refuses_unported_and_unknown():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         optimizers.get_optimizer("lion")
     with pytest.raises(NotImplementedError):
-        optimizers.get_optimizer("fused_adam8bit")
+        optimizers.get_optimizer("lamb")
     with pytest.raises(ValueError, match="unknown optimizer"):
         optimizers.get_optimizer("adamax")
     opt = optimizers.get_optimizer("FusedAdam", lr=1.0, torch_adam=True, betas=[0.8, 0.9])

@@ -1,7 +1,8 @@
-"""The port's CUDA path on an NVIDIA GPU: the paged-attention, flash and
-fused-AdamW kernels against their plain PyTorch versions on the same CUDA
-tensors, and a tiny serving engine and a tiny training engine on the GPU
-against the same engines on the CPU.  Every test here needs a card and
+"""The port's CUDA path on an NVIDIA GPU: the paged-attention, flash,
+fused-AdamW, block-sparse and AdamW-8bit kernels against their plain PyTorch
+versions on the same CUDA tensors, and a tiny serving engine and tiny
+training engines (dense with fused AdamW; block-sparse with 8-bit AdamW) on
+the GPU against the same engines on the CPU.  Every test here needs a card and
 skips without one.  This file imports no JAX, so it runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest tests/test_torch_gpu.py``
 (the suite's conftest imports JAX)."""
@@ -13,9 +14,12 @@ import torch
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
 from deepspeed_tpu_torch.models import llama, mistral
+from deepspeed_tpu_torch.ops.adam import adam8bit
 from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adamw_flat, fused_adamw_flat_reference
 from deepspeed_tpu_torch.ops.attention import flash
 from deepspeed_tpu_torch.ops.attention.paged import paged_attention, paged_attention_reference
+from deepspeed_tpu_torch.ops.sparse_attention import attention as sparse
+from deepspeed_tpu_torch.runtime.config import SparseAttentionConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -238,3 +242,141 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# ------------------------------------------------------ block-sparse kernels
+# (dtype, head dim, layout, block, S, KV of 4 q heads, causal)
+SPARSE_GRID = [
+    (torch.float32, 64, "fixed", 8, 100, 2, True),
+    (torch.bfloat16, 128, "fixed", 16, 256, 4, True),
+    (torch.float32, 128, "fixed", 24, 209, 2, True),
+    (torch.float16, 64, "bigbird", 32, 300, 1, False),
+    (torch.float32, 64, "bslongformer", 40, 200, 4, False),
+    (torch.bfloat16, 64, "fixed", 64, 500, 2, True),
+    (torch.float32, 128, "variable", 128, 300, 2, True),
+]
+
+
+@pytest.mark.parametrize("dtype,D,mode,block,S,KV,causal", SPARSE_GRID,
+                         ids=[f"{str(g[0])[6:]}-d{g[1]}-{g[2]}-b{g[3]}-s{g[4]}" for g in SPARSE_GRID])
+def test_sparse_kernels_match_plain_versions(cuda, dtype, D, mode, block, S, KV, causal):
+    rng = np.random.default_rng(block + S)
+    H, B = 4, 2
+    section = SparseAttentionConfig(mode=mode, block=block, different_layout_per_head=True,
+                                    num_local_blocks=2, num_random_blocks=1,
+                                    attention="unidirectional" if causal else "bidirectional")
+    layout = section.build(H).make_layout(-(-S // block) * block)
+    tables = sparse._get_tables(layout, H, block, KV)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, dtype)
+                   for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+    scale = 1.0 / np.sqrt(D)
+    counts = (sparse.sparse_fwd.launches, sparse.sparse_bwd_dkdv.launches,
+              sparse.sparse_bwd_dq.launches)
+    out, lse = sparse.sparse_fwd(q, k, v, tables, scale, causal)
+    ref_out, ref_lse = sparse.sparse_fwd_reference(q, k, v, tables, scale, causal)
+    delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, ref_lse, delta, tables, scale, causal)
+    dk, dv = sparse.sparse_bwd_dkdv(*args)
+    dq = sparse.sparse_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert (sparse.sparse_fwd.launches, sparse.sparse_bwd_dkdv.launches,
+            sparse.sparse_bwd_dq.launches) == tuple(n + 1 for n in counts)
+    ref_dk, ref_dv = sparse.sparse_bwd_dkdv_reference(*args)
+    pairs = ((out, ref_out), (dk, ref_dk), (dv, ref_dv),
+             (dq, sparse.sparse_bwd_dq_reference(*args)))
+    for got, ref in pairs:
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            atol = rtol = 1e-4
+        else:  # one rounding of the same fp32 value on each side: at most an ulp apart
+            atol, rtol = 1e-2 * float(ref.float().square().mean().sqrt()), 1e-2
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+
+
+def test_sparse_attention_autograd_on_gpu_matches_cpu(cuda):
+    section = SparseAttentionConfig(mode="fixed", block=16, num_local_blocks=2,
+                                    attention="unidirectional")
+    fn = sparse.make_config_attention_fn(section)
+    rng = np.random.default_rng(1)
+    x = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+         for s in ((2, 96, 4, 64), (2, 96, 2, 64), (2, 96, 2, 64))]
+    grads, before = [], sparse.sparse_bwd_dq.launches
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().clone().to(dev).requires_grad_(True) for t in x]
+        fn(*leaves, causal=True).pow(2).sum().backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    assert sparse.sparse_bwd_dq.launches == before + 1
+    for got, ref in zip(grads[1], grads[0]):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+def test_sparse_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    layout = SparseAttentionConfig(block=16).build(2).make_layout(32)
+    q = torch.zeros((1, 32, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        sparse.sparse_fwd(q, q, q, sparse._get_tables(layout, 2, 16, 2), 1.0, True)
+    q = torch.zeros((1, 32, 2, 64), device=cuda)
+    layout4 = SparseAttentionConfig(block=16).build(4).make_layout(32)
+    with pytest.raises(ValueError, match="tables for 4 q"):
+        sparse.sparse_fwd(q, q, q, sparse._get_tables(layout4, 4, 16, 4), 1.0, True)
+    with pytest.raises(TypeError, match="share one of"):
+        sparse.sparse_fwd(q, q.half(), q, sparse._get_tables(layout, 2, 16, 2), 1.0, True)
+
+
+# ------------------------------------------------------------ AdamW-8bit
+@pytest.mark.parametrize("n", [1000, 2048, 4099])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
+def test_adamw8bit_kernel_matches_plain_version(cuda, n, grad_dtype):
+    """The int8 codes equal the plain version's bit for bit; p and the scales
+    at rtol 1e-6 plus 1e-6 of their largest value."""
+    rng = np.random.default_rng(n)
+    groups = -(-n // adam8bit.GROUP)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    state = [t((rng.normal(size=n) * 0.02).astype(np.float32)),
+             t(rng.integers(-127, 128, (groups, 1024)).astype(np.int8)),
+             t(rng.integers(0, 128, (groups, 1024)).astype(np.int8)),
+             t((rng.random((groups, 1)) * 1e-3 / 127).astype(np.float32)),
+             t((rng.random((groups, 1)) * 1e-3 / 127).astype(np.float32))]
+    g = t((rng.normal(size=n) * 1e-3).astype(np.float32)).to(grad_dtype)
+    hyper = dict(lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1, step=5)
+    kernel = [x.clone() for x in state]
+    plain = [x.clone() for x in state]
+    before = adam8bit.fused_adamw8bit_flat.launches
+    adam8bit.fused_adamw8bit_flat(*kernel, g, **hyper)
+    torch.cuda.synchronize()
+    assert adam8bit.fused_adamw8bit_flat.launches == before + 1
+    adam8bit.fused_adamw8bit_flat_reference(*plain, g, **hyper)
+    assert torch.equal(kernel[1], plain[1]) and torch.equal(kernel[2], plain[2])
+    for i in (0, 3, 4):
+        top = float(plain[i].abs().max())
+        torch.testing.assert_close(kernel[i], plain[i], atol=1e-6 * top, rtol=1e-6)
+
+
+def test_sparse_adam8bit_train_batch_on_gpu_matches_cpu(cuda):
+    """``initialize`` with the sparse_attention section and fused_adam8bit:
+    the GPU engine launches the sparse and AdamW-8bit kernels (and no flash
+    kernel) and agrees with the CPU engine."""
+    cfg = llama.LlamaConfig.tiny(vocab=128, hidden=128, layers=2, heads=2, kv_heads=1, seq=64)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    conf = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+            "gradient_clipping": 1.0, "bf16": {"enabled": False},
+            "optimizer": {"type": "fused_adam8bit", "params": {"lr": 1e-3, "weight_decay": 0.1}},
+            "sparse_attention": {"mode": "fixed", "block": 16, "num_local_blocks": 2,
+                                 "attention": "unidirectional"}}
+    engines = {dev: deepspeed_tpu_torch.initialize(loss_fn=llama.make_loss_fn(cfg),
+                                                   model_parameters=params, config=conf,
+                                                   device=dev)[0] for dev in ("cpu", "cuda")}
+    batch = llama.causal_lm_batch(np.random.default_rng(1).integers(0, 128, (4, 64)))
+    before = (flash.flash_fwd.launches, sparse.sparse_fwd.launches, sparse.sparse_bwd_dq.launches,
+              adam8bit.fused_adamw8bit_flat.launches)
+    for _ in range(2):
+        losses = [float(engines[dev].train_batch(batch).loss) for dev in ("cpu", "cuda")]
+        assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[0])
+    n_leaves = len(list(_leaves(params)))
+    after = (flash.flash_fwd.launches, sparse.sparse_fwd.launches, sparse.sparse_bwd_dq.launches,
+             adam8bit.fused_adamw8bit_flat.launches)
+    # 2 steps x gas 2 x 2 layers, the forward twice (remat); no flash launch
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 16, 8, 2 * n_leaves)
+    for a, b in zip(_leaves(engines["cuda"].state.params), _leaves(engines["cpu"].state.params)):
+        assert float((a.cpu() - b).abs().max()) <= 2 * 2e-3

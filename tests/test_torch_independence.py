@@ -39,7 +39,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "deepspeed_tpu_torch.inference.v2.engine_v2",
                      "deepspeed_tpu_torch.ops.attention.flash",
                      "deepspeed_tpu_torch.ops.adam.fused_adam",
-                     "deepspeed_tpu_torch.runtime.engine"):
+                     "deepspeed_tpu_torch.runtime.engine",
+                     "deepspeed_tpu_torch.ops.sparse_attention.attention",
+                     "deepspeed_tpu_torch.ops.sparse_attention.sparsity_config",
+                     "deepspeed_tpu_torch.ops.adam.adam8bit"):
         assert expected in report["modules"]
 
 

@@ -2,10 +2,12 @@
 inputs and weights (carried by ``params_from_jax``): the dense Llama forward
 and the gradient of its loss, the transformer pieces it adds, and
 ``train_batch`` steps of ``deepspeed_tpu_torch.initialize(device="cpu")``
-against ``deepspeed_tpu.initialize`` with fused_adam, WarmupLR, gradient
-accumulation and clipping.  The JAX side runs its Pallas kernels (flash,
-fused AdamW) in interpret mode, on a one-device topology so that its engine
-takes the fused optimizer step (``engine.py:544``).  fp32 throughout."""
+against ``deepspeed_tpu.initialize`` with fused_adam or fused_adam8bit,
+block-sparse attention from the config, WarmupLR, gradient accumulation and
+clipping.  The JAX side runs its Pallas kernels (flash, sparse attention,
+fused AdamW, AdamW-8bit) in interpret mode, on a one-device topology so that
+its engine takes the fused optimizer step (``engine.py:544``).  fp32
+throughout."""
 
 import dataclasses
 
@@ -24,10 +26,11 @@ from deepspeed_tpu.parallel.mesh import MeshTopology, reset_topology
 from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.models import transformer as tf
 from deepspeed_tpu_torch.ops.attention.flash import flash_attention
-from deepspeed_tpu_torch.runtime.config import load_config
+from deepspeed_tpu_torch.ops.sparse_attention import attention as sparse
+from deepspeed_tpu_torch.runtime.config import SparseAttentionConfig, load_config
 from deepspeed_tpu_torch.runtime.engine import TrainState
-from deepspeed_tpu_torch.runtime.optimizers import adam_state_from_jax
-from deepspeed_tpu_torch.runtime.tree import tree_leaves
+from deepspeed_tpu_torch.runtime.optimizers import adam8bit_state_from_jax, adam_state_from_jax
+from deepspeed_tpu_torch.runtime.tree import tree_leaves, tree_map
 
 VOCAB, SEQ = 96, 32
 LR = 1e-3
@@ -232,7 +235,7 @@ def test_engine_refuses_what_is_not_ported():
             deepspeed_tpu_torch.initialize(config=_config(), **kw)  # device defaults to cuda
     with pytest.raises(NotImplementedError, match="dataloader"):
         deepspeed_tpu_torch.initialize(config=_config(), training_data=[1], device="cpu", **kw)
-    for bad in ({"fp16": {"enabled": True}}, {"sparse_attention": {"mode": "fixed"}},
+    for bad in ({"fp16": {"enabled": True}},
                 {"data_efficiency": {"enabled": True}}, {"telemetry": {}},
                 {"ops_server": {"enabled": True}},
                 {"zero_optimization": {"stage": 3, "offload_optimizer": {"device": "cpu"}}},
@@ -267,3 +270,93 @@ def test_batch_triple_resolution():
         load_config({"train_batch_size": 8, "train_micro_batch_size_per_gpu": 3,
                      "gradient_accumulation_steps": 2}).resolve_batch_sizes(1)
     assert load_config({"train_batch_size": 2}).precision_dtype == torch.bfloat16
+
+
+# block 8 over SEQ = 32: four blocks a row, per-head global columns, GQA (4 q / 2 kv heads)
+SPARSE = {"mode": "fixed", "block": 8, "different_layout_per_head": True, "num_local_blocks": 2,
+          "num_global_blocks": 1, "num_different_global_patterns": 2,
+          "attention": "unidirectional"}
+ADAM8 = {"type": "fused_adam8bit", "params": {"lr": LR, "weight_decay": 0.01}}
+
+
+def test_sparse_attention_and_adam8bit_train_batch_match_jax_engine(one_device):
+    """The slice's two config levers together: the block-sparse kernels as the
+    engine's attention and AdamW with 8-bit moments, 3 steps."""
+    jcfg, cfg = _configs()
+    jparams, params = _params(jcfg, cfg, seed=9)
+    conf = _config(sparse_attention=SPARSE, optimizer=ADAM8)
+    jengine, *_ = deepspeed_tpu.initialize(loss_fn=jllama.make_loss_fn(jcfg),
+                                           model_parameters=jparams, config=conf,
+                                           topology=one_device)
+    engine, optimizer, _, _ = deepspeed_tpu_torch.initialize(
+        loss_fn=llama.make_loss_fn(cfg), model_parameters=params, config=conf, device="cpu")
+    assert optimizer.name == "fused_adam8bit" and optimizer.step_fn is not None
+    counts = (sparse.sparse_fwd.launches, sparse.sparse_bwd_dq.launches)
+    lrs = []
+    for step in range(3):
+        batch = llama.causal_lm_batch(_ids(60 + step, 4))
+        jm, m = jengine.train_batch(batch), engine.train_batch(batch)
+        np.testing.assert_allclose(float(m.loss), float(jm.loss), rtol=1e-4)
+        np.testing.assert_allclose(float(m.grad_norm), float(jm.grad_norm), rtol=1e-4)
+        lrs.append(m.lr)
+    assert (sparse.sparse_fwd.launches, sparse.sparse_bwd_dq.launches) == counts  # CPU: plain
+    assert tf.configured_attention_engaged()
+    _assert_params_close(engine.state.params, jengine.state.params, lrs)
+    dense, *_ = deepspeed_tpu_torch.initialize(loss_fn=llama.make_loss_fn(cfg),
+                                               model_parameters=params, config=_config(),
+                                               device="cpu")
+    batch = llama.causal_lm_batch(_ids(70, 4))
+    assert float(dense.eval_batch(batch)) != float(
+        deepspeed_tpu_torch.initialize(loss_fn=llama.make_loss_fn(cfg), model_parameters=params,
+                                       config=conf, device="cpu")[0].eval_batch(batch))
+
+
+def test_resume_adam8bit_from_jax_state(one_device):
+    """Two JAX steps with fused_adam8bit, then the port continues from the
+    JAX params and Adam8bitState and matches the JAX engine's third step."""
+    jcfg, cfg = _configs()
+    jparams, _ = _params(jcfg, cfg, seed=10)
+    conf = _config(gradient_clipping=0.0, optimizer=ADAM8)
+    jengine, *_ = deepspeed_tpu.initialize(loss_fn=jllama.make_loss_fn(jcfg),
+                                           model_parameters=jparams, config=conf,
+                                           topology=one_device)
+    for step in range(2):
+        jengine.train_batch(llama.causal_lm_batch(_ids(80 + step, 4)))
+    state_np = jax.tree_util.tree_map(np.asarray, jengine.state)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        loss_fn=llama.make_loss_fn(cfg), model_parameters=llama.params_from_jax(
+            cfg, state_np.params, "cpu"), config=conf, device="cpu")
+    engine.state = TrainState(step=int(state_np.step), params=engine.state.params,
+                              opt_state=adam8bit_state_from_jax(state_np.opt_state, "cpu"))
+    batch = llama.causal_lm_batch(_ids(82, 4))
+    jm, m = jengine.train_batch(batch), engine.train_batch(batch)
+    np.testing.assert_allclose(float(m.loss), float(jm.loss), rtol=1e-5)
+    _assert_params_close(engine.state.params, jengine.state.params, [m.lr])
+
+
+def _grads(cfg, params, batch, attention_scope):
+    loss_fn = tf.scoped_default_attention(llama.make_loss_fn(cfg), attention_scope)
+    leaves = [p.detach().clone().requires_grad_(True) for p in tree_leaves(params)]
+    it = iter(leaves)
+    tree = tree_map(lambda _: next(it), params)
+    loss = loss_fn(tree, {k: torch.from_numpy(v) for k, v in batch.items()}, None)
+    return [g.numpy() for g in torch.autograd.grad(loss, leaves)]
+
+
+def test_remat_recompute_runs_the_configured_sparse_attention():
+    """Under a configured sparse function, the grads with remat (the layer is
+    recomputed in the backward, after the scope has closed) equal those
+    without, and differ from dense attention's: the recompute stayed sparse."""
+    _, cfg = _configs(remat=False)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(3))
+    batch = llama.causal_lm_batch(_ids(90, 2))
+    sparse_fn = sparse.make_config_attention_fn(SparseAttentionConfig(**SPARSE))
+    tf.set_default_attention(None)
+    plain = _grads(cfg, params, batch, sparse_fn)
+    assert tf.configured_attention_engaged()
+    remat = _grads(dataclasses.replace(cfg, remat=True), params, batch, sparse_fn)
+    dense = _grads(dataclasses.replace(cfg, remat=True), params, batch, None)
+    for a, b in zip(plain, remat):
+        np.testing.assert_allclose(b, a, atol=1e-6, rtol=1e-6)
+    assert any(not np.allclose(a, b, atol=1e-4) for a, b in zip(plain, dense))
+    assert tf._CONFIGURED_ATTENTION["fn"] is None  # the scope closed after each call
