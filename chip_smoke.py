@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each of which raises (and the script exits non-zero) on failure:
-  1. device: the card's name and power limit, and the build of the five
+  1. device: the card's name and power limit, and the build of the six
      kernel sources (nvcc, sm_90a, into deepspeed_tpu_torch/build/, one nvcc
      each, all started together) with their seconds and ptxas lines;
   2. kernel vs plain, each on CUDA tensors against its plain PyTorch version,
@@ -20,7 +20,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      (B=1, S=4096, 32 heads, head dim 128, bf16, causal, the documented
      ``fixed`` layout at block 16, and at blocks 64 and 128), GQA, a padded
      tail, non-causal bigbird and block 24; the AdamW-8bit kernel over the
-     same w_gate leaf with an fp32 and a bf16 grad, and a tail group;
+     same w_gate leaf with an fp32 and a bf16 grad, and a tail group; the
+     int8 quantize kernel over the full-depth Llama-2-7B w_gate leaf (1.443 G
+     bf16 elements, groups of 2048, the v1 engine's weight-only path) and on
+     small cases (groups of 5-16384, tails, a zero group, fp32 and fp16); the
+     fused Lion kernel over the 8-layer w_gate leaf, fp32 and bf16 grads;
+     both bit for bit;
   3. serve: ``build_engine("mistral", MistralConfig.mistral_7b(), ...)`` in
      bf16 with seeded random weights answers 16 requests through greedy
      ``generate``, and every forward step goes through the kernel; the same
@@ -41,7 +46,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
   7. train slice: 2 full-width layers in fp32, the CUDA engine (kernels)
      against the CPU engine (plain versions) from the same params: losses,
      step-1 grads and the params after 3 steps; once with fused_adam and
-     dense attention, once with the sparse section and fused_adam8bit.
+     dense attention, once with the sparse section and fused_adam8bit, once
+     with lion (delta form), followed by one fused Lion step through
+     ``fused_lion_flat`` on every leaf;
+  8. serve-v1: ``init_inference`` with Llama-2-7B at full width and depth in
+     bf16, 8 prompts of 512 tokens, 64 greedy new tokens through
+     ``generate``; serve-v1-int8: the same with weight-only int8 (11 leaves
+     packed by the quantize kernel at construction, one layer dequantized at
+     a time), its logits against the dense engine's and its peak memory
+     against the dense one's; slice-v1: a 2-layer full-width v1 engine in
+     fp32, dense and int8, on CUDA against the same engine on the CPU.
 
 fp32 matrix products and convolutions run in full fp32 (TF32 is switched
 off), so fp32 comparisons differ only by the order of summation.  The last
@@ -80,10 +94,14 @@ SPARSE_REPLACES = {  # bodies in deepspeed_tpu/ops/sparse_attention/attention.py
 }
 ADAM8_SOURCE = "deepspeed_tpu_torch/csrc/adam8bit.cu"
 ADAM8_REPLACES = "deepspeed_tpu/ops/adam/adam8bit.py:59"  # _adamw8_kernel, pallas_call at :118
+QUANT_SOURCE = "deepspeed_tpu_torch/csrc/quantize.cu"
+QUANT_REPLACES = "deepspeed_tpu/ops/quantizer/quantize.py:27"  # _quant_kernel, pallas_call at :56
+LION_REPLACES = "deepspeed_tpu/ops/adam/fused_adam.py:90"  # _lion_kernel, pallas_call at :41
 KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_adam", "sparse_attention",
-                  "adam8bit")
+                  "adam8bit", "quantize")
 TRAIN_LAYERS = 8  # Llama-2-7B width; 32 layers' fp32 state (~108 GB) exceeds one card
 W_GATE = TRAIN_LAYERS * 4096 * 11008  # the [train] run's stacked w_gate leaf, one launch
+W_GATE_FULL = 32 * 4096 * 11008  # Llama-2-7B's stacked w_gate leaf, packed by [serve-v1-int8]
 # DeepSpeed's documented sparse_attention example (config-json docs), causal for Llama
 SPARSE_CONFIG = {"mode": "fixed", "block": 16, "different_layout_per_head": True,
                  "num_local_blocks": 4, "num_global_blocks": 1,
@@ -108,13 +126,14 @@ def phase_device():
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops.adam import adam8bit, fused_adam
     from deepspeed_tpu_torch.ops.attention import flash, paged
+    from deepspeed_tpu_torch.ops.quantizer import quantize
     from deepspeed_tpu_torch.ops.sparse_attention import attention as sparse
     card = nvidia_smi_line()
     log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
     _build.build_all(KERNEL_SOURCES)
-    paged._lib(), flash._lib(), fused_adam._lib(), sparse._lib(), adam8bit._lib()
+    paged._lib(), flash._lib(), fused_adam._lib(), sparse._lib(), adam8bit._lib(), quantize._lib()
     log(f"[device] {len(KERNEL_SOURCES)} kernel libraries ready in "
         f"{time.perf_counter() - t0:.2f} s, built in parallel")
     for name in KERNEL_SOURCES:
@@ -866,6 +885,165 @@ def phase_adamw8_kernels(card):
     return recs, err
 
 
+# ------------------------------------------ phase 2, int8 quantize and Lion
+def check_bitwise(name, got, ref, parts):
+    """Each output of a kernel EQUAL to its plain version's (``parts`` names
+    them); returns the largest difference, 0.0."""
+    import torch
+    for part, a, b in zip(parts, got, ref):
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            diff = ((a.double() - b.double()).abs() if a.shape == b.shape
+                    else torch.tensor([float("inf")]))
+            raise AssertionError(f"{name} {part}: kernel disagrees with the plain version: "
+                                 f"{int((diff != 0).sum())} elements differ, by up to "
+                                 f"{diff.max().item():.3e} ({tuple(a.shape)} {a.dtype} vs "
+                                 f"{tuple(b.shape)} {b.dtype})")
+    return 0.0
+
+
+def measure_quantize(name, x, group, time_it=False):
+    """The int8 quantize kernel against its plain version on ``x``, codes and
+    scales bit for bit; with ``time_it`` also the times and the byte bound.
+    No PyTorch call computes this function (``torch.quantize_per_channel``
+    takes given scales and clamps to [-128, 127]), so there is no library
+    time."""
+    import torch
+    from deepspeed_tpu_torch.ops.quantizer.quantize import quantize_int8, quantize_int8_reference
+    before = quantize_int8.launches
+    q, scales, n = quantize_int8(x, group)
+    torch.cuda.synchronize()
+    if quantize_int8.launches != before + 1:
+        raise AssertionError(f"{name}: the quantize kernel did not launch")
+    rq, rs, rn = quantize_int8_reference(x, group)
+    err = check_bitwise(name, (q, scales), (rq, rs), ("codes", "scales"))
+    live = float((rq != 0).float().mean())
+    if n != rn or (x.abs().max() > 0 and live < 0.5):
+        raise AssertionError(f"{name}: n {n} vs {rn}, {live:.1%} of the codes nonzero")
+    groups, g = q.shape
+    log(f"[kernel] {name}: ok, codes and scales equal to the plain version's (n={n}, {groups} "
+        f"groups of {g}, {x.dtype}; {live:.1%} of codes nonzero, scales "
+        f"{rs.min().item():.3e} to {rs.max().item():.3e})")
+    if not time_it:
+        return {"max_abs_err": err}
+    del rq, rs
+    torch.cuda.empty_cache()
+    nbytes = n * x.element_size() + groups * g + groups * 4
+    bound_ms, bound_by = bound(nbytes, 4.0 * n, torch.float32)
+    ms = time_ms(lambda: quantize_int8(x, group))
+    plain_ms = time_ms(lambda: quantize_int8_reference(x, group), runs=3)
+    rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes, "max_abs_err": err}
+    log(f"[kernel] {name}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms none "
+        f"bound_ms {bound_ms:.4f} ({bound_by}: {nbytes / 1e9:.3f} GB; kernel "
+        f"{nbytes / ms / 1e6:.0f} GB/s)")
+    return rec
+
+
+def phase_quantize_kernels(card):
+    """The int8 quantize kernel against its plain version: the full-depth
+    Llama-2-7B w_gate leaf in bf16, groups of 2048 (timed), and small cases
+    that reach every branch of the kernel."""
+    import torch
+    from deepspeed_tpu_torch.ops.quantizer.quantize import quantize_int8_reference
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    rand = lambda n, dtype=torch.bfloat16: (torch.randn(n, generator=gen, device="cuda")
+                                            * 3.0).to(dtype)
+    zero_group = rand(10_000)
+    zero_group[2048:4096] = 0.0
+    small = {  # name: (x, group)
+        "quant_g64_bf16": (rand(100_003), 64),
+        "quant_g128_bf16": (rand(100_003), 128),
+        "quant_g2048_tail_bf16": (rand(100_003), 2048),
+        "quant_g2048_zero_group_bf16": (zero_group, 2048),
+        "quant_g2048_fp32": (rand(50_000, torch.float32), 2048),
+        "quant_g256_fp16": (rand(50_000, torch.float16), 256),
+        "quant_g100_unaligned_bf16": (rand(10_001), 100),
+        "quant_g5_bf16": (rand(1000), 5),
+        "quant_g16384_bf16": (rand(100_000), 16384),
+        "quant_n77_lt_group_fp32": (rand(77, torch.float32), 2048),
+    }
+    err = max(measure_quantize(name, x, g)["max_abs_err"] for name, (x, g) in small.items())
+    codes, scales, _ = quantize_int8_reference(zero_group, 2048)  # equal to the kernel's
+    if float(scales[1, 0]) != 1.0 or codes[1].any():
+        raise AssertionError("the all-zero group's scale is not 1 or its codes not 0")
+    del small, zero_group, codes, scales
+    w_gate = (torch.randn((32, 4096, 11008), generator=gen, device="cuda", dtype=torch.bfloat16)
+              .mul_(1.0 / np.sqrt(4096)))
+    rec = measure_quantize("quant_w_gate_llama2_7b_bf16", w_gate, 2048, time_it=True)
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    del w_gate
+    torch.cuda.empty_cache()
+    log(f"[kernel] quantize_int8 on {card}: {json.dumps({k: rec[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')})}")
+    return rec
+
+
+LION_HYPER = dict(lr=1e-4, beta1=0.9, beta2=0.99, weight_decay=0.1)
+
+
+def lion_state(gen, n, device, grad_dtype=None):
+    """[p, m, grad] of a Lion state some steps in: p ~ 0.02, m ~ 1e-3, grad ~
+    1e-3 (fp32 unless ``grad_dtype``)."""
+    import torch
+    p = torch.randn(n, generator=gen, device=device) * 0.02
+    m = torch.randn(n, generator=gen, device=device) * 1e-3
+    grad = torch.randn(n, generator=gen, device=device) * 1e-3
+    return [p, m, grad.to(grad_dtype or torch.float32)]
+
+
+def measure_lion(name, n, grad_dtype, seed, time_it=True):
+    """The fused Lion kernel against its plain version over one flat leaf of
+    ``n`` elements, p and m bit for bit; torch.optim has no Lion, so there is
+    no library time."""
+    import torch
+    from deepspeed_tpu_torch.ops.adam.fused_adam import fused_lion_flat, fused_lion_flat_reference
+    *state, grad = lion_state(torch.Generator(device="cuda").manual_seed(seed), n, "cuda",
+                              grad_dtype)
+    bufs = [x.clone() for x in state]
+    plain = [x.clone() for x in state]
+    before = fused_lion_flat.launches
+    fused_lion_flat(*bufs, grad, **LION_HYPER)
+    torch.cuda.synchronize()
+    if fused_lion_flat.launches != before + 1:
+        raise AssertionError(f"{name}: the Lion kernel did not launch")
+    fused_lion_flat_reference(*plain, grad, **LION_HYPER)
+    err = check_bitwise(name, bufs, plain, "pm")
+    moved = float((plain[0] != state[0]).float().mean())
+    if moved < 0.99:
+        raise AssertionError(f"{name}: only {moved:.1%} of p moved")
+    log(f"[kernel] {name}: ok, p and m equal to the plain version's ({grad_dtype} grad, n={n}, "
+        f"{moved:.2%} of p moved)")
+    if not time_it:
+        return {"max_abs_err": err}
+    nbytes = n * (4 * 4 + grad.element_size())
+    bound_ms, bound_by = bound(nbytes, 10.0 * n, torch.float32)
+    ms = time_ms(lambda: fused_lion_flat(*bufs, grad, **LION_HYPER))
+    plain_ms = time_ms(lambda: fused_lion_flat_reference(*plain, grad, **LION_HYPER), runs=5)
+    rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes, "max_abs_err": err}
+    log(f"[kernel] {name}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms none "
+        f"bound_ms {bound_ms:.4f} ({bound_by}: {nbytes / 1e9:.3f} GB; kernel "
+        f"{nbytes / ms / 1e6:.0f} GB/s)")
+    return rec
+
+
+def phase_lion_kernels(card):
+    """The fused Lion kernel against its plain version on the [train] run's
+    stacked w_gate leaf (fp32 and bf16 grad) and on a tail of n % 4."""
+    import torch
+    recs = {"fused_lion": measure_lion("lion_w_gate_fp32_grad", W_GATE, torch.float32, 61),
+            "fused_lion_bf16_grad": measure_lion("lion_w_gate_bf16_grad", W_GATE,
+                                                 torch.bfloat16, 62)}
+    torch.cuda.empty_cache()
+    err = max(r["max_abs_err"] for r in recs.values())
+    for dtype in (torch.float32, torch.bfloat16):
+        err = max(err, measure_lion(f"lion_tail_n1003_{str(dtype)[6:]}_grad", 1003, dtype, 63,
+                                    time_it=False)["max_abs_err"])
+    recs["fused_lion"]["max_abs_err"] = err
+    for name, rec in recs.items():
+        log(f"[kernel] {name} on {card}: {json.dumps({k: rec[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')})}")
+    return recs
+
+
 # ------------------------------------------------------------------ phase 3
 def phase_serve(card, seed=0):
     import torch
@@ -931,21 +1109,33 @@ def phase_serve(card, seed=0):
     return launches
 
 
-def profile_serve(engine, prompts, max_new, card, wall_s, top=12):
-    """Serve the same requests again under torch.profiler and split the
-    device time by kernel: paged attention, matrix products, the rest, then
-    the ``top`` kernels by device time.  The timed run (``wall_s``) is not
-    profiled; the device's idle share is its busy time against that wall,
-    since the profiler slows the host down several times over."""
+def profile_serve(engine, prompts, max_new, card, wall_s):
+    """Serve the same requests again under torch.profiler: device time split
+    into paged attention, matrix products and the rest; the timed run
+    (``wall_s``) is not profiled."""
+    profile_device(lambda: engine.generate(prompts, max_new_tokens=max_new, strict=False), card,
+                   "profile", "serve", wall_s * 1e3, (("paged_attention", "paged_attention"), ))
+
+
+MATMUL_NEEDLES = ("gemm", "nvjet", "xmma", "cutlass", "sm90")
+
+
+def profile_device(run, card, tag, label, wall_ms, needles, top=12):
+    """``run()`` once more under torch.profiler: device time by kernel group
+    (``needles``: (group, substring of the kernel name) pairs; then matrix
+    products and the rest), and the top ``top`` kernels.  The device's idle
+    share is its busy time against ``wall_ms``, the unprofiled run's wall,
+    since the profiler slows the host down."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        engine.generate(prompts, max_new_tokens=max_new, strict=False)
+        run()
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {"paged_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    prof_ms = (time.perf_counter() - t0) * 1e3
+    groups = {key: 0.0 for key, _ in needles}
+    groups.update(matmul=0.0, other=0.0)
     kernels = []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -955,23 +1145,20 @@ def profile_serve(engine, prompts, max_new, card, wall_s, top=12):
             us = evt.self_cuda_time_total
         kernels.append((us / 1e3, evt.count, evt.key))
         name = evt.key.lower()
-        if "paged_attention" in name:
-            groups["paged_attention"] += us / 1e3
-        elif any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass", "sm90")):
-            groups["matmul"] += us / 1e3
-        else:
-            groups["other"] += us / 1e3
+        key = next((key for key, needle in needles if needle in name), None)
+        if key is None:
+            key = "matmul" if any(k in name for k in MATMUL_NEEDLES) else "other"
+        groups[key] += us / 1e3
     busy = sum(groups.values())
     if busy == 0.0:
-        log("[profile] device time not measured: the profiler saw no CUDA kernels")
+        log(f"[{tag}] device time not measured: the profiler saw no CUDA kernels")
         return
-    shares = ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in groups.items())
-    log(f"[profile] serve under torch.profiler on {card}: device busy {busy:.1f} ms, "
-        f"{busy / (wall_s * 1e3):.1%} of the unprofiled serve's {wall_s * 1e3:.1f} ms wall "
-        f"(idle {1 - busy / (wall_s * 1e3):.1%}; the profiled serve took {wall_ms:.1f} ms); "
-        f"{shares}")
+    shares = ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in groups.items() if v)
+    log(f"[{tag}] {label} under torch.profiler on {card}: device busy {busy:.1f} ms, "
+        f"{busy / wall_ms:.1%} of the unprofiled {label}'s {wall_ms:.1f} ms (idle "
+        f"{1 - busy / wall_ms:.1%}; the profiled {label} took {prof_ms:.1f} ms); {shares}")
     for ms, count, name in sorted(kernels, reverse=True)[:top]:
-        log(f"[profile]   {ms:9.2f} ms {count:6d} calls  {name[:110]}")
+        log(f"[{tag}]   {ms:9.2f} ms {count:6d} calls  {name[:110]}")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1030,8 +1217,9 @@ def phase_slice(seed=1):
 
 # ------------------------------------------------------------------ phase 5
 TRAIN_PEAK_FLOPS = 989e12  # bf16 dense tensor-core peak of the H100 SXM
-TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "fused_adamw", "sparse_fwd",
-                 "sparse_bwd_dkdv", "sparse_bwd_dq", "adamw8bit")
+KERNEL_NAMES = ("paged_attention", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "fused_adamw",
+                "sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq", "adamw8bit", "fused_lion",
+                "quantize_int8")
 
 
 def train_config(*, micro, gas, bf16, seed, lr=3e-4, optimizer="fused_adam", sparse=None):
@@ -1047,22 +1235,26 @@ def train_config(*, micro, gas, bf16, seed, lr=3e-4, optimizer="fused_adam", spa
     return conf
 
 
-def _train_kernels():
+def _kernel_wrappers():
+    """Every kernel wrapper of the port by name; each counts its launches."""
     from deepspeed_tpu_torch.ops.adam.adam8bit import fused_adamw8bit_flat
-    from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adamw_flat
+    from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adamw_flat, fused_lion_flat
     from deepspeed_tpu_torch.ops.attention import flash
+    from deepspeed_tpu_torch.ops.attention.paged import paged_attention
+    from deepspeed_tpu_torch.ops.quantizer.quantize import quantize_int8
     from deepspeed_tpu_torch.ops.sparse_attention import attention as sp
-    return dict(zip(TRAIN_KERNELS, (flash.flash_fwd, flash.flash_bwd_dkdv, flash.flash_bwd_dq,
-                                    fused_adamw_flat, sp.sparse_fwd, sp.sparse_bwd_dkdv,
-                                    sp.sparse_bwd_dq, fused_adamw8bit_flat)))
+    return dict(zip(KERNEL_NAMES, (paged_attention, flash.flash_fwd, flash.flash_bwd_dkdv,
+                                   flash.flash_bwd_dq, fused_adamw_flat, sp.sparse_fwd,
+                                   sp.sparse_bwd_dkdv, sp.sparse_bwd_dq, fused_adamw8bit_flat,
+                                   fused_lion_flat, quantize_int8)))
 
 
 def launch_counts():
-    return {name: fn.launches for name, fn in _train_kernels().items()}
+    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
 
 
 def reset_launch_counts():
-    for fn in _train_kernels().values():
+    for fn in _kernel_wrappers().values():
         fn.launches = 0
 
 
@@ -1071,7 +1263,7 @@ def expected_launches(*, steps, gas, layers, n_leaves, optimizer, sparse):
     twice a layer and micro-batch (forward and the remat recompute), each
     backward kernel once, the optimizer kernel once a leaf and step."""
     attn = "sparse" if sparse is not None else "flash"
-    counts = dict.fromkeys(TRAIN_KERNELS, 0)
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
     counts.update({f"{attn}_fwd": steps * gas * layers * 2,
                    f"{attn}_bwd_dkdv": steps * gas * layers,
                    f"{attn}_bwd_dq": steps * gas * layers,
@@ -1166,52 +1358,21 @@ PROFILE_GROUPS = (("flash_fwd", "flash_fwd"), ("flash_bwd", "flash_bwd"),
                   ("adamw8", "adamw8bit_kernel"), ("adamw", "adamw_kernel"))
 
 
-def profile_train(engine, batch, card, step_s, tag="profile-train", top=12):
+def profile_train(engine, batch, card, step_s, tag="profile-train"):
     """One more step under torch.profiler: device time by kernel group (flash
     and sparse forward and backward, AdamW, AdamW-8bit), matrix products and
-    the rest; the idle share is the busy time against the unprofiled mean
-    step."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        engine.train_batch(batch)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {key: 0.0 for key, _ in PROFILE_GROUPS}
-    groups.update(matmul=0.0, other=0.0)
-    kernels = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        kernels.append((us / 1e3, evt.count, evt.key))
-        name = evt.key.lower()
-        key = next((key for key, needle in PROFILE_GROUPS if needle in name), None)
-        if key is None:
-            matmul = any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass", "sm90"))
-            key = "matmul" if matmul else "other"
-        groups[key] += us / 1e3
-    busy = sum(groups.values())
-    if busy == 0.0:
-        log(f"[{tag}] device time not measured: the profiler saw no CUDA kernels")
-        return
-    shares = ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in groups.items() if v)
-    log(f"[{tag}] one step under torch.profiler on {card}: device busy {busy:.1f} ms, "
-        f"{busy / (step_s * 1e3):.1%} of the unprofiled step's {step_s * 1e3:.1f} ms (idle "
-        f"{1 - busy / (step_s * 1e3):.1%}; the profiled step took {wall_ms:.1f} ms); {shares}")
-    for ms, count, name in sorted(kernels, reverse=True)[:top]:
-        log(f"[{tag}]   {ms:9.2f} ms {count:6d} calls  {name[:110]}")
+    the rest, against the unprofiled mean step."""
+    profile_device(lambda: engine.train_batch(batch), card, tag, "step", step_s * 1e3,
+                   PROFILE_GROUPS)
 
 
 def phase_train_slice(seed=1, steps=3, micro=2, gas=2, seq=256, tag="train-slice",
                       optimizer="fused_adam", sparse=None):
     """2 full-width Llama-2-7B layers in fp32: the CUDA engine (kernels)
     against the CPU engine (plain versions), same params and batch, with
-    ``optimizer`` and, where given, the ``sparse`` attention section."""
+    ``optimizer`` and, where given, the ``sparse`` attention section.  With
+    ``lion`` one fused Lion step a leaf follows (:func:`lion_fused_step`);
+    returns its Lion launches (None for the other optimizers)."""
     import torch
     from deepspeed_tpu_torch.runtime.tree import tree_leaves, tree_map
     import deepspeed_tpu_torch
@@ -1249,16 +1410,46 @@ def phase_train_slice(seed=1, steps=3, micro=2, gas=2, seq=256, tag="train-slice
         lrs.append(metrics.lr)
     launches = {k: v for k, v in launch_counts().items() if v}
     attn = "sparse" if sparse is not None else "flash"
-    adam = "adamw8bit" if optimizer == "fused_adam8bit" else "fused_adamw"
-    if set(launches) != {f"{attn}_fwd", f"{attn}_bwd_dkdv", f"{attn}_bwd_dq", adam}:
+    # lion has no fused step in the engine (nor in JAX): no optimizer kernel
+    adam = {"fused_adam": "fused_adamw", "fused_adam8bit": "adamw8bit"}.get(optimizer)
+    if set(launches) != {f"{attn}_fwd", f"{attn}_bwd_dkdv", f"{attn}_bwd_dq"} | {adam} - {None}:
         raise AssertionError(f"[{tag}] the CUDA engine launched {launches}, not the "
                              f"{attn} and {adam} kernels alone")
     for lg, lc in zip(losses["cuda"], losses["cpu"]):
         if not abs(lg - lc) <= 1e-4 * abs(lc):
             raise AssertionError(f"[{tag}] losses differ: CUDA {losses['cuda']} vs CPU "
                                  f"{losses['cpu']} (rtol 1e-4)")
-    # Adam's m/sqrt(v) turns a sign flip of a near-zero grad into a full-lr
-    # step, so params may differ by up to 2 lr a step; nearly all agree closely
+    # Adam's m/sqrt(v), and Lion's sign, turn a sign flip of a near-zero grad
+    # into a full-lr step, so params may differ by up to 2 lr a step; nearly
+    # all agree closely
+    worst, n_close, n_total, limit = params_agree(tag, engines, lrs, steps)
+    fused = ""
+    lion_launches = None
+    if optimizer == "lion":
+        lion_launches, lr = lion_fused_step(engines, batch, lrs[-1])
+        lrs.append(lr)
+        steps += 1
+        worst, n_close, n_total, limit = params_agree(tag, engines, lrs, steps)
+        fused = (f"; then one fused Lion step a leaf through fused_lion_flat ({lion_launches} "
+                 f"launches on CUDA)")
+    log(f"[{tag}] llama2_7b width, 2 layers, fp32, seq {seq}, micro {micro} x gas {gas}, "
+        f"{optimizer}{', sparse ' + sparse['mode'] + ' block ' + str(sparse['block']) if sparse else ''}, "
+        f"{steps} steps, CUDA kernels ({launches}) vs CPU plain versions in "
+        f"{time.perf_counter() - t0:.1f} s: losses {losses['cuda']} vs {losses['cpu']} (rtol "
+        f"1e-4); step-1 grads max abs err {grad_err:.3e}, at most {grad_rel:.3e} of its leaf's "
+        f"largest grad (rtol 1e-4, atol 1e-4 x max|leaf|; rms per leaf {min(grad_rms):.3e} to "
+        f"{max(grad_rms):.3e}){fused}; params max abs diff {worst:.3e} (limit 2 x sum(lr) "
+        f"= {limit:.3e}), {n_close / n_total:.5%} within 1e-5")
+    del engines
+    torch.cuda.empty_cache()
+    return lion_launches
+
+
+def params_agree(tag, engines, lrs, steps):
+    """The CUDA engine's params against the CPU engine's: every element within
+    2 x sum(lr), 99.9 % within 1e-5; returns (max diff, count within 1e-5,
+    count, limit)."""
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves
     limit = 2.0 * sum(lrs)
     worst, n_close, n_total = 0.0, 0, 0
     for p_gpu, p_cpu in zip(tree_leaves(engines["cuda"].state.params),
@@ -1271,15 +1462,229 @@ def phase_train_slice(seed=1, steps=3, micro=2, gas=2, seq=256, tag="train-slice
         raise AssertionError(f"[{tag}] params after {steps} steps: max abs diff "
                              f"{worst:.3e} (limit {limit:.3e}), {n_close / n_total:.5%} within "
                              f"1e-5 (need 99.9 %)")
-    log(f"[{tag}] llama2_7b width, 2 layers, fp32, seq {seq}, micro {micro} x gas {gas}, "
-        f"{optimizer}{', sparse ' + sparse['mode'] + ' block ' + str(sparse['block']) if sparse else ''}, "
-        f"{steps} steps, CUDA kernels ({launches}) vs CPU plain versions in "
-        f"{time.perf_counter() - t0:.1f} s: losses {losses['cuda']} vs {losses['cpu']} (rtol "
-        f"1e-4); step-1 grads max abs err {grad_err:.3e}, at most {grad_rel:.3e} of its leaf's "
-        f"largest grad (rtol 1e-4, atol 1e-4 x max|leaf|; rms per leaf {min(grad_rms):.3e} to "
-        f"{max(grad_rms):.3e}); params max abs diff {worst:.3e} (limit 2 x sum(lr) "
-        f"= {limit:.3e}), {n_close / n_total:.5%} within 1e-5")
-    del engines
+    return worst, n_close, n_total, limit
+
+
+def lion_fused_step(engines, batch, lr):
+    """One Lion step taken the fused way, as a user calls the public
+    ``fused_lion_flat`` on flat buffers: each engine's grads at its params,
+    then one call a leaf on its params and Lion momentum, in place (the
+    kernel on CUDA, the plain version on the CPU).  The launch counts are set
+    to 0 just before and read just after; returns (Lion launches, lr)."""
+    import torch
+    from deepspeed_tpu_torch.ops.adam.fused_adam import fused_lion_flat
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves
+    # lion()'s default betas, train_config's weight decay
+    hyper = dict(lr=lr, beta1=0.9, beta2=0.99, weight_decay=0.1)
+    grads = {dev: engine.accumulate_gradients(batch)[0] for dev, engine in engines.items()}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    n_leaves = 0
+    for dev, engine in engines.items():
+        state = engine.state
+        for p, m, g in zip(tree_leaves(state.params), tree_leaves(state.opt_state.exp_avg),
+                           tree_leaves(grads[dev])):
+            fused_lion_flat(p.view(-1), m.view(-1), g.view(-1), **hyper)
+            n_leaves += dev == "cuda"
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    if launches != {"fused_lion": n_leaves}:
+        raise AssertionError(f"the fused Lion step launched {launches}, not fused_lion once for "
+                             f"each of the {n_leaves} leaves")
+    return n_leaves, lr
+
+
+# ------------------------------------------------------------------ phase 8
+V1_BATCH, V1_PROMPT, V1_NEW = 8, 512, 64
+# int8 against dense logits at full depth.  Random weights lose correlation
+# with depth (a CPU study at hidden 512: 0.9993 at 2 layers, 0.9988 at 8,
+# 0.9986 at 32); the H100 gave 0.99803 at Llama-2-7B's 32 layers.  The JAX
+# test's 0.999 (2 layers) is held by [slice-v1].
+V1_INT8_CORR = 0.995
+
+
+def serve_v1(card, tag, engine, prompts, vocab):
+    """Greedy ``generate`` of ``V1_NEW`` tokens for ``prompts`` after a
+    ``generate`` of one token (prefill and the first pick), after a short
+    warm-up call; peak device memory from a reset after construction; checks
+    the output, profiles the same ``generate`` once more and returns the
+    summary."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine.generate(prompts[:, :16], max_new_tokens=2, temperature=0.0)  # cuBLAS set-up
+    t0 = time.perf_counter()
+    first = engine.generate(prompts, max_new_tokens=1, temperature=0.0)
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=V1_NEW, temperature=0.0)
+    total_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    b, s = prompts.shape
+    if out.shape != (b, s + V1_NEW) or not np.array_equal(out[:, :s], prompts):
+        raise AssertionError(f"[{tag}] output {out.shape}, prompt echoed "
+                             f"{np.array_equal(out[:, :s], prompts)}")
+    if not ((out >= 0) & (out < vocab)).all() or not np.array_equal(out[:, :s + 1], first):
+        raise AssertionError(f"[{tag}] tokens outside the vocabulary, or the first pick differs "
+                             f"between the two calls")
+    summary = {"prefill_ms": prefill_s * 1e3,
+               "decode_ms": (total_s - prefill_s) / (V1_NEW - 1) * 1e3,
+               "tokens_s": b * V1_NEW / total_s, "wall_s": total_s, "peak_gb": peak_gb}
+    log(f"[{tag}] {b} prompts x {s} tokens, {V1_NEW} greedy new tokens each, output {out.shape} "
+        f"inside the vocabulary, on {card}: prefill (generate of 1 token) "
+        f"{summary['prefill_ms']:.2f} ms, mean decode step {summary['decode_ms']:.2f} ms, "
+        f"{summary['tokens_s']:.1f} generated tok/s ({total_s:.3f} s), peak memory "
+        f"{peak_gb:.2f} GB from a reset after construction")
+    profile_device(lambda: engine.generate(prompts, max_new_tokens=V1_NEW, temperature=0.0),
+                   card, f"profile-{tag}", "generate", total_s * 1e3, (("softmax", "softmax"), ))
+    return summary
+
+
+def _corrcoef(a, b):
+    """Pearson correlation of two tensors' elements, in float64."""
+    x, y = a.double().flatten(), b.double().flatten()
+    x, y = x - x.mean(), y - y.mean()
+    return float((x * y).sum() / (x.norm() * y.norm()))
+
+
+def phase_serve_v1(card, seed=0):
+    """Llama-2-7B at full width and depth in bf16 (seeded random weights)
+    through ``init_inference``: the dense engine, then the weight-only int8
+    one built from the same weights (11 quantize launches at construction),
+    each serving the same 8 prompts of 512 tokens; the dense weights are
+    freed before the int8 engine serves.  Returns (int8 summary, quantize
+    launches)."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.quantization import (dequantize_tree, is_woq_leaf,
+                                                            packed_nbytes)
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves
+    cfg = llama.LlamaConfig.llama2_7b()
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                               dtype=torch.bfloat16, device="cuda")
+    dense_bytes = sum(p.numel() * p.element_size() for p in tree_leaves(params))
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (V1_BATCH, V1_PROMPT))
+    conf = {"dtype": "bfloat16", "max_seq_len": V1_PROMPT + V1_NEW}
+    reset_launch_counts()
+    engine = deepspeed_tpu_torch.init_inference(model_module=llama, model_config=cfg,
+                                                params=params, config=conf)
+    log(f"[serve-v1] llama2_7b: {llama.num_params(cfg) / 1e9:.3f} B params, {cfg.num_layers} "
+        f"layers, {dense_bytes / 1e9:.2f} GB bf16, set up in {time.perf_counter() - t0:.2f} s")
+    dense = serve_v1(card, "serve-v1", engine, prompts, cfg.vocab_size)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    if launches:  # the cached forward's masked attention goes to sdpa
+        raise AssertionError(f"[serve-v1] launched {launches}; the dense v1 path runs no kernel")
+    ref_logits = engine.forward(prompts).cpu()
+    del engine
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    engine = deepspeed_tpu_torch.init_inference(
+        model_module=llama, model_config=cfg, params=params,
+        config=dict(conf, quant={"enabled": True, "bits": 8}))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    packed = packed_nbytes(engine.params)
+    n_packed = sum(is_woq_leaf(x) for x in tree_leaves(engine.params))
+    log(f"[serve-v1-int8] {n_packed} leaves packed in {build_s:.2f} s: {packed / 1e9:.3f} GB "
+        f"resident ({packed / dense_bytes:.3f} of bf16), groups of 2048")
+    if not 0.49 < packed / dense_bytes < 0.51:
+        raise AssertionError(f"[serve-v1-int8] {packed} packed bytes against {dense_bytes} bf16")
+    int8 = serve_v1(card, "serve-v1-int8", engine, prompts, cfg.vocab_size)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    if launches != {"quantize_int8": 11} or n_packed != 11:
+        raise AssertionError(f"[serve-v1-int8] launched {launches} with {n_packed} packed leaves; "
+                             f"expected quantize_int8 11 times at construction and nothing else")
+    logits = engine.forward(prompts)
+    corr = _corrcoef(logits, ref_logits.cuda())
+    saved = dense["peak_gb"] - int8["peak_gb"]
+    # the same weights dequantized whole, served dense: the per-layer
+    # dequantization must compute what whole-tree dequantization computes
+    dequantized = deepspeed_tpu_torch.init_inference(
+        model_module=llama, model_config=cfg, config=conf,
+        params=dequantize_tree(engine.params, torch.bfloat16))
+    same = dequantized.forward(prompts)
+    same_corr, same_err = _corrcoef(logits, same), (logits - same).abs().max().item()
+    log(f"[serve-v1-int8] prefill logits against the dense engine's: correlation {corr:.6f} "
+        f"(gate > {V1_INT8_CORR}; the 2-layer [slice-v1] holds the JAX test's 0.999); against "
+        f"a dense engine serving the dequantized weights: correlation {same_corr:.8f}, max abs "
+        f"diff {same_err:.3e} (gate > 0.99999); peak {int8['peak_gb']:.2f} GB against "
+        f"{dense['peak_gb']:.2f} GB dense, {saved:.2f} GB less (gate >= 4); decode step "
+        f"{int8['decode_ms']:.2f} ms against {dense['decode_ms']:.2f} ms dense; quantize_int8 "
+        f"launches {launches['quantize_int8']}")
+    if not (corr > V1_INT8_CORR and same_corr > 0.99999) or saved < 4.0:
+        raise AssertionError(f"[serve-v1-int8] correlation {corr:.6f} (dequantized "
+                             f"{same_corr:.8f}), peak saved {saved:.2f} GB")
+    del engine, dequantized, ref_logits, logits, same
+    torch.cuda.empty_cache()
+    return int8, launches["quantize_int8"]
+
+
+def phase_slice_v1(seed=2):
+    """2 full-width Llama-2-7B layers in fp32 through the v1 engine, dense and
+    weight-only int8: the CUDA engine (quantize kernel, cuBLAS) against the
+    same engine on the CPU (plain versions), same weights and prompts."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.quantization import is_woq_leaf
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.quantizer.quantize import quantize_int8
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), num_layers=2)
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                               dtype=torch.float32, device="cuda")
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 16))
+    t0 = time.perf_counter()
+    notes, dense_logits = [], None
+    for quant in (None, {"enabled": True, "bits": 8}):
+        conf = {"dtype": "float32", "max_seq_len": 64}
+        if quant:
+            conf["quant"] = quant
+        before = quantize_int8.launches
+        engines = {dev: deepspeed_tpu_torch.init_inference(model_module=llama, model_config=cfg,
+                                                           params=p, config=conf, device=dev)
+                   for dev, p in (("cuda", params), ("cpu", params_cpu))}
+        name = "int8" if quant else "dense"
+        if quant:
+            launched = quantize_int8.launches - before
+            pairs = list(zip(tree_leaves(engines["cuda"].params),
+                             tree_leaves(engines["cpu"].params)))
+            packed = [(a, b) for a, b in pairs if is_woq_leaf(a)]
+            if launched != 11 or len(packed) != 11:
+                raise AssertionError(f"[slice-v1] {launched} quantize launches, {len(packed)} "
+                                     f"packed leaves (expected 11)")
+            for i, (a, b) in enumerate(packed):
+                check_bitwise(f"[slice-v1] packed leaf {i}", (a.q.cpu(), a.s.cpu()), (b.q, b.s),
+                              ("codes", "scales"))
+        got, ref = (engines[dev].forward(prompts).float().cpu() for dev in ("cuda", "cpu"))
+        err = (got - ref).abs()
+        if not torch.isfinite(got).all() or (err > 2e-3 + 2e-3 * ref.abs()).any():
+            raise AssertionError(f"[slice-v1] {name}: CUDA logits differ from the CPU engine's by "
+                                 f"up to {err.max().item():.3e}")
+        if quant:  # the JAX test's criterion, at its depth (test_inference_v1.py:90)
+            corr = _corrcoef(got, dense_logits)
+            if not corr > 0.999:
+                raise AssertionError(f"[slice-v1] int8 logits against dense: correlation "
+                                     f"{corr:.6f}")
+            notes.append(f"int8 against dense logits (CUDA): correlation {corr:.6f} (gate > 0.999)")
+        dense_logits = got
+        toks = {dev: engines[dev].generate(prompts, max_new_tokens=8, temperature=0.0)
+                for dev in engines}
+        if not np.array_equal(toks["cuda"], toks["cpu"]):
+            raise AssertionError(f"[slice-v1] {name}: greedy tokens differ {toks['cuda'][:, 16:]} "
+                                 f"vs {toks['cpu'][:, 16:]}")
+        notes.append(f"{name}: logits max abs err {err.max().item():.3e}, 8 greedy tokens "
+                     f"identical" + (", 11 packed leaves' codes and scales equal (the kernel's vs "
+                                     "the plain version's)" if quant else ""))
+        del engines
+    log(f"[slice-v1] llama2_7b width, 2 layers, fp32, 2 prompts x 16 tokens, CUDA v1 engine vs "
+        f"CPU v1 engine in {time.perf_counter() - t0:.1f} s (atol=rtol=2e-3): "
+        + "; ".join(notes))
+    del params, params_cpu
     torch.cuda.empty_cache()
 
 
@@ -1306,6 +1711,8 @@ def main() -> int:
     sparse_recs, sparse_errs = phase_sparse_kernels(card)
     adam8_recs, adam8_err = phase_adamw8_kernels(card)
     with torch.no_grad():
+        quant_rec = phase_quantize_kernels(card)
+        lion_recs = phase_lion_kernels(card)
         launches = phase_serve(card)
         phase_slice()
     train_launches, dense = phase_train(card)
@@ -1316,6 +1723,9 @@ def main() -> int:
                                      baseline=dense)
     phase_train_slice()
     phase_train_slice(tag="train-slice-sparse", optimizer="fused_adam8bit", sparse=SPARSE_CONFIG)
+    lion_launches = phase_train_slice(tag="train-slice-lion", optimizer="lion", seq=128)
+    _, quant_launches = phase_serve_v1(card)
+    phase_slice_v1()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s on {card}")
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     dec, pre = recs["mistral_decode"], recs["mistral_prefill"]
@@ -1351,6 +1761,18 @@ def main() -> int:
                     "shape": f"n={W_GATE} (the stacked w_gate leaf of [train-8bit]) fp32 p, int8 "
                              f"m/sqrt(v), fp32 grad",
                     "bf16_grad": {k: adam8_recs["adamw8bit_bf16_grad"][k] for k in fields}})
+    lion = lion_recs["fused_lion"]
+    kernels.append({"name": "fused_lion", "route": "cuda", "source": ADAM_SOURCE,
+                    "replaces": LION_REPLACES, "launches": lion_launches,
+                    "max_abs_err": lion["max_abs_err"], **{k: lion[k] for k in fields},
+                    "shape": f"n={W_GATE} (the stacked w_gate leaf of [train]) fp32 p/m, fp32 "
+                             f"grad",
+                    "bf16_grad": {k: lion_recs["fused_lion_bf16_grad"][k] for k in fields}})
+    kernels.append({"name": "quantize_int8", "route": "cuda", "source": QUANT_SOURCE,
+                    "replaces": QUANT_REPLACES, "launches": quant_launches,
+                    "max_abs_err": quant_rec["max_abs_err"], **{k: quant_rec[k] for k in fields},
+                    "shape": f"n={W_GATE_FULL} (Llama-2-7B's stacked w_gate leaf) bf16, groups "
+                             f"of 2048"})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -24,3 +24,16 @@ def initialize(args=None, model=None, loss_fn=None, model_parameters=None, train
     return _initialize(args=args, model=model, loss_fn=loss_fn,
                        model_parameters=model_parameters, training_data=training_data,
                        config=config, device=device, **kwargs)
+
+
+def init_inference(model_module=None, model_config=None, params=None, config=None,
+                   hf_model=None, **kwargs):
+    """Build the v1 inference engine (``deepspeed_tpu.init_inference``): pass
+    (model_module, model_config, params), e.g. ``models.llama`` with its
+    config and params, or a HF Llama/Mistral model as ``hf_model``.  The
+    engine runs on ``device`` ("cuda" unless the caller passes
+    ``device="cpu"``) and raises when asked for CUDA without a GPU; with
+    ``{"quant": {"enabled": True, "bits": 8}}`` its weights live packed."""
+    from .inference.engine import init_inference as _init_inference
+    return _init_inference(model_module=model_module, model_config=model_config, params=params,
+                           config=config, hf_model=hf_model, **kwargs)

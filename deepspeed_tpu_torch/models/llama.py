@@ -1,11 +1,13 @@
-"""Llama-family causal LM: the dense training forward and the paged (ragged)
-serving forward.
+"""Llama-family causal LM: the dense training forward, the cached forward of
+the v1 inference engine and the paged (ragged) serving forward.
 
-Counterpart of ``deepspeed_tpu/models/llama.py`` for the training and v2
+Counterpart of ``deepspeed_tpu/models/llama.py`` for the training, v1 and v2
 serving paths.  Params are the JAX package's pytree as nested dicts of
 tensors: per-layer leaves stacked on dim 0, weight matrices ``[in, out]``, so
 :func:`params_from_jax` carries JAX weights across without reshuffling.  The
-layer stack is a Python loop over those stacked leaves.
+layer stack is a Python loop over those stacked leaves.  The cached forward
+also takes packed (weight-only quantized) leaves: it asks each for the one
+layer it needs, ``leaf[i]``, so only that layer is ever dense.
 """
 
 import dataclasses
@@ -20,8 +22,9 @@ from ..ops.attention.paged import paged_attention
 from ..runtime.activation_checkpointing import checkpoint
 from ..runtime.tree import tree_map
 from .transformer import (attention_block, cross_entropy_loss, device_rotary_tables,
-                          init_linear, init_paged_kv_pool, paged_chunk_indices,
-                          resolve_attention, rms_norm, rotate_half, swiglu_mlp)
+                          hf_stack, hf_tensor, init_linear, init_paged_kv_pool, materialize,
+                          paged_chunk_indices, resolve_attention, rms_norm, rotate_half,
+                          swiglu_mlp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,6 +181,120 @@ def kv_from_jax(kv_np, device, dtype=torch.float32):
             "v": _tree_to_torch(kv_np["v"], device, dtype)}
 
 
+# ------------------------------------------------------------------ inference
+def init_cache(config: LlamaConfig, batch: int, max_seq: Optional[int] = None,
+               dtype=torch.bfloat16, device=None):
+    """Dense KV cache for incremental decoding: stacked per-layer [L, B, S_max,
+    KV, Dh] k and v buffers and ``len``, the number of positions written (a
+    host int, so a decode step needs no device sync)."""
+    S = max_seq or config.max_seq_len
+    shape = (config.num_layers, batch, S, config.num_kv_heads,
+             config.hidden_size // config.num_heads)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device), "len": 0}
+
+
+def _cached_layer(config: LlamaConfig, cos, sin, attention_fn, positions, x, layers, i, cache,
+                  start):
+    """Layer ``i`` of :func:`forward_with_cache`.  Its weights are taken here
+    (a packed leaf dequantizes layer i alone) and freed on return."""
+    lp = tree_map(lambda w: w[i], layers)
+    attn_in = rms_norm(x, lp["attn_norm"], config.rms_eps)
+    attn_out, _ = attention_block(lp["attn"], attn_in, n_heads=config.num_heads,
+                                  n_kv_heads=config.num_kv_heads, cos=cos, sin=sin, causal=True,
+                                  attention_fn=attention_fn, positions=positions,
+                                  kv_cache=(cache["k"][i], cache["v"][i], start))
+    x = x + attn_out
+    mlp_in = rms_norm(x, lp["mlp_norm"], config.rms_eps)
+    return x + swiglu_mlp(lp["mlp"], mlp_in)
+
+
+def forward_with_cache(config: LlamaConfig, params, input_ids, cache, attention_fn=None):
+    """Incremental forward that consumes and extends the KV cache.
+
+    input_ids [B, S] on the cache's device (the prompt at prefill, one token a
+    row at decode); returns (logits [B, S, V], cache).  This call's keys and
+    values are written into ``cache["k"]``/``cache["v"]`` IN PLACE (the JAX
+    function returns new buffers), and the returned dict holds the same
+    buffers with ``len`` advanced by S.  Leaves may be packed
+    (``inference.quantization.WOQLeaf``): stacked ones are read one layer at a
+    time, the embedding by the rows ``input_ids`` names."""
+    device, dtype = cache["k"].device, cache["k"].dtype
+    cos, sin = device_rotary_tables(config.hidden_size // config.num_heads, config.max_seq_len,
+                                    config.rope_theta, str(device))
+    ids = input_ids.long()
+    b, s = ids.shape
+    start = cache["len"]
+    positions = (start + torch.arange(s, device=device))[None, :].expand(b, s)
+    attention_fn = resolve_attention(attention_fn, device)
+    x = params["embed"][ids].to(dtype)
+    for i in range(config.num_layers):
+        x = _cached_layer(config, cos, sin, attention_fn, positions, x, params["layers"], i,
+                          cache, start)
+    x = rms_norm(x, params["final_norm"], config.rms_eps)
+    head = materialize(params["embed"]).T if config.tie_embeddings else materialize(
+        params["lm_head"])
+    return x @ head.to(x.dtype), {"k": cache["k"], "v": cache["v"], "len": start + s}
+
+
+def from_hf_state_dict(config: LlamaConfig, state_dict, dtype=torch.float32):
+    """A HuggingFace LlamaForCausalLM state dict (a plain dict of tensors or
+    arrays) -> this package's params on the CPU.  torch Linear stores [out,
+    in]; ours is [in, out], so weights are transposed here."""
+    t = lambda name: hf_tensor(state_dict, name)
+    stack = lambda fmt, transpose=True: hf_stack(state_dict, fmt, config.num_layers, dtype,
+                                                 transpose)
+    params = {
+        "embed": t("model.embed_tokens.weight").to(dtype),
+        "layers": {
+            "attn": {
+                "wq": stack("model.layers.{}.self_attn.q_proj.weight"),
+                "wk": stack("model.layers.{}.self_attn.k_proj.weight"),
+                "wv": stack("model.layers.{}.self_attn.v_proj.weight"),
+                "wo": stack("model.layers.{}.self_attn.o_proj.weight"),
+            },
+            "mlp": {
+                "w_gate": stack("model.layers.{}.mlp.gate_proj.weight"),
+                "w_up": stack("model.layers.{}.mlp.up_proj.weight"),
+                "w_down": stack("model.layers.{}.mlp.down_proj.weight"),
+            },
+            "attn_norm": stack("model.layers.{}.input_layernorm.weight", transpose=False),
+            "mlp_norm": stack("model.layers.{}.post_attention_layernorm.weight",
+                              transpose=False),
+        },
+        "final_norm": t("model.norm.weight").to(dtype),
+    }
+    if not config.tie_embeddings:
+        key = "lm_head.weight" if "lm_head.weight" in state_dict else "model.embed_tokens.weight"
+        params["lm_head"] = t(key).T.contiguous().to(dtype)
+    return params
+
+
+def config_from_hf(hf_config) -> LlamaConfig:
+    """A LlamaConfig from any object with the attribute names of a
+    transformers LlamaConfig/MistralConfig (transformers is not imported)."""
+    return LlamaConfig(
+        vocab_size=hf_config.vocab_size,
+        hidden_size=hf_config.hidden_size,
+        intermediate_size=hf_config.intermediate_size,
+        num_layers=hf_config.num_hidden_layers,
+        num_heads=hf_config.num_attention_heads,
+        num_kv_heads=getattr(hf_config, "num_key_value_heads", hf_config.num_attention_heads),
+        max_seq_len=getattr(hf_config, "max_position_embeddings", 4096),
+        rope_theta=getattr(hf_config, "rope_theta", 10000.0),
+        rms_eps=getattr(hf_config, "rms_norm_eps", 1e-5),
+        tie_embeddings=getattr(hf_config, "tie_word_embeddings", False),
+    )
+
+
+def cache_from_jax(cache_np, device, dtype=torch.float32):
+    """A JAX v1 KV cache {"k", "v" [L, B, S, KV, Dh], "len"} -> this package's."""
+    return {"k": _tree_to_torch(cache_np["k"], device, dtype),
+            "v": _tree_to_torch(cache_np["v"], device, dtype),
+            "len": int(np.asarray(cache_np["len"]))}
+
+
+# ------------------------------------------------------------- paged serve
 def init_paged_cache(config: LlamaConfig, num_blocks: int, block_size: int,
                      dtype=torch.bfloat16, device=None):
     """Paged KV pool [L, num_blocks, KV, block_size, Dh]; the last block is the

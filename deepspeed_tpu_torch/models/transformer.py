@@ -1,7 +1,7 @@
 """Shared transformer building blocks, as plain functions on tensors.
 
 Counterpart of ``deepspeed_tpu/models/transformer.py`` for what the paged
-serving path and the dense training forward use.  Layouts follow the JAX
+serving path, the dense training forward and the v1 cached forward use.  Layouts follow the JAX
 package: activations
 ``[B, S, H, D]``, weight matrices ``[in, out]``, stacked ``[L, ...]`` layer
 leaves, KV pool ``[L, NB, KV, bs, Dh]``.  Casting order is kept so fp32 runs
@@ -152,11 +152,16 @@ def resolve_attention(attention_fn, device):
 
 
 def attention_block(params, x, *, n_heads, n_kv_heads, cos, sin, causal=True,
-                    attention_fn=None, positions=None):
-    """Multi-head attention with rotary + GQA over a whole sequence.
+                    attention_fn=None, positions=None, kv_cache=None):
+    """Multi-head attention with rotary + GQA.
 
-    params: {wq, wk, wv, wo}, [model, heads*dim] / [heads*dim, model].  Returns
-    (out, None); the JAX function's ``kv_cache`` branch is not ported yet.
+    params: {wq, wk, wv, wo}, [model, heads*dim] / [heads*dim, model].
+    kv_cache: optional (k_cache [B, S_max, KV, Dh], v_cache, cache_len) of one
+    layer for incremental decoding: this call's keys and values are written
+    into the caches IN PLACE at ``cache_len`` (JAX's functional
+    ``dynamic_update_slice``), and the queries attend to every cached
+    position below ``cache_len + s`` that is not after their own.  Returns
+    (out, (k_cache, v_cache, cache_len + s)), or (out, None) without a cache.
     """
     b, s, _ = x.shape
     head_dim = params["wq"].shape[1] // n_heads
@@ -165,8 +170,27 @@ def attention_block(params, x, *, n_heads, n_kv_heads, cos, sin, causal=True,
     v = (x @ params["wv"].to(x.dtype)).reshape(b, s, n_kv_heads, head_dim)
     q = apply_rotary(q, cos, sin, positions)
     k = apply_rotary(k, cos, sin, positions)
-    out = resolve_attention(attention_fn, x.device)(q, k, v, causal=causal)
-    return out.reshape(b, s, n_heads * head_dim) @ params["wo"].to(x.dtype), None
+    attn_fn = resolve_attention(attention_fn, x.device)
+    new_cache = None
+    if kv_cache is not None:
+        k_cache, v_cache, cache_len = kv_cache
+        k_cache[:, cache_len:cache_len + s] = k
+        v_cache[:, cache_len:cache_len + s] = v
+        kpos = torch.arange(k_cache.shape[1], device=x.device)[None, None, None, :]
+        qpos = torch.arange(s, device=x.device)[None, None, :, None] + cache_len
+        # positions past the written ones, and causal over absolute positions
+        mask = (kpos < cache_len + s) & (kpos <= qpos)
+        out = attn_fn(q, k_cache, v_cache, causal=False, mask=mask)
+        new_cache = (k_cache, v_cache, cache_len + s)
+    else:
+        out = attn_fn(q, k, v, causal=causal)
+    return out.reshape(b, s, n_heads * head_dim) @ params["wo"].to(x.dtype), new_cache
+
+
+def materialize(w):
+    """``w`` as a dense tensor: a tensor as it is, a packed weight (any object
+    with ``dequantize()``, e.g. ``inference.quantization.WOQLeaf``) unpacked."""
+    return w if isinstance(w, torch.Tensor) else w.dequantize()
 
 
 # ----------------------------------------------------------------- mlp
@@ -219,6 +243,20 @@ def init_paged_kv_pool(num_layers: int, num_kv_heads: int, head_dim: int, num_bl
     shape = (num_layers, num_blocks, num_kv_heads, block_size, head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ------------------------------------------------------ HF state-dict helpers
+def hf_tensor(state_dict, name):
+    """One HF state-dict entry (torch tensor or array) as an fp32 CPU tensor."""
+    return torch.as_tensor(state_dict[name]).detach().to(device="cpu", dtype=torch.float32)
+
+
+def hf_stack(state_dict, fmt, num_layers, dtype, transpose=True):
+    """Stack one per-layer HF tensor into an [L, ...] leaf of ``dtype``,
+    transposing torch Linear [out, in] into our [in, out] unless
+    ``transpose=False``."""
+    ws = [hf_tensor(state_dict, fmt.format(i)) for i in range(num_layers)]
+    return torch.stack([w.T if transpose else w for w in ws]).to(dtype)
 
 
 # -------------------------------------------------------- paged-serving shared

@@ -1,8 +1,8 @@
-"""Optimizers: Adam/AdamW in delta form, the fused AdamW step and AdamW with
-8-bit moments.
+"""Optimizers: Adam/AdamW in delta form, the fused AdamW step, AdamW with
+8-bit moments, and Lion.
 
 Counterpart of ``deepspeed_tpu/runtime/optimizers.py`` for adam, adamw,
-fused_adam and fused_adam8bit.  Interface as in JAX: ``opt =
+fused_adam, fused_adam8bit and lion.  Interface as in JAX: ``opt =
 get_optimizer(name, **hyper)``; ``state = opt.init(params)``; ``updates, state
 = opt.update(grads, state, params, lr)`` with ``updates`` deltas for the
 master params, or, where ``opt.step_fn`` is set, ``params, state =
@@ -157,6 +157,41 @@ def fused_adam8bit(betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0, group_size: i
                      step_fn=functools.partial(apply, fused_adamw8bit_flat))
 
 
+class LionState(NamedTuple):
+    exp_avg: Any  # m
+
+
+def lion(betas=(0.9, 0.99), weight_decay=0.0) -> Optimizer:
+    """FusedLion semantics: the update is the sign of an interpolation of the
+    momentum and the grad, with decoupled weight decay.  Delta form only, as
+    in JAX (``optimizers.py:226-247``): it has no ``step_fn``, so the engine
+    never takes the fused Lion kernel; that kernel is the public
+    ``ops.adam.fused_lion_flat``."""
+    b1, b2 = betas
+    # Python constants the JAX code folds in double precision, then rounds
+    fb1, fb2 = float(f32(b1)), float(f32(b2))
+    c1, c2 = float(f32(1.0 - b1)), float(f32(1.0 - b2))
+
+    def init(params):
+        return LionState(exp_avg=tree_map(torch.zeros_like, params))
+
+    def update(grads, state, params, lr):
+        lr32 = float(f32(lr))
+        decay = float(f32(lr) * f32(weight_decay))
+
+        def leaf(g, m, p):
+            upd = -lr32 * torch.sign(fb1 * m + c1 * g)
+            if weight_decay != 0.0:
+                upd = upd - decay * p
+            return upd, fb2 * m + c2 * g
+
+        out = tree_map(leaf, grads, state.exp_avg, params)
+        updates, m = (tree_map(lambda t, i=i: t[i], out) for i in range(2))
+        return updates, LionState(exp_avg=m)
+
+    return Optimizer(init=init, update=update, name="lion")
+
+
 _OPTIMIZERS = {
     "adam": lambda **kw: adam(adam_w_mode=False, **kw),
     "adamw": lambda **kw: adam(adam_w_mode=True, **kw),
@@ -165,9 +200,11 @@ _OPTIMIZERS = {
     "fusedadam8bit": fused_adam8bit,
     "fused_adam8bit": fused_adam8bit,
     "adam8bit": fused_adam8bit,
+    "lion": lion,
+    "fusedlion": lion,
 }
 # the JAX package's other optimizer types, not ported yet (ROADMAP Queue 1)
-_UNPORTED = ("sgd", "lion", "fusedlion", "adagrad", "lamb", "fusedlamb", "onebitadam",
+_UNPORTED = ("sgd", "adagrad", "lamb", "fusedlamb", "onebitadam",
              "onebit_adam", "onebitlamb", "onebit_lamb", "zerooneadam", "zero_one_adam")
 # torch-style kwargs that do not map (dropped, as the JAX package drops them)
 _DROPPED = {"lr", "torch_adam", "fused", "cuda_aware", "adam_w_mode", "comm_backend_name",
@@ -206,6 +243,13 @@ def adam8bit_state_from_jax(state_np, device) -> Adam8bitState:
                          exp_avg_sq=tree_map(to(torch.int8), state_np.exp_avg_sq),
                          scale_m=tree_map(to(torch.float32), state_np.scale_m),
                          scale_v=tree_map(to(torch.float32), state_np.scale_v))
+
+
+def lion_state_from_jax(state_np, device, dtype=torch.float32) -> LionState:
+    """A JAX ``LionState`` (``exp_avg``; leaves as numpy arrays or anything
+    ``np.array`` takes) -> this package's, on ``device``."""
+    to = lambda x: torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+    return LionState(exp_avg=tree_map(to, state_np.exp_avg))
 
 
 def global_grad_norm(grads) -> torch.Tensor:

@@ -221,8 +221,8 @@ def test_engine_defaults_to_cuda_and_raises_without_a_gpu(monkeypatch):
 
 
 def test_config_unknown_key_and_unported_sections_raise():
-    with pytest.raises(ValueError, match="unknown config field 'max_out_tokens'"):
-        load_inference_config({"max_out_tokens": 8})
+    with pytest.raises(ValueError, match="unknown config field 'max_out_tokenz'"):
+        load_inference_config({"max_out_tokenz": 8})
     with pytest.raises(NotImplementedError, match="serving_fastpath"):
         load_inference_config({"serving_fastpath": {"enabled": False}})
     with pytest.raises(ValueError, match="not in"):

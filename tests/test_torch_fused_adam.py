@@ -132,7 +132,7 @@ def test_adam_state_from_jax_resumes():
 
 def test_get_optimizer_refuses_unported_and_unknown():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optimizers.get_optimizer("lion")
+        optimizers.get_optimizer("sgd")
     with pytest.raises(NotImplementedError):
         optimizers.get_optimizer("lamb")
     with pytest.raises(ValueError, match="unknown optimizer"):

@@ -1,8 +1,9 @@
 """The port's CUDA path on an NVIDIA GPU: the paged-attention, flash,
-fused-AdamW, block-sparse and AdamW-8bit kernels against their plain PyTorch
-versions on the same CUDA tensors, and a tiny serving engine and tiny
-training engines (dense with fused AdamW; block-sparse with 8-bit AdamW) on
-the GPU against the same engines on the CPU.  Every test here needs a card and
+fused-AdamW, block-sparse, AdamW-8bit, int8-quantize and fused-Lion kernels
+against their plain PyTorch versions on the same CUDA tensors, and tiny
+serving engines (v2; v1 dense and weight-only int8) and tiny training engines
+(dense with fused AdamW; block-sparse with 8-bit AdamW) on the GPU against the
+same engines on the CPU.  Every test here needs a card and
 skips without one.  This file imports no JAX, so it runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest tests/test_torch_gpu.py``
 (the suite's conftest imports JAX)."""
@@ -15,9 +16,12 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
 from deepspeed_tpu_torch.models import llama, mistral
 from deepspeed_tpu_torch.ops.adam import adam8bit
-from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adamw_flat, fused_adamw_flat_reference
+from deepspeed_tpu_torch.inference import quantization as woq
+from deepspeed_tpu_torch.ops.adam.fused_adam import (fused_adamw_flat, fused_adamw_flat_reference,
+                                                     fused_lion_flat, fused_lion_flat_reference)
 from deepspeed_tpu_torch.ops.attention import flash
 from deepspeed_tpu_torch.ops.attention.paged import paged_attention, paged_attention_reference
+from deepspeed_tpu_torch.ops.quantizer import quantize
 from deepspeed_tpu_torch.ops.sparse_attention import attention as sparse
 from deepspeed_tpu_torch.runtime.config import SparseAttentionConfig
 
@@ -380,3 +384,90 @@ def test_sparse_adam8bit_train_batch_on_gpu_matches_cpu(cuda):
     assert tuple(a - b for a, b in zip(after, before)) == (0, 16, 8, 2 * n_leaves)
     for a, b in zip(_leaves(engines["cuda"].state.params), _leaves(engines["cpu"].state.params)):
         assert float((a.cpu() - b).abs().max()) <= 2 * 2e-3
+
+
+# ------------------------------------------------------------ int8 quantize
+@pytest.mark.parametrize("n,group,dtype", [
+    (100_003, 64, torch.bfloat16), (100_003, 2048, torch.bfloat16), (10_001, 100, torch.bfloat16),
+    (50_000, 2048, torch.float32), (50_000, 256, torch.float16), (77, 2048, torch.float32),
+    (100_000, 16384, torch.bfloat16), (1000, 5, torch.float32)])
+def test_quantize_int8_kernel_matches_plain_version(cuda, n, group, dtype):
+    """Codes and scales equal the plain version's bit for bit: every group
+    size (16-byte chunks or single elements, cached in registers or read
+    twice), tail groups and an all-zero group."""
+    x = torch.from_numpy((np.random.default_rng(n).normal(size=n) * 3).astype(np.float32))
+    x[:min(n, 2 * group)][group:] = 0.0  # the second group, where there is one, is all zero
+    x = x.to(device=cuda, dtype=dtype)
+    before = quantize.quantize_int8.launches
+    codes, scales, got_n = quantize.quantize_int8(x, group)
+    torch.cuda.synchronize()
+    assert quantize.quantize_int8.launches == before + 1 and got_n == n
+    ref_codes, ref_scales, _ = quantize.quantize_int8_reference(x, group)
+    assert torch.equal(codes, ref_codes) and torch.equal(scales, ref_scales)
+
+
+def test_quantize_int8_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(256, device=cuda)
+    with pytest.raises(TypeError, match="must be one of"):
+        quantize.quantize_int8(x.int(), 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize.quantize_int8(x.view(16, 16).T, 128)
+
+
+# ------------------------------------------------------------------- Lion
+@pytest.mark.parametrize("n", [1000, 4099])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
+def test_fused_lion_kernel_matches_plain_version(cuda, n, grad_dtype):
+    """p and m equal the plain version's bit for bit (sign(0) = 0 included)."""
+    rng = np.random.default_rng(n)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    p, m = t((rng.normal(size=n) * 0.02).astype(np.float32)), t(
+        (rng.normal(size=n) * 1e-3).astype(np.float32))
+    g = t((rng.normal(size=n) * 1e-3).astype(np.float32)).to(grad_dtype)
+    m[:5] = 0.0
+    g[:5] = 0.0
+    hyper = dict(lr=1e-4, beta1=0.9, beta2=0.99, weight_decay=0.1)
+    kernel, plain = [p.clone(), m.clone()], [p.clone(), m.clone()]
+    before = fused_lion_flat.launches
+    fused_lion_flat(*kernel, g, **hyper)
+    torch.cuda.synchronize()
+    assert fused_lion_flat.launches == before + 1
+    fused_lion_flat_reference(*plain, g, **hyper)
+    assert torch.equal(kernel[0], plain[0]) and torch.equal(kernel[1], plain[1])
+
+
+def test_fused_lion_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    p = torch.zeros(64, device=cuda)
+    with pytest.raises(ValueError, match="all lie on CUDA or all on the CPU"):
+        fused_lion_flat(p, p.clone(), torch.zeros(64), lr=1e-3)
+    with pytest.raises(TypeError, match="grad must be one of"):
+        fused_lion_flat(p, p.clone(), p.half(), lr=1e-3)
+    with pytest.raises(ValueError, match="flat"):
+        fused_lion_flat(p.view(8, 8), p.clone().view(8, 8), p.view(8, 8), lr=1e-3)
+
+
+# -------------------------------------------------------------- v1 engine
+@pytest.mark.parametrize("quant", [None, {"enabled": True, "bits": 8, "group_size": 128}])
+def test_v1_engine_on_gpu_matches_engine_on_cpu(cuda, quant):
+    """``init_inference`` on the GPU (the quantize kernel packs the weights)
+    against the same engine on the CPU: codes equal, logits close, greedy
+    tokens identical."""
+    cfg = llama.LlamaConfig.tiny(vocab=128, hidden=128, layers=2, heads=4, kv_heads=2, seq=64)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    conf = {"dtype": "float32", "max_seq_len": 64}
+    if quant:
+        conf["quant"] = quant
+    before = quantize.quantize_int8.launches
+    engines = {dev: deepspeed_tpu_torch.init_inference(model_module=llama, model_config=cfg,
+                                                       params=params, config=conf, device=dev)
+               for dev in ("cpu", "cuda")}
+    pairs = [(a, b) for a, b in zip(_leaves(engines["cuda"].params), _leaves(engines["cpu"].params))
+             if woq.is_woq_leaf(a)]
+    assert quantize.quantize_int8.launches - before == len(pairs) == (9 if quant else 0)
+    for a, b in pairs:
+        assert torch.equal(a.q.cpu(), b.q) and torch.equal(a.s.cpu(), b.s)
+    ids = np.random.default_rng(2).integers(0, 128, (2, 12))
+    got, ref = (engines[dev].forward(ids).cpu() for dev in ("cuda", "cpu"))
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(engines["cuda"].generate(ids, max_new_tokens=6, temperature=0.0),
+                                  engines["cpu"].generate(ids, max_new_tokens=6, temperature=0.0))

@@ -42,7 +42,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "deepspeed_tpu_torch.runtime.engine",
                      "deepspeed_tpu_torch.ops.sparse_attention.attention",
                      "deepspeed_tpu_torch.ops.sparse_attention.sparsity_config",
-                     "deepspeed_tpu_torch.ops.adam.adam8bit"):
+                     "deepspeed_tpu_torch.ops.adam.adam8bit",
+                     "deepspeed_tpu_torch.ops.quantizer.quantize",
+                     "deepspeed_tpu_torch.inference.quantization",
+                     "deepspeed_tpu_torch.inference.engine"):
         assert expected in report["modules"]
 
 
