@@ -13,8 +13,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      it) and the card's bound for the same work:
      ``paged_attention`` at Mistral-7B and Llama-2-7B shapes and on small edge
      cases; the flash forward and both backward kernels at the training shape
-     (B=2, S=2048, 32 heads, head dim 128, bf16, causal), GQA, sq < sk and
-     unaligned lengths; the fused AdamW kernel over the training run's
+     (B=2, S=2048, 32 heads, head dim 128, bf16, causal), GQA, sq < sk, sq > sk
+     (rows that see no key), non-causal, head dim 64 and unaligned lengths,
+     bf16/fp16 forward and dK/dV on tensor cores held to
+     ``flash.tensor_core_limit`` row by row (and a late query tile scaled by
+     1.05 or the last key tile zeroed must fail it), fp32 on CUDA cores at
+     1e-4; the fused AdamW kernel over the training run's
      largest leaf (w_gate of 8 layers, 360.7 M elements) with an fp32 and a
      bf16 grad; the three block-sparse kernels at the sparse training shape
      (B=1, S=4096, 32 heads, head dim 128, bf16, causal, the documented
@@ -36,7 +40,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
   5. train: ``initialize`` with Llama-2-7B at full width cut to 8 layers, bf16,
      remat, fused AdamW, WarmupLR, clipping; 6 optimizer steps of 2 x 2 x 2048
      tokens through the flash and fused-AdamW kernels, launch counts checked
-     against the step formula, one more step under torch.profiler;
+     against the step formula (every flash forward and dK/dV launch a
+     tensor-core one), one more step under torch.profiler;
   6. train-8bit: the same run with ``fused_adam8bit`` (int8 moments) through
      the AdamW-8bit kernel; train-sparse: the config's ``sparse_attention``
      section (DeepSpeed's documented ``fixed`` example, unidirectional) with
@@ -406,35 +411,72 @@ def check_adamw(name, bufs, plain):
 
 def compare_flash(name, c, causal):
     """Each flash kernel once against its plain version; returns the largest
-    error of each kernel's outputs."""
+    error of each kernel's outputs.  fp32 runs the CUDA-core kernels, held at
+    1e-4; bf16/fp16 run the tensor-core forward and dK/dV, held to
+    ``flash.tensor_core_limit`` against the fp32 plain version, and the
+    CUDA-core dQ, held within 1 % of the plain version in the same type."""
     import torch
     from deepspeed_tpu_torch.ops.attention import flash
     q, k, v, do = c["q"], c["k"], c["v"], c["do"]
     scale, lse_ref, delta = flash_backward_inputs(c, causal)
-    counts = (flash.flash_fwd.launches, flash.flash_bwd_dkdv.launches, flash.flash_bwd_dq.launches)
+    tc = flash.uses_tensor_cores(q.dtype)
+    fns = (flash.flash_fwd, flash.flash_bwd_dkdv, flash.flash_bwd_dq)
+    counts = [fn.launches for fn in fns] + [flash.flash_fwd.tc_launches,
+                                            flash.flash_bwd_dkdv.tc_launches]
     out, lse = flash.flash_fwd(q, k, v, scale, causal)
     dk, dv = flash.flash_bwd_dkdv(q, k, v, do, lse_ref, delta, scale, causal)
     dq = flash.flash_bwd_dq(q, k, v, do, lse_ref, delta, scale, causal)
     torch.cuda.synchronize()
-    if (flash.flash_fwd.launches, flash.flash_bwd_dkdv.launches,
-            flash.flash_bwd_dq.launches) != tuple(n + 1 for n in counts):
-        raise AssertionError(f"{name}: a flash kernel did not launch")
-    out_ref, _ = flash.flash_fwd_reference(q, k, v, scale, causal)
-    dk_ref, dv_ref = flash.flash_bwd_dkdv_reference(q, k, v, do, lse_ref, delta, scale, causal)
-    dq_ref = flash.flash_bwd_dq_reference(q, k, v, do, lse_ref, delta, scale, causal)
-    refs = {"out": out_ref, "dk": dk_ref, "dv": dv_ref, "dq": dq_ref}
-    rms = {part: _rms(ref) for part, ref in refs.items()}
-    if q.dtype == torch.float32:
-        limits = {part: (1e-4, 1e-4) for part in refs}
-        rule = "atol=rtol=1e-4"
-    else:
-        # both sides round the same fp32 value once on the store: at most one
-        # ulp apart (2^-7 of the value in bf16), far below 1 % of a typical value
-        limits = {part: (1e-2 * rms[part], 1e-2) for part in refs}
-        rule = "rtol 1e-2, atol 1e-2 x rms of each plain result"
+    now = [fn.launches for fn in fns] + [flash.flash_fwd.tc_launches,
+                                         flash.flash_bwd_dkdv.tc_launches]
+    if now != [n + d for n, d in zip(counts, (1, 1, 1, tc, tc))]:
+        raise AssertionError(f"{name}: a flash kernel did not launch, or not the "
+                             f"{'tensor-core' if tc else 'CUDA-core'} variant")
     got = {"out": out, "dk": dk, "dv": dv, "dq": dq}
-    err = {part: _max_err(f"{name} {part}", got[part], refs[part], *limits[part])
-           for part in refs}
+    dq_ref = flash.flash_bwd_dq_reference(q, k, v, do, lse_ref, delta, scale, causal)
+    rms = {"dq": _rms(dq_ref)}
+    err = {}
+    if tc:
+        f = [x.float() for x in (q, k, v, do)]
+        bwd_args = (*f, lse_ref, delta, scale, causal)
+        refs = {"out": flash.flash_fwd_reference(*f[:3], scale, causal)[0]}
+        rounded = {"out": flash.flash_fwd_reference(*f[:3], scale, causal, round_to=q.dtype)[0]}
+        refs["dk"], refs["dv"] = flash.flash_bwd_dkdv_reference(*bwd_args)
+        rounded["dk"], rounded["dv"] = flash.flash_bwd_dkdv_reference(*bwd_args,
+                                                                      round_to=q.dtype)
+        ratios, limits, faults = {}, {}, {}
+        for part in ("out", "dk", "dv"):
+            ok, err[part], ratios[part], limits[part] = flash.tensor_core_limit(
+                got[part], refs[part], rounded[part])
+            rms[part] = _rms(refs[part])
+            if not ok:
+                raise AssertionError(
+                    f"{name} {part}: tensor-core kernel beyond the limit: max abs err "
+                    f"{err[part]:.3e}, {ratios[part]:.3f} of 2 max_row|rounded - ref| + eps "
+                    f"max_row|ref| (rms of the fp32 plain result {rms[part]:.3e})")
+            # the limit must reject a late tile gone wrong: the last 64 rows of
+            # out scaled by 1.05, the last 64 keys of dK or dV zeroed
+            bad = got[part].clone()
+            bad[:, -64:] = (bad[:, -64:].float() * 1.05).to(bad.dtype) if part == "out" else 0
+            passed, _, faults[part], _ = flash.tensor_core_limit(bad, refs[part], rounded[part])
+            if passed:
+                raise AssertionError(f"{name} {part}: the limit passes a faulty last tile "
+                                     f"({faults[part]:.3f} of it)")
+        # one rounding of the same fp32 value on each side: at most an ulp apart
+        err["dq"] = _max_err(f"{name} dq", dq, dq_ref, 1e-2 * rms["dq"], 1e-2)
+        rule = (f"out/dk/dv: tensor-core limit 2 max_row|rounded - fp32| + eps max_row|fp32|, "
+                f"median row limit {limits['out']:.3e}/{limits['dk']:.3e}/{limits['dv']:.3e}, "
+                f"at {ratios['out']:.3f}/{ratios['dk']:.3f}/{ratios['dv']:.3f} of it; faulty "
+                f"last tile (out x1.05, dk/dv zeroed) at {faults['out']:.2f}/{faults['dk']:.2f}/"
+                f"{faults['dv']:.2f}, rejected; dq: rtol 1e-2, atol 1e-2 x rms")
+    else:
+        refs = {"out": flash.flash_fwd_reference(q, k, v, scale, causal)[0], "dq": dq_ref}
+        refs["dk"], refs["dv"] = flash.flash_bwd_dkdv_reference(q, k, v, do, lse_ref, delta,
+                                                                scale, causal)
+        for part in ("out", "dk", "dv", "dq"):
+            rms[part] = _rms(refs[part])
+            err[part] = _max_err(f"{name} {part}", got[part], refs[part], 1e-4, 1e-4)
+        rule = "CUDA cores, atol=rtol=1e-4"
     errs = {"flash_fwd": max(err["out"], _max_err(f"{name} lse", lse, lse_ref, 1e-4, 1e-4)),
             "flash_bwd_dkdv": max(err["dk"], err["dv"]),
             "flash_bwd_dq": err["dq"]}
@@ -592,6 +634,20 @@ def phase_train_kernels(card):
                                                dtype=torch.float32), False),
         "unaligned_s77_d128_bf16": (flash_case(16, B=1, Sq=77, Sk=77, H=8, KV=4, D=128,
                                                dtype=bf16), True),
+        # the tensor-core kernels' edges: sq < sk, non-causal, D = 64, and
+        # causal sq > sk, where the first rows see no key
+        "sq90_lt_sk130_d128_bf16": (flash_case(17, B=2, Sq=90, Sk=130, H=4, KV=2, D=128,
+                                               dtype=bf16), True),
+        "sq100_lt_sk300_d64_fp16": (flash_case(18, B=1, Sq=100, Sk=300, H=4, KV=2, D=64,
+                                               dtype=torch.float16), True),
+        "noncausal_s130_d64_bf16": (flash_case(19, B=1, Sq=130, Sk=70, H=4, KV=1, D=64,
+                                               dtype=bf16), False),
+        "noncausal_s200_d128_fp16": (flash_case(20, B=2, Sq=200, Sk=200, H=2, KV=2, D=128,
+                                                dtype=torch.float16), False),
+        "sq130_gt_sk70_d64_bf16": (flash_case(21, B=1, Sq=130, Sk=70, H=4, KV=2, D=64,
+                                              dtype=bf16), True),
+        "sq200_gt_sk90_d128_fp16": (flash_case(22, B=2, Sq=200, Sk=90, H=2, KV=1, D=128,
+                                               dtype=torch.float16), True),
     }
     errs = {}
     for name, (c, causal) in cases.items():
@@ -1256,6 +1312,8 @@ def launch_counts():
 def reset_launch_counts():
     for fn in _kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "tc_launches"):
+            fn.tc_launches = 0
 
 
 def expected_launches(*, steps, gas, layers, n_leaves, optimizer, sparse):
@@ -1332,6 +1390,12 @@ def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=
                                  optimizer=optimizer, sparse=sparse)
     if launches != expected:
         raise AssertionError(f"[{tag}] launch counts {launches} != step formula {expected}")
+    from deepspeed_tpu_torch.ops.attention import flash
+    tc = {"flash_fwd": flash.flash_fwd.tc_launches,
+          "flash_bwd_dkdv": flash.flash_bwd_dkdv.tc_launches}
+    if any(tc[name] != launches[name] for name in tc):
+        raise AssertionError(f"[{tag}] not every bf16 flash forward and dK/dV launch was a "
+                             f"tensor-core one: {tc} of {launches}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"[{tag}] losses not finite and falling: {losses}")
     step_s = statistics.mean(times[1:])
@@ -1346,14 +1410,16 @@ def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=
         f"{summary['step_ms']:.1f} ms a step, {summary['tokens_s']:.1f} tokens/s, mfu "
         f"{summary['mfu']:.4f} (of {TRAIN_PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16), peak memory "
         f"{peak_gb:.2f} GB{beside}; launches "
-        f"{ {k: v for k, v in launches.items() if v} } = step formula, every other kernel 0")
+        f"{ {k: v for k, v in launches.items() if v} } = step formula, every other kernel 0; "
+        f"tensor-core launches {tc}")
     profile_train(engine, batch, card, step_s, tag=f"profile-{tag}")
     del engine
     torch.cuda.empty_cache()
     return launches, summary
 
 
-PROFILE_GROUPS = (("flash_fwd", "flash_fwd"), ("flash_bwd", "flash_bwd"),
+PROFILE_GROUPS = (("flash_fwd", "flash_fwd"), ("flash_bwd_dkdv", "flash_bwd_dkdv"),
+                  ("flash_bwd_dq", "flash_bwd_dq"),
                   ("sparse_fwd", "sparse_fwd"), ("sparse_bwd", "sparse_bwd"),
                   ("adamw8", "adamw8bit_kernel"), ("adamw", "adamw_kernel"))
 
@@ -1739,7 +1805,10 @@ def main() -> int:
                         "replaces": FLASH_REPLACES[name], "launches": train_launches[name],
                         "max_abs_err": train_errs[name],
                         **{k: train_recs[name][k] for k in fields},
-                        "shape": "B=2 S=2048 H=KV=32 D=128 bf16 causal"})
+                        "shape": "B=2 S=2048 H=KV=32 D=128 bf16 causal",
+                        "variant": ("CUDA cores" if name == "flash_bwd_dq" else
+                                    "tensor cores for bf16/fp16 (forward wgmma, dK/dV "
+                                    "mma.sync m16n8k16), CUDA cores for fp32")})
     adam = train_recs["fused_adamw"]
     kernels.append({"name": "fused_adamw", "route": "cuda", "source": ADAM_SOURCE,
                     "replaces": ADAM_REPLACES, "launches": train_launches["fused_adamw"],

@@ -9,8 +9,9 @@
 // lse and delta [B, H, Sq] fp32.  GQA: q head h reads kv head h / (H / KV).
 // Causal masking is on absolute positions with the queries at the end of the
 // keys: query row r sees keys kpos <= r + (Sk - Sq).  Keys past Sk (the ragged
-// last tile) are masked.  All arithmetic is fp32 on CUDA cores, whatever the
-// storage type, as the Pallas kernel casts q/k/v to fp32 before its products.
+// last tile) are masked.  The Pallas kernel casts q/k/v to fp32 before its
+// products; the CUDA-core kernels below do the same, the tensor-core ones
+// multiply the stored bf16/fp16 values with fp32 sums.
 //
 //   forward:  s = scale * q.k ; m, l, acc carried over key tiles ; out = acc / l_safe
 //             lse = m + log(l_safe), l_safe = (l == 0 ? 1 : l)
@@ -21,10 +22,14 @@
 // What bounds it on the H100: at the training shape (S = 2048, D = 128) each
 // (query, key) pair costs 4 D operations forward and 8 D (dK/dV) or 6 D (dQ)
 // backward against 2-4 bytes per element read once per tile, so the work is
-// bound by arithmetic.  This first version keeps that arithmetic in fp32 on
-// CUDA cores (67 TFLOP/s peak, against 989 TFLOP/s of bf16 tensor cores):
-// tensor-core tiles (mma/wgmma) round P to bf16 and so change the math; they
-// are a later redesign.  The design against the CUDA-core limit:
+// bound by arithmetic.
+//
+// Two designs, chosen by the storage type (the wrapper in
+// ops/attention/flash.py holds the rule; no fallback between them):
+//
+// CUDA cores, fp32 inputs (all three kernels) and the dQ kernel in every type.
+// fp32 arithmetic throughout (67 TFLOP/s peak), so fp32 results differ from
+// the plain versions only by the order of summation:
 //   - tiles of 64 query rows x 64 keys, 256 threads; each thread owns a 4 x 4
 //     block of the score tile (rows ty*4+i, keys tx+16j), so every shared
 //     memory value it loads feeds four multiply-adds;
@@ -36,12 +41,46 @@
 //     intermediate there) happens in registers;
 //   - rows of shared tiles are padded to D + 1 floats so the 16 lanes that
 //     read 16 different keys hit 16 different banks.
-// No TMA, no asynchronous copies, no tensor cores yet.
+//
+// Tensor cores, bf16 and fp16 inputs (forward and dK/dV), fp32 accumulators
+// (989 TFLOP/s dense peak for the type).  Scores, softmax statistics and dS
+// stay fp32; P (and, backward, dS) is rounded to the input type as the A
+// operand of the second product, as FlashAttention does.  Their limit against
+// the fp32 plain version is FlashAttention's own test rule taken row by row
+// (flash.py::tensor_core_limit): each row of out, dK or dV within twice the
+// error of the plain version that rounds the same operands in that row, plus
+// one ulp of the output type x the row's largest |ref| for the store; lse
+// within 1e-4.
+//   - forward, wgmma: a block of two warpgroups owns 128 query rows, 64 a
+//     warpgroup; per 128-key tile S = Q K^T by wgmma.m64n128k16 with Q and K
+//     read by descriptor from 128-byte-swizzled shared tiles, the online
+//     softmax in registers with exp2 and the scale folded into log2(e), l
+//     summing the fp32 P, and O += P V by wgmma.m64n64k16 with P from
+//     registers and V read transposed from its shared tile; K/V tiles are
+//     double-buffered by cp.async; query tiles are launched heaviest (last)
+//     first;
+//   - dK/dV, mma.sync.m16n8k16 with operands through ldmatrix: a block of 4
+//     warps owns 64 keys, 16 a warp, and walks the q heads of its GQA group
+//     and the 64-row query tiles that see its keys, Q/dO/lse/delta
+//     double-buffered by cp.async; S^T = K Q^T and dP^T = V dO^T so each
+//     warp's accumulators are rows of its keys, and P^T and dS^T feed
+//     dV += P^T dO and dK += dS^T Q from registers; key tiles are launched in
+//     order of their work, the heaviest (first, under a causal mask) first;
+//     shared rows are padded to D + 8 elements so ldmatrix's eight 16-byte
+//     rows hit distinct banks;
+//   - masked entries are zeroed explicitly (never by subtracting a -inf), on
+//     the tiles that cross the diagonal or a ragged end.
+// Still to come: wgmma for dK/dV, TMA loads under mbarriers, and warp
+// specialisation.  Overlapping a tile's softmax with the previous tile's
+// P V product (FlashAttention-3's order) was measured slower than this
+// forward on the H100 (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -427,6 +466,564 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
+// ------------------------------------------------------- tensor-core pieces
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kTcFwdKeys = 128;      // forward: keys a tile
+constexpr int kTcKeys = 64;          // dK/dV: keys a block
+constexpr int kTcRows = 128;         // forward: query rows a block, 16 a warp
+constexpr int kTcFwdThreads = 256;
+constexpr int kTcQRows = 64;         // dK/dV: query rows a tile
+constexpr int kTcBwdThreads = 128;   // dK/dV: 16 keys a warp
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !live (src must still be valid)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(live ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(live ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Byte offsets into a shared tile of row stride kLd elements, for the lane's
+// ldmatrix address.  a_frag: the A fragment (16 rows x 16 k) at (row0, k0) ->
+// r[0..3] = a0a1, a2a3, a4a5, a6a7.  b_frag: B of two n8 tiles stored n-major
+// ([n][k], k contiguous) at (n0, k0) -> {r[0], r[1]} for n0, {r[2], r[3]} for
+// n0 + 8.  bt_frag: the same stored k-major ([k][n], n contiguous), loaded
+// with .trans.
+template <int kLd>
+__device__ __forceinline__ uint32_t a_frag(int lane, int row0, int k0) {
+  return ((row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd + k0 + (lane >> 4) * 8) * 2;
+}
+
+template <int kLd>
+__device__ __forceinline__ uint32_t b_frag(int lane, int n0, int k0) {
+  return ((n0 + (lane & 7) + (lane >> 4) * 8) * kLd + k0 + ((lane >> 3) & 1) * 8) * 2;
+}
+
+template <int kLd>
+__device__ __forceinline__ uint32_t bt_frag(int lane, int k0, int n0) {
+  return ((k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd + n0 + (lane >> 4) * 8) * 2;
+}
+
+// d += a (16x16, row) * b (16x8, col), fp32 accumulators
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// two fp32 values rounded (to nearest even) into one register of T, lo first
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&x);
+  } else {
+    __half2 x = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&x);
+  }
+}
+
+// The A fragment of k-step kk from the accumulators of n8 tiles 2kk and 2kk+1:
+// a score tile becomes the left operand of the next product without shared
+// memory (c0c1 -> a0a1, c2c3 -> a2a3 of tile 2kk, then of tile 2kk + 1).
+template <typename T>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
+                                         const float (&hi)[4]) {
+  a[0] = pack2<T>(lo[0], lo[1]);
+  a[1] = pack2<T>(lo[2], lo[3]);
+  a[2] = pack2<T>(hi[0], hi[1]);
+  a[3] = pack2<T>(hi[2], hi[3]);
+}
+
+// rows x D of src (row row0 + r at src + (row0 + r) * stride) into dst (row
+// stride D + 8) by cp.async; rows at or past nrows are zero-filled
+template <typename T, int D, int kThreadCount>
+__device__ __forceinline__ void cp_tile(T* dst, const T* src, int row0, int nrows, int rows,
+                                        int64_t stride) {
+  constexpr int kChunks = D / 8;
+  for (int idx = threadIdx.x; idx < rows * kChunks; idx += kThreadCount) {
+    const int r = idx / kChunks;
+    const int c = idx % kChunks;
+    const bool live = row0 + r < nrows;
+    const T* s = live ? src + (int64_t)(row0 + r) * stride + c * 8 : src;
+    cp_async16(smem_u32(dst + r * (D + 8) + c * 8), s, live);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ------------------------------------------------- wgmma forward pieces
+// 128-byte swizzled tiles for wgmma: a tile of R rows x D columns is stored as
+// D / 64 column blocks of R rows x 128 bytes; in a block, row r's 16-byte chunk
+// c sits at chunk c ^ (r % 8).  Blocks start on 1024-byte boundaries, so this
+// is the hardware's pattern (address bits 4-6 xor bits 7-9).
+template <typename T, int D, int kThreadCount>
+__device__ __forceinline__ void cp_tile_sw128(uint32_t dst, const T* src, int row0, int nrows,
+                                              int rows, int64_t stride) {
+  constexpr int kChunks = D / 8;
+  for (int idx = threadIdx.x; idx < rows * kChunks; idx += kThreadCount) {
+    const int r = idx / kChunks;
+    const int c = idx % kChunks;
+    const bool live = row0 + r < nrows;
+    const T* s = live ? src + (int64_t)(row0 + r) * stride + c * 8 : src;
+    cp_async16(dst + (c / 8) * rows * 128 + r * 128 + (((c % 8) ^ (r % 8)) * 16), s, live);
+  }
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads of an accumulator across the async product
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Operands of the wgmma asm below: accumulators d[i] .. d[i + 7], read and
+// written, and the first 32 or 64 operand numbers, which name them.
+#define WG_ACC8(i)                                                            \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_OPS32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_OPS64 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// d (64 x 128 fp32, a warpgroup) = (acc ? d : 0) + A B, A 64 x 16 and B 16 x 128
+// from shared memory, both K-major; TY is the PTX type of A and B
+#define WG_SS_N128(TY)                                                          \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                     \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"    \
+               WG_OPS64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                       \
+               : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24), WG_ACC8(32), \
+                 WG_ACC8(40), WG_ACC8(48), WG_ACC8(56)                          \
+               : "l"(a), "l"(b), "r"(acc))
+
+// d += A B, A 64 x 16 from registers (each warp's 16 rows as mma.m16n8k16's A
+// fragment), B 16 x 64 from shared memory, MN-major (transposed)
+#define WG_RS_N64(TY)                                                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"  \
+               WG_OPS32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"      \
+               : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24)            \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    WG_SS_N128("bf16");
+  else
+    WG_SS_N128("f16");
+}
+
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    WG_RS_N64("bf16");
+  else
+    WG_RS_N64("f16");
+}
+
+// ------------------------------------------------------ tensor-core forward
+// One block per (128 query rows, q head, batch): two warpgroups of 64 rows,
+// warp w of a warpgroup on its rows 16w..16w+15, with the accumulator layout
+// of mma.sync (rows lane/4 and lane/4 + 8, columns 2 (lane % 4) and + 1 of
+// every 8).  Per 128-key tile: S = Q K^T by wgmma, Q and K from swizzled
+// shared tiles; the online softmax in registers; O += P V by wgmma, P from
+// registers, V read transposed from its shared tile.  K/V tiles are
+// double-buffered by cp.async: the next tile loads while this one multiplies.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcFwdThreads, 1)
+flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    T* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                    float scale_log2, int causal) {
+  constexpr int kNB = D / 64;  // 64-column blocks of the head dim
+  constexpr int kKD = D / 16;  // k16 steps over the head dim
+  constexpr int kTileBytes = kTcFwdKeys * D * 2;
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  const uint32_t q_s = (smem_u32(tc_smem) + 1023u) & ~1023u;  // kTcRows x D
+  const uint32_t k_s = q_s + kTcRows * D * 2;                  // [2] kTcFwdKeys x D
+  const uint32_t v_s = k_s + 2 * kTileBytes;                   // [2] kTcFwdKeys x D
+
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTcRows;  // heaviest query tiles first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int g = h / (H / KV);
+  const int offset = Sk - Sq;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int row_g = q0 + wg * 64;  // the warpgroup's first query row
+  const int row_w = row_g + warp * 16;
+  const int row[2] = {row_w + lane / 4, row_w + lane / 4 + 8};
+  const int64_t q_stride = (int64_t)H * D;
+  const int64_t kv_stride = (int64_t)KV * D;
+  const T* qb = q + ((int64_t)b * Sq * H + h) * D;
+  const T* kb = k + ((int64_t)b * Sk * KV + g) * D;
+  const T* vb = v + ((int64_t)b * Sk * KV + g) * D;
+
+  const int k_end = causal ? min(Sk, q0 + kTcRows + offset) : Sk;
+  const int n_tiles = k_end > 0 ? (k_end + kTcFwdKeys - 1) / kTcFwdKeys : 0;
+
+  float o[kNB][32];
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[nb][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+
+  if (n_tiles > 0) {
+    cp_tile_sw128<T, D, kTcFwdThreads>(q_s, qb, q0, Sq, kTcRows, q_stride);
+    cp_tile_sw128<T, D, kTcFwdThreads>(k_s, kb, 0, Sk, kTcFwdKeys, kv_stride);
+    cp_tile_sw128<T, D, kTcFwdThreads>(v_s, vb, 0, Sk, kTcFwdKeys, kv_stride);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait_all();
+    fence_proxy_async();  // the copies are visible to wgmma's reads
+    __syncthreads();      // tile t has landed; every warpgroup is done with tile t - 1
+    if (t + 1 < n_tiles) {
+      const uint32_t nb = ((t + 1) & 1) * kTileBytes;
+      const int k1 = (t + 1) * kTcFwdKeys;
+      cp_tile_sw128<T, D, kTcFwdThreads>(k_s + nb, kb, k1, Sk, kTcFwdKeys, kv_stride);
+      cp_tile_sw128<T, D, kTcFwdThreads>(v_s + nb, vb, k1, Sk, kTcFwdKeys, kv_stride);
+      cp_async_commit();
+    }
+    const int k0 = t * kTcFwdKeys;
+    // no row of the warpgroup sees these keys
+    if (row_g >= Sq || (causal && k0 > row_g + 63 + offset)) continue;
+    const uint32_t kt = k_s + (t & 1) * kTileBytes;
+    const uint32_t vt = v_s + (t & 1) * kTileBytes;
+
+    float s[kTcFwdKeys / 2];
+#pragma unroll
+    for (int e = 0; e < kTcFwdKeys / 2; ++e) s[e] = 0.f;
+    fence_acc(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKD; ++kk) {
+      const uint32_t within = (kk % 4) * 32;
+      wgmma_ss<T>(s, sw128_desc(q_s + (kk / 4) * kTcRows * 128 + wg * 64 * 128 + within, 16),
+                  sw128_desc(kt + (kk / 4) * kTcFwdKeys * 128 + within, 16), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_acc(s);
+
+    const bool edge =
+        k0 + kTcFwdKeys > Sk || (causal && k0 + kTcFwdKeys - 1 > row_w + offset);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kTcFwdKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e] * scale_log2;
+        if (edge) {
+          const int key = k0 + j * 8 + (lane % 4) * 2 + (e & 1);
+          if (!(key < Sk && (!causal || key <= row[e / 2] + offset))) x = kNegInf;
+        }
+        s[4 * j + e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      corr[i] = exp2f(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kTcFwdKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[4 * j + e] - m[e / 2]);
+        if (edge) {  // zero masked entries explicitly: a row with no key yet has m = kNegInf
+          const int key = k0 + j * 8 + (lane % 4) * 2 + (e & 1);
+          if (!(key < Sk && (!causal || key <= row[e / 2] + offset))) p = 0.f;
+        }
+        s[4 * j + e] = p;
+        psum[e / 2] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + psum[i];
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[nb][e] *= corr[(e / 2) & 1];
+    // P rounded to T: n8 blocks 2kk and 2kk + 1 make the A fragment of k16 step kk
+    uint32_t pa[kTcFwdKeys / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTcFwdKeys / 16; ++kk) {
+      pa[kk][0] = pack2<T>(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack2<T>(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack2<T>(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) fence_acc(o[nb]);
+    wgmma_fence();
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int kk = 0; kk < kTcFwdKeys / 16; ++kk)
+        wgmma_rs<T>(o[nb], pa[kk], sw128_desc(vt + nb * kTcFwdKeys * 128 + kk * 2048, 0));
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) fence_acc(o[nb]);
+  }
+
+  T* ob = out + ((int64_t)b * Sq * H + h) * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float li = quad_sum(l[i]);
+    if (row[i] >= Sq) continue;
+    const float l_safe = li == 0.f ? 1.f : li;
+    const float inv = 1.f / l_safe;
+    T* orow = ob + (int64_t)row[i] * q_stride + (lane % 4) * 2;
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + nb * 64 + j * 8) =
+            pack2<T>(o[nb][4 * j + 2 * i] * inv, o[nb][4 * j + 2 * i + 1] * inv);
+    if (lane % 4 == 0)
+      lse[((int64_t)b * H + h) * Sq + row[i]] = li == 0.f ? kNegInf : m[i] * kLn2 + logf(l_safe);
+  }
+}
+
+// -------------------------------------------------- tensor-core dK and dV
+// One block per (64 keys, kv head, batch); warp w owns keys 16w..16w+15, so
+// S^T and dP^T (keys x the tile's 64 query rows) and dK, dV (keys x D) are
+// accumulated in that warp's registers.  Shared: K and V of the block, two
+// Q, dO, lse and delta tiles.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcBwdThreads)
+flash_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H, int KV,
+                         float scale, float scale_log2, int causal) {
+  constexpr int kLd = D + 8;
+  constexpr int kKD = D / 16;
+  constexpr int kND = D / 8;
+  constexpr int kNQ = kTcQRows / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  T* k_s = reinterpret_cast<T*>(tc_smem);  // [kTcKeys][kLd]
+  T* v_s = k_s + kTcKeys * kLd;             // [kTcKeys][kLd]
+  T* q_s = v_s + kTcKeys * kLd;             // [2][kTcQRows][kLd]
+  T* do_s = q_s + 2 * kTcQRows * kLd;       // [2][kTcQRows][kLd]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTcQRows * kLd);  // [2][kTcQRows]
+  float* delta_s = lse_s + 2 * kTcQRows;                               // [2][kTcQRows]
+
+  const int k0 = blockIdx.z * kTcKeys;  // key tile 0 is seen by the most query tiles: first
+  const int g = blockIdx.x;
+  const int b = blockIdx.y;
+  const int group = H / KV;
+  const int offset = Sk - Sq;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int key_w = k0 + warp * 16;  // the warp's first key
+  const int key[2] = {key_w + lane / 4, key_w + lane / 4 + 8};
+  const int64_t q_stride = (int64_t)H * D;
+  const int64_t kv_stride = (int64_t)KV * D;
+
+  // the query tiles that see a key of this block: q0 + kTcQRows - 1 + offset >= k0
+  int qt0 = 0;
+  if (causal) {
+    const int first = k0 - offset - (kTcQRows - 1);
+    qt0 = first > 0 ? (first + kTcQRows - 1) / kTcQRows : 0;
+  }
+  const int per_head = max(0, (Sq + kTcQRows - 1) / kTcQRows - qt0);
+  const int n_it = group * per_head;  // (q head, query tile) pairs, head-major
+
+  auto load_rows_tile = [&](int it, int buf) {
+    const int h = g * group + it / per_head;
+    const int q0 = (qt0 + it % per_head) * kTcQRows;
+    const int64_t at = ((int64_t)b * Sq * H + h) * D;
+    cp_tile<T, D, kTcBwdThreads>(q_s + buf * kTcQRows * kLd, q + at, q0, Sq, kTcQRows, q_stride);
+    cp_tile<T, D, kTcBwdThreads>(do_s + buf * kTcQRows * kLd, dout + at, q0, Sq, kTcQRows,
+                                 q_stride);
+    const float* lse_h = lse + ((int64_t)b * H + h) * Sq;
+    const float* delta_h = delta + ((int64_t)b * H + h) * Sq;
+    for (int r = threadIdx.x; r < kTcQRows; r += kTcBwdThreads) {
+      const bool live = q0 + r < Sq;
+      cp_async4(smem_u32(lse_s + buf * kTcQRows + r), live ? lse_h + q0 + r : lse_h, live);
+      cp_async4(smem_u32(delta_s + buf * kTcQRows + r), live ? delta_h + q0 + r : delta_h, live);
+    }
+  };
+
+  float dk_acc[kND][4], dv_acc[kND][4];
+#pragma unroll
+  for (int j = 0; j < kND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  if (n_it > 0) {
+    cp_tile<T, D, kTcBwdThreads>(k_s, k + ((int64_t)b * Sk * KV + g) * D, k0, Sk, kTcKeys,
+                                 kv_stride);
+    cp_tile<T, D, kTcBwdThreads>(v_s, v + ((int64_t)b * Sk * KV + g) * D, k0, Sk, kTcKeys,
+                                 kv_stride);
+    load_rows_tile(0, 0);
+    cp_async_commit();
+  }
+  const uint32_t ka = smem_u32(k_s);
+  const uint32_t va = smem_u32(v_s);
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // tile it has landed; every warp is done with tile it - 1
+    if (it + 1 < n_it) {
+      load_rows_tile(it + 1, (it + 1) & 1);
+      cp_async_commit();
+    }
+    const int buf = it & 1;
+    const int q0 = (qt0 + it % per_head) * kTcQRows;
+    if (key_w >= Sk || (causal && key_w > q0 + kTcQRows - 1 + offset)) continue;  // none seen
+    const uint32_t qt = smem_u32(q_s + buf * kTcQRows * kLd);
+    const uint32_t dot = smem_u32(do_s + buf * kTcQRows * kLd);
+    const float* lse_t = lse_s + buf * kTcQRows;
+    const float* delta_t = delta_s + buf * kTcQRows;
+
+    float st[kNQ][4], dpt[kNQ][4];  // S^T and dP^T: the warp's keys x the tile's rows
+#pragma unroll
+    for (int j = 0; j < kNQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKD; ++kk) {
+      uint32_t kf[4], vf[4];
+      ldsm_x4(kf, ka + a_frag<kLd>(lane, warp * 16, kk * 16));
+      ldsm_x4(vf, va + a_frag<kLd>(lane, warp * 16, kk * 16));
+#pragma unroll
+      for (int np = 0; np < kNQ / 2; ++np) {
+        uint32_t bq[4], bd[4];
+        ldsm_x4(bq, qt + b_frag<kLd>(lane, np * 16, kk * 16));
+        ldsm_x4(bd, dot + b_frag<kLd>(lane, np * 16, kk * 16));
+        mma16816<T>(st[2 * np], kf, bq[0], bq[1]);
+        mma16816<T>(st[2 * np + 1], kf, bq[2], bq[3]);
+        mma16816<T>(dpt[2 * np], vf, bd[0], bd[1]);
+        mma16816<T>(dpt[2 * np + 1], vf, bd[2], bd[3]);
+      }
+    }
+
+    // P^T = exp(scale s - lse), 0 where masked; dS^T = P^T (dP^T - delta) scale
+    const bool edge = q0 + kTcQRows > Sq || key_w + 16 > Sk ||
+                      (causal && key_w + 15 > q0 + offset);
+#pragma unroll
+    for (int j = 0; j < kNQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = j * 8 + (lane % 4) * 2 + (e & 1);  // query row in the tile
+        float p = exp2f(st[j][e] * scale_log2 - lse_t[r] * kLog2e);
+        if (edge) {
+          const int kp = key[e / 2];
+          if (!(q0 + r < Sq && kp < Sk && (!causal || kp <= q0 + r + offset))) p = 0.f;
+        }
+        st[j][e] = p;
+        dpt[j][e] = p * (dpt[j][e] - delta_t[r]) * scale;
+      }
+    // dV += P^T dO and dK += dS^T Q over the tile's rows, P and dS rounded to T
+#pragma unroll
+    for (int kk = 0; kk < kNQ / 2; ++kk) {
+      uint32_t pa[4], da[4];
+      acc_to_a<T>(pa, st[2 * kk], st[2 * kk + 1]);
+      acc_to_a<T>(da, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < kND / 2; ++np) {
+        uint32_t bd[4], bq[4];
+        ldsm_x4_trans(bd, dot + bt_frag<kLd>(lane, kk * 16, np * 16));
+        ldsm_x4_trans(bq, qt + bt_frag<kLd>(lane, kk * 16, np * 16));
+        mma16816<T>(dv_acc[2 * np], pa, bd[0], bd[1]);
+        mma16816<T>(dv_acc[2 * np + 1], pa, bd[2], bd[3]);
+        mma16816<T>(dk_acc[2 * np], da, bq[0], bq[1]);
+        mma16816<T>(dk_acc[2 * np + 1], da, bq[2], bq[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= Sk) continue;
+    const int64_t at = (((int64_t)b * Sk + key[i]) * KV + g) * D + (lane % 4) * 2;
+#pragma unroll
+    for (int j = 0; j < kND; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + at + j * 8) =
+          pack2<T>(dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + at + j * 8) =
+          pack2<T>(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
+    }
+  }
+}
+
 // ------------------------------------------------------------- launchers
 int fwd_smem(int D) { return (2 * kTile * (D + 1) + kTile * kLdP) * (int)sizeof(float); }
 int dkdv_smem(int D) {
@@ -493,20 +1090,54 @@ cudaError_t launch_dq(const Args& a) {
   return cudaGetLastError();
 }
 
-enum Which { kFwd = 0, kDkdv = 1, kDq = 2 };
+// tensor cores: the Q tile and two K/V tiles, swizzled, and 1 KB to align
+// them (forward); K, V, two Q/dO tiles and two lse/delta rows, rows of D + 8
+// (dK/dV); elements of 2 bytes
+int fwd_tc_smem(int D) { return 1024 + (kTcRows + 4 * kTcFwdKeys) * D * 2; }
+int dkdv_tc_smem(int D) {
+  return (2 * kTcKeys + 4 * kTcQRows) * (D + 8) * 2 + 4 * kTcQRows * (int)sizeof(float);
+}
 
 template <typename T, int D>
+cudaError_t launch_fwd_tc(const Args& a) {
+  const int smem = fwd_tc_smem(D);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.H, a.B, (a.Sq + kTcRows - 1) / kTcRows);
+  flash_fwd_tc_kernel<T, D><<<grid, kTcFwdThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<T*>(a.o0), static_cast<float*>(a.o1), a.Sq, a.Sk, a.H, a.KV,
+      a.scale * kLog2e, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkdv_tc(const Args& a) {
+  const int smem = dkdv_tc_smem(D);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_tc_kernel<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.KV, a.B, (a.Sk + kTcKeys - 1) / kTcKeys);
+  flash_bwd_dkdv_tc_kernel<T, D><<<grid, kTcBwdThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<T*>(a.o0),
+      static_cast<T*>(a.o1), a.Sq, a.Sk, a.H, a.KV, a.scale, a.scale * kLog2e, a.causal);
+  return cudaGetLastError();
+}
+
+enum Which { kFwd = 0, kDkdv = 1, kDq = 2 };
+
+// The forward and dK/dV kernels by type: fp32 on CUDA cores, bf16 and fp16 on
+// tensor cores.  The dQ kernel is the CUDA-core one in every type.
+template <typename T, int D>
 cudaError_t launch_which(int which, const Args& a) {
-  switch (which) {
-    case kFwd:
-      return launch_fwd<T, D>(a);
-    case kDkdv:
-      return launch_dkdv<T, D>(a);
-    case kDq:
-      return launch_dq<T, D>(a);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (which == kDq) return launch_dq<T, D>(a);
+  if (which != kFwd && which != kDkdv) return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, float>::value)
+    return which == kFwd ? launch_fwd<T, D>(a) : launch_dkdv<T, D>(a);
+  else
+    return which == kFwd ? launch_fwd_tc<T, D>(a) : launch_dkdv_tc<T, D>(a);
 }
 
 template <typename T>
@@ -543,7 +1174,8 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; head_dim 64 or 128.  All
 // tensors contiguous on one device, 16-byte aligned: q/out [B, Sq, H, D],
 // k/v [B, Sk, KV, D], lse [B, H, Sq] float32.  Returns a cudaError_t
-// (0 = launched).
+// (0 = launched).  float32 runs the CUDA-core forward and dK/dV kernels,
+// bfloat16 and float16 the tensor-core ones.
 int flash_fwd_launch(int dtype, const void* q, const void* k, const void* v, void* out,
                      void* lse, int B, int Sq, int Sk, int H, int KV, int head_dim,
                      float scale, int causal, void* stream) {

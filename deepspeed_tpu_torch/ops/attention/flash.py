@@ -15,6 +15,14 @@ sees no key (only possible when causal with Sq > Sk) comes out as zeros with
 ``lse = -1e30``.  :func:`flash_attention` and :func:`flash_attention_with_lse`
 are differentiable through one ``torch.autograd.Function`` that returns both
 out and lse.
+
+Which kernel a CUDA tensor reaches is decided by its dtype alone
+(:func:`uses_tensor_cores`): bf16 and fp16 inputs go to the tensor-core
+forward and dK/dV kernels, which round P (and dS) to the input type before
+the second product; fp32 inputs go to the CUDA-core kernels, whose results
+differ from the plain versions only by the order of summation.  The dQ kernel
+is the CUDA-core one in every type.  There is no fallback between them.  The
+tensor-core kernels are held to :func:`tensor_core_limit`.
 """
 
 import ctypes
@@ -28,7 +36,14 @@ from .. import _build, use_kernel
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
+_TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
 _LIB: Optional[ctypes.CDLL] = None
+
+
+def uses_tensor_cores(dtype: torch.dtype) -> bool:
+    """The dispatch rule of the forward and dK/dV kernels: bf16 and fp16 run on
+    tensor cores, fp32 on CUDA cores."""
+    return dtype in _TENSOR_CORE_DTYPES
 
 
 # ------------------------------------------------------------ plain versions
@@ -44,8 +59,17 @@ def _expand_kv(x, group):
     return torch.repeat_interleave(x, group, dim=2) if group > 1 else x
 
 
-def flash_fwd_reference(q, k, v, scale, causal):
-    """Plain version of the forward kernel: (out in q's dtype, lse fp32)."""
+def _round(x, dtype):
+    """``x`` rounded to ``dtype`` and back to fp32, or ``x`` when dtype is None."""
+    return x if dtype is None else x.to(dtype).float()
+
+
+def flash_fwd_reference(q, k, v, scale, causal, round_to: Optional[torch.dtype] = None):
+    """Plain version of the forward kernel: (out in q's dtype, lse fp32).
+
+    ``round_to`` gives the operand-rounding version of the tensor-core kernel:
+    fp32 math, with P rounded to that dtype before ``P V`` (l sums the
+    unrounded P)."""
     group = q.shape[2] // k.shape[2]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), _expand_kv(k.float(), group)) * scale
     mask = _visible(q.shape[1], k.shape[1], causal, q.device)
@@ -57,7 +81,7 @@ def flash_fwd_reference(q, k, v, scale, causal):
         p = torch.where(mask, p, 0.0)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0.0, 1.0, l)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, _expand_kv(v.float(), group))
+    out = torch.einsum("bhqk,bkhd->bqhd", _round(p, round_to), _expand_kv(v.float(), group))
     out = out / l_safe.permute(0, 2, 1, 3)
     return out.to(q.dtype), (m + torch.log(l_safe)).squeeze(-1)
 
@@ -75,14 +99,17 @@ def _probs_and_dscores(q, k, v, do, lse, delta, scale, causal):
     return p, p * (dp - delta[..., None]) * scale
 
 
-def flash_bwd_dkdv_reference(q, k, v, do, lse, delta, scale, causal):
+def flash_bwd_dkdv_reference(q, k, v, do, lse, delta, scale, causal,
+                             round_to: Optional[torch.dtype] = None):
     """Plain version of the dK/dV kernel: per q head in fp32, then summed over
-    the heads of each GQA group (flash.py:280-281)."""
+    the heads of each GQA group (flash.py:280-281).  ``round_to`` gives the
+    operand-rounding version: P and dS (computed in fp32) rounded to that dtype
+    before ``P^T dO`` and ``dS^T Q``."""
     b, sk, kvh, d = k.shape
     group = q.shape[2] // kvh
     p, ds = _probs_and_dscores(q, k, v, do, lse, delta, scale, causal)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", _round(p, round_to), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", _round(ds, round_to), q.float())
     dk = dk.reshape(b, sk, kvh, group, d).sum(3)
     dv = dv.reshape(b, sk, kvh, group, d).sum(3)
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -94,6 +121,28 @@ def flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, causal):
     _, ds = _probs_and_dscores(q, k, v, do, lse, delta, scale, causal)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, _expand_kv(k.float(), group))
     return dq.to(q.dtype)
+
+
+def tensor_core_limit(got, ref, rounded):
+    """The limit of a tensor-core kernel's output, FlashAttention's own test
+    rule taken row by row.  A row is the last axis: one (batch, query, head)
+    of out, one (batch, key, kv head) of dK or dV.  Every element of a row
+    must satisfy ``|got - ref| <= 2 max_row|rounded - ref| + eps max_row|ref|``.
+    ``ref`` is the fp32 plain version (fp32 inputs' values, no rounding),
+    ``rounded`` the operand-rounding plain version (``round_to=`` the kernel's
+    dtype, fp32 out) and eps one ulp of the output dtype, for the store (at
+    least the ulp of its smallest normal).  Per row, because magnitudes differ
+    by rows: under a causal mask the late keys' dK/dV are a hundredth of the
+    early ones', so one limit for the tensor would pass a zeroed key tile.
+    Returns (within the limit and finite, max |got - ref|, the largest
+    |got - ref| / limit, the median row limit)."""
+    info = torch.finfo(got.dtype)
+    got, ref, rounded = got.float(), ref.float(), rounded.float()
+    err = (got - ref).abs()
+    limit = (2.0 * (rounded - ref).abs().amax(-1, keepdim=True)
+             + info.eps * ref.abs().amax(-1, keepdim=True).clamp_min(info.tiny))
+    ok = bool(torch.isfinite(got).all()) and bool((err <= limit).all())
+    return ok, err.max().item(), (err / limit).max().item(), limit.median().item()
 
 
 # ---------------------------------------------------------------- wrappers
@@ -114,6 +163,7 @@ def flash_fwd(q, k, v, scale: float, causal: bool):
     if rc != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError_t {rc}")
     flash_fwd.launches += 1
+    flash_fwd.tc_launches += uses_tensor_cores(q.dtype)
     return out, lse
 
 
@@ -134,6 +184,7 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, scale: float, causal: bool):
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dkdv kernel launch failed: cudaError_t {rc}")
     flash_bwd_dkdv.launches += 1
+    flash_bwd_dkdv.tc_launches += uses_tensor_cores(q.dtype)
     return dk, dv
 
 
@@ -156,9 +207,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
     return dq
 
 
-# kernel launches in this process (the CPU path never counts)
-flash_fwd.launches = 0
-flash_bwd_dkdv.launches = 0
+# kernel launches in this process (the CPU path never counts); tc_launches
+# counts those of them that went to the tensor-core kernels
+flash_fwd.launches = flash_fwd.tc_launches = 0
+flash_bwd_dkdv.launches = flash_bwd_dkdv.tc_launches = 0
 flash_bwd_dq.launches = 0
 
 

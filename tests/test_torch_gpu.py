@@ -130,21 +130,32 @@ def test_engine_on_gpu_matches_engine_on_cpu(cuda, module, config):
 
 
 # ----------------------------------------------------------- training path
-FLASH_GRID = [(dtype, d, causal) for dtype in (torch.float32, torch.bfloat16, torch.float16)
-              for d in (64, 128) for causal in (True, False)]
+FLASH_BASE = (2, 90, 130, 4, 2)  # B, Sq, Sk, H, KV: GQA, sq < sk, lengths not multiples of a tile
+FLASH_SHAPES = {"sq130_gt_sk70": (1, 130, 70, 2, 1),  # causal: the first rows see no key
+                "s77": (1, 77, 77, 8, 4), "s200": (2, 200, 200, 2, 2)}
+FLASH_GRID = ([(dtype, d, causal, None) for dtype in (torch.float32, torch.bfloat16, torch.float16)
+               for d in (64, 128) for causal in (True, False)]
+              + [(dtype, d, causal, name) for dtype in (torch.bfloat16, torch.float16)
+                 for d in (64, 128) for causal in (True, False) for name in FLASH_SHAPES])
 
 
-@pytest.mark.parametrize("dtype,D,causal", FLASH_GRID,
+@pytest.mark.parametrize("dtype,D,causal,shape", FLASH_GRID,
                          ids=[f"{str(t)[6:]}-d{d}-{'causal' if c else 'full'}"
-                              for t, d, c in FLASH_GRID])
-def test_flash_kernels_match_plain_versions(cuda, dtype, D, causal):
+                              + (f"-{n}" if n else "") for t, d, c, n in FLASH_GRID])
+def test_flash_kernels_match_plain_versions(cuda, dtype, D, causal, shape):
+    """fp32 takes the CUDA-core kernels, held at 1e-4.  bf16/fp16 take the
+    tensor-core forward and dK/dV, held to ``flash.tensor_core_limit`` against
+    the fp32 plain version, and the CUDA-core dQ, whose one rounding on the
+    store keeps it within 1 % of the plain version in the same type."""
     rng = np.random.default_rng(D + int(causal))
-    B, Sq, Sk, H, KV = 2, 90, 130, 4, 2  # GQA, sq < sk, lengths not multiples of the tile
+    B, Sq, Sk, H, KV = FLASH_SHAPES[shape] if shape else FLASH_BASE
     q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, dtype)
                    for shape in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D), (B, Sq, H, D)))
     scale = 1.0 / np.sqrt(D)
+    tc = dtype != torch.float32
     counts = (flash.flash_fwd.launches, flash.flash_bwd_dkdv.launches,
-              flash.flash_bwd_dq.launches)
+              flash.flash_bwd_dq.launches, flash.flash_fwd.tc_launches,
+              flash.flash_bwd_dkdv.tc_launches)
     out, lse = flash.flash_fwd(q, k, v, scale, causal)
     ref_out, ref_lse = flash.flash_fwd_reference(q, k, v, scale, causal)
     delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -152,18 +163,29 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, D, causal):
     dk, dv = flash.flash_bwd_dkdv(*args)
     dq = flash.flash_bwd_dq(*args)
     torch.cuda.synchronize()
-    assert (flash.flash_fwd.launches, flash.flash_bwd_dkdv.launches,
-            flash.flash_bwd_dq.launches) == tuple(n + 1 for n in counts)
-    ref_dk, ref_dv = flash.flash_bwd_dkdv_reference(*args)
-    pairs = ((out, ref_out), (dk, ref_dk), (dv, ref_dv),
-             (dq, flash.flash_bwd_dq_reference(*args)))
-    for got, ref in pairs:
+    assert (flash.flash_fwd.launches, flash.flash_bwd_dkdv.launches, flash.flash_bwd_dq.launches,
+            flash.flash_fwd.tc_launches, flash.flash_bwd_dkdv.tc_launches) == tuple(
+                n + d for n, d in zip(counts, (1, 1, 1, tc, tc)))
+    ref_dq = flash.flash_bwd_dq_reference(*args)
+    for got in (out, dk, dv, dq):
         assert got.dtype == dtype
-        if dtype == torch.float32:
-            atol = rtol = 1e-4
-        else:  # one rounding of the same fp32 value on each side: at most an ulp apart
-            atol, rtol = 1e-2 * float(ref.float().square().mean().sqrt()), 1e-2
-        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    if tc:
+        f = [x.float() for x in (q, k, v, do)]
+        fwd32 = flash.flash_fwd_reference(*f[:3], scale, causal)
+        fwd_r = flash.flash_fwd_reference(*f[:3], scale, causal, round_to=dtype)
+        bwd_args = (*f, ref_lse, delta, scale, causal)
+        pairs = ((out, fwd32[0], fwd_r[0]),
+                 *zip((dk, dv), flash.flash_bwd_dkdv_reference(*bwd_args),
+                      flash.flash_bwd_dkdv_reference(*bwd_args, round_to=dtype)))
+        for (got, ref, rounded), part in zip(pairs, ("out", "dk", "dv")):
+            ok, err, ratio, _ = flash.tensor_core_limit(got, ref, rounded)
+            assert ok, f"{part}: max abs err {err:.3e}, {ratio:.3f} of the limit"
+        atol = 1e-2 * float(ref_dq.float().square().mean().sqrt())
+        torch.testing.assert_close(dq.float(), ref_dq.float(), atol=atol, rtol=1e-2)
+    else:
+        ref_dk, ref_dv = flash.flash_bwd_dkdv_reference(*args)
+        for got, ref in ((out, ref_out), (dk, ref_dk), (dv, ref_dv), (dq, ref_dq)):
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
 
 
@@ -182,6 +204,10 @@ def test_flash_attention_autograd_on_gpu_matches_cpu(cuda):
 
 
 def test_flash_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    """The wrappers raise on what the kernels do not take, for fp32 (CUDA
+    cores) and bf16 (tensor cores) alike, and launch nothing: no fallback to
+    the other kernels or the plain versions."""
+    counts = (flash.flash_fwd.launches, flash.flash_bwd_dkdv.launches)
     q = torch.zeros((1, 8, 2, 32), device=cuda)
     with pytest.raises(ValueError, match="head_dim 32"):
         flash.flash_fwd(q, q, q, 1.0, True)
@@ -193,6 +219,17 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take(cuda):
         flash.flash_fwd(q, k.half(), k, 1.0, True)
     with pytest.raises(ValueError, match="contiguous"):
         flash.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, k, 1.0, True)
+    q96 = torch.zeros((1, 8, 2, 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        flash.flash_fwd(q96, q96, q96, 1.0, True)
+    rows = torch.zeros((1, 2, 8), device=cuda)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        flash.flash_bwd_dkdv(q96, q96, q96, q96, rows, rows, 1.0, True)
+    kb = k.bfloat16()
+    with pytest.raises(ValueError, match="16-byte"):
+        flash.flash_fwd(torch.zeros(8 * 2 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:]
+                        .view(1, 8, 2, 64), kb, kb, 1.0, True)
+    assert (flash.flash_fwd.launches, flash.flash_bwd_dkdv.launches) == counts
 
 
 @pytest.mark.parametrize("n", [1000, 4099])
@@ -238,6 +275,30 @@ def test_train_batch_on_gpu_matches_cpu(cuda):
             fused_adamw_flat.launches - before[2]) == (16, 8, 2 * n_leaves)
     for a, b in zip(_leaves(engines["cuda"].state.params), _leaves(engines["cpu"].state.params)):
         assert float((a.cpu() - b).abs().max()) <= 2 * 2e-3
+
+
+def test_bf16_train_batch_runs_the_tensor_core_kernels(cuda):
+    """A bf16 training step through the engine: every flash forward (the
+    forward and the remat recompute) and dK/dV launch is a tensor-core one;
+    dQ stays on its CUDA-core kernel; the losses are finite and fall."""
+    cfg = llama.LlamaConfig.tiny(vocab=128, hidden=256, layers=2, heads=4, kv_heads=2, seq=128)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    conf = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+            "gradient_clipping": 1.0, "bf16": {"enabled": True},
+            "optimizer": {"type": "fused_adam", "params": {"lr": 1e-3}}}
+    engine = deepspeed_tpu_torch.initialize(loss_fn=llama.make_loss_fn(cfg),
+                                            model_parameters=params, config=conf)[0]
+    batch = llama.causal_lm_batch(np.random.default_rng(2).integers(0, 128, (4, 128)))
+    fns = (flash.flash_fwd, flash.flash_bwd_dkdv, flash.flash_bwd_dq)
+    before = [(fn.launches, getattr(fn, "tc_launches", 0)) for fn in fns]
+    losses = [float(engine.train_batch(batch).loss) for _ in range(3)]
+    after = [(fn.launches, getattr(fn, "tc_launches", 0)) for fn in fns]
+    (fwd, fwd_tc), (dkdv, dkdv_tc), (dq, _) = [
+        (a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before)]
+    # 3 steps x gas 2 x 2 layers; the forward twice (remat)
+    assert (fwd, dkdv, dq) == (24, 12, 12)
+    assert (fwd_tc, dkdv_tc) == (fwd, dkdv)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
 def _leaves(tree):
