@@ -27,7 +27,7 @@
 // Two designs, chosen by the storage type (the wrapper in
 // ops/attention/flash.py holds the rule; no fallback between them):
 //
-// CUDA cores, fp32 inputs (all three kernels) and the dQ kernel in every type.
+// CUDA cores, fp32 inputs (all three kernels).
 // fp32 arithmetic throughout (67 TFLOP/s peak), so fp32 results differ from
 // the plain versions only by the order of summation:
 //   - tiles of 64 query rows x 64 keys, 256 threads; each thread owns a 4 x 4
@@ -42,12 +42,12 @@
 //   - rows of shared tiles are padded to D + 1 floats so the 16 lanes that
 //     read 16 different keys hit 16 different banks.
 //
-// Tensor cores, bf16 and fp16 inputs (forward and dK/dV), fp32 accumulators
+// Tensor cores, bf16 and fp16 inputs (all three kernels), fp32 accumulators
 // (989 TFLOP/s dense peak for the type).  Scores, softmax statistics and dS
 // stay fp32; P (and, backward, dS) is rounded to the input type as the A
 // operand of the second product, as FlashAttention does.  Their limit against
 // the fp32 plain version is FlashAttention's own test rule taken row by row
-// (flash.py::tensor_core_limit): each row of out, dK or dV within twice the
+// (flash.py::tensor_core_limit): each row of out, dK, dV or dQ within twice the
 // error of the plain version that rounds the same operands in that row, plus
 // one ulp of the output type x the row's largest |ref| for the store; lse
 // within 1e-4.
@@ -68,6 +68,14 @@
 //     order of their work, the heaviest (first, under a causal mask) first;
 //     shared rows are padded to D + 8 elements so ldmatrix's eight 16-byte
 //     rows hit distinct banks;
+//   - dQ, mma.sync.m16n8k16 on the same pieces: a block of 4 warps owns 64
+//     query rows of one q head, 16 a warp, with their Q and dO fragments in
+//     registers, and walks the 64-key tiles those rows see, K/V
+//     double-buffered by cp.async; S and dP come from mma, dS is formed in
+//     fp32 registers and rounded to T straight into the A fragments of
+//     dQ += dS K (no shared round trip); it stays a kernel of its own, as in
+//     the JAX package, so dQ needs no atomics and is deterministic; query
+//     tiles are launched heaviest (last) first;
 //   - masked entries are zeroed explicitly (never by subtracting a -inf), on
 //     the tiles that cross the diagonal or a ragged end.
 // Still to come: wgmma for dK/dV, TMA loads under mbarriers, and warp
@@ -81,6 +89,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -467,112 +477,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 // ------------------------------------------------------- tensor-core pieces
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kTcFwdKeys = 128;      // forward: keys a tile
-constexpr int kTcKeys = 64;          // dK/dV: keys a block
+constexpr int kTcKeys = 64;          // dK/dV: keys a block; dQ: keys a tile
 constexpr int kTcRows = 128;         // forward: query rows a block, 16 a warp
 constexpr int kTcFwdThreads = 256;
-constexpr int kTcQRows = 64;         // dK/dV: query rows a tile
-constexpr int kTcBwdThreads = 128;   // dK/dV: 16 keys a warp
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !live (src must still be valid)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(live ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool live) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(live ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// Byte offsets into a shared tile of row stride kLd elements, for the lane's
-// ldmatrix address.  a_frag: the A fragment (16 rows x 16 k) at (row0, k0) ->
-// r[0..3] = a0a1, a2a3, a4a5, a6a7.  b_frag: B of two n8 tiles stored n-major
-// ([n][k], k contiguous) at (n0, k0) -> {r[0], r[1]} for n0, {r[2], r[3]} for
-// n0 + 8.  bt_frag: the same stored k-major ([k][n], n contiguous), loaded
-// with .trans.
-template <int kLd>
-__device__ __forceinline__ uint32_t a_frag(int lane, int row0, int k0) {
-  return ((row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd + k0 + (lane >> 4) * 8) * 2;
-}
-
-template <int kLd>
-__device__ __forceinline__ uint32_t b_frag(int lane, int n0, int k0) {
-  return ((n0 + (lane & 7) + (lane >> 4) * 8) * kLd + k0 + ((lane >> 3) & 1) * 8) * 2;
-}
-
-template <int kLd>
-__device__ __forceinline__ uint32_t bt_frag(int lane, int k0, int n0) {
-  return ((k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd + n0 + (lane >> 4) * 8) * 2;
-}
-
-// d += a (16x16, row) * b (16x8, col), fp32 accumulators
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// two fp32 values rounded (to nearest even) into one register of T, lo first
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&x);
-  } else {
-    __half2 x = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&x);
-  }
-}
-
-// The A fragment of k-step kk from the accumulators of n8 tiles 2kk and 2kk+1:
-// a score tile becomes the left operand of the next product without shared
-// memory (c0c1 -> a0a1, c2c3 -> a2a3 of tile 2kk, then of tile 2kk + 1).
-template <typename T>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  a[0] = pack2<T>(lo[0], lo[1]);
-  a[1] = pack2<T>(lo[2], lo[3]);
-  a[2] = pack2<T>(hi[0], hi[1]);
-  a[3] = pack2<T>(hi[2], hi[3]);
-}
+constexpr int kTcQRows = 64;         // dK/dV: query rows a tile; dQ: query rows a block
+constexpr int kTcBwdThreads = 128;   // dK/dV: 16 keys a warp; dQ: 16 query rows a warp
 
 // rows x D of src (row row0 + r at src + (row0 + r) * stride) into dst (row
 // stride D + 8) by cp.async; rows at or past nrows are zero-filled
@@ -587,16 +498,6 @@ __device__ __forceinline__ void cp_tile(T* dst, const T* src, int row0, int nrow
     const T* s = live ? src + (int64_t)(row0 + r) * stride + c * 8 : src;
     cp_async16(smem_u32(dst + r * (D + 8) + c * 8), s, live);
   }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // ------------------------------------------------- wgmma forward pieces
@@ -1024,6 +925,155 @@ flash_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------ tensor-core dQ
+// One block per (64 query rows, q head, batch); warp w owns rows 16w..16w+15,
+// so dQ (rows x D) is accumulated in that warp's registers, and the warp's Q
+// and dO A-fragments, loaded once, stay in registers with the lse and delta
+// of the thread's two rows.  K and V tiles of 64 keys are double-buffered by
+// cp.async.  Per tile, in two passes of 32 keys: S = Q K^T and dP = dO V^T
+// (K and V as B operands, n-major); P = exp2(S scale log2e - lse log2e), zero
+// where masked; dS = P (dP - delta) scale in fp32; dS rounded to T and
+// repacked from the accumulator layout into A fragments; dQ += dS K with K
+// through ldmatrix.trans.  Query tiles are launched heaviest (last) first.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcBwdThreads)
+flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       T* __restrict__ dq, int Sq, int Sk, int H, int KV, float scale,
+                       float scale_log2, int causal) {
+  constexpr int kLd = D + 8;
+  constexpr int kKD = D / 16;
+  constexpr int kND = D / 8;
+  constexpr int kPass = 32;         // keys of one S / dP pass
+  constexpr int kNP = kPass / 8;    // n8 tiles of a pass
+  constexpr int kTileElems = kTcKeys * kLd;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  T* q_s = reinterpret_cast<T*>(tc_smem);  // [kTcQRows][kLd]
+  T* do_s = q_s + kTcQRows * kLd;           // [kTcQRows][kLd]
+  T* k_s = do_s + kTcQRows * kLd;           // [2][kTcKeys][kLd]
+  T* v_s = k_s + 2 * kTileElems;            // [2][kTcKeys][kLd]
+
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTcQRows;  // heaviest query tiles first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int g = h / (H / KV);
+  const int offset = Sk - Sq;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row_w = q0 + warp * 16;  // the warp's first query row
+  const int row[2] = {row_w + lane / 4, row_w + lane / 4 + 8};
+  const int64_t q_stride = (int64_t)H * D;
+  const int64_t kv_stride = (int64_t)KV * D;
+  const int64_t q_at = ((int64_t)b * Sq * H + h) * D;
+  const T* kb = k + ((int64_t)b * Sk * KV + g) * D;
+  const T* vb = v + ((int64_t)b * Sk * KV + g) * D;
+
+  const int k_end = causal ? min(Sk, q0 + kTcQRows + offset) : Sk;
+  const int n_tiles = k_end > 0 ? (k_end + kTcKeys - 1) / kTcKeys : 0;
+
+  float lse2[2], dlt[2];  // the rows' lse (in log2 units) and delta
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool live = row[i] < Sq;
+    const int64_t at = ((int64_t)b * H + h) * Sq + row[i];
+    lse2[i] = live ? lse[at] * kLog2e : 0.f;
+    dlt[i] = live ? delta[at] : 0.f;
+  }
+  float acc[kND][4];
+#pragma unroll
+  for (int j = 0; j < kND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  uint32_t qf[kKD][4], df[kKD][4];
+  if (n_tiles > 0) {
+    cp_tile<T, D, kTcBwdThreads>(q_s, q + q_at, q0, Sq, kTcQRows, q_stride);
+    cp_tile<T, D, kTcBwdThreads>(do_s, dout + q_at, q0, Sq, kTcQRows, q_stride);
+    cp_tile<T, D, kTcBwdThreads>(k_s, kb, 0, Sk, kTcKeys, kv_stride);
+    cp_tile<T, D, kTcBwdThreads>(v_s, vb, 0, Sk, kTcKeys, kv_stride);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kKD; ++kk) {
+      ldsm_x4(qf[kk], smem_u32(q_s) + a_frag<kLd>(lane, warp * 16, kk * 16));
+      ldsm_x4(df[kk], smem_u32(do_s) + a_frag<kLd>(lane, warp * 16, kk * 16));
+    }
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
+    if (t + 1 < n_tiles) {
+      const int nb = ((t + 1) & 1) * kTileElems;
+      const int k1 = (t + 1) * kTcKeys;
+      cp_tile<T, D, kTcBwdThreads>(k_s + nb, kb, k1, Sk, kTcKeys, kv_stride);
+      cp_tile<T, D, kTcBwdThreads>(v_s + nb, vb, k1, Sk, kTcKeys, kv_stride);
+      cp_async_commit();
+    }
+    const int k0 = t * kTcKeys;
+    if (row_w >= Sq || (causal && k0 > row_w + 15 + offset)) continue;  // no row sees these keys
+    const uint32_t kt = smem_u32(k_s + (t & 1) * kTileElems);
+    const uint32_t vt = smem_u32(v_s + (t & 1) * kTileElems);
+    const bool edge = k0 + kTcKeys > Sk || (causal && k0 + kTcKeys - 1 > row_w + offset);
+#pragma unroll
+    for (int pass = 0; pass < kTcKeys / kPass; ++pass) {
+      const int n0 = pass * kPass;  // the pass's first key in the tile
+      float s[kNP][4], dp[kNP][4];
+#pragma unroll
+      for (int j = 0; j < kNP; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKD; ++kk)
+#pragma unroll
+        for (int np = 0; np < kNP / 2; ++np) {
+          uint32_t bk[4], bv[4];
+          ldsm_x4(bk, kt + b_frag<kLd>(lane, n0 + np * 16, kk * 16));
+          ldsm_x4(bv, vt + b_frag<kLd>(lane, n0 + np * 16, kk * 16));
+          mma16816<T>(s[2 * np], qf[kk], bk[0], bk[1]);
+          mma16816<T>(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+          mma16816<T>(dp[2 * np], df[kk], bv[0], bv[1]);
+          mma16816<T>(dp[2 * np + 1], df[kk], bv[2], bv[3]);
+        }
+      // P = exp(scale s - lse), 0 where masked; dS = P (dP - delta) scale, into s
+#pragma unroll
+      for (int j = 0; j < kNP; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(s[j][e] * scale_log2 - lse2[e / 2]);
+          if (edge) {
+            const int key = k0 + n0 + j * 8 + (lane % 4) * 2 + (e & 1);
+            if (!(key < Sk && (!causal || key <= row[e / 2] + offset))) p = 0.f;
+          }
+          s[j][e] = p * (dp[j][e] - dlt[e / 2]) * scale;
+        }
+      // dQ += dS K over the pass's keys, dS rounded to T
+#pragma unroll
+      for (int kk = 0; kk < kNP / 2; ++kk) {
+        uint32_t da[4];
+        acc_to_a<T>(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int np = 0; np < kND / 2; ++np) {
+          uint32_t bk[4];
+          ldsm_x4_trans(bk, kt + bt_frag<kLd>(lane, n0 + kk * 16, np * 16));
+          mma16816<T>(acc[2 * np], da, bk[0], bk[1]);
+          mma16816<T>(acc[2 * np + 1], da, bk[2], bk[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= Sq) continue;
+    T* o = dq + q_at + (int64_t)row[i] * q_stride + (lane % 4) * 2;
+#pragma unroll
+    for (int j = 0; j < kND; ++j)
+      *reinterpret_cast<uint32_t*>(o + j * 8) = pack2<T>(acc[j][2 * i], acc[j][2 * i + 1]);
+  }
+}
+
 // ------------------------------------------------------------- launchers
 int fwd_smem(int D) { return (2 * kTile * (D + 1) + kTile * kLdP) * (int)sizeof(float); }
 int dkdv_smem(int D) {
@@ -1092,11 +1142,12 @@ cudaError_t launch_dq(const Args& a) {
 
 // tensor cores: the Q tile and two K/V tiles, swizzled, and 1 KB to align
 // them (forward); K, V, two Q/dO tiles and two lse/delta rows, rows of D + 8
-// (dK/dV); elements of 2 bytes
+// (dK/dV); Q, dO and two K/V tiles, rows of D + 8 (dQ); elements of 2 bytes
 int fwd_tc_smem(int D) { return 1024 + (kTcRows + 4 * kTcFwdKeys) * D * 2; }
 int dkdv_tc_smem(int D) {
   return (2 * kTcKeys + 4 * kTcQRows) * (D + 8) * 2 + 4 * kTcQRows * (int)sizeof(float);
 }
+int dq_tc_smem(int D) { return (2 * kTcQRows + 4 * kTcKeys) * (D + 8) * 2; }
 
 template <typename T, int D>
 cudaError_t launch_fwd_tc(const Args& a) {
@@ -1126,18 +1177,32 @@ cudaError_t launch_dkdv_tc(const Args& a) {
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+cudaError_t launch_dq_tc(const Args& a) {
+  const int smem = dq_tc_smem(D);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.H, a.B, (a.Sq + kTcQRows - 1) / kTcQRows);
+  flash_bwd_dq_tc_kernel<T, D><<<grid, kTcBwdThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<T*>(a.o0), a.Sq, a.Sk,
+      a.H, a.KV, a.scale, a.scale * kLog2e, a.causal);
+  return cudaGetLastError();
+}
+
 enum Which { kFwd = 0, kDkdv = 1, kDq = 2 };
 
-// The forward and dK/dV kernels by type: fp32 on CUDA cores, bf16 and fp16 on
-// tensor cores.  The dQ kernel is the CUDA-core one in every type.
+// The kernels by type: fp32 on CUDA cores, bf16 and fp16 on tensor cores.
 template <typename T, int D>
 cudaError_t launch_which(int which, const Args& a) {
-  if (which == kDq) return launch_dq<T, D>(a);
-  if (which != kFwd && which != kDkdv) return cudaErrorInvalidValue;
+  if (which != kFwd && which != kDkdv && which != kDq) return cudaErrorInvalidValue;
   if constexpr (std::is_same<T, float>::value)
-    return which == kFwd ? launch_fwd<T, D>(a) : launch_dkdv<T, D>(a);
+    return which == kFwd ? launch_fwd<T, D>(a)
+                         : which == kDkdv ? launch_dkdv<T, D>(a) : launch_dq<T, D>(a);
   else
-    return which == kFwd ? launch_fwd_tc<T, D>(a) : launch_dkdv_tc<T, D>(a);
+    return which == kFwd ? launch_fwd_tc<T, D>(a)
+                         : which == kDkdv ? launch_dkdv_tc<T, D>(a) : launch_dq_tc<T, D>(a);
 }
 
 template <typename T>
@@ -1174,8 +1239,8 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; head_dim 64 or 128.  All
 // tensors contiguous on one device, 16-byte aligned: q/out [B, Sq, H, D],
 // k/v [B, Sk, KV, D], lse [B, H, Sq] float32.  Returns a cudaError_t
-// (0 = launched).  float32 runs the CUDA-core forward and dK/dV kernels,
-// bfloat16 and float16 the tensor-core ones.
+// (0 = launched).  float32 runs the CUDA-core kernels, bfloat16 and float16
+// the tensor-core ones.
 int flash_fwd_launch(int dtype, const void* q, const void* k, const void* v, void* out,
                      void* lse, int B, int Sq, int Sk, int H, int KV, int head_dim,
                      float scale, int causal, void* stream) {

@@ -14,6 +14,7 @@ The engine runs on ``device="cuda"`` unless the caller asks for the CPU; it
 never falls back from one to the other.
 """
 
+import collections
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
@@ -80,6 +81,7 @@ class InferenceEngineV2:
         self.forward_steps = 0  # ragged forwards run (one per non-empty step)
         self.tokens_run = 0     # real tokens through those forwards
         self.positions_run = 0  # padded (sequences x chunk) positions they computed
+        self.chunk_widths = collections.Counter()  # padded chunk width -> forwards run at it
         self.params = _tree_to(params, self.device, self.dtype)
         self.kv = model_module.init_paged_cache(model_config, num_blocks, block_size,
                                                 dtype=self.dtype, device=self.device)
@@ -137,6 +139,7 @@ class InferenceEngineV2:
         self.forward_steps += 1
         self.tokens_run += int(n_tokens.sum())
         self.positions_run += n * t
+        self.chunk_widths[t] += 1
         toks = self._pick(logits, dev[1], greedy).cpu().numpy()  # one sync: n ints
 
         out: Dict[int, int] = {}

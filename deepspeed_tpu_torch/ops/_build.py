@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface.  At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``deepspeed_tpu_torch/build/`` (listed in ``.gitignore``) and loaded with
 ``ctypes``; callers declare ``argtypes`` on the functions they bind.  The
-library's file name carries a hash of its source, so an edited kernel is
-rebuilt and a stale build is never loaded.  Nothing is compiled when a module
-is imported: the CPU-only test box has no ``nvcc``.
+library's file name carries a hash of its source and of the shared headers
+(``csrc/*.cuh``), so an edited kernel is rebuilt and a stale build is never
+loaded.  Nothing is compiled when a module is imported: the CPU-only test box
+has no ``nvcc``.
 """
 
 import concurrent.futures
@@ -45,8 +46,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The build of ``csrc/<name>.cu``, named by a hash of its source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    parts = [(CSRC_DIR / f"{name}.cu").read_bytes()]
+    parts += [header.read_bytes() for header in sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}.{digest[:16]}.so"
 
 

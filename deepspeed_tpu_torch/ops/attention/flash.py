@@ -18,11 +18,11 @@ out and lse.
 
 Which kernel a CUDA tensor reaches is decided by its dtype alone
 (:func:`uses_tensor_cores`): bf16 and fp16 inputs go to the tensor-core
-forward and dK/dV kernels, which round P (and dS) to the input type before
-the second product; fp32 inputs go to the CUDA-core kernels, whose results
-differ from the plain versions only by the order of summation.  The dQ kernel
-is the CUDA-core one in every type.  There is no fallback between them.  The
-tensor-core kernels are held to :func:`tensor_core_limit`.
+forward, dK/dV and dQ kernels, which round P (and dS) to the input type
+before the second product; fp32 inputs go to the CUDA-core kernels, whose
+results differ from the plain versions only by the order of summation.  There
+is no fallback between them.  The tensor-core kernels are held to
+:func:`tensor_core_limit`.
 """
 
 import ctypes
@@ -41,8 +41,8 @@ _LIB: Optional[ctypes.CDLL] = None
 
 
 def uses_tensor_cores(dtype: torch.dtype) -> bool:
-    """The dispatch rule of the forward and dK/dV kernels: bf16 and fp16 run on
-    tensor cores, fp32 on CUDA cores."""
+    """The dispatch rule of the three kernels: bf16 and fp16 run on tensor
+    cores, fp32 on CUDA cores."""
     return dtype in _TENSOR_CORE_DTYPES
 
 
@@ -115,19 +115,42 @@ def flash_bwd_dkdv_reference(q, k, v, do, lse, delta, scale, causal,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, causal):
-    """Plain version of the dQ kernel."""
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, causal,
+                           round_to: Optional[torch.dtype] = None):
+    """Plain version of the dQ kernel.  ``round_to`` gives the operand-rounding
+    version of the tensor-core kernel: dS (computed in fp32) rounded to that
+    dtype before ``dS K``."""
     group = q.shape[2] // k.shape[2]
     _, ds = _probs_and_dscores(q, k, v, do, lse, delta, scale, causal)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, _expand_kv(k.float(), group))
+    dq = torch.einsum("bhqk,bkhd->bqhd", _round(ds, round_to), _expand_kv(k.float(), group))
     return dq.to(q.dtype)
 
 
-def tensor_core_limit(got, ref, rounded):
+def dq_fp32_floor(q, k, v, do, lse, delta, scale, causal):
+    """[B, Sq, H, D] fp32: how far dQ may move when S = Q K^T and dP = dO V^T
+    are summed over D in another order than the plain version's (the tensor
+    cores' order).  Each such sum may move by the fp32 dot-product bound
+    gamma_D = D u (u = 2^-24) times the sum of its terms' magnitudes; carried
+    through dS = P (dP - delta) scale and dQ = dS K that is
+    ``gamma_D scale sum_k (P |dO|.|V| + |dS| |Q|.|K|) |K|``.  It matters only
+    where a row's terms cancel: a query that sees one key has dQ = 0 exactly
+    (P = 1, dP = delta), and both sides hold fp32 noise there."""
+    group = q.shape[2] // k.shape[2]
+    gamma = q.shape[-1] * 2.0**-24
+    ka = _expand_kv(k.float(), group).abs()
+    va = _expand_kv(v.float(), group).abs()
+    p, ds = _probs_and_dscores(q, k, v, do, lse, delta, scale, causal)
+    terms = (p * torch.einsum("bqhd,bkhd->bhqk", do.float().abs(), va)
+             + ds.abs() * torch.einsum("bqhd,bkhd->bhqk", q.float().abs(), ka))
+    return gamma * scale * torch.einsum("bhqk,bkhd->bqhd", terms, ka)
+
+
+def tensor_core_limit(got, ref, rounded, floor=None):
     """The limit of a tensor-core kernel's output, FlashAttention's own test
     rule taken row by row.  A row is the last axis: one (batch, query, head)
-    of out, one (batch, key, kv head) of dK or dV.  Every element of a row
-    must satisfy ``|got - ref| <= 2 max_row|rounded - ref| + eps max_row|ref|``.
+    of out or dQ, one (batch, key, kv head) of dK or dV.  Every element of a row
+    must satisfy ``|got - ref| <= 2 max_row|rounded - ref| + eps max_row|ref|``
+    (``+ floor`` where given: dQ's :func:`dq_fp32_floor`).
     ``ref`` is the fp32 plain version (fp32 inputs' values, no rounding),
     ``rounded`` the operand-rounding plain version (``round_to=`` the kernel's
     dtype, fp32 out) and eps one ulp of the output dtype, for the store (at
@@ -141,6 +164,8 @@ def tensor_core_limit(got, ref, rounded):
     err = (got - ref).abs()
     limit = (2.0 * (rounded - ref).abs().amax(-1, keepdim=True)
              + info.eps * ref.abs().amax(-1, keepdim=True).clamp_min(info.tiny))
+    if floor is not None:
+        limit = limit + floor.float()
     ok = bool(torch.isfinite(got).all()) and bool((err <= limit).all())
     return ok, err.max().item(), (err / limit).max().item(), limit.median().item()
 
@@ -204,6 +229,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: cudaError_t {rc}")
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.tc_launches += uses_tensor_cores(q.dtype)
     return dq
 
 
@@ -211,7 +237,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
 # counts those of them that went to the tensor-core kernels
 flash_fwd.launches = flash_fwd.tc_launches = 0
 flash_bwd_dkdv.launches = flash_bwd_dkdv.tc_launches = 0
-flash_bwd_dq.launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.tc_launches = 0
 
 
 class _Flash(torch.autograd.Function):

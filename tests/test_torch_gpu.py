@@ -20,6 +20,7 @@ from deepspeed_tpu_torch.inference import quantization as woq
 from deepspeed_tpu_torch.ops.adam.fused_adam import (fused_adamw_flat, fused_adamw_flat_reference,
                                                      fused_lion_flat, fused_lion_flat_reference)
 from deepspeed_tpu_torch.ops.attention import flash
+from deepspeed_tpu_torch.ops.attention import paged as paged_module
 from deepspeed_tpu_torch.ops.attention.paged import paged_attention, paged_attention_reference
 from deepspeed_tpu_torch.ops.quantizer import quantize
 from deepspeed_tpu_torch.ops.sparse_attention import attention as sparse
@@ -35,7 +36,8 @@ def cuda():
     return torch.device("cuda")
 
 
-# (name, dtype, H, KV, Dh, bs, T, lengths, n_tokens, window, alibi)
+# (name, dtype, H, KV, Dh, bs, T, lengths, n_tokens, window, alibi); T >= 16
+# with bf16/fp16 and head dim 64 or 128 takes the tensor-core prefill kernel
 CASES = [
     ("gqa_decode_fp32", torch.float32, 8, 2, 128, 16, 1, [1, 37, 300, 0], [1, 1, 1, 0], None,
      False),
@@ -44,6 +46,18 @@ CASES = [
     ("mha_alibi_fp16", torch.float16, 4, 4, 32, 8, 4, [3, 9, 17, 33], [3, 1, 2, 4], None, True),
     ("mqa_bs64_dh256_fp32", torch.float32, 8, 1, 256, 64, 5, [70, 1, 200], [5, 1, 2], 50,
      False),
+    ("gqa_decode_bf16", torch.bfloat16, 32, 8, 128, 16, 1, [1, 700, 2048], [1, 1, 1], 4096,
+     False),
+    ("tc_gqa4_t16_bs8_window_bf16", torch.bfloat16, 8, 2, 64, 8, 16, [37, 100, 0],
+     [16, 5, 0], 20, False),
+    ("tc_mha_t64_bs16_alibi_fp16", torch.float16, 4, 4, 128, 16, 64, [64, 200, 77],
+     [64, 64, 13], None, True),
+    ("tc_gqa8_t512_bs64_decode_row_bf16", torch.bfloat16, 16, 2, 128, 64, 512,
+     [1000, 777, 300], [512, 1, 0], 300, False),
+    ("tc_mqa32_t16_bs16_fp16", torch.float16, 32, 1, 128, 16, 16, [300, 17], [16, 3], None,
+     False),
+    ("tc_mqa64_t32_bs128_alibi_bf16", torch.bfloat16, 64, 1, 64, 128, 32, [290, 40], [32, 7],
+     None, True),
 ]
 
 
@@ -80,18 +94,32 @@ def _case(seed, dtype, H, KV, Dh, bs, T, lengths, n_tokens, alibi, device):
                          ids=[c[0] for c in CASES])
 def test_kernel_matches_plain_version(cuda, name, dtype, H, KV, Dh, bs, T, lengths, n_tokens,
                                       window, alibi):
+    """fp32 at 1e-4.  bf16/fp16 held to ``flash.tensor_core_limit`` row by row
+    against the plain version on fp32 copies, ``rounded`` rounding P to the
+    input type for the tensor-core prefill kernel and nothing (an ulp of the
+    store) for the CUDA-core kernel; each case launches the variant the shape
+    rule names; padding rows are exact zeros."""
     x = _case(len(name), dtype, H, KV, Dh, bs, T, lengths, n_tokens, alibi, cuda)
-    before = paged_attention.launches
-    got = paged_attention(x["q"], x["kpool"], x["vpool"], x["tables"], x["lengths"],
-                          x["start_pos"], x["n_tokens"], block_size=bs, window=window,
-                          alibi_slopes=x["slopes"])
+    tc = paged_module.uses_prefill_tensor_cores(dtype, Dh, T, H // KV)
+    assert tc == name.startswith("tc_")
+    before = (paged_attention.launches, paged_attention.tc_launches)
+    args = (x["q"], x["kpool"], x["vpool"], x["tables"], x["lengths"], x["start_pos"],
+            x["n_tokens"])
+    got = paged_attention(*args, block_size=bs, window=window, alibi_slopes=x["slopes"])
     torch.cuda.synchronize()
-    assert paged_attention.launches == before + 1
-    ref = paged_attention_reference(x["q"], x["kpool"], x["vpool"], x["tables"], x["lengths"],
-                                    x["start_pos"], x["n_tokens"], 1.0 / np.sqrt(Dh), window,
-                                    x["slopes"])
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    assert (paged_attention.launches, paged_attention.tc_launches) == (before[0] + 1,
+                                                                       before[1] + tc)
+    scale = 1.0 / np.sqrt(Dh)
+    if dtype == torch.float32:
+        ref = paged_attention_reference(*args, scale, window, x["slopes"])
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    else:
+        f32 = (args[0].float(), args[1].float(), args[2].float(), *args[3:])
+        ref = paged_attention_reference(*f32, scale, window, x["slopes"])
+        rounded = paged_attention_reference(*f32, scale, window, x["slopes"],
+                                            round_to=dtype if tc else None)
+        ok, err, ratio, _ = flash.tensor_core_limit(got, ref, rounded)
+        assert ok, f"max abs err {err:.3e}, {ratio:.3f} of the limit"
     pad = torch.arange(T, device=cuda)[None, :] >= x["n_tokens"].long()[:, None]
     assert bool((got[pad] == 0).all())
 
@@ -123,10 +151,37 @@ def test_engine_on_gpu_matches_engine_on_cpu(cuda, module, config):
     ref = InferenceEngineV2(module, config, params, device="cpu", **kw).generate(
         prompts, max_new_tokens=6)
     engine = InferenceEngineV2(module, config, params, **kw)
-    before = paged_attention.launches
+    before = (paged_attention.launches, paged_attention.tc_launches)
     got = engine.generate(prompts, max_new_tokens=6)
     assert got == ref
-    assert paged_attention.launches - before == engine.forward_steps * config.num_layers
+    # fp32: every launch on the CUDA-core kernel
+    assert (paged_attention.launches - before[0], paged_attention.tc_launches - before[1]) == (
+        engine.forward_steps * config.num_layers, 0)
+
+
+def test_bf16_engine_runs_the_prefill_kernel_on_wide_chunks(cuda):
+    """A bf16 Mistral-shaped engine (head dim 64, GQA 4): every step whose
+    padded chunk is 16 tokens or more launches the tensor-core prefill
+    kernel in every layer, the other steps the CUDA-core kernel; the tokens
+    stay inside the vocabulary and the pool is reclaimed."""
+    config = mistral.MistralConfig.tiny(vocab=128, hidden=256, layers=2, heads=4, kv_heads=1,
+                                        seq=256, window=64)
+    params = mistral.init_params(config, torch.Generator().manual_seed(1))
+    engine = InferenceEngineV2(mistral, config, params, config={"dtype": "bfloat16"},
+                               num_blocks=64, block_size=16, max_blocks_per_seq=16,
+                               token_budget=64, max_seqs_per_step=4)
+    prompts = [list(range(1, 100)), list(range(3, 40)), [5, 6, 7]]
+    before = (paged_attention.launches, paged_attention.tc_launches)
+    results = engine.generate(prompts, max_new_tokens=5, strict=False)
+    wide = sum(k for t, k in engine.chunk_widths.items()
+               if paged_module.uses_prefill_tensor_cores(torch.bfloat16, 64, t, 4))
+    assert 0 < wide < engine.forward_steps
+    assert (paged_attention.launches - before[0], paged_attention.tc_launches - before[1]) == (
+        engine.forward_steps * config.num_layers, wide * config.num_layers)
+    for prompt, res in zip(prompts, results):
+        assert res.status == "ok" and res.tokens[:len(prompt)] == prompt
+        assert all(0 <= tok < config.vocab_size for tok in res.tokens[len(prompt):])
+    assert engine.manager.allocator.free_blocks == 63 and not engine.manager.seqs
 
 
 # ----------------------------------------------------------- training path
@@ -144,18 +199,16 @@ FLASH_GRID = ([(dtype, d, causal, None) for dtype in (torch.float32, torch.bfloa
                               + (f"-{n}" if n else "") for t, d, c, n in FLASH_GRID])
 def test_flash_kernels_match_plain_versions(cuda, dtype, D, causal, shape):
     """fp32 takes the CUDA-core kernels, held at 1e-4.  bf16/fp16 take the
-    tensor-core forward and dK/dV, held to ``flash.tensor_core_limit`` against
-    the fp32 plain version, and the CUDA-core dQ, whose one rounding on the
-    store keeps it within 1 % of the plain version in the same type."""
+    tensor-core forward, dK/dV and dQ, held to ``flash.tensor_core_limit``
+    against the fp32 plain version (dQ with its fp32 floor)."""
     rng = np.random.default_rng(D + int(causal))
     B, Sq, Sk, H, KV = FLASH_SHAPES[shape] if shape else FLASH_BASE
     q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, dtype)
                    for shape in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D), (B, Sq, H, D)))
     scale = 1.0 / np.sqrt(D)
     tc = dtype != torch.float32
-    counts = (flash.flash_fwd.launches, flash.flash_bwd_dkdv.launches,
-              flash.flash_bwd_dq.launches, flash.flash_fwd.tc_launches,
-              flash.flash_bwd_dkdv.tc_launches)
+    fns = (flash.flash_fwd, flash.flash_bwd_dkdv, flash.flash_bwd_dq)
+    counts = [fn.launches for fn in fns] + [fn.tc_launches for fn in fns]
     out, lse = flash.flash_fwd(q, k, v, scale, causal)
     ref_out, ref_lse = flash.flash_fwd_reference(q, k, v, scale, causal)
     delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -163,9 +216,8 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, D, causal, shape):
     dk, dv = flash.flash_bwd_dkdv(*args)
     dq = flash.flash_bwd_dq(*args)
     torch.cuda.synchronize()
-    assert (flash.flash_fwd.launches, flash.flash_bwd_dkdv.launches, flash.flash_bwd_dq.launches,
-            flash.flash_fwd.tc_launches, flash.flash_bwd_dkdv.tc_launches) == tuple(
-                n + d for n, d in zip(counts, (1, 1, 1, tc, tc)))
+    assert [fn.launches for fn in fns] + [fn.tc_launches for fn in fns] == [
+        n + d for n, d in zip(counts, (1, 1, 1, tc, tc, tc))]
     ref_dq = flash.flash_bwd_dq_reference(*args)
     for got in (out, dk, dv, dq):
         assert got.dtype == dtype
@@ -174,14 +226,15 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, D, causal, shape):
         fwd32 = flash.flash_fwd_reference(*f[:3], scale, causal)
         fwd_r = flash.flash_fwd_reference(*f[:3], scale, causal, round_to=dtype)
         bwd_args = (*f, ref_lse, delta, scale, causal)
-        pairs = ((out, fwd32[0], fwd_r[0]),
+        pairs = ((out, fwd32[0], fwd_r[0], None),
                  *zip((dk, dv), flash.flash_bwd_dkdv_reference(*bwd_args),
-                      flash.flash_bwd_dkdv_reference(*bwd_args, round_to=dtype)))
-        for (got, ref, rounded), part in zip(pairs, ("out", "dk", "dv")):
-            ok, err, ratio, _ = flash.tensor_core_limit(got, ref, rounded)
+                      flash.flash_bwd_dkdv_reference(*bwd_args, round_to=dtype), (None, None)),
+                 (dq, flash.flash_bwd_dq_reference(*bwd_args),
+                  flash.flash_bwd_dq_reference(*bwd_args, round_to=dtype),
+                  flash.dq_fp32_floor(*bwd_args)))
+        for (got, ref, rounded, floor), part in zip(pairs, ("out", "dk", "dv", "dq")):
+            ok, err, ratio, _ = flash.tensor_core_limit(got, ref, rounded, floor)
             assert ok, f"{part}: max abs err {err:.3e}, {ratio:.3f} of the limit"
-        atol = 1e-2 * float(ref_dq.float().square().mean().sqrt())
-        torch.testing.assert_close(dq.float(), ref_dq.float(), atol=atol, rtol=1e-2)
     else:
         ref_dk, ref_dv = flash.flash_bwd_dkdv_reference(*args)
         for got, ref in ((out, ref_out), (dk, ref_dk), (dv, ref_dv), (dq, ref_dq)):
@@ -279,8 +332,8 @@ def test_train_batch_on_gpu_matches_cpu(cuda):
 
 def test_bf16_train_batch_runs_the_tensor_core_kernels(cuda):
     """A bf16 training step through the engine: every flash forward (the
-    forward and the remat recompute) and dK/dV launch is a tensor-core one;
-    dQ stays on its CUDA-core kernel; the losses are finite and fall."""
+    forward and the remat recompute), dK/dV and dQ launch is a tensor-core
+    one; the losses are finite and fall."""
     cfg = llama.LlamaConfig.tiny(vocab=128, hidden=256, layers=2, heads=4, kv_heads=2, seq=128)
     params = llama.init_params(cfg, torch.Generator().manual_seed(0))
     conf = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
@@ -290,14 +343,14 @@ def test_bf16_train_batch_runs_the_tensor_core_kernels(cuda):
                                             model_parameters=params, config=conf)[0]
     batch = llama.causal_lm_batch(np.random.default_rng(2).integers(0, 128, (4, 128)))
     fns = (flash.flash_fwd, flash.flash_bwd_dkdv, flash.flash_bwd_dq)
-    before = [(fn.launches, getattr(fn, "tc_launches", 0)) for fn in fns]
+    before = [(fn.launches, fn.tc_launches) for fn in fns]
     losses = [float(engine.train_batch(batch).loss) for _ in range(3)]
-    after = [(fn.launches, getattr(fn, "tc_launches", 0)) for fn in fns]
-    (fwd, fwd_tc), (dkdv, dkdv_tc), (dq, _) = [
+    after = [(fn.launches, fn.tc_launches) for fn in fns]
+    (fwd, fwd_tc), (dkdv, dkdv_tc), (dq, dq_tc) = [
         (a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before)]
     # 3 steps x gas 2 x 2 layers; the forward twice (remat)
     assert (fwd, dkdv, dq) == (24, 12, 12)
-    assert (fwd_tc, dkdv_tc) == (fwd, dkdv)
+    assert (fwd_tc, dkdv_tc, dq_tc) == (fwd, dkdv, dq)
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
