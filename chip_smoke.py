@@ -28,7 +28,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      bf16 grad; the three block-sparse kernels at the sparse training shape
      (B=1, S=4096, 32 heads, head dim 128, bf16, causal, the documented
      ``fixed`` layout at block 16, and at blocks 64 and 128), GQA, a padded
-     tail, non-causal bigbird and block 24; the AdamW-8bit kernel over the
+     tail, non-causal bigbird, blocks 24 and 8, bf16/fp16 dK/dV and dQ on
+     tensor cores and the forward on CUDA cores held to
+     ``flash.tensor_core_limit`` row by row (dK/dV with the last layout block
+     or a local-only key tile zeroed, and dQ with its last 64 rows scaled by
+     1.05, must fail it), fp32 at 1e-4, and the tensor-core backward timed
+     with its tiles launched longest walk first against index order; the
+     AdamW-8bit kernel over the
      same w_gate leaf with an fp32 and a bf16 grad, and a tail group; the
      int8 quantize kernel over the full-depth Llama-2-7B w_gate leaf (1.443 G
      bf16 elements, groups of 2048, the v1 engine's weight-only path) and on
@@ -53,8 +59,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      the AdamW-8bit kernel; train-sparse: the config's ``sparse_attention``
      section (DeepSpeed's documented ``fixed`` example, unidirectional) with
      ``fused_adam8bit``, micro 1 x gas 2 x seq 4096, through the three sparse
-     kernels and no flash launch; each with launch counts checked against
-     the step formula and one more step under torch.profiler;
+     kernels (every dK/dV and dQ launch a tensor-core one) and no flash
+     launch; each with launch counts checked against the step formula and
+     one more step under torch.profiler;
   7. train slice: 2 full-width layers in fp32, the CUDA engine (kernels)
      against the CPU engine (plain versions) from the same params: losses,
      step-1 grads and the params after 3 steps; once with fused_adam and
@@ -791,35 +798,103 @@ def sparse_backward_inputs(c):
     return scale, lse, delta
 
 
-def compare_sparse(name, c):
-    """Each sparse kernel once against its plain version, limits as flash's;
-    returns the largest error of each kernel's outputs."""
+def sparse_faults(c, got, refs, rounded, floors):
+    """The kernel's bf16/fp16 outputs spoiled three ways, each of which the
+    row limit must reject: dK and dV with the last layout block's keys
+    zeroed; dK and dV with the keys of one local-only tile zeroed (kv head
+    0's tile with the shortest walk, which no global query block sees);
+    dQ with its last 64 query rows scaled by 1.05.  Returns {fault: share of
+    the limit}; raises where the limit passes one."""
     import torch
+    from deepspeed_tpu_torch.ops.attention import flash
+    from deepspeed_tpu_torch.ops.sparse_attention.attention import tile_positions
+    tb = c["tables"]
+    S = c["q"].shape[1]
+    last = torch.arange((tb.layout.shape[1] - 1) * tb.block, S, device=c["q"].device)
+    tiles = (tile_positions(tb.k_order[0], tb.block, S, int(t)) for t in tb.k_tile_order[0][::-1])
+    local = next(pos for pos in tiles if (pos >= 0).any())
+    local = torch.from_numpy(local[local >= 0]).to(c["q"].device)
+    shares = {}
+    for fault, part, spoil in (
+            ("last_block_zeroed_dk", "dk", lambda x: x.index_fill_(1, last, 0)),
+            ("last_block_zeroed_dv", "dv", lambda x: x.index_fill_(1, last, 0)),
+            ("local_tile_zeroed_dk", "dk", lambda x: x[:, :, :1].index_fill_(1, local, 0)),
+            ("local_tile_zeroed_dv", "dv", lambda x: x[:, :, :1].index_fill_(1, local, 0)),
+            ("dq_last_rows_x1.05", "dq", lambda x: x[:, -64:].copy_(x[:, -64:].float() * 1.05))):
+        bad = got[part].clone()
+        spoil(bad)
+        passed, _, shares[fault], _ = flash.tensor_core_limit(bad, refs[part], rounded[part],
+                                                              floors.get(part))
+        if passed:
+            raise AssertionError(f"{c.get('name', '')} {fault}: the row limit passes a faulty "
+                                 f"kernel run ({shares[fault]:.3f} of it)")
+    return shares
+
+
+def compare_sparse(name, c):
+    """Each sparse kernel once against its plain version; returns the largest
+    error of each kernel's outputs.  fp32 is held at 1e-4.  bf16/fp16 are held
+    to ``flash.tensor_core_limit`` row by row against the fp32 plain version
+    on the inputs' values: dK, dV and dQ (tensor-core kernels) with
+    ``rounded`` = the plain versions with ``round_to=`` the dtype, dQ with
+    ``sparse_dq_fp32_floor``; the forward (CUDA cores) with ``rounded`` = the
+    fp32 plain version itself, so only the store's ulp; three faulted runs
+    (:func:`sparse_faults`) must fail it."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention import flash
     from deepspeed_tpu_torch.ops.sparse_attention import attention as sp
     q, k, v, do, tb, causal = c["q"], c["k"], c["v"], c["do"], c["tables"], c["causal"]
     scale, lse_ref, delta = sparse_backward_inputs(c)
-    counts = (sp.sparse_fwd.launches, sp.sparse_bwd_dkdv.launches, sp.sparse_bwd_dq.launches)
+    tc = flash.uses_tensor_cores(q.dtype)
+    fns = (sp.sparse_bwd_dkdv, sp.sparse_bwd_dq)
+    counts = ([sp.sparse_fwd.launches] + [fn.launches for fn in fns]
+              + [fn.tc_launches for fn in fns])
     out, lse = sp.sparse_fwd(q, k, v, tb, scale, causal)
     dk, dv = sp.sparse_bwd_dkdv(q, k, v, do, lse_ref, delta, tb, scale, causal)
     dq = sp.sparse_bwd_dq(q, k, v, do, lse_ref, delta, tb, scale, causal)
     torch.cuda.synchronize()
-    if (sp.sparse_fwd.launches, sp.sparse_bwd_dkdv.launches,
-            sp.sparse_bwd_dq.launches) != tuple(n + 1 for n in counts):
-        raise AssertionError(f"{name}: a sparse kernel did not launch")
-    out_ref, _ = sp.sparse_fwd_reference(q, k, v, tb, scale, causal)
-    dk_ref, dv_ref = sp.sparse_bwd_dkdv_reference(q, k, v, do, lse_ref, delta, tb, scale, causal)
-    dq_ref = sp.sparse_bwd_dq_reference(q, k, v, do, lse_ref, delta, tb, scale, causal)
-    refs = {"out": out_ref, "dk": dk_ref, "dv": dv_ref, "dq": dq_ref}
-    rms = {part: _rms(ref) for part, ref in refs.items()}
-    if q.dtype == torch.float32:
-        limits = {part: (1e-4, 1e-4) for part in refs}
-        rule = "atol=rtol=1e-4"
-    else:  # both sides round the same fp32 value once on the store
-        limits = {part: (1e-2 * rms[part], 1e-2) for part in refs}
-        rule = "rtol 1e-2, atol 1e-2 x rms of each plain result"
+    now = [sp.sparse_fwd.launches] + [fn.launches for fn in fns] + [fn.tc_launches for fn in fns]
+    if now != [n + d for n, d in zip(counts, (1, 1, 1, tc, tc))]:
+        raise AssertionError(f"{name}: a sparse kernel did not launch, or not the "
+                             f"{'tensor-core' if tc else 'CUDA-core'} backward")
     got = {"out": out, "dk": dk, "dv": dv, "dq": dq}
-    err = {part: _max_err(f"{name} {part}", got[part], refs[part], *limits[part])
-           for part in refs}
+    if not tc:
+        bwd_args = (q, k, v, do, lse_ref, delta, tb, scale, causal)
+        refs = {"out": sp.sparse_fwd_reference(q, k, v, tb, scale, causal)[0],
+                "dq": sp.sparse_bwd_dq_reference(*bwd_args)}
+        refs["dk"], refs["dv"] = sp.sparse_bwd_dkdv_reference(*bwd_args)
+        rms = {part: _rms(ref) for part, ref in refs.items()}
+        err = {part: _max_err(f"{name} {part}", got[part], refs[part], 1e-4, 1e-4)
+               for part in refs}
+        rule = "CUDA cores, atol=rtol=1e-4"
+    else:
+        f = [x.float() for x in (q, k, v, do)]
+        bwd_args = (*f, lse_ref, delta, tb, scale, causal)
+        refs = {"out": sp.sparse_fwd_reference(*f[:3], tb, scale, causal)[0],
+                "dq": sp.sparse_bwd_dq_reference(*bwd_args)}
+        refs["dk"], refs["dv"] = sp.sparse_bwd_dkdv_reference(*bwd_args)
+        rounded = {"out": refs["out"],
+                   "dq": sp.sparse_bwd_dq_reference(*bwd_args, round_to=q.dtype)}
+        rounded["dk"], rounded["dv"] = sp.sparse_bwd_dkdv_reference(*bwd_args, round_to=q.dtype)
+        # query 0 sees only key 0: its dQ is 0 exactly, fp32 noise on both sides
+        floors = {"dq": sp.sparse_dq_fp32_floor(*bwd_args)}
+        rms, err, ratios, limits = {}, {}, {}, {}
+        for part in ("out", "dk", "dv", "dq"):
+            ok, err[part], ratios[part], limits[part] = flash.tensor_core_limit(
+                got[part], refs[part], rounded[part], floors.get(part))
+            rms[part] = _rms(refs[part])
+            if not ok:
+                raise AssertionError(
+                    f"{name} {part}: kernel beyond the row limit: max abs err {err[part]:.3e}, "
+                    f"{ratios[part]:.3f} of 2 max_row|rounded - ref| + eps max_row|ref| (rms of "
+                    f"the fp32 plain result {rms[part]:.3e})")
+        shares = sparse_faults({**c, "name": name}, got, refs, rounded, floors)
+        rule = (f"row limit 2 max_row|rounded - fp32| + eps max_row|fp32| (out: rounded = fp32, "
+                f"CUDA cores; dk/dv/dq tensor cores, dq + its fp32 floor), median row limit "
+                f"{limits['out']:.3e}/{limits['dk']:.3e}/{limits['dv']:.3e}/{limits['dq']:.3e}, "
+                f"at {ratios['out']:.3f}/{ratios['dk']:.3f}/{ratios['dv']:.3f}/"
+                f"{ratios['dq']:.3f} of it; faulted runs rejected at "
+                + ", ".join(f"{fault} {share:.2f}" for fault, share in shares.items()))
     errs = {"sparse_fwd": max(err["out"], _max_err(f"{name} lse", lse, lse_ref, 1e-4, 1e-4)),
             "sparse_bwd_dkdv": max(err["dk"], err["dv"]), "sparse_bwd_dq": err["dq"]}
     B, S, H, D = q.shape
@@ -900,7 +975,35 @@ def measure_sparse(name, c, plain=True):
         log(f"[kernel] {name} {kname}: kernel_ms {ms:.4f}{extra} bound_ms {bound_ms:.4f} "
             f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP over {pairs} live "
             f"pairs; kernel {r['tflops']:.2f} TFLOP/s)")
+    if plain:
+        launch_order_ab(name, c, args)
     return recs
+
+
+def launch_order_ab(name, c, args):
+    """The tensor-core backward kernels with their tiles launched longest walk
+    first (the tables' order) against the tiles in index order, in turns
+    (longest, index, index, longest): what the launch order buys."""
+    import copy
+    from deepspeed_tpu_torch.ops.sparse_attention import attention as sp
+    tb = c["tables"]
+    in_index = copy.copy(tb)
+    in_index._device = {}
+    in_index.q_tile_order = np.broadcast_to(np.arange(tb.n_tiles, dtype=np.int32),
+                                            tb.q_tile_order.shape).copy()
+    in_index.k_tile_order = np.broadcast_to(np.arange(tb.n_tiles, dtype=np.int32),
+                                            tb.k_tile_order.shape).copy()
+    chunks = -(-tb.q_cnt * tb.block // sp.TILE)  # 64-query chunks of each (q head, key tile)
+    walks = chunks.reshape(tb.n_kv_heads, -1, tb.n_tiles).sum(1)
+    for kname, fn in (("sparse_bwd_dkdv", sp.sparse_bwd_dkdv), ("sparse_bwd_dq", sp.sparse_bwd_dq)):
+        times = {"longest first": [], "index order": []}
+        for order in ("longest first", "index order", "index order", "longest first"):
+            tables = tb if order == "longest first" else in_index
+            times[order].append(time_ms(lambda: fn(*args[:6], tables, *args[7:])))
+        log(f"[kernel] {name} {kname} launch order: longest walk first "
+            f"{statistics.mean(times['longest first']):.4f} ms, tile index order "
+            f"{statistics.mean(times['index order']):.4f} ms (dK/dV walks, 64-query chunks a "
+            f"key tile: max {walks.max()}, mean {walks.mean():.2f}, median {np.median(walks):.0f})")
 
 
 def phase_sparse_kernels(card):
@@ -926,6 +1029,15 @@ def phase_sparse_kernels(card):
         "sparse_block8_s100_fp16": sparse_case(38, B=2, S=100, H=2, KV=1, D=128,
                                                dtype=torch.float16, causal=True, block=8,
                                                num_local_blocks=2, num_different_global_patterns=2),
+        # the tensor-core backward on the edges above: a padded tail at D = 64,
+        # non-causal bigbird, block 24
+        "sparse_tail_s1000_d64_bf16": sparse_case(39, B=2, S=1000, H=4, KV=2, D=64, dtype=bf16,
+                                                  causal=True),
+        "sparse_bigbird_noncausal_fp16": sparse_case(
+            40, B=1, S=512, H=4, KV=4, D=128, dtype=torch.float16, causal=False, mode="bigbird",
+            block=32, attention="bidirectional", num_random_blocks=2),
+        "sparse_block24_s209_bf16": sparse_case(41, B=1, S=209, H=4, KV=2, D=64, dtype=bf16,
+                                                causal=True, block=24),
     }
     errs = {}
     for name, c in cases.items():
@@ -1389,6 +1501,9 @@ TRAIN_PEAK_FLOPS = 989e12  # bf16 dense tensor-core peak of the H100 SXM
 KERNEL_NAMES = ("paged_attention", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "fused_adamw",
                 "sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq", "adamw8bit", "fused_lion",
                 "quantize_int8")
+# the kernels whose bf16 launches in a training step must all be tensor-core ones
+TC_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "sparse_bwd_dkdv",
+                    "sparse_bwd_dq")
 
 
 def train_config(*, micro, gas, bf16, seed, lr=3e-4, optimizer="fused_adam", sparse=None):
@@ -1503,18 +1618,17 @@ def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=
                                  optimizer=optimizer, sparse=sparse)
     if launches != expected:
         raise AssertionError(f"[{tag}] launch counts {launches} != step formula {expected}")
-    from deepspeed_tpu_torch.ops.attention import flash
-    tc = {"flash_fwd": flash.flash_fwd.tc_launches,
-          "flash_bwd_dkdv": flash.flash_bwd_dkdv.tc_launches,
-          "flash_bwd_dq": flash.flash_bwd_dq.tc_launches}
+    wrappers = _kernel_wrappers()
+    tc = {name: wrappers[name].tc_launches for name in TC_TRAIN_KERNELS}
     if any(tc[name] != launches[name] for name in tc):
-        raise AssertionError(f"[{tag}] not every bf16 flash forward, dK/dV and dQ launch was a "
-                             f"tensor-core one: {tc} of {launches}")
+        raise AssertionError(f"[{tag}] not every bf16 flash forward, dK/dV and dQ and sparse "
+                             f"dK/dV and dQ launch was a tensor-core one: {tc} of {launches}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"[{tag}] losses not finite and falling: {losses}")
     step_s = statistics.mean(times[1:])
     summary = {"step_ms": step_s * 1e3, "tokens_s": tokens / step_s,
-               "mfu": step_flops / step_s / TRAIN_PEAK_FLOPS, "peak_gb": peak_gb}
+               "mfu": step_flops / step_s / TRAIN_PEAK_FLOPS, "peak_gb": peak_gb,
+               "tc_launches": tc}
     beside = ""
     if baseline is not None:
         beside = (f" ([train]: {baseline['step_ms']:.1f} ms, {baseline['tokens_s']:.1f} "
@@ -1525,7 +1639,7 @@ def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=
         f"{summary['mfu']:.4f} (of {TRAIN_PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16), peak memory "
         f"{peak_gb:.2f} GB{beside}; launches "
         f"{ {k: v for k, v in launches.items() if v} } = step formula, every other kernel 0; "
-        f"tensor-core launches {tc}")
+        f"tensor-core launches { {k: v for k, v in tc.items() if v} }")
     profile_train(engine, batch, card, step_s, tag=f"profile-{tag}")
     del engine
     torch.cuda.empty_cache()
@@ -1534,7 +1648,8 @@ def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=
 
 PROFILE_GROUPS = (("flash_fwd", "flash_fwd"), ("flash_bwd_dkdv", "flash_bwd_dkdv"),
                   ("flash_bwd_dq", "flash_bwd_dq"),
-                  ("sparse_fwd", "sparse_fwd"), ("sparse_bwd", "sparse_bwd"),
+                  ("sparse_fwd", "sparse_fwd"), ("sparse_bwd_dkdv", "sparse_bwd_dkdv"),
+                  ("sparse_bwd_dq", "sparse_bwd_dq"),
                   ("adamw8", "adamw8bit_kernel"), ("adamw", "adamw_kernel"))
 
 
@@ -1898,9 +2013,9 @@ def main() -> int:
     train_launches, dense = phase_train(card)
     adam8_launches, _ = phase_train(card, tag="train-8bit", optimizer="fused_adam8bit",
                                     baseline=dense)
-    sparse_launches, _ = phase_train(card, tag="train-sparse", optimizer="fused_adam8bit",
-                                     sparse=SPARSE_CONFIG, micro=1, gas=2, seq=4096,
-                                     baseline=dense)
+    sparse_launches, sparse_train = phase_train(
+        card, tag="train-sparse", optimizer="fused_adam8bit", sparse=SPARSE_CONFIG, micro=1,
+        gas=2, seq=4096, baseline=dense)
     phase_train_slice()
     phase_train_slice(tag="train-slice-sparse", optimizer="fused_adam8bit", sparse=SPARSE_CONFIG)
     lion_launches = phase_train_slice(tag="train-slice-lion", optimizer="lion", seq=128)
@@ -1941,7 +2056,12 @@ def main() -> int:
                         "max_abs_err": sparse_errs[name],
                         **{k: sparse_recs[name][k] for k in fields},
                         "shape": "B=1 S=4096 H=KV=32 D=128 bf16 causal, fixed layout block 16 "
-                                 "([train-sparse]'s)"})
+                                 "([train-sparse]'s)",
+                        **({} if name == "sparse_fwd" else {
+                            "variant": "tensor cores for bf16/fp16 (mma.sync m16n8k16, gathered "
+                                       "64-position tiles, longest walks first), CUDA cores "
+                                       "for fp32",
+                            "tc_launches": sparse_train["tc_launches"][name]})})
     adam8 = adam8_recs["adamw8bit"]
     kernels.append({"name": "adamw8bit", "route": "cuda", "source": ADAM8_SOURCE,
                     "replaces": ADAM8_REPLACES, "launches": adam8_launches["adamw8bit"],

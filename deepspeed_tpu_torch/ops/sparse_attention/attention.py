@@ -16,6 +16,14 @@ tensors they run the plain versions beside them, which repeat the Pallas
 kernels' arithmetic: fp32 scores, the ``-1e30`` mask value, ``l == 0 -> 1``,
 ``lse = m + log(l_safe)``.  :func:`sparse_attention` is differentiable
 through one ``torch.autograd.Function`` (the JAX ``_sparse`` custom VJP).
+
+Which backward kernel a CUDA tensor reaches is decided by its dtype alone,
+by flash's rule (:func:`flash.uses_tensor_cores`): bf16 and fp16 go to the
+tensor-core dK/dV and dQ kernels, which round P and dS to the input type
+before the second products (held to :func:`flash.tensor_core_limit` against
+the plain versions with ``round_to=``, dQ with :func:`sparse_dq_fp32_floor`);
+fp32 goes to the CUDA-core ones.  The forward runs on CUDA cores for every
+type.  There is no fallback between them.
 """
 
 import ctypes
@@ -26,6 +34,8 @@ import numpy as np
 import torch
 
 from .. import _build, use_kernel
+from ..attention import flash
+from ..attention.flash import _round
 
 NEG_INF = -1e30
 TILE = 64  # positions of a kernel tile (kTile in csrc/sparse_attention.cu)
@@ -58,6 +68,21 @@ def _tile_walks(live: np.ndarray, order: np.ndarray, block: int, n_tiles: int):
     return (member @ live.astype(np.int32)) > 0
 
 
+def tile_positions(order: np.ndarray, block: int, s: int, t: int) -> np.ndarray:
+    """[64] int: the positions that the kernels gather for tile ``t`` of a
+    block ``order`` (one row of ``q_order`` or ``k_order``), -1 past the list
+    or past ``s`` (``list_pos`` in csrc/sparse_attention.cu)."""
+    f = t * TILE + np.arange(TILE)
+    pos = order[np.minimum(f // block, order.size - 1)] * block + f % block
+    return np.where((f < order.size * block) & (pos < s), pos, -1)
+
+
+def _longest_first(cnt: np.ndarray) -> np.ndarray:
+    """[heads, T] walk lengths -> [heads, T] int32: each row's tile indices
+    sorted by walk length, longest first (ties by index)."""
+    return np.argsort(-cnt, axis=1, kind="stable").astype(np.int32)
+
+
 def _padded_lists(union: np.ndarray):
     """[H, T, NB] bool -> (ascending indices [H, T, width] int32, counts [H, T])."""
     cnt = union.sum(axis=2).astype(np.int32)
@@ -82,6 +107,10 @@ class _Tables:
       k_order [KV, NB]  : key blocks in tile order (dK/dV), one order per kv
                           head so that its GQA group shares the tiles
       q_walk, q_cnt     : per (q head, key tile) the union of live query blocks
+      q_tile_order [H, T], k_tile_order [KV, T] : the launch order of the
+                          tensor-core dQ and dK/dV kernels, the tiles sorted
+                          by walk length (k_cnt; q_cnt summed over the GQA
+                          group), longest first
     with T = ceil(NB * block / 64).
     """
 
@@ -123,6 +152,9 @@ class _Tables:
         self.q_walk, self.q_cnt = _padded_lists(np.stack(
             [_tile_walks(live_t[h], self.k_order[h // group], block, self.n_tiles)
              for h in range(n_heads)]))
+        self.q_tile_order = _longest_first(self.k_cnt)
+        self.k_tile_order = _longest_first(
+            self.q_cnt.reshape(self.n_kv_heads, group, self.n_tiles).sum(axis=1))
         self.key = (self.layout.tobytes(), self.layout.shape, block, self.n_kv_heads)
         self._device = {}
 
@@ -136,7 +168,8 @@ class _Tables:
         """The kernels' tables as device tensors, uploaded once per device."""
         device = torch.device(device)
         if device not in self._device:
-            names = ("layout", "q_order", "k_walk", "k_cnt", "k_order", "q_walk", "q_cnt")
+            names = ("layout", "q_order", "k_walk", "k_cnt", "k_order", "q_walk", "q_cnt",
+                     "q_tile_order", "k_tile_order")
             self._device[device] = {n: torch.from_numpy(getattr(self, n)).to(device)
                                     for n in names}
         return self._device[device]
@@ -212,24 +245,47 @@ def _probs_and_dscores(q, k, v, do, lse, delta, tables, scale, causal):
     return p, p * (dp - delta[..., None]) * scale
 
 
-def sparse_bwd_dkdv_reference(q, k, v, do, lse, delta, tables: _Tables, scale, causal):
+def sparse_bwd_dkdv_reference(q, k, v, do, lse, delta, tables: _Tables, scale, causal,
+                              round_to: Optional[torch.dtype] = None):
     """Plain version of the dK/dV kernel: per q head in fp32, then summed over
-    the heads of each GQA group (attention.py:318-319)."""
+    the heads of each GQA group (attention.py:318-319).  ``round_to`` gives the
+    operand-rounding version of the tensor-core kernel: P and dS (computed in
+    fp32) rounded to that dtype before ``P^T dO`` and ``dS^T Q``."""
     b, s, kvh, d = k.shape
     group = q.shape[2] // kvh
     p, ds = _probs_and_dscores(q, k, v, do, lse, delta, tables, scale, causal)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", _round(p, round_to), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", _round(ds, round_to), q.float())
     dk = dk.reshape(b, s, kvh, group, d).sum(3)
     dv = dv.reshape(b, s, kvh, group, d).sum(3)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def sparse_bwd_dq_reference(q, k, v, do, lse, delta, tables: _Tables, scale, causal):
-    """Plain version of the dQ kernel."""
+def sparse_bwd_dq_reference(q, k, v, do, lse, delta, tables: _Tables, scale, causal,
+                            round_to: Optional[torch.dtype] = None):
+    """Plain version of the dQ kernel.  ``round_to`` gives the operand-rounding
+    version of the tensor-core kernel: dS (computed in fp32) rounded to that
+    dtype before ``dS K``."""
     group = q.shape[2] // k.shape[2]
     _, ds = _probs_and_dscores(q, k, v, do, lse, delta, tables, scale, causal)
-    return torch.einsum("bhqk,bkhd->bqhd", ds, _expand_kv(k.float(), group)).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", _round(ds, round_to),
+                        _expand_kv(k.float(), group)).to(q.dtype)
+
+
+def sparse_dq_fp32_floor(q, k, v, do, lse, delta, tables: _Tables, scale, causal):
+    """[B, S, H, D] fp32: :func:`flash.dq_fp32_floor` over the layout's
+    element mask: how far dQ may move when S and dP are summed over D in
+    another order than the plain version's, ``gamma_D scale sum_k (P
+    |dO|.|V| + |dS| |Q|.|K|) |K|`` with gamma_D = D 2^-24.  Query 0 sees only
+    key 0, so its dQ is 0 exactly and both sides hold fp32 noise there."""
+    group = q.shape[2] // k.shape[2]
+    gamma = q.shape[-1] * 2.0**-24
+    ka = _expand_kv(k.float(), group).abs()
+    va = _expand_kv(v.float(), group).abs()
+    p, ds = _probs_and_dscores(q, k, v, do, lse, delta, tables, scale, causal)
+    terms = (p * torch.einsum("bqhd,bkhd->bhqk", do.float().abs(), va)
+             + ds.abs() * torch.einsum("bqhd,bkhd->bhqk", q.float().abs(), ka))
+    return gamma * scale * torch.einsum("bhqk,bkhd->bqhd", terms, ka)
 
 
 # ---------------------------------------------------------------- wrappers
@@ -271,11 +327,13 @@ def sparse_bwd_dkdv(q, k, v, do, lse, delta, tables: _Tables, scale: float, caus
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             t["layout"].data_ptr(), t["k_order"].data_ptr(), t["q_walk"].data_ptr(),
-            t["q_cnt"].data_ptr(), b, s, hq, k.shape[2], d, tables.layout.shape[1],
+            t["q_cnt"].data_ptr(), t["k_tile_order"].data_ptr(), b, s, hq, k.shape[2], d,
+            tables.layout.shape[1],
             tables.block, tables.q_walk.shape[2], float(scale), int(causal), stream)
     if rc != 0:
         raise RuntimeError(f"sparse_bwd_dkdv kernel launch failed: cudaError_t {rc}")
     sparse_bwd_dkdv.launches += 1
+    sparse_bwd_dkdv.tc_launches += flash.uses_tensor_cores(q.dtype)
     return dk, dv
 
 
@@ -292,19 +350,22 @@ def sparse_bwd_dq(q, k, v, do, lse, delta, tables: _Tables, scale: float, causal
         rc = _lib().sparse_bwd_dq_launch(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), t["layout"].data_ptr(),
-            t["q_order"].data_ptr(), t["k_walk"].data_ptr(), t["k_cnt"].data_ptr(), b, s, hq,
-            k.shape[2], d, tables.layout.shape[1], tables.block, tables.k_walk.shape[2],
+            t["q_order"].data_ptr(), t["k_walk"].data_ptr(), t["k_cnt"].data_ptr(),
+            t["q_tile_order"].data_ptr(), b, s, hq, k.shape[2], d, tables.layout.shape[1],
+            tables.block, tables.k_walk.shape[2],
             float(scale), int(causal), stream)
     if rc != 0:
         raise RuntimeError(f"sparse_bwd_dq kernel launch failed: cudaError_t {rc}")
     sparse_bwd_dq.launches += 1
+    sparse_bwd_dq.tc_launches += flash.uses_tensor_cores(q.dtype)
     return dq
 
 
-# kernel launches in this process (the CPU path never counts)
+# kernel launches in this process (the CPU path never counts); tc_launches
+# counts those of the backward's that went to the tensor-core kernels
 sparse_fwd.launches = 0
-sparse_bwd_dkdv.launches = 0
-sparse_bwd_dq.launches = 0
+sparse_bwd_dkdv.launches = sparse_bwd_dkdv.tc_launches = 0
+sparse_bwd_dq.launches = sparse_bwd_dq.tc_launches = 0
 
 
 class _Sparse(torch.autograd.Function):
@@ -477,8 +538,8 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [i] * 8 + [f, i, p]  # B, S, H, KV, D, NB, block, width, scale, causal, stream
         lib.sparse_fwd_launch.argtypes = [i] + [p] * 9 + tail
-        lib.sparse_bwd_dkdv_launch.argtypes = [i] + [p] * 12 + tail
-        lib.sparse_bwd_dq_launch.argtypes = [i] + [p] * 11 + tail
+        lib.sparse_bwd_dkdv_launch.argtypes = [i] + [p] * 13 + tail
+        lib.sparse_bwd_dq_launch.argtypes = [i] + [p] * 12 + tail
         for fn in (lib.sparse_fwd_launch, lib.sparse_bwd_dkdv_launch, lib.sparse_bwd_dq_launch):
             fn.restype = i
         _LIB = lib

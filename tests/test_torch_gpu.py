@@ -378,6 +378,12 @@ SPARSE_GRID = [
 @pytest.mark.parametrize("dtype,D,mode,block,S,KV,causal", SPARSE_GRID,
                          ids=[f"{str(g[0])[6:]}-d{g[1]}-{g[2]}-b{g[3]}-s{g[4]}" for g in SPARSE_GRID])
 def test_sparse_kernels_match_plain_versions(cuda, dtype, D, mode, block, S, KV, causal):
+    """fp32 takes the CUDA-core kernels, held at 1e-4.  bf16/fp16 take the
+    tensor-core dK/dV and dQ, held to ``flash.tensor_core_limit`` row by row
+    against the fp32 plain version (``rounded``: the plain versions with
+    ``round_to=``; dQ with ``sparse_dq_fp32_floor``), and the CUDA-core
+    forward, held to the same limit with ``rounded`` = the fp32 plain version
+    (one store)."""
     rng = np.random.default_rng(block + S)
     H, B = 4, 2
     section = SparseAttentionConfig(mode=mode, block=block, different_layout_per_head=True,
@@ -388,8 +394,9 @@ def test_sparse_kernels_match_plain_versions(cuda, dtype, D, mode, block, S, KV,
     q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, dtype)
                    for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
     scale = 1.0 / np.sqrt(D)
-    counts = (sparse.sparse_fwd.launches, sparse.sparse_bwd_dkdv.launches,
-              sparse.sparse_bwd_dq.launches)
+    tc = dtype != torch.float32
+    fns = (sparse.sparse_fwd, sparse.sparse_bwd_dkdv, sparse.sparse_bwd_dq)
+    counts = [fn.launches for fn in fns] + [fn.tc_launches for fn in fns[1:]]
     out, lse = sparse.sparse_fwd(q, k, v, tables, scale, causal)
     ref_out, ref_lse = sparse.sparse_fwd_reference(q, k, v, tables, scale, causal)
     delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -397,18 +404,28 @@ def test_sparse_kernels_match_plain_versions(cuda, dtype, D, mode, block, S, KV,
     dk, dv = sparse.sparse_bwd_dkdv(*args)
     dq = sparse.sparse_bwd_dq(*args)
     torch.cuda.synchronize()
-    assert (sparse.sparse_fwd.launches, sparse.sparse_bwd_dkdv.launches,
-            sparse.sparse_bwd_dq.launches) == tuple(n + 1 for n in counts)
-    ref_dk, ref_dv = sparse.sparse_bwd_dkdv_reference(*args)
-    pairs = ((out, ref_out), (dk, ref_dk), (dv, ref_dv),
-             (dq, sparse.sparse_bwd_dq_reference(*args)))
-    for got, ref in pairs:
+    assert [fn.launches for fn in fns] + [fn.tc_launches for fn in fns[1:]] == [
+        n + d for n, d in zip(counts, (1, 1, 1, tc, tc))]
+    for got in (out, dk, dv, dq):
         assert got.dtype == dtype
-        if dtype == torch.float32:
-            atol = rtol = 1e-4
-        else:  # one rounding of the same fp32 value on each side: at most an ulp apart
-            atol, rtol = 1e-2 * float(ref.float().square().mean().sqrt()), 1e-2
-        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    if tc:
+        f = [x.float() for x in (q, k, v, do)]
+        bwd_args = (*f, ref_lse, delta, tables, scale, causal)
+        out32 = sparse.sparse_fwd_reference(*f[:3], tables, scale, causal)[0]
+        pairs = ((out, out32, out32, None),
+                 *zip((dk, dv), sparse.sparse_bwd_dkdv_reference(*bwd_args),
+                      sparse.sparse_bwd_dkdv_reference(*bwd_args, round_to=dtype), (None, None)),
+                 (dq, sparse.sparse_bwd_dq_reference(*bwd_args),
+                  sparse.sparse_bwd_dq_reference(*bwd_args, round_to=dtype),
+                  sparse.sparse_dq_fp32_floor(*bwd_args)))
+        for (got, ref, rounded, floor), part in zip(pairs, ("out", "dk", "dv", "dq")):
+            ok, err, ratio, _ = flash.tensor_core_limit(got, ref, rounded, floor)
+            assert ok, f"{part}: max abs err {err:.3e}, {ratio:.3f} of the limit"
+    else:
+        ref_dk, ref_dv = sparse.sparse_bwd_dkdv_reference(*args)
+        for got, ref in ((out, ref_out), (dk, ref_dk), (dv, ref_dv),
+                         (dq, sparse.sparse_bwd_dq_reference(*args))):
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
 
 

@@ -246,9 +246,7 @@ def _walk_counts(tables, s, causal):
     live = tables.layout.astype(bool)
 
     def positions(order, n, f0):
-        f = f0 + np.arange(tile)
-        pos = np.where(f < n * bs, order[np.minimum(f // bs, max(n - 1, 0))] * bs + f % bs, -1)
-        return np.where(pos < s, pos, -1)
+        return attention.tile_positions(order[:n], bs, s, f0 // tile)
 
     def visit(counts, h, qp, kp):
         qa, ka = np.meshgrid(qp, kp, indexing="ij")
