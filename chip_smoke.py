@@ -12,11 +12,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      that computes the same function (a yardstick only; the port never calls
      it) and the card's bound for the same work:
      ``paged_attention`` at Mistral-7B and Llama-2-7B decode and prefill
-     shapes and on small edge cases, bf16/fp16 chunks of 16 or more tokens on
-     the tensor-core prefill kernel and decode on the CUDA-core kernel, both
-     held to ``flash.tensor_core_limit`` row by row (a kernel run that drops
-     the last 16-key block of every sequence, or the last 64 rows scaled by
-     1.05, must fail it), fp32 at 1e-4; the flash forward and both backward
+     shapes, the serve's decode step and on edge cases, every chunk of fewer
+     than 16 tokens on the split-K decode kernel and its merge (split
+     boundaries, a window that begins inside a split, 4096 keys beside 1,
+     GQA groups of 1-32, head dims 64-256), bf16/fp16 chunks of 16 or more
+     tokens on the tensor-core prefill kernel, both held to
+     ``flash.tensor_core_limit`` row by row (a kernel run that drops the last
+     16-key block of every sequence, or the last 64 rows scaled by 1.05, and
+     a decode run whose last split of every sequence is left out of the
+     merge, must fail it), fp32 at 1e-4, and a split-size A/B at the Llama-2
+     decode shape; the flash forward and both backward
      kernels at the training shape (B=2, S=2048, 32 heads, head dim 128, bf16,
      causal), GQA, sq < sk, sq > sk (rows that see no key), non-causal, head
      dim 64 and unaligned lengths, bf16/fp16 forward, dK/dV and dQ on tensor
@@ -28,12 +33,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      bf16 grad; the three block-sparse kernels at the sparse training shape
      (B=1, S=4096, 32 heads, head dim 128, bf16, causal, the documented
      ``fixed`` layout at block 16, and at blocks 64 and 128), GQA, a padded
-     tail, non-causal bigbird, blocks 24 and 8, bf16/fp16 dK/dV and dQ on
-     tensor cores and the forward on CUDA cores held to
-     ``flash.tensor_core_limit`` row by row (dK/dV with the last layout block
-     or a local-only key tile zeroed, and dQ with its last 64 rows scaled by
-     1.05, must fail it), fp32 at 1e-4, and the tensor-core backward timed
-     with its tiles launched longest walk first against index order; the
+     tail, non-causal bigbird, blocks 24 and 8, bf16/fp16 forward, dK/dV and
+     dQ on tensor cores held to ``flash.tensor_core_limit`` row by row
+     (dK/dV with the last layout block or a local-only key tile zeroed, dQ
+     and out with their last 64 rows scaled by 1.05, and the forward on K/V
+     whose last layout block is zeroed, must fail it), fp32 at 1e-4, and the
+     tensor-core kernels timed with their tiles launched longest walk first
+     against index order; the
      AdamW-8bit kernel over the
      same w_gate leaf with an fp32 and a bf16 grad, and a tail group; the
      int8 quantize kernel over the full-depth Llama-2-7B w_gate leaf (1.443 G
@@ -43,10 +49,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      both bit for bit;
   3. serve: ``build_engine("mistral", MistralConfig.mistral_7b(), ...)`` in
      bf16 with seeded random weights answers 16 requests through greedy
-     ``generate``, and every forward step goes through the kernel, the
+     ``generate``, and every forward step goes through the kernel: the
      tensor-core prefill kernel at every step whose padded chunk is 16 tokens
-     or more; the same serve again under torch.profiler splits the device
-     time by kernel, prefill and decode apart;
+     or more, the split-K decode kernel at every other; the same serve again
+     under torch.profiler splits the device time by kernel (decode, merge,
+     prefill and the CUDA-core kernel apart);
   4. slice: a 2-layer, full-width Mistral in fp32, one prefill and three
      decode steps of ``forward_paged`` on CUDA (kernel) and on a CPU copy
      (plain path) with the same weights and KV;
@@ -59,7 +66,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      the AdamW-8bit kernel; train-sparse: the config's ``sparse_attention``
      section (DeepSpeed's documented ``fixed`` example, unidirectional) with
      ``fused_adam8bit``, micro 1 x gas 2 x seq 4096, through the three sparse
-     kernels (every dK/dV and dQ launch a tensor-core one) and no flash
+     kernels (every forward, dK/dV and dQ launch a tensor-core one) and no flash
      launch; each with launch counts checked against the step formula and
      one more step under torch.profiler;
   7. train slice: 2 full-width layers in fp32, the CUDA engine (kernels)
@@ -217,11 +224,45 @@ def run_plain(c, round_to=None, fp32=False):
 
 
 def paged_variant(c):
-    """True where the case takes the tensor-core prefill kernel (the wrapper's
-    own shape rule)."""
-    from deepspeed_tpu_torch.ops.attention.paged import uses_prefill_tensor_cores
+    """The route the case takes by the wrapper's own shape rule: "decode"
+    (split-K decode kernel and merge), "prefill_tc" or "cuda_core"."""
+    from deepspeed_tpu_torch.ops.attention.paged import paged_route
     _, t, hq, dh = c["q"].shape
-    return uses_prefill_tensor_cores(c["q"].dtype, dh, t, hq // c["kpool"].shape[1])
+    return paged_route(c["q"].dtype, dh, t, hq // c["kpool"].shape[1])
+
+
+ROUTE_NAMES = {"decode": "split-K decode", "prefill_tc": "tensor-core prefill",
+               "cuda_core": "CUDA-core"}
+
+
+def decode_parts(c, keys=None):
+    """The split-K decode kernel's partials for the case, at the wrapper's
+    split (or ``keys`` a split): (ml, acc, keys)."""
+    from deepspeed_tpu_torch.ops.attention import paged
+    q, kpool = c["q"], c["kpool"]
+    bs = c["block_size"]
+    if keys is None:
+        keys, _ = paged.decode_split(c["tables"].shape[1] * bs, bs, q.shape[0], kpool.shape[1],
+                                     paged._row_blocks(q, kpool), paged._sms(q.device))
+    splits = -(-c["tables"].shape[1] * bs // keys)
+    ints = (c["tables"], c["lengths"], c["start_pos"], c["n_tokens"])
+    ml, acc = paged._decode_partials(q, kpool, c["vpool"], ints, c["alibi_slopes"],
+                                     1.0 / np.sqrt(q.shape[-1]), c["window"], keys, splits)
+    return ml, acc, keys
+
+
+def last_split_dropped(c):
+    """The decode kernel's run with each sequence's last split that holds a
+    live key left out of the (kernel) merge."""
+    from deepspeed_tpu_torch.ops.attention import paged
+    ml, acc, keys = decode_parts(c)
+    for n, length in enumerate(c["lengths"].tolist()):
+        if length > 0:
+            last = (length - 1) // keys
+            ml[n, :, :, last, 0] = -1e30
+            ml[n, :, :, last, 1] = 0.0
+            acc[n, :, :, last] = 0.0
+    return paged._merge(ml, acc, c["n_tokens"], c["q"].dtype)
 
 
 def late_rows_scaled(got, n_tokens, rows=64, factor=1.05):
@@ -243,19 +284,23 @@ def compare(name, c):
     (sequence, token, q head) over Dh) against the plain version on fp32
     copies, with ``rounded`` the plain version that rounds P to the kernel's
     type for the tensor-core prefill kernel, and no rounding (the limit is an
-    ulp of the store) for the CUDA-core kernel.  The limit must reject the
-    kernel run with the last 16-key block of every sequence dropped and the
-    last 64 live rows of every sequence scaled by 1.05.  Padding rows are
-    exact zeros."""
+    ulp of the store) for the split-K decode and CUDA-core kernels.  The
+    limit must reject the kernel run with the last 16-key block of every
+    sequence dropped, the last 64 live rows of every sequence scaled by 1.05
+    and, for the decode kernel, the last split of every sequence left out of
+    the merge.  Padding rows are exact zeros."""
     import torch
     from deepspeed_tpu_torch.ops.attention import flash
     from deepspeed_tpu_torch.ops.attention.paged import paged_attention
-    tc = paged_variant(c)
-    variant = "tensor-core prefill" if tc else "CUDA-core"
-    before = (paged_attention.launches, paged_attention.tc_launches)
+    route = paged_variant(c)
+    tc, dec = route == "prefill_tc", route == "decode"
+    variant = ROUTE_NAMES[route]
+    counts = lambda: (paged_attention.launches, paged_attention.tc_launches,  # noqa: E731
+                      paged_attention.decode_launches)
+    before = counts()
     got = run_kernel(c)
     torch.cuda.synchronize()
-    if (paged_attention.launches, paged_attention.tc_launches) != (before[0] + 1, before[1] + tc):
+    if counts() != (before[0] + 1, before[1] + tc, before[2] + dec):
         raise AssertionError(f"{name}: the {variant} kernel did not launch")
     dtype = c["q"].dtype
     if dtype == torch.float32:
@@ -278,6 +323,8 @@ def compare(name, c):
         dropped = dict(c, lengths=(c["lengths"] - 16).clamp_min(0))
         faults = {"last 16-key block dropped": run_kernel(dropped),
                   "last 64 rows x1.05": late_rows_scaled(got, c["n_tokens"])}
+        if dec:
+            faults["last split left out of the merge"] = last_split_dropped(c)
         shares = {}
         for fault, bad in faults.items():
             passed, _, shares[fault], _ = flash.tensor_core_limit(bad, ref, rounded)
@@ -441,17 +488,111 @@ def phase_kernel(card):
     for seed, (edge, kw) in enumerate(prefill_edges.items(), start=100):
         for dtype, tag in ((bf16, "bf16"), (fp16, "fp16")):
             cases[f"prefill_{edge}_{tag}"] = make_case(seed, dtype=dtype, **kw)
+    cases.update(decode_edges())
+    # the CUDA-core kernel's chunks (T >= 16 off the tensor-core rule): the
+    # fp32 slice's Mistral-width prefill, head dim 256 and 32, a group of 128
+    cuda_core_edges = {
+        "cuda_core_slice_t128_fp32": dict(N=2, T=128, lengths=[70, 33], n_tokens=[70, 33],
+                                          dtype=torch.float32, **mistral),
+        "cuda_core_t16_d256_gqa4_window_bf16": dict(N=3, T=16, H=8, KV=2, Dh=256, bs=16,
+                                                    lengths=[40, 300, 0], n_tokens=[16, 9, 0],
+                                                    dtype=bf16, window=100),
+        "cuda_core_t64_d256_mha_fp32": dict(N=2, T=64, H=4, KV=4, Dh=256, bs=32,
+                                            lengths=[64, 500], n_tokens=[64, 37],
+                                            dtype=torch.float32),
+        "cuda_core_t20_d32_alibi_fp16": dict(N=3, T=20, H=4, KV=4, Dh=32, bs=8,
+                                             lengths=[20, 57, 300], n_tokens=[20, 11, 1],
+                                             dtype=fp16, alibi=True, window=30),
+        "cuda_core_t16_d64_mqa128_bf16": dict(N=2, T=16, H=128, KV=1, Dh=64, bs=16,
+                                              lengths=[100, 16], n_tokens=[16, 16], dtype=bf16),
+    }
+    for seed, (edge, kw) in enumerate(cuda_core_edges.items(), start=300):
+        cases[edge] = make_case(seed, **kw)
     errs = {name: compare(name, c) for name, c in cases.items()}
-    tc_cases = [name for name, c in cases.items() if paged_variant(c)]
-    if not {"mistral_prefill", "llama2_prefill"} <= set(tc_cases) or any(
-            paged_variant(cases[name]) for name in ("mistral_decode", "llama2_decode")):
-        raise AssertionError(f"prefill cases {tc_cases} do not follow the shape rule")
+    routes = {name: paged_variant(c) for name, c in cases.items()}
+    wrong = {name: route for name, route in routes.items()
+             if route != ("decode" if cases[name]["q"].shape[1] < 16
+                          else "cuda_core" if name.startswith("cuda_core") else "prefill_tc")}
+    if wrong or set(routes.values()) != set(ROUTE_NAMES):
+        raise AssertionError(f"cases do not follow the shape rule: {wrong or routes}")
+    log(f"[kernel] paged cases by route: "
+        + ", ".join(f"{ROUTE_NAMES[r]} {sum(v == r for v in routes.values())}"
+                    for r in ROUTE_NAMES))
     recs = {name: measure(name, cases[name])
-            for name in ("mistral_decode", "mistral_prefill", "llama2_decode", "llama2_prefill")}
+            for name in ("mistral_decode", "mistral_prefill", "llama2_decode", "llama2_prefill",
+                         "serve_decode_n16")}
     for name, rec in recs.items():
         log(f"[kernel] {name} on {card}: {json.dumps({k: rec[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')})}")
-    paged_attention.launches = paged_attention.tc_launches = 0
+    for name in ("llama2_decode", "mistral_decode", "serve_decode_n16"):
+        split_ab(name, cases[name])
+    paged_attention.launches = paged_attention.tc_launches = paged_attention.decode_launches = 0
     return recs, max(errs["mistral_decode"], errs["mistral_prefill"])
+
+
+def decode_edges():
+    """The split-K decode kernel's edges (bf16 unless named): a length that
+    ends exactly on a split boundary and one a key past it; a window that
+    begins inside a split; one sequence of 4096 keys; a GQA group of 32 at
+    T=1; the serve's decode step (N=16, lengths 32-2080, a 4096-key table);
+    fp16 and fp32 at head dims 64 and 256 with blocks of 8 and 128."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention import paged
+    bf16 = torch.bfloat16
+    mistral = dict(H=32, KV=8, Dh=128, bs=16)
+    keys, _ = paged.decode_split(4096, 16, 8, 8, 1, paged._sms("cuda"))
+    rng = np.random.default_rng(7)
+    edges = {
+        "decode_split_boundary": dict(N=8, T=1, lengths=[keys, 2 * keys, keys + 1, 2 * keys - 1,
+                                                         1, 4096, 64, 0],
+                                      n_tokens=[1] * 7 + [0], dtype=bf16, **mistral),
+        "decode_window_in_split": dict(N=8, T=1, lengths=[4096, 3 * keys + 40, keys + 300, 700,
+                                                          2 * keys, 1, 5, 4000],
+                                       n_tokens=[1] * 8, dtype=bf16, window=keys // 2 + 37,
+                                       **mistral),
+        "decode_n1_4096": dict(N=1, T=1, lengths=[4096], n_tokens=[1], dtype=bf16, window=4096,
+                               **mistral),
+        "decode_group32_t1": dict(N=4, T=1, H=32, KV=1, Dh=128, bs=16, lengths=[3000, 1, 257, 0],
+                                  n_tokens=[1, 1, 1, 0], dtype=bf16),
+        "serve_decode_n16": dict(N=16, T=1, lengths=np.concatenate([[32, 2080],
+                                                                    rng.integers(32, 2081, 14)]),
+                                 n_tokens=[1] * 16, dtype=bf16, window=4096, **mistral),
+        "decode_t7_gqa8_d64_bs8_alibi_fp16": dict(N=3, T=7, H=16, KV=2, Dh=64, bs=8,
+                                                  lengths=[900, 7, 300], n_tokens=[7, 7, 2],
+                                                  dtype=torch.float16, alibi=True, window=500),
+        "decode_t1_d256_bs128_fp32": dict(N=3, T=1, H=8, KV=2, Dh=256, bs=128,
+                                          lengths=[1500, 129, 128], n_tokens=[1, 1, 1],
+                                          dtype=torch.float32, window=300),
+    }
+    cases = {name: make_case(200 + i, **kw) for i, (name, kw) in enumerate(edges.items())}
+    # the serve's tables reach 256 slots (max_blocks_per_seq) whatever the lengths
+    tables = cases["serve_decode_n16"]["tables"]
+    trash = int(cases["serve_decode_n16"]["kpool"].shape[0]) - 1
+    cases["serve_decode_n16"]["tables"] = torch.cat(
+        [tables, torch.full((16, 256 - tables.shape[1]), trash, dtype=torch.int32,
+                            device=tables.device)], 1).contiguous()
+    return cases
+
+
+def split_ab(name, c):
+    """The decode kernel and its merge at the wrapper's split size against
+    half of it, twice it and one split (no split-K), in turns (rule, half,
+    double, one, then back): what the split size buys."""
+    from deepspeed_tpu_torch.ops.attention import paged
+    rule_keys = decode_parts(c)[2]
+    context = c["tables"].shape[1] * c["block_size"]
+    unit = max(c["block_size"], paged.DECODE_TILE)
+    half = max(unit, rule_keys // 2 // unit * unit)
+    sizes = {f"rule ({rule_keys} keys)": rule_keys,
+             f"half ({half} keys)": half,
+             f"double ({min(context, 2 * rule_keys)} keys)": min(context, 2 * rule_keys),
+             f"one split ({context} keys)": context}
+    times = {label: [] for label in sizes}
+    for label in list(sizes) + list(sizes)[::-1]:
+        keys = sizes[label]
+        times[label].append(time_ms(lambda: paged._merge(*decode_parts(c, keys)[:2],
+                                                         c["n_tokens"], c["q"].dtype)))
+    log(f"[kernel] {name} split size A/B (decode + merge, in turns): "
+        + ", ".join(f"{label} {statistics.mean(t):.4f} ms" for label, t in times.items()))
 
 
 def bound(nbytes, flops, dtype):
@@ -799,15 +940,16 @@ def sparse_backward_inputs(c):
 
 
 def sparse_faults(c, got, refs, rounded, floors):
-    """The kernel's bf16/fp16 outputs spoiled three ways, each of which the
+    """The kernels' bf16/fp16 outputs spoiled five ways, each of which the
     row limit must reject: dK and dV with the last layout block's keys
     zeroed; dK and dV with the keys of one local-only tile zeroed (kv head
     0's tile with the shortest walk, which no global query block sees);
-    dQ with its last 64 query rows scaled by 1.05.  Returns {fault: share of
+    dQ and out with their last 64 query rows scaled by 1.05; the forward run
+    on K and V whose last layout block is zeroed.  Returns {fault: share of
     the limit}; raises where the limit passes one."""
     import torch
     from deepspeed_tpu_torch.ops.attention import flash
-    from deepspeed_tpu_torch.ops.sparse_attention.attention import tile_positions
+    from deepspeed_tpu_torch.ops.sparse_attention.attention import sparse_fwd, tile_positions
     tb = c["tables"]
     S = c["q"].shape[1]
     last = torch.arange((tb.layout.shape[1] - 1) * tb.block, S, device=c["q"].device)
@@ -820,9 +962,16 @@ def sparse_faults(c, got, refs, rounded, floors):
             ("last_block_zeroed_dv", "dv", lambda x: x.index_fill_(1, last, 0)),
             ("local_tile_zeroed_dk", "dk", lambda x: x[:, :, :1].index_fill_(1, local, 0)),
             ("local_tile_zeroed_dv", "dv", lambda x: x[:, :, :1].index_fill_(1, local, 0)),
-            ("dq_last_rows_x1.05", "dq", lambda x: x[:, -64:].copy_(x[:, -64:].float() * 1.05))):
-        bad = got[part].clone()
-        spoil(bad)
+            ("dq_last_rows_x1.05", "dq", lambda x: x[:, -64:].copy_(x[:, -64:].float() * 1.05)),
+            ("out_last_rows_x1.05", "out", lambda x: x[:, -64:].copy_(x[:, -64:].float() * 1.05)),
+            ("fwd_last_block_kv_zeroed", "out", None)):
+        if spoil is None:
+            k0, v0 = c["k"].index_fill(1, last, 0), c["v"].index_fill(1, last, 0)
+            bad = sparse_fwd(c["q"], k0, v0, tb, 1.0 / np.sqrt(c["q"].shape[-1]),
+                             c["causal"])[0]
+        else:
+            bad = got[part].clone()
+            spoil(bad)
         passed, _, shares[fault], _ = flash.tensor_core_limit(bad, refs[part], rounded[part],
                                                               floors.get(part))
         if passed:
@@ -835,28 +984,26 @@ def compare_sparse(name, c):
     """Each sparse kernel once against its plain version; returns the largest
     error of each kernel's outputs.  fp32 is held at 1e-4.  bf16/fp16 are held
     to ``flash.tensor_core_limit`` row by row against the fp32 plain version
-    on the inputs' values: dK, dV and dQ (tensor-core kernels) with
+    on the inputs' values: out, dK, dV and dQ (tensor-core kernels) with
     ``rounded`` = the plain versions with ``round_to=`` the dtype, dQ with
-    ``sparse_dq_fp32_floor``; the forward (CUDA cores) with ``rounded`` = the
-    fp32 plain version itself, so only the store's ulp; three faulted runs
-    (:func:`sparse_faults`) must fail it."""
+    ``sparse_dq_fp32_floor``; lse at 1e-4, as flash's; the faulted runs of
+    :func:`sparse_faults` must fail it."""
     import torch
     from deepspeed_tpu_torch.ops.attention import flash
     from deepspeed_tpu_torch.ops.sparse_attention import attention as sp
     q, k, v, do, tb, causal = c["q"], c["k"], c["v"], c["do"], c["tables"], c["causal"]
     scale, lse_ref, delta = sparse_backward_inputs(c)
     tc = flash.uses_tensor_cores(q.dtype)
-    fns = (sp.sparse_bwd_dkdv, sp.sparse_bwd_dq)
-    counts = ([sp.sparse_fwd.launches] + [fn.launches for fn in fns]
-              + [fn.tc_launches for fn in fns])
+    fns = (sp.sparse_fwd, sp.sparse_bwd_dkdv, sp.sparse_bwd_dq)
+    counts = [fn.launches for fn in fns] + [fn.tc_launches for fn in fns]
     out, lse = sp.sparse_fwd(q, k, v, tb, scale, causal)
     dk, dv = sp.sparse_bwd_dkdv(q, k, v, do, lse_ref, delta, tb, scale, causal)
     dq = sp.sparse_bwd_dq(q, k, v, do, lse_ref, delta, tb, scale, causal)
     torch.cuda.synchronize()
-    now = [sp.sparse_fwd.launches] + [fn.launches for fn in fns] + [fn.tc_launches for fn in fns]
-    if now != [n + d for n, d in zip(counts, (1, 1, 1, tc, tc))]:
+    now = [fn.launches for fn in fns] + [fn.tc_launches for fn in fns]
+    if now != [n + d for n, d in zip(counts, (1, 1, 1, tc, tc, tc))]:
         raise AssertionError(f"{name}: a sparse kernel did not launch, or not the "
-                             f"{'tensor-core' if tc else 'CUDA-core'} backward")
+                             f"{'tensor-core' if tc else 'CUDA-core'} variant")
     got = {"out": out, "dk": dk, "dv": dv, "dq": dq}
     if not tc:
         bwd_args = (q, k, v, do, lse_ref, delta, tb, scale, causal)
@@ -873,7 +1020,7 @@ def compare_sparse(name, c):
         refs = {"out": sp.sparse_fwd_reference(*f[:3], tb, scale, causal)[0],
                 "dq": sp.sparse_bwd_dq_reference(*bwd_args)}
         refs["dk"], refs["dv"] = sp.sparse_bwd_dkdv_reference(*bwd_args)
-        rounded = {"out": refs["out"],
+        rounded = {"out": sp.sparse_fwd_reference(*f[:3], tb, scale, causal, round_to=q.dtype)[0],
                    "dq": sp.sparse_bwd_dq_reference(*bwd_args, round_to=q.dtype)}
         rounded["dk"], rounded["dv"] = sp.sparse_bwd_dkdv_reference(*bwd_args, round_to=q.dtype)
         # query 0 sees only key 0: its dQ is 0 exactly, fp32 noise on both sides
@@ -889,8 +1036,9 @@ def compare_sparse(name, c):
                     f"{ratios[part]:.3f} of 2 max_row|rounded - ref| + eps max_row|ref| (rms of "
                     f"the fp32 plain result {rms[part]:.3e})")
         shares = sparse_faults({**c, "name": name}, got, refs, rounded, floors)
-        rule = (f"row limit 2 max_row|rounded - fp32| + eps max_row|fp32| (out: rounded = fp32, "
-                f"CUDA cores; dk/dv/dq tensor cores, dq + its fp32 floor), median row limit "
+        rule = (f"row limit 2 max_row|rounded - fp32| + eps max_row|fp32| (out/dk/dv/dq "
+                f"tensor cores, rounded = round_to={q.dtype}, dq + its fp32 floor), median "
+                f"row limit "
                 f"{limits['out']:.3e}/{limits['dk']:.3e}/{limits['dv']:.3e}/{limits['dq']:.3e}, "
                 f"at {ratios['out']:.3f}/{ratios['dk']:.3f}/{ratios['dv']:.3f}/"
                 f"{ratios['dq']:.3f} of it; faulted runs rejected at "
@@ -981,9 +1129,9 @@ def measure_sparse(name, c, plain=True):
 
 
 def launch_order_ab(name, c, args):
-    """The tensor-core backward kernels with their tiles launched longest walk
-    first (the tables' order) against the tiles in index order, in turns
-    (longest, index, index, longest): what the launch order buys."""
+    """The tensor-core forward and backward kernels with their tiles launched
+    longest walk first (the tables' order) against the tiles in index order,
+    in turns (longest, index, index, longest): what the launch order buys."""
     import copy
     from deepspeed_tpu_torch.ops.sparse_attention import attention as sp
     tb = c["tables"]
@@ -995,15 +1143,22 @@ def launch_order_ab(name, c, args):
                                             tb.k_tile_order.shape).copy()
     chunks = -(-tb.q_cnt * tb.block // sp.TILE)  # 64-query chunks of each (q head, key tile)
     walks = chunks.reshape(tb.n_kv_heads, -1, tb.n_tiles).sum(1)
-    for kname, fn in (("sparse_bwd_dkdv", sp.sparse_bwd_dkdv), ("sparse_bwd_dq", sp.sparse_bwd_dq)):
+    fwd_walks = -(-tb.k_cnt * tb.block // sp.TILE)  # 64-key chunks of each (q head, query tile)
+    runs = (("sparse_fwd", lambda tables: sp.sparse_fwd(*args[:3], tables, *args[7:]), fwd_walks,
+             "forward walks, 64-key chunks a query tile (before the causal stop)"),
+            ("sparse_bwd_dkdv", lambda tables: sp.sparse_bwd_dkdv(*args[:6], tables, *args[7:]),
+             walks, "dK/dV walks, 64-query chunks a key tile"),
+            ("sparse_bwd_dq", lambda tables: sp.sparse_bwd_dq(*args[:6], tables, *args[7:]),
+             fwd_walks, "dQ walks, 64-key chunks a query tile (before the causal stop)"))
+    for kname, fn, w, what in runs:
         times = {"longest first": [], "index order": []}
         for order in ("longest first", "index order", "index order", "longest first"):
             tables = tb if order == "longest first" else in_index
-            times[order].append(time_ms(lambda: fn(*args[:6], tables, *args[7:])))
+            times[order].append(time_ms(lambda: fn(tables)))
         log(f"[kernel] {name} {kname} launch order: longest walk first "
             f"{statistics.mean(times['longest first']):.4f} ms, tile index order "
-            f"{statistics.mean(times['index order']):.4f} ms (dK/dV walks, 64-query chunks a "
-            f"key tile: max {walks.max()}, mean {walks.mean():.2f}, median {np.median(walks):.0f})")
+            f"{statistics.mean(times['index order']):.4f} ms ({what}: max {w.max()}, mean "
+            f"{w.mean():.2f}, median {np.median(w):.0f})")
 
 
 def phase_sparse_kernels(card):
@@ -1315,7 +1470,7 @@ def phase_serve(card, seed=0):
     from deepspeed_tpu_torch.runtime.tree import tree_leaves
     from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
     from deepspeed_tpu_torch.models.mistral import MistralConfig, init_params, num_params
-    from deepspeed_tpu_torch.ops.attention.paged import paged_attention, uses_prefill_tensor_cores
+    from deepspeed_tpu_torch.ops.attention.paged import paged_attention, paged_route
     cfg = MistralConfig.mistral_7b()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1337,7 +1492,7 @@ def phase_serve(card, seed=0):
     lens = np.concatenate([[32, 2048], rng.integers(32, 2049, 14)])
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
     max_new = 32
-    paged_attention.launches = paged_attention.tc_launches = 0
+    paged_attention.launches = paged_attention.tc_launches = paged_attention.decode_launches = 0
     steps0 = engine.forward_steps
     widths0 = dict(engine.chunk_widths)
     torch.cuda.synchronize()
@@ -1346,13 +1501,16 @@ def phase_serve(card, seed=0):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, tc_launches = paged_attention.launches, paged_attention.tc_launches
+    decode_launches = paged_attention.decode_launches
     steps = engine.forward_steps - steps0
     widths = {t: k - widths0.get(t, 0) for t, k in engine.chunk_widths.items()
               if k > widths0.get(t, 0)}
     head_dim = cfg.hidden_size // cfg.num_heads
     group = cfg.num_heads // cfg.num_kv_heads
     tc_steps = sum(k for t, k in widths.items()
-                   if uses_prefill_tensor_cores(torch.bfloat16, head_dim, t, group))
+                   if paged_route(torch.bfloat16, head_dim, t, group) == "prefill_tc")
+    decode_steps = sum(k for t, k in widths.items()
+                       if paged_route(torch.bfloat16, head_dim, t, group) == "decode")
     for prompt, res in zip(prompts, results):
         if res.status != "ok" or len(res.tokens) != len(prompt) + max_new:
             raise AssertionError(f"request {res.uid}: status {res.status} ({res.reason}), "
@@ -1372,6 +1530,10 @@ def phase_serve(card, seed=0):
         raise AssertionError(f"paged_attention launched the tensor-core prefill kernel "
                              f"{tc_launches} times; {tc_steps} steps of chunk width >= 16 "
                              f"({widths}) x {cfg.num_layers} layers")
+    if decode_launches != decode_steps * cfg.num_layers:
+        raise AssertionError(f"paged_attention launched the split-K decode kernel "
+                             f"{decode_launches} times; {decode_steps} steps of chunk width < 16 "
+                             f"({widths}) x {cfg.num_layers} layers")
     generated = max_new * len(prompts)
     log(f"[serve] {len(prompts)} requests ({int(lens.sum())} prompt tokens, "
         f"{generated} generated) all ok on {card}: wall {wall:.3f} s, "
@@ -1379,22 +1541,26 @@ def phase_serve(card, seed=0):
         f"total tok/s, {steps} steps, mean step {wall / steps * 1e3:.2f} ms, "
         f"paged_attention launches {launches} = {steps} x {cfg.num_layers}, of them "
         f"tensor-core prefill {tc_launches} = {tc_steps} steps of chunk width >= 16 x "
-        f"{cfg.num_layers} (steps by padded chunk width {dict(sorted(widths.items()))}), "
+        f"{cfg.num_layers}, split-K decode {decode_launches} = {decode_steps} steps of chunk "
+        f"width < 16 x {cfg.num_layers} (steps by padded chunk width "
+        f"{dict(sorted(widths.items()))}), "
         f"{engine.tokens_run} real tokens in {engine.positions_run} padded positions")
     profile_serve(engine, prompts, max_new, card, wall)
     del engine, params
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "tc_launches": tc_launches, "decode_launches": decode_launches}
 
 
 def profile_serve(engine, prompts, max_new, card, wall_s):
     """Serve the same requests again under torch.profiler: device time split
-    into the paged prefill (tensor-core) and decode (CUDA-core) kernels,
-    matrix products and the rest; the timed run (``wall_s``) is not
-    profiled."""
+    into the paged split-K decode kernel, its merge, the tensor-core prefill
+    and the CUDA-core kernel, matrix products and the rest; the timed run
+    (``wall_s``) is not profiled."""
     profile_device(lambda: engine.generate(prompts, max_new_tokens=max_new, strict=False), card,
                    "profile", "serve", wall_s * 1e3,
-                   (("paged_prefill_tc", "paged_prefill_tc_kernel"),
+                   (("paged_decode", "paged_decode_kernel"),
+                    ("paged_decode_merge", "paged_decode_merge_kernel"),
+                    ("paged_prefill_tc", "paged_prefill_tc_kernel"),
                     ("paged_cuda_core", "paged_attention_kernel")))
 
 
@@ -1449,6 +1615,7 @@ def phase_slice(seed=1):
     import torch
     from deepspeed_tpu_torch.runtime.tree import tree_map
     from deepspeed_tpu_torch.models import mistral
+    from deepspeed_tpu_torch.ops.attention.paged import paged_attention
     cfg = dataclasses.replace(mistral.MistralConfig.mistral_7b(), num_layers=2)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = mistral.init_params(cfg, gen, dtype=torch.float32, device="cuda")
@@ -1468,6 +1635,7 @@ def phase_slice(seed=1):
     n_tokens = np.asarray(plen, np.int32)
     start = np.zeros(2, np.int32)
     worst = 0.0
+    paged_attention.launches = paged_attention.tc_launches = paged_attention.decode_launches = 0
     for step in range(4):
         outs = []
         for dev, p, cache in (("cuda", params, kv), ("cpu", params_cpu, kv_cpu)):
@@ -1488,12 +1656,21 @@ def phase_slice(seed=1):
         start = start + n_tokens
         tokens = picks_gpu.numpy().astype(np.int32)[:, None]
         n_tokens = np.ones(2, np.int32)
+    # the fp32 prefill chunk (T = 128) on the CUDA-core kernel, the three
+    # decode steps on the split-K decode kernel, in each layer
+    counts = (paged_attention.launches, paged_attention.tc_launches,
+              paged_attention.decode_launches)
+    if counts != (4 * cfg.num_layers, 0, 3 * cfg.num_layers):
+        raise AssertionError(f"slice: paged_attention (launches, tensor-core, decode) {counts}, "
+                             f"expected one CUDA-core prefill and three decode steps x "
+                             f"{cfg.num_layers} layers")
     # every block but the trash block, which takes the padded tokens' colliding writes
     kv_err = max((kv[k][:, :-1].cpu() - kv_cpu[k][:, :-1]).abs().max().item()
                  for k in ("k", "v"))
     log(f"[slice] mistral_7b width, 2 layers, fp32: prefill + 3 decode steps, CUDA kernel path "
         f"vs CPU plain path: max logit abs err {worst:.3e} (atol=rtol=2e-3), KV max abs err "
-        f"{kv_err:.3e}, greedy picks identical")
+        f"{kv_err:.3e}, greedy picks identical; paged launches: CUDA-core "
+        f"{counts[0] - counts[1] - counts[2]}, split-K decode {counts[2]}")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1502,8 +1679,8 @@ KERNEL_NAMES = ("paged_attention", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"
                 "sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq", "adamw8bit", "fused_lion",
                 "quantize_int8")
 # the kernels whose bf16 launches in a training step must all be tensor-core ones
-TC_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "sparse_bwd_dkdv",
-                    "sparse_bwd_dq")
+TC_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "sparse_fwd",
+                    "sparse_bwd_dkdv", "sparse_bwd_dq")
 
 
 def train_config(*, micro, gas, bf16, seed, lr=3e-4, optimizer="fused_adam", sparse=None):
@@ -1542,6 +1719,8 @@ def reset_launch_counts():
         fn.launches = 0
         if hasattr(fn, "tc_launches"):
             fn.tc_launches = 0
+        if hasattr(fn, "decode_launches"):
+            fn.decode_launches = 0
 
 
 def expected_launches(*, steps, gas, layers, n_leaves, optimizer, sparse):
@@ -1621,8 +1800,8 @@ def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=
     wrappers = _kernel_wrappers()
     tc = {name: wrappers[name].tc_launches for name in TC_TRAIN_KERNELS}
     if any(tc[name] != launches[name] for name in tc):
-        raise AssertionError(f"[{tag}] not every bf16 flash forward, dK/dV and dQ and sparse "
-                             f"dK/dV and dQ launch was a tensor-core one: {tc} of {launches}")
+        raise AssertionError(f"[{tag}] not every bf16 flash and sparse forward, dK/dV and dQ "
+                             f"launch was a tensor-core one: {tc} of {launches}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"[{tag}] losses not finite and falling: {losses}")
     step_s = statistics.mean(times[1:])
@@ -2024,12 +2203,18 @@ def main() -> int:
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s on {card}")
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": "paged_attention", "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
+                "replaces": REPLACES, "launches": launches["launches"],
+                "decode_launches": launches["decode_launches"],
+                "tc_launches": launches["tc_launches"], "max_abs_err": max_err,
                 **{k: recs["mistral_decode"][k] for k in fields},
                 "shape": "mistral_7b decode N=32 T=1 lengths 1-4096 bf16",
-                "variant": "tensor cores (mma.sync m16n8k16) for bf16/fp16 chunks of T >= 16 "
-                           "tokens with head_dim 64 or 128 and a GQA group <= 64 (prefill), "
-                           "CUDA cores for the rest (decode T < 16, fp32, head_dim 32 or 256)",
+                "variant": "three routes by shape: split-K decode (paged_decode_kernel + "
+                           "paged_decode_merge_kernel, CUDA cores, cp.async) for every chunk of "
+                           "T < 16; tensor cores (paged_prefill_tc_kernel, mma.sync m16n8k16) "
+                           "for bf16/fp16 chunks of T >= 16 with head_dim 64 or 128 and a GQA "
+                           "group <= 64; CUDA cores (paged_attention_kernel) for the rest (fp32, "
+                           "head_dim 32 or 256 at T >= 16)",
+                "serve_decode_n16": {k: recs["serve_decode_n16"][k] for k in fields},
                 "prefill": {k: recs["mistral_prefill"][k] for k in fields},
                 "llama2_decode": {k: recs["llama2_decode"][k] for k in fields},
                 "llama2_prefill": {k: recs["llama2_prefill"][k] for k in fields}}]
@@ -2057,11 +2242,9 @@ def main() -> int:
                         **{k: sparse_recs[name][k] for k in fields},
                         "shape": "B=1 S=4096 H=KV=32 D=128 bf16 causal, fixed layout block 16 "
                                  "([train-sparse]'s)",
-                        **({} if name == "sparse_fwd" else {
-                            "variant": "tensor cores for bf16/fp16 (mma.sync m16n8k16, gathered "
-                                       "64-position tiles, longest walks first), CUDA cores "
-                                       "for fp32",
-                            "tc_launches": sparse_train["tc_launches"][name]})})
+                        "variant": "tensor cores for bf16/fp16 (mma.sync m16n8k16, gathered "
+                                   "64-position tiles, longest walks first), CUDA cores for fp32",
+                        "tc_launches": sparse_train["tc_launches"][name]})
     adam8 = adam8_recs["adamw8bit"]
     kernels.append({"name": "adamw8bit", "route": "cuda", "source": ADAM8_SOURCE,
                     "replaces": ADAM8_REPLACES, "launches": adam8_launches["adamw8bit"],

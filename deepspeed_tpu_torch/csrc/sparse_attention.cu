@@ -39,11 +39,11 @@
 // What bounds it on the H100: as flash, arithmetic: 4 D operations per live
 // (query, key) pair forward, 8 D for dK/dV, 6 D for dQ.
 //
-// Two designs for the backward, chosen by the storage type (the wrapper in
-// ops/sparse_attention/attention.py holds the rule, flash.uses_tensor_cores;
-// no fallback between them); the forward has the first only.
+// Two designs for each of the three, chosen by the storage type (the wrapper
+// in ops/sparse_attention/attention.py holds the rule,
+// flash.uses_tensor_cores; no fallback between them).
 //
-// CUDA cores (the forward for every type; dK/dV and dQ for fp32): fp32
+// CUDA cores (fp32: the forward, dK/dV and dQ): fp32
 // arithmetic (67 TFLOP/s peak), so results differ from the plain versions
 // only by the order of summation.  The design copies flash_attention.cu's:
 // 256 threads, 4 x 4 score micro-tiles a thread, shared rows padded to D + 1
@@ -51,12 +51,12 @@
 // group, so the group's sum stays in registers (attention.py:318-319 sums an
 // fp32 [B, H, S, D] there).
 //
-// Tensor cores (dK/dV and dQ for bf16 and fp16; sparse_bwd_dkdv_tc_kernel
-// replaces _bwd_dkdv_kernel, sparse_bwd_dq_tc_kernel _bwd_dq_kernel):
-// mma.sync.m16n8k16 with fp32 accumulators (989 TFLOP/s dense peak for the
-// type), built as flash_attention.cu's tensor-core backward from
-// mma_tiles.cuh.  The 8 D and 6 D operations a live pair run on the tensor
-// cores; what the design does about the layout:
+// Tensor cores (bf16 and fp16; sparse_fwd_tc_kernel replaces _fwd_kernel,
+// sparse_bwd_dkdv_tc_kernel _bwd_dkdv_kernel, sparse_bwd_dq_tc_kernel
+// _bwd_dq_kernel): mma.sync.m16n8k16 with fp32 accumulators (989 TFLOP/s
+// dense peak for the type), built as flash_attention.cu's tensor-core
+// kernels from mma_tiles.cuh.  The 4 D, 8 D and 6 D operations a live pair
+// run on the tensor cores; what the design does about the layout:
 //   - the same host tables and 64-position tiles as the CUDA-core kernels:
 //     rows are gathered by position with cp.async, 16 bytes a lane, into
 //     shared tiles of the storage type (rows of D + 8 elements, never widened);
@@ -69,8 +69,12 @@
 //     kMaxOwn), read from the [NB, NB] layout once a row and chunk; a lane
 //     then tests its owner row's bit, the key < S and, with causal, key <=
 //     query, and a warp whose 16 x 64 sub-tile is masked whole skips it;
-//   - P and dS are rounded to the input type before P^T dO, dS^T Q and dS K,
-//     as flash's tensor-core kernels (held to flash.tensor_core_limit);
+//   - P and dS are rounded to the input type before P V, P^T dO, dS^T Q and
+//     dS K, as flash's tensor-core kernels (held to flash.tensor_core_limit);
+//   - forward: a block owns a 64-query tile of q_order with its Q fragments
+//     in registers, walks the 64-key chunks of k_walk up to the tile's last
+//     query with an online softmax in fp32 registers (exp2), P rounded
+//     straight into the A fragments of O += P V; lse from the unrounded l;
 //   - dK/dV: a block of 4 warps owns a 64-key tile of k_order, 16 keys a
 //     warp, walks the q heads of its GQA group (the group's sum stays in
 //     registers) and, per head, the chunks of q_walk from the first that
@@ -81,9 +85,10 @@
 //     two passes of 32 keys a chunk, and feeds dS straight into the A operand
 //     of dS K;
 //   - longest walks first: the block at blockIdx.z takes tile
-//     tile_order[head][blockIdx.z], a permutation built with the tables that
-//     sorts the tiles by walk length, longest first, so the long walks of
-//     the global key blocks start in the first wave instead of making a tail.
+//     tile_order[head][blockIdx.z] (the forward and dQ share q_tile_order),
+//     a permutation built with the tables that sorts the tiles by walk
+//     length, longest first, so the long walks of the global key blocks
+//     start in the first wave instead of making a tail.
 
 #include <climits>
 #include <cuda_bf16.h>
@@ -104,6 +109,7 @@ constexpr int kRows = 4;       // rows per thread: kTile / (kThreads / kTX)
 constexpr int kKeys = 4;       // keys per thread: kTile / kTX
 constexpr int kLdP = kTile + 1;
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' mask value
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -610,6 +616,20 @@ __device__ __forceinline__ void cp_rows_pair(T* dst0, const T* src0, T* dst1, co
   }
 }
 
+// cp.async of 64 gathered rows of one tile (as cp_rows_pair, one source)
+template <typename T, int D, typename RowPos>
+__device__ __forceinline__ void cp_rows(T* dst, const T* src, int64_t stride, RowPos row_pos) {
+  constexpr int kChunks = D / 8;
+  const int c = threadIdx.x % kChunks;
+#pragma unroll
+  for (int r = threadIdx.x / kChunks; r < kTile; r += kTcThreads / kChunks) {
+    const int pos = row_pos(r);
+    const bool live = pos >= 0;
+    const int64_t off = live ? (int64_t)pos * stride + c * 8 : 0;
+    cp_async16(smem_u32(dst + r * (D + 8) + c * 8), src + off, live);
+  }
+}
+
 // The owner tile's layout blocks (at most kMaxOwn: entries own0.. of the
 // owner order) into own_s; the tile's positions into pos_s.  Threads 0..63.
 __device__ __forceinline__ int stage_owner(int* pos_s, int* own_s, const int* order, int NB,
@@ -623,6 +643,227 @@ __device__ __forceinline__ int stage_owner(int* pos_s, int* own_s, const int* or
     pos_s[threadIdx.x] = p;
   }
   return p;
+}
+
+// ------------------------------------------------------ tensor-core forward
+// One block per (64-query tile, q head, batch), the tile taken in launch
+// order (q_tile_order, as dQ); warp w owns rows 16w..16w+15 of the tile, so
+// O (rows x D) is accumulated in its registers, with the warp's Q
+// A-fragments loaded once.  Walked 64-key chunks (K, V, key positions and
+// mask bits) are double-buffered by cp.async; with causal the walk stops at
+// the first chunk past the tile's last query.  Per chunk: S = Q K^T; the
+// element mask (layout bit, key < S, causal); the online softmax in fp32
+// with exp2 and the scale folded into log2 e; P rounded to T into A
+// fragments for O += P V (V through ldmatrix.trans), l summing the fp32 P.
+// Rows with no live key give out 0 and lse -1e30; rows past S are not
+// written.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads)
+sparse_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     T* __restrict__ out, float* __restrict__ lse, Tables tb,
+                     const int* __restrict__ tile_order, int S, int H, int KV, float scale_log2,
+                     int causal) {
+  constexpr int kLd = D + 8;
+  constexpr int kKD = D / 16;
+  constexpr int kND = D / 8;
+  constexpr int kNK = kTile / 8;  // n8 tiles of a chunk's 64 keys
+  constexpr int kElems = kTile * kLd;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  T* q_s = reinterpret_cast<T*>(tc_smem);   // [kTile][kLd]
+  T* k_s = q_s + kElems;                     // [2][kTile][kLd]
+  T* v_s = k_s + 2 * kElems;                 // [2][kTile][kLd]
+  int* kpos_s = reinterpret_cast<int*>(v_s + 2 * kElems);        // [2][kTile]
+  unsigned* kbits_s = reinterpret_cast<unsigned*>(kpos_s + 2 * kTile);  // [2][kTile]
+  int* qpos_s = reinterpret_cast<int*>(kbits_s + 2 * kTile);     // [kTile]
+  int* own_s = qpos_s + kTile;                                   // [kMaxOwn]
+  int* qmax_s = own_s + kMaxOwn;
+
+  const int n_tiles = gridDim.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int t = tile_order[h * n_tiles + blockIdx.z];
+  const int g = h / (H / KV);
+  const int NB = tb.NB, bs = tb.bs;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int f_own = t * kTile;
+  const int* walk = tb.walk + ((int64_t)h * n_tiles + t) * tb.width;
+  const int n_walk = tb.cnt[h * n_tiles + t];
+  const int64_t q_stride = (int64_t)H * D;
+  const int64_t kv_stride = (int64_t)KV * D;
+  const int64_t q_at = ((int64_t)b * S * H + h) * D;
+  const T* kb = k + ((int64_t)b * S * KV + g) * D;
+  const T* vb = v + ((int64_t)b * S * KV + g) * D;
+
+  if (threadIdx.x == 0) *qmax_s = -1;
+  __syncthreads();
+  const int p = stage_owner(qpos_s, own_s, tb.order + (int64_t)h * NB, NB, bs, f_own, S);
+  if (p >= 0) atomicMax(qmax_s, p);
+  __syncthreads();
+  const int qmax = *qmax_s;
+  if (qmax < 0) return;  // the tile lies past S: no row to write
+
+  // chunks [0, n_chunks) of the walk; under causal the walk is sorted, so it
+  // stops at the first chunk that starts past the tile's last query
+  int n_chunks = (n_walk * bs + kTile - 1) / kTile;
+  if (causal) {
+    int upto = 0;  // walked blocks that start at or before qmax
+    for (int e0 = 0; e0 < n_walk; e0 += kTcThreads) {
+      const int e = e0 + threadIdx.x;
+      upto += __syncthreads_count(e < n_walk && walk[e] * bs <= qmax);
+    }
+    const int seen = upto > 0 ? (upto - 1) * bs + min(bs, qmax - walk[upto - 1] * bs + 1) : 0;
+    n_chunks = (seen + kTile - 1) / kTile;
+  }
+
+  // the lane's two rows: position and owner-block index (kNoBit past S)
+  int qpos[2];
+  unsigned qloc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + lane / 4 + 8 * i;
+    qpos[i] = qpos_s[r];
+    qloc[i] = qpos[i] >= 0 ? (unsigned)((f_own + r) / bs - f_own / bs) : kNoBit;
+  }
+
+  auto load_chunk = [&](int c, int buf) {
+    const int f0 = c * kTile;
+    cp_rows_pair<T, D>(k_s + buf * kElems, kb, v_s + buf * kElems, vb, kv_stride,
+                       [&](int r) { return list_pos(walk, n_walk, bs, f0 + r, S); });
+    if (threadIdx.x < kTile) {
+      const int r = threadIdx.x;
+      const int kp = list_pos(walk, n_walk, bs, f0 + r, S);
+      unsigned bits = 0u;  // bit l: layout[h][own_s[l]][block of kp]
+      if (kp >= 0) {
+        const unsigned char* col = tb.layout + (int64_t)h * NB * NB + kp / bs;
+#pragma unroll
+        for (int l = 0; l < kMaxOwn; ++l) bits |= col[(int64_t)own_s[l] * NB] ? 1u << l : 0u;
+      }
+      kpos_s[buf * kTile + r] = kp;
+      kbits_s[buf * kTile + r] = bits;
+    }
+  };
+
+  float o[kND][4];
+#pragma unroll
+  for (int j = 0; j < kND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  uint32_t qf[kKD][4];
+  if (n_chunks > 0) {
+    cp_rows<T, D>(q_s, q + q_at, q_stride, [&](int r) { return qpos_s[r]; });
+    load_chunk(0, 0);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kKD; ++kk)
+      ldsm_x4(qf[kk], smem_u32(q_s) + a_frag<kLd>(lane, warp * 16, kk * 16));
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    const int buf = c & 1;
+    cp_async_wait_all();
+    __syncthreads();  // chunk c has landed; every warp is done with chunk c - 1
+    if (c + 1 < n_chunks) {
+      load_chunk(c + 1, buf ^ 1);
+      cp_async_commit();
+    }
+    const int* kp_t = kpos_s + buf * kTile;
+    const unsigned* kb_t = kbits_s + buf * kTile;
+    // bit j*4 + e: accumulator element e of the chunk's n8 tile j is live
+    uint32_t live = 0u;
+#pragma unroll
+    for (int j = 0; j < kNK; ++j)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int col = j * 8 + (lane % 4) * 2 + cc;
+        const int kp = kp_t[col];
+        const unsigned kbits = kb_t[col];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (((kbits >> qloc[i]) & 1u) && (!causal || kp <= qpos[i]))
+            live |= 1u << (j * 4 + 2 * i + cc);
+      }
+    if (!__any_sync(0xffffffffu, live != 0u)) continue;  // masked whole for the warp
+    const uint32_t kt = smem_u32(k_s + buf * kElems);
+    const uint32_t vt = smem_u32(v_s + buf * kElems);
+
+    float s[kNK][4];
+#pragma unroll
+    for (int j = 0; j < kNK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKD; ++kk)
+#pragma unroll
+      for (int np = 0; np < kNK / 2; ++np) {
+        uint32_t bk[4];
+        ldsm_x4(bk, kt + b_frag<kLd>(lane, np * 16, kk * 16));
+        mma16816<T>(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma16816<T>(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+      }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kNK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = (live >> (j * 4 + e)) & 1u ? s[j][e] * scale_log2 : kNegInf;
+        s[j][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      corr[i] = exp2f(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kNK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // masked entries are zeroed explicitly: a row with no key yet has m = kNegInf
+        const float pr = (live >> (j * 4 + e)) & 1u ? exp2f(s[j][e] - m[e / 2]) : 0.f;
+        s[j][e] = pr;
+        psum[e / 2] += pr;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + psum[i];
+#pragma unroll
+    for (int j = 0; j < kND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= corr[e / 2];
+    // O += P V, P rounded to T: n8 tiles 2kk and 2kk + 1 make the A fragment of key step kk
+#pragma unroll
+    for (int kk = 0; kk < kNK / 2; ++kk) {
+      uint32_t pa[4];
+      acc_to_a<T>(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < kND / 2; ++np) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, vt + bt_frag<kLd>(lane, kk * 16, np * 16));
+        mma16816<T>(o[2 * np], pa, bv[0], bv[1]);
+        mma16816<T>(o[2 * np + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float li = quad_sum(l[i]);
+    if (qpos[i] < 0) continue;
+    const float inv = li > 0.f ? 1.f / li : 0.f;
+    T* orow = out + q_at + (int64_t)qpos[i] * q_stride + (lane % 4) * 2;
+#pragma unroll
+    for (int j = 0; j < kND; ++j)
+      *reinterpret_cast<uint32_t*>(orow + j * 8) = pack2<T>(o[j][2 * i] * inv,
+                                                            o[j][2 * i + 1] * inv);
+    if (lane % 4 == 0)
+      lse[((int64_t)b * H + h) * S + qpos[i]] = li == 0.f ? kNegInf : m[i] * kLn2 + logf(li);
+  }
 }
 
 // -------------------------------------------------- tensor-core dK and dV
@@ -1080,6 +1321,8 @@ int dkdv_tc_smem(int D) {
   return 6 * kTile * (D + 8) * 2 + (8 * kTile + kTile + kMaxOwn + 1) * 4;
 }
 int dq_tc_smem(int D) { return 6 * kTile * (D + 8) * 2 + (4 * kTile + kTile + kMaxOwn + 1) * 4; }
+// the forward: Q and two K/V tiles, about 86 KB at D = 128, so two blocks fit an SM
+int fwd_tc_smem(int D) { return 5 * kTile * (D + 8) * 2 + (4 * kTile + kTile + kMaxOwn + 1) * 4; }
 
 struct Args {
   const void* q;
@@ -1091,7 +1334,7 @@ struct Args {
   void* o0;  // out (forward), dk (dK/dV), dq (dQ)
   void* o1;  // lse (forward), dv (dK/dV)
   Tables tb;
-  const int* tile_order;  // the backward's tiles, longest walk first (tensor-core kernels)
+  const int* tile_order;  // the owner tiles, longest walk first (tensor-core kernels)
   int B, S, H, KV;
   float scale;
   int causal;
@@ -1160,6 +1403,20 @@ cudaError_t launch_dkdv_tc(const Args& a) {
 }
 
 template <typename T, int D>
+cudaError_t launch_fwd_tc(const Args& a) {
+  const int smem = fwd_tc_smem(D);
+  cudaError_t err = cudaFuncSetAttribute(sparse_fwd_tc_kernel<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.H, a.B, n_tiles(a));
+  sparse_fwd_tc_kernel<T, D><<<grid, kTcThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<T*>(a.o0), static_cast<float*>(a.o1), a.tb, a.tile_order, a.S, a.H, a.KV,
+      a.scale * kLog2e, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
 cudaError_t launch_dq_tc(const Args& a) {
   const int smem = dq_tc_smem(D);
   cudaError_t err = cudaFuncSetAttribute(sparse_bwd_dq_tc_kernel<T, D>,
@@ -1175,14 +1432,14 @@ cudaError_t launch_dq_tc(const Args& a) {
 
 enum Which { kFwd = 0, kDkdv = 1, kDq = 2 };
 
-// The kernels by type: the forward on CUDA cores for every type; dK/dV and
-// dQ on CUDA cores for fp32, on tensor cores for bf16 and fp16.
+// The kernels by type: CUDA cores for fp32, tensor cores for bf16 and fp16.
 template <typename T, int D>
 cudaError_t launch_which(int which, const Args& a) {
   constexpr bool tc = !std::is_same<T, float>::value;
   switch (which) {
     case kFwd:
-      return launch_fwd<T, D>(a);
+      if constexpr (tc) return launch_fwd_tc<T, D>(a);
+      else return launch_fwd<T, D>(a);
     case kDkdv:
       if constexpr (tc) return launch_dkdv_tc<T, D>(a);
       else return launch_dkdv<T, D>(a);
@@ -1210,7 +1467,7 @@ cudaError_t launch(int which, int dtype, int head_dim, const Args& a) {
   if (a.B <= 0 || a.S <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.tb.NB <= 0 || a.tb.bs <= 0 ||
       a.tb.width <= 0 || (int64_t)a.tb.NB * a.tb.bs < a.S)
     return cudaErrorInvalidValue;
-  if (which != kFwd && dtype != 0 && (a.tile_order == nullptr || a.tb.bs % 8 != 0))
+  if (dtype != 0 && (a.tile_order == nullptr || a.tb.bs % 8 != 0))
     return cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
@@ -1238,14 +1495,18 @@ extern "C" {
 // [B, S, H, D], k/v [B, S, KV, D], lse [B, H, S] float32, all contiguous on one
 // device and 16-byte aligned.  Tables (int32 unless said): layout uint8
 // [H, NB, NB], q_order [H, NB], k_walk [H, T, walk_width], k_cnt [H, T] with
-// T = ceil(NB * block / 64).  Returns a cudaError_t (0 = launched).  The
-// forward runs on CUDA cores for every dtype.
+// T = ceil(NB * block / 64), and q_tile_order [H, T] (longest walk first;
+// read by the tensor-core kernel).  Returns a cudaError_t (0 = launched).
+// float32 runs the CUDA-core kernel, bfloat16 and float16 the tensor-core
+// one.
 int sparse_fwd_launch(int dtype, const void* q, const void* k, const void* v, void* out,
                       void* lse, const void* layout, const void* q_order, const void* k_walk,
-                      const void* k_cnt, int B, int S, int H, int KV, int head_dim, int NB,
-                      int block, int walk_width, float scale, int causal, void* stream) {
+                      const void* k_cnt, const void* q_tile_order, int B, int S, int H, int KV,
+                      int head_dim, int NB, int block, int walk_width, float scale, int causal,
+                      void* stream) {
   Args a{q, k, v, nullptr, nullptr, nullptr, out, lse,
-         tables(layout, q_order, k_walk, k_cnt, NB, block, walk_width), nullptr,
+         tables(layout, q_order, k_walk, k_cnt, NB, block, walk_width),
+         static_cast<const int*>(q_tile_order),
          B, S, H, KV, scale, causal, static_cast<cudaStream_t>(stream)};
   return launch(kFwd, dtype, head_dim, a);
 }

@@ -17,13 +17,13 @@ kernels' arithmetic: fp32 scores, the ``-1e30`` mask value, ``l == 0 -> 1``,
 ``lse = m + log(l_safe)``.  :func:`sparse_attention` is differentiable
 through one ``torch.autograd.Function`` (the JAX ``_sparse`` custom VJP).
 
-Which backward kernel a CUDA tensor reaches is decided by its dtype alone,
-by flash's rule (:func:`flash.uses_tensor_cores`): bf16 and fp16 go to the
-tensor-core dK/dV and dQ kernels, which round P and dS to the input type
-before the second products (held to :func:`flash.tensor_core_limit` against
-the plain versions with ``round_to=``, dQ with :func:`sparse_dq_fp32_floor`);
-fp32 goes to the CUDA-core ones.  The forward runs on CUDA cores for every
-type.  There is no fallback between them.
+Which kernel a CUDA tensor reaches is decided by its dtype alone, by
+flash's rule (:func:`flash.uses_tensor_cores`): bf16 and fp16 go to the
+tensor-core forward, dK/dV and dQ kernels, which round P (and dS) to the
+input type before the second products (held to
+:func:`flash.tensor_core_limit` against the plain versions with
+``round_to=``, dQ with :func:`sparse_dq_fp32_floor`); fp32 goes to the
+CUDA-core ones.  There is no fallback between them.
 """
 
 import ctypes
@@ -108,7 +108,8 @@ class _Tables:
                           head so that its GQA group shares the tiles
       q_walk, q_cnt     : per (q head, key tile) the union of live query blocks
       q_tile_order [H, T], k_tile_order [KV, T] : the launch order of the
-                          tensor-core dQ and dK/dV kernels, the tiles sorted
+                          tensor-core forward and dQ (q_tile_order) and dK/dV
+                          (k_tile_order) kernels, the tiles sorted
                           by walk length (k_cnt; q_cnt summed over the GQA
                           group), longest first
     with T = ceil(NB * block / 64).
@@ -219,8 +220,12 @@ def _expand_kv(x, group):
     return torch.repeat_interleave(x, group, dim=2) if group > 1 else x
 
 
-def sparse_fwd_reference(q, k, v, tables: _Tables, scale, causal):
-    """Plain version of the forward kernel: (out in q's dtype, lse fp32)."""
+def sparse_fwd_reference(q, k, v, tables: _Tables, scale, causal,
+                         round_to: Optional[torch.dtype] = None):
+    """Plain version of the forward kernel: (out in q's dtype, lse fp32).
+    ``round_to`` gives the operand-rounding version of the tensor-core
+    kernel: the same masked softmax, with P (computed in fp32) rounded to that
+    dtype before ``P V``; l sums the unrounded P."""
     group = q.shape[2] // k.shape[2]
     mask = tables.element_mask(q.shape[1], causal, q.device)[None]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), _expand_kv(k.float(), group)) * scale
@@ -229,7 +234,7 @@ def sparse_fwd_reference(q, k, v, tables: _Tables, scale, causal):
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0.0, 1.0, l)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, _expand_kv(v.float(), group))
+    out = torch.einsum("bhqk,bkhd->bqhd", _round(p, round_to), _expand_kv(v.float(), group))
     out = out / l_safe.permute(0, 2, 1, 3)
     return out.to(q.dtype), (m + torch.log(l_safe)).squeeze(-1)
 
@@ -303,12 +308,13 @@ def sparse_fwd(q, k, v, tables: _Tables, scale: float, causal: bool):
         rc = _lib().sparse_fwd_launch(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), t["layout"].data_ptr(), t["q_order"].data_ptr(),
-            t["k_walk"].data_ptr(), t["k_cnt"].data_ptr(), b, s, hq, k.shape[2], d,
-            tables.layout.shape[1], tables.block, tables.k_walk.shape[2], float(scale),
-            int(causal), stream)
+            t["k_walk"].data_ptr(), t["k_cnt"].data_ptr(), t["q_tile_order"].data_ptr(), b, s,
+            hq, k.shape[2], d, tables.layout.shape[1], tables.block, tables.k_walk.shape[2],
+            float(scale), int(causal), stream)
     if rc != 0:
         raise RuntimeError(f"sparse_fwd kernel launch failed: cudaError_t {rc}")
     sparse_fwd.launches += 1
+    sparse_fwd.tc_launches += flash.uses_tensor_cores(q.dtype)
     return out, lse
 
 
@@ -362,8 +368,8 @@ def sparse_bwd_dq(q, k, v, do, lse, delta, tables: _Tables, scale: float, causal
 
 
 # kernel launches in this process (the CPU path never counts); tc_launches
-# counts those of the backward's that went to the tensor-core kernels
-sparse_fwd.launches = 0
+# counts those that went to the tensor-core kernels
+sparse_fwd.launches = sparse_fwd.tc_launches = 0
 sparse_bwd_dkdv.launches = sparse_bwd_dkdv.tc_launches = 0
 sparse_bwd_dq.launches = sparse_bwd_dq.tc_launches = 0
 
@@ -537,7 +543,7 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("sparse_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [i] * 8 + [f, i, p]  # B, S, H, KV, D, NB, block, width, scale, causal, stream
-        lib.sparse_fwd_launch.argtypes = [i] + [p] * 9 + tail
+        lib.sparse_fwd_launch.argtypes = [i] + [p] * 10 + tail
         lib.sparse_bwd_dkdv_launch.argtypes = [i] + [p] * 13 + tail
         lib.sparse_bwd_dq_launch.argtypes = [i] + [p] * 12 + tail
         for fn in (lib.sparse_fwd_launch, lib.sparse_bwd_dkdv_launch, lib.sparse_bwd_dq_launch):

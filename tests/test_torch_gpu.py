@@ -36,8 +36,9 @@ def cuda():
     return torch.device("cuda")
 
 
-# (name, dtype, H, KV, Dh, bs, T, lengths, n_tokens, window, alibi); T >= 16
-# with bf16/fp16 and head dim 64 or 128 takes the tensor-core prefill kernel
+# (name, dtype, H, KV, Dh, bs, T, lengths, n_tokens, window, alibi); T < 16
+# takes the split-K decode kernel, T >= 16 with bf16/fp16 and head dim 64 or
+# 128 the tensor-core prefill kernel, the rest the CUDA-core kernel
 CASES = [
     ("gqa_decode_fp32", torch.float32, 8, 2, 128, 16, 1, [1, 37, 300, 0], [1, 1, 1, 0], None,
      False),
@@ -58,6 +59,20 @@ CASES = [
      False),
     ("tc_mqa64_t32_bs128_alibi_bf16", torch.bfloat16, 64, 1, 64, 128, 32, [290, 40], [32, 7],
      None, True),
+    # split edges: lengths on and one past a split boundary (both cases split
+    # at 256 keys), 1 key beside 4096, a window that starts inside a split
+    ("gqa_decode_split_edges_bf16", torch.bfloat16, 32, 8, 128, 16, 1,
+     [4096, 1, 768, 769, 1536, 0], [1, 1, 1, 1, 1, 0], 1000, False),
+    ("mqa32_decode_split_edges_fp32", torch.float32, 32, 1, 64, 64, 1,
+     [4096, 1, 768, 769, 1536, 0], [1, 1, 1, 1, 1, 0], 700, True),
+    ("cuda_core_d256_t16_bf16", torch.bfloat16, 8, 2, 256, 16, 16, [40, 300], [16, 9], None,
+     False),
+    # fp32 chunks of T >= 16 take the CUDA-core kernel: the fp32 slice's
+    # Mistral-width prefill (T = 128) and a head dim 32 chunk with ALiBi
+    ("cuda_core_gqa4_t128_window_fp32", torch.float32, 32, 8, 128, 16, 128, [70, 33],
+     [70, 33], 4096, False),
+    ("cuda_core_d32_t20_alibi_fp32", torch.float32, 4, 4, 32, 8, 20, [20, 57, 0],
+     [20, 11, 0], 30, True),
 ]
 
 
@@ -97,18 +112,21 @@ def test_kernel_matches_plain_version(cuda, name, dtype, H, KV, Dh, bs, T, lengt
     """fp32 at 1e-4.  bf16/fp16 held to ``flash.tensor_core_limit`` row by row
     against the plain version on fp32 copies, ``rounded`` rounding P to the
     input type for the tensor-core prefill kernel and nothing (an ulp of the
-    store) for the CUDA-core kernel; each case launches the variant the shape
-    rule names; padding rows are exact zeros."""
+    store) for the split-K decode and CUDA-core kernels; each case launches
+    the route the shape rule names (``decode_launches`` for T < 16); padding
+    rows are exact zeros."""
     x = _case(len(name), dtype, H, KV, Dh, bs, T, lengths, n_tokens, alibi, cuda)
-    tc = paged_module.uses_prefill_tensor_cores(dtype, Dh, T, H // KV)
-    assert tc == name.startswith("tc_")
-    before = (paged_attention.launches, paged_attention.tc_launches)
+    route = paged_module.paged_route(dtype, Dh, T, H // KV)
+    tc = route == "prefill_tc"
+    assert tc == name.startswith("tc_") and (route == "decode") == (T < 16)
+    counts = lambda: (paged_attention.launches, paged_attention.tc_launches,  # noqa: E731
+                      paged_attention.decode_launches)
+    before = counts()
     args = (x["q"], x["kpool"], x["vpool"], x["tables"], x["lengths"], x["start_pos"],
             x["n_tokens"])
     got = paged_attention(*args, block_size=bs, window=window, alibi_slopes=x["slopes"])
     torch.cuda.synchronize()
-    assert (paged_attention.launches, paged_attention.tc_launches) == (before[0] + 1,
-                                                                       before[1] + tc)
+    assert counts() == (before[0] + 1, before[1] + tc, before[2] + (route == "decode"))
     scale = 1.0 / np.sqrt(Dh)
     if dtype == torch.float32:
         ref = paged_attention_reference(*args, scale, window, x["slopes"])
@@ -151,19 +169,28 @@ def test_engine_on_gpu_matches_engine_on_cpu(cuda, module, config):
     ref = InferenceEngineV2(module, config, params, device="cpu", **kw).generate(
         prompts, max_new_tokens=6)
     engine = InferenceEngineV2(module, config, params, **kw)
-    before = (paged_attention.launches, paged_attention.tc_launches)
+    before = (paged_attention.launches, paged_attention.tc_launches,
+              paged_attention.decode_launches)
     got = engine.generate(prompts, max_new_tokens=6)
     assert got == ref
-    # fp32: every launch on the CUDA-core kernel
-    assert (paged_attention.launches - before[0], paged_attention.tc_launches - before[1]) == (
-        engine.forward_steps * config.num_layers, 0)
+    # fp32: steps of padded chunk < 16 on the split-K decode kernel, the rest
+    # on the CUDA-core kernel, none on the tensor-core prefill kernel
+    head_dim = config.hidden_size // config.num_heads
+    group = config.num_heads // config.num_kv_heads
+    narrow = sum(k for t, k in engine.chunk_widths.items()
+                 if paged_module.paged_route(torch.float32, head_dim, t, group) == "decode")
+    assert 0 < narrow
+    assert (paged_attention.launches - before[0], paged_attention.tc_launches - before[1],
+            paged_attention.decode_launches - before[2]) == (
+        engine.forward_steps * config.num_layers, 0, narrow * config.num_layers)
 
 
 def test_bf16_engine_runs_the_prefill_kernel_on_wide_chunks(cuda):
     """A bf16 Mistral-shaped engine (head dim 64, GQA 4): every step whose
     padded chunk is 16 tokens or more launches the tensor-core prefill
-    kernel in every layer, the other steps the CUDA-core kernel; the tokens
-    stay inside the vocabulary and the pool is reclaimed."""
+    kernel in every layer, the other steps (decode) the split-K decode
+    kernel; the tokens stay inside the vocabulary and the pool is
+    reclaimed."""
     config = mistral.MistralConfig.tiny(vocab=128, hidden=256, layers=2, heads=4, kv_heads=1,
                                         seq=256, window=64)
     params = mistral.init_params(config, torch.Generator().manual_seed(1))
@@ -171,13 +198,16 @@ def test_bf16_engine_runs_the_prefill_kernel_on_wide_chunks(cuda):
                                num_blocks=64, block_size=16, max_blocks_per_seq=16,
                                token_budget=64, max_seqs_per_step=4)
     prompts = [list(range(1, 100)), list(range(3, 40)), [5, 6, 7]]
-    before = (paged_attention.launches, paged_attention.tc_launches)
+    before = (paged_attention.launches, paged_attention.tc_launches,
+              paged_attention.decode_launches)
     results = engine.generate(prompts, max_new_tokens=5, strict=False)
     wide = sum(k for t, k in engine.chunk_widths.items()
                if paged_module.uses_prefill_tensor_cores(torch.bfloat16, 64, t, 4))
     assert 0 < wide < engine.forward_steps
-    assert (paged_attention.launches - before[0], paged_attention.tc_launches - before[1]) == (
-        engine.forward_steps * config.num_layers, wide * config.num_layers)
+    assert (paged_attention.launches - before[0], paged_attention.tc_launches - before[1],
+            paged_attention.decode_launches - before[2]) == (
+        engine.forward_steps * config.num_layers, wide * config.num_layers,
+        (engine.forward_steps - wide) * config.num_layers)
     for prompt, res in zip(prompts, results):
         assert res.status == "ok" and res.tokens[:len(prompt)] == prompt
         assert all(0 <= tok < config.vocab_size for tok in res.tokens[len(prompt):])
@@ -379,11 +409,9 @@ SPARSE_GRID = [
                          ids=[f"{str(g[0])[6:]}-d{g[1]}-{g[2]}-b{g[3]}-s{g[4]}" for g in SPARSE_GRID])
 def test_sparse_kernels_match_plain_versions(cuda, dtype, D, mode, block, S, KV, causal):
     """fp32 takes the CUDA-core kernels, held at 1e-4.  bf16/fp16 take the
-    tensor-core dK/dV and dQ, held to ``flash.tensor_core_limit`` row by row
-    against the fp32 plain version (``rounded``: the plain versions with
-    ``round_to=``; dQ with ``sparse_dq_fp32_floor``), and the CUDA-core
-    forward, held to the same limit with ``rounded`` = the fp32 plain version
-    (one store)."""
+    tensor-core forward, dK/dV and dQ, held to ``flash.tensor_core_limit`` row
+    by row against the fp32 plain version (``rounded``: the plain versions
+    with ``round_to=``; dQ with ``sparse_dq_fp32_floor``); lse at 1e-4."""
     rng = np.random.default_rng(block + S)
     H, B = 4, 2
     section = SparseAttentionConfig(mode=mode, block=block, different_layout_per_head=True,
@@ -396,7 +424,7 @@ def test_sparse_kernels_match_plain_versions(cuda, dtype, D, mode, block, S, KV,
     scale = 1.0 / np.sqrt(D)
     tc = dtype != torch.float32
     fns = (sparse.sparse_fwd, sparse.sparse_bwd_dkdv, sparse.sparse_bwd_dq)
-    counts = [fn.launches for fn in fns] + [fn.tc_launches for fn in fns[1:]]
+    counts = [fn.launches for fn in fns] + [fn.tc_launches for fn in fns]
     out, lse = sparse.sparse_fwd(q, k, v, tables, scale, causal)
     ref_out, ref_lse = sparse.sparse_fwd_reference(q, k, v, tables, scale, causal)
     delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -404,15 +432,16 @@ def test_sparse_kernels_match_plain_versions(cuda, dtype, D, mode, block, S, KV,
     dk, dv = sparse.sparse_bwd_dkdv(*args)
     dq = sparse.sparse_bwd_dq(*args)
     torch.cuda.synchronize()
-    assert [fn.launches for fn in fns] + [fn.tc_launches for fn in fns[1:]] == [
-        n + d for n, d in zip(counts, (1, 1, 1, tc, tc))]
+    assert [fn.launches for fn in fns] + [fn.tc_launches for fn in fns] == [
+        n + d for n, d in zip(counts, (1, 1, 1, tc, tc, tc))]
     for got in (out, dk, dv, dq):
         assert got.dtype == dtype
     if tc:
         f = [x.float() for x in (q, k, v, do)]
         bwd_args = (*f, ref_lse, delta, tables, scale, causal)
         out32 = sparse.sparse_fwd_reference(*f[:3], tables, scale, causal)[0]
-        pairs = ((out, out32, out32, None),
+        out_r = sparse.sparse_fwd_reference(*f[:3], tables, scale, causal, round_to=dtype)[0]
+        pairs = ((out, out32, out_r, None),
                  *zip((dk, dv), sparse.sparse_bwd_dkdv_reference(*bwd_args),
                       sparse.sparse_bwd_dkdv_reference(*bwd_args, round_to=dtype), (None, None)),
                  (dq, sparse.sparse_bwd_dq_reference(*bwd_args),

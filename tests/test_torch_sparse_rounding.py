@@ -1,15 +1,16 @@
-"""The limit that holds the tensor-core block-sparse backward (bf16/fp16 dK/dV
-and dQ) to account, on the CPU.  The kernels round P and dS to the input
-type before the second products, as flash's tensor-core kernels do, so they
-are held to ``flash.tensor_core_limit`` row by row against the fp32 plain
-version, with the rounding plain version (``round_to=``) for ``rounded`` and,
-for dQ, ``sparse_dq_fp32_floor``.  These tests show that the rounding plain
-versions, and a tile-by-tile emulation of the kernels' walk (64-position
-tiles gathered from the host tables in launch order, the causal chunk skip,
-P and dS rounded, fp32 sums), pass that limit on the layouts the port runs,
-and that it rejects the faults a kernel could plausibly have.  The fp32
-plain backward the limit measures against is held to the JAX package's
-``_sparse`` custom VJP, its Pallas kernels in interpret mode."""
+"""The limit that holds the tensor-core block-sparse kernels (bf16/fp16
+forward, dK/dV and dQ) to account, on the CPU.  The kernels round P (and dS)
+to the input type before the second products, as flash's tensor-core kernels
+do, so they are held to ``flash.tensor_core_limit`` row by row against the
+fp32 plain version, with the rounding plain version (``round_to=``) for
+``rounded`` and, for dQ, ``sparse_dq_fp32_floor``.  These tests show that the
+rounding plain versions, and a tile-by-tile emulation of the kernels' walk
+(64-position tiles gathered from the host tables in launch order, the causal
+chunk skip or stop, P and dS rounded, fp32 sums), pass that limit on the
+layouts the port runs, and that it rejects the faults a kernel could
+plausibly have.  The fp32 plain forward and backward the limit measures
+against are held to the JAX package's ``_sparse_fwd`` and ``_sparse`` custom
+VJP, their Pallas kernels in interpret mode."""
 
 import functools
 
@@ -174,6 +175,55 @@ def emulate_dq(q, k, v, do, lse, delta, tables, scale, causal, fault=None, other
     return dq.to(dt)
 
 
+def emulate_fwd(q, k, v, tables, scale, causal, fault=None):
+    """The tensor-core forward's walk: for each q head, the 64-query tiles of
+    ``q_order`` in launch order (``q_tile_order``), each walking the 64-key
+    chunks of ``k_walk`` up to the tile's last query; per chunk the element
+    mask, an online softmax in fp32, P rounded to the input type before ``P
+    V``, l summing the fp32 P; out = acc / l (0 where l = 0), lse = m +
+    log l (-1e30 where l = 0).  ``fault``: ``"last_chunk_dropped"`` stops
+    each walk one chunk early."""
+    B, S, H, D = q.shape
+    KV, dt, bs = k.shape[2], q.dtype, tables.block
+    group = H // KV
+    out = torch.zeros(B, S, H, D)
+    lse = torch.zeros(B, H, S)
+    for h in range(H):
+        g = h // group
+        for t in tables.q_tile_order[h]:
+            qp = sp.tile_positions(tables.q_order[h], bs, S, int(t))
+            if not (qp >= 0).any():
+                continue
+            walk = _walk(tables, tables.k_walk, tables.k_cnt, h, t)
+            n_chunks = -(-walk.size * bs // sp.TILE)
+            if causal:  # chunks that start past the tile's last query are not walked
+                raw = (walk[:, None] * bs + np.arange(bs)).reshape(-1)
+                n_chunks = -(-int((raw <= qp.max()).sum()) // sp.TILE)
+            if fault == "last_chunk_dropped":
+                n_chunks -= 1
+            qt = _gather(q, qp, h)
+            m = torch.full((B, sp.TILE, 1), flash.NEG_INF)
+            l = torch.zeros(B, sp.TILE, 1)
+            acc = torch.zeros(B, sp.TILE, D)
+            for c in range(n_chunks):
+                kp = sp.tile_positions(walk, bs, S, c)
+                kt, vt = _gather(k, kp, g), _gather(v, kp, g)
+                live = _live(tables, h, qp, kp, causal)[None]
+                s = torch.where(live, torch.einsum("bqd,bkd->bqk", qt, kt) * scale,
+                                flash.NEG_INF)
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                p = torch.where(live, torch.exp(s - m_new), 0.0)
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + torch.einsum("bqk,bkd->bqd", p.to(dt).float(), vt)
+                m = m_new
+            on = qp >= 0
+            out[:, qp[on], h] = torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)[:, on]
+            lse[:, h, qp[on]] = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)),
+                                            flash.NEG_INF)[:, on, 0]
+    return out.to(dt), lse
+
+
 def _references(q, k, v, do, tables, scale, causal):
     """{part: (fp32 plain, rounding plain[, floor])} on the inputs' values, and
     the lse/delta the backward takes."""
@@ -185,7 +235,8 @@ def _references(q, k, v, do, tables, scale, causal):
     dk_r, dv_r = sp.sparse_bwd_dkdv_reference(*args, round_to=q.dtype)
     dq, dq_r = (sp.sparse_bwd_dq_reference(*args, round_to=r) for r in (None, q.dtype))
     floor = sp.sparse_dq_fp32_floor(*args)
-    return ({"out": (out, out), "dk": (dk, dk_r), "dv": (dv, dv_r), "dq": (dq, dq_r, floor)},
+    out_r = sp.sparse_fwd_reference(*f[:3], tables, scale, causal, round_to=q.dtype)[0]
+    return ({"out": (out, out_r), "dk": (dk, dk_r), "dv": (dv, dv_r), "dq": (dq, dq_r, floor)},
             lse, delta)
 
 
@@ -199,6 +250,7 @@ def _case(name, dtype):
     refs, lse, delta = _references(q, k, v, do, tables, scale, causal)
     args = (q, k, v, do, lse, delta, tables, scale, causal)
     emulated = dict(zip(("dk", "dv"), emulate_dkdv(*args)), dq=emulate_dq(*args))
+    emulated["out"], emulated["lse"] = emulate_fwd(q, k, v, tables, scale, causal)
     return (q, k, v, do), tables, refs, lse, delta, emulated
 
 
@@ -212,19 +264,21 @@ def _within(got, refs):
 def test_rounding_versions_and_emulation_pass_the_limit(dtype, name, B, S, H, KV, D, causal,
                                                         keys):
     """The rounding plain versions stored in the input type, and the tile
-    emulation of both kernels, within the row limit (dQ with its floor); the
-    CUDA-core forward, stored once, within it with ``rounded`` = fp32."""
+    emulation of the three kernels, within the row limit (dQ with its
+    floor); the emulated forward's lse within 1e-4 of the plain lse."""
     (q, k, v, do), tables, refs, lse, delta, emulated = _case(name, dtype)
     scale = 1.0 / np.sqrt(D)
     args = (q, k, v, do, lse, delta, tables, scale, causal)
     dk_r, dv_r = sp.sparse_bwd_dkdv_reference(*args, round_to=dtype)
     dq_r = sp.sparse_bwd_dq_reference(*args, round_to=dtype)
-    out = sp.sparse_fwd_reference(q, k, v, tables, scale, causal)[0]
-    assert {x.dtype for x in (dk_r, dv_r, dq_r, out)} == {dtype}
-    for part, got in (("dk", dk_r), ("dv", dv_r), ("dq", dq_r), ("out", out),
-                      ("dk", emulated["dk"]), ("dv", emulated["dv"]), ("dq", emulated["dq"])):
+    out_r = sp.sparse_fwd_reference(q, k, v, tables, scale, causal, round_to=dtype)[0]
+    assert {x.dtype for x in (dk_r, dv_r, dq_r, out_r)} == {dtype}
+    for part, got in (("dk", dk_r), ("dv", dv_r), ("dq", dq_r), ("out", out_r),
+                      ("dk", emulated["dk"]), ("dv", emulated["dv"]), ("dq", emulated["dq"]),
+                      ("out", emulated["out"])):
         ok, ratio = _within(got, refs[part])
         assert ok, f"{part}: {ratio:.3f} of the limit"
+    torch.testing.assert_close(emulated["lse"], lse, atol=1e-4, rtol=1e-4)
 
 
 def _last_block(tables, S):
@@ -247,13 +301,14 @@ def _spoil(fault, x, tables, S):
         bad[:, _last_block(tables, S)] = 0
     elif fault.startswith("local_tile_zeroed"):
         bad[:, _local_tile(tables, S), :1] = 0
-    else:  # late dQ rows scaled by 1.05
+    else:  # late rows of dQ or out scaled by 1.05
         bad[:, -64:] = (bad[:, -64:].float() * 1.05).to(bad.dtype)
     return bad
 
 
 SPOILS = [("last_block_zeroed", "dk"), ("last_block_zeroed", "dv"), ("local_tile_zeroed", "dk"),
-          ("local_tile_zeroed", "dv"), ("dq_last_rows_x1.05", "dq")]
+          ("local_tile_zeroed", "dv"), ("dq_last_rows_x1.05", "dq"),
+          ("out_last_rows_x1.05", "out")]
 FAULT_LAYOUTS = ["train_fixed_s512", "block24_tail_s209"]
 
 
@@ -271,7 +326,7 @@ def test_limit_rejects_spoiled_outputs(dtype, name, fault, part):
 
 
 WALK_FAULTS = [("first_chunk_skipped", "dk"), ("first_chunk_skipped", "dv"),
-               ("last_chunk_dropped", "dq")]
+               ("last_chunk_dropped", "dq"), ("last_chunk_dropped", "out")]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp16"])
@@ -282,10 +337,29 @@ def test_limit_rejects_walk_faults(dtype, fault, part):
     args = (q, k, v, do, lse, delta, tables, 1.0 / np.sqrt(q.shape[-1]), True)
     if part == "dq":
         bad = emulate_dq(*args, fault=fault)
+    elif part == "out":
+        bad = emulate_fwd(q, k, v, tables, args[7], True, fault=fault)[0]
     else:
         bad = emulate_dkdv(*args, fault=fault)[part == "dv"]
     ok, ratio = _within(bad, refs[part])
     assert not ok, f"{fault} passed at {ratio:.3f} of the limit on {part}"
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp16"])
+@pytest.mark.parametrize("name", FAULT_LAYOUTS)
+def test_limit_rejects_a_forward_with_the_last_block_of_kv_zeroed(dtype, name):
+    """The emulated forward on K and V whose last layout block is zeroed
+    (the fault ``chip_smoke.py`` injects into the kernel's inputs) fails the
+    limit against the plain version on the true inputs."""
+    (q, k, v, _), tables, refs, _, _, _ = _case(name, dtype)
+    last = _last_block(tables, q.shape[1])
+    k0, v0 = k.clone(), v.clone()
+    k0[:, last] = 0
+    v0[:, last] = 0
+    bad = emulate_fwd(q, k0, v0, tables, 1.0 / np.sqrt(q.shape[-1]),
+                      next(c for c in LAYOUTS if c[0] == name)[6])[0]
+    ok, ratio = _within(bad, refs["out"])
+    assert not ok, f"passed at {ratio:.3f} of the limit"
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp16"])
@@ -319,6 +393,19 @@ def test_round_to_none_is_the_plain_version_bit_for_bit():
     assert torch.equal(got_dk, dk.to(k.dtype)) and torch.equal(got_dv, dv.to(v.dtype))
     assert torch.equal(sp.sparse_bwd_dq_reference(*args, round_to=None), dq.to(q.dtype))
     assert torch.equal(sp.sparse_bwd_dq_reference(*args), dq.to(q.dtype))
+    # the forward as it stood before round_to
+    mask = tables.element_mask(q.shape[1], True, q.device)[None]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), sp._expand_kv(k.float(), 2)) * scale
+    s = torch.where(mask, s, sp.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l_safe = torch.where(p.sum(-1, keepdim=True) == 0.0, 1.0, p.sum(-1, keepdim=True))
+    out = torch.einsum("bhqk,bkhd->bqhd", p, sp._expand_kv(v.float(), 2))
+    out = (out / l_safe.permute(0, 2, 1, 3)).to(q.dtype)
+    for got in (sp.sparse_fwd_reference(q, k, v, tables, scale, True),
+                sp.sparse_fwd_reference(q, k, v, tables, scale, True, round_to=None)):
+        assert torch.equal(got[0], out)
+        assert torch.equal(got[1], (m + torch.log(l_safe)).squeeze(-1))
 
 
 @pytest.mark.parametrize("name,B,S,H,KV,D,causal,keys", LAYOUTS, ids=_ids(LAYOUTS))
@@ -366,14 +453,32 @@ def test_launch_order_is_longest_walk_first(name, B, S, H, KV, D, causal, keys):
 
 
 def test_cpu_calls_count_no_launches():
-    """bf16 and fp16 take the tensor-core backward on CUDA, fp32 the CUDA-core
-    one; a CPU call runs the plain versions and counts nothing."""
+    """bf16 and fp16 take the tensor-core kernels on CUDA, fp32 the CUDA-core
+    ones; a CPU call runs the plain versions and counts nothing."""
     assert flash.uses_tensor_cores(torch.bfloat16) and not flash.uses_tensor_cores(torch.float32)
     (q, k, v, do), tables, _, lse, delta, _ = _case("gqa_h4_kv2", torch.bfloat16)
-    fns = (sp.sparse_bwd_dkdv, sp.sparse_bwd_dq)
-    counts = [(sp.sparse_fwd.launches,)] + [(fn.launches, fn.tc_launches) for fn in fns]
-    sp.sparse_fwd(q, k, v, tables, 0.125, True)
+    fns = (sp.sparse_fwd, sp.sparse_bwd_dkdv, sp.sparse_bwd_dq)
+    counts = [(fn.launches, fn.tc_launches) for fn in fns]
+    out, _ = sp.sparse_fwd(q, k, v, tables, 0.125, True)
     dk, dv = sp.sparse_bwd_dkdv(q, k, v, do, lse, delta, tables, 0.125, True)
     dq = sp.sparse_bwd_dq(q, k, v, do, lse, delta, tables, 0.125, True)
-    assert [(sp.sparse_fwd.launches,)] + [(fn.launches, fn.tc_launches) for fn in fns] == counts
-    assert dk.dtype == dv.dtype == dq.dtype == torch.bfloat16
+    assert [(fn.launches, fn.tc_launches) for fn in fns] == counts
+    assert out.dtype == dk.dtype == dv.dtype == dq.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("name,B,S,H,KV,D,causal,keys", LAYOUTS, ids=_ids(LAYOUTS))
+def test_fp32_forward_matches_jax_kernel(name, B, S, H, KV, D, causal, keys, monkeypatch):
+    """The fp32 plain forward's out and lse against the JAX package's
+    ``_sparse_fwd`` with its Pallas kernel in interpret mode, at the
+    tolerance of test_torch_sparse_attention.py's forward test (2e-5)."""
+    monkeypatch.setattr(_pallas, "INTERPRET", True)
+    D = 16  # the layout is the point; a narrow head keeps interpret mode quick
+    tables = _tables(S, H, KV, keys)
+    q, k, v, _ = (x.float() for x in _inputs(5, torch.float32, 1, S, H, KV, D))
+    scale = 1.0 / np.sqrt(D)
+    jout, jlse = jattn._sparse_fwd(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                                   jattn._get_tables(tables.layout, H), scale, causal,
+                                   tables.block)
+    out, lse = sp.sparse_fwd_reference(q, k, v, tables, scale, causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=2e-5, rtol=2e-5)
