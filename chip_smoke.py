@@ -49,14 +49,25 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      both bit for bit;
   3. serve: ``build_engine("mistral", MistralConfig.mistral_7b(), ...)`` in
      bf16 with seeded random weights answers 16 requests through greedy
-     ``generate``, and every forward step goes through the kernel: the
-     tensor-core prefill kernel at every step whose padded chunk is 16 tokens
-     or more, the split-K decode kernel at every other; the same serve again
-     under torch.profiler splits the device time by kernel (decode, merge,
-     prefill and the CUDA-core kernel apart);
+     ``generate`` on the serving fast path (device-resident batch state,
+     pipelined dispatch, fused decode bursts, every bucket forward and burst
+     step replayed from a captured CUDA graph), and every forward step goes
+     through the kernel: the tensor-core prefill kernel at every step whose
+     padded chunk is 16 tokens or more, the split-K decode kernel at every
+     other, counted under replay; the fast path's counters, captures and
+     graph pool; a second serve of the same prompts captures nothing and
+     gives the same tokens; the same serve again under torch.profiler splits
+     the device time by kernel (decode, merge, prefill and the CUDA-core
+     kernel apart); the reference loop (``serving_fastpath.enabled=False``)
+     and the fast path serve the same prompts in three pairs, in turns;
   4. slice: a 2-layer, full-width Mistral in fp32, one prefill and three
      decode steps of ``forward_paged`` on CUDA (kernel) and on a CPU copy
-     (plain path) with the same weights and KV;
+     (plain path) with the same weights and KV; slice-serve: the same width
+     through ``InferenceEngineV2``, the fast path with graphs, the reference
+     loop eager on CUDA and the fast path on the CPU token for token on a
+     closed batch and on requests arriving mid-decode, the prewarm's
+     captures leaving every KV block but the trash block unchanged, and a
+     sampled burst equal to sampled steps;
   5. train: ``initialize`` with Llama-2-7B at full width cut to 8 layers, bf16,
      remat, fused AdamW, WarmupLR, clipping; 6 optimizer steps of 2 x 2 x 2048
      tokens through the flash and fused-AdamW kernels, launch counts checked
@@ -520,7 +531,7 @@ def phase_kernel(card):
                     for r in ROUTE_NAMES))
     recs = {name: measure(name, cases[name])
             for name in ("mistral_decode", "mistral_prefill", "llama2_decode", "llama2_prefill",
-                         "serve_decode_n16")}
+                         "serve_decode_n16", *cuda_core_edges)}
     for name, rec in recs.items():
         log(f"[kernel] {name} on {card}: {json.dumps({k: rec[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')})}")
     for name in ("llama2_decode", "mistral_decode", "serve_decode_n16"):
@@ -1465,6 +1476,39 @@ def phase_lion_kernels(card):
 
 
 # ------------------------------------------------------------------ phase 3
+def serve_timed(engine, prompts, max_new):
+    """One ``generate`` over the prompts, synchronized: (results, wall s)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.generate(prompts, max_new_tokens=max_new, strict=False)
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0
+
+
+def log_fastpath(tag, engine, before, built_before, card):
+    """The fast path's host-link counters over one serve (``before`` is a
+    ``ServeCounters`` snapshot), the bucket programs it captured by class
+    with their wall time, and the bytes of the graphs' shared memory pool."""
+    d = engine.counters.delta_since(before)
+    ledger = engine.ledger
+    pool = engine.programs.pool_bytes()
+    log(f"[{tag}] fast path on {card}: host syncs {d['host_syncs']}, loop iterations "
+        f"{d['loop_iterations']}, flushes {d['flushes']}, tokens by burst {d['burst_tokens']} / "
+        f"by step {d['step_tokens']}, dispatches {d['dispatches']}, uploads {d['uploads']} "
+        f"({d['upload_ints']} ints), programs built {ledger.total - built_before}; captures "
+        f"so far by site and class {json.dumps(ledger.by_site)}, wall s by class "
+        f"{json.dumps({c: round(w, 4) for c, w in ledger.wall_by_class.items()})}; graph pool "
+        f"{'not measured' if pool is None else f'{pool / 2**30:.3f} GiB'}")
+    return d
+
+
+def first_divergence(a, b, prompts):
+    """For each request, the first generated position where two serves'
+    tokens differ (None where they agree)."""
+    return [_first_diff(x.tokens[len(p):], y.tokens[len(p):]) for p, x, y in zip(prompts, a, b)]
+
+
 def phase_serve(card, seed=0):
     import torch
     from deepspeed_tpu_torch.runtime.tree import tree_leaves
@@ -1480,9 +1524,12 @@ def phase_serve(card, seed=0):
         raise AssertionError(f"init_params made {n_params} params, num_params says "
                              f"{num_params(cfg)}")
     num_blocks, block_size = 2048, 16
+    kw = dict(device="cuda", num_blocks=num_blocks, block_size=block_size,
+              max_blocks_per_seq=256, token_budget=512, max_seqs_per_step=32)
     engine = build_engine("mistral", cfg, params, config={"dtype": "bfloat16", "seed": seed},
-                          device="cuda", num_blocks=num_blocks, block_size=block_size,
-                          max_blocks_per_seq=256, token_budget=512, max_seqs_per_step=32)
+                          **kw)
+    if not (engine.fastpath.enabled and engine.programs.graphs):
+        raise AssertionError("the default engine on CUDA does not run the fast path's graphs")
     torch.cuda.synchronize()
     log(f"[serve] mistral_7b: {n_params / 1e9:.3f} B params "
         f"({sum(p.numel() * p.element_size() for p in tree_leaves(params)) / 1e9:.2f} GB bf16), "
@@ -1495,11 +1542,8 @@ def phase_serve(card, seed=0):
     paged_attention.launches = paged_attention.tc_launches = paged_attention.decode_launches = 0
     steps0 = engine.forward_steps
     widths0 = dict(engine.chunk_widths)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = engine.generate(prompts, max_new_tokens=max_new, strict=False)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    counters0 = engine.counters.snapshot()
+    results, wall = serve_timed(engine, prompts, max_new)
     launches, tc_launches = paged_attention.launches, paged_attention.tc_launches
     decode_launches = paged_attention.decode_launches
     steps = engine.forward_steps - steps0
@@ -1538,30 +1582,85 @@ def phase_serve(card, seed=0):
     log(f"[serve] {len(prompts)} requests ({int(lens.sum())} prompt tokens, "
         f"{generated} generated) all ok on {card}: wall {wall:.3f} s, "
         f"{generated / wall:.1f} generated tok/s, {(int(lens.sum()) + generated) / wall:.1f} "
-        f"total tok/s, {steps} steps, mean step {wall / steps * 1e3:.2f} ms, "
+        f"total tok/s, {steps} forward steps (a burst of k counts k), mean step "
+        f"{wall / steps * 1e3:.2f} ms, "
         f"paged_attention launches {launches} = {steps} x {cfg.num_layers}, of them "
         f"tensor-core prefill {tc_launches} = {tc_steps} steps of chunk width >= 16 x "
         f"{cfg.num_layers}, split-K decode {decode_launches} = {decode_steps} steps of chunk "
         f"width < 16 x {cfg.num_layers} (steps by padded chunk width "
         f"{dict(sorted(widths.items()))}), "
         f"{engine.tokens_run} real tokens in {engine.positions_run} padded positions")
-    profile_serve(engine, prompts, max_new, card, wall)
+    first = log_fastpath("serve", engine, counters0, 0, card)
+    if first["host_syncs"] >= steps:
+        raise AssertionError(f"{first['host_syncs']} host syncs for {steps} forward steps: the "
+                             f"decode did not fuse")
+    # the same serve again: every bucket is built, so nothing is captured
+    counters1, built = engine.counters.snapshot(), engine.ledger.total
+    again, wall2 = serve_timed(engine, prompts, max_new)
+    if engine.ledger.total != built or engine.ledger.warm_total:
+        raise AssertionError(f"the second serve built {engine.ledger.total - built} programs "
+                             f"({engine.ledger.warm_total} warm)")
+    if [r.tokens for r in again] != [r.tokens for r in results]:
+        raise AssertionError(f"the second serve's tokens differ from the first's at "
+                             f"{first_divergence(results, again, prompts)}")
+    log(f"[serve] second serve of the same prompts on {card}: wall {wall2:.3f} s, 0 captures, "
+        f"tokens identical to the first serve")
+    log_fastpath("serve", engine, counters1, built, card)
+    busy = {"fast path": profile_serve(engine, prompts, max_new, card, wall2)}
+    serve_pairs(card, cfg, params, kw, engine, prompts, max_new, busy)
     del engine, params
     torch.cuda.empty_cache()
     return {"launches": launches, "tc_launches": tc_launches, "decode_launches": decode_launches}
+
+
+def serve_pairs(card, cfg, params, kw, fast, prompts, max_new, busy):
+    """The parent's loop (``serving_fastpath.enabled=False``: rebuild and
+    upload every step, one sync a step, pow2 table widths, eager bursts)
+    against the fast path on the same prompts, three pairs in turns
+    (reference, fast, fast, reference, reference, fast): wall of each serve,
+    device busy time of each loop from one profiled serve, idle share.  In
+    bf16 the two loops may pick different split-K widths (pow2 against
+    stepped tables), so tokens can differ: the first diverging position of
+    each request is printed, not gated."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    ref = build_engine("mistral", cfg, params, config={"dtype": "bfloat16", "seed": 0,
+                                                       "serving_fastpath": {"enabled": False}},
+                       **kw)
+    engines = {"reference": ref, "fast path": fast}
+    walls = {name: [] for name in engines}
+    outs = {}
+    for name in ("reference", "fast path", "fast path", "reference", "reference", "fast path"):
+        outs[name], wall = serve_timed(engines[name], prompts, max_new)
+        walls[name].append(wall)
+    busy["reference"] = profile_device(
+        lambda: ref.generate(prompts, max_new_tokens=max_new, strict=False), card, "profile",
+        "reference-loop serve", walls["reference"][-1] * 1e3, PAGED_NEEDLES)
+    for name, ws in walls.items():
+        b = busy[name]
+        log(f"[serve-pairs] {name} on {card}: walls " + ", ".join(f"{w:.3f}" for w in ws)
+            + f" s (mean {statistics.mean(ws):.3f}); device busy "
+            + ("not measured" if b is None else
+               f"{b:.1f} ms, idle " + ", ".join(f"{1 - b / (w * 1e3):.1%}" for w in ws)))
+    log(f"[serve-pairs] first generated position where the reference loop's tokens differ from "
+        f"the fast path's, by request: {first_divergence(outs['reference'], outs['fast path'], prompts)}")
+    del ref, engines
+    torch.cuda.empty_cache()
+
+
+PAGED_NEEDLES = (("paged_decode", "paged_decode_kernel"),
+                 ("paged_decode_merge", "paged_decode_merge_kernel"),
+                 ("paged_prefill_tc", "paged_prefill_tc_kernel"),
+                 ("paged_cuda_core", "paged_attention_kernel"))
 
 
 def profile_serve(engine, prompts, max_new, card, wall_s):
     """Serve the same requests again under torch.profiler: device time split
     into the paged split-K decode kernel, its merge, the tensor-core prefill
     and the CUDA-core kernel, matrix products and the rest; the timed run
-    (``wall_s``) is not profiled."""
-    profile_device(lambda: engine.generate(prompts, max_new_tokens=max_new, strict=False), card,
-                   "profile", "serve", wall_s * 1e3,
-                   (("paged_decode", "paged_decode_kernel"),
-                    ("paged_decode_merge", "paged_decode_merge_kernel"),
-                    ("paged_prefill_tc", "paged_prefill_tc_kernel"),
-                    ("paged_cuda_core", "paged_attention_kernel")))
+    (``wall_s``) is not profiled.  Returns the device's busy ms."""
+    return profile_device(lambda: engine.generate(prompts, max_new_tokens=max_new, strict=False),
+                          card, "profile", "serve", wall_s * 1e3, PAGED_NEEDLES)
 
 
 MATMUL_NEEDLES = ("gemm", "nvjet", "xmma", "cutlass", "sm90")
@@ -1572,7 +1671,8 @@ def profile_device(run, card, tag, label, wall_ms, needles, top=12):
     (``needles``: (group, substring of the kernel name) pairs; then matrix
     products and the rest), and the top ``top`` kernels.  The device's idle
     share is its busy time against ``wall_ms``, the unprofiled run's wall,
-    since the profiler slows the host down."""
+    since the profiler slows the host down.  Returns the busy ms (None where
+    the profiler saw no CUDA kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1599,13 +1699,14 @@ def profile_device(run, card, tag, label, wall_ms, needles, top=12):
     busy = sum(groups.values())
     if busy == 0.0:
         log(f"[{tag}] device time not measured: the profiler saw no CUDA kernels")
-        return
+        return None
     shares = ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in groups.items() if v)
     log(f"[{tag}] {label} under torch.profiler on {card}: device busy {busy:.1f} ms, "
         f"{busy / wall_ms:.1%} of the unprofiled {label}'s {wall_ms:.1f} ms (idle "
         f"{1 - busy / wall_ms:.1%}; the profiled {label} took {prof_ms:.1f} ms); {shares}")
     for ms, count, name in sorted(kernels, reverse=True)[:top]:
         log(f"[{tag}]   {ms:9.2f} ms {count:6d} calls  {name[:110]}")
+    return busy
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1671,6 +1772,135 @@ def phase_slice(seed=1):
         f"vs CPU plain path: max logit abs err {worst:.3e} (atol=rtol=2e-3), KV max abs err "
         f"{kv_err:.3e}, greedy picks identical; paged launches: CUDA-core "
         f"{counts[0] - counts[1] - counts[2]}, split-K decode {counts[2]}")
+
+
+def serve_waves(engine, prompts, arrivals, max_new):
+    """Requests arriving mid-decode (``arrivals``: {step index: [uids]}),
+    driven through ``put`` / ``step`` / ``decode_burst`` as the bench's
+    mixed-arrival scenario drives them: once the live set is decode-only,
+    up to k steps fuse into one burst, capped so arrivals land on their
+    step.  Returns each uid's tokens."""
+    produced = {u: 0 for u in range(len(prompts))}
+    tokens = {}
+    pending = dict(arrivals)
+    step_i = 0
+    while len(tokens) < len(prompts):
+        if step_i in pending:
+            uids = pending.pop(step_i)
+            engine.put(uids, [prompts[u] for u in uids])
+
+        def retire(uid, n_new):
+            produced[uid] += n_new
+            if produced[uid] >= max_new:
+                tokens[uid] = list(engine.manager.seqs[uid].tokens)
+                engine.flush(uid)
+
+        live = [u for u, s in engine.manager.seqs.items() if not s.done]
+        k = min((max_new - produced[u] for u in live), default=0)
+        if pending:
+            k = min(k, min(pending) - step_i)
+        if k >= 2:
+            burst = engine.decode_burst(k)
+            if burst is not None:
+                for uid, toks in burst.items():
+                    retire(uid, len(toks))
+                step_i += k
+                continue
+        out = engine.step()
+        if not out and not pending and not engine.manager.seqs:
+            raise AssertionError("serve_waves: nothing live and requests unfinished")
+        for uid in out:
+            retire(uid, 1)
+        step_i += 1
+    return [tokens[u] for u in range(len(prompts))]
+
+
+def phase_slice_serve(seed=3):
+    """2-layer full-width Mistral in fp32 through ``InferenceEngineV2``: the
+    fast path with CUDA graphs, the reference loop eager on CUDA, and the fast
+    path on the CPU must give identical tokens, on a closed batch and on
+    requests arriving mid-decode.  The prewarm's captures, taken with live
+    sequences in the engine and random KV, leave every block but the trash
+    block as it was.  A sampled burst and sampled steps from one seed draw
+    the same tokens."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    from deepspeed_tpu_torch.models import mistral
+    from deepspeed_tpu_torch.runtime.tree import tree_map
+    cfg = dataclasses.replace(mistral.MistralConfig.mistral_7b(), num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = mistral.init_params(cfg, gen, dtype=torch.float32, device="cuda")
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    kw = dict(num_blocks=160, block_size=16, max_blocks_per_seq=16, token_budget=64,
+              max_seqs_per_step=8)
+    fp32 = {"dtype": "float32"}
+    engines = {
+        "graphs": build_engine("mistral", cfg, params, config=fp32, device="cuda", **kw),
+        "eager": build_engine("mistral", cfg, params, device="cuda", **kw,
+                              config={**fp32, "serving_fastpath": {"enabled": False}}),
+        "cpu": build_engine("mistral", cfg, params_cpu, config=fp32, device="cpu", **kw),
+    }
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in (5, 150, 33, 70, 12, 97)]
+    max_new = 12
+    # prewarm with live sequences over random KV: only the trash block may change
+    graphs = engines["graphs"]
+    trash = graphs.manager.trash_block
+    for pool in graphs.kv.values():
+        pool.copy_(torch.randn(pool.shape, generator=gen, device="cuda"))
+    graphs.put(list(range(len(prompts))), prompts)
+    kv_before = {k: v[:, :trash].clone() for k, v in graphs.kv.items()}
+    graphs._prewarm(max_new)
+    torch.cuda.synchronize()
+    changed = [k for k, v in graphs.kv.items() if not torch.equal(v[:, :trash], kv_before[k])]
+    prewarmed = graphs.ledger.count("prewarmed")
+    if changed or not prewarmed:
+        raise AssertionError(f"slice-serve: the prewarm ({prewarmed} captures) changed KV "
+                             f"outside the trash block in {changed}")
+    for uid in range(len(prompts)):
+        graphs.flush(uid)
+    del kv_before
+    closed = {name: e.generate(prompts, max_new_tokens=max_new) for name, e in engines.items()}
+    arrivals = {0: [0, 1, 2], 5: [3], 9: [4, 5]}
+    waves = {name: serve_waves(e, prompts, arrivals, max_new) for name, e in engines.items()}
+    for scenario, outs in (("closed batch", closed), ("arrivals mid-decode", waves)):
+        if not outs["graphs"] == outs["eager"] == outs["cpu"]:
+            raise AssertionError(f"slice-serve {scenario}: tokens differ: graphs vs eager at "
+                                 f"{[_first_diff(a, b) for a, b in zip(outs['graphs'], outs['eager'])]}, "
+                                 f"graphs vs cpu at "
+                                 f"{[_first_diff(a, b) for a, b in zip(outs['graphs'], outs['cpu'])]}")
+    c = graphs.counters.snapshot()
+    log(f"[slice-serve] mistral_7b width, 2 layers, fp32: fast path with CUDA graphs == reference "
+        f"loop eager on CUDA == fast path on the CPU, token for token, on a closed batch of "
+        f"{len(prompts)} and on 3 waves arriving mid-decode; prewarm: {prewarmed} captures, KV "
+        f"outside the trash block unchanged; graphs engine: {graphs.ledger.total} captures "
+        f"{json.dumps(graphs.ledger.by_site)}, host syncs {c['host_syncs']}, burst / step tokens "
+        f"{c['burst_tokens']} / {c['step_tokens']}")
+    sampled = {"temperature": 1.0, "top_k": 20, "seed": 5}
+
+    def primed():
+        e = build_engine("mistral", cfg, params, config={**fp32, **sampled}, device="cuda", **kw)
+        e.put([0, 1], prompts[:2])
+        while len(e.step(greedy=False)) < 2:
+            pass
+        return e
+
+    a = primed()
+    stepwise = {0: [], 1: []}
+    for _ in range(6):
+        for uid, tok in a.step(greedy=False).items():
+            stepwise[uid].append(tok)
+    burst = primed().decode_burst(6, greedy=False)
+    if burst != stepwise:
+        raise AssertionError(f"slice-serve: a sampled burst {burst} differs from sampled steps "
+                             f"{stepwise}")
+    log(f"[slice-serve] sampled decode (temperature 1, top-k 20, seed 5): a 6-step burst (one "
+        f"graph replayed 6 times) == 6 stepwise steps, token for token: {burst}")
+
+
+def _first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
 
 
 # ------------------------------------------------------------------ phase 5
@@ -2189,6 +2419,7 @@ def main() -> int:
         lion_recs = phase_lion_kernels(card)
         launches = phase_serve(card)
         phase_slice()
+        phase_slice_serve()
     train_launches, dense = phase_train(card)
     adam8_launches, _ = phase_train(card, tag="train-8bit", optimizer="fused_adam8bit",
                                     baseline=dense)
@@ -2217,7 +2448,9 @@ def main() -> int:
                 "serve_decode_n16": {k: recs["serve_decode_n16"][k] for k in fields},
                 "prefill": {k: recs["mistral_prefill"][k] for k in fields},
                 "llama2_decode": {k: recs["llama2_decode"][k] for k in fields},
-                "llama2_prefill": {k: recs["llama2_prefill"][k] for k in fields}}]
+                "llama2_prefill": {k: recs["llama2_prefill"][k] for k in fields},
+                "cuda_core": {name: {k: rec[k] for k in fields} for name, rec in recs.items()
+                              if name.startswith("cuda_core")}}]
     for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         kernels.append({"name": name, "route": "cuda", "source": FLASH_SOURCE,
                         "replaces": FLASH_REPLACES[name], "launches": train_launches[name],

@@ -10,13 +10,13 @@ from typing import Optional
 
 import torch
 
-from ..runtime.config import ServingResilienceConfig
+from ..runtime.config import ServingFastpathConfig, ServingResilienceConfig
 from ..runtime.config_utils import ConfigModel, Field
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 # sections of the JAX InferenceConfig the port does not implement yet
-UNPORTED_SECTIONS = ("serving_fastpath", "serving_prefix_cache", "serving_tracing",
+UNPORTED_SECTIONS = ("serving_prefix_cache", "serving_tracing",
                      "serving_fault_tolerance", "serving_qos", "serving_spec_decode",
                      "serving_perf", "ops_server", "serving_fleet",
                      "serving_kv_observability")
@@ -51,6 +51,9 @@ class InferenceConfig(ConfigModel):
     seed: int = 0
     # admission control / load shedding / preemption / stall watchdog
     serving_resilience: ServingResilienceConfig = Field(ServingResilienceConfig)
+    # device-resident batch state, pipelined dispatch, fused decode bursts and
+    # per-bucket CUDA graphs (inference/v2/fastpath.py, cuda_graphs.py)
+    serving_fastpath: ServingFastpathConfig = Field(ServingFastpathConfig)
 
     def model_validate(self):
         if self.tensor_parallel is None:

@@ -179,6 +179,13 @@ class AdmissionQueue:
             return ticket, expired
         return None, expired
 
+    def queued_stats(self) -> Tuple[int, int]:
+        """(depth, longest queued prompt) without mutating the queue: the
+        serve-time prewarm sizes its candidate buckets from what is waiting."""
+        if not self._heap:
+            return 0, 0
+        return len(self._heap), max(len(entry[2].prompt) for entry in self._heap)
+
     def drain(self) -> List[AdmissionTicket]:
         """Remove and return every queued ticket (stall cleanup), in pop order."""
         out = [entry[2] for entry in sorted(self._heap, key=lambda e: (e[0], e[1]))]

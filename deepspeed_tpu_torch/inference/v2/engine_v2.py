@@ -1,17 +1,36 @@
 """Continuous-batching inference engine (FastGen analog).
 
-Counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py`` on its reference
-loop (``serving_fastpath.enabled=False``): ``put()`` enqueues requests, each
-``step()`` runs ONE ragged forward over a SplitFuse-scheduled token batch
-against the paged KV pool, picks the next token of every sequence that
-produced one, and fetches those n ints to the host.  ``generate()`` serves a
-batch to completion through the admission queue, deadline eviction and the
+Counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py``: ``put()``
+enqueues requests, each ``step()`` runs ONE ragged forward over a
+SplitFuse-scheduled token batch against the paged KV pool and picks the next
+token of every sequence that produced one, and ``generate()`` serves a batch
+to completion through the admission queue, deadline eviction and the
 progress watchdog.
 
-The ragged batch is padded to power-of-two (sequences, chunk) buckets and a
-power-of-two block-table width, as the JAX engine's reference loop pads it.
+The ragged batch is padded to power-of-two (sequences, chunk) buckets, as
+the JAX engine pads it.  With ``serving_fastpath.enabled`` (the default) the
+engine runs the JAX engine's fast path:
+
+- each bucket's batch lives on the device (``fastpath.DeviceBatchState``)
+  and a step uploads only the rows that changed, in one packed scatter;
+- sampled tokens stay on the device behind ``fastpath.DeferredTokens``; the
+  serve loop dispatches step N before it absorbs step N-1, and a decode row
+  whose input token is still in flight is fed on the device;
+- a pure-decode live set runs as one fused burst of k steps with eos
+  done-masks and one host sync;
+- table widths grow in steps of ``TABLE_STEP`` slots with hysteresis, and
+  ``generate()`` prewarms the buckets its requests are about to hit;
+- on the card every bucket forward and every burst step is replayed from a
+  captured CUDA graph (``cuda_graphs.py``).
+
+With the fast path off the engine runs the JAX reference loop: the
+rebuild-and-upload step with one sync a step, pow2 table widths, and the
+same decode bursts, all eager (no graphs) on the card.
+
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU; it
-never falls back from one to the other.
+never falls back from one to the other.  Request tracing, the request
+journal, KV-pool observability, prefix caching, telemetry, QoS, speculative
+decoding and tensor parallelism of the JAX engine are not ported yet.
 """
 
 import collections
@@ -21,20 +40,17 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ...monitor.perf import CompileLedger
 from ..config import DTYPES as _DTYPES, load_inference_config
 from ..engine import _sample
 from .admission import (DEADLINE_EXPIRED, FAILED, OK, PREEMPT_REQUEUED_EXHAUSTED, SHED,
                         AdmissionQueue, RequestResult, ServingStalledError)
+from .blocked_allocator import KVAllocationError
+from .cuda_graphs import BucketPrograms
+from .fastpath import (FED_SENTINEL, PENDING_TOKEN, DeferredTokens, DeviceBatchState,
+                       ServeCounters, materialize, round_up_pow2, upload)
 from .ragged_manager import RaggedStateManager
 from .scheduler import SplitFuseScheduler
-
-
-def round_up_pow2(n: int) -> int:
-    """Next power of two >= n: the batch-shape bucketing primitive."""
-    b = 1
-    while b < n:
-        b *= 2
-    return b
 
 
 def resolve_device(device) -> torch.device:
@@ -53,7 +69,24 @@ def _tree_to(tree, device, dtype):
     return torch.as_tensor(tree).to(device=device, dtype=dtype)
 
 
+def _last_rows(logits, n_tokens):
+    """Each row's logits at its last valid position: [N, T, V] -> [N, V]."""
+    last = torch.clamp(n_tokens.long() - 1, min=0)
+    return logits[torch.arange(logits.shape[0], device=logits.device), last]
+
+
 class InferenceEngineV2:
+
+    # decode-burst length while any live request carries a deadline OR the
+    # admission queue is non-empty: deadlines are enforced between host round
+    # trips, so this bounds eviction overshoot and admission latency
+    BURST_DEADLINE_SLICE = 8
+    # fast-path table widths grow in TABLE_STEP block-table slots and shrink
+    # only after TABLE_SHRINK_PATIENCE consecutive steps of a full step of
+    # slack, so one long sequence joining or leaving does not rebuild every
+    # (n, t) bucket it touches
+    TABLE_STEP = 4
+    TABLE_SHRINK_PATIENCE = 16
 
     def __init__(self, model_module, model_config, params, config: Optional[Dict] = None,
                  num_blocks: int = 512, block_size: int = 16,
@@ -78,7 +111,7 @@ class InferenceEngineV2:
         self._deadline_expired_total = 0
         self._stall_streak = 0
         self.stalls_total = 0  # lifetime watchdog trips (streaks are transient)
-        self.forward_steps = 0  # ragged forwards run (one per non-empty step)
+        self.forward_steps = 0  # ragged forwards run (a burst of k counts k)
         self.tokens_run = 0     # real tokens through those forwards
         self.positions_run = 0  # padded (sequences x chunk) positions they computed
         self.chunk_widths = collections.Counter()  # padded chunk width -> forwards run at it
@@ -86,6 +119,21 @@ class InferenceEngineV2:
         self.kv = model_module.init_paged_cache(model_config, num_blocks, block_size,
                                                 dtype=self.dtype, device=self.device)
         self._generator = torch.Generator(device=self.device).manual_seed(self.config.seed)
+        # serving fast path: host-link counters, the compile ledger behind
+        # counters.compiles, the device-resident batch buffers, and the
+        # bucket programs (CUDA graphs on the card, eager on the CPU and in
+        # the reference loop)
+        self.fastpath = self.config.serving_fastpath
+        self.counters = ServeCounters()
+        self.ledger = CompileLedger(self.counters)
+        self.batch_state = DeviceBatchState(self.counters, self.device)
+        self.programs = BucketPrograms(self.ledger, self.device,
+                                       graphs=self.device.type == "cuda" and self.fastpath.enabled)
+        self._burst_inputs: Dict = {}  # (n, b) -> the burst step's static inputs
+        self._inflight: Optional[DeferredTokens] = None
+        self._table_width = 0
+        self._table_slack = 0
+        self._health_generated_at = self._clock()
 
     # ------------------------------------------------------------------ intake
     def put(self, uids: Sequence[int], prompts: Sequence[Sequence[int]],
@@ -97,6 +145,7 @@ class InferenceEngineV2:
         deadline_expired``, blocks reclaimed) before the next batch."""
         ttl = ttl_s if ttl_s is not None else self.resilience.default_ttl_s
         deadline = self._clock() + ttl if ttl is not None else None
+        self._reset_table_width_if_idle()
         for uid, prompt in zip(uids, prompts):
             self.manager.add_sequence(int(uid), [int(t) for t in prompt], deadline=deadline)
 
@@ -104,23 +153,135 @@ class InferenceEngineV2:
         """End a put()-level request's life: retire it and reclaim its blocks."""
         self.manager.retire(uid)
 
-    # ------------------------------------------------------------------- step
-    def _table_width_for(self, need: int) -> int:
-        """Block-table width for this step's batch: the live maximum rounded
-        up to a power of two, capped at max_blocks_per_seq."""
-        need = min(need, self.max_blocks_per_seq)
-        return min(round_up_pow2(need), self.max_blocks_per_seq)
+    def _reset_table_width_if_idle(self) -> None:
+        """Fresh serve (no tracked sequences): drop the sticky table width so
+        a repeated scenario replays the same width trajectory, and therefore
+        hits the same bucket programs, as its first run."""
+        if not self.manager.seqs:
+            self._table_width = 0
+            self._table_slack = 0
 
+    # ------------------------------------------------------------------ widths
+    _bucket = staticmethod(round_up_pow2)
+
+    def _stepped_width(self, blocks: int) -> int:
+        """Block-table width rounded up in TABLE_STEP-slot increments, capped
+        at max_blocks_per_seq; shared by the live bucketing and the prewarm."""
+        return min(-(-blocks // self.TABLE_STEP) * self.TABLE_STEP, self.max_blocks_per_seq)
+
+    def _table_width_for(self, need: int) -> int:
+        """Block-table width for this step's batch.  Fast path: ``need``
+        rounded up in TABLE_STEP-slot steps with sticky hysteresis (no shrink
+        until TABLE_SHRINK_PATIENCE consecutive steps had a full step of
+        slack).  Reference loop: the live maximum rounded up to a power of
+        two.  Both capped at max_blocks_per_seq."""
+        need = min(need, self.max_blocks_per_seq)
+        if not self.fastpath.enabled:
+            return min(self._bucket(need), self.max_blocks_per_seq)
+        stepped = self._stepped_width(need)
+        w = self._table_width
+        if stepped > w:
+            w = stepped
+            self._table_slack = 0
+        elif stepped <= w - self.TABLE_STEP:
+            self._table_slack += 1
+            if self._table_slack >= self.TABLE_SHRINK_PATIENCE:
+                w = stepped
+                self._table_slack = 0
+        else:
+            self._table_slack = 0
+        self._table_width = w
+        return w
+
+    # ------------------------------------------------------------------- step
     @torch.no_grad()
     def step(self, greedy: bool = True) -> Dict[int, int]:
         """Run one SplitFuse step; returns {uid: sampled_token} for sequences
-        that produced a next token (finished prefill or decoded)."""
+        that produced a next token (finished prefill or decoded).  On the
+        fast path this is dispatch + immediate materialize; the serve loop
+        uses the split halves to defer the materialize by one step."""
+        if not self.fastpath.enabled:
+            return self._step_reference(greedy)
+        deferred = self._dispatch_step(greedy)
+        if deferred is None:
+            return {}
+        return deferred.patch(self.manager)
+
+    def _dispatch_step(self, greedy: bool) -> Optional[DeferredTokens]:
+        """Fast-path step dispatch: scatter this step's changed rows into the
+        bucket's persistent buffers, run the bucket program and the pick, and
+        return a :class:`DeferredTokens` handle WITHOUT waiting on the
+        tokens.  Emitting sequences get a PENDING_TOKEN placeholder that
+        ``patch()`` later overwrites; a decode row whose input token is still
+        in flight is fed on the device from the previous step's tokens."""
+        self._expire_live()  # TTL enforcement between forwards, never mid-batch
+        chunks = self.scheduler.schedule(self.manager)
+        if not chunks:
+            return None
+        n = self._bucket(len(chunks))
+        t = self._bucket(max(c.n_tokens for c in chunks))
+        b = self._table_width_for(max(len(self.manager.seqs[c.uid].blocks) for c in chunks))
+        key = (n, t, b)
+        program = self._fwd_program(key)
+        rows = []
+        feeds = []
+        tokens_run = 0
+        for i, c in enumerate(chunks):
+            seq = self.manager.seqs[c.uid]
+            sl = seq.tokens[seq.seen_tokens:seq.seen_tokens + c.n_tokens]
+            packed = np.zeros(3 + t + b, np.int32)
+            packed[0] = i
+            if c.n_tokens == 1 and sl[0] == PENDING_TOKEN:
+                # the input token is the previous step's sample, still on the
+                # device: feed it there instead of waiting for it
+                if self._inflight is None or c.uid not in self._inflight.row_of:
+                    raise RuntimeError(f"uid {c.uid}: pending token scheduled with no "
+                                       f"in-flight step to feed it from")
+                feeds.append((i, self._inflight.row_of[c.uid]))
+                packed[1] = FED_SENTINEL
+            else:
+                packed[1:1 + len(sl)] = sl
+            packed[1 + t] = c.n_tokens
+            packed[2 + t] = seq.seen_tokens
+            packed[3 + t:] = self.manager.block_table_row(seq, width=b)
+            rows.append((i, packed))
+            tokens_run += c.n_tokens
+        self.batch_state.update(key, rows, n_active=len(chunks),
+                                trash_block=self.manager.trash_block)
+        if feeds:
+            self.batch_state.feed(key, self._inflight.toks_dev, feeds)
+        self.counters.dispatches += 1
+        row = program()
+        # the pick runs on the device into a tensor of this step's own: the
+        # program's output is overwritten by the bucket's next replay
+        self.counters.dispatches += 1
+        toks_dev = self._pick_rows(row, greedy)
+        self._count_forward(n, t, tokens_run)
+        emits = []
+        row_of: Dict[int, int] = {}
+        for i, c in enumerate(chunks):
+            seq = self.manager.seqs[c.uid]
+            seq.seen_tokens += c.n_tokens
+            if seq.seen_tokens >= len(seq.tokens):
+                # produced a next token (end of prompt, or a decode step)
+                seq.tokens.append(PENDING_TOKEN)
+                emits.append((c.uid, len(seq.tokens) - 1, i))
+                row_of[c.uid] = i
+        self.counters.step_tokens += len(emits)
+        self._refresh_kv()
+        return DeferredTokens(toks_dev=toks_dev, emits=emits, row_of=row_of,
+                              counters=self.counters)
+
+    def _step_reference(self, greedy: bool) -> Dict[int, int]:
+        """The reference step: full host-side batch rebuild, four uploads and
+        a synchronous fetch per step, eager on every device.  The equivalence
+        oracle (``serving_fastpath.enabled=False``) the fast path is held to."""
         self._expire_live()
         chunks = self.scheduler.schedule(self.manager)
         if not chunks:
             return {}
-        n = round_up_pow2(len(chunks))
-        t = round_up_pow2(max(c.n_tokens for c in chunks))
+        n = self._bucket(len(chunks))
+        t = self._bucket(max(c.n_tokens for c in chunks))
         b = self._table_width_for(max(len(self.manager.seqs[c.uid].blocks) for c in chunks))
         tokens = np.zeros((n, t), np.int32)
         n_tokens = np.zeros((n, ), np.int32)
@@ -133,14 +294,18 @@ class InferenceEngineV2:
             n_tokens[i] = c.n_tokens
             start_pos[i] = seq.seen_tokens
             tables[i] = self.manager.block_table_row(seq, width=b)
+        # counted as the JAX reference step counts them: forward + pick, and
+        # five uploads (the four batch arrays, n_tokens again for the pick)
+        self.counters.dispatches += 2
+        self.counters.uploads += 5
+        self.counters.upload_ints += int(tokens.size + 2 * n_tokens.size + start_pos.size
+                                         + tables.size)
         dev = [torch.from_numpy(a).to(self.device) for a in (tokens, n_tokens, start_pos, tables)]
         logits, self.kv = self.model.forward_paged(self.model_config, self.params, *dev,
                                                    self.kv, block_size=self.block_size)
-        self.forward_steps += 1
-        self.tokens_run += int(n_tokens.sum())
-        self.positions_run += n * t
-        self.chunk_widths[t] += 1
-        toks = self._pick(logits, dev[1], greedy).cpu().numpy()  # one sync: n ints
+        self._count_forward(n, t, int(n_tokens.sum()))
+        toks = materialize(self._pick_rows(_last_rows(logits, dev[1]), greedy),
+                           self.counters)  # one sync: n sampled ints
 
         out: Dict[int, int] = {}
         for i, c in enumerate(chunks):
@@ -150,18 +315,185 @@ class InferenceEngineV2:
                 tok = int(toks[i])
                 seq.tokens.append(tok)
                 out[c.uid] = tok
+        self.counters.step_tokens += len(out)
+        self._refresh_kv()
         return out
 
-    def _pick(self, logits, n_tokens, greedy: bool):
-        """Token selection on the device: each row's last valid position,
-        argmax or temperature/top-k/top-p sampling."""
-        last = torch.clamp(n_tokens.long() - 1, min=0)
-        row = logits[torch.arange(logits.shape[0], device=logits.device), last]
+    def _pick_rows(self, rows, greedy: bool):
+        """Token selection on the device from each row's last-position
+        logits [N, V]: argmax, or temperature/top-k/top-p sampling from the
+        engine's seeded generator.  Returns a new int32 tensor [N]."""
         if greedy:
-            return torch.argmax(row, dim=-1).to(torch.int32)
+            return torch.argmax(rows, dim=-1).to(torch.int32)
         cfg = self.config
-        return _sample(row, self._generator, temperature=cfg.temperature, top_k=cfg.top_k,
+        return _sample(rows, self._generator, temperature=cfg.temperature, top_k=cfg.top_k,
                        top_p=cfg.top_p)
+
+    def _count_forward(self, n: int, t: int, tokens: int, steps: int = 1) -> None:
+        self.forward_steps += steps
+        self.tokens_run += tokens
+        self.positions_run += n * t * steps
+        self.chunk_widths[t] += steps
+
+    def _refresh_kv(self) -> None:
+        """The JAX engine's per-step refresh, cut to its health stamp: one
+        clock read, so an injected clock advances as it does in the JAX
+        engine (deadline tests replay its timing).  The KV-pool census and
+        capacity forecast it also refreshes are not ported yet."""
+        self._health_generated_at = self._clock()
+
+    # --------------------------------------------------------- bucket programs
+    def _fwd_program(self, key, *, prewarmed: bool = False):
+        """The ``(n, t, b)`` bucket's forward + last-row gather over its
+        persistent batch buffers: a captured graph on the card's fast path,
+        the eager function elsewhere."""
+        slot = self.batch_state.slot(key, self.manager.trash_block)
+        trash = self.manager.trash_block
+
+        def make():
+            model, cfg, params, kv, bs = (self.model, self.model_config, self.params, self.kv,
+                                          self.block_size)
+
+            def fwd():
+                logits, _ = model.forward_paged(cfg, params, *slot.buffers(), kv, block_size=bs)
+                return _last_rows(logits, slot.n_tokens)
+
+            def neutralize():
+                slot.n_tokens.zero_()
+                slot.start_pos.zero_()
+                slot.tables.fill_(trash)
+
+            return fwd, slot.buffers(), neutralize
+
+        return self.programs.get("fwd", key, make, prewarmed=prewarmed)
+
+    def _burst_program(self, n: int, b: int):
+        """One decode step of an ``n``-sequence burst over a ``b``-slot table,
+        on static inputs of its own (tokens [n, 1], n_tokens of ones, start
+        positions, tables); the burst replays it k times."""
+        inputs = self._burst_inputs.get((n, b))
+        if inputs is None:
+            ints = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=self.device)
+            inputs = (ints(n, 1), torch.ones(n, dtype=torch.int32, device=self.device),
+                      ints(n), torch.full((n, b), self.manager.trash_block, dtype=torch.int32,
+                                          device=self.device))
+            self._burst_inputs[(n, b)] = inputs
+        trash = self.manager.trash_block
+
+        def make():
+            model, cfg, params, kv, bs = (self.model, self.model_config, self.params, self.kv,
+                                          self.block_size)
+
+            def decode_step():
+                logits, _ = model.forward_paged(cfg, params, *inputs, kv, block_size=bs)
+                return logits[:, 0]
+
+            def neutralize():
+                inputs[1].zero_()
+                inputs[2].zero_()
+                inputs[3].fill_(trash)
+
+            return decode_step, inputs, neutralize
+
+        return self.programs.get("burst", (n, b), make), inputs
+
+    # ------------------------------------------------------------ decode burst
+    @torch.no_grad()
+    def decode_burst(self, k: int, greedy: bool = True,
+                     eos_token_id: Optional[int] = None) -> Optional[Dict[int, List[int]]]:
+        """Run ``k`` decode steps on the device with ONE host round trip.
+
+        Greedy and sampled (temperature/top-k/top-p from the engine config)
+        decode both stay on the device, the sampled one drawing from the
+        engine's generator exactly as k stepwise picks would; with
+        ``eos_token_id`` a done-mask is carried and finished rows freeze, so
+        the returned per-uid lists stop at (and include) the first eos.
+        Applies only when every live sequence is in pure decode and the pool
+        can pre-allocate k more slots per sequence; returns None otherwise
+        (the caller steps instead).  Each of the k steps is one replay of the
+        ``(n, b)`` burst graph on the card's fast path."""
+        live, prefilling = self.scheduler.live_split(self.manager)
+        if not live or prefilling:
+            return None  # fuse only a pure-decode live set
+        if len(live) > self.scheduler.max_seqs:
+            return None
+        if self._inflight is not None:
+            # a deferred pick is still in flight: its placeholder is this
+            # burst's input token, so patch it in first (idempotent; the serve
+            # loop still absorbs the same handle afterwards)
+            self._inflight.patch(self.manager)
+        max_pos = getattr(self.model_config, "max_seq_len", None)
+        total_new = 0
+        for seq in live:
+            upto = seq.seen_tokens + 1 + k
+            if self.manager.over_cap(upto):
+                return None
+            if max_pos is not None and upto > max_pos:
+                return None  # positions past the rotary table would clamp
+            total_new += self.manager.blocks_needed(seq, upto)
+        if not self.manager.can_allocate(total_new):
+            # check BEFORE allocating anything: a partial grab would strand
+            # blocks on some sequences and starve the stepwise fallback
+            return None
+        grown: List = []
+        try:
+            for seq in live:
+                prior = len(seq.blocks)
+                self.manager.ensure_blocks(seq, seq.seen_tokens + 1 + k)
+                grown.append((seq, prior))
+        except KVAllocationError:
+            # a transient allocator failure mid-grab: roll every sequence back
+            # to its prior table and decline; the stepwise path retries
+            for seq, prior in grown:
+                self.manager.rollback_blocks(seq, prior)
+            return None
+
+        n = self._bucket(len(live))
+        b = self._table_width_for(max(len(s.blocks) for s in live))
+        tok0 = np.zeros((n, 1), np.int32)
+        start0 = np.zeros((n, ), np.int32)
+        tables = np.full((n, b), self.manager.trash_block, np.int32)
+        for i, seq in enumerate(live):
+            tok0[i, 0] = seq.tokens[seq.seen_tokens]
+            start0[i] = seq.seen_tokens
+            tables[i] = self.manager.block_table_row(seq, width=b)
+        # padded rows decode into the trash block
+        eos = -1 if eos_token_id is None else int(eos_token_id)
+        self.counters.dispatches += 1
+        self.counters.uploads += 3
+        self.counters.upload_ints += int(tok0.size + start0.size + tables.size)
+        program, (tok, _, start, tables_dev) = self._burst_program(n, b)
+        for dst, arr in ((tok, tok0), (start, start0), (tables_dev, tables)):
+            dst.copy_(upload(arr, self.device))
+        done = torch.zeros(n, dtype=torch.bool, device=self.device)
+        packed = torch.empty((2 * k, n), dtype=torch.int32, device=self.device)
+        for s in range(k):
+            nxt = self._pick_rows(program(), greedy)
+            # finished rows freeze: re-emit their last token (the pool keeps
+            # absorbing writes into pre-allocated slots; the host truncates at
+            # the first done flag)
+            nxt = torch.where(done, tok[:, 0], nxt)
+            done = done | (nxt == eos)
+            packed[s] = nxt
+            packed[k + s] = done
+            tok[:, 0] = nxt
+            start += 1
+        self._count_forward(n, 1, k * len(live), steps=k)
+        fetched = materialize(packed, self.counters)  # ONE sync per k steps
+        toks, dones = fetched[:k], fetched[k:]        # [K, N] each
+        out: Dict[int, List[int]] = {}
+        for i, seq in enumerate(live):
+            n_real = k
+            if eos >= 0 and dones[:, i].any():
+                n_real = int(np.argmax(dones[:, i])) + 1  # first done step, inclusive
+            produced = [int(t) for t in toks[:n_real, i]]
+            seq.tokens.extend(produced)
+            seq.seen_tokens += n_real
+            self.counters.burst_tokens += n_real
+            out[seq.uid] = produced
+        self.scheduler.note_fused_work(k, sum(len(v) for v in out.values()))
+        self._refresh_kv()
+        return out
 
     # ---------------------------------------------------------------- serving
     def generate(self, prompts: Sequence[Sequence[int]], max_new_tokens: int = 32,
@@ -193,11 +525,13 @@ class InferenceEngineV2:
             return [results[u].tokens for u in uids]
         return [results[u] for u in uids]
 
+    @torch.no_grad()
     def _serve(self, uids: List[int], prompts: Sequence[Sequence[int]], *,
                max_new_tokens: int, eos_token_id: Optional[int], greedy: bool,
                strict: bool, priorities: Optional[Sequence[int]],
                ttl_s: Optional[float]) -> Dict[int, RequestResult]:
         my = set(uids)
+        self._reset_table_width_if_idle()
         conflict = sorted(my & set(self.manager.seqs))
         if conflict:
             # fail fast BEFORE any queue/manager mutation: a collision with a
@@ -228,8 +562,10 @@ class InferenceEngineV2:
                                                  retryable=shed.retryable,
                                                  retry_after_s=shed.retry_after_s,
                                                  shed_code=shed.code)
+            self._prewarm(max_new_tokens)
             self._serve_loop(uids, my, results, produced, max_new_tokens=max_new_tokens,
                              eos_token_id=eos_token_id, greedy=greedy, strict=strict)
+            self._refresh_kv()
         except Exception:
             # a strict-mode raise must not leak this call's queued tickets or
             # live sequences into the next call
@@ -240,14 +576,78 @@ class InferenceEngineV2:
     def _serve_loop(self, uids: List[int], my: set, results: Dict[int, RequestResult],
                     produced: Dict[int, int], *, max_new_tokens: int,
                     eos_token_id: Optional[int], greedy: bool, strict: bool) -> None:
+        fp = self.fastpath
+        fusion_min = max(2, fp.fusion_min_steps) if fp.enabled else 2
+        # an externally wrapped step() (fault injectors, tracing shims) must
+        # keep intercepting every step, so the split dispatch/materialize
+        # pipeline only engages on an unwrapped engine
+        can_pipeline = fp.enabled and fp.pipeline_depth > 0 and "step" not in self.__dict__
         stall_streak = 0
         last_sig = None
+
+        def absorb(stepped):
+            self._absorb_step(stepped, my, results, produced, max_new_tokens=max_new_tokens,
+                              eos_token_id=eos_token_id, strict=strict)
+
         while any(u not in results for u in uids):
+            self.counters.loop_iterations += 1
+            if self._inflight is not None and (len(self.admission)
+                                               or self._any_live_deadline()):
+                # wave boundary: admission/deadline handling below may evict
+                # or finalize sequences, so catch the host up with the device
+                self.counters.flushes += 1
+                absorb(self._settle_inflight())
             self._expire_live()
             self._pump_admissions(my, results, strict)
-            self._absorb_step(self.step(greedy=greedy), my, results, produced,
-                              max_new_tokens=max_new_tokens, eos_token_id=eos_token_id,
-                              strict=strict)
+
+            # pure-decode fast path: burst k steps on the device, sliced while
+            # anything is queued or deadlined so admission latency and
+            # eviction overshoot stay bounded
+            k = self._fusion_window(uids, results, produced, max_new_tokens)
+            fusible = False
+            if k >= fusion_min:
+                decoding, prefilling = self.scheduler.live_split(self.manager)
+                fusible = (bool(decoding) and not prefilling
+                           and len(decoding) <= self.scheduler.max_seqs)
+            if fusible and self._inflight is not None:
+                # the burst's bookkeeping finalizes sequences on the host:
+                # absorb the in-flight step first, then re-measure the window
+                self.counters.flushes += 1
+                absorb(self._settle_inflight())
+                k = self._fusion_window(uids, results, produced, max_new_tokens)
+            if fusible and k >= fusion_min:
+                burst = self.decode_burst(k, greedy=greedy, eos_token_id=eos_token_id)
+                if burst:
+                    for uid, toks in burst.items():
+                        if uid not in my or uid in results:
+                            continue
+                        produced[uid] += len(toks)
+                        hit_eos = (eos_token_id is not None and toks
+                                   and toks[-1] == eos_token_id)
+                        if hit_eos or produced[uid] >= max_new_tokens:
+                            self._finish_ok(uid, results, "eos" if hit_eos else "max_new_tokens")
+                    continue
+
+            if can_pipeline and not (len(self.admission) or self._any_live_deadline()):
+                # dispatch step N, then absorb step N-1's tokens while the
+                # device executes N
+                if (self._inflight is not None
+                        and all(produced[u] + (1 if u in self._inflight.row_of else 0)
+                                >= max_new_tokens for u in uids if u not in results)):
+                    # every unresolved request finishes when the in-flight
+                    # step lands: absorb it instead of dispatching a
+                    # guaranteed-overshoot step
+                    absorb(self._settle_inflight())
+                else:
+                    deferred = self._dispatch_step(greedy)
+                    prev, self._inflight = self._inflight, deferred
+                    absorb(prev.patch(self.manager) if prev is not None else {})
+            else:
+                if self._inflight is not None:
+                    self.counters.flushes += 1
+                    absorb(self._settle_inflight())
+                absorb(self.step(greedy=greedy))
+
             # ---- progress watchdog: a live-but-unschedulable engine must trip,
             # not spin.  Identical signatures for the watchdog window = stall.
             sig = self._progress_signature()
@@ -255,22 +655,44 @@ class InferenceEngineV2:
             last_sig = sig
             self._stall_streak = stall_streak
             if stall_streak >= self.resilience.stall_watchdog_steps:
+                if self._inflight is not None:
+                    absorb(self._settle_inflight())
                 self._handle_stall(my, results, strict)
                 stall_streak, last_sig = 0, None
                 self._stall_streak = 0
+
+        if self._inflight is not None:
+            # the final absorb resolved every request with a step still in
+            # flight (a coexisting put() sequence rode it): patch its
+            # placeholders so no PENDING_TOKEN escapes the loop
+            self._inflight.patch(self.manager)
+            self._inflight = None
+
+    def _fusion_window(self, uids: List[int], results: Dict[int, RequestResult],
+                       produced: Dict[int, int], max_new_tokens: int) -> int:
+        """Tokens worth fusing into one decode burst now: the smallest
+        remaining budget across this call's live requests, sliced to
+        BURST_DEADLINE_SLICE while anything is queued or deadlined."""
+        live = [u for u in uids if u not in results]
+        k = min((max_new_tokens - produced[u] for u in live), default=0)
+        if len(self.admission) or self._any_live_deadline():
+            k = min(k, self.BURST_DEADLINE_SLICE)
+        return k
 
     def _absorb_step(self, stepped: Dict[int, int], my: set,
                      results: Dict[int, RequestResult], produced: Dict[int, int], *,
                      max_new_tokens: int, eos_token_id: Optional[int],
                      strict: bool) -> None:
         """Fold one step's outcomes into per-request results: sampled-token
-        finishes (eos / max_new_tokens), failures, and evictions."""
+        finishes (eos / max_new_tokens), failures, and evictions.  The
+        pipelined loop feeds it the PREVIOUS step's materialized tokens."""
         for uid, tok in stepped.items():
             if uid not in my or uid in results:
                 continue
             produced[uid] += 1
             hit_eos = eos_token_id is not None and tok == eos_token_id
             if produced[uid] >= max_new_tokens or hit_eos:
+                self._truncate_overshoot(uid)
                 self._finish_ok(uid, results, "eos" if hit_eos else "max_new_tokens")
 
         for uid, reason in list(self.manager.failures.items()):
@@ -320,10 +742,40 @@ class InferenceEngineV2:
             else:  # length_capped: a graceful completion
                 self._finish_ok(uid, results, seq.finish_reason)
 
+    def _truncate_overshoot(self, uid: int) -> None:
+        """A request finishing on its step-N token may already have step N+1
+        in flight (pipelined dispatch): drop the in-flight placeholder so the
+        finished token list is exactly the synchronous loop's.  The stray KV
+        write lands in blocks this retirement frees; a later owner's prefill
+        rewrites them before its lengths let them be read."""
+        d = self._inflight
+        if d is None or uid not in d.row_of:
+            return
+        seq = self.manager.seqs.get(uid)
+        if seq is not None and seq.tokens and seq.tokens[-1] == PENDING_TOKEN:
+            seq.tokens.pop()
+            seq.seen_tokens = min(seq.seen_tokens, len(seq.tokens))
+        d.drop_emit(uid)
+
+    def _settle_inflight(self) -> Dict[int, int]:
+        """Materialize and clear the in-flight step (no-op when none)."""
+        d, self._inflight = self._inflight, None
+        return d.patch(self.manager) if d is not None else {}
+
+    def _any_live_deadline(self) -> bool:
+        return any(s.deadline is not None and not s.done for s in self.manager.seqs.values())
+
     def _abandon(self, my: set) -> None:
         """Strict-mode raise cleanup: reclaim every trace of this call so the
         engine is immediately reusable (blocks freed, queue drained, stale
         failure entries consumed)."""
+        if self._inflight is not None:
+            try:
+                # foreign (direct put()) sequences may hold placeholders from
+                # the aborted step: patch them before this call's teardown
+                self._inflight.patch(self.manager)
+            finally:
+                self._inflight = None
         for uid in list(self.manager.seqs):
             if uid in my:
                 self.manager.retire(uid, completed=False)
@@ -382,6 +834,37 @@ class InferenceEngineV2:
             wait = max(0.0, self._clock() - ticket.enqueue_t)
             self.manager.add_sequence(ticket.uid, ticket.prompt, priority=ticket.priority,
                                       deadline=ticket.deadline, queue_wait_s=wait)
+
+    def _prewarm(self, max_new_tokens: int) -> None:
+        """Serve-time prewarm: build the forward bucket programs (capture
+        their graphs, on the card) that this call's queued and live requests
+        are about to hit, at most ``serving_fastpath.prewarm_buckets`` of
+        them, so the first wave does not pay a capture mid-serve."""
+        fp = self.fastpath
+        if not fp.enabled or fp.prewarm_buckets <= 0:
+            return
+        depth, max_prompt = self.admission.queued_stats()
+        live = self.manager.live_uids()
+        for uid in live:
+            max_prompt = max(max_prompt, len(self.manager.seqs[uid].tokens))
+        n_total = min(depth + len(live), self.scheduler.max_seqs)
+        if n_total <= 0 or max_prompt <= 0:
+            return
+        bs = self.manager.block_size
+        w_prefill = self._stepped_width(-(-(max_prompt + 1) // bs))
+        w_decode = self._stepped_width(-(-(max_prompt + 1 + max_new_tokens) // bs))
+        n_b = self._bucket(n_total)
+        t_pf = self._bucket(max(1, min(self.scheduler.token_budget, max_prompt)))
+        candidates = [(n_b, 1, w_prefill), (n_b, 1, w_decode),
+                      (n_b, t_pf, w_prefill), (n_b, t_pf, w_decode)]
+        warmed = 0
+        for key in candidates:
+            if warmed >= fp.prewarm_buckets:
+                break
+            if ("fwd", key) in self.programs:
+                continue
+            self._fwd_program(key, prewarmed=True)
+            warmed += 1
 
     def _handle_stall(self, my: set, results: Dict[int, RequestResult],
                       strict: bool) -> None:

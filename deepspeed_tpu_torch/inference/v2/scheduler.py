@@ -38,9 +38,20 @@ class SplitFuseScheduler:
         self.resilience = resilience if resilience is not None else ServingResilienceConfig()
         self.steps = 0
         self.preempted_total = 0
+        # fused decode work (engine decode bursts) in step units: the burst
+        # length and the tokens it emitted, without advancing ``steps``
+        self.fused_steps = 0
+        self.fused_tokens = 0
         self._requeued: set = set()  # victims preempted THIS step (skip their prefill)
         self._reserve_faulted = False  # last _reserve failed on a transient allocator
         # fault (the pool may have room) rather than genuine exhaustion
+
+    def note_fused_work(self, steps: int, tokens: int) -> None:
+        """Record one fused decode round's work: ``steps`` is its
+        sequential-step equivalent (the burst length k) and ``tokens`` the
+        tokens it emitted across the batch."""
+        self.fused_steps += int(steps)
+        self.fused_tokens += int(tokens)
 
     def live_split(self, manager: RaggedStateManager
                    ) -> Tuple[List[SequenceDescriptor], List[SequenceDescriptor]]:

@@ -317,6 +317,13 @@ def forward_paged(config: LlamaConfig, params, tokens, n_tokens, start_pos, bloc
     into their blocks): the JAX package donates the pool to its jitted step
     and gets the updated pool back; here the same buffers are simply written,
     so the returned cache is the caller's own.
+
+    The forward is CUDA-graph safe (the v2 engine captures it per bucket): it
+    reads no device value on the host and sizes every allocation from shapes
+    alone.  Two things are built at first use and must exist before a
+    capture, which the capture's warm-up run takes care of: the rotary
+    tables on the device (:func:`device_rotary_tables`) and the paged
+    kernel library.
     """
     b, tchunk = tokens.shape
     Dh = config.hidden_size // config.num_heads

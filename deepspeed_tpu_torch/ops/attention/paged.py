@@ -269,7 +269,10 @@ def _merge(ml, acc, n_tokens, dtype):
 
 # kernel launches in this process (the CPU path never counts), one a call
 # (the decode route's merge included); tc_launches counts those that went to
-# the tensor-core prefill kernel, decode_launches those of the split-K decode
+# the tensor-core prefill kernel, decode_launches those of the split-K decode.
+# Under a CUDA graph these Python counts run only at capture; the v2 engine's
+# graph runner (inference/v2/cuda_graphs.py) adds a capture's counts at every
+# replay instead
 paged_attention.launches = paged_attention.tc_launches = paged_attention.decode_launches = 0
 
 

@@ -1,8 +1,9 @@
 """Config sections shared by training and serving.
 
 Counterpart of ``deepspeed_tpu/runtime/config.py``; the port carries the
-``serving_resilience`` section and the training sections its single-GPU
-engine reads (:class:`TrainingConfig`), ``sparse_attention`` among them.
+``serving_resilience`` and ``serving_fastpath`` sections and the training
+sections its single-GPU engine reads (:class:`TrainingConfig`),
+``sparse_attention`` among them.
 """
 
 import json
@@ -41,6 +42,28 @@ class ServingResilienceConfig(ConfigModel):
     preemption: bool = True
     max_preemptions: int = Field(2, ge=0)
     stall_watchdog_steps: int = Field(100, ge=1)
+
+
+class ServingFastpathConfig(ConfigModel):
+    """Serving hot-path policy for the v2 ragged engine
+    (``inference/v2/fastpath.py``, ``inference/v2/cuda_graphs.py``).
+
+    ``enabled`` turns the whole fast path off, falling back to the
+    rebuild-and-upload-per-step reference loop (the equivalence oracle the
+    fast-path tests diff against; on the card it runs eagerly, without CUDA
+    graphs).  ``pipeline_depth=1`` defers the sampled-token fetch by one step
+    so host-side scheduling of step N+1 overlaps device execution of step N
+    (0 = fully synchronous); the pipeline disengages whenever admission
+    tickets are queued or any live sequence carries a deadline, so eviction
+    semantics match the synchronous loop exactly.  ``fusion_min_steps`` is
+    the smallest remaining-token window worth fusing into one on-device
+    decode burst.  ``prewarm_buckets`` bounds how many (batch, chunk, table)
+    bucket programs ``generate()`` builds (captures, on the card) at intake.
+    """
+    enabled: bool = True
+    pipeline_depth: int = Field(1, choices=(0, 1))
+    fusion_min_steps: int = Field(2, ge=2)
+    prewarm_buckets: int = Field(4, ge=0)
 
 
 # ------------------------------------------------------------------ training

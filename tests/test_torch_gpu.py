@@ -1,6 +1,9 @@
 """The port's CUDA path on an NVIDIA GPU: the paged-attention, flash,
 fused-AdamW, block-sparse, AdamW-8bit, int8-quantize and fused-Lion kernels
-against their plain PyTorch versions on the same CUDA tensors, and tiny
+against their plain PyTorch versions on the same CUDA tensors, the v2
+engine's CUDA graphs (replay against the eager forward, captures that write
+only the trash block, pipelined replays, launch counts under replay, sampled
+burst against steps), and tiny
 serving engines (v2; v1 dense and weight-only int8) and tiny training engines
 (dense with fused AdamW; block-sparse with 8-bit AdamW) on the GPU against the
 same engines on the CPU.  Every test here needs a card and
@@ -631,3 +634,142 @@ def test_v1_engine_on_gpu_matches_engine_on_cpu(cuda, quant):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
     np.testing.assert_array_equal(engines["cuda"].generate(ids, max_new_tokens=6, temperature=0.0),
                                   engines["cpu"].generate(ids, max_new_tokens=6, temperature=0.0))
+
+
+# ------------------------------------------------ v2 fast path: CUDA graphs
+GRAPH_CONFIG = mistral.MistralConfig.tiny(vocab=128, hidden=128, layers=2, heads=4, kv_heads=2,
+                                          seq=256, window=64)
+GRAPH_PROMPTS = [list(range(1, 21)), [9, 10, 11], list(range(30, 41)), [5, 6]]
+
+
+def _graph_engine(conf=None, **kw):
+    params = mistral.init_params(GRAPH_CONFIG, torch.Generator().manual_seed(3))
+    kw = {**dict(num_blocks=64, block_size=16, max_blocks_per_seq=8, token_budget=32,
+                 max_seqs_per_step=4), **kw}
+    return InferenceEngineV2(mistral, GRAPH_CONFIG, params,
+                             config={"dtype": "float32", **(conf or {})}, **kw)
+
+
+def _rows(engine, key, seqs, starts, n_tokens):
+    """Packed batch rows of bucket ``key``: each sequence's chunk of
+    ``n_tokens`` from ``starts``, its blocks allocated."""
+    n, t, b = key
+    rows = []
+    for i, (seq, start, nt) in enumerate(zip(seqs, starts, n_tokens)):
+        engine.manager.ensure_blocks(seq, start + nt)
+        packed = np.zeros(3 + t + b, np.int32)
+        packed[0] = i
+        packed[1:1 + nt] = seq.tokens[start:start + nt]
+        packed[1 + t], packed[2 + t] = nt, start
+        packed[3 + t:] = engine.manager.block_table_row(seq, width=b)
+        rows.append((i, packed))
+    return rows
+
+
+def _two_sequences(engine):
+    return [engine.manager.add_sequence(0, list(range(1, 18))),
+            engine.manager.add_sequence(1, list(range(40, 50)))]
+
+
+def test_graph_replay_matches_the_eager_forward(cuda):
+    """A prefill bucket (T=16) and then a decode bucket (T=1) over the same
+    two sequences, replayed from their captured graphs, give the eager
+    forward's last-row logits bit for bit on the same inputs and KV, hence
+    the same greedy tokens."""
+    engine = _graph_engine()
+    trash = engine.manager.trash_block
+    seqs = _two_sequences(engine)
+    for key, starts, n_tokens in (((2, 16, 4), [0, 0], [16, 9]), ((2, 1, 4), [16, 9], [1, 1])):
+        program = engine._fwd_program(key)
+        assert program.graph is not None
+        engine.batch_state.update(key, _rows(engine, key, seqs, starts, n_tokens), n_active=2,
+                                  trash_block=trash)
+        got = program().clone()
+        slot = engine.batch_state.slot(key, trash)
+        logits, _ = mistral.forward_paged(GRAPH_CONFIG, engine.params, *slot.buffers(),
+                                          engine.kv, block_size=16)
+        last = (slot.n_tokens.long() - 1).clamp_min(0)
+        eager = logits[torch.arange(2, device=cuda), last]
+        assert torch.equal(got, eager), (got - eager).abs().max().item()
+        assert torch.equal(got.argmax(-1), eager.argmax(-1))
+
+
+def test_graph_capture_writes_only_the_trash_block(cuda):
+    """The warm-up before a capture executes for real: with the slot's live
+    rows neutralized it writes no KV block but the trash block, and the
+    slot's rows are restored afterwards.  The same holds for a burst step."""
+    engine = _graph_engine()
+    trash = engine.manager.trash_block
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for pool in engine.kv.values():
+        pool.copy_(torch.randn(pool.shape, generator=gen, device=cuda))
+    key = (2, 16, 4)
+    slot = engine.batch_state.slot(key, trash)
+    engine.batch_state.update(key, _rows(engine, key, _two_sequences(engine), [0, 0], [16, 9]),
+                              n_active=2, trash_block=trash)
+    rows_before = [t.clone() for t in slot.buffers()]
+    kv_before = {k: v[:, :trash].clone() for k, v in engine.kv.items()}
+    engine._fwd_program(key)
+    engine._burst_program(2, 4)
+    torch.cuda.synchronize()
+    for k, v in engine.kv.items():
+        assert torch.equal(v[:, :trash], kv_before[k]), k
+    for got, want in zip(slot.buffers(), rows_before):
+        assert torch.equal(got, want)
+    assert engine.ledger.total == 2 and engine.ledger.count("cold") == 2
+
+
+def test_pipelined_graph_replays_patch_the_synchronous_tokens(cuda):
+    """Stepwise decode through the pipelined loop replays one decode graph
+    step after step while the host patches the step before: each step's
+    tokens live in a tensor of its own, so the patched tokens equal the
+    synchronous loop's and the eager reference loop's."""
+    stepwise = {"serving_fastpath": {"fusion_min_steps": 10**6}}
+    synchronous = {"serving_fastpath": {"fusion_min_steps": 10**6, "pipeline_depth": 0}}
+    reference = {"serving_fastpath": {"enabled": False}}
+    outs = {name: _graph_engine(conf).generate(GRAPH_PROMPTS, max_new_tokens=9)
+            for name, conf in (("pipelined", stepwise), ("synchronous", synchronous),
+                               ("reference", reference))}
+    assert outs["pipelined"] == outs["synchronous"] == outs["reference"]
+
+
+def test_graph_replays_count_their_launches(cuda):
+    """Launch counters advance by what each replay launches (the capture's
+    own calls are not counted): a warm serve that builds nothing counts
+    forward steps x layers, split by route; the first serve does too."""
+    engine = _graph_engine()
+    counts = lambda: (paged_attention.launches, paged_attention.tc_launches,  # noqa: E731
+                      paged_attention.decode_launches)
+    for serve in range(2):
+        before, steps, widths = counts(), engine.forward_steps, dict(engine.chunk_widths)
+        built = engine.ledger.total
+        engine.generate(GRAPH_PROMPTS, max_new_tokens=12)
+        steps = engine.forward_steps - steps
+        narrow = sum(k - widths.get(t, 0) for t, k in engine.chunk_widths.items() if t < 16)
+        assert 0 < narrow < steps
+        got = tuple(a - b for a, b in zip(counts(), before))
+        assert got == (steps * GRAPH_CONFIG.num_layers, 0, narrow * GRAPH_CONFIG.num_layers)
+        if serve == 1:
+            assert engine.ledger.total == built  # nothing captured: replays only
+    assert engine.counters.burst_tokens > 0 and engine.ledger.warm_total == 0
+
+
+def test_sampled_burst_equals_stepwise_on_gpu(cuda):
+    """Sampled decode from one seed: a burst (one graph replayed k times)
+    and k pipelined-free steps draw the same tokens from the engine's
+    generator."""
+    conf = {"temperature": 1.0, "top_k": 20, "seed": 5}
+
+    def primed():
+        engine = _graph_engine(conf)
+        engine.put([0, 1], GRAPH_PROMPTS[:2])
+        while len(engine.step(greedy=False)) < 2:
+            pass
+        return engine
+
+    a = primed()
+    stepwise = {0: [], 1: []}
+    for _ in range(6):
+        for uid, tok in a.step(greedy=False).items():
+            stepwise[uid].append(tok)
+    assert primed().decode_burst(6, greedy=False) == stepwise
