@@ -59,7 +59,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      gives the same tokens; the same serve again under torch.profiler splits
      the device time by kernel (decode, merge, prefill and the CUDA-core
      kernel apart); the reference loop (``serving_fastpath.enabled=False``)
-     and the fast path serve the same prompts in three pairs, in turns;
+     and the fast path serve the same prompts in three pairs, in turns; with
+     nothing shared between the prompts the prefix cache (on by default)
+     leaves the loop's 62 forward steps and 47 host syncs as they were;
+     serve-prefix: the same engine serves 16 requests behind one
+     1024-token system prompt (tails of 32-256 tokens) and two that are
+     exactly the prompt, in 4 waves put while the wave before decodes,
+     through ``put`` / ``step`` / ``decode_burst`` with the prefix cache on
+     and off: the realized savings equal the KV observatory's
+     counterfactual, the device runs exactly the positions the cache left,
+     the census invariant holds, pool and prefix tree drain, and every block
+     the tree registered holds its bytes until its last mapper releases it;
+     three on/off pairs in turns, then one serve of each under
+     torch.profiler;
   4. slice: a 2-layer, full-width Mistral in fp32, one prefill and three
      decode steps of ``forward_paged`` on CUDA (kernel) and on a CPU copy
      (plain path) with the same weights and KV; slice-serve: the same width
@@ -67,7 +79,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      loop eager on CUDA and the fast path on the CPU token for token on a
      closed batch and on requests arriving mid-decode, the prewarm's
      captures leaving every KV block but the trash block unchanged, and a
-     sampled burst equal to sampled steps;
+     sampled burst equal to sampled steps; slice-prefix: the serve-prefix
+     workload at 2 layers in fp32 with a 192-token header and waves of 2,
+     graphs, eager and CPU with the cache on and off, token for token, the
+     logits of every dispatched emit on the card within 2e-3 of the CPU's;
   5. train: ``initialize`` with Llama-2-7B at full width cut to 8 layers, bf16,
      remat, fused AdamW, WarmupLR, clipping; 6 optimizer steps of 2 x 2 x 2048
      tokens through the flash and fused-AdamW kernels, launch counts checked
@@ -1594,6 +1609,13 @@ def phase_serve(card, seed=0):
     if first["host_syncs"] >= steps:
         raise AssertionError(f"{first['host_syncs']} host syncs for {steps} forward steps: the "
                              f"decode did not fuse")
+    # nothing is shared between these prompts: the prefix cache and the KV
+    # census (both on by default) must leave the loop's counts as they were
+    pc = engine.health()["prefix_cache"]
+    if (steps, first["host_syncs"]) != (SERVE_STEPS, SERVE_HOST_SYNCS) or pc["hit_blocks_total"]:
+        raise AssertionError(f"[serve] {steps} forward steps and {first['host_syncs']} host "
+                             f"syncs (expected {SERVE_STEPS} and {SERVE_HOST_SYNCS}), prefix "
+                             f"cache {pc}")
     # the same serve again: every bucket is built, so nothing is captured
     counters1, built = engine.counters.snapshot(), engine.ledger.total
     again, wall2 = serve_timed(engine, prompts, max_new)
@@ -1608,9 +1630,13 @@ def phase_serve(card, seed=0):
     log_fastpath("serve", engine, counters1, built, card)
     busy = {"fast path": profile_serve(engine, prompts, max_new, card, wall2)}
     serve_pairs(card, cfg, params, kw, engine, prompts, max_new, busy)
-    del engine, params
+    del engine
     torch.cuda.empty_cache()
-    return {"launches": launches, "tc_launches": tc_launches, "decode_launches": decode_launches}
+    prefix = phase_serve_prefix(card, cfg, params, kw, seed)
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "tc_launches": tc_launches, "decode_launches": decode_launches,
+            "serve_prefix": prefix}
 
 
 def serve_pairs(card, cfg, params, kw, fast, prompts, max_new, busy):
@@ -1901,6 +1927,389 @@ def phase_slice_serve(seed=3):
 def _first_diff(a, b):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                 None if len(a) == len(b) else min(len(a), len(b)))
+
+
+# ------------------------------------------------------------- prefix cache
+SERVE_STEPS, SERVE_HOST_SYNCS = 62, 47  # [serve]'s counts with nothing to share
+
+
+def prefix_workload(seed, vocab, bs, header_blocks, tails, n_requests, wave):
+    """Requests behind one system prompt of ``header_blocks`` full blocks,
+    each with its own tail (``tails``: the range of tail lengths), in waves
+    of ``wave``; two more requests are exactly the header: one arrives with
+    the first wave, beside the request that computes the header (it maps the
+    header late, then copies its last block), one with a later wave (it maps
+    at admit and copies).  Returns (prompts, waves of uids)."""
+    rng = np.random.default_rng(seed)
+    header = rng.integers(0, vocab, header_blocks * bs).tolist()
+    lens = rng.integers(tails[0], tails[1] + 1, n_requests)
+    prompts = [header + rng.integers(0, vocab, int(n)).tolist() for n in lens]
+    prompts += [list(header), list(header)]
+    waves = [list(range(i, min(i + wave, n_requests))) for i in range(0, n_requests, wave)]
+    waves[0].append(n_requests)
+    waves[len(waves) // 2].append(n_requests + 1)
+    return prompts, waves
+
+
+def prefix_waves(engine, prompts, waves, max_new):
+    """Serve ``prompts`` through ``put`` / ``step`` / ``decode_burst``: a
+    wave is put once every request of the wave before it has its first
+    token (the next wave arrives while the previous one decodes); once the
+    last wave is in and the live set is decode-only, up to k steps fuse into
+    one burst.  Each request is flushed at ``max_new`` tokens.  Returns each
+    uid's tokens."""
+    produced, tokens = {}, {}
+    queue, last = list(waves), []
+
+    def finish(uid, n_new):
+        produced[uid] += n_new
+        if produced[uid] >= max_new:
+            tokens[uid] = list(engine.manager.seqs[uid].tokens)
+            engine.flush(uid)
+
+    while len(tokens) < len(prompts):
+        if queue and all(produced[u] >= 1 for u in last):
+            last = queue.pop(0)
+            produced.update({u: 0 for u in last})
+            engine.put(last, [prompts[u] for u in last])
+        live = [u for u, s in engine.manager.seqs.items() if not s.done]
+        k = min((max_new - produced[u] for u in live), default=0)
+        if not queue and k >= 2:
+            burst = engine.decode_burst(k)
+            if burst is not None:
+                for uid, toks in burst.items():
+                    finish(uid, len(toks))
+                continue
+        out = engine.step()
+        if not out and not queue and not engine.manager.seqs:
+            raise AssertionError("prefix_waves: nothing live and requests unfinished")
+        for uid in out:
+            finish(uid, 1)
+    if engine.manager.failures:
+        raise AssertionError(f"prefix_waves: failed requests {engine.manager.failures}")
+    return [tokens[u] for u in range(len(prompts))]
+
+
+class SharedBlockWatch:
+    """Holds every block the engine's prefix tree registers against the
+    bytes it held at registration, until its last mapper releases it.  The
+    copy is enqueued right after the forward that completed the block, so
+    it holds the block's final KV; at release (the tree drops the entry when
+    the refcount reaches zero, after the last sharer's final step and before
+    the block can be reused) the block must still hold those bytes: no
+    request wrote a shared block.  Its compares sync the card, so it watches
+    one serve that is not timed."""
+
+    def __init__(self, engine):
+        import torch
+        self.torch, self.engine = torch, engine
+        self.cache = engine.manager.prefix_cache
+        self._register, self._invalidate = self.cache.register, self.cache.invalidate_blocks
+        self.cache.register, self.cache.invalidate_blocks = self.register, self.invalidate
+        self.snaps, self.checked, self.changed = {}, 0, []
+
+    def register(self, h, parent, block, tokens):
+        if not self._register(h, parent, block, tokens):
+            return False
+        self.snaps[block] = {k: v[:, block].clone() for k, v in self.engine.kv.items()}
+        return True
+
+    def invalidate(self, blocks):
+        for b in blocks:
+            snap = self.snaps.pop(b, None)
+            if snap is not None:
+                self.checked += 1
+                if not all(self.torch.equal(self.engine.kv[k][:, b], v) for k, v in snap.items()):
+                    self.changed.append(b)
+        self._invalidate(blocks)
+
+    def close(self):
+        self.cache.register, self.cache.invalidate_blocks = self._register, self._invalidate
+        return self.checked, self.changed, len(self.snaps)
+
+
+def built_by_site(engine):
+    """Programs the engine has built, by "site:class" (captures on the card)."""
+    return {f"{site}:{cls}": n for site, per in engine.ledger.by_site.items()
+            for cls, n in per.items()}
+
+
+def prefix_serve(engine, prompts, waves, max_new, *, watch=False):
+    """One synchronized serve of the prefix workload and what it moved:
+    wall, forward steps, real and padded positions (and the padded ones in
+    steps of chunk width >= 2), paged launches by route, the fast path's
+    counters, the prefix cache's and the observatory's deltas, and the
+    programs built by class."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention.paged import paged_attention
+    cuda = engine.device.type == "cuda"
+    widths = {}
+    count = engine._count_forward
+
+    def counted(n, t, tokens, steps=1):
+        widths[t] = widths.get(t, 0) + n * t * steps
+        count(n, t, tokens, steps)
+
+    engine._count_forward = counted
+    pc0 = engine.health()["prefix_cache"]
+    obs0 = engine.health()["kv"]["prefix"]
+    c0, built0 = engine.counters.snapshot(), built_by_site(engine)
+    capture_s0 = sum(engine.ledger.wall_by_class.values())
+    steps0, tok0, pos0 = engine.forward_steps, engine.tokens_run, engine.positions_run
+    paged_attention.launches = paged_attention.tc_launches = paged_attention.decode_launches = 0
+    w = SharedBlockWatch(engine) if watch else None
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        outs = prefix_waves(engine, prompts, waves, max_new)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del engine._count_forward
+        watched = w.close() if w is not None else None
+    launches = (paged_attention.launches, paged_attention.tc_launches,
+                paged_attention.decode_launches)
+    pc, obs = engine.health()["prefix_cache"], engine.health()["kv"]["prefix"]
+    delta = lambda a, b, keys: {k: a[k] - b.get(k, 0) for k in keys}  # noqa: E731
+    return outs, {
+        "wall": wall, "steps": engine.forward_steps - steps0,
+        "real": engine.tokens_run - tok0, "padded": engine.positions_run - pos0,
+        "padded_prefill": sum(v for t, v in widths.items() if t >= 2),
+        "launches": launches, "counters": engine.counters.delta_since(c0),
+        "built": {c: n - built0.get(c, 0) for c, n in built_by_site(engine).items()
+                  if n - built0.get(c, 0)},
+        "build_s": sum(engine.ledger.wall_by_class.values()) - capture_s0,
+        "cache": (delta(pc, pc0, ("hit_blocks_total", "hits_total", "cow_copies_total",
+                                  "misses_total", "tokens_saved_total", "deferrals_total"))
+                  if pc["enabled"] else None),
+        "hit_rate": pc.get("realized_hit_rate"),
+        "obs": delta(obs, obs0, ("duplicate_blocks_total", "prefill_tokens_saved_total",
+                                 "prompt_blocks_total")),
+        "watched": watched}
+
+
+def check_prefix_serve(tag, engine, prompts, outs, r, max_new, vocab):
+    """Every request ok; the device ran exactly the positions the cache left
+    (real positions = prompt tokens - tokens saved + the decode inputs); the
+    realized savings equal the observatory's counterfactual; the census
+    invariant holds; pool and tree are drained."""
+    for uid, (prompt, toks) in enumerate(zip(prompts, outs)):
+        if len(toks) != len(prompt) + max_new or toks[:len(prompt)] != prompt:
+            raise AssertionError(f"[{tag}] request {uid}: {len(toks)} tokens for a "
+                                 f"{len(prompt)}-token prompt, or the prompt not echoed")
+        if not all(0 <= t < vocab for t in toks[len(prompt):]):
+            raise AssertionError(f"[{tag}] request {uid}: token id outside the vocabulary")
+    saved = r["cache"]["tokens_saved_total"] if r["cache"] else 0
+    want = sum(len(p) for p in prompts) - saved + len(prompts) * (max_new - 1)
+    if r["real"] != want:
+        raise AssertionError(f"[{tag}] the forwards ran {r['real']} real positions, expected "
+                             f"{want} (prompt tokens - {saved} saved + decode inputs)")
+    c, o = r["cache"], r["obs"]
+    if c is not None:
+        # a CoW copy recomputes its prompt's last position: one token of the
+        # block the observatory counts as saved
+        if (c["hit_blocks_total"] != o["duplicate_blocks_total"]
+                or c["tokens_saved_total"] + c["cow_copies_total"]
+                != o["prefill_tokens_saved_total"]):
+            raise AssertionError(f"[{tag}] realized savings {c} differ from the observatory's "
+                                 f"counterfactual {o}")
+        if engine.health()["prefix_cache"]["entries"] != 0:
+            raise AssertionError(f"[{tag}] prefix tree not drained: "
+                                 f"{engine.health()['prefix_cache']}")
+    engine.check_kv_invariant()
+    free = engine.manager.allocator.free_blocks
+    if free != engine.manager.allocator.num_blocks - 1 or engine.manager.seqs:
+        raise AssertionError(f"[{tag}] KV pool not reclaimed: {free} blocks free, "
+                             f"{len(engine.manager.seqs)} sequences tracked")
+
+
+def log_prefix_serve(tag, name, r, card, max_new, n_requests):
+    launches, tc, dec = r["launches"]
+    d, c = r["counters"], r["cache"]
+    log(f"[{tag}] {name} on {card}: wall {r['wall']:.3f} s, {r['steps']} forward steps, "
+        f"{r['real']} real / {r['padded']} padded positions ({r['padded_prefill']} padded in "
+        f"steps of chunk width >= 2), real prefill positions "
+        f"{r['real'] - n_requests * (max_new - 1)}; "
+        + (f"tokens saved {c['tokens_saved_total']}, hit blocks {c['hit_blocks_total']} "
+           f"({c['hits_total']} shared, {c['cow_copies_total']} CoW copies), misses "
+           f"{c['misses_total']}, deferrals {c['deferrals_total']}, realized hit rate "
+           f"{r['hit_rate']:.4f}; " if c else "cache off; ")
+        + f"observatory: {r['obs']['prefill_tokens_saved_total']} tokens saved, "
+        f"{r['obs']['duplicate_blocks_total']} of {r['obs']['prompt_blocks_total']} prompt "
+        f"blocks duplicate; host syncs {d['host_syncs']}, dispatches {d['dispatches']}, uploads "
+        f"{d['uploads']} ({d['upload_ints']} ints), burst / step tokens {d['burst_tokens']} / "
+        f"{d['step_tokens']}; programs built by site and class {json.dumps(r['built'])} in "
+        f"{r['build_s']:.3f} s; paged launches "
+        f"{launches}: tensor-core prefill {tc}, split-K decode {dec}, CUDA-core "
+        f"{launches - tc - dec}")
+
+
+def phase_serve_prefix(card, cfg, params, kw, seed=0):
+    """[serve-prefix]: Mistral-7B in bf16 at full width, [serve]'s pool and
+    scheduler, 16 requests behind a 1024-token system prompt with tails of
+    32-256 tokens and two that are exactly the prompt, in 4 waves, 32 greedy
+    new tokens each, through the cache-on engine (the default) and a
+    cache-off one.  The first serve of each is checked (the cache-on one
+    with every shared block watched) and builds its graphs; then three pairs
+    in turns; then one serve of each under torch.profiler.  Returns the
+    checked cache-on serve's paged launches."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    bs = kw["block_size"]
+    prompts, waves = prefix_workload(seed + 10, cfg.vocab_size, bs, 64, (32, 256), 16, 4)
+    max_new = 32
+    conf = {"dtype": "bfloat16", "seed": seed}
+    engines = {"cache on": build_engine("mistral", cfg, params, config=conf, **kw),
+               "cache off": build_engine("mistral", cfg, params, **kw, config={
+                   **conf, "serving_prefix_cache": {"enabled": False}})}
+    if (engines["cache on"].manager.prefix_cache is None
+            or engines["cache off"].manager.prefix_cache is not None):
+        raise AssertionError("serve-prefix: the default engine does not run the prefix cache")
+    log(f"[serve-prefix] {len(prompts)} requests ({sum(len(p) for p in prompts)} prompt "
+        f"tokens) behind one {64 * bs}-token system prompt, waves "
+        f"{[len(w) for w in waves]}, {max_new} new tokens each")
+    outs, runs = {}, {name: [] for name in engines}
+    head_dim = cfg.hidden_size // cfg.num_heads
+    for name, engine in engines.items():
+        outs[name], r = prefix_serve(engine, prompts, waves, max_new, watch=name == "cache on")
+        check_prefix_serve("serve-prefix", engine, prompts, outs[name], r, max_new,
+                           cfg.vocab_size)
+        if r["launches"][0] != r["steps"] * cfg.num_layers:
+            raise AssertionError(f"[serve-prefix] {name}: paged_attention launched "
+                                 f"{r['launches'][0]} times over {r['steps']} steps x "
+                                 f"{cfg.num_layers} layers")
+        log_prefix_serve("serve-prefix", f"{name}, first serve (checked)", r, card, max_new,
+                         len(prompts))
+        if name == "cache on":
+            checked, changed, left = r["watched"]
+            if changed or left or not checked:
+                raise AssertionError(f"[serve-prefix] shared blocks written: {changed} of "
+                                     f"{checked} watched changed, {left} never released")
+            log(f"[serve-prefix] {checked} registered blocks (header and full tail blocks) "
+                f"held their bytes from registration to their last mapper's release: no "
+                f"request wrote a shared block")
+            prefix_launches = dict(zip(("launches", "tc_launches", "decode_launches"),
+                                       r["launches"]))
+        runs[name].append(r)
+    for name in ("cache on", "cache off", "cache off", "cache on", "cache on", "cache off"):
+        got, r = prefix_serve(engines[name], prompts, waves, max_new)
+        if got != outs[name]:
+            raise AssertionError(f"[serve-prefix] {name}: a repeated serve's tokens differ at "
+                                 f"{[_first_diff(a, b) for a, b in zip(got, outs[name])]}")
+        check_prefix_serve("serve-prefix", engines[name], prompts, got, r, max_new,
+                           cfg.vocab_size)
+        runs[name].append(r)
+    for name, rs in runs.items():
+        log_prefix_serve("serve-prefix", f"{name}, last timed serve", rs[-1], card, max_new,
+                         len(prompts))
+        log(f"[serve-prefix] {name} on {card}: walls "
+            + ", ".join(f"{r['wall']:.3f}" for r in rs[1:]) + " s (in turns); programs built "
+            f"after the first serve: {sum(sum(r['built'].values()) for r in rs[1:])}")
+    busy = {}
+    for name, engine in engines.items():
+        wall_ms = statistics.mean(r["wall"] for r in runs[name][1:]) * 1e3
+        busy[name] = profile_device(lambda e=engine: prefix_waves(e, prompts, waves, max_new),
+                                    card, "serve-prefix", f"{name} serve", wall_ms,
+                                    PAGED_NEEDLES)
+    log(f"[serve-prefix] first generated position where the cache-on tokens differ from the "
+        f"cache-off ones (bf16: shared KV was computed in other batch shapes), by request: "
+        f"{[_first_diff(a[len(p):], b[len(p):]) for p, a, b in zip(prompts, outs['cache on'], outs['cache off'])]}")
+    del engines
+    torch.cuda.empty_cache()
+    return prefix_launches
+
+
+def record_emit_logits(engine):
+    """The last-position logits of every row that emitted a token at a
+    dispatched step, by (uid, position), read back to the host."""
+    rec, last = {}, {}
+    pick, dispatch = engine._pick_rows, engine._dispatch_step
+
+    def pick_rows(rows, greedy):
+        last["rows"] = rows
+        return pick(rows, greedy)
+
+    def dispatch_step(greedy):
+        d = dispatch(greedy)
+        if d is not None:
+            rows = last["rows"].float().cpu()
+            for uid, pos, i in d.emits:
+                rec[(uid, pos)] = rows[i]
+        return d
+
+    engine._pick_rows, engine._dispatch_step = pick_rows, dispatch_step
+    return rec
+
+
+def phase_slice_prefix(seed=4, device="cuda"):
+    """[slice-prefix]: the prefix workload at Mistral-7B width, 2 layers,
+    fp32, small waves, through the fast path with CUDA graphs, the reference
+    loop eager on the card and the fast path on the CPU, each with the cache
+    on and off: tokens identical across the six runs, and the logits of
+    every dispatched emit on the card within 2e-3 of the CPU path's."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    from deepspeed_tpu_torch.models import mistral
+    from deepspeed_tpu_torch.runtime.tree import tree_map
+    cfg = dataclasses.replace(mistral.MistralConfig.mistral_7b(), num_layers=2)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = mistral.init_params(cfg, gen, dtype=torch.float32, device=device)
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    # a budget of 128 splits the header 128 + 64: the writer's second chunk
+    # completes the header's last blocks with budget to spare, so a request
+    # of its wave that needs them waits a step (defer_shared_prefill)
+    kw = dict(num_blocks=256, block_size=16, max_blocks_per_seq=16, token_budget=128,
+              max_seqs_per_step=8)
+    prompts, waves = prefix_workload(seed, cfg.vocab_size, 16, 12, (5, 40), 8, 2)
+    max_new = 8
+    fp32 = {"dtype": "float32"}
+    runs = {}
+    for cache in (True, False):
+        conf = {**fp32, "serving_prefix_cache": {"enabled": cache}}
+        for name, dev, p, extra in (("graphs", device, params, {}),
+                                    ("eager", device, params,
+                                     {"serving_fastpath": {"enabled": False}}),
+                                    ("cpu", "cpu", params_cpu, {})):
+            engine = build_engine("mistral", cfg, p, config={**conf, **extra}, device=dev, **kw)
+            logits = record_emit_logits(engine) if name != "eager" else None
+            outs, r = prefix_serve(engine, prompts, waves, max_new, watch=cache)
+            for hook in ("_pick_rows", "_dispatch_step"):
+                engine.__dict__.pop(hook, None)  # the hooks' closures hold the engine
+            check_prefix_serve("slice-prefix", engine, prompts, outs, r, max_new,
+                               cfg.vocab_size)
+            if cache and (r["watched"][1] or r["watched"][2]):
+                raise AssertionError(f"[slice-prefix] {name}: shared blocks written "
+                                     f"{r['watched']}")
+            runs[(name, cache)] = (outs, r, logits)
+    ref = runs[("cpu", True)][0]
+    bad = {k: [_first_diff(a, b) for a, b in zip(v[0], ref)] for k, v in runs.items()
+           if v[0] != ref}
+    if bad:
+        raise AssertionError(f"[slice-prefix] tokens differ from the CPU path with the cache on "
+                             f"at {bad}")
+    worst = 0.0
+    for cache in (True, False):
+        got, want = runs[("graphs", cache)][2], runs[("cpu", cache)][2]
+        if set(got) != set(want):
+            raise AssertionError(f"[slice-prefix] emits differ: {sorted(set(got) ^ set(want))}")
+        for key, row in want.items():
+            err = (got[key] - row).abs()
+            if not torch.isfinite(got[key]).all() or (err > 2e-3 + 2e-3 * row.abs()).any():
+                raise AssertionError(f"[slice-prefix] logits of {key} differ from the CPU "
+                                     f"path's by up to {err.max().item():.3e}")
+            worst = max(worst, err.max().item())
+    on = runs[("graphs", True)][1]
+    log(f"[slice-prefix] mistral_7b width, 2 layers, fp32, {len(prompts)} requests in waves "
+        f"{[len(w) for w in waves]} behind a {12 * 16}-token header: graphs == eager == CPU, "
+        f"cache on == cache off, token for token; logits of "
+        f"{len(runs[('graphs', True)][2]) + len(runs[('graphs', False)][2])} dispatched emits "
+        f"within 2e-3 of the CPU path (max abs err {worst:.3e}); cache on, graphs: tokens "
+        f"saved {on['cache']['tokens_saved_total']}, CoW copies {on['cache']['cow_copies_total']}, "
+        f"deferrals {on['cache']['deferrals_total']}, real positions {on['real']} against "
+        f"{runs[('graphs', False)][1]['real']} with the cache off, paged launches "
+        f"{on['launches']}, {on['watched'][0]} registered blocks unchanged to their release")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -2420,6 +2829,7 @@ def main() -> int:
         launches = phase_serve(card)
         phase_slice()
         phase_slice_serve()
+        phase_slice_prefix()
     train_launches, dense = phase_train(card)
     adam8_launches, _ = phase_train(card, tag="train-8bit", optimizer="fused_adam8bit",
                                     baseline=dense)
@@ -2437,6 +2847,7 @@ def main() -> int:
                 "replaces": REPLACES, "launches": launches["launches"],
                 "decode_launches": launches["decode_launches"],
                 "tc_launches": launches["tc_launches"], "max_abs_err": max_err,
+                "serve_prefix_launches": launches["serve_prefix"],
                 **{k: recs["mistral_decode"][k] for k in fields},
                 "shape": "mistral_7b decode N=32 T=1 lengths 1-4096 bf16",
                 "variant": "three routes by shape: split-K decode (paged_decode_kernel + "

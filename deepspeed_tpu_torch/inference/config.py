@@ -10,16 +10,15 @@ from typing import Optional
 
 import torch
 
-from ..runtime.config import ServingFastpathConfig, ServingResilienceConfig
+from ..runtime.config import (KVObservabilityConfig, ServingFastpathConfig,
+                              ServingPrefixCacheConfig, ServingResilienceConfig)
 from ..runtime.config_utils import ConfigModel, Field
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 # sections of the JAX InferenceConfig the port does not implement yet
-UNPORTED_SECTIONS = ("serving_prefix_cache", "serving_tracing",
-                     "serving_fault_tolerance", "serving_qos", "serving_spec_decode",
-                     "serving_perf", "ops_server", "serving_fleet",
-                     "serving_kv_observability")
+UNPORTED_SECTIONS = ("serving_tracing", "serving_fault_tolerance", "serving_qos",
+                     "serving_spec_decode", "serving_perf", "ops_server", "serving_fleet")
 
 
 class TPConfig(ConfigModel):
@@ -54,6 +53,11 @@ class InferenceConfig(ConfigModel):
     # device-resident batch state, pipelined dispatch, fused decode bursts and
     # per-bucket CUDA graphs (inference/v2/fastpath.py, cuda_graphs.py)
     serving_fastpath: ServingFastpathConfig = Field(ServingFastpathConfig)
+    # block census, counterfactual prefix observatory, capacity forecast
+    # (inference/v2/kv_metrics.py)
+    serving_kv_observability: KVObservabilityConfig = Field(KVObservabilityConfig)
+    # copy-on-write prefix caching (inference/v2/ragged_manager.py PrefixCache)
+    serving_prefix_cache: ServingPrefixCacheConfig = Field(ServingPrefixCacheConfig)
 
     def model_validate(self):
         if self.tensor_parallel is None:

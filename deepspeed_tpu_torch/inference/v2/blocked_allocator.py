@@ -5,10 +5,10 @@ number of KV blocks, O(1) allocate/free via a free list.  The last block id
 is reserved as the trash target for padded writes (models.llama.forward_paged).
 
 Block-level ref-counting: a block can be mapped by more than one sequence at
-a time (copy-on-write prefix sharing in the JAX package).  ``allocate`` hands
-out blocks at refcount 1, ``incref`` adds a mapping, and ``free`` RELEASES ONE
-MAPPING: the block returns to the free list only when its refcount reaches
-zero.  Releasing a block more times than it was mapped is a loud
+a time (copy-on-write prefix sharing, ``ragged_manager.PrefixCache``).
+``allocate`` hands out blocks at refcount 1, ``incref`` adds a mapping, and
+``free`` RELEASES ONE MAPPING: the block returns to the free list only when
+its refcount reaches zero.  Releasing a block more times than it was mapped is a loud
 ``ValueError`` (the bug class that silently aliases two sequences' KV).
 
 Failures raise :class:`KVAllocationError` (a RuntimeError) so callers can tell
@@ -44,8 +44,15 @@ class BlockedAllocator:
     def free_blocks(self) -> int:
         return len(self._free)
 
+    def free_block_set(self) -> frozenset:
+        """The free list as a set: the block census checks that its owned set
+        partitions the usable pool exactly against this
+        (``kv_metrics.BlockCensus.check_against``)."""
+        return frozenset(self._free)
+
     def refcount(self, block: int) -> int:
-        """Outstanding mappings of ``block`` (0 for a free/unknown block)."""
+        """Outstanding mappings of ``block`` (0 for a free/unknown block);
+        the census's refcount-agreement check reads this."""
         return self._refs.get(block, 0)
 
     def allocate(self, n: int) -> List[int]:
@@ -69,7 +76,8 @@ class BlockedAllocator:
 
     def free(self, blocks: List[int]) -> List[int]:
         """Release one mapping per listed block.  Returns the blocks whose
-        refcount reached zero and actually went back to the free list."""
+        refcount reached zero and actually went back to the free list: the
+        prefix cache drops its entries for exactly these blocks."""
         seen = set()
         for b in blocks:
             if b == self.trash_block or b < 0 or b >= self.num_blocks:

@@ -27,13 +27,24 @@ With the fast path off the engine runs the JAX reference loop: the
 rebuild-and-upload step with one sync a step, pow2 table widths, and the
 same decode bursts, all eager (no graphs) on the card.
 
+Copy-on-write prefix caching (``serving_prefix_cache``, on by default as in
+the JAX engine): a request whose leading full prompt blocks are live in the
+pool maps them read-only and prefills only its tail; a prompt cached to its
+last token gets a private copy of its final block (``_cow_copy_block``, the
+one device action of the cache, written in place into the KV pool the
+graphs captured).  KV-pool observability (``serving_kv_observability``, on
+by default): the block census, the counterfactual prefix observatory and the
+capacity forecast of ``kv_metrics.py``, refreshed from host ints every step,
+and the census invariant checked after every serve pass.
+
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU; it
 never falls back from one to the other.  Request tracing, the request
-journal, KV-pool observability, prefix caching, telemetry, QoS, speculative
-decoding and tensor parallelism of the JAX engine are not ported yet.
+journal, telemetry, QoS, speculative decoding and tensor parallelism of the
+JAX engine are not ported yet.
 """
 
 import collections
+import functools
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
@@ -49,7 +60,8 @@ from .blocked_allocator import KVAllocationError
 from .cuda_graphs import BucketPrograms
 from .fastpath import (FED_SENTINEL, PENDING_TOKEN, DeferredTokens, DeviceBatchState,
                        ServeCounters, materialize, round_up_pow2, upload)
-from .ragged_manager import RaggedStateManager
+from .kv_metrics import KVObservability
+from .ragged_manager import PrefixCache, RaggedStateManager
 from .scheduler import SplitFuseScheduler
 
 
@@ -101,6 +113,26 @@ class InferenceEngineV2:
         self.block_size = block_size
         self.max_blocks_per_seq = max_blocks_per_seq
         self.manager = RaggedStateManager(num_blocks, block_size, max_blocks_per_seq)
+        # copy-on-write prefix caching (the block copy is installed below,
+        # once the KV pool exists)
+        self.prefix_cfg = self.config.serving_prefix_cache
+        if self.prefix_cfg.enabled:
+            self.manager.prefix_cache = PrefixCache(
+                block_size, cow=self.prefix_cfg.cow,
+                defer_shared_prefill=self.prefix_cfg.defer_shared_prefill)
+        # block-level KV-pool observability: census, prefix-sharing
+        # opportunity and capacity forecast, all from host state
+        self.kv_cfg = self.config.serving_kv_observability
+        self.kv_obs: Optional[KVObservability] = None
+        if self.kv_cfg.enabled:
+            self.kv_obs = KVObservability(
+                block_size, num_blocks, self.manager.trash_block,
+                ewma_alpha=self.kv_cfg.ewma_alpha, pressure_steps=self.kv_cfg.pressure_steps,
+                age_buckets_per_decade=self.kv_cfg.age_buckets_per_decade)
+            self.manager.census = self.kv_obs.census
+        # serve-step clock of the KV census: a stepwise dispatch counts 1, a
+        # fused burst of k counts k (the scheduler's steps skip bursts)
+        self._kv_steps = 0
         # admission control + load shedding in front of the manager, deadlines
         # on an injectable clock, preemption policy shared with the scheduler
         self.resilience = self.config.serving_resilience
@@ -125,6 +157,12 @@ class InferenceEngineV2:
         # the reference loop)
         self.fastpath = self.config.serving_fastpath
         self.counters = ServeCounters()
+        if self.prefix_cfg.enabled:
+            # the cache's ONE device action; bound to the pool, not to the
+            # engine, so the manager holds no reference back to the engine
+            # and a dropped engine frees its pool and graphs at once
+            self.manager.cow_copy = functools.partial(self._cow_copy_block, self.kv,
+                                                      self.counters, self.device)
         self.ledger = CompileLedger(self.counters)
         self.batch_state = DeviceBatchState(self.counters, self.device)
         self.programs = BucketPrograms(self.ledger, self.device,
@@ -147,7 +185,11 @@ class InferenceEngineV2:
         deadline = self._clock() + ttl if ttl is not None else None
         self._reset_table_width_if_idle()
         for uid, prompt in zip(uids, prompts):
-            self.manager.add_sequence(int(uid), [int(t) for t in prompt], deadline=deadline)
+            seq = self.manager.add_sequence(int(uid), [int(t) for t in prompt],
+                                            deadline=deadline)
+            self.manager.map_prefix(seq)  # shared prompt blocks already computed
+        # prefix-sharing opportunity over the post-intake live set
+        self._observe_prefix({})
 
     def flush(self, uid: int) -> None:
         """End a put()-level request's life: retire it and reclaim its blocks."""
@@ -262,12 +304,17 @@ class InferenceEngineV2:
         for i, c in enumerate(chunks):
             seq = self.manager.seqs[c.uid]
             seq.seen_tokens += c.n_tokens
+            # prompt blocks this chunk completes become shareable: the
+            # forward that writes them is already on the stream, ahead of
+            # any later reader or CoW copy
+            self.manager.register_prefix_blocks(seq)
             if seq.seen_tokens >= len(seq.tokens):
                 # produced a next token (end of prompt, or a decode step)
                 seq.tokens.append(PENDING_TOKEN)
                 emits.append((c.uid, len(seq.tokens) - 1, i))
                 row_of[c.uid] = i
         self.counters.step_tokens += len(emits)
+        self._kv_steps += 1
         self._refresh_kv()
         return DeferredTokens(toks_dev=toks_dev, emits=emits, row_of=row_of,
                               counters=self.counters)
@@ -311,11 +358,14 @@ class InferenceEngineV2:
         for i, c in enumerate(chunks):
             seq = self.manager.seqs[c.uid]
             seq.seen_tokens += c.n_tokens
+            # prompt blocks this chunk completed become shareable
+            self.manager.register_prefix_blocks(seq)
             if seq.seen_tokens >= len(seq.tokens):
                 tok = int(toks[i])
                 seq.tokens.append(tok)
                 out[c.uid] = tok
         self.counters.step_tokens += len(out)
+        self._kv_steps += 1
         self._refresh_kv()
         return out
 
@@ -336,11 +386,71 @@ class InferenceEngineV2:
         self.chunk_widths[t] += steps
 
     def _refresh_kv(self) -> None:
-        """The JAX engine's per-step refresh, cut to its health stamp: one
-        clock read, so an injected clock advances as it does in the JAX
-        engine (deadline tests replay its timing).  The KV-pool census and
-        capacity forecast it also refreshes are not ported yet."""
+        """Per-step census/forecast refresh: the health stamp (one clock
+        read, as in the JAX engine), per-block residency and last-touched
+        stamps from ``seen_tokens``, the alloc/free rates into the capacity
+        forecaster, and the pressure edge detector.  Pure host arithmetic
+        over ints the engine already owns: no device sync, no effect on
+        ``ServeCounters``.  The pressure crossing goes to no tracer yet
+        (request tracing is not ported)."""
         self._health_generated_at = self._clock()
+        if self.kv_obs is None:
+            return
+        self.kv_obs.refresh(self.manager.seqs, self._kv_steps,
+                            self.manager.allocator.free_blocks)
+        self.kv_obs.pressure_crossing()
+
+    def _observe_prefix(self, extra_prompts: Dict[int, List[int]]) -> None:
+        """One PrefixObservatory pass over live + admitted requests: every
+        live sequence contributes its PROMPT portion, ``extra_prompts`` the
+        not-yet-admitted prompts of the current intake."""
+        if self.kv_obs is None:
+            return
+        obs = self.kv_obs.prefix
+        # a live uid whose hashes are cached passes None (no slice built)
+        prompts: Dict[int, Optional[List[int]]] = {
+            uid: (None if obs.has(uid) else seq.tokens[:seq.prompt_len])
+            for uid, seq in self.manager.seqs.items() if not seq.done}
+        prompts.update(extra_prompts)
+        obs.observe(prompts)
+
+    def _forget_prefix(self, uid: int) -> None:
+        """Invalidate a uid's PrefixObservatory hashes for a request that
+        dies WITHOUT ever becoming a live sequence (queue expiry, stall
+        drain, strict-abort drain): live sequences invalidate through the
+        census's retirement listener, and a stale entry would credit the
+        uid's next life with the dead prompt's hashes."""
+        if self.kv_obs is not None:
+            self.kv_obs.prefix.forget(uid)
+
+    def check_kv_invariant(self) -> None:
+        """Census-vs-allocator invariant: the census's owned-block set must
+        exactly partition against the allocator free list, every shared
+        block's owners must agree with its refcount, and every mapper of a
+        shared block must hold the same tokens for it.  Raises
+        ``CensusInvariantError`` naming the offending uid/block.  Run after
+        every serve pass when ``serving_kv_observability.invariant_check``
+        is set; public so smokes and tests can assert it at any point."""
+        if self.kv_obs is not None:
+            self.kv_obs.check_invariant(self.manager.allocator, self.manager.seqs)
+
+    @staticmethod
+    def _cow_copy_block(kv, counters: ServeCounters, device, src: int, dst: int) -> None:
+        """Copy-on-write block copy: block ``src``'s KV into block ``dst`` in
+        every leaf of the pool ``kv``, so a fully-cached prompt's one
+        recomputed position writes a PRIVATE block.  The copy writes into the
+        existing leaves (``index_copy_``): the bucket graphs captured the
+        pool's storage.  It is enqueued on the current stream, the one the
+        graphs replay on, so it runs after the forward that wrote ``src`` and
+        before any replay that reads ``dst``, with no host sync.  Counted as
+        the JAX engine counts its copy: one dispatch, one upload of the
+        (src, dst) pair."""
+        counters.dispatches += 1
+        counters.uploads += 1
+        counters.upload_ints += 2
+        pair = upload(np.asarray([src, dst], np.int64), device)
+        for leaf in kv.values():
+            leaf.index_copy_(1, pair[1:], leaf.index_select(1, pair[:1]))
 
     # --------------------------------------------------------- bucket programs
     def _fwd_program(self, key, *, prewarmed: bool = False):
@@ -489,9 +599,13 @@ class InferenceEngineV2:
             produced = [int(t) for t in toks[:n_real, i]]
             seq.tokens.extend(produced)
             seq.seen_tokens += n_real
+            # a burst's first position can complete the FINAL prompt block
+            # (a budget split at prompt_len - 1, or the CoW copy's recompute)
+            self.manager.register_prefix_blocks(seq)
             self.counters.burst_tokens += n_real
             out[seq.uid] = produced
         self.scheduler.note_fused_work(k, sum(len(v) for v in out.values()))
+        self._kv_steps += k
         self._refresh_kv()
         return out
 
@@ -562,10 +676,17 @@ class InferenceEngineV2:
                                                  retryable=shed.retryable,
                                                  retry_after_s=shed.retry_after_s,
                                                  shed_code=shed.code)
+            # counterfactual prefix-cache report for THIS pass: the queued
+            # (non-shed) prompts joining whatever is already live
+            self._observe_prefix({uid: [int(t) for t in prompt]
+                                  for uid, prompt in zip(uids, prompts) if uid not in results})
             self._prewarm(max_new_tokens)
             self._serve_loop(uids, my, results, produced, max_new_tokens=max_new_tokens,
                              eos_token_id=eos_token_id, greedy=greedy, strict=strict)
+            # post-pass pool state: final refresh, then the census invariant
             self._refresh_kv()
+            if self.kv_cfg.invariant_check:
+                self.check_kv_invariant()
         except Exception:
             # a strict-mode raise must not leak this call's queued tickets or
             # live sequences into the next call
@@ -781,7 +902,8 @@ class InferenceEngineV2:
                 self.manager.retire(uid, completed=False)
         for uid in my:
             self.manager.failures.pop(uid, None)
-        self.admission.drain()
+        for ticket in self.admission.drain():
+            self._forget_prefix(ticket.uid)  # died queued: retire never fires
         self._stall_streak = 0
 
     def _finish_ok(self, uid: int, results: Dict[int, RequestResult],
@@ -822,6 +944,7 @@ class InferenceEngineV2:
                 # retiring it reopens the pump)
             ticket, expired = self.admission.pop_ready()
             for t in expired:
+                self._forget_prefix(t.uid)  # died queued: retire never fires
                 if t.uid in my and t.uid not in results:
                     self._deadline_expired_total += 1
                     if strict:
@@ -832,8 +955,11 @@ class InferenceEngineV2:
             if ticket is None:
                 break
             wait = max(0.0, self._clock() - ticket.enqueue_t)
-            self.manager.add_sequence(ticket.uid, ticket.prompt, priority=ticket.priority,
-                                      deadline=ticket.deadline, queue_wait_s=wait)
+            seq = self.manager.add_sequence(ticket.uid, ticket.prompt, priority=ticket.priority,
+                                            deadline=ticket.deadline, queue_wait_s=wait)
+            # admit-time prefix lookup; the scheduler re-checks per prefill
+            # chunk for blocks computed later
+            self.manager.map_prefix(seq)
 
     def _prewarm(self, max_new_tokens: int) -> None:
         """Serve-time prewarm: build the forward bucket programs (capture
@@ -889,6 +1015,7 @@ class InferenceEngineV2:
                                              queue_wait_s=seq.queue_wait_s)
                 self.manager.retire(uid, completed=False)
         for ticket in self.admission.drain():
+            self._forget_prefix(ticket.uid)  # died queued: retire never fires
             if ticket.uid in my and ticket.uid not in results:
                 results[ticket.uid] = RequestResult(uid=ticket.uid, status=FAILED,
                                                     reason=reason + " (still queued)",
@@ -917,4 +1044,34 @@ class InferenceEngineV2:
             "queue_depth": len(self.admission),
             "scheduler_steps": self.scheduler.steps,
             "forward_steps": self.forward_steps,
+        }
+
+    def health(self) -> Dict[str, Any]:
+        """Liveness snapshot for external probes: pool state, queue depth,
+        the lifetime resilience counters, KV-pool observability, the
+        realized prefix cache and the fast path's host-link counters — the
+        keys of the JAX engine's ``health()`` that the port has state for
+        (tracing, fault tolerance, perf, QoS and speculative decoding are
+        not ported yet)."""
+        return {
+            "generated_at": self._health_generated_at,
+            "live_seqs": len(self.manager.live_uids()),
+            "queue_depth": len(self.admission),
+            "free_blocks": self.manager.allocator.free_blocks,
+            "kv_utilization": self.manager.kv_utilization(),
+            # census rollups, the observatory's counterfactual, the forecast
+            "kv": (self.kv_obs.snapshot(self.manager.allocator.free_blocks)
+                   if self.kv_obs is not None else {"enabled": False}),
+            # realized sharing: hits, CoW copies, tokens saved, hit rate
+            "prefix_cache": (self.manager.prefix_cache.snapshot()
+                             if self.manager.prefix_cache is not None else {"enabled": False}),
+            "scheduler_steps": self.scheduler.steps,
+            "completed_total": self.manager.completed_requests,
+            "failed_total": self.manager.failed_requests,
+            "shed_total": self.admission.shed_total,
+            "preempted_total": self.scheduler.preempted_total,
+            "deadline_expired_total": self._deadline_expired_total,
+            "stall_streak": self._stall_streak,
+            "stalls_total": self.stalls_total,
+            "fastpath": self.counters.snapshot(),
         }

@@ -12,17 +12,29 @@ and the intake/retire edges validate loudly — :class:`EmptyPromptError` for a
 request that could never be scheduled, :class:`UnknownSequenceError` (with the
 uid's actual history) instead of a bare ``KeyError`` on a bad retire.
 
-The JAX package's copy-on-write ``PrefixCache`` is not ported yet; the
-manager keeps its seam (``prefix_cache``, always None here) at the one
-reclaim point where the cache plugs in.
+Copy-on-write prefix caching: :class:`PrefixCache` is the prefix tree the
+``kv_metrics.PrefixObservatory`` measures the counterfactual for, keyed on
+the SAME chained token-block hashes (:func:`kv_metrics.block_hashes`), so
+the realized win lands against the metric that predicted it.  An admitted
+request whose leading full prompt blocks match live, fully-computed blocks
+maps them READ-ONLY (allocator refcount +1 per mapping) and only prefills
+its divergent tail into freshly allocated private blocks; a prompt cached to
+its last token copies the final block (copy-on-write — the engine provides
+the device block copy) so the one recomputed position writes a private
+block, never a shared one.  Entries are weak: the tree serves a block only
+while some sequence still maps it (the allocator's free() reports
+refcount-zero releases and the tree drops those entries), so a drained pool
+is a fully-reclaimed pool.  Only the default tenant's keying is used: the
+port has no tenants yet.
 """
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .blocked_allocator import BlockedAllocator
+from .blocked_allocator import BlockedAllocator, KVAllocationError
+from .kv_metrics import block_hashes, tenant_namespace
 
 # finish reasons that mark an EVICTION (the request did not run to a useful
 # completion); retire() excludes them from completed_requests even when the
@@ -65,6 +77,18 @@ class SequenceDescriptor:
     queue_wait_s: float = 0.0  # time spent in the admission queue
     preemptions: int = 0       # times this sequence was preempted-and-requeued
     finish_reason: Optional[str] = None  # eos | max_new_tokens | length_capped | ...
+    # --- prefix-cache state ---
+    # chained hashes of the FULL blocks of the prompt portion (computed once
+    # at intake when the cache is armed; never covers generated tokens)
+    prefix_hashes: Optional[List[bytes]] = None
+    # prompt blocks already offered to the tree (mapped-from-cache blocks
+    # count immediately; self-computed ones as prefill completes them) —
+    # preemption rolls this back with the block table
+    prefix_registered: int = 0
+    # prefill tokens this sequence skipped by mapping shared blocks
+    prefix_cached_tokens: int = 0
+    # owner tenant: seeds the prefix hash chain (always the default here)
+    tenant: str = "default"
 
     @property
     def pending_tokens(self) -> int:
@@ -75,15 +99,138 @@ class SequenceDescriptor:
         return len(self.tokens) - self.prompt_len
 
 
+@dataclasses.dataclass
+class PrefixEntry:
+    """One shareable, fully-computed prompt block.  ``tokens`` (the block's
+    actual token ids) and ``parent`` (the previous block's chained hash) are
+    stored so a lookup VERIFIES content, never trusts a hash alone — a
+    colliding hash must not map one request onto another's KV."""
+    block: int
+    tokens: Tuple[int, ...]
+    parent: bytes
+
+
+class PrefixCache:
+    """The copy-on-write prefix tree over the paged KV pool.
+
+    Keyed on the chained token-block hashes of :func:`kv_metrics.block_hashes`
+    — block ``i``'s hash covers its tokens AND its ancestry, so a flat
+    ``hash -> entry`` dict IS the tree (matching a node implies matching the
+    whole path to the root).  Entries are weak: a block is served only while
+    at least one sequence still maps it; :meth:`invalidate_blocks` (driven by
+    the allocator's refcount-zero releases at the manager's one reclaim seam)
+    drops dead entries, so a drained pool leaves an empty tree.
+
+    ``defer_shared_prefill``: the scheduler skips a prefill chunk for one
+    step when another SCHEDULED sequence is computing the exact block it
+    needs — next step the block is computed and maps as a hit, so the
+    realized savings match the observatory's same-intake counterfactual.
+
+    All counters are host ints; the one device action (the CoW block copy)
+    is a callable the engine installs on the manager.
+    """
+
+    def __init__(self, block_size: int, *, cow: bool = True,
+                 defer_shared_prefill: bool = True):
+        self.block_size = int(block_size)
+        self.cow = bool(cow)
+        self.defer_shared_prefill = bool(defer_shared_prefill)
+        self.entries: Dict[bytes, PrefixEntry] = {}
+        self._by_block: Dict[int, bytes] = {}
+        # realized-savings counters (the observatory's counterfactual twins)
+        self.hits_total = 0              # blocks mapped read-only from the tree
+        self.cow_copies_total = 0        # fully-cached prompts served via block copy
+        self.misses_total = 0            # full prompt blocks computed by their own request
+        self.tokens_saved_total = 0      # prefill tokens skipped (realized)
+        self.registered_total = 0        # distinct entries ever inserted
+        self.evicted_total = 0           # entries dropped because the block was freed
+        self.collision_rejects_total = 0  # hash matched, token ids/ancestry did not
+        self.deferrals_total = 0         # prefill chunks deferred one step onto a
+        # block another scheduled sequence is computing
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def register(self, h: bytes, parent: bytes, block: int,
+                 tokens: Tuple[int, ...]) -> bool:
+        """Offer a fully-computed prompt block to the tree.  First writer
+        wins: an existing entry for ``h`` is kept (two same-step co-prefills
+        of the same content both stay valid; only one is served)."""
+        if h in self.entries:
+            return False
+        self.entries[h] = PrefixEntry(block=int(block), tokens=tuple(tokens),
+                                      parent=bytes(parent))
+        self._by_block[int(block)] = h
+        self.registered_total += 1
+        return True
+
+    def lookup(self, h: bytes, parent: bytes,
+               tokens: Tuple[int, ...]) -> Optional[int]:
+        """Block id for ``h`` IF the entry's actual token ids and ancestry
+        match (hash-collision safety); None on miss or verification failure."""
+        entry = self.entries.get(h)
+        if entry is None:
+            return None
+        if entry.tokens != tuple(tokens) or entry.parent != bytes(parent):
+            self.collision_rejects_total += 1
+            return None
+        return entry.block
+
+    def invalidate_blocks(self, blocks: List[int]) -> None:
+        """Drop entries whose block went back to the free list (refcount hit
+        zero) — its KV is about to belong to someone else."""
+        for b in blocks:
+            h = self._by_block.pop(int(b), None)
+            if h is not None and self.entries.pop(h, None) is not None:
+                self.evicted_total += 1
+
+    @property
+    def hit_blocks_total(self) -> int:
+        """Blocks the tree served instead of a prefill: read-only shared
+        mappings plus CoW copies."""
+        return self.hits_total + self.cow_copies_total
+
+    def realized_hit_rate(self) -> float:
+        """Shared-or-copied blocks over all full prompt blocks that entered
+        the pool — directly comparable to the observatory's counterfactual
+        ``hit_rate``."""
+        total = self.hit_blocks_total + self.misses_total
+        return self.hit_blocks_total / total if total else 0.0
+
+    def snapshot(self) -> Dict[str, object]:
+        return {
+            "enabled": True,
+            "entries": len(self.entries),
+            "hit_blocks_total": self.hit_blocks_total,
+            "hits_total": self.hits_total,
+            "cow_copies_total": self.cow_copies_total,
+            "misses_total": self.misses_total,
+            "tokens_saved_total": self.tokens_saved_total,
+            "registered_total": self.registered_total,
+            "evicted_total": self.evicted_total,
+            "collision_rejects_total": self.collision_rejects_total,
+            "deferrals_total": self.deferrals_total,
+            "realized_hit_rate": self.realized_hit_rate(),
+        }
+
+
 class RaggedStateManager:
 
-    def __init__(self, num_blocks: int, block_size: int, max_blocks_per_seq: int):
+    def __init__(self, num_blocks: int, block_size: int, max_blocks_per_seq: int,
+                 prefix_cache: Optional[PrefixCache] = None):
         self.allocator = BlockedAllocator(num_blocks)
         self.block_size = block_size
         self.max_blocks_per_seq = max_blocks_per_seq
-        # the copy-on-write prefix tree of the JAX package plugs in here (not
-        # ported yet: always None)
-        self.prefix_cache = None
+        # block census (kv_metrics.BlockCensus), attached by the engine when
+        # KV observability is on.  Hooks fire at the ONE alloc seam
+        # (ensure_blocks), the share seam (map_prefix) and the ONE reclaim
+        # seam (_reclaim), so every path that moves a block keeps it exact
+        self.census = None
+        # copy-on-write prefix tree (None disables sharing); the engine
+        # installs ``cow_copy`` (the ONE device action: copy a shared block's
+        # KV into a private block) next to it
+        self.prefix_cache = prefix_cache
+        self.cow_copy: Optional[Callable[[int, int], None]] = None
         self.seqs: Dict[int, SequenceDescriptor] = {}
         self.failures: Dict[int, str] = {}
         # uid history for descriptive retire errors; a bounded recency window
@@ -92,6 +239,7 @@ class RaggedStateManager:
         self.retired_uids: Dict[int, None] = {}
         self._retired_window = 4096
         self.completed_requests = 0
+        self.failed_requests = 0
         self._arrivals = 0
 
     @property
@@ -109,6 +257,10 @@ class RaggedStateManager:
                                  prompt_len=len(prompt_tokens), arrival=self._arrivals,
                                  priority=priority, deadline=deadline,
                                  queue_wait_s=queue_wait_s)
+        if self.prefix_cache is not None:
+            # the tree's keying, computed once per life over the prompt
+            seq.prefix_hashes = block_hashes(seq.tokens[:seq.prompt_len], self.block_size,
+                                             tenant_namespace(seq.tenant))
         self._arrivals += 1
         self.seqs[uid] = seq
         return seq
@@ -120,22 +272,143 @@ class RaggedStateManager:
             raise RuntimeError(f"uid {seq.uid}: {upto_tokens} tokens exceeds "
                                f"max_blocks_per_seq={self.max_blocks_per_seq}")
         if need > len(seq.blocks):
-            seq.blocks.extend(self.allocator.allocate(need - len(seq.blocks)))
+            grown = self.allocator.allocate(need - len(seq.blocks))
+            seq.blocks.extend(grown)
+            if self.census is not None:
+                self.census.on_alloc(seq.uid, grown)
 
     def _reclaim(self, uid: int, blocks: List[int]) -> List[int]:
         """THE reclaim seam: every block leaving a sequence releases its
-        mapping here.  Returns the blocks that actually went back to the free
-        list (shared mappings only decrement)."""
+        mapping here, with the census kept in lock-step.  Shared blocks only
+        decrement; the prefix tree drops entries exactly for the blocks whose
+        refcount reached zero.  Returns the blocks that actually went back to
+        the free list."""
         released = self.allocator.free(blocks)
+        if self.census is not None:
+            self.census.on_free(uid, blocks)
         if self.prefix_cache is not None and released:
             self.prefix_cache.invalidate_blocks(released)
         return released
+
+    # ------------------------------------------------------- prefix caching
+    def map_prefix(self, seq: SequenceDescriptor) -> int:
+        """Map as many of ``seq``'s leading full prompt blocks as the tree
+        can serve, advancing ``seen_tokens`` past the cached KV.  Returns the
+        number of prefill tokens skipped.
+
+        Mapping is read-only (allocator refcount +1; census gains an owner)
+        and only proceeds while the sequence sits exactly at a block boundary
+        with no private progress — the first divergent or missing block stops
+        it, and everything after is prefilled into freshly allocated private
+        blocks, so decode always writes a private tail block.
+
+        A prompt cached to its LAST token is the copy-on-write case: mapping
+        the final block read-only would leave nothing pending, and
+        recomputing its last position would WRITE into the shared block.
+        Instead the final block's KV is copied into a private block
+        (``cow_copy``), ``seen_tokens`` lands at ``prompt_len - 1``, and the
+        one recomputed position rewrites its identical KV into the private
+        copy.  Without a copy seam the final block is simply recomputed.
+
+        Called at admit time and again by the scheduler before each prefill
+        chunk, so a block computed AFTER this sequence was admitted still
+        maps (late binding).  Idempotent and cheap on a miss: one dict probe.
+        """
+        cache = self.prefix_cache
+        if cache is None or seq.done or not seq.prefix_hashes:
+            return 0
+        bs = self.block_size
+        saved = 0
+        while True:
+            i = len(seq.blocks)
+            if seq.seen_tokens != i * bs or i >= len(seq.prefix_hashes):
+                break  # private progress past the boundary, or past the prompt
+            if seq.prefix_hashes[i] not in cache.entries:
+                break  # miss — probe before building the token tuple
+            parent = seq.prefix_hashes[i - 1] if i else tenant_namespace(seq.tenant)
+            block = cache.lookup(seq.prefix_hashes[i], parent,
+                                 tuple(seq.tokens[i * bs:(i + 1) * bs]))
+            if block is None:
+                break  # collision/verification reject
+            if (i + 1) * bs >= seq.prompt_len:
+                saved += self._cow_map_final(seq, block)
+                break
+            self.allocator.incref(block)
+            if self.census is not None:
+                self.census.on_share(seq.uid, block)
+            seq.blocks.append(block)
+            seq.prefix_registered = len(seq.blocks)
+            seq.seen_tokens += bs
+            cache.hits_total += 1
+            saved += bs
+        if saved:
+            cache.tokens_saved_total += saved
+            seq.prefix_cached_tokens += saved
+        return saved
+
+    def _cow_map_final(self, seq: SequenceDescriptor, src: int) -> int:
+        """Copy-on-write for a fully-cached prompt: copy ``src``'s KV into a
+        private block, map the copy, and leave exactly one prompt position
+        pending (its recompute writes identical KV into the COPY, never the
+        shared block).  Declines — the block is recomputed instead — when no
+        copy seam is installed or the pool can't spare the block."""
+        cache = self.prefix_cache
+        if self.cow_copy is None or not cache.cow:
+            return 0
+        try:
+            dst = self.allocator.allocate(1)[0]
+        except KVAllocationError:
+            return 0  # pool-tight or injected fault: recompute instead
+        self.cow_copy(src, dst)
+        if self.census is not None:
+            self.census.on_alloc(seq.uid, [dst])
+        seq.blocks.append(dst)
+        seq.prefix_registered = len(seq.blocks)
+        seq.seen_tokens = seq.prompt_len - 1
+        cache.cow_copies_total += 1
+        return self.block_size - 1
+
+    def next_prefix_hash(self, seq: SequenceDescriptor) -> Optional[bytes]:
+        """The hash of the next full prompt block ``seq`` needs, or None when
+        it has private progress / is past its prompt.  After
+        :meth:`map_prefix` this is a TREE MISS — the scheduler defers the
+        chunk one step iff another scheduled sequence is computing exactly
+        this block."""
+        if self.prefix_cache is None or not seq.prefix_hashes:
+            return None
+        i = len(seq.blocks)
+        if seq.seen_tokens != i * self.block_size or i >= len(seq.prefix_hashes):
+            return None
+        return seq.prefix_hashes[i]
+
+    def register_prefix_blocks(self, seq: SequenceDescriptor) -> int:
+        """Offer ``seq``'s newly COMPLETED full prompt blocks to the tree
+        (called after every ``seen_tokens`` advance; mapped-from-cache blocks
+        were marked registered at mapping, so only self-computed blocks walk
+        here).  Returns how many blocks were offered."""
+        cache = self.prefix_cache
+        if cache is None or not seq.prefix_hashes:
+            return 0
+        bs = self.block_size
+        n_complete = min(min(seq.seen_tokens, seq.prompt_len) // bs,
+                         len(seq.prefix_hashes), len(seq.blocks))
+        offered = 0
+        while seq.prefix_registered < n_complete:
+            i = seq.prefix_registered
+            cache.register(seq.prefix_hashes[i],
+                           seq.prefix_hashes[i - 1] if i else tenant_namespace(seq.tenant),
+                           seq.blocks[i], tuple(seq.tokens[i * bs:(i + 1) * bs]))
+            cache.misses_total += 1
+            seq.prefix_registered = i + 1
+            offered += 1
+        return offered
 
     def over_cap(self, upto_tokens: int) -> bool:
         return (upto_tokens + self.block_size - 1) // self.block_size > self.max_blocks_per_seq
 
     def fail(self, uid: int, reason: str) -> None:
         self.failures[uid] = reason
+        self.failed_requests += 1
         seq = self.seqs.get(uid)
         if seq is not None:
             seq.done = True
@@ -174,6 +447,9 @@ class RaggedStateManager:
         if dropped:
             released = len(self._reclaim(seq.uid, dropped))
             seq.blocks = seq.blocks[:keep_blocks]
+            # dropped prompt blocks are re-offered (or re-mapped) when the
+            # sequence resumes: the registration watermark rolls back too
+            seq.prefix_registered = min(seq.prefix_registered, keep_blocks)
         return released
 
     def releasable_blocks(self, seq: SequenceDescriptor, keep_blocks: int) -> int:
@@ -222,6 +498,8 @@ class RaggedStateManager:
             self.retired_uids.pop(next(iter(self.retired_uids)))
         self._reclaim(uid, seq.blocks)
         seq.blocks = []
+        if self.census is not None:
+            self.census.on_terminal(uid)
         # neither a flushed failure nor an evicted request is a completion
         if (completed and uid not in self.failures
                 and seq.finish_reason not in EVICTED_FINISH_REASONS):

@@ -13,6 +13,11 @@ and requeued; a victim preempted past ``max_preemptions`` is evicted with
 finish reason ``preempt_requeued_exhausted``.  A decoding sequence that hits
 ``max_blocks_per_seq`` completes gracefully (``length_capped``), and
 transient :class:`KVAllocationError`s degrade to "chunk skipped this step".
+
+Prefix caching: each prefill candidate first maps the shared prompt blocks
+the manager's ``PrefixCache`` can serve (late binding), and a candidate
+whose next block is being computed by a sequence scheduled in the same step
+waits one step and maps it instead of computing it twice.
 """
 
 import dataclasses
@@ -67,11 +72,34 @@ class SplitFuseScheduler:
 
     def schedule(self, manager: RaggedStateManager) -> List[ScheduledChunk]:
         """Pick this step's ragged batch. Decodes first (latency), then prompt
-        chunks to fill the budget; respects KV-pool availability."""
+        chunks to fill the budget; respects KV-pool availability.
+
+        Prefix caching: each prefill candidate first maps whatever shared
+        prompt blocks the tree can serve (late binding — blocks computed
+        since the request was admitted still count), and a candidate whose
+        NEXT needed block is being computed by a sequence already scheduled
+        THIS step is deferred one step instead of duplicating the prefill —
+        next step the block maps as a hit."""
         budget = self.token_budget
         chunks: List[ScheduledChunk] = []
         self._requeued = set()
         decoding, prefilling = self.live_split(manager)
+        cache = manager.prefix_cache
+        # hashes of prompt blocks that sequences scheduled THIS step will
+        # complete — a later candidate needing one of these defers
+        pending_hashes: set = set()
+
+        def note_pending(seq: SequenceDescriptor, take: int) -> None:
+            if cache is None or not seq.prefix_hashes:
+                return
+            end = min(seq.seen_tokens + take, seq.prompt_len)
+            for i in range(seq.seen_tokens // manager.block_size, end // manager.block_size):
+                # only blocks this chunk will actually OFFER to the tree: a
+                # CoW copy's final block sits below the registration
+                # watermark and is never offered — advertising its hash
+                # would defer a peer onto a registration that never comes
+                if seq.prefix_registered <= i < len(seq.prefix_hashes):
+                    pending_hashes.add(seq.prefix_hashes[i])
 
         starved: List[SequenceDescriptor] = []
         for seq in decoding:
@@ -85,6 +113,7 @@ class SplitFuseScheduler:
                     starved.append(seq)
                 continue
             chunks.append(ScheduledChunk(seq.uid, 1))
+            note_pending(seq, 1)  # a CoW-mapped prompt's final position
             budget -= 1
 
         if starved and self.resilience.preemption:
@@ -96,6 +125,16 @@ class SplitFuseScheduler:
                 break
             if seq.done or seq.uid in self._requeued:
                 continue  # evicted, or preempted-and-requeued this very step
+            if cache is not None:
+                manager.map_prefix(seq)  # late-binding shared-prefix lookup
+                if seq.pending_tokens <= 0:
+                    continue  # fully served from the tree
+                nxt = manager.next_prefix_hash(seq)
+                if nxt is not None and cache.defer_shared_prefill and nxt in pending_hashes:
+                    # an already-scheduled sequence computes this exact block
+                    # this step: wait one step and map it instead
+                    cache.deferrals_total += 1
+                    continue
             take = min(seq.pending_tokens, budget)
             while take > 0 and not seq.done and not self._reserve(manager, seq, take):
                 if self._reserve_faulted:
@@ -105,6 +144,7 @@ class SplitFuseScheduler:
             if take <= 0 or seq.done:
                 continue
             chunks.append(ScheduledChunk(seq.uid, take))
+            note_pending(seq, take)
             budget -= take
         self.steps += 1
         return chunks

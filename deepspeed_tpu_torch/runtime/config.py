@@ -1,7 +1,8 @@
 """Config sections shared by training and serving.
 
 Counterpart of ``deepspeed_tpu/runtime/config.py``; the port carries the
-``serving_resilience`` and ``serving_fastpath`` sections and the training
+``serving_resilience``, ``serving_fastpath``, ``serving_kv_observability``
+and ``serving_prefix_cache`` sections and the training
 sections its single-GPU engine reads (:class:`TrainingConfig`),
 ``sparse_attention`` among them.
 """
@@ -64,6 +65,60 @@ class ServingFastpathConfig(ConfigModel):
     pipeline_depth: int = Field(1, choices=(0, 1))
     fusion_min_steps: int = Field(2, ge=2)
     prewarm_buckets: int = Field(4, ge=0)
+
+
+class KVObservabilityConfig(ConfigModel):
+    """Block-level observability over the paged KV pool for the v2 ragged
+    engine (``inference/v2/kv_metrics.py``), with the JAX package's fields,
+    defaults and bounds.
+
+    ``enabled`` arms the block census (per-block owners/age/residency with
+    utilization, fragmentation and block-age rollups), the
+    ``PrefixObservatory`` (the counterfactual prefix-cache win per serve
+    pass) and the capacity forecaster (EWMA block alloc/free rates per step
+    yielding a steps-to-exhaustion gauge).  Everything reads host ints the
+    allocator and ragged manager already own: no device syncs, so the fast
+    path's ``ServeCounters`` are byte-identical on and off.
+
+    ``invariant_check`` re-verifies after every serve pass that the census's
+    owned-block set exactly partitions against the allocator free list, that
+    every shared block's owners agree with its refcount, and that every
+    mapper of a shared block holds the same tokens (``CensusInvariantError``
+    names the offending uid/block).  ``pressure_steps`` is the
+    steps-to-exhaustion threshold of the pressure edge detector;
+    ``ewma_alpha`` smooths the forecaster's rates.
+    """
+    enabled: bool = True
+    invariant_check: bool = True
+    ewma_alpha: float = Field(0.2, gt=0.0, le=1.0)
+    pressure_steps: float = Field(64.0, gt=0.0)
+    age_buckets_per_decade: int = Field(6, ge=1, le=100)
+
+
+class ServingPrefixCacheConfig(ConfigModel):
+    """Copy-on-write prefix caching over the paged KV pool for the v2 ragged
+    engine (``inference/v2/ragged_manager.py`` ``PrefixCache``), with the JAX
+    package's fields and defaults.
+
+    ``enabled`` arms the tree: an admitted request whose leading FULL prompt
+    blocks match live, fully-computed blocks maps them read-only (allocator
+    refcount +1 per mapping) and only prefills its divergent tail.  On a
+    workload where nothing is shared the fast path's ``ServeCounters`` are
+    byte-identical with the cache on and off.
+
+    ``cow`` allows the copy-on-write block copy for prompts cached to their
+    LAST token: the final block's KV is copied into a private block so the
+    one recomputed position (needed for first-token logits) never writes a
+    shared block.  Off, such prompts recompute their final block.
+
+    ``defer_shared_prefill`` lets the scheduler hold a prefill chunk for ONE
+    step when a sequence already scheduled this step is computing the exact
+    block it needs — same-wave duplicates of one header become a one-step
+    delay plus a cache hit instead of duplicate prefill.
+    """
+    enabled: bool = True
+    cow: bool = True
+    defer_shared_prefill: bool = True
 
 
 # ------------------------------------------------------------------ training

@@ -3,7 +3,9 @@ fused-AdamW, block-sparse, AdamW-8bit, int8-quantize and fused-Lion kernels
 against their plain PyTorch versions on the same CUDA tensors, the v2
 engine's CUDA graphs (replay against the eager forward, captures that write
 only the trash block, pipelined replays, launch counts under replay, sampled
-burst against steps), and tiny
+burst against steps), the copy-on-write block copy and a shared-prefix
+serve with graphs (shared blocks never written, tokens equal to the eager
+loop's), and tiny
 serving engines (v2; v1 dense and weight-only int8) and tiny training engines
 (dense with fused AdamW; block-sparse with 8-bit AdamW) on the GPU against the
 same engines on the CPU.  Every test here needs a card and
@@ -773,3 +775,88 @@ def test_sampled_burst_equals_stepwise_on_gpu(cuda):
         for uid, tok in a.step(greedy=False).items():
             stepwise[uid].append(tok)
     assert primed().decode_burst(6, greedy=False) == stepwise
+
+
+SHARED_HEADER = list(range(60, 92))  # two full blocks of 16
+
+
+def _shared_prompts():
+    """Requests behind one 32-token header with their own tails, one that is
+    exactly the header (cached to its last token: the CoW copy), and one
+    with nothing shared."""
+    return ([SHARED_HEADER + list(range(100 + 7 * i, 103 + 9 * i)) for i in range(3)]
+            + [list(SHARED_HEADER), [7, 8, 9, 10, 11]])
+
+
+def test_cow_copy_keeps_kv_storage_and_equals_a_host_copy(cuda):
+    """The copy-on-write block copy writes into the pool the graphs captured
+    (every leaf keeps its storage), makes block ``dst`` a copy of block
+    ``src`` in every leaf and changes no other block, with no host sync."""
+    engine = _graph_engine()
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for pool in engine.kv.values():
+        pool.copy_(torch.randn(pool.shape, generator=gen, device=cuda))
+    ptrs = {k: v.data_ptr() for k, v in engine.kv.items()}
+    host = {k: v.cpu() for k, v in engine.kv.items()}
+    before = engine.counters.snapshot()
+    src, dst = 5, 17
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a synchronizing call inside raises
+    try:
+        engine.manager.cow_copy(src, dst)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    d = engine.counters.delta_since(before)
+    assert (d["dispatches"], d["uploads"], d["upload_ints"], d["host_syncs"]) == (1, 1, 2, 0)
+    for k, leaf in engine.kv.items():
+        assert leaf.data_ptr() == ptrs[k], k
+        want = host[k].clone()
+        want[:, dst] = host[k][:, src]
+        assert torch.equal(leaf.cpu(), want), k
+
+
+def test_graph_shared_prefix_serve_keeps_shared_blocks_and_matches_eager(cuda):
+    """A shared-prefix serve on the fast path with CUDA graphs: every block
+    offered to the prefix tree holds, when its last mapper releases it, the
+    bytes it held when it was registered (no request wrote a shared block),
+    and the tokens equal the eager reference loop's and the cache-off
+    serve's, in fp32."""
+    prompts = _shared_prompts()
+    engine = _graph_engine()
+    cache = engine.manager.prefix_cache
+    snaps, changed = {}, []
+    register, invalidate = cache.register, cache.invalidate_blocks
+
+    def on_register(h, parent, block, tokens):
+        # enqueued after the forward that wrote the block: its final bytes
+        if register(h, parent, block, tokens):
+            snaps[block] = {k: v[:, block].clone() for k, v in engine.kv.items()}
+            return True
+        return False
+
+    def on_invalidate(blocks):
+        for b in blocks:
+            snap = snaps.pop(b, None)
+            if snap is not None and not all(torch.equal(engine.kv[k][:, b], v)
+                                            for k, v in snap.items()):
+                changed.append(b)
+        invalidate(blocks)
+
+    cache.register, cache.invalidate_blocks = on_register, on_invalidate
+    out = engine.generate(prompts, max_new_tokens=10)
+    pc = engine.health()["prefix_cache"]
+    assert pc["hits_total"] > 0 and pc["cow_copies_total"] == 1 and pc["entries"] == 0
+    # realized savings against the observatory's counterfactual: a CoW copy
+    # recomputes its prompt's last position, one token of its block
+    obs = engine.health()["kv"]["prefix"]
+    assert pc["hit_blocks_total"] == obs["duplicate_blocks_total"]
+    assert pc["tokens_saved_total"] + pc["cow_copies_total"] == obs["prefill_tokens_saved_total"]
+    assert not changed and not snaps
+    engine.check_kv_invariant()
+    assert engine.programs.graphs and engine.ledger.total > 0
+    eager = _graph_engine({"serving_fastpath": {"enabled": False}})
+    off = _graph_engine({"serving_prefix_cache": {"enabled": False}})
+    assert eager.generate(prompts, max_new_tokens=10) == out
+    assert off.generate(prompts, max_new_tokens=10) == out
+    assert eager.health()["prefix_cache"] == pc
