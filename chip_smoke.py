@@ -56,7 +56,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      padded chunk is 16 tokens or more, the split-K decode kernel at every
      other, counted under replay; the fast path's counters, captures and
      graph pool; a second serve of the same prompts captures nothing and
-     gives the same tokens; the same serve again under torch.profiler splits
+     gives the same tokens; serve-tracing: a second engine with request
+     tracing on serves the same prompts cold and then warm in turns with the
+     first, with ServeCounters and tokens equal to the untraced serves', a
+     complete span chain ending ok for each request and a Chrome trace with
+     one track per request and the kv_pool counter track, and prints the
+     TTFT, TBT, end-to-end and queue-wait percentiles and the wall with
+     tracing on and off; the same serve again under torch.profiler splits
      the device time by kernel (decode, merge, prefill and the CUDA-core
      kernel apart); the reference loop (``serving_fastpath.enabled=False``)
      and the fast path serve the same prompts in three pairs, in turns; with
@@ -66,7 +72,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      1024-token system prompt (tails of 32-256 tokens) and two that are
      exactly the prompt, in 4 waves put while the wave before decodes,
      through ``put`` / ``step`` / ``decode_burst`` with the prefix cache on
-     and off: the realized savings equal the KV observatory's
+     and off, both tracing requests (TTFT, TBT and end-to-end percentiles
+     of each serve): the realized savings equal the KV observatory's
      counterfactual, the device runs exactly the positions the cache left,
      the census invariant holds, pool and prefix tree drain, and every block
      the tree registered holds its bytes until its last mapper releases it;
@@ -78,9 +85,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      through ``InferenceEngineV2``, the fast path with graphs, the reference
      loop eager on CUDA and the fast path on the CPU token for token on a
      closed batch and on requests arriving mid-decode, the prewarm's
-     captures leaving every KV block but the trash block unchanged, and a
-     sampled burst equal to sampled steps; slice-prefix: the serve-prefix
-     workload at 2 layers in fp32 with a 192-token header and waves of 2,
+     captures leaving every KV block but the trash block unchanged, a
+     sampled burst equal to sampled steps, and the same scenario with
+     tracing on under a fake clock: trace records, terminal statuses and
+     percentiles of the graphs on CUDA equal to the fast path's on the CPU,
+     and of the eager reference loop on CUDA equal to the CPU's;
+     slice-prefix: the serve-prefix workload at 2 layers in fp32 with a
+     192-token header and waves of 2,
      graphs, eager and CPU with the cache on and off, token for token, the
      logits of every dispatched emit on the card within 2e-3 of the CPU's;
   5. train: ``initialize`` with Llama-2-7B at full width cut to 8 layers, bf16,
@@ -1518,6 +1529,128 @@ def log_fastpath(tag, engine, before, built_before, card):
     return d
 
 
+def serve_prompts(seed, vocab):
+    """[serve]'s 16 prompts: lengths 32, 2048 and 14 drawn from 32-2048."""
+    rng = np.random.default_rng(seed)
+    lens = np.concatenate([[32, 2048], rng.integers(32, 2049, 14)])
+    return [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+
+
+def latency_line(tracer):
+    """TTFT, TBT, end-to-end and queue-wait p50/p95/p99 in ms from the
+    tracer's histograms (each a bucket's geometric midpoint, 6 buckets a
+    decade), with each histogram's count, exact mean and exact max."""
+    parts = []
+    for name, snap in tracer.latency_snapshot().items():
+        if not snap["count"]:
+            parts.append(f"{name} empty")
+            continue
+        parts.append(f"{name} p50/p95/p99 {snap['p50'] * 1e3:.3f} / {snap['p95'] * 1e3:.3f} / "
+                     f"{snap['p99'] * 1e3:.3f} ms (n={snap['count']}, mean "
+                     f"{snap['mean'] * 1e3:.3f}, max {snap['max'] * 1e3:.3f})")
+    return "; ".join(parts)
+
+
+class TraceSink:
+    """Collects the per-request trace records a tracer exports (the
+    ``record_trace`` seam a telemetry collector fills)."""
+
+    def __init__(self):
+        self.records = []
+
+    def record_trace(self, record):
+        self.records.append(record)
+
+
+def check_trace_chains(tag, sink, results):
+    """Every request has one exported trace whose terminal equals its
+    result's status; an ok request's chain is queue_wait, prefill, decode
+    with every span closed and its last event ``ok``."""
+    by_uid = {}
+    for r in sink.records:
+        if r["uid"] in by_uid:
+            raise AssertionError(f"[{tag}] request {r['uid']} has two traces")
+        by_uid[r["uid"]] = r
+    if set(by_uid) != {res.uid for res in results}:
+        raise AssertionError(f"[{tag}] traces for {sorted(by_uid)}, requests "
+                             f"{sorted(res.uid for res in results)}")
+    for res in results:
+        r = by_uid[res.uid]
+        names = [sp["name"] for sp in r["spans"]]
+        if (r["status"] != res.status or names[:1] != ["queue_wait"]
+                or not {"prefill", "decode"} <= set(names)
+                or any(sp["end"] is None for sp in r["spans"]) or r["events"][-1][0] != "ok"):
+            raise AssertionError(f"[{tag}] request {res.uid} ({res.status}): incomplete trace "
+                                 f"{r['status']}, spans {names}, last event {r['events'][-1]}")
+    return by_uid
+
+
+def check_chrome_trace(tag, path, n_requests):
+    """The Chrome trace parses, has one track (tid) of spans and instants per
+    request and the ``kv_pool`` counter track."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    tids = {e["tid"] for e in events if e["ph"] in ("X", "i")}
+    counters = [e for e in events if e["ph"] == "C" and e["name"] == "kv_pool"]
+    if tids != set(range(n_requests)) or not counters:
+        raise AssertionError(f"[{tag}] Chrome trace {path}: request tracks {sorted(tids)}, "
+                             f"{len(counters)} kv_pool samples")
+    return len(events), len(counters)
+
+
+def rehearse_serve_latency(step_ms=5.0, position_us=25.5, seed=0):
+    """CPU rehearsal of [serve]'s latency percentiles, for a prediction:
+    [serve]'s 16 prompts, pool and scheduler through the fast path with
+    tracing on, at a tiny width on the CPU, on a clock that only a forward
+    advances, by a modeled device time of ``step_ms`` plus ``position_us``
+    per padded position (a burst advances it once per step).  The host
+    control flow (steps, syncs, which patch makes which token visible) is
+    [serve]'s; the clock is a model, and it runs one step ahead of the
+    card's where the loop dispatches step N before it patches step N-1.
+    Also times the tracer's hooks on the host (perf_counter).  Run:
+    ``python3 -c "import chip_smoke as c; c.rehearse_serve_latency()"``."""
+    import types
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import mistral
+    cfg = mistral.MistralConfig.tiny(vocab=256, hidden=64, layers=2, heads=4, kv_heads=2,
+                                     seq=4096, window=4096)
+    params = mistral.init_params(cfg, torch.Generator().manual_seed(seed))
+    now = [0.0]
+
+    def forward_paged(config, p, tokens, *args, **kw):
+        now[0] += (step_ms + position_us * tokens.numel() / 1e3) / 1e3
+        return mistral.forward_paged(config, p, tokens, *args, **kw)
+
+    model = types.SimpleNamespace(forward_paged=forward_paged,
+                                  init_paged_cache=mistral.init_paged_cache)
+    engine = InferenceEngineV2(model, cfg, params, clock=lambda: now[0], device="cpu",
+                               config={"dtype": "float32", "serving_tracing": {"enabled": True}},
+                               num_blocks=2048, block_size=16, max_blocks_per_seq=256,
+                               token_budget=512, max_seqs_per_step=32)
+    host = [0.0, 0]
+    tracer = engine.tracer
+    for name in ("event", "tick", "observe_queue_wait", "on_submit", "on_shed", "on_admit",
+                 "on_chunks", "on_tokens_map", "on_burst_tokens", "on_preempt", "on_terminal"):
+        def timed(*a, _fn=getattr(tracer, name), **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                host[0] += time.perf_counter() - t0
+                host[1] += 1
+        setattr(tracer, name, timed)
+    results = engine.generate(serve_prompts(seed, cfg.vocab_size), max_new_tokens=32,
+                              strict=False)
+    c = engine.counters.snapshot()
+    log(f"[rehearse-serve] CPU, tiny width, modeled clock ({step_ms} ms a step + {position_us} "
+        f"us a padded position): {sum(r.ok for r in results)} of {len(results)} ok, "
+        f"{engine.forward_steps} forward steps, {c['host_syncs']} host syncs, modeled wall "
+        f"{now[0]:.3f} s; {latency_line(tracer)}; tracer hooks {host[1]} calls in "
+        f"{host[0] * 1e3:.3f} ms of host time")
+    return tracer.latency_snapshot()
+
+
 def first_divergence(a, b, prompts):
     """For each request, the first generated position where two serves'
     tokens differ (None where they agree)."""
@@ -1550,9 +1683,8 @@ def phase_serve(card, seed=0):
         f"({sum(p.numel() * p.element_size() for p in tree_leaves(params)) / 1e9:.2f} GB bf16), "
         f"KV pool {sum(v.numel() * v.element_size() for v in engine.kv.values()) / 2**30:.2f} "
         f"GiB, set up in {time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(seed)
-    lens = np.concatenate([[32, 2048], rng.integers(32, 2049, 14)])
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+    prompts = serve_prompts(seed, cfg.vocab_size)
+    n_prompt = sum(len(p) for p in prompts)
     max_new = 32
     paged_attention.launches = paged_attention.tc_launches = paged_attention.decode_launches = 0
     steps0 = engine.forward_steps
@@ -1594,9 +1726,9 @@ def phase_serve(card, seed=0):
                              f"{decode_launches} times; {decode_steps} steps of chunk width < 16 "
                              f"({widths}) x {cfg.num_layers} layers")
     generated = max_new * len(prompts)
-    log(f"[serve] {len(prompts)} requests ({int(lens.sum())} prompt tokens, "
+    log(f"[serve] {len(prompts)} requests ({n_prompt} prompt tokens, "
         f"{generated} generated) all ok on {card}: wall {wall:.3f} s, "
-        f"{generated / wall:.1f} generated tok/s, {(int(lens.sum()) + generated) / wall:.1f} "
+        f"{generated / wall:.1f} generated tok/s, {(n_prompt + generated) / wall:.1f} "
         f"total tok/s, {steps} forward steps (a burst of k counts k), mean step "
         f"{wall / steps * 1e3:.2f} ms, "
         f"paged_attention launches {launches} = {steps} x {cfg.num_layers}, of them "
@@ -1627,7 +1759,8 @@ def phase_serve(card, seed=0):
                              f"{first_divergence(results, again, prompts)}")
     log(f"[serve] second serve of the same prompts on {card}: wall {wall2:.3f} s, 0 captures, "
         f"tokens identical to the first serve")
-    log_fastpath("serve", engine, counters1, built, card)
+    warm = log_fastpath("serve", engine, counters1, built, card)
+    serve_tracing(card, cfg, params, kw, engine, prompts, max_new, results, first, warm, wall2)
     busy = {"fast path": profile_serve(engine, prompts, max_new, card, wall2)}
     serve_pairs(card, cfg, params, kw, engine, prompts, max_new, busy)
     del engine
@@ -1637,6 +1770,71 @@ def phase_serve(card, seed=0):
     torch.cuda.empty_cache()
     return {"launches": launches, "tc_launches": tc_launches, "decode_launches": decode_launches,
             "serve_prefix": prefix}
+
+
+def serve_tracing(card, cfg, params, kw, off, prompts, max_new, results, first, warm, wall_off):
+    """[serve] with request tracing on: a second engine, tracing on and a
+    Chrome trace under chiprun_out/, serves the same prompts cold and then
+    warm in turns with the tracing-off engine (on, off, on).  Gates: every
+    serve's ServeCounters equal to the tracing-off engine's (the cold one's
+    to its first serve, captures included; the warm ones' to its warm
+    serve: 62 forward steps, 47 host syncs), the same tokens, a complete
+    span chain ending ``ok`` for each of the 16 requests, and a Chrome
+    trace that parses with one track per request and the ``kv_pool``
+    counter track.  Prints the last traced serve's TTFT, TBT, end-to-end and
+    queue-wait percentiles, and the walls with tracing on and off (not
+    gated)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
+                        "serve_chrome_trace.json")
+    if os.path.exists(path):
+        os.remove(path)
+    traced = build_engine("mistral", cfg, params, **kw, config={
+        "dtype": off.config.dtype, "seed": off.config.seed,
+        "serving_tracing": {"enabled": True, "chrome_trace_path": path}})
+    engines = {"on": traced, "off": off}
+    walls = {"on": [], "off": [wall_off]}
+
+    def serve(name, want, label):
+        e = engines[name]
+        sink = e.tracer.telemetry = TraceSink()
+        e.tracer.reset_histograms()
+        c0 = e.counters.snapshot()
+        got, wall = serve_timed(e, prompts, max_new)
+        d = e.counters.delta_since(c0)
+        if d != want:
+            raise AssertionError(f"[serve-tracing] tracing {name}, {label}: ServeCounters {d}, "
+                                 f"the tracing-off engine's {want}")
+        if [r.tokens for r in got] != [r.tokens for r in results]:
+            raise AssertionError(f"[serve-tracing] tracing {name}, {label}: tokens differ at "
+                                 f"{first_divergence(results, got, prompts)}")
+        if name == "on":
+            check_trace_chains("serve-tracing", sink, got)
+        elif sink.records:
+            raise AssertionError("[serve-tracing] the tracing-off engine exported traces")
+        return wall
+
+    wall_cold = serve("on", first, "cold serve")
+    for name in ("on", "off", "on"):
+        walls[name].append(serve(name, warm, "warm serve"))
+    n_events, n_counter = check_chrome_trace("serve-tracing", path, len(prompts))
+    tr = traced.tracer
+    log(f"[serve-tracing] tracing on, {card}: cold serve {wall_cold:.3f} s with ServeCounters "
+        f"equal to the tracing-off engine's first serve ({first['compiles']} captures); warm "
+        f"serves with ServeCounters equal to its warm serve ({warm['host_syncs']} host syncs), "
+        f"tokens identical, {len(prompts)} complete span chains ending ok in each traced serve; "
+        f"Chrome trace {os.path.relpath(path)}: {n_events} events, {len(prompts)} request "
+        f"tracks, {n_counter} kv_pool samples")
+    log(f"[serve-tracing] last traced warm serve on {card}: {latency_line(tr)}")
+    cost = statistics.mean(walls["on"]) - statistics.mean(walls["off"])
+    log(f"[serve-tracing] warm walls in turns (off, on, off, on) on {card}: tracing off "
+        + ", ".join(f"{w:.3f}" for w in walls["off"]) + " s, on "
+        + ", ".join(f"{w:.3f}" for w in walls["on"]) + f" s; tracing costs {cost * 1e3:+.1f} ms "
+        f"a serve ({cost / statistics.mean(walls['off']):+.2%}, not gated); recorder "
+        f"{tr.recorder.events_total} events, {tr.completed_total} traces completed")
+    del traced, engines
+    torch.cuda.empty_cache()
 
 
 def serve_pairs(card, cfg, params, kw, fast, prompts, max_new, busy):
@@ -1922,6 +2120,73 @@ def phase_slice_serve(seed=3):
                              f"{stepwise}")
     log(f"[slice-serve] sampled decode (temperature 1, top-k 20, seed 5): a 6-step burst (one "
         f"graph replayed 6 times) == 6 stepwise steps, token for token: {burst}")
+    slice_serve_traces(cfg, params, params_cpu, kw, prompts, arrivals, max_new)
+
+
+class StepClock:
+    """A fake clock: each read returns the time, then advances it by
+    ``tick`` s, so the stamps a tracer takes follow the host control flow
+    alone."""
+
+    def __init__(self, tick):
+        self.t, self.tick, self.calls = 0.0, tick, 0
+
+    def __call__(self):
+        self.calls += 1
+        t = self.t
+        self.t += self.tick
+        return t
+
+
+def traced_replay(engine, prompts, arrivals, max_new):
+    """[slice-serve]'s scenario on a tracing engine: what the tracer saw."""
+    sink = engine.tracer.telemetry = TraceSink()
+    closed = engine.generate(prompts, max_new_tokens=max_new, strict=False)
+    waves = serve_waves(engine, prompts, arrivals, max_new)
+    tr = engine.tracer
+    return {"statuses": [(r.uid, r.status, r.finish_reason) for r in closed],
+            "tokens": [r.tokens for r in closed], "waves": waves, "records": sink.records,
+            "live": tr.live_uids(), "percentiles": tr.percentiles(),
+            "latency": tr.latency_snapshot(), "clock_reads": engine._clock.calls,
+            "recorder": [e for e in tr.recorder.tail() if e["event"] != "warm_recompile"]}
+
+
+def slice_serve_traces(cfg, params, params_cpu, kw, prompts, arrivals, max_new):
+    """[slice-serve] with tracing on under a fake clock: the closed batch and
+    the three waves, on the fast path with graphs (CUDA) against the fast
+    path on the CPU, and on the reference loop eager on CUDA against the
+    reference loop on the CPU.  The stamps follow host control flow, so the
+    per-request trace records, the terminal statuses, the percentiles and
+    the flight recorder (compile events aside) must be identical."""
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    traced = {"dtype": "float32", "serving_tracing": {"enabled": True}}
+    ref = {**traced, "serving_fastpath": {"enabled": False}}
+    runs = {}
+    for name, device, p, conf in (("graphs", "cuda", params, traced),
+                                  ("cpu", "cpu", params_cpu, traced),
+                                  ("eager", "cuda", params, ref),
+                                  ("cpu reference", "cpu", params_cpu, ref)):
+        e = build_engine("mistral", cfg, p, config=conf, device=device, clock=StepClock(0.01),
+                         **kw)
+        runs[name] = traced_replay(e, prompts, arrivals, max_new)
+        del e
+    for a, b in (("graphs", "cpu"), ("eager", "cpu reference")):
+        diff = [k for k in runs[a] if runs[a][k] != runs[b][k]]
+        if diff:
+            raise AssertionError(f"[slice-serve] traced under a fake clock: {a} differs from "
+                                 f"{b} in {diff}")
+    g = runs["graphs"]
+    if g["live"] or {r["status"] for r in g["records"]} != {"ok"}:
+        raise AssertionError(f"[slice-serve] traced: live traces {g['live']}, statuses "
+                             f"{sorted({r['status'] for r in g['records']})}")
+    p50 = lambda run, m: run["percentiles"][m]["p50"]  # noqa: E731
+    log(f"[slice-serve] tracing on, fake clock (0.01 s a read): graphs on CUDA == fast path on "
+        f"the CPU and eager reference loop on CUDA == reference loop on the CPU in "
+        f"{len(g['records'])} trace records (closed batch and 3 waves), terminal statuses, "
+        f"percentiles, {len(g['recorder'])} recorder events and {g['clock_reads']} / "
+        f"{runs['eager']['clock_reads']} clock reads; fake-clock TTFT p50 {p50(g, 'ttft'):.4f} "
+        f"/ {p50(runs['eager'], 'ttft'):.4f} s, TBT p50 {p50(g, 'tbt'):.4f} / "
+        f"{p50(runs['eager'], 'tbt'):.4f} s")
 
 
 def _first_diff(a, b):
@@ -2058,6 +2323,7 @@ def prefix_serve(engine, prompts, waves, max_new, *, watch=False):
     steps0, tok0, pos0 = engine.forward_steps, engine.tokens_run, engine.positions_run
     paged_attention.launches = paged_attention.tc_launches = paged_attention.decode_launches = 0
     w = SharedBlockWatch(engine) if watch else None
+    engine.tracer.reset_histograms()
     if cuda:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2087,7 +2353,8 @@ def prefix_serve(engine, prompts, waves, max_new, *, watch=False):
         "hit_rate": pc.get("realized_hit_rate"),
         "obs": delta(obs, obs0, ("duplicate_blocks_total", "prefill_tokens_saved_total",
                                  "prompt_blocks_total")),
-        "watched": watched}
+        "watched": watched, "latency": latency_line(engine.tracer),
+        "ttft": engine.tracer.ttft.snapshot()}
 
 
 def check_prefix_serve(tag, engine, prompts, outs, r, max_new, vocab):
@@ -2153,14 +2420,17 @@ def phase_serve_prefix(card, cfg, params, kw, seed=0):
     new tokens each, through the cache-on engine (the default) and a
     cache-off one.  The first serve of each is checked (the cache-on one
     with every shared block watched) and builds its graphs; then three pairs
-    in turns; then one serve of each under torch.profiler.  Returns the
-    checked cache-on serve's paged launches."""
+    in turns; then one serve of each under torch.profiler.  Both engines
+    trace requests: each serve's TTFT, TBT and end-to-end percentiles
+    (from ``put`` to the first token, between tokens, to ``flush``) show
+    what the cache does for users.  Returns the checked cache-on serve's
+    paged launches."""
     import torch
     from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
     bs = kw["block_size"]
     prompts, waves = prefix_workload(seed + 10, cfg.vocab_size, bs, 64, (32, 256), 16, 4)
     max_new = 32
-    conf = {"dtype": "bfloat16", "seed": seed}
+    conf = {"dtype": "bfloat16", "seed": seed, "serving_tracing": {"enabled": True}}
     engines = {"cache on": build_engine("mistral", cfg, params, config=conf, **kw),
                "cache off": build_engine("mistral", cfg, params, **kw, config={
                    **conf, "serving_prefix_cache": {"enabled": False}})}
@@ -2207,6 +2477,10 @@ def phase_serve_prefix(card, cfg, params, kw, seed=0):
         log(f"[serve-prefix] {name} on {card}: walls "
             + ", ".join(f"{r['wall']:.3f}" for r in rs[1:]) + " s (in turns); programs built "
             f"after the first serve: {sum(sum(r['built'].values()) for r in rs[1:])}")
+        log(f"[serve-prefix] {name}, last timed serve on {card}: {rs[-1]['latency']}")
+        log(f"[serve-prefix] {name}, TTFT p50/p95/p99 of the three timed serves on {card}: "
+            + ", ".join(f"{r['ttft']['p50'] * 1e3:.3f} / {r['ttft']['p95'] * 1e3:.3f} / "
+                        f"{r['ttft']['p99'] * 1e3:.3f} ms" for r in rs[1:]))
     busy = {}
     for name, engine in engines.items():
         wall_ms = statistics.mean(r["wall"] for r in runs[name][1:]) * 1e3

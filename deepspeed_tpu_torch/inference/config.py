@@ -11,19 +11,20 @@ from typing import Optional
 import torch
 
 from ..runtime.config import (KVObservabilityConfig, ServingFastpathConfig,
-                              ServingPrefixCacheConfig, ServingResilienceConfig)
+                              ServingPrefixCacheConfig, ServingResilienceConfig,
+                              ServingTracingConfig)
 from ..runtime.config_utils import ConfigModel, Field
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 # sections of the JAX InferenceConfig the port does not implement yet
-UNPORTED_SECTIONS = ("serving_tracing", "serving_fault_tolerance", "serving_qos",
-                     "serving_spec_decode", "serving_perf", "ops_server", "serving_fleet")
+UNPORTED_SECTIONS = ("serving_fault_tolerance", "serving_qos", "serving_spec_decode",
+                     "serving_perf", "ops_server", "serving_fleet")
 
 
 class TPConfig(ConfigModel):
     """Tensor parallelism (``tp_size`` 1 only: TP serving is ROADMAP Queue 1
-    item 12)."""
+    item 11)."""
     enabled: bool = True
     tp_size: int = Field(1, ge=1)
 
@@ -58,6 +59,9 @@ class InferenceConfig(ConfigModel):
     serving_kv_observability: KVObservabilityConfig = Field(KVObservabilityConfig)
     # copy-on-write prefix caching (inference/v2/ragged_manager.py PrefixCache)
     serving_prefix_cache: ServingPrefixCacheConfig = Field(ServingPrefixCacheConfig)
+    # request tracing, SLO latency histograms and the always-on flight
+    # recorder (monitor/tracing.py)
+    serving_tracing: ServingTracingConfig = Field(ServingTracingConfig)
 
     def model_validate(self):
         if self.tensor_parallel is None:
@@ -67,7 +71,7 @@ class InferenceConfig(ConfigModel):
         if self.tensor_parallel.tp_size > 1:
             raise NotImplementedError(f"tensor_parallel.tp_size={self.tensor_parallel.tp_size}: "
                                       f"the PyTorch port serves on one GPU; TP serving is ROADMAP "
-                                      f"Queue 1 item 12")
+                                      f"Queue 1 item 11")
 
 
 def load_inference_config(config) -> InferenceConfig:

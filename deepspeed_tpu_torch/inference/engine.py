@@ -10,7 +10,7 @@ quantize kernel, or int4) and the forward dequantizes one layer at a time.
 JAX's threefry keys become an explicit ``torch.Generator``; the two never
 draw the same bits, so sampled outputs agree with the JAX package in
 distribution, not token for token.  Not ported: tensor parallelism
-(``topology``, ``tp_rules``, ``tp_size > 1``: ROADMAP Queue 1 item 12).
+(``topology``, ``tp_rules``, ``tp_size > 1``: ROADMAP Queue 1 item 11).
 """
 
 import logging
@@ -38,7 +38,7 @@ class InferenceEngine:
         if topology is not None or tp_rules is not None:
             raise NotImplementedError("InferenceEngine(topology=..., tp_rules=...): the PyTorch "
                                       "port serves on one GPU; TP serving is ROADMAP Queue 1 "
-                                      "item 12")
+                                      "item 11")
         self.config: InferenceConfig = load_inference_config(config)
         self.device = resolve_device(device)
         self.model = model_module

@@ -101,13 +101,18 @@ class AdmissionQueue:
     whether that raises (strict) or becomes a ``shed`` RequestResult.  The
     shedding policy runs against queue depth and the CALLER-OBSERVED KV
     utilization, so rejection happens before the request ever owns a block.
-    ``clock`` is injectable (fault tests drive a fake clock).
+    ``clock`` is injectable (fault tests drive a fake clock).  ``tracer``
+    (``monitor/tracing.py`` ``RequestTracer``) hears about every intake
+    decision: a ``queue_wait`` span opens at submit, a shed becomes a
+    terminal trace event, and shed/submit land in the always-on flight
+    recorder.
     """
 
     def __init__(self, config: Optional[ServingResilienceConfig] = None, *,
-                 clock=time.monotonic):
+                 clock=time.monotonic, tracer=None):
         self.config = config if config is not None else ServingResilienceConfig()
         self.clock = clock
+        self.tracer = tracer
         self._heap: List[Tuple[int, int, AdmissionTicket]] = []
         self._seq = 0  # FIFO tiebreak within a priority class
         self.shed_total = 0
@@ -152,6 +157,15 @@ class AdmissionQueue:
                                   token_cap=token_cap)
         if reason is not None:
             self.shed_total += 1
+            if self.tracer is not None:
+                if self.tracer.enabled:
+                    # sheds never reach the ticket stamp below, so span
+                    # tracing pays one clock read here; otherwise a fresh
+                    # engine's shed records carry the stale last-ticked value
+                    self.tracer.tick(self.clock())
+                self.tracer.event("shed", uid=int(uid), code=reason.code)
+                self.tracer.on_shed(int(uid), reason.code, retryable=reason.retryable,
+                                    detail=reason.detail)
             return reason
         now = self.clock()
         ttl = ttl_s if ttl_s is not None else self.config.default_ttl_s
@@ -162,6 +176,13 @@ class AdmissionQueue:
                                  enqueue_t=now)
         heapq.heappush(self._heap, (ticket.priority, self._seq, ticket))
         self._seq += 1
+        if self.tracer is not None:
+            # the queue_wait span opens on the SAME clock value the ticket
+            # was stamped with: tracing adds no clock read at this seam
+            self.tracer.tick(now)
+            self.tracer.event("submit", uid=ticket.uid, priority=ticket.priority)
+            self.tracer.on_submit(ticket.uid, now, prompt_len=len(ticket.prompt),
+                                  priority=ticket.priority)
         return None
 
     # ---------------------------------------------------------------- drain
@@ -171,6 +192,8 @@ class AdmissionQueue:
         ``expired`` (they never owned KV blocks)."""
         expired: List[AdmissionTicket] = []
         now = self.clock()
+        if self.tracer is not None:
+            self.tracer.tick(now)  # donate the already-read clock value
         while self._heap:
             _, _, ticket = heapq.heappop(self._heap)
             if ticket.deadline is not None and now >= ticket.deadline:

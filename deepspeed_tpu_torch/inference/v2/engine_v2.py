@@ -37,10 +37,19 @@ by default): the block census, the counterfactual prefix observatory and the
 capacity forecast of ``kv_metrics.py``, refreshed from host ints every step,
 and the census invariant checked after every serve pass.
 
+Request tracing (``serving_tracing``, off by default as in the JAX engine):
+one span chain per request (queue_wait -> prefill -> decode, requeue spans
+around preemptions, one terminal event matching its ``RequestResult``),
+TTFT/TBT/e2e/queue-wait histograms, and a Chrome trace with one track per
+request and the ``kv_pool`` counter track; the flight recorder of recent
+engine events is always on and rides ``health()``, ``state_snapshot()``
+and the stall dump.  The tracer reads only the engine's injectable clock,
+at points the host already touches, and never syncs the device.
+
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU; it
-never falls back from one to the other.  Request tracing, the request
-journal, telemetry, QoS, speculative decoding and tensor parallelism of the
-JAX engine are not ported yet.
+never falls back from one to the other.  The request journal, telemetry,
+QoS, speculative decoding and tensor parallelism of the JAX engine are not
+ported yet.
 """
 
 import collections
@@ -52,6 +61,7 @@ import numpy as np
 import torch
 
 from ...monitor.perf import CompileLedger
+from ...monitor.tracing import RequestTracer
 from ..config import DTYPES as _DTYPES, load_inference_config
 from ..engine import _sample
 from .admission import (DEADLINE_EXPIRED, FAILED, OK, PREEMPT_REQUEUED_EXHAUSTED, SHED,
@@ -137,9 +147,13 @@ class InferenceEngineV2:
         # on an injectable clock, preemption policy shared with the scheduler
         self.resilience = self.config.serving_resilience
         self._clock = clock if clock is not None else time.monotonic
-        self.admission = AdmissionQueue(self.resilience, clock=self._clock)
+        # request-lifecycle tracing: span chains per uid, SLO latency
+        # histograms and the always-on flight recorder, on the injectable
+        # clock only, at points the host already touches (no device syncs)
+        self.tracer = RequestTracer(self.config.serving_tracing, clock=self._clock)
+        self.admission = AdmissionQueue(self.resilience, clock=self._clock, tracer=self.tracer)
         self.scheduler = SplitFuseScheduler(token_budget, max_seqs_per_step,
-                                            resilience=self.resilience)
+                                            resilience=self.resilience, tracer=self.tracer)
         self._deadline_expired_total = 0
         self._stall_streak = 0
         self.stalls_total = 0  # lifetime watchdog trips (streaks are transient)
@@ -163,7 +177,7 @@ class InferenceEngineV2:
             # and a dropped engine frees its pool and graphs at once
             self.manager.cow_copy = functools.partial(self._cow_copy_block, self.kv,
                                                       self.counters, self.device)
-        self.ledger = CompileLedger(self.counters)
+        self.ledger = CompileLedger(self.counters, tracer=self.tracer)
         self.batch_state = DeviceBatchState(self.counters, self.device)
         self.programs = BucketPrograms(self.ledger, self.device,
                                        graphs=self.device.type == "cuda" and self.fastpath.enabled)
@@ -182,18 +196,40 @@ class InferenceEngineV2:
         forwards: an expired sequence is evicted (done, ``finish_reason:
         deadline_expired``, blocks reclaimed) before the next batch."""
         ttl = ttl_s if ttl_s is not None else self.resilience.default_ttl_s
-        deadline = self._clock() + ttl if ttl is not None else None
+        now = None
+        if ttl is not None or self.tracer.enabled:
+            # one clock read covers the whole batch: the deadline stamp, the
+            # flight-recorder tick and the admit marks all share it
+            now = self._clock()
+            self.tracer.tick(now)
+        deadline = now + ttl if ttl is not None else None
         self._reset_table_width_if_idle()
         for uid, prompt in zip(uids, prompts):
             seq = self.manager.add_sequence(int(uid), [int(t) for t in prompt],
                                             deadline=deadline)
-            self.manager.map_prefix(seq)  # shared prompt blocks already computed
+            self._map_prefix(seq)  # shared prompt blocks already computed
+            self.tracer.event("admit", uid=int(uid), direct=True)
+            self.tracer.on_admit(int(uid), now, prompt_len=len(prompt))
         # prefix-sharing opportunity over the post-intake live set
         self._observe_prefix({})
 
     def flush(self, uid: int) -> None:
-        """End a put()-level request's life: retire it and reclaim its blocks."""
+        """End a put()-level request's life: retire it, reclaim its blocks
+        and close its trace.  The terminal status mirrors retire()'s
+        accounting: a failed sequence stays failed, an evicted one keeps its
+        eviction status, anything else is flushed as completed."""
+        seq = self.manager.seqs.get(uid)
+        finish_reason = seq.finish_reason if seq is not None else None
+        failure = self.manager.failures.get(uid)
         self.manager.retire(uid)
+        if failure is not None:
+            status = FAILED
+        elif finish_reason in (DEADLINE_EXPIRED, PREEMPT_REQUEUED_EXHAUSTED):
+            status = finish_reason
+        else:
+            status = OK
+        self.tracer.on_terminal(uid, status, finish_reason=finish_reason, reason=failure,
+                                t=self.tracer.last_now)
 
     def _reset_table_width_if_idle(self) -> None:
         """Fresh serve (no tracked sequences): drop the sticky table width so
@@ -260,6 +296,7 @@ class InferenceEngineV2:
         chunks = self.scheduler.schedule(self.manager)
         if not chunks:
             return None
+        self._trace_dispatch(chunks)
         n = self._bucket(len(chunks))
         t = self._bucket(max(c.n_tokens for c in chunks))
         b = self._table_width_for(max(len(self.manager.seqs[c.uid].blocks) for c in chunks))
@@ -317,7 +354,7 @@ class InferenceEngineV2:
         self._kv_steps += 1
         self._refresh_kv()
         return DeferredTokens(toks_dev=toks_dev, emits=emits, row_of=row_of,
-                              counters=self.counters)
+                              counters=self.counters, tracer=self.tracer)
 
     def _step_reference(self, greedy: bool) -> Dict[int, int]:
         """The reference step: full host-side batch rebuild, four uploads and
@@ -327,6 +364,7 @@ class InferenceEngineV2:
         chunks = self.scheduler.schedule(self.manager)
         if not chunks:
             return {}
+        self._trace_dispatch(chunks)
         n = self._bucket(len(chunks))
         t = self._bucket(max(c.n_tokens for c in chunks))
         b = self._table_width_for(max(len(self.manager.seqs[c.uid].blocks) for c in chunks))
@@ -365,9 +403,20 @@ class InferenceEngineV2:
                 seq.tokens.append(tok)
                 out[c.uid] = tok
         self.counters.step_tokens += len(out)
+        self.tracer.event("absorb", step=self.scheduler.steps, tokens=len(out))
+        self.tracer.on_tokens_map(out)
         self._kv_steps += 1
         self._refresh_kv()
         return out
+
+    def _trace_dispatch(self, chunks) -> None:
+        """A scheduled batch is about to run: the ``dispatch`` event, and the
+        chunk list for the span hooks, built only when tracing is on."""
+        self.tracer.event("dispatch", step=self.scheduler.steps, seqs=len(chunks),
+                          tokens=sum(c.n_tokens for c in chunks))
+        if self.tracer.enabled:
+            self.tracer.on_chunks([(c.uid, c.n_tokens) for c in chunks],
+                                  step=self.scheduler.steps)
 
     def _pick_rows(self, rows, greedy: bool):
         """Token selection on the device from each row's last-position
@@ -389,16 +438,33 @@ class InferenceEngineV2:
         """Per-step census/forecast refresh: the health stamp (one clock
         read, as in the JAX engine), per-block residency and last-touched
         stamps from ``seen_tokens``, the alloc/free rates into the capacity
-        forecaster, and the pressure edge detector.  Pure host arithmetic
-        over ints the engine already owns: no device sync, no effect on
-        ``ServeCounters``.  The pressure crossing goes to no tracer yet
-        (request tracing is not ported)."""
+        forecaster, pressure edges into the flight recorder, and a
+        ``kv_pool`` counter-track sample when a Chrome trace is configured.
+        Pure host arithmetic over ints the engine already owns: no device
+        sync, no effect on ``ServeCounters``."""
         self._health_generated_at = self._clock()
         if self.kv_obs is None:
             return
-        self.kv_obs.refresh(self.manager.seqs, self._kv_steps,
-                            self.manager.allocator.free_blocks)
-        self.kv_obs.pressure_crossing()
+        free = self.manager.allocator.free_blocks
+        self.kv_obs.refresh(self.manager.seqs, self._kv_steps, free)
+        crossing = self.kv_obs.pressure_crossing()
+        if crossing is not None:
+            edge, ste = crossing
+            self.tracer.event(
+                "kv_pressure", step=self.scheduler.steps, edge=edge,
+                steps_to_exhaustion=None if ste == float("inf") else round(ste, 1),
+                free_blocks=free)
+        if self.tracer.config.chrome_trace_path:
+            # assembled only when an export will consume it:
+            # fragmentation_tokens() walks the census
+            census = self.kv_obs.census
+            ste = self.kv_obs.forecaster.steps_to_exhaustion()
+            self.tracer.counter_track("kv_pool", {
+                "allocated_blocks": census.allocated_blocks,
+                "free_blocks": free,
+                "fragmentation_tokens": census.fragmentation_tokens(),
+                **({} if ste is None else {"steps_to_exhaustion": round(ste, 1)}),
+            })
 
     def _observe_prefix(self, extra_prompts: Dict[int, List[int]]) -> None:
         """One PrefixObservatory pass over live + admitted requests: every
@@ -413,6 +479,15 @@ class InferenceEngineV2:
             for uid, seq in self.manager.seqs.items() if not seq.done}
         prompts.update(extra_prompts)
         obs.observe(prompts)
+
+    def _map_prefix(self, seq) -> int:
+        """Admit-time shared-prefix mapping with the hit landed in the flight
+        recorder (the scheduler's per-chunk late-binding remap shares the
+        manager seam but skips the event: per-step noise)."""
+        mapped = self.manager.map_prefix(seq)
+        if mapped:
+            self.tracer.event("prefix_hit", uid=seq.uid, tokens=mapped, blocks=len(seq.blocks))
+        return mapped
 
     def _forget_prefix(self, uid: int) -> None:
         """Invalidate a uid's PrefixObservatory hashes for a request that
@@ -605,6 +680,8 @@ class InferenceEngineV2:
             self.counters.burst_tokens += n_real
             out[seq.uid] = produced
         self.scheduler.note_fused_work(k, sum(len(v) for v in out.values()))
+        self.tracer.event("burst", step=self.scheduler.steps, k=k, seqs=len(live))
+        self.tracer.on_burst_tokens({uid: len(toks_) for uid, toks_ in out.items()})
         self._kv_steps += k
         self._refresh_kv()
         return out
@@ -692,6 +769,10 @@ class InferenceEngineV2:
             # live sequences into the next call
             self._abandon(my)
             raise
+        finally:
+            # the Chrome-trace export (when configured), a strict raise
+            # included: the partial trace is what the postmortem wants
+            self.tracer.write_chrome_trace()
         return results
 
     def _serve_loop(self, uids: List[int], my: set, results: Dict[int, RequestResult],
@@ -717,6 +798,7 @@ class InferenceEngineV2:
                 # wave boundary: admission/deadline handling below may evict
                 # or finalize sequences, so catch the host up with the device
                 self.counters.flushes += 1
+                self.tracer.event("flush", step=self.scheduler.steps, cause="wave")
                 absorb(self._settle_inflight())
             self._expire_live()
             self._pump_admissions(my, results, strict)
@@ -734,6 +816,7 @@ class InferenceEngineV2:
                 # the burst's bookkeeping finalizes sequences on the host:
                 # absorb the in-flight step first, then re-measure the window
                 self.counters.flushes += 1
+                self.tracer.event("flush", step=self.scheduler.steps, cause="fuse")
                 absorb(self._settle_inflight())
                 k = self._fusion_window(uids, results, produced, max_new_tokens)
             if fusible and k >= fusion_min:
@@ -766,6 +849,7 @@ class InferenceEngineV2:
             else:
                 if self._inflight is not None:
                     self.counters.flushes += 1
+                    self.tracer.event("flush", step=self.scheduler.steps, cause="sync")
                     absorb(self._settle_inflight())
                 absorb(self.step(greedy=greedy))
 
@@ -820,6 +904,8 @@ class InferenceEngineV2:
             if uid in my and uid not in results:
                 if strict:
                     raise RuntimeError(f"request {uid} failed: {reason}")
+                self.tracer.event("failed", step=self.scheduler.steps, uid=uid)
+                self.tracer.on_terminal(uid, FAILED, reason=reason)
                 seq = self.manager.seqs.get(uid)
                 results[uid] = RequestResult(
                     uid=uid, status=FAILED, reason=reason,
@@ -848,6 +934,8 @@ class InferenceEngineV2:
                                              reason="deadline expired while running",
                                              queue_wait_s=seq.queue_wait_s,
                                              preemptions=seq.preemptions)
+                self.tracer.on_terminal(uid, DEADLINE_EXPIRED,
+                                        reason="deadline expired while running")
                 self.manager.retire(uid, completed=False)
             elif seq.finish_reason == PREEMPT_REQUEUED_EXHAUSTED:
                 if strict:
@@ -859,6 +947,9 @@ class InferenceEngineV2:
                     tokens=list(seq.tokens), retryable=True,
                     reason=f"preempted {seq.preemptions}x under KV pressure",
                     preemptions=seq.preemptions, queue_wait_s=seq.queue_wait_s)
+                self.tracer.on_terminal(
+                    uid, PREEMPT_REQUEUED_EXHAUSTED,
+                    reason=f"preempted {seq.preemptions}x under KV pressure")
                 self.manager.retire(uid, completed=False)
             else:  # length_capped: a graceful completion
                 self._finish_ok(uid, results, seq.finish_reason)
@@ -904,6 +995,9 @@ class InferenceEngineV2:
             self.manager.failures.pop(uid, None)
         for ticket in self.admission.drain():
             self._forget_prefix(ticket.uid)  # died queued: retire never fires
+        # close this call's still-open traces so the live-trace map and the
+        # strict caller's postmortem both see a terminal event
+        self.tracer.abort_all(my, reason="strict-mode abort")
         self._stall_streak = 0
 
     def _finish_ok(self, uid: int, results: Dict[int, RequestResult],
@@ -915,6 +1009,8 @@ class InferenceEngineV2:
                                      finish_reason=finish_reason,
                                      queue_wait_s=seq.queue_wait_s,
                                      preemptions=seq.preemptions)
+        self.tracer.event("finish", step=self.scheduler.steps, uid=uid, reason=finish_reason)
+        self.tracer.on_terminal(uid, OK, finish_reason=finish_reason)
         self.manager.retire(uid)  # reclaim KV blocks immediately, not at batch end
 
     def _expire_live(self) -> None:
@@ -922,11 +1018,14 @@ class InferenceEngineV2:
         sequence past its deadline is evicted in place (done, ``finish_reason:
         deadline_expired``, KV blocks reclaimed)."""
         now = self._clock()
+        self.tracer.tick(now)  # donate the sweep's clock read to the recorder
         for seq in list(self.manager.seqs.values()):
             if seq.done or seq.deadline is None or now < seq.deadline:
                 continue
             self.manager.evict(seq, DEADLINE_EXPIRED)
             self._deadline_expired_total += 1
+            self.tracer.event("expire", step=self.scheduler.steps, uid=seq.uid,
+                              produced=seq.generated_tokens)
 
     def _pump_admissions(self, my: set, results: Dict[int, RequestResult],
                          strict: bool) -> None:
@@ -944,6 +1043,7 @@ class InferenceEngineV2:
                 # retiring it reopens the pump)
             ticket, expired = self.admission.pop_ready()
             for t in expired:
+                self.tracer.event("queue_expired", step=self.scheduler.steps, uid=t.uid)
                 self._forget_prefix(t.uid)  # died queued: retire never fires
                 if t.uid in my and t.uid not in results:
                     self._deadline_expired_total += 1
@@ -952,14 +1052,24 @@ class InferenceEngineV2:
                     results[t.uid] = RequestResult(
                         uid=t.uid, status=DEADLINE_EXPIRED, retryable=True,
                         reason="deadline expired in the admission queue")
+                    self.tracer.on_terminal(t.uid, DEADLINE_EXPIRED, t=self.tracer.last_now,
+                                            reason="deadline expired in the admission queue")
             if ticket is None:
                 break
-            wait = max(0.0, self._clock() - ticket.enqueue_t)
+            now = self._clock()
+            self.tracer.tick(now)
+            wait = max(0.0, now - ticket.enqueue_t)
+            # the queue-wait histogram feeds health() even with span tracing
+            # off: the wait is already computed, pure host arithmetic
+            self.tracer.observe_queue_wait(wait)
             seq = self.manager.add_sequence(ticket.uid, ticket.prompt, priority=ticket.priority,
                                             deadline=ticket.deadline, queue_wait_s=wait)
             # admit-time prefix lookup; the scheduler re-checks per prefill
             # chunk for blocks computed later
-            self.manager.map_prefix(seq)
+            self._map_prefix(seq)
+            self.tracer.event("admit", step=self.scheduler.steps, uid=ticket.uid)
+            self.tracer.on_admit(ticket.uid, now, queue_wait_s=wait,
+                                 prompt_len=len(ticket.prompt))
 
     def _prewarm(self, max_new_tokens: int) -> None:
         """Serve-time prewarm: build the forward bucket programs (capture
@@ -995,6 +1105,11 @@ class InferenceEngineV2:
     def _handle_stall(self, my: set, results: Dict[int, RequestResult],
                       strict: bool) -> None:
         self.stalls_total += 1
+        self.tracer.event("stall", step=self.scheduler.steps,
+                          live_seqs=len(self.manager.seqs),
+                          free_blocks=self.manager.allocator.free_blocks)
+        # snapshot AFTER the stall event, so the dump's flight-recorder tail
+        # ends with the trip itself
         snapshot = self.state_snapshot()
         steps = self.resilience.stall_watchdog_steps
         if strict:
@@ -1013,6 +1128,7 @@ class InferenceEngineV2:
                                              tokens=list(seq.tokens), retryable=True,
                                              preemptions=seq.preemptions,
                                              queue_wait_s=seq.queue_wait_s)
+                self.tracer.on_terminal(uid, FAILED, reason=reason, t=self.tracer.last_now)
                 self.manager.retire(uid, completed=False)
         for ticket in self.admission.drain():
             self._forget_prefix(ticket.uid)  # died queued: retire never fires
@@ -1020,6 +1136,8 @@ class InferenceEngineV2:
                 results[ticket.uid] = RequestResult(uid=ticket.uid, status=FAILED,
                                                     reason=reason + " (still queued)",
                                                     retryable=True)
+                self.tracer.on_terminal(ticket.uid, FAILED, t=self.tracer.last_now,
+                                        reason=reason + " (still queued)")
 
     def _progress_signature(self):
         return (tuple(sorted((uid, s.seen_tokens, len(s.tokens), s.done)
@@ -1028,7 +1146,9 @@ class InferenceEngineV2:
 
     def state_snapshot(self) -> Dict[str, Any]:
         """Serving state for stall diagnostics: live uids, per-sequence
-        progress and block-table occupancy, allocator free count, queue depth."""
+        progress and block-table occupancy, allocator free count, queue
+        depth, the KV census with its per-block table, the prefix cache, and
+        the flight recorder's tail (the events that led here)."""
         alloc = self.manager.allocator
         return {
             "live_uids": sorted(self.manager.seqs),
@@ -1044,15 +1164,36 @@ class InferenceEngineV2:
             "queue_depth": len(self.admission),
             "scheduler_steps": self.scheduler.steps,
             "forward_steps": self.forward_steps,
+            # the per-block census table (owner, age, residency) beside the
+            # rollups health() carries: which blocks are pinned where
+            "kv": self._kv_snapshot(with_table=True),
+            "prefix_cache": self._prefix_cache_snapshot(),
+            "flight_recorder": self.tracer.recorder.tail(),
         }
+
+    def _kv_snapshot(self, with_table: bool = False) -> Dict[str, Any]:
+        """The ``health()["kv"]`` / ``state_snapshot()["kv"]`` payload: census
+        rollups, the prefix observatory's report and the capacity forecast,
+        plus the census table on request."""
+        if self.kv_obs is None:
+            return {"enabled": False}
+        snap = self.kv_obs.snapshot(self.manager.allocator.free_blocks)
+        if with_table:
+            snap["census_table"] = self.kv_obs.census.table()
+        return snap
+
+    def _prefix_cache_snapshot(self) -> Dict[str, Any]:
+        """Realized sharing: hits, CoW copies, tokens saved, hit rate."""
+        cache = self.manager.prefix_cache
+        return cache.snapshot() if cache is not None else {"enabled": False}
 
     def health(self) -> Dict[str, Any]:
         """Liveness snapshot for external probes: pool state, queue depth,
         the lifetime resilience counters, KV-pool observability, the
-        realized prefix cache and the fast path's host-link counters — the
-        keys of the JAX engine's ``health()`` that the port has state for
-        (tracing, fault tolerance, perf, QoS and speculative decoding are
-        not ported yet)."""
+        realized prefix cache, the fast path's host-link counters, the SLO
+        latency histograms and the flight recorder's recent events: the keys
+        of the JAX engine's ``health()`` that the port has state for (fault
+        tolerance, perf, QoS and speculative decoding are not ported yet)."""
         return {
             "generated_at": self._health_generated_at,
             "live_seqs": len(self.manager.live_uids()),
@@ -1060,11 +1201,8 @@ class InferenceEngineV2:
             "free_blocks": self.manager.allocator.free_blocks,
             "kv_utilization": self.manager.kv_utilization(),
             # census rollups, the observatory's counterfactual, the forecast
-            "kv": (self.kv_obs.snapshot(self.manager.allocator.free_blocks)
-                   if self.kv_obs is not None else {"enabled": False}),
-            # realized sharing: hits, CoW copies, tokens saved, hit rate
-            "prefix_cache": (self.manager.prefix_cache.snapshot()
-                             if self.manager.prefix_cache is not None else {"enabled": False}),
+            "kv": self._kv_snapshot(),
+            "prefix_cache": self._prefix_cache_snapshot(),
             "scheduler_steps": self.scheduler.steps,
             "completed_total": self.manager.completed_requests,
             "failed_total": self.manager.failed_requests,
@@ -1074,4 +1212,12 @@ class InferenceEngineV2:
             "stall_streak": self._stall_streak,
             "stalls_total": self.stalls_total,
             "fastpath": self.counters.snapshot(),
+            # SLO latency percentiles: the admission pump feeds queue_wait
+            # even with span tracing off; ttft/tbt/e2e fill in once
+            # serving_tracing.enabled is set
+            "queue_wait": self.tracer.queue_wait.snapshot(),
+            "latency": self.tracer.latency_snapshot(),
+            "tracing_enabled": self.tracer.enabled,
+            # the recent engine-event history (always on, bounded ring)
+            "flight_recorder": self.tracer.recorder.tail(32),
         }

@@ -92,8 +92,13 @@ class DeferredTokens:
     :data:`PENDING_TOKEN` until :meth:`patch`.  ``row_of`` maps uid -> batch
     row for feeding the NEXT step's input tokens on the device.
 
-    ``tracer`` and ``journal`` are the JAX handle's seams for request tracing
-    and the request journal; both stay None until those are ported.
+    ``tracer`` (``monitor/tracing.py`` ``RequestTracer``): the first
+    :meth:`patch` is the moment this step's tokens become host-visible,
+    exactly where per-request TTFT/TBT marks belong.  They are reported once
+    although ``patch()`` itself is idempotent (the burst path pre-patches the
+    in-flight handle and the serve loop settles it again).  ``journal`` is
+    the JAX handle's seam for the request journal; it stays None until the
+    journal is ported.
     """
     toks_dev: object
     emits: List[Tuple[int, int, int]]
@@ -102,6 +107,7 @@ class DeferredTokens:
     tracer: Optional[object] = None
     journal: Optional[object] = None
     _cached: Optional[np.ndarray] = None
+    _trace_reported: bool = False
 
     def wait(self) -> np.ndarray:
         """Materialize the sampled tokens (idempotent)."""
@@ -125,6 +131,10 @@ class DeferredTokens:
             if pos < len(seq.tokens) and seq.tokens[pos] == PENDING_TOKEN:
                 seq.tokens[pos] = tok
             out[uid] = tok
+        if self.tracer is not None and not self._trace_reported:
+            self._trace_reported = True  # patch() is idempotent; the marks are not
+            self.tracer.event("absorb", tokens=len(out))
+            self.tracer.on_tokens_map(out)
         return out
 
     def drop_emit(self, uid: int) -> None:

@@ -37,9 +37,12 @@ class ScheduledChunk:
 class SplitFuseScheduler:
 
     def __init__(self, token_budget: int = 512, max_seqs_per_step: int = 64,
-                 resilience: Optional[ServingResilienceConfig] = None):
+                 resilience: Optional[ServingResilienceConfig] = None, tracer=None):
         self.token_budget = token_budget
         self.max_seqs = max_seqs_per_step
+        # RequestTracer (monitor/tracing.py): preempt/requeue land in the
+        # victim's span chain and the always-on flight recorder
+        self.tracer = tracer
         self.resilience = resilience if resilience is not None else ServingResilienceConfig()
         self.steps = 0
         self.preempted_total = 0
@@ -181,16 +184,25 @@ class SplitFuseScheduler:
                          and manager.releasable_blocks(p, len(p.blocks) // 2) > 0]
                 if fresh:
                     victim = max(fresh, key=lambda s: s.arrival)
-                    manager.preempt(victim, keep_blocks=len(victim.blocks) // 2)
+                    freed = manager.preempt(victim, keep_blocks=len(victim.blocks) // 2)
                     victim.preemptions += 1
                     self.preempted_total += 1
                     self._requeued.add(victim.uid)
+                    if self.tracer is not None:
+                        self.tracer.event("preempt", step=self.steps, uid=victim.uid,
+                                          freed_blocks=freed)
+                        self.tracer.on_preempt(victim.uid, freed_blocks=freed,
+                                               rolled_back_to=victim.seen_tokens,
+                                               preemptions=victim.preemptions)
                 elif victims:
                     # every candidate exhausted its requeue budget: evict the
                     # newest one for good rather than deadlock the decodes
                     victim = max(victims, key=lambda s: s.arrival)
-                    manager.evict(victim, "preempt_requeued_exhausted")
+                    freed = manager.evict(victim, "preempt_requeued_exhausted")
                     self.preempted_total += 1
+                    if self.tracer is not None:
+                        self.tracer.event("preempt_exhausted", step=self.steps,
+                                          uid=victim.uid, freed_blocks=freed)
                 else:
                     break  # nothing left to reclaim; the stall watchdog owns this
             if rescued:

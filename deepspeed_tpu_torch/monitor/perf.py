@@ -10,9 +10,10 @@ first eager use of a bucket key on the CPU.  Every build is recorded as
 - ``cold``: the first build of this (site, key) under traffic;
 - ``warm``: a key built again after it was already seen, a recompile.
 
-The phase profiler and roofline model of the JAX module are not ported yet.
-Nothing here reads a clock or touches a device: wall times come in from the
-caller.
+A ``warm`` build lands in the engine's flight recorder as a
+``warm_recompile`` event, as in the JAX ledger.  The phase profiler and
+roofline model of the JAX module are not ported yet.  Nothing here reads a
+clock or touches a device: wall times come in from the caller.
 """
 
 from typing import Any, Dict, Tuple
@@ -26,8 +27,9 @@ class CompileLedger:
     """Attributed record of every bucket program the serving engine builds;
     each :meth:`record` bumps ``counters.compiles`` exactly once."""
 
-    def __init__(self, counters=None):
+    def __init__(self, counters=None, *, tracer=None):
         self._counters = counters
+        self._tracer = tracer
         self._seen: Dict[Tuple[str, str], int] = {}
         self.by_site: Dict[str, Dict[str, int]] = {}
         self.warm_by_site: Dict[str, int] = {}
@@ -47,6 +49,9 @@ class CompileLedger:
         if seen:
             cls = CLASS_WARM
             self.warm_by_site[site] = self.warm_by_site.get(site, 0) + 1
+            if self._tracer is not None:
+                self._tracer.event("warm_recompile", site=site, key=k[1],
+                                   builds=seen + 1)
         else:
             cls = CLASS_PREWARMED if prewarmed else CLASS_COLD
         per_site = self.by_site.setdefault(site, {})

@@ -1,8 +1,8 @@
 """Config sections shared by training and serving.
 
 Counterpart of ``deepspeed_tpu/runtime/config.py``; the port carries the
-``serving_resilience``, ``serving_fastpath``, ``serving_kv_observability``
-and ``serving_prefix_cache`` sections and the training
+``serving_resilience``, ``serving_fastpath``, ``serving_kv_observability``,
+``serving_prefix_cache`` and ``serving_tracing`` sections and the training
 sections its single-GPU engine reads (:class:`TrainingConfig`),
 ``sparse_attention`` among them.
 """
@@ -119,6 +119,40 @@ class ServingPrefixCacheConfig(ConfigModel):
     enabled: bool = True
     cow: bool = True
     defer_shared_prefill: bool = True
+
+
+class ServingTracingConfig(ConfigModel):
+    """Request-lifecycle tracing and SLO latency histograms for the v2 ragged
+    engine (``monitor/tracing.py`` wired through ``inference/v2``), with the
+    JAX package's fields and defaults.
+
+    ``enabled`` turns on per-uid span recording (queue_wait -> prefill ->
+    decode, requeue spans around preemptions, one terminal event matching
+    the request's ``RequestResult`` status) and the TTFT/TBT/e2e histograms.
+    Tracing reads ONLY the engine's injectable clock at host-touch points
+    (admission, wave boundaries, token materialization) and adds no device
+    syncs: the fast path's ``ServeCounters`` are byte-identical on and off.
+    ``trace_jsonl`` exports each completed trace as a ``kind: trace`` record
+    through an attached telemetry collector's ``record_trace`` (the port's
+    engine attaches none yet); ``chrome_trace_path`` additionally buffers
+    Chrome-trace-event JSON (load in Perfetto / chrome://tracing), which the
+    engine writes at the end of each ``generate()`` call.
+
+    The flight recorder, a bounded ring of the last ``flight_recorder_events``
+    engine events dumped into ``ServingStalledError`` snapshots and
+    ``health()``, is ALWAYS on; the knob only sizes the ring.
+
+    Histogram buckets are logarithmic: ``histogram_buckets_per_decade``
+    buckets per decade from ``histogram_min_s`` seconds; quantiles return
+    deterministic bucket representatives (relative error bounded by one
+    bucket width), and same-shaped histograms merge exactly.
+    """
+    enabled: bool = False
+    trace_jsonl: bool = True
+    chrome_trace_path: Optional[str] = None
+    flight_recorder_events: int = Field(256, ge=16)
+    histogram_buckets_per_decade: int = Field(6, ge=1, le=100)
+    histogram_min_s: float = Field(1e-5, gt=0.0)
 
 
 # ------------------------------------------------------------------ training

@@ -223,8 +223,8 @@ def test_engine_defaults_to_cuda_and_raises_without_a_gpu(monkeypatch):
 def test_config_unknown_key_and_unported_sections_raise():
     with pytest.raises(ValueError, match="unknown config field 'max_out_tokenz'"):
         load_inference_config({"max_out_tokenz": 8})
-    with pytest.raises(NotImplementedError, match="serving_tracing"):
-        load_inference_config({"serving_tracing": {"enabled": False}})
+    with pytest.raises(NotImplementedError, match="serving_perf"):
+        load_inference_config({"serving_perf": {"enabled": False}})
     with pytest.raises(ValueError, match="not in"):
         load_inference_config({"dtype": "float64"})
     cfg = load_inference_config({"serving_resilience": {"max_preemptions": 3}})

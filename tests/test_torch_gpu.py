@@ -5,7 +5,7 @@ engine's CUDA graphs (replay against the eager forward, captures that write
 only the trash block, pipelined replays, launch counts under replay, sampled
 burst against steps), the copy-on-write block copy and a shared-prefix
 serve with graphs (shared blocks never written, tokens equal to the eager
-loop's), and tiny
+loop's), request tracing on the graph path, and tiny
 serving engines (v2; v1 dense and weight-only int8) and tiny training engines
 (dense with fused AdamW; block-sparse with 8-bit AdamW) on the GPU against the
 same engines on the CPU.  Every test here needs a card and
@@ -860,3 +860,54 @@ def test_graph_shared_prefix_serve_keeps_shared_blocks_and_matches_eager(cuda):
     assert eager.generate(prompts, max_new_tokens=10) == out
     assert off.generate(prompts, max_new_tokens=10) == out
     assert eager.health()["prefix_cache"] == pc
+
+
+class _StepClock:
+    """Each read returns the time, then advances it by 0.01 s."""
+
+    def __init__(self):
+        self.t, self.calls = 0.0, 0
+
+    def __call__(self):
+        self.calls += 1
+        t, self.t = self.t, self.t + 0.01
+        return t
+
+
+class _Sink:
+    def __init__(self):
+        self.records = []
+
+    def record_trace(self, record):
+        self.records.append(record)
+
+
+def test_graph_serve_traces_match_cpu_and_leave_counters(cuda):
+    """Request tracing on the graph path under a fake clock: the trace
+    records, percentiles and flight recorder equal the CPU engine's (the
+    stamps follow host control flow), and tracing on leaves the tokens and
+    every ServeCounters field of a tracing-off serve."""
+    traced = {"serving_tracing": {"enabled": True}}
+    params = mistral.init_params(GRAPH_CONFIG, torch.Generator().manual_seed(3))
+    kw = dict(num_blocks=64, block_size=16, max_blocks_per_seq=8, token_budget=32,
+              max_seqs_per_step=4)
+    views = {}
+    for name, device, conf in (("graphs", "cuda", traced), ("cpu", "cpu", traced),
+                               ("off", "cuda", {})):
+        engine = InferenceEngineV2(mistral, GRAPH_CONFIG, params, device=device,
+                                   clock=_StepClock(), config={"dtype": "float32", **conf}, **kw)
+        sink = engine.tracer.telemetry = _Sink()
+        out = engine.generate(GRAPH_PROMPTS, max_new_tokens=9, strict=False)
+        assert engine.programs.graphs == (device == "cuda")
+        views[name] = {"tokens": [r.tokens for r in out], "records": sink.records,
+                       "percentiles": engine.tracer.percentiles(),
+                       "recorder": [e for e in engine.tracer.recorder.tail()
+                                    if e["event"] != "warm_recompile"],
+                       "counters": engine.counters.snapshot()}
+    assert views["graphs"]["records"] and {r["status"] for r in views["graphs"]["records"]} == {
+        "ok"}
+    for key in ("tokens", "records", "percentiles", "recorder"):
+        assert views["graphs"][key] == views["cpu"][key], key
+    assert views["graphs"]["tokens"] == views["off"]["tokens"]
+    assert views["graphs"]["counters"] == views["off"]["counters"]
+    assert not views["off"]["records"]

@@ -231,10 +231,10 @@ def test_hf_llama_through_init_inference():
 
 def test_refusals_and_jax_config_keys(model, monkeypatch):
     _, cfg, _, params = model
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         init_inference(model_module=llama, model_config=cfg, params=params, device="cpu",
                        config={"tensor_parallel": {"tp_size": 2}})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         InferenceEngine(llama, cfg, params, device="cpu", topology=object())
     with pytest.raises(ValueError, match="needs"):
         init_inference(config=CONF, device="cpu")
