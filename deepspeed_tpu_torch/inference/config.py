@@ -11,15 +11,15 @@ from typing import Optional
 import torch
 
 from ..runtime.config import (KVObservabilityConfig, ServingFastpathConfig,
-                              ServingPrefixCacheConfig, ServingResilienceConfig,
-                              ServingTracingConfig)
+                              ServingFaultToleranceConfig, ServingPrefixCacheConfig,
+                              ServingResilienceConfig, ServingTracingConfig)
 from ..runtime.config_utils import ConfigModel, Field
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 # sections of the JAX InferenceConfig the port does not implement yet
-UNPORTED_SECTIONS = ("serving_fault_tolerance", "serving_qos", "serving_spec_decode",
-                     "serving_perf", "ops_server", "serving_fleet")
+UNPORTED_SECTIONS = ("serving_qos", "serving_spec_decode", "serving_perf", "ops_server",
+                     "serving_fleet")
 
 
 class TPConfig(ConfigModel):
@@ -62,6 +62,9 @@ class InferenceConfig(ConfigModel):
     # request tracing, SLO latency histograms and the always-on flight
     # recorder (monitor/tracing.py)
     serving_tracing: ServingTracingConfig = Field(ServingTracingConfig)
+    # durable request journal, serve-iteration heartbeat and the supervisor's
+    # restart budget (inference/v2/journal.py, supervisor.py)
+    serving_fault_tolerance: ServingFaultToleranceConfig = Field(ServingFaultToleranceConfig)
 
     def model_validate(self):
         if self.tensor_parallel is None:

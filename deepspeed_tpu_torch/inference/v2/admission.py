@@ -11,6 +11,9 @@ Counterpart of ``deepspeed_tpu/inference/v2/admission.py``:
   returns: every request ends in exactly one terminal status.
 - :class:`ServingStalledError` — raised by the engine's progress watchdog in
   place of an unbounded loop; carries a state snapshot for postmortems.
+- :class:`RecoveredRequest` — one re-admission unit of supervised crash
+  recovery (``supervisor.py`` → ``engine.serve_recovered``): a journaled
+  request with the token prefix it already emitted and its remaining TTL.
 
 Thresholds come from ``ServingResilienceConfig``.  All host-side.
 """
@@ -91,6 +94,39 @@ class AdmissionTicket:
     priority: int = 0                  # lower pops first; ties are FIFO
     deadline: Optional[float] = None   # absolute clock() time; None = no TTL
     enqueue_t: float = 0.0
+    # crash-recovery re-admission provenance: tokens this request already
+    # emitted in a previous engine life, replayed from the durable request
+    # journal.  The pump admits ``prompt + prefix`` as the sequence's token
+    # history with ``prompt_len`` pinned to the ORIGINAL prompt, so the
+    # recovered decode continues from where it died (the prefix counts as
+    # generated output, not prompt) instead of restarting from scratch.
+    prefix: List[int] = dataclasses.field(default_factory=list)
+    recovered: bool = False
+
+    @property
+    def total_len(self) -> int:
+        """Full token history, prompt + recovered prefix."""
+        return len(self.prompt) + len(self.prefix)
+
+
+@dataclasses.dataclass
+class RecoveredRequest:
+    """One re-admission unit for supervised crash recovery
+    (``supervisor.py`` → ``engine.serve_recovered``): a journaled request
+    plus its already-emitted token prefix and the REMAINING TTL budget
+    (computed on the original wall-clock admit stamp, so a restart never
+    refreshes a deadline).  ``prefix=[]`` re-admits a request that never
+    emitted (or a brand-new one riding the same call)."""
+    uid: int
+    prompt: List[int]
+    prefix: List[int] = dataclasses.field(default_factory=list)
+    priority: int = 0
+    ttl_s: Optional[float] = None      # remaining TTL; None = no deadline
+    pin_ttl: bool = False              # True: ttl_s is authoritative AS-IS
+    # (None = genuinely deadline-free) — a recovered request whose original
+    # life had no TTL must not be handed one by the new engine's
+    # default_ttl_s.  False (new requests): ttl_s=None falls through to the
+    # config default exactly like generate().
 
 
 class AdmissionQueue:
@@ -150,10 +186,21 @@ class AdmissionQueue:
     # --------------------------------------------------------------- intake
     def submit(self, uid: int, prompt: List[int], *, priority: int = 0,
                ttl_s: Optional[float] = None, kv_utilization: Optional[float] = None,
-               token_cap: Optional[int] = None) -> Optional[ShedReason]:
+               token_cap: Optional[int] = None, prefix: Optional[List[int]] = None,
+               apply_default_ttl: bool = True,
+               recovered: bool = False) -> Optional[ShedReason]:
         """Admit-or-shed.  Returns None on admission, else the ShedReason.
-        ``ttl_s=None`` falls back to the config's ``default_ttl_s``."""
-        reason = self.shed_reason(len(prompt), kv_utilization=kv_utilization,
+        ``ttl_s=None`` falls back to the config's ``default_ttl_s``.
+
+        ``prefix``/``recovered`` carry crash-recovery provenance: the
+        shedding policy sees the FULL token history (prompt + prefix) — a
+        recovered request whose history no longer fits the per-sequence KV
+        cap is a genuine rejection, not an accounting accident.
+        ``apply_default_ttl=False`` pins ``ttl_s`` as authoritative
+        (None = deadline-free) so a re-admission never refreshes or invents
+        a deadline the original request didn't have."""
+        prefix = list(prefix) if prefix else []
+        reason = self.shed_reason(len(prompt) + len(prefix), kv_utilization=kv_utilization,
                                   token_cap=token_cap)
         if reason is not None:
             self.shed_total += 1
@@ -168,12 +215,15 @@ class AdmissionQueue:
                                     detail=reason.detail)
             return reason
         now = self.clock()
-        ttl = ttl_s if ttl_s is not None else self.config.default_ttl_s
+        if ttl_s is not None or not apply_default_ttl:
+            ttl = ttl_s
+        else:
+            ttl = self.config.default_ttl_s
         # `is not None`, not truthiness: an explicit ttl of 0.0 (a spent
         # budget) means "already expired", not "no deadline"
         ticket = AdmissionTicket(uid=int(uid), prompt=list(prompt), priority=int(priority),
                                  deadline=(now + ttl) if ttl is not None else None,
-                                 enqueue_t=now)
+                                 enqueue_t=now, prefix=prefix, recovered=bool(recovered))
         heapq.heappush(self._heap, (ticket.priority, self._seq, ticket))
         self._seq += 1
         if self.tracer is not None:
@@ -181,7 +231,7 @@ class AdmissionQueue:
             # was stamped with: tracing adds no clock read at this seam
             self.tracer.tick(now)
             self.tracer.event("submit", uid=ticket.uid, priority=ticket.priority)
-            self.tracer.on_submit(ticket.uid, now, prompt_len=len(ticket.prompt),
+            self.tracer.on_submit(ticket.uid, now, prompt_len=ticket.total_len,
                                   priority=ticket.priority)
         return None
 
@@ -203,11 +253,12 @@ class AdmissionQueue:
         return None, expired
 
     def queued_stats(self) -> Tuple[int, int]:
-        """(depth, longest queued prompt) without mutating the queue: the
-        serve-time prewarm sizes its candidate buckets from what is waiting."""
+        """(depth, longest queued history, prompt + recovered prefix) without
+        mutating the queue: the serve-time prewarm sizes its candidate
+        buckets from what is waiting."""
         if not self._heap:
             return 0, 0
-        return len(self._heap), max(len(entry[2].prompt) for entry in self._heap)
+        return len(self._heap), max(entry[2].total_len for entry in self._heap)
 
     def drain(self) -> List[AdmissionTicket]:
         """Remove and return every queued ticket (stall cleanup), in pop order."""

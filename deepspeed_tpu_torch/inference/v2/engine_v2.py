@@ -46,14 +46,22 @@ engine events is always on and rides ``health()``, ``state_snapshot()``
 and the stall dump.  The tracer reads only the engine's injectable clock,
 at points the host already touches, and never syncs the device.
 
+Serving fault tolerance (``serving_fault_tolerance``, off by default as in
+the JAX engine, or armed by ``ServingSupervisor``'s env exports): a durable
+CRC-framed request journal (``journal.py``: every admit, the emitted tokens
+at each wave boundary, every terminal) and a serve-iteration liveness
+heartbeat (``runtime/heartbeat.py``), both from host ints the loop already
+holds; ``serve_recovered`` re-admits journaled requests with the prefix
+they already emitted (``supervisor.py`` drives it after a crash).
+
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU; it
-never falls back from one to the other.  The request journal, telemetry,
-QoS, speculative decoding and tensor parallelism of the JAX engine are not
-ported yet.
+never falls back from one to the other.  Telemetry, QoS, speculative
+decoding and tensor parallelism of the JAX engine are not ported yet.
 """
 
 import collections
 import functools
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
@@ -62,14 +70,19 @@ import torch
 
 from ...monitor.perf import CompileLedger
 from ...monitor.tracing import RequestTracer
+from ...runtime.heartbeat import (HEARTBEAT_DIR_ENV, HEARTBEAT_INTERVAL_ENV, NULL_HEARTBEAT,
+                                  SERVING_FSYNC_ENV, SERVING_GENERATION_ENV,
+                                  SERVING_JOURNAL_ENV, HeartbeatWriter)
+from ...utils.env import env_float, env_int
 from ..config import DTYPES as _DTYPES, load_inference_config
 from ..engine import _sample
 from .admission import (DEADLINE_EXPIRED, FAILED, OK, PREEMPT_REQUEUED_EXHAUSTED, SHED,
-                        AdmissionQueue, RequestResult, ServingStalledError)
+                        AdmissionQueue, RecoveredRequest, RequestResult, ServingStalledError)
 from .blocked_allocator import KVAllocationError
 from .cuda_graphs import BucketPrograms
 from .fastpath import (FED_SENTINEL, PENDING_TOKEN, DeferredTokens, DeviceBatchState,
                        ServeCounters, materialize, round_up_pow2, upload)
+from .journal import RequestJournal, journal_bytes
 from .kv_metrics import KVObservability
 from .ragged_manager import PrefixCache, RaggedStateManager
 from .scheduler import SplitFuseScheduler
@@ -114,7 +127,7 @@ class InferenceEngineV2:
                  num_blocks: int = 512, block_size: int = 16,
                  max_blocks_per_seq: int = 64, token_budget: int = 256,
                  max_seqs_per_step: int = 32, clock: Optional[Callable[[], float]] = None,
-                 device="cuda"):
+                 device="cuda", journal: Optional[RequestJournal] = None):
         self.config = load_inference_config(config)
         self.device = resolve_device(device)
         self.model = model_module
@@ -154,6 +167,39 @@ class InferenceEngineV2:
         self.admission = AdmissionQueue(self.resilience, clock=self._clock, tracer=self.tracer)
         self.scheduler = SplitFuseScheduler(token_budget, max_seqs_per_step,
                                             resilience=self.resilience, tracer=self.tracer)
+        # serving fault tolerance: durable request journal + serve-iteration
+        # liveness heartbeat, armed from config OR the ServingSupervisor's
+        # env exports (DSTPU_SERVING_JOURNAL + DSTPU_HEARTBEAT_DIR), so a
+        # supervised worker needs no config changes.  The env heartbeat dir
+        # counts ONLY under a serving supervisor (the journal env marks
+        # that): a serving engine inside a supervised training worker must
+        # not clobber the trainer's rank stamps.
+        self.ft = self.config.serving_fault_tolerance
+        generation = int(os.environ.get(SERVING_GENERATION_ENV, "0") or 0)
+        if journal is None:
+            jp = os.environ.get(SERVING_JOURNAL_ENV) or \
+                (self.ft.journal_path if self.ft.enabled else None)
+            if jp:
+                # the supervisor exports its fsync policy beside the path
+                journal = RequestJournal(
+                    jp, fsync_every=env_int(SERVING_FSYNC_ENV, self.ft.fsync_every),
+                    seed=self.config.seed)
+        self.journal = journal
+        if self.journal is not None:
+            self.journal.open_generation(generation)
+        self._heartbeat = NULL_HEARTBEAT
+        under_supervisor = bool(os.environ.get(SERVING_JOURNAL_ENV))
+        hb_dir = (os.environ.get(HEARTBEAT_DIR_ENV) if under_supervisor else None) \
+            or (self.ft.heartbeat_dir if self.ft.heartbeat else None)
+        if hb_dir:
+            self._heartbeat = HeartbeatWriter(
+                hb_dir, rank=0,
+                interval_s=env_float(HEARTBEAT_INTERVAL_ENV, self.ft.heartbeat_interval_s),
+                generation=generation)
+        # recovery counters for health()/state_snapshot(); the supervisor
+        # stamps restarts_total/degraded onto each engine it builds
+        self.ft_stats = {"restarts_total": 0, "recovered_requests_total": 0,
+                         "degraded": False}
         self._deadline_expired_total = 0
         self._stall_streak = 0
         self.stalls_total = 0  # lifetime watchdog trips (streaks are transient)
@@ -208,6 +254,11 @@ class InferenceEngineV2:
             seq = self.manager.add_sequence(int(uid), [int(t) for t in prompt],
                                             deadline=deadline)
             self._map_prefix(seq)  # shared prompt blocks already computed
+            if self.journal is not None:
+                # step()-level requests journal too (max_new_tokens=0: the
+                # caller's own loop owns the budget)
+                self.journal.record_admit(int(uid), [int(t) for t in prompt], ttl_s=ttl,
+                                          max_new_tokens=0)
             self.tracer.event("admit", uid=int(uid), direct=True)
             self.tracer.on_admit(int(uid), now, prompt_len=len(prompt))
         # prefix-sharing opportunity over the post-intake live set
@@ -228,6 +279,10 @@ class InferenceEngineV2:
             status = finish_reason
         else:
             status = OK
+        if self.journal is not None and uid in self.journal.watched:
+            self.journal.record_terminal(
+                uid, status, finish_reason=finish_reason, reason=failure,
+                n_tokens=seq.generated_tokens if seq is not None else 0)
         self.tracer.on_terminal(uid, status, finish_reason=finish_reason, reason=failure,
                                 t=self.tracer.last_now)
 
@@ -354,7 +409,8 @@ class InferenceEngineV2:
         self._kv_steps += 1
         self._refresh_kv()
         return DeferredTokens(toks_dev=toks_dev, emits=emits, row_of=row_of,
-                              counters=self.counters, tracer=self.tracer)
+                              counters=self.counters, tracer=self.tracer,
+                              journal=self.journal)
 
     def _step_reference(self, greedy: bool) -> Dict[int, int]:
         """The reference step: full host-side batch rebuild, four uploads and
@@ -405,6 +461,8 @@ class InferenceEngineV2:
         self.counters.step_tokens += len(out)
         self.tracer.event("absorb", step=self.scheduler.steps, tokens=len(out))
         self.tracer.on_tokens_map(out)
+        if self.journal is not None:
+            self.journal.note_token_map(out)
         self._kv_steps += 1
         self._refresh_kv()
         return out
@@ -682,6 +740,12 @@ class InferenceEngineV2:
         self.scheduler.note_fused_work(k, sum(len(v) for v in out.values()))
         self.tracer.event("burst", step=self.scheduler.steps, k=k, seqs=len(live))
         self.tracer.on_burst_tokens({uid: len(toks_) for uid, toks_ in out.items()})
+        if self.journal is not None:
+            # a burst IS a wave boundary: the host just materialized k tokens
+            # per sequence in one sync, so the journal appends one delta
+            # frame here at no extra device cost
+            self.journal.note_token_map(out)
+            self.journal.flush()
         self._kv_steps += k
         self._refresh_kv()
         return out
@@ -716,11 +780,40 @@ class InferenceEngineV2:
             return [results[u].tokens for u in uids]
         return [results[u] for u in uids]
 
+    def serve_recovered(self, requests: Sequence[RecoveredRequest], *,
+                        max_new_tokens: int, eos_token_id: Optional[int] = None,
+                        greedy: bool = True, strict: bool = False
+                        ) -> Dict[int, RequestResult]:
+        """Serve a batch where some requests resume a previous engine life:
+        each :class:`RecoveredRequest` carries the token prefix it already
+        emitted (replayed from the durable journal) and its REMAINING TTL.
+        Re-admitted sequences prefill ``prompt + prefix`` in one pass (the
+        KV rebuild) and then continue decoding from where they died; the
+        prefix counts against ``max_new_tokens`` so a recovered request
+        never overruns its original budget.  Entries with an empty prefix
+        are ordinary admissions riding the same call (the supervisor routes
+        new work through here too, so one serve covers a mixed recovery)."""
+        uids = [int(r.uid) for r in requests]
+        prompts = [list(r.prompt) for r in requests]
+        prefixes = {int(r.uid): [int(t) for t in r.prefix] for r in requests if r.prefix}
+        ttls = {int(r.uid): r.ttl_s for r in requests if r.pin_ttl}
+        priorities = [int(r.priority) for r in requests]
+        self.ft_stats["recovered_requests_total"] += len(prefixes)
+        for r in requests:
+            if r.prefix:
+                self.tracer.event("recovered", uid=int(r.uid), prefix=len(r.prefix))
+        return self._serve(uids, prompts, max_new_tokens=max_new_tokens,
+                           eos_token_id=eos_token_id, greedy=greedy, strict=strict,
+                           priorities=priorities, ttl_s=None, prefixes=prefixes, ttls=ttls)
+
     @torch.no_grad()
     def _serve(self, uids: List[int], prompts: Sequence[Sequence[int]], *,
                max_new_tokens: int, eos_token_id: Optional[int], greedy: bool,
                strict: bool, priorities: Optional[Sequence[int]],
-               ttl_s: Optional[float]) -> Dict[int, RequestResult]:
+               ttl_s: Optional[float],
+               prefixes: Optional[Dict[int, List[int]]] = None,
+               ttls: Optional[Dict[int, Optional[float]]] = None
+               ) -> Dict[int, RequestResult]:
         my = set(uids)
         self._reset_table_width_if_idle()
         conflict = sorted(my & set(self.manager.seqs))
@@ -736,23 +829,49 @@ class InferenceEngineV2:
             # not poison the fresh request
             self.manager.failures.pop(uid, None)
         results: Dict[int, RequestResult] = {}
-        produced = {u: 0 for u in uids}
+        # a recovered prefix pre-spends its share of the max_new_tokens
+        # budget: the request finishes after (budget - prefix) NEW tokens
+        produced = {u: len(prefixes[u]) if prefixes and u in prefixes else 0 for u in uids}
         token_cap = self.manager.max_blocks_per_seq * self.manager.block_size
         try:
             # ---- admission: shed-or-queue BEFORE any KV allocation
             for i, (uid, prompt) in enumerate(zip(uids, prompts)):
+                prefix = prefixes.get(uid, []) if prefixes else []
+                if ttls is not None and uid in ttls:
+                    t, apply_default = ttls[uid], False  # recovery pins the TTL
+                else:
+                    t, apply_default = ttl_s, True
+                priority = priorities[i] if priorities is not None else 0
                 shed = self.admission.submit(
-                    uid, [int(tok) for tok in prompt],
-                    priority=priorities[i] if priorities is not None else 0,
-                    ttl_s=ttl_s, kv_utilization=self.manager.kv_utilization(),
-                    token_cap=token_cap)
+                    uid, [int(tok) for tok in prompt], priority=priority, ttl_s=t,
+                    apply_default_ttl=apply_default,
+                    kv_utilization=self.manager.kv_utilization(), token_cap=token_cap,
+                    prefix=prefix or None, recovered=bool(prefix))
                 if shed is not None:
+                    if self.journal is not None:
+                        # direct write, not _journal_terminal: a shed request
+                        # was never admitted, so it is not watched (and a
+                        # recovered one re-shed here is only in a PREVIOUS
+                        # generation's watched set), yet its terminal must be
+                        # durable or replay re-serves it forever
+                        self.journal.record_terminal(uid, SHED, reason=str(shed),
+                                                     retryable=shed.retryable)
                     if strict:
                         raise RuntimeError(f"request {uid} shed: {shed}")
                     results[uid] = RequestResult(uid=uid, status=SHED, reason=str(shed),
                                                  retryable=shed.retryable,
                                                  retry_after_s=shed.retry_after_s,
                                                  shed_code=shed.code)
+                elif self.journal is not None:
+                    # the effective TTL (what admission just stamped) rides
+                    # the admit record, with a wall-clock stamp so recovery
+                    # keeps the ORIGINAL deadline clock across processes
+                    effective = t if t is not None else \
+                        (self.resilience.default_ttl_s if apply_default else None)
+                    self.journal.record_admit(
+                        uid, [int(tok) for tok in prompt], priority=priority,
+                        ttl_s=effective, max_new_tokens=max_new_tokens,
+                        eos_token_id=eos_token_id, greedy=greedy, prefix_len=len(prefix))
             # counterfactual prefix-cache report for THIS pass: the queued
             # (non-shed) prompts joining whatever is already live
             self._observe_prefix({uid: [int(t) for t in prompt]
@@ -773,6 +892,10 @@ class InferenceEngineV2:
             # the Chrome-trace export (when configured), a strict raise
             # included: the partial trace is what the postmortem wants
             self.tracer.write_chrome_trace()
+            if self.journal is not None:
+                # buffered token deltas must not outlive the call that
+                # materialized them (a strict raise included)
+                self.journal.flush()
         return results
 
     def _serve_loop(self, uids: List[int], my: set, results: Dict[int, RequestResult],
@@ -793,6 +916,9 @@ class InferenceEngineV2:
 
         while any(u not in results for u in uids):
             self.counters.loop_iterations += 1
+            # serve-iteration liveness stamp on host ints only (throttled in
+            # the writer; the NULL writer when supervision is off)
+            self._heartbeat.stamp(self.counters.loop_iterations, phase="serving")
             if self._inflight is not None and (len(self.admission)
                                                or self._any_live_deadline()):
                 # wave boundary: admission/deadline handling below may evict
@@ -866,6 +992,12 @@ class InferenceEngineV2:
                 stall_streak, last_sig = 0, None
                 self._stall_streak = 0
 
+            if self.journal is not None:
+                # wave-boundary journal flush: every token this iteration
+                # materialized is already host-side, so the delta frame costs
+                # one buffered file append (fsync amortized per fsync_every)
+                self.journal.flush()
+
         if self._inflight is not None:
             # the final absorb resolved every request with a step still in
             # flight (a coexisting put() sequence rode it): patch its
@@ -904,6 +1036,7 @@ class InferenceEngineV2:
             if uid in my and uid not in results:
                 if strict:
                     raise RuntimeError(f"request {uid} failed: {reason}")
+                self._journal_terminal(uid, FAILED, reason=reason)
                 self.tracer.event("failed", step=self.scheduler.steps, uid=uid)
                 self.tracer.on_terminal(uid, FAILED, reason=reason)
                 seq = self.manager.seqs.get(uid)
@@ -934,6 +1067,8 @@ class InferenceEngineV2:
                                              reason="deadline expired while running",
                                              queue_wait_s=seq.queue_wait_s,
                                              preemptions=seq.preemptions)
+                self._journal_terminal(uid, DEADLINE_EXPIRED, retryable=True,
+                                       reason="deadline expired while running")
                 self.tracer.on_terminal(uid, DEADLINE_EXPIRED,
                                         reason="deadline expired while running")
                 self.manager.retire(uid, completed=False)
@@ -947,6 +1082,9 @@ class InferenceEngineV2:
                     tokens=list(seq.tokens), retryable=True,
                     reason=f"preempted {seq.preemptions}x under KV pressure",
                     preemptions=seq.preemptions, queue_wait_s=seq.queue_wait_s)
+                self._journal_terminal(
+                    uid, PREEMPT_REQUEUED_EXHAUSTED, retryable=True,
+                    reason=f"preempted {seq.preemptions}x under KV pressure")
                 self.tracer.on_terminal(
                     uid, PREEMPT_REQUEUED_EXHAUSTED,
                     reason=f"preempted {seq.preemptions}x under KV pressure")
@@ -1009,6 +1147,7 @@ class InferenceEngineV2:
                                      finish_reason=finish_reason,
                                      queue_wait_s=seq.queue_wait_s,
                                      preemptions=seq.preemptions)
+        self._journal_terminal(uid, OK, finish_reason=finish_reason)
         self.tracer.event("finish", step=self.scheduler.steps, uid=uid, reason=finish_reason)
         self.tracer.on_terminal(uid, OK, finish_reason=finish_reason)
         self.manager.retire(uid)  # reclaim KV blocks immediately, not at batch end
@@ -1052,6 +1191,8 @@ class InferenceEngineV2:
                     results[t.uid] = RequestResult(
                         uid=t.uid, status=DEADLINE_EXPIRED, retryable=True,
                         reason="deadline expired in the admission queue")
+                    self._journal_terminal(t.uid, DEADLINE_EXPIRED, retryable=True,
+                                           reason="deadline expired in the admission queue")
                     self.tracer.on_terminal(t.uid, DEADLINE_EXPIRED, t=self.tracer.last_now,
                                             reason="deadline expired in the admission queue")
             if ticket is None:
@@ -1062,14 +1203,20 @@ class InferenceEngineV2:
             # the queue-wait histogram feeds health() even with span tracing
             # off: the wait is already computed, pure host arithmetic
             self.tracer.observe_queue_wait(wait)
-            seq = self.manager.add_sequence(ticket.uid, ticket.prompt, priority=ticket.priority,
-                                            deadline=ticket.deadline, queue_wait_s=wait)
+            # crash recovery: a re-admitted ticket's token history is
+            # prompt + already-emitted prefix (prefilled in one pass, the KV
+            # rebuild), with prompt_len pinned so the prefix keeps counting
+            # as generated output, not prompt
+            seq = self.manager.add_sequence(ticket.uid, ticket.prompt + ticket.prefix,
+                                            priority=ticket.priority, deadline=ticket.deadline,
+                                            queue_wait_s=wait, prompt_len=len(ticket.prompt))
             # admit-time prefix lookup; the scheduler re-checks per prefill
             # chunk for blocks computed later
             self._map_prefix(seq)
-            self.tracer.event("admit", step=self.scheduler.steps, uid=ticket.uid)
+            self.tracer.event("admit", step=self.scheduler.steps, uid=ticket.uid,
+                              **({"recovered": True} if ticket.recovered else {}))
             self.tracer.on_admit(ticket.uid, now, queue_wait_s=wait,
-                                 prompt_len=len(ticket.prompt))
+                                 prompt_len=ticket.total_len)
 
     def _prewarm(self, max_new_tokens: int) -> None:
         """Serve-time prewarm: build the forward bucket programs (capture
@@ -1128,6 +1275,7 @@ class InferenceEngineV2:
                                              tokens=list(seq.tokens), retryable=True,
                                              preemptions=seq.preemptions,
                                              queue_wait_s=seq.queue_wait_s)
+                self._journal_terminal(uid, FAILED, reason=reason, retryable=True)
                 self.tracer.on_terminal(uid, FAILED, reason=reason, t=self.tracer.last_now)
                 self.manager.retire(uid, completed=False)
         for ticket in self.admission.drain():
@@ -1136,6 +1284,8 @@ class InferenceEngineV2:
                 results[ticket.uid] = RequestResult(uid=ticket.uid, status=FAILED,
                                                     reason=reason + " (still queued)",
                                                     retryable=True)
+                self._journal_terminal(ticket.uid, FAILED, retryable=True,
+                                       reason=reason + " (still queued)")
                 self.tracer.on_terminal(ticket.uid, FAILED, t=self.tracer.last_now,
                                         reason=reason + " (still queued)")
 
@@ -1144,11 +1294,31 @@ class InferenceEngineV2:
                              for uid, s in self.manager.seqs.items())),
                 len(self.admission), self.manager.allocator.free_blocks)
 
+    def _journal_terminal(self, uid: int, status: str, *,
+                          finish_reason: Optional[str] = None,
+                          reason: Optional[str] = None,
+                          retryable: bool = False) -> None:
+        """Mirror a ``RequestResult`` construction into the durable journal
+        (only for uids this journal admitted — foreign put() traffic keeps
+        its own lifecycle).  Terminal records order after their buffered
+        token deltas; strict mode writes + fsyncs them eagerly, throughput
+        mode lands them at the next wave flush (a one-iteration window — a
+        crash inside it re-serves the finished request from its journaled
+        prefix)."""
+        j = self.journal
+        if j is None or uid not in j.watched:
+            return
+        seq = self.manager.seqs.get(uid)
+        j.record_terminal(uid, status, finish_reason=finish_reason, reason=reason,
+                          retryable=retryable,
+                          n_tokens=seq.generated_tokens if seq is not None else 0)
+
     def state_snapshot(self) -> Dict[str, Any]:
         """Serving state for stall diagnostics: live uids, per-sequence
         progress and block-table occupancy, allocator free count, queue
-        depth, the KV census with its per-block table, the prefix cache, and
-        the flight recorder's tail (the events that led here)."""
+        depth, the KV census with its per-block table, the prefix cache, the
+        recovery counters, and the flight recorder's tail (the events that
+        led here)."""
         alloc = self.manager.allocator
         return {
             "live_uids": sorted(self.manager.seqs),
@@ -1168,6 +1338,7 @@ class InferenceEngineV2:
             # rollups health() carries: which blocks are pinned where
             "kv": self._kv_snapshot(with_table=True),
             "prefix_cache": self._prefix_cache_snapshot(),
+            "fault_tolerance": self._fault_tolerance_snapshot(),
             "flight_recorder": self.tracer.recorder.tail(),
         }
 
@@ -1187,13 +1358,27 @@ class InferenceEngineV2:
         cache = self.manager.prefix_cache
         return cache.snapshot() if cache is not None else {"enabled": False}
 
+    def _fault_tolerance_snapshot(self) -> Dict[str, Any]:
+        """Supervised restarts, requests recovered with a prefix, the
+        drain-only flag, the journal's bytes on disk, and whether the
+        journal and the heartbeat are armed."""
+        return {
+            **{k: self.ft_stats[k] for k in ("restarts_total", "recovered_requests_total",
+                                             "degraded")},
+            "journal_bytes": journal_bytes(self.journal.path if self.journal is not None
+                                           else None),
+            "journaling": self.journal is not None and self.journal.enabled,
+            "heartbeat": bool(getattr(self._heartbeat, "enabled", False)),
+        }
+
     def health(self) -> Dict[str, Any]:
         """Liveness snapshot for external probes: pool state, queue depth,
         the lifetime resilience counters, KV-pool observability, the
         realized prefix cache, the fast path's host-link counters, the SLO
-        latency histograms and the flight recorder's recent events: the keys
-        of the JAX engine's ``health()`` that the port has state for (fault
-        tolerance, perf, QoS and speculative decoding are not ported yet)."""
+        latency histograms, the recovery counters and the flight recorder's
+        recent events: the keys of the JAX engine's ``health()`` that the
+        port has state for (perf, QoS and speculative decoding are not
+        ported yet)."""
         return {
             "generated_at": self._health_generated_at,
             "live_seqs": len(self.manager.live_uids()),
@@ -1218,6 +1403,9 @@ class InferenceEngineV2:
             "queue_wait": self.tracer.queue_wait.snapshot(),
             "latency": self.tracer.latency_snapshot(),
             "tracing_enabled": self.tracer.enabled,
+            # crash durability: supervised restarts, requests recovered with
+            # an emitted prefix, journal size on disk, drain-only flag
+            "fault_tolerance": self._fault_tolerance_snapshot(),
             # the recent engine-event history (always on, bounded ring)
             "flight_recorder": self.tracer.recorder.tail(32),
         }

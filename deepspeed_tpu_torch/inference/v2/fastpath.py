@@ -96,9 +96,13 @@ class DeferredTokens:
     :meth:`patch` is the moment this step's tokens become host-visible,
     exactly where per-request TTFT/TBT marks belong.  They are reported once
     although ``patch()`` itself is idempotent (the burst path pre-patches the
-    in-flight handle and the serve loop settles it again).  ``journal`` is
-    the JAX handle's seam for the request journal; it stays None until the
-    journal is ported.
+    in-flight handle and the serve loop settles it again).
+
+    ``journal`` (``journal.py`` ``RequestJournal``): the same host-visibility
+    moment is where emitted tokens enter the durable request journal's
+    buffer — tokens the journal never saw die with a crash and are
+    regenerated identically from the journaled prefix, so buffering at this
+    seam adds no device sync and no extra fetch.
     """
     toks_dev: object
     emits: List[Tuple[int, int, int]]
@@ -131,10 +135,14 @@ class DeferredTokens:
             if pos < len(seq.tokens) and seq.tokens[pos] == PENDING_TOKEN:
                 seq.tokens[pos] = tok
             out[uid] = tok
-        if self.tracer is not None and not self._trace_reported:
+        if not self._trace_reported and (self.tracer is not None
+                                         or self.journal is not None):
             self._trace_reported = True  # patch() is idempotent; the marks are not
-            self.tracer.event("absorb", tokens=len(out))
-            self.tracer.on_tokens_map(out)
+            if self.tracer is not None:
+                self.tracer.event("absorb", tokens=len(out))
+                self.tracer.on_tokens_map(out)
+            if self.journal is not None:
+                self.journal.note_token_map(out)
         return out
 
     def drop_emit(self, uid: int) -> None:

@@ -70,7 +70,7 @@ class SequenceDescriptor:
     blocks: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     # --- admission / resilience metadata (inference/v2/admission.py) ---
-    prompt_len: int = 0        # len(tokens) at intake; generated = len(tokens) - prompt_len
+    prompt_len: int = 0        # prompt tokens at intake; generated = len(tokens) - prompt_len
     arrival: int = 0           # monotonic intake order; preemption evicts the newest
     priority: int = 0          # lower = more urgent (admission-queue order)
     deadline: Optional[float] = None  # absolute clock time; engine evicts past it
@@ -247,18 +247,30 @@ class RaggedStateManager:
         return self.allocator.trash_block
 
     def add_sequence(self, uid: int, prompt_tokens: List[int], *, priority: int = 0,
-                     deadline: Optional[float] = None,
-                     queue_wait_s: float = 0.0) -> SequenceDescriptor:
+                     deadline: Optional[float] = None, queue_wait_s: float = 0.0,
+                     prompt_len: Optional[int] = None) -> SequenceDescriptor:
+        """``prompt_len`` pins where prompt ends and generated output begins
+        when it differs from ``len(prompt_tokens)`` — crash recovery
+        re-admits ``prompt + already-emitted-prefix`` as the token history
+        (the prefill rebuilds their KV in one pass) while the prefix keeps
+        counting as GENERATED tokens for budgets and results."""
         if uid in self.seqs:
             raise ValueError(f"uid {uid} already tracked")
         if not prompt_tokens:
             raise EmptyPromptError(uid)
+        if prompt_len is None:
+            prompt_len = len(prompt_tokens)
+        elif not 0 < prompt_len <= len(prompt_tokens):
+            raise ValueError(f"uid {uid}: prompt_len={prompt_len} outside "
+                             f"(0, {len(prompt_tokens)}]")
         seq = SequenceDescriptor(uid=uid, tokens=list(prompt_tokens),
-                                 prompt_len=len(prompt_tokens), arrival=self._arrivals,
+                                 prompt_len=int(prompt_len), arrival=self._arrivals,
                                  priority=priority, deadline=deadline,
                                  queue_wait_s=queue_wait_s)
         if self.prefix_cache is not None:
-            # the tree's keying, computed once per life over the prompt
+            # the tree's keying, computed once per life over the PROMPT
+            # portion only (a recovered request's replayed prefix is
+            # generated output, never shareable read-only)
             seq.prefix_hashes = block_hashes(seq.tokens[:seq.prompt_len], self.block_size,
                                              tenant_namespace(seq.tenant))
         self._arrivals += 1

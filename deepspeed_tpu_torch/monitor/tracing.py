@@ -177,9 +177,13 @@ class FlightRecorder:
     The serve loop records dispatch/absorb/flush/burst/preempt/shed/
     submit/admit/expire/finish/failed/stall, the KV observability layer
     ``kv_pressure`` edges, the prefix cache ``prefix_hit`` and the compile
-    ledger ``warm_recompile``.  The JAX package's serving fault-tolerance
-    layer and supervisor (not ported yet) land their lifecycle in the same
-    ring.
+    ledger ``warm_recompile``.  The serving fault-tolerance layer lands its
+    lifecycle here too: ``replay`` (a journal read back), ``restart`` (a
+    supervised engine rebuild), ``recovered`` (a request re-admitted with
+    its emitted prefix) and ``finalized`` (a terminal the recovery planner
+    wrote without re-serving), so a crash postmortem reads as one ring.
+    ``ServingSupervisor`` keeps its own instance for the process-level view
+    (generation_spawned/worker_failed/hang_detected/degraded/run_complete).
     """
 
     def __init__(self, capacity: int = 256):

@@ -2,7 +2,8 @@
 
 Counterpart of ``deepspeed_tpu/runtime/config.py``; the port carries the
 ``serving_resilience``, ``serving_fastpath``, ``serving_kv_observability``,
-``serving_prefix_cache`` and ``serving_tracing`` sections and the training
+``serving_prefix_cache``, ``serving_tracing`` and ``serving_fault_tolerance``
+sections and the training
 sections its single-GPU engine reads (:class:`TrainingConfig`),
 ``sparse_attention`` among them.
 """
@@ -153,6 +154,68 @@ class ServingTracingConfig(ConfigModel):
     flight_recorder_events: int = Field(256, ge=16)
     histogram_buckets_per_decade: int = Field(6, ge=1, le=100)
     histogram_min_s: float = Field(1e-5, gt=0.0)
+
+
+class ServingFaultToleranceConfig(ConfigModel):
+    """Serving-side crash durability + supervised restart for the v2 ragged
+    engine (``inference/v2/journal.py`` + ``inference/v2/supervisor.py``),
+    with the JAX package's fields, defaults and validation.
+
+    ``enabled`` arms the durable request journal: one CRC-framed record per
+    admitted request (uid, prompt, priority, TTL, budget, sampling key),
+    batched emitted-token deltas appended at wave-boundary flushes (the host
+    already holds those tokens — zero extra device syncs), and a terminal
+    record mirroring each ``RequestResult``.  ``journal_path`` names the WAL
+    file (the supervisor-exported ``DSTPU_SERVING_JOURNAL`` env arms it with
+    no config changes); ``fsync_every`` fsyncs the journal every N
+    wave-boundary flushes (strict mode also writes + fsyncs admits and
+    terminals eagerly).  0 is throughput mode: no fsync until close, but
+    every record reaches OS pages at the NEXT wave boundary (the serve loop
+    flushes each iteration; the serve call's exit always flushes), so a
+    process crash loses at most one iteration's records — which recovery
+    absorbs by re-serving from the surviving journaled prefix.
+
+    ``heartbeat`` stamps a serve-iteration liveness file (phase ``serving``)
+    through ``runtime/heartbeat.py`` — zero device syncs; ``ServingSupervisor``
+    arms it via env for its workers, and a stale stamp (``hang_timeout_s``,
+    after ``startup_grace_s``) or a dead process both count as one failure.
+
+    ``max_restarts`` within ``restart_window_s`` bounds the supervisor's
+    restart budget; past it the supervisor degrades to drain-only mode —
+    new admissions are shed with a structured retryable reason, recoverable
+    journal work gets one final attempt, and anything still unfinished is
+    finalized as ``failed`` directly in the journal.  Never a hang.
+    """
+    enabled: bool = False
+    journal_path: Optional[str] = None
+    fsync_every: int = Field(1, ge=0)
+    heartbeat: bool = False
+    heartbeat_dir: Optional[str] = None
+    heartbeat_interval_s: float = Field(0.2, ge=0.0)
+    max_restarts: int = Field(2, ge=0)
+    restart_window_s: float = Field(300.0, gt=0.0)
+    hang_timeout_s: float = Field(30.0, gt=0.0)
+    startup_grace_s: float = Field(120.0, ge=0.0)
+    poll_interval_s: float = Field(0.05, gt=0.0)
+
+    def model_validate(self):
+        import os
+
+        from .heartbeat import HEARTBEAT_DIR_ENV, SERVING_JOURNAL_ENV
+        # a worker under ServingSupervisor gets both paths from the
+        # environment, so enabling the section without explicit paths is
+        # only an error when nothing supervises the process
+        if self.enabled and not self.journal_path \
+                and not os.environ.get(SERVING_JOURNAL_ENV):
+            raise ValueError("serving_fault_tolerance.enabled=true needs "
+                             "journal_path (or launch under ServingSupervisor, "
+                             "which exports DSTPU_SERVING_JOURNAL and overrides "
+                             "this section)")
+        if self.heartbeat and not self.heartbeat_dir \
+                and not os.environ.get(HEARTBEAT_DIR_ENV):
+            raise ValueError("serving_fault_tolerance.heartbeat=true needs "
+                             "heartbeat_dir (or launch under ServingSupervisor, "
+                             "which exports DSTPU_HEARTBEAT_DIR)")
 
 
 # ------------------------------------------------------------------ training

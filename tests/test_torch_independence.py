@@ -45,7 +45,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "deepspeed_tpu_torch.ops.adam.adam8bit",
                      "deepspeed_tpu_torch.ops.quantizer.quantize",
                      "deepspeed_tpu_torch.inference.quantization",
-                     "deepspeed_tpu_torch.inference.engine"):
+                     "deepspeed_tpu_torch.inference.engine",
+                     "deepspeed_tpu_torch.inference.v2.supervisor",
+                     "deepspeed_tpu_torch.inference.v2.journal",
+                     "deepspeed_tpu_torch.runtime.heartbeat",
+                     "deepspeed_tpu_torch.utils.wal"):
         assert expected in report["modules"]
 
 

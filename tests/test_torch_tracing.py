@@ -456,8 +456,8 @@ def test_health_reports_queue_wait_percentiles_without_span_tracing():
     assert h["flight_recorder"], "the flight recorder is always on"
 
 
-# keys of unported items: fault tolerance, perf, QoS, speculative decoding
-UNPORTED_KEYS = {"fault_tolerance", "perf", "qos", "spec_decode"}
+# keys of unported items: perf, QoS, speculative decoding
+UNPORTED_KEYS = {"perf", "qos", "spec_decode"}
 
 
 def test_snapshot_and_health_keys_match_jax():
@@ -474,6 +474,8 @@ def test_snapshot_and_health_keys_match_jax():
     assert set(ph) == set(jh) - UNPORTED_KEYS
     assert ps["kv"] == js["kv"] and "census_table" in ps["kv"]
     assert ps["prefix_cache"] == js["prefix_cache"]
+    assert ps["fault_tolerance"] == js["fault_tolerance"] == ph["fault_tolerance"]
+    assert ph["fault_tolerance"] == jh["fault_tolerance"]
     assert ([e for e in ps["flight_recorder"] if e["event"] not in COMPILE_EVENTS]
             == [e for e in js["flight_recorder"] if e["event"] not in COMPILE_EVENTS])
     for key in ("queue_wait", "latency", "tracing_enabled"):
