@@ -65,7 +65,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      complete span chain ending ok for each request and a Chrome trace with
      one track per request and the kv_pool counter track, and prints the
      TTFT, TBT, end-to-end and queue-wait percentiles and the wall with
-     tracing on and off; the same serve again under torch.profiler splits
+     tracing on and off; serve-perf, serve-ops, serve-telemetry: three more
+     engines, each with one observability feature on (the perf observatory;
+     the ops endpoint with a thread scraping it; a telemetry collector with
+     a torch.profiler serve window), cold and then warm in turns with the
+     feature-off engine, ServeCounters and tokens equal to its serves:
+     phase spans summing to the wall, no warm recompile, every dispatch
+     costed (roofline and burst share printed), mid-serve scrapes that
+     strict-parse with the counters the engine holds, /healthz equal to
+     health(), gauge and per-request trace records, and a Chrome trace that
+     names the paged decode and prefill kernels; the same serve again under
+     torch.profiler splits
      the device time by kernel (decode, merge, prefill and the CUDA-core
      kernel apart); the reference loop (``serving_fastpath.enabled=False``)
      and the fast path serve the same prompts in three pairs, in turns; with
@@ -107,12 +117,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      and over worker processes under ``supervise_command`` (a crash leaving
      a torn frame, a hang found by heartbeat staleness, the restart budget
      spent and every request finalized failed), the recovered tokens equal
-     to the uninterrupted run on the card and on the CPU, no worker left;
+     to the uninterrupted run on the card and on the CPU, no worker left,
+     and the crash case's supervisor serving the fleet /metrics (workers
+     publishing under its DSTPU_OPS_DIR) with a completed-requests counter
+     that never goes down across the restart;
   5. train: ``initialize`` with Llama-2-7B at full width cut to 8 layers, bf16,
      remat, fused AdamW, WarmupLR, clipping; 6 optimizer steps of 2 x 2 x 2048
      tokens through the flash and fused-AdamW kernels, launch counts checked
      against the step formula (every flash forward, dK/dV and dQ launch a
-     tensor-core one), one more step under torch.profiler;
+     tensor-core one), one more step under torch.profiler; train-telemetry:
+     a fresh engine on the same config with telemetry (a record a step, the
+     first step's FLOPs counted by FlopCounterMode and held to the count
+     from the shapes, mfu against the peak named by the device) and the ops
+     endpoint, 6 steps, a torch.profiler step window;
   6. train-8bit: the same run with ``fused_adam8bit`` (int8 moments) through
      the AdamW-8bit kernel; train-sparse: the config's ``sparse_attention``
      section (DeepSpeed's documented ``fixed`` example, unidirectional) with
@@ -120,12 +137,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      kernels (every forward, dK/dV and dQ launch a tensor-core one) and no flash
      launch; each with launch counts checked against the step formula and
      one more step under torch.profiler;
-  7. train slice: 1 full-width layer in fp32, the CUDA engine (kernels)
-     against the CPU engine (plain versions) from the same params: losses,
-     step-1 grads and the params after 3 steps; once with fused_adam and
-     dense attention, once with the sparse section and fused_adam8bit, once
-     with lion (delta form), followed by one fused Lion step through
-     ``fused_lion_flat`` on every leaf;
+  7. train slice: 1 full-width layer in fp32, sequences of 128 tokens, the
+     CUDA engine (kernels) against the CPU engine (plain versions) from the
+     same params: losses, step-1 grads and the params after 3 steps; once
+     with fused_adam and dense attention, once with the sparse section and
+     fused_adam8bit, once with lion (delta form), followed by one fused Lion
+     step through ``fused_lion_flat`` on every leaf;
   8. serve-v1: ``init_inference`` with Llama-2-7B at full width and depth in
      bf16, 8 prompts of 512 tokens, 64 greedy new tokens through
      ``generate``; serve-v1-int8: the same with weight-only int8 (11 leaves
@@ -141,6 +158,7 @@ lines are the card's name and power limit, the kernels' JSON record, then
 ``{"ok": true, "device": ...}``.
 """
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -1676,6 +1694,52 @@ def rehearse_serve_latency(step_ms=5.0, position_us=25.5, seed=0):
     return tracer.latency_snapshot()
 
 
+def rehearse_serve_perf(seed=0):
+    """CPU rehearsal of [serve-perf]'s roofline, for a prediction: [serve]'s
+    16 prompts, pool and scheduler through the fast path with the
+    observatory on, at a tiny width on the CPU, served twice (cold, then
+    warm after a roofline reset), with each fwd bucket costed by
+    ``paged_bucket_cost`` at Mistral-7B's full width in bf16.  The host
+    control flow (steps, syncs, buckets) is [serve]'s, so the warm serve's
+    roofline bytes, FLOPs, tokens and dispatches are the card's; the wall is
+    not.  Run: ``python3 -c "import chip_smoke as c; c.rehearse_serve_perf()"``."""
+    import types
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import mistral
+    cfg = mistral.MistralConfig.tiny(vocab=256, hidden=64, layers=2, heads=4, kv_heads=2,
+                                     seq=4096, window=4096)
+    full = mistral.MistralConfig.mistral_7b()
+    params = mistral.init_params(cfg, torch.Generator().manual_seed(seed))
+
+    def cost(config, n, t, b, block_size, dtype):
+        return mistral.paged_bucket_cost(full, n, t, b, block_size, torch.bfloat16)
+
+    model = types.SimpleNamespace(forward_paged=mistral.forward_paged,
+                                  init_paged_cache=mistral.init_paged_cache,
+                                  paged_bucket_cost=cost)
+    engine = InferenceEngineV2(model, cfg, params, device="cpu",
+                               config={"dtype": "float32", "serving_perf": {"enabled": True}},
+                               num_blocks=2048, block_size=16, max_blocks_per_seq=256,
+                               token_budget=512, max_seqs_per_step=32)
+    prompts = serve_prompts(seed, cfg.vocab_size)
+    engine.generate(prompts, max_new_tokens=32, strict=False)
+    engine.roofline.reset()
+    c0 = engine.counters.snapshot()
+    engine.generate(prompts, max_new_tokens=32, strict=False)
+    d = engine.counters.delta_since(c0)
+    roof = engine.roofline
+    log(f"[rehearse-serve-perf] CPU, tiny width, costs at mistral_7b width in bf16: warm serve "
+        f"{d['loop_iterations']} iterations, {d['host_syncs']} host syncs, {roof.dispatches} "
+        f"costed dispatches ({roof.uncosted_dispatches} uncosted) of {roof.tokens} tokens, "
+        f"{len(roof._costs)} costed buckets; {roof.bytes:.6e} bytes ({roof.bytes / roof.tokens:.6e} "
+        f"a token), {roof.flops:.6e} FLOPs; tokens by burst {d['burst_tokens']} / by step "
+        f"{d['step_tokens']}; at {HBM_BYTES_PER_S / 1e9:.0f} GB/s the bytes take "
+        f"{roof.bytes / HBM_BYTES_PER_S:.4f} s, at 989 TFLOP/s the FLOPs "
+        f"{roof.flops / 989e12:.4f} s")
+    return roof.snapshot()
+
+
 def rehearse_serve_journal(step_ms=5.0, position_us=25.5, seed=0):
     """CPU rehearsal of [serve-journal] and [serve-recover], for a
     prediction: [serve]'s 16 prompts, pool and scheduler through the fast
@@ -1892,6 +1956,10 @@ def phase_serve(card, seed=0):
     with phase_timer("serve-tracing"):
         serve_tracing(card, cfg, params, kw, engine, prompts, max_new, results, first, warm,
                       wall2)
+    for tag, fn in (("serve-perf", serve_perf), ("serve-ops", serve_ops),
+                    ("serve-telemetry", serve_telemetry)):
+        with phase_timer(tag):
+            fn(card, cfg, params, kw, engine, prompts, max_new, results, first, warm, wall2)
     with phase_timer("profile"):
         busy = {"fast path": profile_serve(engine, prompts, max_new, card, wall2)}
     with phase_timer("serve-pairs"):
@@ -1971,6 +2039,260 @@ def serve_tracing(card, cfg, params, kw, off, prompts, max_new, results, first, 
         f"a serve ({cost / statistics.mean(walls['off']):+.2%}, not gated); recorder "
         f"{tr.recorder.events_total} events, {tr.completed_total} traces completed")
     del traced, engines
+    torch.cuda.empty_cache()
+
+
+def observed_turns(tag, card, engine, off, prompts, max_new, results, first, warm, wall_off,
+                   before=None):
+    """A second engine of [serve]'s model with an observability feature on:
+    its cold serve, then warm serves in turns with the feature-off engine
+    ``off`` (on, off, on).  Every serve's ServeCounters equal the off
+    engine's (the cold one's its first serve, captures included; the warm
+    ones' its warm serve) and its tokens [serve]'s.  ``before(engine)``
+    runs before each warm serve of ``engine`` (a reset, a scraper).
+    Returns (cold wall, walls by side, the last warm serve's results)."""
+    engines = {"on": engine, "off": off}
+    walls = {"on": [], "off": [wall_off]}
+
+    def serve(name, want, label):
+        e = engines[name]
+        if before is not None and name == "on" and label == "warm serve":
+            before(e)
+        c0 = e.counters.snapshot()
+        got, wall = serve_timed(e, prompts, max_new)
+        d = e.counters.delta_since(c0)
+        if d != want:
+            raise AssertionError(f"[{tag}] {name}, {label}: ServeCounters {d}, the feature-off "
+                                 f"engine's {want}")
+        if [r.tokens for r in got] != [r.tokens for r in results]:
+            raise AssertionError(f"[{tag}] {name}, {label}: tokens differ at "
+                                 f"{first_divergence(results, got, prompts)}")
+        return got, wall
+
+    _, wall_cold = serve("on", first, "cold serve")
+    last = None
+    for name in ("on", "off", "on"):
+        got, wall = serve(name, warm, "warm serve")
+        walls[name].append(wall)
+        last = got if name == "on" else last
+    cost = statistics.mean(walls["on"]) - statistics.mean(walls["off"])
+    log(f"[{tag}] on {card}: cold serve {wall_cold:.3f} s with ServeCounters equal to the "
+        f"feature-off engine's first serve ({first['compiles']} captures); warm serves with "
+        f"ServeCounters equal to its warm serve ({warm['host_syncs']} host syncs), tokens "
+        f"identical; warm walls in turns (off, on, off, on): off "
+        + ", ".join(f"{w:.3f}" for w in walls["off"]) + " s, on "
+        + ", ".join(f"{w:.3f}" for w in walls["on"]) + f" s; on costs {cost * 1e3:+.1f} ms a "
+        f"serve ({cost / statistics.mean(walls['off']):+.2%}, not gated)")
+    return wall_cold, walls, last
+
+
+def serve_perf(card, cfg, params, kw, off, prompts, max_new, results, first, warm, wall_off):
+    """[serve-perf]: [serve]'s engine config with ``serving_perf`` on
+    (``peak_flops_per_chip`` 989e12; ``hbm_gbps_spec`` the default 3350),
+    cold and then warm in turns with the observatory-off engine.  The
+    profiler and the roofline are reset before each warm serve; on the last
+    one: every phase of ``PHASES`` sampled, the per-phase totals summing to
+    the profiler's wall within 1e-6 s, no warm recompile over the engine's
+    life, ``counters.compiles == ledger.total``, no uncosted dispatch and
+    finite roofline gauges.  Prints the per-phase totals, p50 and p99, the
+    roofline against the card's bandwidth and peak, and the burst share of
+    tokens (bursts are not dispatched through the roofline)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    from deepspeed_tpu_torch.monitor.perf import PHASES
+    engine = build_engine("mistral", cfg, params, **kw, config={
+        "dtype": off.config.dtype, "seed": off.config.seed,
+        "serving_perf": {"enabled": True, "peak_flops_per_chip": TRAIN_PEAK_FLOPS}})
+
+    def reset(e):
+        e.phase_profiler.reset()
+        e.roofline.reset()
+
+    _, walls, _ = observed_turns("serve-perf", card, engine, off, prompts, max_new, results,
+                                 first, warm, wall_off, before=reset)
+    snap = engine.health()["perf"]
+    prof, roof, led = engine.phase_profiler, engine.roofline, engine.ledger
+    empty = [p for p in PHASES if prof.hists[p].count == 0]
+    span_err = abs(sum(prof.totals.values()) - prof.wall_s)
+    gauges = roof.gauges(prof.wall_s)
+    if (empty or span_err > 1e-6 or led.warm_total or engine.counters.compiles != led.total
+            or roof.uncosted_dispatches or not all(np.isfinite(v) for v in gauges.values())):
+        raise AssertionError(f"[serve-perf] phases never sampled {empty}, spans off the wall by "
+                             f"{span_err:.3e} s, warm recompiles {led.warm_total}, compiles "
+                             f"{engine.counters.compiles} vs ledger {led.total}, uncosted "
+                             f"dispatches {roof.uncosted_dispatches}, gauges {gauges}")
+    phases = "; ".join(f"{p} {snap['phases'][p]['total_s'] * 1e3:.3f} ms (p50 "
+                       f"{snap['phases'][p]['p50'] * 1e3:.4f}, p99 "
+                       f"{snap['phases'][p]['p99'] * 1e3:.4f} ms, n={snap['phases'][p]['count']})"
+                       for p in PHASES)
+    log(f"[serve-perf] last warm serve on {card}: {prof.iterations} iterations over a profiler "
+        f"wall of {prof.wall_s:.6f} s (serve wall {walls['on'][-1]:.3f} s), spans summing to "
+        f"it within {span_err:.1e} s; {phases}")
+    d = warm
+    burst = d["burst_tokens"] / max(d["burst_tokens"] + d["step_tokens"], 1)
+    log(f"[serve-perf] roofline on {card}: {len(roof._costs)} costed buckets, {roof.dispatches} "
+        f"dispatches ({roof.uncosted_dispatches} uncosted) of {roof.tokens} tokens, "
+        f"{roof.bytes:.6e} bytes and {roof.flops:.6e} FLOPs (analytic least cost, "
+        f"models.llama.paged_bucket_cost); hbm_bytes_per_token "
+        f"{gauges['serving_hbm_bytes_per_token']:.6e}, roofline_fraction "
+        f"{gauges['serving_roofline_fraction']:.6f} of {roof.hbm_gbps_spec:.0f} GB/s, "
+        f"model_flops_utilization {gauges['serving_model_flops_utilization']:.6f} of "
+        f"{TRAIN_PEAK_FLOPS / 1e12:.0f} TFLOP/s; the roofline covers stepwise dispatches only: "
+        f"tokens by burst {d['burst_tokens']} / by step {d['step_tokens']} (burst share "
+        f"{burst:.1%}); compile ledger {json.dumps(led.snapshot()['by_site'])}, warm 0")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def serve_ops(card, cfg, params, kw, off, prompts, max_new, results, first, warm, wall_off):
+    """[serve-ops]: [serve]'s engine config with ``ops_server`` on
+    (127.0.0.1, port 0, refresh 0.25 s) and tracing on, cold and then warm
+    in turns with the ops-off engine, a thread scraping /metrics and
+    /healthz through each warm serve.  Gates on the last one: at least one
+    mid-serve /metrics scrape strict-parses; after it
+    ``dstpu_serving_completed_total`` equals ``manager.completed_requests``
+    and rose by 16 over the serve, ``dstpu_fastpath_host_syncs_total``
+    equals ``counters.host_syncs``, the TTFT/TBT/e2e histograms are not
+    empty, /healthz equals ``health()`` through JSON and /statez has the
+    flight recorder's tail.  Prints the scrapes and the walls."""
+    import threading
+    import torch
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    from deepspeed_tpu_torch.monitor.exposition import parse_exposition
+    from deepspeed_tpu_torch.monitor.ops_server import scrape
+    engine = build_engine("mistral", cfg, params, **kw, config={
+        "dtype": off.config.dtype, "seed": off.config.seed,
+        "serving_tracing": {"enabled": True},
+        "ops_server": {"enabled": True, "host": "127.0.0.1", "port": 0,
+                       "refresh_interval_s": 0.25}})
+    url = engine.ops.url
+    state = {}
+
+    def counter(fams, name):
+        return sum(v for _, _, v in fams[name]["samples"])
+
+    def scraper(stop):
+        while not stop.is_set():
+            try:
+                fams = parse_exposition(scrape(url("/metrics")))
+                json.loads(scrape(url("/healthz")))
+            except Exception as exc:
+                state["errors"].append(repr(exc))
+                return
+            state["scrapes"] += 1
+            state["completed"].append(counter(fams, "dstpu_serving_completed_total"))
+            stop.wait(0.05)
+
+    def start(e):
+        for t in state.get("threads", []):
+            t[0].set()
+            t[1].join(timeout=10.0)
+        state.update(scrapes=0, errors=[], completed=[], threads=[],
+                     before=counter(parse_exposition(scrape(url("/metrics"))),
+                                    "dstpu_serving_completed_total"))
+        stop = threading.Event()
+        thread = threading.Thread(target=scraper, args=(stop, ), daemon=True)
+        thread.start()
+        state["threads"].append((stop, thread))
+
+    try:
+        _, walls, _ = observed_turns("serve-ops", card, engine, off, prompts, max_new, results,
+                                     first, warm, wall_off, before=start)
+    finally:
+        for stop, thread in state.get("threads", []):
+            stop.set()
+            thread.join(timeout=10.0)
+    try:
+        fams = parse_exposition(scrape(url("/metrics")))
+        completed = counter(fams, "dstpu_serving_completed_total")
+        empty = [name for name in ("ttft", "tbt", "e2e")
+                 if not counter(fams, f"dstpu_request_{name}_seconds")]
+        health = json.loads(scrape(url("/healthz")))
+        statez = json.loads(scrape(url("/statez")))
+        if (state["errors"] or not state["scrapes"]
+                or completed != engine.manager.completed_requests
+                or completed - state["before"] != len(prompts)
+                or counter(fams, "dstpu_fastpath_host_syncs_total") != engine.counters.host_syncs
+                or empty or health != json.loads(json.dumps(engine.health()))
+                or not statez["flight_recorder"]):
+            raise AssertionError(
+                f"[serve-ops] scrapes {state['scrapes']} (errors {state['errors']}), completed "
+                f"{state['before']} -> {completed} (manager {engine.manager.completed_requests}), "
+                f"host syncs {counter(fams, 'dstpu_fastpath_host_syncs_total')} vs "
+                f"{engine.counters.host_syncs}, empty histograms {empty}, /healthz equal "
+                f"{health == json.loads(json.dumps(engine.health()))}, flight recorder "
+                f"{len(statez['flight_recorder'])}")
+        log(f"[serve-ops] last warm serve on {card}: {state['scrapes']} /metrics + /healthz "
+            f"scrapes during it, all strict-parsed (completed seen "
+            f"{sorted(set(state['completed']))}); after it dstpu_serving_completed_total "
+            f"{completed:.0f} = manager.completed_requests, up {completed - state['before']:.0f}; "
+            f"host syncs {engine.counters.host_syncs}; TTFT/TBT/e2e histograms filled; /healthz "
+            f"= health(), /statez {len(statez['flight_recorder'])} recorder events; "
+            f"{len(fams)} families; {engine._ops.cache.refreshes} refreshes")
+    finally:
+        engine.close_ops()
+    del engine
+    torch.cuda.empty_cache()
+
+
+# [serve-telemetry]'s capture window in serve iterations: [serve]'s iterations
+# 0-30 are prefill steps (chunks of 512 and 256) and 31-46 decode, so four
+# iterations across the change of route see both paged kernels
+SERVE_WINDOW = (29, 33)
+
+
+def serve_telemetry(card, cfg, params, kw, off, prompts, max_new, results, first, warm,
+                    wall_off):
+    """[serve-telemetry]: [serve]'s engine config with tracing on and a
+    ``TelemetryCollector`` attached (JSONL under chiprun_out/, a serve
+    window over iterations :data:`SERVE_WINDOW` of each generate()), cold and then warm
+    in turns with the plain engine, in a phase of its own (one profiler at a
+    time).  Gates: ``kind: gauges`` records under Inference/Serving and
+    Inference/Scheduler, one ``kind: trace`` record per request of each
+    serve, and a Chrome trace of each serve's window that names the paged
+    decode and prefill kernels."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    from deepspeed_tpu_torch.monitor.telemetry import TelemetryCollector
+    from deepspeed_tpu_torch.runtime.config import TelemetryConfig
+    out = os.path.join(OUT_DIR, "serve_telemetry")
+    shutil.rmtree(out, ignore_errors=True)  # an earlier run's records and traces
+    collector = TelemetryCollector(TelemetryConfig(
+        jsonl_path=os.path.join(out, "telemetry.jsonl"), jsonl_flush_every=64,
+        profile_serve_iteration_start=SERVE_WINDOW[0],
+        profile_serve_iteration_stop=SERVE_WINDOW[1], profile_dir=os.path.join(out, "traces")))
+    engine = build_engine("mistral", cfg, params, **kw, telemetry=collector, config={
+        "dtype": off.config.dtype, "seed": off.config.seed,
+        "serving_tracing": {"enabled": True}})
+    observed_turns("serve-telemetry", card, engine, off, prompts, max_new, results, first, warm,
+                   wall_off)
+    collector.close()
+    with open(os.path.join(out, "telemetry.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    kinds = collections.Counter((r["kind"], r.get("prefix")) for r in records)
+    traces = [r for r in records if r["kind"] == "trace"]
+    found = {}
+    for path in collector.traces_written:
+        with open(path) as fh:
+            names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+        found[path] = {label for label, needle in PAGED_NEEDLES
+                       if any(needle in n for n in names)}
+    serves = 3  # cold, then two warm serves with the collector attached
+    if (not kinds[("gauges", "Inference/Serving")] or not kinds[("gauges", "Inference/Scheduler")]
+            or len(traces) != serves * len(prompts)
+            or {r["status"] for r in traces} != {"ok"}
+            or len(found) != serves
+            or any(not {"paged_decode", "paged_prefill_tc"} <= f for f in found.values())):
+        raise AssertionError(f"[serve-telemetry] records {dict(kinds)}, {len(traces)} traces "
+                             f"(want {serves} x {len(prompts)}), kernels by trace file {found}")
+    sizes = [os.path.getsize(p) for p in collector.traces_written]
+    log(f"[serve-telemetry] on {card}: {len(records)} JSONL records "
+        + ", ".join(f"{k}{'/' + p if p else ''} {n}" for (k, p), n in sorted(kinds.items()))
+        + f"; {len(sizes)} Chrome traces (one a serve, iterations {SERVE_WINDOW[0]}-"
+        f"{SERVE_WINDOW[1] - 1}), "
+        + ", ".join(f"{b / 2**20:.2f}" for b in sizes)
+        + f" MiB, each naming {sorted(set.union(*found.values()))}")
+    del engine
     torch.cuda.empty_cache()
 
 
@@ -2995,25 +3317,57 @@ def serving_worker(fault, out, device, cfg_json) -> int:
     return 0 if all(r.ok for r in results.values()) else 1
 
 
-def supervise_worker(tag, fault, cfg, device, **over):
+def supervise_worker(tag, fault, cfg, device, ops=False, **over):
     """Supervise ``serving_worker`` with ``fault`` over a fresh journal;
     returns the supervisor, its report, each generation's record and the
     seconds it took.  Every generation's process must be gone after (no
-    orphan)."""
+    orphan).  With ``ops`` the supervisor serves its fleet endpoint (its
+    workers publish under the exported ``DSTPU_OPS_DIR``) and a thread
+    scrapes its /metrics every 50 ms while the workers run; the report then
+    carries ``scrapes``: (fleet ``dstpu_serving_completed_total``,
+    ``dstpu_supervisor_generations_total``) of each scrape, and ``final``:
+    the families of one scrape after the run."""
+    import threading
     from deepspeed_tpu_torch.inference.v2 import ServingSupervisor
+    from deepspeed_tpu_torch.monitor.exposition import parse_exposition
+    from deepspeed_tpu_torch.monitor.ops_server import scrape
     journal = out_path(f"slice_recover_{fault}.wal")
     out = out_path(f"slice_recover_{fault}_workers.jsonl")
     hb = os.path.join(OUT_DIR, f"slice_recover_{fault}_hb")
     shutil.rmtree(hb, ignore_errors=True)  # an earlier run's stamps would read as stale
     sup = ServingSupervisor(journal_path=journal, config={
         "max_restarts": 2, "heartbeat_interval_s": HEARTBEAT_INTERVAL_S,
-        "hang_timeout_s": HANG_TIMEOUT_S, "startup_grace_s": STARTUP_GRACE_S, **over})
+        "hang_timeout_s": HANG_TIMEOUT_S, "startup_grace_s": STARTUP_GRACE_S, **over},
+        ops_server={"enabled": True} if ops else None)
+    scrapes, stop = [], threading.Event()
+
+    def total(fams, name):
+        return sum(v for _, _, v in fams[name]["samples"]) if name in fams else None
+
+    def scraper():
+        while not stop.wait(0.05):
+            fams = parse_exposition(scrape(sup.ops.url("/metrics")))
+            scrapes.append((total(fams, "dstpu_serving_completed_total"),
+                            total(fams, "dstpu_supervisor_generations_total")))
+
+    thread = threading.Thread(target=scraper, daemon=True)
+    if ops:
+        thread.start()
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    report = sup.supervise_command(
-        [sys.executable, os.path.abspath(__file__), "--serving-worker", fault, out, device,
-         json.dumps(dataclasses.asdict(cfg))], cwd=here, heartbeat_base=hb)
+    try:
+        report = sup.supervise_command(
+            [sys.executable, os.path.abspath(__file__), "--serving-worker", fault, out, device,
+             json.dumps(dataclasses.asdict(cfg))], cwd=here, heartbeat_base=hb)
+    finally:
+        stop.set()
+        if ops:
+            thread.join(timeout=10.0)
     seconds = time.perf_counter() - t0
+    if ops:
+        report["scrapes"] = scrapes
+        report["final"] = parse_exposition(scrape(sup.ops.url("/metrics")))
+        sup.close_ops()
     with open(out) as fh:
         workers = [json.loads(line) for line in fh]
     for w in workers:
@@ -3109,6 +3463,7 @@ def phase_slice_recover(device="cuda", cfg=None):
     import concurrent.futures
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
         futures = {fault: pool.submit(supervise_worker, "slice-recover", fault, cfg, device,
+                                      ops=fault == "crash",
                                       **({"max_restarts": 1} if fault == "always" else {}))
                    for fault in ("crash", "hang", "always")}
         runs = {fault: f.result() for fault, f in futures.items()}
@@ -3123,6 +3478,18 @@ def phase_slice_recover(device="cuda", cfg=None):
                              f"generations, {report['restarts']} restarts, degraded "
                              f"{report['degraded']}, failures {failed}, tails {tails}, tokens "
                              f"differ at {[_first_diff(a, b) for a, b in zip(tokens, want)]}")
+    # the fleet endpoint across the crash: monotone, ending at the ok count
+    seen = [c for c, _ in report["scrapes"] if c is not None]
+    final = report["final"]
+    n_ok = sum(r.ok for r in report["results"].values())
+    completed = sum(v for _, _, v in final["dstpu_serving_completed_total"]["samples"])
+    generations = final["dstpu_supervisor_generations_total"]["samples"][0][2]
+    restarts = final["dstpu_supervisor_restarts_total"]["samples"][0][2]
+    if (not seen or seen != sorted(seen) or completed != n_ok or n_ok != len(prompts)
+            or (generations, restarts) != (2, 1)):
+        raise AssertionError(f"[slice-recover] fleet /metrics across the crash: completed seen "
+                             f"{seen}, final {completed} for {n_ok} ok, generations "
+                             f"{generations}, restarts {restarts}")
     replayed = replay_journal(journal, truncate=False)
     if ft_state_view(replayed) != ft_state_view(report["state"]) \
             or ft_state_view(replayed, False) != ft_state_view(inprocess, False):
@@ -3133,7 +3500,10 @@ def phase_slice_recover(device="cuda", cfg=None):
         f"uninterrupted run; the journal ({os.path.getsize(journal)} bytes, "
         f"{replayed.records} records, {replayed.generations} generations) replays to the "
         f"supervisor's state and to the in-process crash's streams and terminals; "
-        f"{len(workers)} workers, none left running; {secs:.1f} s")
+        f"{len(workers)} workers, none left running; {secs:.1f} s; the supervisor's fleet "
+        f"/metrics over {len(report['scrapes'])} scrapes: dstpu_serving_completed_total "
+        f"{sorted(set(seen))} (never down), {completed:.0f} = the ok requests at the end, "
+        f"generations {generations:.0f}, restarts {restarts:.0f}")
     sup, report, workers, secs, _ = runs["hang"]
     tokens = [report["results"][u].tokens for u in range(len(prompts))]
     events = sup.recorder.tail()
@@ -3318,6 +3688,118 @@ def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=
     return launches, summary
 
 
+def train_step_products(cfg, micro, gas, seq):
+    """The FLOPs ``FlopCounterMode`` must count in one [train] step on the
+    card, from the shapes: per micro-batch and layer, each weight product
+    forward, twice in the backward (grads of input and weight) and again in
+    the remat recompute but ``w_down`` (non-reentrant checkpointing stops
+    the recompute at the last activation the backward saves); the lm_head
+    forward and twice backward; the embedding a gather; nothing from the
+    flash kernels, which run through ctypes where the counter cannot see."""
+    D, F, L, V = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers, cfg.vocab_size
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    Dh = D // H
+    tokens = micro * seq
+    layer = 2 * tokens * (D * H * Dh + 2 * D * KV * Dh + H * Dh * D + 3 * D * F)
+    w_down = 2 * tokens * F * D
+    head = 2 * tokens * D * V
+    return gas * (L * (4 * layer - w_down) + 3 * head)
+
+
+def phase_train_telemetry(card, baseline, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2,
+                          seq=2048):
+    """[train-telemetry]: a fresh engine on [train]'s config (Llama-2-7B
+    width, ``layers`` layers, bf16, remat, ``fused_adam``, micro x gas x
+    seq) with ``telemetry`` (JSONL under chiprun_out/, a step window
+    [2, 3)) and ``ops_server`` on, ``steps`` steps.  Gates: one
+    ``train_step`` record a step with the JAX keys; ``mfu`` not null with
+    the peak detected from the device's name; ``flops_per_step`` within 1 %
+    of :func:`train_step_products`; ``hbm.peak_bytes_in_use`` within 5 % of
+    ``torch.cuda.max_memory_allocated()``; a trace file in ``profile_dir``;
+    a /metrics scrape with ``dstpu_train_steps_total`` equal to ``steps``.
+    Prints the step times beside [train]'s (``baseline``): the one sync a
+    step that telemetry adds is the cost to see."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.monitor.exposition import parse_exposition
+    from deepspeed_tpu_torch.monitor.ops_server import scrape
+    from deepspeed_tpu_torch.monitor.telemetry import detect_peak_flops_per_chip
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), num_layers=layers, remat=True)
+    out = os.path.join(OUT_DIR, "train_telemetry")
+    shutil.rmtree(out, ignore_errors=True)
+    conf = train_config(micro=micro, gas=gas, bf16=True, seed=seed)
+    conf["telemetry"] = {"jsonl_path": os.path.join(out, "telemetry.jsonl"),
+                         "profile_step_start": 2, "profile_step_stop": 3,
+                         "profile_dir": os.path.join(out, "traces")}
+    conf["ops_server"] = {"enabled": True, "refresh_interval_s": 0.0}
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                               dtype=torch.float32, device="cuda")
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        loss_fn=llama.make_loss_fn(cfg), model_parameters=params, config=conf)
+    del params
+    torch.cuda.empty_cache()
+    batch = llama.causal_lm_batch(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (micro * gas, seq)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    try:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            engine.train_batch(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        fams = parse_exposition(scrape(engine.ops.url("/metrics")))
+    finally:
+        engine.close_ops()
+        engine.telemetry.close()
+    with open(conf["telemetry"]["jsonl_path"]) as fh:
+        records = [json.loads(line) for line in fh]
+    keys = ("loss", "step_time_ms", "samples_per_sec", "tokens_per_sec", "flops_per_step",
+            "tflops_per_sec", "mfu", "hbm")
+    want = train_step_products(cfg, micro, gas, seq)
+    tel = engine.telemetry
+    flops = records[0]["flops_per_step"] if records else None
+    last = records[-1] if records else {}
+    traces = tel.traces_written
+    steps_total = fams.get("dstpu_train_steps_total", {"samples": [(None, None, None)]})
+    if (len(records) != steps or {r["kind"] for r in records} != {"train_step"}
+            or any(k not in r for r in records for k in keys)
+            or any(r["mfu"] is None for r in records)
+            or not tel.peak_flops_per_chip == detect_peak_flops_per_chip() == TRAIN_PEAK_FLOPS
+            or flops is None or abs(flops - want) > 0.01 * want
+            or abs(last["hbm"]["peak_bytes_in_use"] - peak) > 0.05 * peak
+            or len(traces) != 1 or not os.path.getsize(traces[0])
+            or steps_total["samples"][0][2] != steps):
+        raise AssertionError(
+            f"[train-telemetry] {len(records)} records (kinds {[r['kind'] for r in records]}), "
+            f"mfu {[r.get('mfu') for r in records]}, peak {tel.peak_flops_per_chip}, flops "
+            f"{flops} vs predicted {want}, hbm peak {last.get('hbm')} vs {peak}, traces "
+            f"{traces}, steps_total {steps_total['samples']}")
+    step_s = statistics.mean(times[1:])
+    log(f"[train-telemetry] llama2_7b width x {layers} layers, bf16, remat, fused_adam, "
+        f"{micro} x {gas} x {seq} tokens, telemetry + step window [2, 3) + ops endpoint, "
+        f"{steps} steps on {card}: {len(records)} train_step records, losses "
+        f"{[round(r['loss'], 4) for r in records]}; flops_per_step {flops:.6e} counted by "
+        f"FlopCounterMode on step 1 = predicted {want:.6e} ({(flops - want) / want:+.2e}; "
+        f"phase_train's analytic step_flops {llama.flops_per_token(cfg, seq) * micro * gas * seq:.6e} "
+        f"counts model FLOPs with attention and without remat); mfu "
+        f"{[round(r['mfu'], 4) for r in records]} (peak {tel.peak_flops_per_chip / 1e12:.0f} "
+        f"TFLOP/s from the device name); hbm peak_bytes_in_use {last['hbm']['peak_bytes_in_use']} "
+        f"vs max_memory_allocated {peak} ({(last['hbm']['peak_bytes_in_use'] - peak) / peak:+.2%}); "
+        f"trace {os.path.relpath(traces[0])} {os.path.getsize(traces[0]) / 2**20:.2f} MiB; "
+        f"/metrics dstpu_train_steps_total {steps_total['samples'][0][2]:.0f}")
+    log(f"[train-telemetry] step ms {[round(t * 1e3, 1) for t in times]} (step 1 counts FLOPs, "
+        f"step 3 is profiled); steps 2-{steps}: {step_s * 1e3:.1f} ms a step against [train]'s "
+        f"{baseline['step_ms']:.1f} ms ({step_s * 1e3 / baseline['step_ms'] - 1:+.2%}); without "
+        f"the profiled step {statistics.mean(times[1:2] + times[3:]) * 1e3:.1f} ms; record step "
+        f"times {[round(r['step_time_ms'], 1) for r in records]} ms")
+    del engine
+    torch.cuda.empty_cache()
+
+
 PROFILE_GROUPS = (("flash_fwd", "flash_fwd"), ("flash_bwd_dkdv", "flash_bwd_dkdv"),
                   ("flash_bwd_dq", "flash_bwd_dq"),
                   ("sparse_fwd", "sparse_fwd"), ("sparse_bwd_dkdv", "sparse_bwd_dkdv"),
@@ -3333,14 +3815,16 @@ def profile_train(engine, batch, card, step_s, tag="profile-train"):
                    PROFILE_GROUPS)
 
 
-# [train-slice*]'s depth: one full-width layer.  Its CPU engine sets the
-# phase's time (about 250 s for the three at 2 layers on the H100's host),
-# and chip_smoke.py passed 780 s at 2 (781.3 and 800.2 s with
-# [slice-recover] added); the comparisons do not depend on the depth.
+# [train-slice*]'s depth: one full-width layer, and sequences of 128
+# tokens.  Its CPU engine sets the phase's time (on an NVIDIA H100 80GB
+# HBM3 at 700.00 W: about 250 s for the three at 2 layers; 197.5 s at one
+# layer and 256 tokens on a slower host, where chip_smoke.py took 851.5 s
+# with the observability phases, 147.1 s at 128); the comparisons do not
+# depend on the depth or the length.
 TRAIN_SLICE_LAYERS = 1
 
 
-def phase_train_slice(seed=1, steps=3, micro=2, gas=2, seq=256, tag="train-slice",
+def phase_train_slice(seed=1, steps=3, micro=2, gas=2, seq=128, tag="train-slice",
                       optimizer="fused_adam", sparse=None):
     """``TRAIN_SLICE_LAYERS`` full-width Llama-2-7B layers in fp32: the CUDA engine (kernels)
     against the CPU engine (plain versions), same params and batch, with
@@ -3709,6 +4193,8 @@ def main() -> int:
             phase_slice_recover()
     with phase_timer("train"):
         train_launches, dense = phase_train(card)
+    with phase_timer("train-telemetry"):
+        phase_train_telemetry(card, dense)
     with phase_timer("train-8bit"):
         adam8_launches, _ = phase_train(card, tag="train-8bit", optimizer="fused_adam8bit",
                                         baseline=dense)

@@ -10,16 +10,16 @@ from typing import Optional
 
 import torch
 
-from ..runtime.config import (KVObservabilityConfig, ServingFastpathConfig,
-                              ServingFaultToleranceConfig, ServingPrefixCacheConfig,
-                              ServingResilienceConfig, ServingTracingConfig)
+from ..runtime.config import (KVObservabilityConfig, OpsServerConfig, ServingFastpathConfig,
+                              ServingFaultToleranceConfig, ServingPerfConfig,
+                              ServingPrefixCacheConfig, ServingResilienceConfig,
+                              ServingTracingConfig)
 from ..runtime.config_utils import ConfigModel, Field
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 # sections of the JAX InferenceConfig the port does not implement yet
-UNPORTED_SECTIONS = ("serving_qos", "serving_spec_decode", "serving_perf", "ops_server",
-                     "serving_fleet")
+UNPORTED_SECTIONS = ("serving_qos", "serving_spec_decode", "serving_fleet")
 
 
 class TPConfig(ConfigModel):
@@ -65,6 +65,11 @@ class InferenceConfig(ConfigModel):
     # durable request journal, serve-iteration heartbeat and the supervisor's
     # restart budget (inference/v2/journal.py, supervisor.py)
     serving_fault_tolerance: ServingFaultToleranceConfig = Field(ServingFaultToleranceConfig)
+    # phase attribution of the serve loop, the compile ledger's snapshot and
+    # the live roofline (monitor/perf.py)
+    serving_perf: ServingPerfConfig = Field(ServingPerfConfig)
+    # Prometheus /metrics and JSON /healthz, /statez (monitor/ops_server.py)
+    ops_server: OpsServerConfig = Field(OpsServerConfig)
 
     def model_validate(self):
         if self.tensor_parallel is None:

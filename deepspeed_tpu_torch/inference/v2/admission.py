@@ -152,6 +152,11 @@ class AdmissionQueue:
         self._heap: List[Tuple[int, int, AdmissionTicket]] = []
         self._seq = 0  # FIFO tiebreak within a priority class
         self.shed_total = 0
+        # per-code shed accounting: lifetime counts plus the last
+        # retry_after_s hint issued per code, exported as the labeled
+        # Prometheus shed families next to the unlabeled shed_total
+        self.shed_by_code: Dict[str, int] = {}
+        self.last_retry_after: Dict[str, float] = {}
 
     def __len__(self) -> int:
         return len(self._heap)
@@ -204,6 +209,9 @@ class AdmissionQueue:
                                   token_cap=token_cap)
         if reason is not None:
             self.shed_total += 1
+            self.shed_by_code[reason.code] = self.shed_by_code.get(reason.code, 0) + 1
+            if reason.retry_after_s is not None:
+                self.last_retry_after[reason.code] = reason.retry_after_s
             if self.tracer is not None:
                 if self.tracer.enabled:
                     # sheds never reach the ticket stamp below, so span

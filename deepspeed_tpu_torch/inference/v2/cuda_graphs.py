@@ -30,7 +30,9 @@ stream order) before the next replay of the same graph and keeps nothing of
 them across steps.  A capture that fails raises: there is no eager fallback
 on the card.  On the CPU (and in the reference loop) a program is the eager
 function itself; its first use is its build.  Every build is recorded in the
-engine's compile ledger.
+engine's compile ledger, and then handed to the engine's ``on_build(site,
+key)`` hook (the counterpart of the JAX engine's cost capture at its AOT
+compile: the engine notes a ``"fwd"`` bucket's cost for the roofline there).
 """
 
 import time
@@ -78,12 +80,15 @@ class BucketPrograms:
     """The engine's program cache, keyed ``(site, key)``: ``("fwd", (n, t,
     b))`` for a stepwise bucket forward, ``("burst", (n, b))`` for one step
     of a decode burst.  ``graphs`` selects capture (the fast path on the
-    card) over eager functions."""
+    card) over eager functions.  ``on_build(site, key)``, when given, runs
+    once after each build."""
 
-    def __init__(self, ledger, device, graphs: bool):
+    def __init__(self, ledger, device, graphs: bool,
+                 on_build: Optional[Callable[[str, object], None]] = None):
         self.ledger = ledger
         self.device = torch.device(device)
         self.graphs = graphs
+        self.on_build = on_build
         self._programs: Dict[Tuple[str, object], BucketProgram] = {}
         self._pool = None
         self._stream = None
@@ -104,6 +109,8 @@ class BucketPrograms:
             prog = self._capture(fn, static, neutralize) if self.graphs else BucketProgram(fn)
             self.ledger.record(site, key, wall_s=time.perf_counter() - t0, prewarmed=prewarmed)
             self._programs[(site, key)] = prog
+            if self.on_build is not None:
+                self.on_build(site, key)
         return prog
 
     def _capture(self, fn: Callable, static: Sequence[torch.Tensor],

@@ -54,13 +54,25 @@ heartbeat (``runtime/heartbeat.py``), both from host ints the loop already
 holds; ``serve_recovered`` re-admits journaled requests with the prefix
 they already emitted (``supervisor.py`` drives it after a crash).
 
+Observability (the JAX engine's seams): a ``telemetry=``
+``TelemetryCollector`` receives the scheduler's and the engine's serving
+gauges, the resilience events and, with ``serving_tracing.trace_jsonl``, one
+``kind: trace`` record per request, and drives the serve-iteration
+``torch.profiler`` window; ``serving_perf`` turns on the phase profiler of
+the serve loop and the live roofline (``monitor/perf.py``, costed per bucket
+at its build); ``ops_server`` (or a supervisor's ``DSTPU_OPS_DIR``) publishes
+``/metrics``, ``/healthz`` and ``/statez`` from host snapshots refreshed by
+the loop, throttled on the engine clock.  None of them syncs the device.
+
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU; it
-never falls back from one to the other.  Telemetry, QoS, speculative
-decoding and tensor parallelism of the JAX engine are not ported yet.
+never falls back from one to the other.  QoS, speculative decoding and
+tensor parallelism of the JAX engine are not ported yet.
 """
 
 import collections
+import contextlib
 import functools
+import json
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
@@ -68,10 +80,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ...monitor.perf import CompileLedger
+from ...monitor.metrics import populate_from_engine
+from ...monitor.ops_server import OpsPublisher
+from ...monitor.perf import CompileLedger, RooflineModel, StepPhaseProfiler
 from ...monitor.tracing import RequestTracer
 from ...runtime.heartbeat import (HEARTBEAT_DIR_ENV, HEARTBEAT_INTERVAL_ENV, NULL_HEARTBEAT,
-                                  SERVING_FSYNC_ENV, SERVING_GENERATION_ENV,
+                                  OPS_DIR_ENV, SERVING_FSYNC_ENV, SERVING_GENERATION_ENV,
                                   SERVING_JOURNAL_ENV, HeartbeatWriter)
 from ...utils.env import env_float, env_int
 from ..config import DTYPES as _DTYPES, load_inference_config
@@ -127,7 +141,7 @@ class InferenceEngineV2:
                  num_blocks: int = 512, block_size: int = 16,
                  max_blocks_per_seq: int = 64, token_budget: int = 256,
                  max_seqs_per_step: int = 32, clock: Optional[Callable[[], float]] = None,
-                 device="cuda", journal: Optional[RequestJournal] = None):
+                 device="cuda", journal: Optional[RequestJournal] = None, telemetry=None):
         self.config = load_inference_config(config)
         self.device = resolve_device(device)
         self.model = model_module
@@ -156,17 +170,30 @@ class InferenceEngineV2:
         # serve-step clock of the KV census: a stepwise dispatch counts 1, a
         # fused burst of k counts k (the scheduler's steps skip bursts)
         self._kv_steps = 0
+        # telemetry: a monitor.TelemetryCollector; the scheduler emits its
+        # gauges through it and the engine adds the serving gauges
+        self.telemetry = telemetry
         # admission control + load shedding in front of the manager, deadlines
         # on an injectable clock, preemption policy shared with the scheduler
         self.resilience = self.config.serving_resilience
         self._clock = clock if clock is not None else time.monotonic
+        # an injected clock makes gauge timestamps deterministic too: gauge
+        # records stamp the engine clock's last read instead of wall time
+        self._clock_injected = clock is not None
         # request-lifecycle tracing: span chains per uid, SLO latency
         # histograms and the always-on flight recorder, on the injectable
         # clock only, at points the host already touches (no device syncs)
-        self.tracer = RequestTracer(self.config.serving_tracing, clock=self._clock)
+        self.tracer = RequestTracer(self.config.serving_tracing, clock=self._clock,
+                                    telemetry=telemetry)
         self.admission = AdmissionQueue(self.resilience, clock=self._clock, tracer=self.tracer)
-        self.scheduler = SplitFuseScheduler(token_budget, max_seqs_per_step,
-                                            resilience=self.resilience, tracer=self.tracer)
+        self._queue_wait_s = 0.0  # the last admission's queue wait (a serving gauge)
+        # the scheduler's gauge stamp reads the tracer, not the engine: no
+        # reference cycle keeps a dropped engine's pool and graphs alive
+        self.scheduler = SplitFuseScheduler(
+            token_budget, max_seqs_per_step, telemetry=telemetry, resilience=self.resilience,
+            tracer=self.tracer,
+            gauge_timestamp=(functools.partial(getattr, self.tracer, "last_now")
+                             if self._clock_injected else None))
         # serving fault tolerance: durable request journal + serve-iteration
         # liveness heartbeat, armed from config OR the ServingSupervisor's
         # env exports (DSTPU_SERVING_JOURNAL + DSTPU_HEARTBEAT_DIR), so a
@@ -200,6 +227,21 @@ class InferenceEngineV2:
         # stamps restarts_total/degraded onto each engine it builds
         self.ft_stats = {"restarts_total": 0, "recovered_requests_total": 0,
                          "degraded": False}
+        # pull-based ops plane: /metrics + /healthz + /statez over host-side
+        # CACHED snapshots, refreshed by the serve loop (throttled on the
+        # injectable clock); scrape handlers only read the cached strings.
+        # The supervisor-exported DSTPU_OPS_DIR (honoured only under a
+        # serving supervisor, like the heartbeat dir) also publishes per-rank
+        # snapshot/textfile pairs for the fleet merge.
+        self.ops_cfg = self.config.ops_server
+        ops_dir = (os.environ.get(OPS_DIR_ENV) if under_supervisor else None) \
+            or self.ops_cfg.textfile_dir
+        self._ops = None
+        if self.ops_cfg.enabled or ops_dir:
+            self._ops = OpsPublisher(self.ops_cfg, generation=generation, ops_dir=ops_dir,
+                                     rank=int(os.environ.get("RANK", "0") or 0),
+                                     owner="serving engine")
+        self.ops = self._ops.server if self._ops is not None else None
         self._deadline_expired_total = 0
         self._stall_streak = 0
         self.stalls_total = 0  # lifetime watchdog trips (streaks are transient)
@@ -224,14 +266,30 @@ class InferenceEngineV2:
             self.manager.cow_copy = functools.partial(self._cow_copy_block, self.kv,
                                                       self.counters, self.device)
         self.ledger = CompileLedger(self.counters, tracer=self.tracer)
+        # serving performance observatory: the phase profiler reads the
+        # injectable clock at phase boundaries only when serving_perf is on
+        # (off, it adds no clock reads); the roofline's costs are noted at
+        # each fwd bucket's build, always
+        self.perf_cfg = self.config.serving_perf
+        self.phase_profiler = StepPhaseProfiler(self.perf_cfg, clock=self._clock,
+                                                tracer=self.tracer)
+        self.roofline = RooflineModel(self.perf_cfg)
         self.batch_state = DeviceBatchState(self.counters, self.device)
-        self.programs = BucketPrograms(self.ledger, self.device,
-                                       graphs=self.device.type == "cuda" and self.fastpath.enabled)
+        # the build hook is bound to the roofline and the model, not to the
+        # engine (no reference cycle)
+        self.programs = BucketPrograms(
+            self.ledger, self.device, graphs=self.device.type == "cuda" and self.fastpath.enabled,
+            on_build=functools.partial(self._note_bucket_cost, self.roofline, self.perf_cfg,
+                                       model_module, model_config, block_size, self.dtype))
         self._burst_inputs: Dict = {}  # (n, b) -> the burst step's static inputs
         self._inflight: Optional[DeferredTokens] = None
         self._table_width = 0
         self._table_slack = 0
         self._health_generated_at = self._clock()
+        self._tokens_run_total = 0  # forward tokens, for the tokens/s gauge
+        # first ops snapshot at attach: a scrape before the first serve sees
+        # real (zeroed) families instead of an empty body
+        self.refresh_ops(force=True)
 
     # ------------------------------------------------------------------ intake
     def put(self, uids: Sequence[int], prompts: Sequence[Sequence[int]],
@@ -384,12 +442,15 @@ class InferenceEngineV2:
                                 trash_block=self.manager.trash_block)
         if feeds:
             self.batch_state.feed(key, self._inflight.toks_dev, feeds)
+        self.phase_profiler.mark("scatter_upload")
         self.counters.dispatches += 1
         row = program()
         # the pick runs on the device into a tensor of this step's own: the
         # program's output is overwritten by the bucket's next replay
         self.counters.dispatches += 1
         toks_dev = self._pick_rows(row, greedy)
+        self.phase_profiler.mark("dispatch")
+        self.roofline.note_dispatch(key, tokens_run)
         self._count_forward(n, t, tokens_run)
         emits = []
         row_of: Dict[int, int] = {}
@@ -408,6 +469,7 @@ class InferenceEngineV2:
         self.counters.step_tokens += len(emits)
         self._kv_steps += 1
         self._refresh_kv()
+        self._emit_serving_gauges(tokens_run=tokens_run)
         return DeferredTokens(toks_dev=toks_dev, emits=emits, row_of=row_of,
                               counters=self.counters, tracer=self.tracer,
                               journal=self.journal)
@@ -465,6 +527,7 @@ class InferenceEngineV2:
             self.journal.note_token_map(out)
         self._kv_steps += 1
         self._refresh_kv()
+        self._emit_serving_gauges(tokens_run=int(n_tokens.sum()))
         return out
 
     def _trace_dispatch(self, chunks) -> None:
@@ -566,6 +629,115 @@ class InferenceEngineV2:
         is set; public so smokes and tests can assert it at any point."""
         if self.kv_obs is not None:
             self.kv_obs.check_invariant(self.manager.allocator, self.manager.seqs)
+
+    # ------------------------------------------------------------ observability
+    def _gauge_timestamp(self) -> Optional[float]:
+        """Deterministic gauge timestamp on an injected clock: the clock's
+        last read.  None keeps record_gauges' wall-clock default."""
+        return self.tracer.last_now if self._clock_injected else None
+
+    def refresh_ops(self, force: bool = False) -> None:
+        """Refresh the host-side ops snapshots the scrape handlers serve:
+        re-populate the metrics registry from engine state (python ints and
+        floats the host already owns; no device sync), re-render the
+        Prometheus text, re-dump ``health()``/``state_snapshot()`` JSON, and
+        republish the per-rank exchange files when a supervisor exported
+        ``DSTPU_OPS_DIR``.  Called from the serve loop (throttled on the
+        injectable clock to one refresh per ``ops_server.refresh_interval_s``)
+        and forced at attach and serve end; a no-op with the ops plane off."""
+        if self._ops is None:
+            return
+        self._ops.refresh(lambda reg: populate_from_engine(reg, self),
+                          now=self.tracer.last_now, force=force,
+                          healthz=lambda: json.dumps(self.health()),
+                          statez=lambda: json.dumps(self.state_snapshot()))
+
+    def close_ops(self) -> None:
+        """Shut the ops HTTP listener down."""
+        if self._ops is not None:
+            self._ops.close()
+
+    def _emit_serving_gauges(self, tokens_run: int) -> None:
+        """Serving gauges on top of the scheduler's per-step ones: rates,
+        resilience and fast-path counters, KV pool, prefix cache, SLO
+        percentiles and (observatory on) the roofline, as a ``kind: gauges``
+        record under ``Inference/Serving``."""
+        if self.telemetry is None:
+            return
+        c = self.counters
+        gauges = {"live_seqs": float(len(self.manager.live_uids())),
+                  "admission_queue_depth": float(len(self.admission)),
+                  "shed_total": float(self.admission.shed_total),
+                  "preempted_total": float(self.scheduler.preempted_total),
+                  "deadline_expired_total": float(self._deadline_expired_total),
+                  "queue_wait": float(self._queue_wait_s),
+                  "fastpath_host_syncs": float(c.host_syncs),
+                  "fastpath_dispatches": float(c.dispatches),
+                  "fastpath_compiled_programs": float(c.compiles),
+                  "fastpath_upload_ints": float(c.upload_ints),
+                  "fastpath_burst_fraction":
+                      c.burst_tokens / max(c.burst_tokens + c.step_tokens, 1)}
+        if self.kv_obs is not None:
+            census, fc = self.kv_obs.census, self.kv_obs.forecaster
+            ste = fc.steps_to_exhaustion()
+            gauges.update({
+                "kv_free_blocks": float(self.manager.allocator.free_blocks),
+                "kv_utilization": self.manager.kv_utilization(),
+                "kv_fragmentation_tokens": float(census.fragmentation_tokens()),
+                "kv_alloc_rate": fc.alloc_rate,
+                "kv_free_rate": fc.free_rate,
+                **({} if ste is None else {"kv_steps_to_exhaustion": float(ste)}),
+            })
+        pc = self.manager.prefix_cache
+        if pc is not None:
+            gauges.update({
+                "kv_prefix_hits": float(pc.hit_blocks_total),
+                "kv_prefill_tokens_saved": float(pc.tokens_saved_total),
+                "kv_prefix_realized_hit_rate": pc.realized_hit_rate(),
+            })
+        # SLO percentile gauges ({} while tracing is off)
+        gauges.update(self.tracer.gauge_fields())
+        if self.perf_cfg.enabled:
+            gauges.update(self.roofline.gauges(self.phase_profiler.wall_s))
+            gauges["serving_warm_recompiles"] = float(self.ledger.warm_total)
+        rps = self.telemetry.rate("v2_completed_requests",
+                                  float(self.manager.completed_requests))
+        if rps is not None:
+            gauges["requests_per_sec"] = rps
+        self._tokens_run_total += tokens_run
+        tps = self.telemetry.rate("v2_tokens_total", float(self._tokens_run_total))
+        if tps is not None:
+            gauges["tokens_per_sec"] = tps
+        self.telemetry.record_gauges(gauges, step=self.scheduler.steps,
+                                     prefix="Inference/Serving",
+                                     timestamp=self._gauge_timestamp())
+
+    def _phase_annotation(self, name: str):
+        """A ``record_function`` range for one serve phase while a capture
+        window is open; a nullcontext otherwise."""
+        t = self.telemetry
+        if t is not None and t.tracing:
+            return t.annotation(name)
+        return contextlib.nullcontext()
+
+    def _perf_snapshot(self) -> Dict[str, Any]:
+        """The perf observatory's host-side snapshot: phase attribution,
+        compile ledger, roofline."""
+        snap = self.phase_profiler.snapshot()  # enabled/iterations/wall_s/phases
+        snap["compile_ledger"] = self.ledger.snapshot()
+        snap["roofline"] = self.roofline.snapshot(self.phase_profiler.wall_s)
+        return snap
+
+    @staticmethod
+    def _note_bucket_cost(roofline: RooflineModel, perf_cfg, model, model_config,
+                          block_size: int, dtype, site: str, key) -> None:
+        """The bucket programs' build hook: a ``"fwd"`` bucket's analytic
+        (FLOPs, bytes) go to the roofline once, at its build (a graph capture
+        on the card, the first eager use on the CPU)."""
+        if site == "fwd" and perf_cfg.capture_cost_analysis:
+            n, t, b = key
+            roofline.note_cost(key, *model.paged_bucket_cost(model_config, n, t, b, block_size,
+                                                             dtype))
 
     @staticmethod
     def _cow_copy_block(kv, counters: ServeCounters, device, src: int, dst: int) -> None:
@@ -748,6 +920,7 @@ class InferenceEngineV2:
             self.journal.flush()
         self._kv_steps += k
         self._refresh_kv()
+        self._emit_serving_gauges(tokens_run=sum(len(v) for v in out.values()))
         return out
 
     # ---------------------------------------------------------------- serving
@@ -802,6 +975,8 @@ class InferenceEngineV2:
         for r in requests:
             if r.prefix:
                 self.tracer.event("recovered", uid=int(r.uid), prefix=len(r.prefix))
+                self._record_resilience("serving_recovered", uid=int(r.uid),
+                                        prefix_tokens=len(r.prefix))
         return self._serve(uids, prompts, max_new_tokens=max_new_tokens,
                            eos_token_id=eos_token_id, greedy=greedy, strict=strict,
                            priorities=priorities, ttl_s=None, prefixes=prefixes, ttls=ttls)
@@ -848,6 +1023,8 @@ class InferenceEngineV2:
                     kv_utilization=self.manager.kv_utilization(), token_cap=token_cap,
                     prefix=prefix or None, recovered=bool(prefix))
                 if shed is not None:
+                    self._record_resilience("serving_shed", uid=uid, code=shed.code,
+                                            retryable=shed.retryable, detail=shed.detail)
                     if self.journal is not None:
                         # direct write, not _journal_terminal: a shed request
                         # was never admitted, so it is not watched (and a
@@ -877,6 +1054,9 @@ class InferenceEngineV2:
             self._observe_prefix({uid: [int(t) for t in prompt]
                                   for uid, prompt in zip(uids, prompts) if uid not in results})
             self._prewarm(max_new_tokens)
+            if self.telemetry is not None:
+                # re-arm the serve-loop profiler window for THIS call
+                self.telemetry.serve_profile_begin()
             self._serve_loop(uids, my, results, produced, max_new_tokens=max_new_tokens,
                              eos_token_id=eos_token_id, greedy=greedy, strict=strict)
             # post-pass pool state: final refresh, then the census invariant
@@ -889,6 +1069,10 @@ class InferenceEngineV2:
             self._abandon(my)
             raise
         finally:
+            if self.telemetry is not None:
+                # a serve capture window never leaks across generate() calls,
+                # a strict raise included
+                self.telemetry.serve_profile_end()
             # the Chrome-trace export (when configured), a strict raise
             # included: the partial trace is what the postmortem wants
             self.tracer.write_chrome_trace()
@@ -896,6 +1080,9 @@ class InferenceEngineV2:
                 # buffered token deltas must not outlive the call that
                 # materialized them (a strict raise included)
                 self.journal.flush()
+            # final ops snapshot: a post-serve scrape sees the completed
+            # state, not a mid-wave cache
+            self.refresh_ops(force=True)
         return results
 
     def _serve_loop(self, uids: List[int], my: set, results: Dict[int, RequestResult],
@@ -909,6 +1096,8 @@ class InferenceEngineV2:
         can_pipeline = fp.enabled and fp.pipeline_depth > 0 and "step" not in self.__dict__
         stall_streak = 0
         last_sig = None
+        prof = self.phase_profiler
+        serve_iter = 0  # per-call index driving the serve profiler window
 
         def absorb(stepped):
             self._absorb_step(stepped, my, results, produced, max_new_tokens=max_new_tokens,
@@ -916,9 +1105,19 @@ class InferenceEngineV2:
 
         while any(u not in results for u in uids):
             self.counters.loop_iterations += 1
+            if self.telemetry is not None:
+                # the serve-loop torch.profiler window: [start, stop) in
+                # per-call iterations, a no-op unless its knobs are set
+                self.telemetry.profile_serve_boundary(serve_iter)
+            serve_iter += 1
+            prof.begin_iteration()
             # serve-iteration liveness stamp on host ints only (throttled in
             # the writer; the NULL writer when supervision is off)
             self._heartbeat.stamp(self.counters.loop_iterations, phase="serving")
+            # ops-plane cache refresh: host-only snapshot rebuild, throttled
+            # on the injectable clock; a no-op with the plane off
+            self.refresh_ops()
+            prof.mark("other")  # liveness/ops bookkeeping, not a serve phase
             if self._inflight is not None and (len(self.admission)
                                                or self._any_live_deadline()):
                 # wave boundary: admission/deadline handling below may evict
@@ -926,8 +1125,11 @@ class InferenceEngineV2:
                 self.counters.flushes += 1
                 self.tracer.event("flush", step=self.scheduler.steps, cause="wave")
                 absorb(self._settle_inflight())
+                prof.mark("flush")
             self._expire_live()
-            self._pump_admissions(my, results, strict)
+            with self._phase_annotation("admission_pump"):
+                self._pump_admissions(my, results, strict)
+            prof.mark("admission_pump")
 
             # pure-decode fast path: burst k steps on the device, sliced while
             # anything is queued or deadlined so admission latency and
@@ -944,9 +1146,11 @@ class InferenceEngineV2:
                 self.counters.flushes += 1
                 self.tracer.event("flush", step=self.scheduler.steps, cause="fuse")
                 absorb(self._settle_inflight())
+                prof.mark("flush")
                 k = self._fusion_window(uids, results, produced, max_new_tokens)
             if fusible and k >= fusion_min:
-                burst = self.decode_burst(k, greedy=greedy, eos_token_id=eos_token_id)
+                with self._phase_annotation("burst"):
+                    burst = self.decode_burst(k, greedy=greedy, eos_token_id=eos_token_id)
                 if burst:
                     for uid, toks in burst.items():
                         if uid not in my or uid in results:
@@ -956,7 +1160,10 @@ class InferenceEngineV2:
                                    and toks[-1] == eos_token_id)
                         if hit_eos or produced[uid] >= max_new_tokens:
                             self._finish_ok(uid, results, "eos" if hit_eos else "max_new_tokens")
+                    prof.mark("burst")
+                    prof.end_iteration()
                     continue
+                prof.mark("burst")  # a declined burst attempt still costs time
 
             if can_pipeline and not (len(self.admission) or self._any_live_deadline()):
                 # dispatch step N, then absorb step N-1's tokens while the
@@ -968,16 +1175,23 @@ class InferenceEngineV2:
                     # step lands: absorb it instead of dispatching a
                     # guaranteed-overshoot step
                     absorb(self._settle_inflight())
+                    prof.mark("absorb_patch")
                 else:
-                    deferred = self._dispatch_step(greedy)
+                    with self._phase_annotation("dispatch"):
+                        deferred = self._dispatch_step(greedy)
                     prev, self._inflight = self._inflight, deferred
-                    absorb(prev.patch(self.manager) if prev is not None else {})
+                    with self._phase_annotation("absorb_patch"):
+                        absorb(prev.patch(self.manager) if prev is not None else {})
+                    prof.mark("absorb_patch")
             else:
                 if self._inflight is not None:
                     self.counters.flushes += 1
                     self.tracer.event("flush", step=self.scheduler.steps, cause="sync")
                     absorb(self._settle_inflight())
-                absorb(self.step(greedy=greedy))
+                    prof.mark("flush")
+                with self._phase_annotation("dispatch"):
+                    absorb(self.step(greedy=greedy))
+                prof.mark("absorb_patch")
 
             # ---- progress watchdog: a live-but-unschedulable engine must trip,
             # not spin.  Identical signatures for the watchdog window = stall.
@@ -997,6 +1211,7 @@ class InferenceEngineV2:
                 # materialized is already host-side, so the delta frame costs
                 # one buffered file append (fsync amortized per fsync_every)
                 self.journal.flush()
+            prof.end_iteration()  # residual (watchdog, journal) lands in "other"
 
         if self._inflight is not None:
             # the final absorb resolved every request with a step still in
@@ -1036,6 +1251,7 @@ class InferenceEngineV2:
             if uid in my and uid not in results:
                 if strict:
                     raise RuntimeError(f"request {uid} failed: {reason}")
+                self._record_resilience("serving_request_failed", uid=uid, reason=reason)
                 self._journal_terminal(uid, FAILED, reason=reason)
                 self.tracer.event("failed", step=self.scheduler.steps, uid=uid)
                 self.tracer.on_terminal(uid, FAILED, reason=reason)
@@ -1073,6 +1289,8 @@ class InferenceEngineV2:
                                         reason="deadline expired while running")
                 self.manager.retire(uid, completed=False)
             elif seq.finish_reason == PREEMPT_REQUEUED_EXHAUSTED:
+                self._record_resilience("serving_preempt_requeued_exhausted", uid=uid,
+                                        preemptions=seq.preemptions)
                 if strict:
                     raise RuntimeError(
                         f"request {uid} preempted {seq.preemptions}x and evicted "
@@ -1165,6 +1383,12 @@ class InferenceEngineV2:
             self._deadline_expired_total += 1
             self.tracer.event("expire", step=self.scheduler.steps, uid=seq.uid,
                               produced=seq.generated_tokens)
+            self._record_resilience("serving_deadline_expired", uid=seq.uid,
+                                    produced=seq.generated_tokens,
+                                    seen_tokens=seq.seen_tokens)
+        # phase attribution: a no-op (and no clock read) unless the profiler
+        # is on AND inside a serve-loop iteration
+        self.phase_profiler.mark("expire")
 
     def _pump_admissions(self, my: set, results: Dict[int, RequestResult],
                          strict: bool) -> None:
@@ -1186,6 +1410,8 @@ class InferenceEngineV2:
                 self._forget_prefix(t.uid)  # died queued: retire never fires
                 if t.uid in my and t.uid not in results:
                     self._deadline_expired_total += 1
+                    self._record_resilience("serving_deadline_expired", uid=t.uid,
+                                            produced=0, queued=True)
                     if strict:
                         raise RuntimeError(f"request {t.uid} deadline_expired while queued")
                     results[t.uid] = RequestResult(
@@ -1200,6 +1426,7 @@ class InferenceEngineV2:
             now = self._clock()
             self.tracer.tick(now)
             wait = max(0.0, now - ticket.enqueue_t)
+            self._queue_wait_s = wait
             # the queue-wait histogram feeds health() even with span tracing
             # off: the wait is already computed, pure host arithmetic
             self.tracer.observe_queue_wait(wait)
@@ -1258,6 +1485,9 @@ class InferenceEngineV2:
         # snapshot AFTER the stall event, so the dump's flight-recorder tail
         # ends with the trip itself
         snapshot = self.state_snapshot()
+        self._record_resilience("serving_stall", live_seqs=len(snapshot["live_uids"]),
+                                free_blocks=snapshot["free_blocks"],
+                                queue_depth=snapshot["queue_depth"])
         steps = self.resilience.stall_watchdog_steps
         if strict:
             raise ServingStalledError(
@@ -1293,6 +1523,10 @@ class InferenceEngineV2:
         return (tuple(sorted((uid, s.seen_tokens, len(s.tokens), s.done)
                              for uid, s in self.manager.seqs.items())),
                 len(self.admission), self.manager.allocator.free_blocks)
+
+    def _record_resilience(self, event: str, **fields) -> None:
+        if self.telemetry is not None:
+            self.telemetry.record_resilience(event, step=self.scheduler.steps, **fields)
 
     def _journal_terminal(self, uid: int, status: str, *,
                           finish_reason: Optional[str] = None,
@@ -1339,6 +1573,8 @@ class InferenceEngineV2:
             "kv": self._kv_snapshot(with_table=True),
             "prefix_cache": self._prefix_cache_snapshot(),
             "fault_tolerance": self._fault_tolerance_snapshot(),
+            # phase budget and compile provenance ride the stall dump
+            "perf": self._perf_snapshot(),
             "flight_recorder": self.tracer.recorder.tail(),
         }
 
@@ -1375,10 +1611,10 @@ class InferenceEngineV2:
         """Liveness snapshot for external probes: pool state, queue depth,
         the lifetime resilience counters, KV-pool observability, the
         realized prefix cache, the fast path's host-link counters, the SLO
-        latency histograms, the recovery counters and the flight recorder's
-        recent events: the keys of the JAX engine's ``health()`` that the
-        port has state for (perf, QoS and speculative decoding are not
-        ported yet)."""
+        latency histograms, the recovery counters, the perf observatory and
+        the flight recorder's recent events: the keys of the JAX engine's
+        ``health()`` that the port has state for (QoS and speculative
+        decoding are not ported yet)."""
         return {
             "generated_at": self._health_generated_at,
             "live_seqs": len(self.manager.live_uids()),
@@ -1406,6 +1642,10 @@ class InferenceEngineV2:
             # crash durability: supervised restarts, requests recovered with
             # an emitted prefix, journal size on disk, drain-only flag
             "fault_tolerance": self._fault_tolerance_snapshot(),
+            # serving performance observatory: per-phase wall attribution,
+            # compile provenance, live roofline (the ledger and roofline
+            # report with the phase profiler off too)
+            "perf": self._perf_snapshot(),
             # the recent engine-event history (always on, bounded ring)
             "flight_recorder": self.tracer.recorder.tail(32),
         }

@@ -21,7 +21,7 @@ waits one step and maps it instead of computing it twice.
 """
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from ...runtime.config import ServingResilienceConfig
 from .blocked_allocator import KVAllocationError
@@ -37,12 +37,20 @@ class ScheduledChunk:
 class SplitFuseScheduler:
 
     def __init__(self, token_budget: int = 512, max_seqs_per_step: int = 64,
-                 resilience: Optional[ServingResilienceConfig] = None, tracer=None):
+                 telemetry=None, resilience: Optional[ServingResilienceConfig] = None,
+                 tracer=None, gauge_timestamp=None):
         self.token_budget = token_budget
         self.max_seqs = max_seqs_per_step
+        # TelemetryCollector (monitor/telemetry.py); every schedule() emits
+        # the scheduler gauges through it when attached
+        self.telemetry = telemetry
         # RequestTracer (monitor/tracing.py): preempt/requeue land in the
         # victim's span chain and the always-on flight recorder
         self.tracer = tracer
+        # engine-provided deterministic gauge timestamp (None -> wall clock):
+        # under an injected clock the engine returns the clock's last read,
+        # so gauge records stamp deterministically
+        self.gauge_timestamp = gauge_timestamp
         self.resilience = resilience if resilience is not None else ServingResilienceConfig()
         self.steps = 0
         self.preempted_total = 0
@@ -50,6 +58,9 @@ class SplitFuseScheduler:
         # length and the tokens it emitted, without advancing ``steps``
         self.fused_steps = 0
         self.fused_tokens = 0
+        # the last schedule()'s gauges, kept whether or not a collector is
+        # attached (the ops plane reads them)
+        self.last_gauges: Dict[str, float] = {}
         self._requeued: set = set()  # victims preempted THIS step (skip their prefill)
         self._reserve_faulted = False  # last _reserve failed on a transient allocator
         # fault (the pool may have room) rather than genuine exhaustion
@@ -149,7 +160,7 @@ class SplitFuseScheduler:
             chunks.append(ScheduledChunk(seq.uid, take))
             note_pending(seq, take)
             budget -= take
-        self.steps += 1
+        self._emit_gauges(manager, chunks, len(decoding), len(prefilling))
         return chunks
 
     # ---------------------------------------------- decode-starvation guard
@@ -188,6 +199,9 @@ class SplitFuseScheduler:
                     victim.preemptions += 1
                     self.preempted_total += 1
                     self._requeued.add(victim.uid)
+                    self._record("serving_preempt", uid=victim.uid, freed_blocks=freed,
+                                 rolled_back_to=victim.seen_tokens,
+                                 preemptions=victim.preemptions)
                     if self.tracer is not None:
                         self.tracer.event("preempt", step=self.steps, uid=victim.uid,
                                           freed_blocks=freed)
@@ -200,6 +214,8 @@ class SplitFuseScheduler:
                     victim = max(victims, key=lambda s: s.arrival)
                     freed = manager.evict(victim, "preempt_requeued_exhausted")
                     self.preempted_total += 1
+                    self._record("serving_preempt_exhausted", uid=victim.uid,
+                                 freed_blocks=freed, preemptions=victim.preemptions)
                     if self.tracer is not None:
                         self.tracer.event("preempt_exhausted", step=self.steps,
                                           uid=victim.uid, freed_blocks=freed)
@@ -209,6 +225,32 @@ class SplitFuseScheduler:
                 chunks.append(ScheduledChunk(seq.uid, 1))
                 budget -= 1
         return budget
+
+    def _record(self, event: str, **fields) -> None:
+        if self.telemetry is not None:
+            self.telemetry.record_resilience(event, step=self.steps, **fields)
+
+    def _emit_gauges(self, manager: RaggedStateManager, chunks: List[ScheduledChunk],
+                     n_decoding: int, n_prefilling: int) -> None:
+        """Scheduler observability: queue depth, batch token occupancy and
+        KV-block utilization per step, through the shared telemetry
+        collector when one is attached."""
+        scheduled_tokens = sum(c.n_tokens for c in chunks)
+        self.last_gauges = {
+            "queue_depth": float(n_decoding + n_prefilling),
+            "decode_seqs": float(n_decoding),
+            "prefill_seqs": float(n_prefilling),
+            "scheduled_seqs": float(len(chunks)),
+            "scheduled_tokens": float(scheduled_tokens),
+            "token_occupancy": scheduled_tokens / max(self.token_budget, 1),
+            "kv_block_utilization": manager.kv_utilization(),
+            "preempted_total": float(self.preempted_total),
+        }
+        self.steps += 1
+        if self.telemetry is not None:
+            self.telemetry.record_gauges(
+                self.last_gauges, step=self.steps, prefix="Inference/Scheduler",
+                timestamp=self.gauge_timestamp() if self.gauge_timestamp else None)
 
     def _reserve(self, manager: RaggedStateManager, seq: SequenceDescriptor, n: int) -> bool:
         self._reserve_faulted = False

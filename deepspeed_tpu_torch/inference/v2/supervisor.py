@@ -1,7 +1,7 @@
 """Supervised serving restart + crash recovery with decode continuation.
 
-Counterpart of ``deepspeed_tpu/inference/v2/supervisor.py`` without its ops
-plane (``ops_server``, not ported yet).  All of the v2 engine's admission,
+Counterpart of ``deepspeed_tpu/inference/v2/supervisor.py``.  All of the v2
+engine's admission,
 deadline and watchdog resilience is in-process, so a serving-process crash
 (OOM, preempted VM, wedged device) would destroy every queued and in-flight
 request.  The supervisor composes the fsync+CRC request journal
@@ -32,6 +32,12 @@ serving engines:
   ONE final attempt, and whatever still isn't terminal is finalized as
   ``failed`` directly in the journal.  Every request reaches exactly one
   terminal :class:`RequestResult`; the supervisor never hangs.
+- **Fleet metrics.**  With ``ops_server`` the supervisor serves one
+  ``/metrics`` for the fleet: workers publish per-generation registry
+  snapshots (under the exported ``DSTPU_OPS_DIR`` in subprocess mode; the
+  engine's final state is absorbed directly in process) and a
+  ``FleetAggregator`` merges them, carrying counters across generations so a
+  restart never makes a fleet counter go backwards.
 
 Clock discipline: monotonic reads flow through the injectable ``clock`` seam
 and wall-clock reads through ``wall_clock`` (both bound to the ``time``
@@ -39,6 +45,7 @@ functions as defaults), so fault tests drive fake time deterministically.
 """
 
 import dataclasses
+import json
 import logging
 import os
 import shutil
@@ -48,8 +55,13 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from ...monitor.exposition import render
+from ...monitor.metrics import (FleetAggregator, MetricsRegistry, populate_from_engine,
+                                populate_from_supervisor)
+from ...monitor.ops_server import OpsCache, read_rank_snapshots, try_start_ops_server
 from ...monitor.tracing import FlightRecorder
-from ...runtime.config import ServingFaultToleranceConfig
+from ...runtime.config import OpsServerConfig, ServingFaultToleranceConfig
+from ...utils.env import warning_once
 from ...runtime.heartbeat import (HEARTBEAT_DIR_ENV, HEARTBEAT_INTERVAL_ENV,
                                   OPS_DIR_ENV, SERVING_DRAIN_ENV,
                                   SERVING_FSYNC_ENV, SERVING_GENERATION_ENV,
@@ -239,19 +251,17 @@ class ServingSupervisor:
     serving (that is the recovery contract working as designed) — give a
     fresh workload a fresh ``journal_path``.
 
-    ``ops_server`` is the JAX supervisor's fleet metrics endpoint; the ops
-    plane is not ported, so only None is accepted.
+    ``ops_server`` (an ``OpsServerConfig`` or its dict; None leaves the plane
+    off) serves the fleet endpoint; ``telemetry`` receives the lifecycle
+    events as ``serving_<event>`` resilience records.
     """
 
     def __init__(self, engine_factory: Optional[Callable[[], Any]] = None, *,
                  journal_path: Optional[str] = None, config=None,
-                 clock: Callable[[], float] = time.monotonic,
+                 telemetry=None, clock: Callable[[], float] = time.monotonic,
                  wall_clock: Callable[[], float] = time.time,
                  sleep: Callable[[float], None] = time.sleep,
                  ops_server=None):
-        if ops_server is not None:
-            raise NotImplementedError("ServingSupervisor(ops_server=...): the ops plane is "
-                                      "not ported yet (ROADMAP Queue 1 item 4c)")
         if config is None:
             config = ServingFaultToleranceConfig(enabled=False)
         elif isinstance(config, dict):
@@ -262,6 +272,7 @@ class ServingSupervisor:
         if not self.journal_path:
             raise ValueError("ServingSupervisor needs journal_path (argument "
                              "or serving_fault_tolerance.journal_path)")
+        self.telemetry = telemetry
         self._clock = clock
         self._wall = wall_clock
         self._sleep = sleep
@@ -272,10 +283,98 @@ class ServingSupervisor:
         self._failure_times: deque = deque()
         # the supervisor's own postmortem ring of lifecycle events
         self.recorder = FlightRecorder(256)
+        # fleet-level ops endpoint: the aggregator merges worker snapshots
+        # (histograms exactly, counters carried across generations)
+        self.ops_cfg: Optional[OpsServerConfig] = None
+        self.ops = None
+        self._ops_cache = None
+        self._ops_agg = None
+        self._ops_dir: Optional[str] = None
+        self._ops_own_dir = False
+        if ops_server is not None:
+            cfg = ops_server if isinstance(ops_server, OpsServerConfig) \
+                else OpsServerConfig(**dict(ops_server))
+            if cfg.enabled or cfg.textfile_dir:
+                self.ops_cfg = cfg
+                self._ops_agg = FleetAggregator()
+                self._ops_cache = OpsCache()
+                self._ops_dir = cfg.textfile_dir
+                if self._ops_dir is None:
+                    self._ops_dir = tempfile.mkdtemp(prefix="dstpu_serving_ops_")
+                    self._ops_own_dir = True
+                if cfg.enabled:
+                    self.ops = try_start_ops_server(self._ops_cache, host=cfg.host,
+                                                    port=cfg.port, owner="serving supervisor")
+                self._ops_last_refresh = -float("inf")
+                self._refresh_ops(force=True)
+
+    # ----------------------------------------------------------- ops endpoint
+    def ops_health(self) -> Dict[str, Any]:
+        """The supervisor's /healthz: restart budget, degradation, and which
+        worker ranks have published metrics."""
+        return {
+            "restarts_total": self.restarts_total,
+            "generations": self.generations,
+            "degraded": self.degraded,
+            "recovered_requests_total": self.recovered_requests_total,
+            "failures_in_window": len(self._failure_times),
+            "max_restarts": self.cfg.max_restarts,
+            "ranks": self._ops_agg.ranks() if self._ops_agg is not None else [],
+        }
+
+    def _refresh_ops(self, force: bool = False) -> None:
+        """Absorb fresh worker snapshots and re-render the merged fleet
+        registry and the supervisor's health into the scrape cache, at most
+        once per ``refresh_interval_s`` unless forced (the watch loop polls
+        far more often)."""
+        if self._ops_agg is None:
+            return
+        now = self._clock()
+        if not force and now - self._ops_last_refresh < self.ops_cfg.refresh_interval_s:
+            return
+        self._ops_last_refresh = now
+        self._ops_absorb_dir()
+        merged = self._ops_agg.registry(namespace=self.ops_cfg.namespace)
+        populate_from_supervisor(merged, self)
+        self._ops_cache.update(
+            metrics_text=render(merged, collect=False),
+            healthz=json.dumps(self.ops_health()),
+            statez=json.dumps({"events": self.recorder.tail(),
+                               "ranks": self._ops_agg.ranks()}))
+
+    def _ops_absorb_dir(self) -> None:
+        """Fold every readable worker snapshot under the ops dir into the
+        aggregator (subprocess mode; generation bumps roll counter carry)."""
+        if self._ops_agg is None or self._ops_dir is None:
+            return
+        for rank, snap in read_rank_snapshots(self._ops_dir).items():
+            try:
+                self._ops_agg.absorb(rank, snap)
+            except (ValueError, KeyError, TypeError) as exc:
+                # a malformed-but-parseable snapshot degrades that rank's
+                # freshness; it must never unwind the watch loop
+                warning_once(f"ops: rank {rank} snapshot rejected ({exc!r}); "
+                             f"keeping its last merged state")
+
+    def _ops_absorb_engine(self, engine, generation: int) -> None:
+        """Fold an in-process engine's final state into the aggregator (the
+        in-process analog of a worker's published snapshot)."""
+        if self._ops_agg is None or engine is None:
+            return
+        reg = MetricsRegistry(namespace=self.ops_cfg.namespace, generation=generation)
+        populate_from_engine(reg, engine)
+        self._ops_agg.absorb(0, reg.snapshot())
+
+    def close_ops(self) -> None:
+        """Shut the ops listener down."""
+        if self.ops is not None:
+            self.ops.close()
 
     # ------------------------------------------------------------- accounting
     def _event(self, event: str, **fields) -> None:
         self.recorder.record(event, t=self._wall(), **fields)
+        if self.telemetry is not None:
+            self.telemetry.record_resilience(f"serving_{event}", **fields)
 
     def _note_failure(self, detail: str) -> None:
         now = self._clock()
@@ -377,6 +476,11 @@ class ServingSupervisor:
                 self.generations = generation + 1
                 if engine is not None and engine.journal is not None:
                     engine.journal.close()
+                # this generation's final engine state joins the fleet view;
+                # the next generation's counters restart at zero, which the
+                # aggregator's generation carry absorbs
+                self._ops_absorb_engine(engine, generation)
+                self._refresh_ops(force=True)
             generation += 1
         return [results[u] for u in uid_list]
 
@@ -440,6 +544,8 @@ class ServingSupervisor:
                     on_generation(engine, generation)
                 if engine is not None and engine.journal is not None:
                     engine.journal.close()
+                self._ops_absorb_engine(engine, generation)
+                self._refresh_ops(force=True)
             if exhausted:
                 break
             generation += 1
@@ -507,9 +613,15 @@ class ServingSupervisor:
             worker_env[HEARTBEAT_DIR_ENV] = hb_dir
             worker_env[HEARTBEAT_INTERVAL_ENV] = str(cfg.heartbeat_interval_s)
             worker_env[SERVING_GENERATION_ENV] = str(generation)
-            # scrub an inherited ops dir: a foreign supervisor's aggregator
-            # must not absorb THIS worker's snapshots as one of its ranks
-            worker_env.pop(OPS_DIR_ENV, None)
+            if self._ops_dir is not None:
+                # workers publish per-rank registry snapshots the aggregator
+                # merges into the fleet endpoint (generation-stamped, so the
+                # counter carry engages across restarts)
+                worker_env[OPS_DIR_ENV] = self._ops_dir
+            else:
+                # scrub an inherited dir: a foreign supervisor's aggregator
+                # must not absorb THIS worker's snapshots as one of its ranks
+                worker_env.pop(OPS_DIR_ENV, None)
             if drain:
                 worker_env[SERVING_DRAIN_ENV] = "1"
             else:
@@ -536,14 +648,19 @@ class ServingSupervisor:
                 self._event("degraded", reason="restart budget exhausted",
                             restarts=self.restarts_total)
             generation += 1
+        # final aggregation pass after the recovery accounting lands and
+        # before any cleanup
         state = replay_journal(self.journal_path, truncate=True)
         self.recovered_requests_total = sum(
             1 for e in state.entries.values() if e.admits > 1)
+        self._refresh_ops(force=True)
         if own_hb_base and clean_exit:
             # sweep OUR tempdir stamps on a clean run, keep them for
             # postmortem on any failure path; caller-provided dirs are never
             # touched
             shutil.rmtree(hb_base, ignore_errors=True)
+        if self._ops_own_dir and clean_exit:
+            shutil.rmtree(self._ops_dir, ignore_errors=True)
         return {"generations": self.generations,
                 "restarts": self.restarts_total,
                 "degraded": self.degraded,
@@ -565,6 +682,9 @@ class ServingSupervisor:
                     return None
                 failure = f"worker exited rc={rc}"
                 break
+            # fold fresh worker metrics into the fleet endpoint (the dir
+            # scan and render ride _refresh_ops' throttle, not the poll rate)
+            self._refresh_ops()
             record = read_heartbeats(hb_dir).get(0)
             if record is None:
                 if self._clock() - start > cfg.startup_grace_s:

@@ -13,7 +13,7 @@ layer it needs, ``leaf[i]``, so only that layer is ever dense.
 import dataclasses
 import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,6 +94,35 @@ def num_params(config: LlamaConfig) -> int:
     if not config.tie_embeddings:
         total += D * V
     return total
+
+
+def paged_bucket_cost(config: LlamaConfig, n: int, t: int, b: int, block_size: int,
+                      dtype) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one :func:`forward_paged` over an ``(n, t, b)``
+    bucket: ``n`` sequences of ``t`` padded tokens over block tables of
+    ``b`` blocks, weights and KV pool in ``dtype``.  The serving roofline's
+    cost source, noted once per bucket at its build.
+
+    FLOPs: ``2 n t`` times each layer's weight elements, the attention
+    products ``4 n t (b block_size) H Dh`` a layer (scores and values over
+    every table position), and the ``lm_head`` over the ``n t`` rows the
+    forward projects.  Bytes: every weight leaf once, the KV read of
+    ``n b block_size`` positions and the KV write of ``n t`` positions over
+    all layers, the int32 token rows and the logit rows.  These are the
+    least bytes the bucket must move, so a roofline fraction over them is a
+    fraction of a lower bound."""
+    D, F, L, V = config.hidden_size, config.intermediate_size, config.num_layers, config.vocab_size
+    H, KV = config.num_heads, config.num_kv_heads
+    Dh = D // H
+    item = torch.empty((), dtype=dtype).element_size()
+    rows = n * t
+    layer_weights = D * H * Dh + 2 * D * KV * Dh + H * Dh * D + 3 * D * F
+    flops = (2.0 * rows * L * layer_weights + 4.0 * rows * b * block_size * H * Dh * L
+             + 2.0 * rows * D * V)
+    kv_position = 2 * L * KV * Dh * item  # k and v of one position, every layer
+    nbytes = (num_params(config) * item + n * b * block_size * kv_position + rows * kv_position
+              + rows * 4 + rows * V * item)
+    return flops, float(nbytes)
 
 
 def flops_per_token(config: LlamaConfig, seq_len: int) -> float:

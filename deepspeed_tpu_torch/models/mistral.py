@@ -34,6 +34,7 @@ num_params = llama.num_params
 params_from_jax = llama.params_from_jax
 kv_from_jax = llama.kv_from_jax
 init_paged_cache = llama.init_paged_cache
+paged_bucket_cost = llama.paged_bucket_cost
 
 
 def forward_paged(config: MistralConfig, params, tokens, n_tokens, start_pos, block_tables,

@@ -2,10 +2,10 @@
 
 Counterpart of ``deepspeed_tpu/runtime/config.py``; the port carries the
 ``serving_resilience``, ``serving_fastpath``, ``serving_kv_observability``,
-``serving_prefix_cache``, ``serving_tracing`` and ``serving_fault_tolerance``
-sections and the training
-sections its single-GPU engine reads (:class:`TrainingConfig`),
-``sparse_attention`` among them.
+``serving_prefix_cache``, ``serving_tracing``, ``serving_fault_tolerance``,
+``serving_perf`` and ``ops_server`` sections and the training sections its
+single-GPU engine reads (:class:`TrainingConfig`), ``sparse_attention``,
+``telemetry`` and the monitor writers among them.
 """
 
 import json
@@ -218,7 +218,156 @@ class ServingFaultToleranceConfig(ConfigModel):
                              "which exports DSTPU_HEARTBEAT_DIR)")
 
 
+class ServingPerfConfig(ConfigModel):
+    """Serving performance observatory for the v2 ragged engine
+    (``monitor/perf.py`` wired through ``inference/v2``), with the JAX
+    package's fields and defaults but one: ``hbm_gbps_spec`` defaults to the
+    H100 SXM's 3350 GB/s.
+
+    ``enabled`` turns on the StepPhaseProfiler: per-iteration phase spans
+    (admission_pump / scatter_upload / dispatch / absorb_patch / burst /
+    flush / expire / other) charged by reading the engine's injectable clock
+    at phase boundaries, accumulated into deterministic-quantile streaming
+    histograms, exported as ``serving_phase_*`` metric families, Chrome-trace
+    phase tracks and an every-``phase_budget_every``-iterations phase-budget
+    flight-recorder line, plus the live roofline gauges
+    (``serving_hbm_bytes_per_token`` / ``serving_roofline_fraction`` /
+    ``serving_model_flops_utilization``) against ``hbm_gbps_spec`` and
+    ``peak_flops_per_chip``.  Off by default: phase marks READ the clock, and
+    with the observatory off the engine performs no additional clock reads,
+    so tokens and ``ServeCounters`` are byte-identical either way.
+
+    The CompileLedger and the per-bucket cost notes are ALWAYS on regardless
+    of ``enabled``: they add no clock reads and no device work.  The port's
+    bucket cost is analytic (``models.llama.paged_bucket_cost``: the least
+    FLOPs and bytes the bucket's forward must do and move), noted once at
+    each bucket's build; ``capture_cost_analysis`` gates that note.
+    """
+    enabled: bool = False
+    # emit a phase-budget flight-recorder line every N serve iterations
+    phase_budget_every: int = Field(50, ge=1)
+    # phase-span histogram shape; min_s is two decades below the request
+    # histograms' 1e-5: phase spans are sub-iteration slivers
+    histogram_buckets_per_decade: int = Field(6, ge=1, le=100)
+    histogram_min_s: float = Field(1e-7, gt=0.0)
+    # device-memory bandwidth for the roofline denominator (GB/s; 3350 is
+    # the H100 SXM's HBM3)
+    hbm_gbps_spec: float = Field(3350.0, gt=0.0)
+    # per-device peak FLOPs for serving MFU; None leaves the MFU gauge at 0
+    peak_flops_per_chip: Optional[float] = Field(None, gt=0.0)
+    capture_cost_analysis: bool = True
+
+
+class OpsServerConfig(ConfigModel):
+    """Pull-based ops endpoints (``monitor/metrics.py`` +
+    ``monitor/ops_server.py``), with the JAX package's fields and defaults: a
+    Prometheus ``/metrics`` endpoint plus JSON ``/healthz``/``/statez``.
+
+    ``enabled`` starts a stdlib ``ThreadingHTTPServer`` on ``host:port``
+    (``port=0`` = ephemeral; read it from the owner's ``.ops.port``) serving
+    ONLY host-side cached snapshots: the owning loop refreshes the cache at
+    host-touch points it already pays for, at most once per
+    ``refresh_interval_s``, so a scrape can never read a device value or race
+    a mutating step.  The serving engine refreshes on its injectable clock;
+    training refreshes at the telemetry record boundary.
+
+    ``textfile_dir`` additionally publishes this process's registry as
+    atomic per-rank files (``ops.rank<R>.json`` exact-merge snapshot +
+    ``ops.rank<R>.prom`` rendered textfile).  ``ServingSupervisor`` exports
+    ``DSTPU_OPS_DIR`` to its workers and merges their snapshots into one
+    fleet-level endpoint whose counters stay monotone across worker
+    restarts; the env wins over this field.
+    """
+    enabled: bool = False
+    host: str = "127.0.0.1"
+    port: int = Field(0, ge=0, le=65535)  # 0 => ephemeral
+    refresh_interval_s: float = Field(0.25, ge=0.0)
+    textfile_dir: Optional[str] = None
+    namespace: str = "dstpu"
+
+
 # ------------------------------------------------------------------ training
+class TensorBoardConfig(ConfigModel):
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedTPUJobName"
+
+
+class WandbConfig(ConfigModel):
+    enabled: bool = False
+    group: Optional[str] = None
+    team: Optional[str] = None
+    project: str = "deepspeed_tpu"
+
+
+class CSVConfig(ConfigModel):
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedTPUJobName"
+
+
+class MonitorConfig(ConfigModel):
+    """Reference: DeepSpeedMonitorConfig (monitor/config.py)."""
+    tensorboard: TensorBoardConfig = Field(TensorBoardConfig)
+    wandb: WandbConfig = Field(WandbConfig)
+    csv_monitor: CSVConfig = Field(CSVConfig)
+
+
+class TelemetryConfig(ConfigModel):
+    """Unified telemetry (``monitor/telemetry.py``), with the JAX package's
+    fields, defaults and validation.
+
+    ``enabled`` (or a non-None ``jsonl_path``) turns on per-step structured
+    records: loss, grad-norm, lr, step wall-time, samples/sec, tokens/sec, MFU
+    and device-memory stats, fanned out to MonitorMaster and a rank-0 JSONL
+    sink.
+
+    ``profile_step_start``/``profile_step_stop`` open a ``torch.profiler``
+    window over those global steps (a Chrome trace written into
+    ``profile_dir`` when it closes), with a ``train_step#<n>`` range on each
+    step and a ``batch_prep`` range; ``profile_serve_iteration_start``/
+    ``_stop`` do the same over serve-loop iterations, one window per
+    ``generate()``, with a range per serve phase.
+
+    Cost: a per-step record needs the step's loss and wall-time, so enabling
+    telemetry adds ONE host value-fetch (device sync) per train step: host
+    work stops overlapping device execution, like ``wall_clock_breakdown``.
+    """
+    enabled: bool = False
+    jsonl_path: Optional[str] = None
+    # flush the JSONL sink every N records (1 = after every record; raise it
+    # for high-rate streams such as per-request serving traces; close()
+    # always flushes whatever is buffered)
+    jsonl_flush_every: int = Field(1, ge=1)
+    # -1 disables; [start, stop) in global steps
+    profile_step_start: int = Field(-1, ge=-1)
+    profile_step_stop: int = Field(-1, ge=-1)
+    profile_dir: str = "profiler_traces"
+    # -1 disables; [start, stop) in serve-loop iterations, one window per
+    # generate() call
+    profile_serve_iteration_start: int = Field(-1, ge=-1)
+    profile_serve_iteration_stop: int = Field(-1, ge=-1)
+    # see_memory_usage(tag) at each steps_per_print boundary (also honors the
+    # reference's top-level memory_breakdown key)
+    memory_breakdown: bool = False
+    # per-device peak FLOPs override for MFU; None => detect from the device name
+    peak_flops_per_chip: Optional[float] = Field(None, gt=0.0)
+
+    def model_validate(self):
+        if self.jsonl_path is not None and not self.enabled:
+            object.__setattr__(self, "enabled", True)
+        if (self.profile_step_stop >= 0 and self.profile_step_start >= 0
+                and self.profile_step_stop <= self.profile_step_start):
+            raise ValueError(f"telemetry: profile_step_stop={self.profile_step_stop} must be "
+                             f"> profile_step_start={self.profile_step_start}")
+        if (self.profile_serve_iteration_stop >= 0
+                and self.profile_serve_iteration_start >= 0
+                and self.profile_serve_iteration_stop <= self.profile_serve_iteration_start):
+            raise ValueError(
+                f"telemetry: profile_serve_iteration_stop={self.profile_serve_iteration_stop} "
+                f"must be > profile_serve_iteration_start={self.profile_serve_iteration_start}")
+
+
 class FP16Config(ConfigModel):
     """Only ``enabled: false`` is accepted: fp16 loss scaling is not ported."""
     enabled: bool = False
@@ -321,15 +470,16 @@ class SparseAttentionConfig(ConfigModel):
 
 # sections of the JAX TrainingConfig that change what a step computes and are
 # not ported yet; any other key the port does not know raises ValueError
-UNPORTED_TRAINING_SECTIONS = ("data_efficiency", "telemetry", "ops_server")
+UNPORTED_TRAINING_SECTIONS = ("data_efficiency", )
 
 
 class TrainingConfig(ConfigModel):
     """The training config the port's engine reads: the batch triple,
     optimizer, scheduler, precision (bf16 by default, fp32 with
     ``"bf16": {"enabled": false}``), gradient clipping, seed, print cadence,
-    the ZeRO stage and block-sparse attention.  Load it with :func:`load_config`, which refuses the JAX
-    package's other sections."""
+    the ZeRO stage, block-sparse attention, the monitor writers, telemetry
+    and the ops endpoints.  Load it with :func:`load_config`, which refuses
+    the JAX package's other sections."""
     train_batch_size: Optional[int] = Field(None, ge=1)
     train_micro_batch_size_per_gpu: Optional[int] = Field(None, ge=1)
     gradient_accumulation_steps: Optional[int] = Field(None, ge=1)
@@ -342,8 +492,22 @@ class TrainingConfig(ConfigModel):
     bf16: Optional[BF16Config] = None
     zero_optimization: ZeroConfig = Field(ZeroConfig)
     sparse_attention: Optional[SparseAttentionConfig] = None
+    # monitor writers (TensorBoard / W&B / CSV), top level or under
+    # monitor_config, per-step telemetry and the pull-based ops endpoints
+    monitor_config: Optional[MonitorConfig] = None
+    tensorboard: TensorBoardConfig = Field(TensorBoardConfig)
+    wandb: WandbConfig = Field(WandbConfig)
+    csv_monitor: CSVConfig = Field(CSVConfig)
+    telemetry: TelemetryConfig = Field(TelemetryConfig)
+    ops_server: OpsServerConfig = Field(OpsServerConfig)
+    wall_clock_breakdown: bool = False
+    memory_breakdown: bool = False
 
     def model_validate(self):
+        if self.memory_breakdown and not self.telemetry.memory_breakdown:
+            # the reference's top-level memory_breakdown key routes to the
+            # see_memory_usage cadence the telemetry section controls
+            object.__setattr__(self.telemetry, "memory_breakdown", True)
         if self.fp16.enabled:
             raise NotImplementedError("fp16 training (dynamic loss scaling) is not ported to "
                                       "PyTorch yet: use bf16 or fp32")

@@ -17,20 +17,41 @@ and ZeRO partitions nothing, so every ZeRO stage runs this same step.  The
 engine runs on ``device="cuda"`` unless the caller passes ``device="cpu"``
 (then every kernel's plain version runs); it raises when asked for CUDA
 without a GPU.  ``initialize`` makes the config's ``sparse_attention``
-section the loss function's default attention.  Not ported yet: fp16 loss
-scaling, offload, checkpoints, telemetry and the watchdog (ROADMAP Queue 1).
+section the loss function's default attention.
+
+Observability, as in the JAX engine: the monitor writers (``MonitorMaster``)
+and a ``TelemetryCollector`` (``telemetry`` section: per-step records with
+loss, step time, tokens/s, ``mfu`` and device memory, and a
+``torch.profiler`` step window); ``wall_clock_breakdown`` or telemetry add
+ONE ``float(loss)`` sync a step.  The step's FLOPs for ``mfu`` are counted
+once, on the first step under ``torch.utils.flop_counter.FlopCounterMode``:
+every aten product, the remat recompute included, and nothing inside the
+hand kernels (called through ``ctypes``, as XLA's cost analysis does not see
+inside a Pallas call).  ``ops_server`` publishes ``/metrics``, ``/healthz``
+and ``/statez`` refreshed at the step boundary.  Not ported yet: fp16 loss
+scaling, offload, checkpoints and the watchdog (ROADMAP Queue 1).
 """
 
+import contextlib
+import json
 import logging
-from typing import Any, Callable, NamedTuple, Optional
+import os
+import time
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..models import transformer
+from ..monitor.metrics import populate_from_telemetry
+from ..monitor.monitor import MonitorMaster
+from ..monitor.ops_server import OpsPublisher
+from ..monitor.telemetry import TelemetryCollector
+from ..utils.memory import see_memory_usage
 from . import lr_schedules, optimizers
-from .config import TrainingConfig, load_config
+from .config import OpsServerConfig, TrainingConfig, load_config
 from .grad_accum import accumulate_micro_grads
+from .heartbeat import OPS_DIR_ENV
 from .tree import tree_leaves, tree_map
 
 logger = logging.getLogger(__name__)
@@ -88,6 +109,31 @@ class Engine:
         self.global_samples = 0
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self._last_grad_norm: Optional[torch.Tensor] = None
+        # monitor writers and the per-step telemetry collector (the engine
+        # trains on one device)
+        self.monitor = MonitorMaster(config)
+        self.telemetry = TelemetryCollector(config.telemetry, monitor=self.monitor,
+                                            batch_size=self.train_batch_size, n_chips=1)
+        self._last_telemetry_record: Optional[Dict[str, Any]] = None
+        self._breakdown_acc = [0.0, 0.0, 0]
+        # pull-based ops plane: rank 0 serves /metrics + /healthz + /statez
+        # over the telemetry caches; every rank publishes per-rank files when
+        # DSTPU_OPS_DIR (or ops_server.textfile_dir) is set.  The cache
+        # refreshes at the step boundary, from host values only.
+        self._ops = None
+        self._ops_rank = int(os.environ.get("RANK", "0") or 0)
+        ops_cfg = config.ops_server
+        ops_dir = os.environ.get(OPS_DIR_ENV) or ops_cfg.textfile_dir
+        if ops_cfg.enabled or ops_dir:
+            if ops_cfg.enabled and not self.telemetry._is_rank0:
+                # one endpoint per job: ranks > 0 publish exchange files only
+                ops_cfg = OpsServerConfig(enabled=False, host=ops_cfg.host,
+                                          refresh_interval_s=ops_cfg.refresh_interval_s,
+                                          textfile_dir=ops_cfg.textfile_dir,
+                                          namespace=ops_cfg.namespace)
+            self._ops = OpsPublisher(ops_cfg, ops_dir=ops_dir, rank=self._ops_rank,
+                                     owner="training engine")
+        self.ops = self._ops.server if self._ops is not None else None
 
         master = tree_map(lambda p: _as_tensor(p).detach().to(
             device=self.device, dtype=torch.float32).clone(), params)
@@ -125,7 +171,9 @@ class Engine:
         """(fp32 grads averaged over the micro-batches, mean loss) for
         ``batch`` at the current params, without stepping: step 1 of the
         train step."""
-        batch = self._gas_layout(batch)
+        return self._accumulate(self._gas_layout(batch))
+
+    def _accumulate(self, batch):
         gas = self.gradient_accumulation_steps
         scale = 1.0  # no loss scaling in bf16/fp32
         grads, loss_sum = accumulate_micro_grads(self.loss_fn, self._compute_params(), batch,
@@ -137,7 +185,58 @@ class Engine:
     def train_batch(self, batch) -> StepMetrics:
         """One optimizer step on a global batch: leaves [train_batch_size, ...]
         or [gas, micro, ...]."""
-        grads, loss = self.accumulate_gradients(batch)
+        telemetry = self.telemetry.enabled
+        if telemetry:
+            self.telemetry.profile_step_boundary(self.global_steps)
+        breakdown = self.config.wall_clock_breakdown
+        timed = breakdown or telemetry
+        t0 = time.perf_counter() if timed else 0.0
+        with self.telemetry.annotation("batch_prep"):
+            batch = self._gas_layout(batch)
+        t1 = time.perf_counter() if timed else 0.0
+        flop_counter = None
+        if self.telemetry.wants_flops():
+            # the step's FLOPs, counted once on the first step and this batch
+            from torch.utils.flop_counter import FlopCounterMode
+            flop_counter = FlopCounterMode(display=False)
+        with self.telemetry.step_annotation(self.global_steps), \
+                flop_counter if flop_counter is not None else contextlib.nullcontext():
+            metrics = self._step(batch)
+        if flop_counter is not None:
+            self.telemetry.set_flops_per_step(flop_counter.get_total_flops())
+        loss_val = None
+        t2 = 0.0
+        if timed:
+            loss_val = float(metrics.loss)  # the step's ONE sync, opt-in
+            t2 = time.perf_counter()
+        if breakdown:
+            acc = self._breakdown_acc
+            acc[0] += t1 - t0
+            acc[1] += t2 - t1
+            acc[2] += 1
+            if self.global_steps % self.config.steps_per_print == 0:
+                bd, bs, n = acc
+                logger.info(f"wall clock breakdown (avg over {n} steps): batch_prep="
+                            f"{bd / n * 1e3:.2f}ms train_step={bs / n * 1e3:.2f}ms")
+                self._breakdown_acc = [0.0, 0.0, 0]
+        if telemetry:
+            self._last_telemetry_record = self.telemetry.record_train_step(
+                step=self.global_steps, samples=self.global_samples, loss=loss_val,
+                grad_norm=float(metrics.grad_norm), lr=metrics.lr,
+                step_time_s=max(t2 - t1, 0.0) or None, tokens=self._batch_tokens(batch))
+        if (self.config.telemetry.memory_breakdown
+                and self.global_steps % self.config.steps_per_print == 0):
+            see_memory_usage(f"after train step {self.global_steps}")
+        # ops-plane cache refresh after the record, so a scrape sees THIS step
+        self._refresh_ops()
+        if self.global_steps % self.config.steps_per_print == 0:
+            self._report(metrics, loss_val)
+        return metrics
+
+    def _step(self, batch) -> StepMetrics:
+        """Grads, norm, clipping, lr and the optimizer step on a gas-layout
+        batch; advances the step counters."""
+        grads, loss = self._accumulate(batch)
         norm = optimizers.global_grad_norm(grads)
         clip = self.config.gradient_clipping
         if clip > 0:
@@ -153,12 +252,78 @@ class Engine:
         self.global_steps += 1
         self.global_samples += self.train_batch_size
         self.lr_scheduler.last_step = self.global_steps
-        metrics = StepMetrics(loss=loss, grad_norm=norm, lr=lr, skipped=False, loss_scale=1.0)
         self._last_grad_norm = norm
-        if self.global_steps % self.config.steps_per_print == 0:
-            logger.info(f"step={self.global_steps} loss={float(loss):.4f} lr={lr:.3e} "
-                        f"grad_norm={float(norm):.3f}")
-        return metrics
+        return StepMetrics(loss=loss, grad_norm=norm, lr=lr, skipped=False, loss_scale=1.0)
+
+    def _report(self, metrics: StepMetrics, loss: Optional[float]) -> None:
+        """The steps_per_print line and the monitor writers' events."""
+        loss = float(metrics.loss) if loss is None else loss
+        norm = float(metrics.grad_norm)
+        logger.info(f"step={self.global_steps} loss={loss:.4f} lr={metrics.lr:.3e} "
+                    f"grad_norm={norm:.3f}")
+        if not self.monitor.enabled:
+            return
+        samples = self.global_samples
+        events = [("Train/Samples/train_loss", loss, samples),
+                  ("Train/Samples/lr", float(metrics.lr), samples),
+                  ("Train/Samples/grad_norm", norm, samples)]
+        rec = self._last_telemetry_record
+        if rec is not None:
+            for key in ("step_time_ms", "samples_per_sec", "tokens_per_sec", "tflops_per_sec",
+                        "mfu"):
+                if rec.get(key) is not None:
+                    events.append((f"Train/Samples/{key}", float(rec[key]), samples))
+            for key, value in (rec.get("hbm") or {}).items():
+                if value is not None:
+                    events.append((f"Train/HBM/{key}", float(value), samples))
+        self.monitor.write_events(events)
+
+    def _batch_tokens(self, batch) -> Optional[int]:
+        """Global tokens this step: train_batch_size x the sequence length of
+        the first integer leaf with a sequence dim (gas layout [gas, micro,
+        seq, ...]); None for sequence-free batches."""
+        for leaf in tree_leaves(batch):
+            if leaf.dim() > 2 and not leaf.is_floating_point():
+                return self.train_batch_size * int(leaf.shape[2])
+        return None
+
+    # ------------------------------------------------------------ ops plane
+    def ops_health(self) -> Dict[str, Any]:
+        """The training engine's /healthz payload: host-owned progress plus
+        the newest telemetry record's headline numbers (all cached)."""
+        record = self._last_telemetry_record or {}
+        return {"global_steps": self.global_steps, "global_samples": self.global_samples,
+                "rank": self._ops_rank,
+                **{k: record.get(k) for k in ("loss", "step_time_ms", "samples_per_sec",
+                                              "tokens_per_sec", "mfu")}}
+
+    def _refresh_ops(self, force: bool = False) -> None:
+        """Refresh the cached ops snapshots at the step boundary (throttled to
+        ``ops_server.refresh_interval_s``); a no-op with the plane off."""
+        if self._ops is None:
+            return
+        self._ops.refresh(self._populate_ops_registry, now=time.monotonic(), force=force,
+                          healthz=lambda: json.dumps(self.ops_health()),
+                          statez=lambda: json.dumps(self._ops.registry.snapshot()))
+
+    def _populate_ops_registry(self, reg) -> None:
+        ns = reg.namespace
+        # telemetry first, then the engine's own families (the engine's live
+        # position wins the global-step/samples gauges)
+        populate_from_telemetry(reg, self.telemetry)
+        reg.set_counter(f"{ns}_train_steps_total", self.global_steps,
+                        help_text="optimizer steps run by this process")
+        reg.set_counter(f"{ns}_train_samples_total", self.global_samples,
+                        help_text="samples consumed by this process")
+        reg.set_gauge(f"{ns}_train_global_step", self.global_steps,
+                      help_text="absolute training step (checkpoint position)")
+        reg.set_gauge(f"{ns}_train_global_samples", self.global_samples,
+                      help_text="absolute samples consumed (checkpoint position)")
+
+    def close_ops(self) -> None:
+        """Shut the ops HTTP listener down."""
+        if self._ops is not None:
+            self._ops.close()
 
     @torch.no_grad()
     def eval_batch(self, batch, rng=None):

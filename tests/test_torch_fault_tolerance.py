@@ -17,7 +17,7 @@ journal/heartbeat seams, held to their ``deepspeed_tpu`` counterparts:
   in-process supervisor's crash recovery, budget exhaustion, a foreign
   engine journal refused, env arming;
 - port-only: ``ServeCounters`` and tokens identical with journaling and
-  heartbeats on and off, the unported ops plane refused, and subprocess
+  heartbeats on and off, the supervisor's ops endpoint served, and subprocess
   supervision of a port worker (this file run as
   ``python tests/test_torch_fault_tolerance.py worker <fault> <out>``)
   through a crash with a torn tail and through a hang found by heartbeat
@@ -633,10 +633,11 @@ def test_config_section_has_the_jax_fields_defaults_and_errors(tmp_path, monkeyp
               "startup_grace_s", "poll_interval_s")
     assert [getattr(ours, f) for f in fields] == [getattr(theirs, f) for f in fields]
     assert "serving_fault_tolerance" not in UNPORTED_SECTIONS
-    for section in ("serving_qos", "serving_spec_decode", "serving_perf", "ops_server",
-                    "serving_fleet"):
+    for section in ("serving_qos", "serving_spec_decode", "serving_fleet"):
         with pytest.raises(NotImplementedError, match=section):
             load_inference_config({section: {}})
+    for section in ("serving_perf", "ops_server"):  # ported: they load
+        assert not getattr(load_inference_config({section: {}}), section).enabled
     for bad, match in (({"enabled": True}, "needs journal_path"),
                        ({"heartbeat": True}, "needs heartbeat_dir"),
                        ({"fsync_every": -1}, None), ({"restart_window_s": 0.0}, None)):
@@ -648,9 +649,18 @@ def test_config_section_has_the_jax_fields_defaults_and_errors(tmp_path, monkeyp
 
 
 def test_supervisor_refuses_the_unported_ops_plane(tmp_path):
-    with pytest.raises(NotImplementedError, match="4c"):
-        supervisor.ServingSupervisor(journal_path=str(tmp_path / "j.wal"),
-                                     ops_server={"enabled": True})
+    """The ops plane is ported: the supervisor serves its fleet endpoint
+    (/metrics with the supervisor families, /healthz with its budget)."""
+    from deepspeed_tpu_torch.monitor.exposition import parse_exposition
+    from deepspeed_tpu_torch.monitor.ops_server import scrape
+    sup = supervisor.ServingSupervisor(journal_path=str(tmp_path / "j.wal"),
+                                       ops_server={"enabled": True})
+    try:
+        fams = parse_exposition(scrape(sup.ops.url("/metrics")))
+        assert fams["dstpu_supervisor_restarts_total"]["samples"][0][2] == 0.0
+        assert json.loads(scrape(sup.ops.url("/healthz"))) == sup.ops_health()
+    finally:
+        sup.close_ops()
 
 
 # ================================================================= engines

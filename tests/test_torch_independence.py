@@ -49,7 +49,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "deepspeed_tpu_torch.inference.v2.supervisor",
                      "deepspeed_tpu_torch.inference.v2.journal",
                      "deepspeed_tpu_torch.runtime.heartbeat",
-                     "deepspeed_tpu_torch.utils.wal"):
+                     "deepspeed_tpu_torch.utils.wal",
+                     "deepspeed_tpu_torch.utils.memory",
+                     "deepspeed_tpu_torch.monitor.telemetry",
+                     "deepspeed_tpu_torch.monitor.monitor",
+                     "deepspeed_tpu_torch.monitor.metrics",
+                     "deepspeed_tpu_torch.monitor.exposition",
+                     "deepspeed_tpu_torch.monitor.ops_server"):
         assert expected in report["modules"]
 
 

@@ -236,12 +236,21 @@ def test_engine_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="dataloader"):
         deepspeed_tpu_torch.initialize(config=_config(), training_data=[1], device="cpu", **kw)
     for bad in ({"fp16": {"enabled": True}},
-                {"data_efficiency": {"enabled": True}}, {"telemetry": {}},
-                {"ops_server": {"enabled": True}},
+                {"data_efficiency": {"enabled": True}},
                 {"zero_optimization": {"stage": 3, "offload_optimizer": {"device": "cpu"}}},
                 {"optimizer": {"type": "onebitadam", "params": {"lr": 1e-3}}}):
         with pytest.raises(NotImplementedError):
             deepspeed_tpu_torch.initialize(config=_config(**bad), device="cpu", **kw)
+    # telemetry and the ops plane are ported: both sections load and run a step
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        config=_config(telemetry={"enabled": True}, ops_server={"enabled": True}),
+        device="cpu", **kw)
+    try:
+        engine.train_batch(llama.causal_lm_batch(_ids(60, 4)))
+        assert engine.telemetry.last_train_record["step"] == 1
+        assert "dstpu_train_steps_total 1" in engine._ops.cache.metrics_text
+    finally:
+        engine.close_ops()
     with pytest.raises(ValueError, match="unknown config field"):
         load_config(_config(zero_optimization={"stage": 2, "bucket": 1}))
 
