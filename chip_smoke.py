@@ -97,7 +97,18 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      the census invariant holds, pool and prefix tree drain, and every block
      the tree registered holds its bytes until its last mapper releases it;
      three on/off pairs in turns, then one serve of each under
-     torch.profiler;
+     torch.profiler; serve-qos: an engine with tracing and multi-tenant QoS
+     on serves [serve]'s prompts in the default tenant with [serve]'s
+     counters, tokens and paged launches, then an interactive tenant's 4
+     prompts alone and behind a batch tenant's flood of 10 long prompts
+     under a per-tenant token-rate quota: the interactive TTFT p95 within
+     2x its baseline, the flood shed quota_exceeded with a finite hint and
+     not blacked out, the per-tenant ledger and exposition checked;
+     serve-fleet: ``FleetRouter`` over 2 replicas of the engine serves 24
+     requests behind 8 shared headers in two tenants, each header's
+     requests on its affinity home with prefix hits there, placement and
+     hit blocks equal to the CPU rehearsal's, no block shared across
+     tenants, the fleet /metrics strict-parsed;
   4. slice: a 2-layer, full-width Mistral in fp32, one prefill and three
      decode steps of ``forward_paged`` on CUDA (kernel) and on a CPU copy
      (plain path) with the same weights and KV; slice-serve: the same width
@@ -120,7 +131,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      to the uninterrupted run on the card and on the CPU, no worker left,
      and the crash case's supervisor serving the fleet /metrics (workers
      publishing under its DSTPU_OPS_DIR) with a completed-requests counter
-     that never goes down across the restart;
+     that never goes down across the restart; slice-fleet: three replicas
+     of that engine behind ``FleetRouter``, one crashing mid-decode past
+     its restart budget: every request ok and token-identical to an
+     uninterrupted engine, its journaled work migrated, none lost, the
+     fleet counters monotone, prefix hits on the affinity home, a quota
+     shed surfaced and not re-routed;
   5. train: ``initialize`` with Llama-2-7B at full width cut to 8 layers, bf16,
      remat, fused AdamW, WarmupLR, clipping; 6 optimizer steps of 2 x 2 x 2048
      tokens through the flash and fused-AdamW kernels, launch counts checked
@@ -1940,8 +1956,9 @@ def phase_serve(card, seed=0):
                              f"syncs (expected {SERVE_STEPS} and {SERVE_HOST_SYNCS}), prefix "
                              f"cache {pc}")
     # the same serve again: every bucket is built, so nothing is captured
-    counters1, built = engine.counters.snapshot(), engine.ledger.total
+    counters1, built, paged1 = engine.counters.snapshot(), engine.ledger.total, paged_counts()
     again, wall2 = serve_timed(engine, prompts, max_new)
+    warm_launches = tuple(b - a for a, b in zip(paged1, paged_counts()))
     if engine.ledger.total != built or engine.ledger.warm_total:
         raise AssertionError(f"the second serve built {engine.ledger.total - built} programs "
                              f"({engine.ledger.warm_total} warm)")
@@ -1949,7 +1966,8 @@ def phase_serve(card, seed=0):
         raise AssertionError(f"the second serve's tokens differ from the first's at "
                              f"{first_divergence(results, again, prompts)}")
     log(f"[serve] second serve of the same prompts on {card}: wall {wall2:.3f} s, 0 captures, "
-        f"tokens identical to the first serve")
+        f"tokens identical to the first serve, paged launches (total, tensor-core prefill, "
+        f"split-K decode) {warm_launches}")
     warm = log_fastpath("serve", engine, counters1, built, card)
     with phase_timer("serve-journal"):
         phase_serve_journal(card, engine, prompts, max_new, results)
@@ -1971,6 +1989,11 @@ def phase_serve(card, seed=0):
     torch.cuda.empty_cache()
     with phase_timer("serve-prefix"):
         prefix = phase_serve_prefix(card, cfg, params, kw, seed)
+    with phase_timer("serve-qos"):
+        serve_qos(card, cfg, params, kw, prompts, max_new, results, first, warm, warm_launches,
+                  seed)
+    with phase_timer("serve-fleet"):
+        serve_fleet(card, cfg, params, kw, seed)
     del params
     torch.cuda.empty_cache()
     return {"launches": launches, "tc_launches": tc_launches, "decode_launches": decode_launches,
@@ -3536,6 +3559,616 @@ def phase_slice_recover(device="cuda", cfg=None):
         f"{secs:.1f} s")
 
 
+# ------------------------------------------------------- QoS and the fleet
+# [serve-qos]: the flood tenant's per-tenant override, and the names of the
+# tenants whose passes only warm the engine up (same override, same shapes)
+QOS_FLOOD = {"tokens_per_s": 2048.0, "token_burst": 4096.0, "max_kv_blocks": 512}
+QOS_TTFT_FLOOR_S = 0.05  # the interactive TTFT gate's floor under its baseline
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def paged_counts():
+    """(launches, tensor-core prefill launches, split-K decode launches) of
+    the paged-attention wrapper so far."""
+    from deepspeed_tpu_torch.ops.attention.paged import paged_attention
+    return (paged_attention.launches, paged_attention.tc_launches,
+            paged_attention.decode_launches)
+
+
+def max_memory_line(tag, device, when):
+    import torch
+    if torch.device(device).type == "cuda":
+        log(f"[{tag}] {when}: torch.cuda.max_memory_allocated() "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def qos_prompts(seed, vocab):
+    """[serve-qos]'s interactive prompts (4 of 64-128 tokens, at most 512
+    together: one prefill step at [serve]'s budget) and flood prompts (10 of
+    1024-2048 tokens)."""
+    rng = np.random.default_rng(seed + 20)
+    inter = [rng.integers(0, vocab, int(n)).tolist() for n in rng.integers(64, 129, 4)]
+    flood = [rng.integers(0, vocab, int(n)).tolist() for n in rng.integers(1024, 2049, 10)]
+    return inter, flood
+
+
+def qos_pass(engine, prompts, tenants, classes, max_new):
+    """One synchronized ``generate`` with QoS identities: (results, wall s,
+    programs built during it)."""
+    device = engine.device
+    built = engine.ledger.total
+    _sync(device)
+    t0 = time.perf_counter()
+    results = engine.generate(prompts, max_new_tokens=max_new, strict=False, tenants=tenants,
+                              service_classes=classes)
+    _sync(device)
+    return results, time.perf_counter() - t0, engine.ledger.total - built
+
+
+def serve_qos(card, cfg, params, kw, prompts, max_new, results, first, warm, warm_launches,
+              seed=0):
+    """[serve-qos]: [serve]'s engine (Mistral-7B bf16, pool, budget, fast
+    path with graphs) with request tracing and ``serving_qos`` on.
+
+    1. Identity: [serve]'s 16 prompts through the default tenant with no
+       quotas, cold then warm: ServeCounters equal to [serve]'s first and
+       warm serves, the same tokens, and the warm serve's paged launches
+       (total, tensor-core prefill, split-K decode) equal to [serve]'s warm
+       serve's.
+    2. Baseline: an ``interactive`` tenant's 4 prompts of 64-128 tokens, 32
+       new tokens, nothing else in flight: its TTFT p95.
+    3. Noisy neighbour: the same 4 prompts behind a ``batch``-class flood
+       tenant's 10 prompts of 1024-2048 tokens (flood first in the call),
+       the flood under ``QOS_FLOOD`` (2048 tokens/s, burst 4096, 512 KV
+       blocks).
+    Passes 2 and 3 are each run once first under other tenant names (the
+    same override), so their graphs are built before the measured passes.
+    Gates: every interactive request ok; its TTFT p95 at most 2x the
+    baseline's (floored at QOS_TTFT_FLOOR_S); at least one flood request
+    shed ``quota_exceeded``, every flood shed retryable with 0 <
+    retry_after_s < 120; at least one flood request ok; the policy's
+    admitted/shed ledger equal to the results; no stall, the pool reclaimed,
+    nothing live or queued; the ``serving_tenant_*`` families strict-parse
+    from ``populate_from_engine`` with per-tenant TTFT counts equal to the
+    requests; ``health()["qos"]`` JSON-serializable.  Returns the measured
+    numbers."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    from deepspeed_tpu_torch.inference.v2.qos import BATCH, INTERACTIVE, QUOTA_EXCEEDED
+    from deepspeed_tpu_torch.monitor.exposition import parse_exposition, render
+    from deepspeed_tpu_torch.monitor.metrics import MetricsRegistry, populate_from_engine
+    device = kw["device"]
+    log(f"[serve-qos] {nvidia_smi_line() if torch.device(device).type == 'cuda' else card}")
+    max_memory_line("serve-qos", device, "start")
+    engine = build_engine("mistral", cfg, params, **kw, config={
+        "dtype": "bfloat16", "seed": seed, "serving_tracing": {"enabled": True},
+        "serving_qos": {"enabled": True, "tenants": {"flood": QOS_FLOOD,
+                                                     "flood_warm": QOS_FLOOD}}})
+    if engine.qos is None or engine.admission.qos is None or engine.scheduler.qos is None:
+        raise AssertionError("[serve-qos] serving_qos on did not arm the policy")
+    # ---- 1. identity: the default tenant with no quotas is [serve]
+    walls = {}
+    for label, want in (("cold", first), ("warm", warm)):
+        c0, l0 = engine.counters.snapshot(), paged_counts()
+        got, wall = serve_timed(engine, prompts, max_new)
+        d = engine.counters.delta_since(c0)
+        launched = tuple(b - a for a, b in zip(l0, paged_counts()))
+        if d != want:
+            raise AssertionError(f"[serve-qos] {label} serve: ServeCounters {d}, [serve]'s {want}")
+        if [r.tokens for r in got] != [r.tokens for r in results]:
+            raise AssertionError(f"[serve-qos] {label} serve: tokens differ from [serve]'s at "
+                                 f"{first_divergence(results, got, prompts)}")
+        if label == "warm" and launched != warm_launches:
+            raise AssertionError(f"[serve-qos] warm serve: paged launches (total, prefill, "
+                                 f"decode) {launched}, [serve]'s warm serve {warm_launches}")
+        walls[label] = wall
+    log(f"[serve-qos] identity on {card}: {len(prompts)} requests of the default tenant, cold "
+        f"serve {walls['cold']:.3f} s with ServeCounters equal to [serve]'s first serve "
+        f"({first['compiles']} captures), warm serve {walls['warm']:.3f} s with ServeCounters "
+        f"equal to [serve]'s warm serve ({warm['host_syncs']} host syncs), tokens identical, "
+        f"paged launches (total, tensor-core prefill, split-K decode) {launched} equal to "
+        f"[serve]'s warm serve's")
+    inter, flood = qos_prompts(seed, cfg.vocab_size)
+    n_i, n_f = len(inter), len(flood)
+    # ---- 2. the interactive tenant alone (a warm-up pass first)
+    qos_pass(engine, inter, ["int_warm"] * n_i, [INTERACTIVE] * n_i, max_new)
+    base, walls["baseline"], built_base = qos_pass(engine, inter, ["int_base"] * n_i,
+                                                   [INTERACTIVE] * n_i, max_new)
+    if not all(r.ok for r in base):
+        raise AssertionError(f"[serve-qos] baseline statuses {[r.status for r in base]}")
+    hists = engine.tracer.tenant_histograms()
+    base_p = hists[("int_base", "ttft")].percentiles()
+    # ---- 3. the flood first, the interactive trickle behind it
+    mixed_prompts = flood + inter
+    qos_pass(engine, mixed_prompts, ["flood_warm"] * n_f + ["int_warm2"] * n_i,
+             [BATCH] * n_f + [INTERACTIVE] * n_i, max_new)
+    mixed, walls["noisy"], built_noisy = qos_pass(
+        engine, mixed_prompts, ["flood"] * n_f + ["int_live"] * n_i,
+        [BATCH] * n_f + [INTERACTIVE] * n_i, max_new)
+    flood_res, live = mixed[:n_f], mixed[n_f:]
+    if not all(r.ok for r in live):
+        raise AssertionError(f"[serve-qos] interactive statuses under the flood "
+                             f"{[r.status for r in live]}")
+    sheds = [r for r in flood_res if r.status == "shed"]
+    quota = [r for r in sheds if r.shed_code == QUOTA_EXCEEDED]
+    bad = [(r.uid, r.shed_code, r.retryable, r.retry_after_s) for r in sheds
+           if r.shed_code != QUOTA_EXCEEDED or not r.retryable or r.retry_after_s is None
+           or not 0 < r.retry_after_s < 120]
+    flood_ok = [r for r in flood_res if r.ok]
+    if not quota or bad or not flood_ok or len(flood_ok) + len(sheds) != n_f:
+        raise AssertionError(f"[serve-qos] flood: statuses {[r.status for r in flood_res]}, "
+                             f"malformed sheds {bad}")
+    hists = engine.tracer.tenant_histograms()
+    live_p = hists[("int_live", "ttft")].percentiles()
+    limit = 2.0 * max(base_p["p95"], QOS_TTFT_FLOOR_S)
+    if live_p["p95"] > limit:
+        raise AssertionError(f"[serve-qos] interactive TTFT p95 {live_p['p95']:.4f} s under the "
+                             f"flood, over 2x its baseline {base_p['p95']:.4f} s (limit "
+                             f"{limit:.4f} s)")
+    pol = engine.qos
+    want_admitted = {("flood", BATCH): len(flood_ok), ("int_live", INTERACTIVE): n_i}
+    got_admitted = {k: pol.admitted_by_tenant.get(k) for k in want_admitted}
+    got_shed = {k: v for k, v in pol.shed_by_tenant.items() if k[0] in ("flood", "int_live")}
+    if got_admitted != want_admitted or got_shed != {("flood", QUOTA_EXCEEDED): len(quota)}:
+        raise AssertionError(f"[serve-qos] ledger admitted {got_admitted} (results "
+                             f"{want_admitted}), shed {got_shed} ({len(quota)} quota sheds)")
+    health = engine.health()
+    free = engine.manager.allocator.free_blocks
+    if (health["stalls_total"], health["live_seqs"], health["queue_depth"]) != (0, 0, 0) \
+            or free != engine.manager.allocator.num_blocks - 1 or engine.manager.seqs:
+        raise AssertionError(f"[serve-qos] stalls {health['stalls_total']}, live "
+                             f"{health['live_seqs']}, queued {health['queue_depth']}, free "
+                             f"blocks {free}, {len(engine.manager.seqs)} sequences tracked")
+    reg = MetricsRegistry()
+    populate_from_engine(reg, engine)
+    fams = parse_exposition(render(reg))
+    ttft_counts = {labels.get("tenant"): v for name, labels, v
+                   in fams["dstpu_serving_tenant_ttft_seconds"]["samples"]
+                   if name.endswith("_count")}
+    want_counts = {"int_base": n_i, "int_live": n_i, "flood": len(flood_ok)}
+    if any(ttft_counts.get(t) != float(n) for t, n in want_counts.items()):
+        raise AssertionError(f"[serve-qos] per-tenant TTFT counts {ttft_counts}, requests "
+                             f"{want_counts}")
+    for family in ("dstpu_serving_tenant_admitted_total", "dstpu_serving_tenant_shed_total",
+                   "dstpu_serving_tenant_tokens_total",
+                   "dstpu_serving_tenant_retry_after_seconds", "dstpu_serving_tenant_e2e_seconds"):
+        if family not in fams:
+            raise AssertionError(f"[serve-qos] {family} missing from the exposition")
+    qos_json = json.dumps(health["qos"])
+    charged = pol.tokens_by_tenant["flood"]
+    flood_tokens = [len(p) for p in flood]
+    log(f"[serve-qos] per-tenant TTFT on {card}: baseline (int_base, alone) p50 / p95 "
+        f"{base_p['p50'] * 1e3:.3f} / {base_p['p95'] * 1e3:.3f} ms; under the flood (int_live) "
+        f"{live_p['p50'] * 1e3:.3f} / {live_p['p95'] * 1e3:.3f} ms (gate p95 <= "
+        f"{limit * 1e3:.1f} ms); flood "
+        + " / ".join(f"{hists[('flood', 'ttft')].percentiles()[q] * 1e3:.3f}" for q in
+                     ("p50", "p95")) + " ms")
+    log(f"[serve-qos] noisy neighbour on {card}: flood of {n_f} prompts "
+        f"({sum(flood_tokens)} tokens, {min(flood_tokens)}-{max(flood_tokens)} each): "
+        f"{len(flood_ok)} ok, sheds by code {dict(collections.Counter(r.shed_code for r in sheds))}, "
+        f"retry_after_s {sorted(round(r.retry_after_s, 4) for r in quota)}; the flood's admitted "
+        f"tokens {charged} against its burst of {QOS_FLOOD['token_burst']:.0f} at "
+        f"{QOS_FLOOD['tokens_per_s']:.0f} tokens/s; interactive {n_i} of {n_i} ok; "
+        f"health()['qos'] {len(qos_json)} bytes of JSON")
+    log(f"[serve-qos] walls on {card}: identity cold {walls['cold']:.3f} s, warm "
+        f"{walls['warm']:.3f} s; baseline {walls['baseline']:.3f} s ({built_base} programs "
+        f"built); noisy {walls['noisy']:.3f} s ({built_noisy} programs built); stalls 0, pool "
+        f"reclaimed")
+    max_memory_line("serve-qos", device, "end")
+    del engine
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return {"base_p95": base_p["p95"], "live_p95": live_p["p95"], "flood_ok": len(flood_ok),
+            "quota_sheds": len(quota), "charged": charged}
+
+
+# [serve-fleet]: the placement of each uid, routed totals, affinity count and
+# hit blocks by replica that the CPU rehearsal predicts
+# (``rehearse_serve_fleet()``); the card's counts are gated equal to them
+FLEET_PREDICTED = {"placed": [0, 1, 0, 0, 1, 0, 0, 0] * 3, "routed_total": [18, 6],
+                   "affinity_routed_total": 24, "hit_blocks": [384, 128]}
+
+
+def fleet_workload(seed, vocab, bs):
+    """[serve-fleet]'s 24 requests: 8 headers of 32 blocks, 3 requests each
+    with a seeded tail of 16-128 tokens, in rounds (one request of every
+    header a round); headers 0-3 belong to tenant ``acme``, 4-7 to
+    ``globex``.  Returns (prompts, tenants, header of each request)."""
+    rng = np.random.default_rng(seed + 30)
+    headers = [rng.integers(0, vocab, 32 * bs).tolist() for _ in range(8)]
+    prompts, tenants, header_of = [], [], []
+    for _ in range(3):
+        for h, header in enumerate(headers):
+            prompts.append(header + rng.integers(0, vocab, int(rng.integers(16, 129))).tolist())
+            tenants.append("acme" if h < 4 else "globex")
+            header_of.append(h)
+    return prompts, tenants, header_of
+
+
+def serve_fleet_run(cfg, params, kw, seed, journal_dir, dtype, max_new=32, ops=True):
+    """``FleetRouter`` over 2 in-process replicas of ``build_engine("mistral",
+    ...)`` (prefix cache on, each replica's journal under ``journal_dir``,
+    ``affinity_blocks`` 1, the fleet ``ops_server`` on port 0 with ``ops``)
+    serving :func:`fleet_workload`.  Every engine audits its KV census after
+    every schedule (a block shared across tenants raises).  Returns the
+    router, the results, the replica of each uid, each engine's census
+    audits and the most blocks it held shared at once, and the wall."""
+    from deepspeed_tpu_torch.inference.v2 import FleetRouter
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    device = kw["device"]
+    prompts, tenants, _ = fleet_workload(seed, cfg.vocab_size, kw["block_size"])
+    audits = []
+
+    def factory():
+        engine = build_engine("mistral", cfg, params, **kw, config={"dtype": dtype, "seed": seed})
+        real, mgr, seen = engine.scheduler.schedule, engine.manager, {"audits": 0, "shared": 0}
+
+        def schedule(*args, **kwargs):
+            out = real(*args, **kwargs)
+            mgr.census.check_against(mgr.allocator, mgr.seqs)
+            seen["audits"] += 1
+            seen["shared"] = max(seen["shared"], mgr.census.shared_blocks())
+            return out
+
+        engine.scheduler.schedule = schedule
+        audits.append(seen)
+        return engine
+
+    router = FleetRouter([factory, factory], journal_dir=journal_dir,
+                         config={"replicas": 2, "affinity_blocks": 1},
+                         ft_config={"enabled": True}, block_size=kw["block_size"],
+                         ops_server={"enabled": True, "port": 0} if ops else None)
+    _sync(device)
+    t0 = time.perf_counter()
+    results = router.serve(prompts, max_new_tokens=max_new, tenants=tenants)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    placed = {e["uid"]: e["replica"] for e in router.recorder.tail() if e["event"] == "route"}
+    return router, results, placed, audits, wall
+
+
+def fleet_counts(router, placed):
+    """What the rehearsal predicts and the card must equal: the replica of
+    each uid, the routed totals, the affinity counters and each replica's
+    realized prefix-cache hit blocks."""
+    return {"placed": [placed[u] for u in sorted(placed)],
+            "routed_total": list(router.routed_total),
+            "affinity_routed_total": router.affinity_routed_total,
+            "hit_blocks": [r.health["prefix_cache"]["hit_blocks_total"] for r in router.replicas]}
+
+
+def check_fleet_run(tag, router, results, placed, audits, prompts, tenants, header_of, max_new):
+    """[serve-fleet]'s gates but the equality with the rehearsal."""
+    if not all(r.ok for r in results) or router.lost_total or \
+            any(len(r.tokens) != len(p) + max_new for r, p in zip(results, prompts)):
+        raise AssertionError(f"[{tag}] statuses {[r.status for r in results]}, lost "
+                             f"{router.lost_total}")
+    groups = collections.defaultdict(set)
+    for uid, (tenant, h) in enumerate(zip(tenants, header_of)):
+        groups[(tenant, h)].add(placed[uid])
+        home = router._affinity_home(prompts[uid], tenant)
+        if placed[uid] != home:
+            raise AssertionError(f"[{tag}] request {uid} ({tenant}, header {h}) on replica "
+                                 f"{placed[uid]}, its affinity home is {home}")
+    if any(len(v) != 1 for v in groups.values()) or sum(router.routed_total) != len(prompts):
+        raise AssertionError(f"[{tag}] placement by (tenant, header) {dict(groups)}, routed "
+                             f"{router.routed_total}")
+    homes = {next(iter(v)) for v in groups.values()}
+    for i in homes:
+        pc = router.replicas[i].health["prefix_cache"]
+        if not pc["hit_blocks_total"] > 0:
+            raise AssertionError(f"[{tag}] home replica {i} realized no prefix hit: {pc}")
+    if not audits or any(a["audits"] == 0 for a in audits):
+        raise AssertionError(f"[{tag}] census audits {audits}")
+    return homes
+
+
+def serve_fleet(card, cfg, params, kw, seed=0, max_new=32):
+    """[serve-fleet]: ``FleetRouter`` over 2 in-process replicas of [serve]'s
+    Mistral-7B bf16 engine sharing the card and the params (each engine its
+    own KV pool and graphs, built per serve by its replica's supervisor),
+    :func:`fleet_workload`'s 24 requests behind 8 headers of 512 tokens in
+    two tenants, 32 new tokens.  Gates: every request ok and
+    ``lost_total == 0``; each (tenant, header)'s requests on one replica,
+    its ``_affinity_home``; ``sum(routed_total) == 24``; every home replica
+    with prefix-cache hit blocks; the census audit after every schedule
+    finds no block shared across tenants; one scrape of the router's fleet
+    ``/metrics`` strict-parses with the ``populate_from_router`` families
+    and the absorbed replicas' counters (completed requests 24); the
+    placement, routed totals, affinity count and hit blocks equal
+    ``FLEET_PREDICTED`` (the CPU rehearsal's).  Prints the fleet's wall
+    against one engine serving the same 24 requests (not gated: the
+    replicas serve in turn on one card)."""
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    from deepspeed_tpu_torch.monitor.exposition import parse_exposition
+    from deepspeed_tpu_torch.monitor.ops_server import scrape
+    device = kw["device"]
+    log(f"[serve-fleet] {nvidia_smi_line() if torch.device(device).type == 'cuda' else card}")
+    max_memory_line("serve-fleet", device, "start")
+    prompts, tenants, header_of = fleet_workload(seed, cfg.vocab_size, kw["block_size"])
+    with tempfile.TemporaryDirectory(prefix="serve_fleet_") as tmp:
+        router, results, placed, audits, wall = serve_fleet_run(cfg, params, kw, seed, tmp,
+                                                                "bfloat16", max_new)
+        try:
+            homes = check_fleet_run("serve-fleet", router, results, placed, audits, prompts,
+                                    tenants, header_of, max_new)
+            counts = fleet_counts(router, placed)
+            if counts != FLEET_PREDICTED:
+                raise AssertionError(f"[serve-fleet] counts {counts}, the rehearsal's "
+                                     f"{FLEET_PREDICTED}")
+            fams = parse_exposition(scrape(router.ops.url("/metrics")))
+            completed = sum(v for _, _, v in fams["dstpu_serving_completed_total"]["samples"])
+            routed = {labels["replica"]: v for _, labels, v
+                      in fams["dstpu_router_routed_total"]["samples"]}
+            by_tenant = {labels["tenant"]: v for _, labels, v
+                         in fams["dstpu_router_tenant_routed_total"]["samples"]}
+            if (completed != len(prompts) or routed != {str(i): float(n) for i, n in
+                                                        enumerate(router.routed_total)}
+                    or by_tenant != {"acme": 12.0, "globex": 12.0}
+                    or fams["dstpu_router_lost_total"]["samples"][0][2] != 0):
+                raise AssertionError(f"[serve-fleet] fleet /metrics: completed {completed}, "
+                                     f"routed {routed}, by tenant {by_tenant}")
+        finally:
+            router.close()
+    log(f"[serve-fleet] on {card}: {len(prompts)} requests ({sum(len(p) for p in prompts)} "
+        f"prompt tokens, 8 headers of {32 * kw['block_size']} tokens in tenants acme and "
+        f"globex), all ok, lost 0; routed {router.routed_total}, affinity "
+        f"{router.affinity_routed_total}, homes {sorted(homes)}, every (tenant, header) on its "
+        f"home; hit blocks by "
+        f"replica {counts['hit_blocks']}, placement and counts equal to the CPU rehearsal's; "
+        f"census audits {[a['audits'] for a in audits]} with at "
+        f"most {[a['shared'] for a in audits]} blocks shared at once, none across tenants; "
+        f"fleet /metrics scraped: {len(fams)} families, completed {completed:.0f}")
+    # one engine serving the same 24 requests, cold as each replica's engine
+    _sync(device)
+    t0 = time.perf_counter()
+    single = build_engine("mistral", cfg, params, **kw, config={"dtype": "bfloat16", "seed": seed})
+    one = single.generate(prompts, max_new_tokens=max_new, strict=False)
+    _sync(device)
+    wall_one = time.perf_counter() - t0
+    same = sum(a.tokens == b.tokens for a, b in zip(one, results))
+    log(f"[serve-fleet] walls on {card}: the fleet {wall:.3f} s (2 replicas in turn, each a "
+        f"cold engine with its captures) against one engine {wall_one:.3f} s (cold, the same "
+        f"24 requests in one batch; not gated); {same} of {len(prompts)} streams token-identical "
+        f"to the single engine's (bf16 in other batch shapes, not gated)")
+    max_memory_line("serve-fleet", device, "end")
+    del single, router
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return counts
+
+
+def rehearse_serve_fleet(seed=0):
+    """CPU rehearsal of [serve-fleet], for a prediction: its workload, pool,
+    scheduler and router at a tiny width on the CPU (the vocabulary of
+    Mistral-7B, so the prompts and their affinity homes are the card's).
+    The host control flow decides placement and prefix hits, so the counts
+    are the card's.  Run: ``python3 -c "import chip_smoke as c;
+    c.rehearse_serve_fleet()"``."""
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch.models import mistral
+    full = mistral.MistralConfig.mistral_7b()
+    cfg = mistral.MistralConfig.tiny(vocab=full.vocab_size, hidden=64, layers=2, heads=4,
+                                     kv_heads=2, seq=4096, window=4096)
+    params = mistral.init_params(cfg, torch.Generator().manual_seed(seed))
+    kw = dict(device="cpu", num_blocks=2048, block_size=16, max_blocks_per_seq=256,
+              token_budget=512, max_seqs_per_step=32)
+    prompts, tenants, header_of = fleet_workload(seed, cfg.vocab_size, kw["block_size"])
+    with tempfile.TemporaryDirectory(prefix="rehearse_fleet_") as tmp:
+        router, results, placed, audits, _ = serve_fleet_run(cfg, params, kw, seed, tmp,
+                                                             "float32", ops=False)
+    check_fleet_run("rehearse-serve-fleet", router, results, placed, audits, prompts, tenants,
+                    header_of, 32)
+    counts = fleet_counts(router, placed)
+    log(f"[rehearse-serve-fleet] CPU, tiny width: {json.dumps(counts)}; census audits "
+        f"{[a['audits'] for a in audits]}, most blocks shared at once "
+        f"{[a['shared'] for a in audits]}")
+    return counts
+
+
+def rehearse_serve_qos(seed=0):
+    """CPU rehearsal of [serve-qos]'s counts, for a prediction: the same
+    engine config, prompts and passes at a tiny width on the CPU (the
+    vocabulary of Mistral-7B): which flood requests are admitted and shed,
+    the retry hints and the ledger (host control flow; the wall and the
+    TTFTs are not the card's).  Run: ``python3 -c "import chip_smoke as c;
+    c.rehearse_serve_qos()"``."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.qos import BATCH, INTERACTIVE
+    from deepspeed_tpu_torch.models import mistral
+    full = mistral.MistralConfig.mistral_7b()
+    cfg = mistral.MistralConfig.tiny(vocab=full.vocab_size, hidden=64, layers=2, heads=4,
+                                     kv_heads=2, seq=4096, window=4096)
+    params = mistral.init_params(cfg, torch.Generator().manual_seed(seed))
+    engine = InferenceEngineV2(mistral, cfg, params, device="cpu", config={
+        "dtype": "float32", "serving_tracing": {"enabled": True},
+        "serving_qos": {"enabled": True, "tenants": {"flood": QOS_FLOOD}}},
+        num_blocks=2048, block_size=16, max_blocks_per_seq=256, token_budget=512,
+        max_seqs_per_step=32)
+    inter, flood = qos_prompts(seed, cfg.vocab_size)
+    mixed, _, _ = qos_pass(engine, flood + inter, ["flood"] * len(flood) + ["int_live"] * 4,
+                           [BATCH] * len(flood) + [INTERACTIVE] * 4, 32)
+    view = {"statuses": [r.status for r in mixed],
+            "retry_after_s": [r.retry_after_s for r in mixed if r.status == "shed"],
+            "qos": engine.health()["qos"], "forward_steps": engine.forward_steps,
+            "inter_lens": [len(p) for p in inter], "flood_lens": [len(p) for p in flood]}
+    log(f"[rehearse-serve-qos] CPU, tiny width: {json.dumps(view)}")
+    return view
+
+
+# [slice-fleet]: [slice-recover]'s width and pool, the lane's three replicas
+SLICE_FLEET_HEADER_SEED = 5
+
+
+def arm_fleet_crash(engine):
+    """Make an engine die right after its second productive serve event (a
+    dispatched step or a non-empty decode burst, bursts clamped to 2 steps):
+    every generation then dies mid-decode with journaled in-flight prefixes
+    and no terminals (the ``fleet_smoke`` lane's fault)."""
+    events = {"n": 0}
+
+    def productive():
+        events["n"] += 1
+        if events["n"] >= 2:
+            raise RuntimeError("injected mid-decode crash")
+
+    real_burst, real_dispatch = engine.decode_burst, engine._dispatch_step
+
+    def burst(k, *args, **kwargs):
+        out = real_burst(min(int(k), 2), *args, **kwargs)
+        if out:
+            productive()
+        return out
+
+    def dispatch(*args, **kwargs):
+        out = real_dispatch(*args, **kwargs)
+        if out is not None:
+            productive()
+        return out
+
+    engine.decode_burst, engine._dispatch_step = burst, dispatch
+    return engine
+
+
+def fleet_counters(families):
+    """Every counter sample of a parsed exposition by (name, labels)."""
+    return {(name, tuple(sorted(labels.items()))): value
+            for body in families.values() if body["type"] == "counter"
+            for name, labels, value in body["samples"]}
+
+
+def phase_slice_fleet(device="cuda", cfg=None):
+    """[slice-fleet]: the ``fleet_smoke`` lane's contract on the card at
+    [slice-recover]'s fp32 2-layer width, pool and budget.  Three
+    in-process replicas behind ``FleetRouter`` (``affinity_blocks`` 1,
+    journals with ``max_restarts`` 1, ``serving_qos`` on with a tenant
+    ``tight`` of 4 tokens' burst); wave 1 (four requests, two of them
+    behind one shared 16-token header) with every replica healthy, wave 2
+    (four more) with replica 0's engines crashing mid-decode until its
+    restart budget runs out, then a request routed around the drained
+    replica beside one of tenant ``tight`` over its quota.  Gates: (a)
+    every request ok; (b) every stream token-identical to an uninterrupted
+    single engine's (QoS off) on the device; (c) the fleet ``/metrics``
+    strict-parses and every fleet counter is monotone across the failover;
+    (d) the header pair's home realizes prefix hits; (e) ``lost_total ==
+    0`` and every admit journaled anywhere is terminal somewhere; the
+    quota-shed request is surfaced (``quota_exceeded``), not re-routed:
+    ``quota_sheds_by_tenant == {"tight": 1}`` and one journal holds its
+    uid."""
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import FleetRouter
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    from deepspeed_tpu_torch.inference.v2.journal import replay_journal
+    from deepspeed_tpu_torch.inference.v2.qos import QUOTA_EXCEEDED
+    from deepspeed_tpu_torch.models import mistral
+    from deepspeed_tpu_torch.monitor.exposition import parse_exposition
+    if cfg is None:
+        cfg = dataclasses.replace(mistral.MistralConfig.mistral_7b(), num_layers=2)
+    if torch.device(device).type == "cuda":
+        log(f"[slice-fleet] {nvidia_smi_line()}")
+    max_memory_line("slice-fleet", device, "start")
+    params = slice_recover_model(cfg, device)
+    bs = SLICE_KW["block_size"]
+    base = slice_recover_prompts(cfg.vocab_size)
+    rng = np.random.default_rng(SLICE_FLEET_HEADER_SEED)
+    header = rng.integers(0, cfg.vocab_size, bs).tolist()
+    pair = [header + rng.integers(0, cfg.vocab_size, n).tolist() for n in (3, 5)]
+    mixed = base[:2] + pair + base[2:]
+    wave1, wave2 = mixed[:4], mixed[4:]
+    late, tight = [3, 1, 4, 1, 5], rng.integers(0, cfg.vocab_size, 12).tolist()
+    t0 = time.perf_counter()
+    want = build_engine("mistral", cfg, params, config={"dtype": "float32"}, device=device,
+                        **SLICE_KW).generate(mixed + [late], max_new_tokens=SLICE_MAX_NEW)
+    fault = {"armed": False}
+    qos_cfg = {"enabled": True, "tenants": {"tight": {"tokens_per_s": 1.0, "token_burst": 4.0}}}
+
+    def factory(index):
+        def build():
+            engine = build_engine("mistral", cfg, params, device=device, **SLICE_KW,
+                                  config={"dtype": "float32", "serving_qos": qos_cfg})
+            return arm_fleet_crash(engine) if index == 0 and fault["armed"] else engine
+        return build
+
+    with tempfile.TemporaryDirectory(prefix="slice_fleet_") as tmp:
+        router = FleetRouter([factory(r) for r in range(3)], journal_dir=tmp,
+                             config={"replicas": 3, "affinity_blocks": 1,
+                                     "health_stale_s": 600.0},
+                             ft_config={"enabled": True, "max_restarts": 1, "fsync_every": 1},
+                             block_size=bs)
+        home = router._affinity_home(pair[0])
+        out1 = router.serve(wave1, uids=list(range(len(wave1))), max_new_tokens=SLICE_MAX_NEW)
+        scrape1 = parse_exposition(router.metrics_text())
+        hits = [v for _, labels, v in scrape1["dstpu_serving_kv_prefix_hits_total"]["samples"]
+                if labels.get("rank") == str(home)]
+        fault["armed"] = True
+        out2 = router.serve(wave2, uids=list(range(len(wave1), len(mixed))),
+                            max_new_tokens=SLICE_MAX_NEW)
+        scrape2 = parse_exposition(router.metrics_text())
+        routed0 = router.routed_total[0]
+        out3 = router.serve([late, tight], uids=[99, 100], max_new_tokens=SLICE_MAX_NEW,
+                            tenants=["default", "tight"])
+        scrape3 = parse_exposition(router.metrics_text())
+        states = {r.index: replay_journal(r.journal_path, truncate=False)
+                  for r in router.replicas if os.path.exists(r.journal_path)}
+        router.close()
+    got = [r.tokens for r in out1 + out2] + [out3[0].tokens]
+    if not all(r.ok for r in out1 + out2 + out3[:1]) or got != want:
+        raise AssertionError(f"[slice-fleet] (a, b) statuses "
+                             f"{[r.status for r in out1 + out2 + out3]}, tokens differ from the "
+                             f"uninterrupted run at {[_first_diff(a, b) for a, b in zip(got, want)]}")
+    migrations = [e for e in router.recorder.tail() if e["event"] == "migrate"]
+    if (router.migrations_total != 1 or not router.replicas[0].drained
+            or not any(e["emitted"] > 0 for e in migrations)
+            or router.routed_total[0] != routed0):
+        raise AssertionError(f"[slice-fleet] failover: migrations {router.migrations_total}, "
+                             f"drained {[r.drained for r in router.replicas]}, migrate events "
+                             f"{migrations}, routed {router.routed_total}")
+    regressed = {}
+    for before, after in ((scrape1, scrape2), (scrape2, scrape3)):
+        b, a = fleet_counters(before), fleet_counters(after)
+        regressed.update({k: (b[k], a[k]) for k in b if k in a and a[k] < b[k] - 1e-9})
+    if regressed or fleet_counters(scrape2)[("dstpu_router_migrations_total", ())] != 1.0:
+        raise AssertionError(f"[slice-fleet] (c) fleet counters went backwards: {regressed}")
+    if not hits or max(hits) <= 0:
+        raise AssertionError(f"[slice-fleet] (d) no prefix hit on home replica {home}: {hits}")
+    admitted = set().union(*(s.entries for s in states.values()))
+    terminal = {u for s in states.values() for u, e in s.entries.items() if e.done}
+    if router.lost_total or admitted - terminal:
+        raise AssertionError(f"[slice-fleet] (e) lost {router.lost_total}, journaled without a "
+                             f"terminal anywhere {sorted(admitted - terminal)}")
+    shed = out3[1]
+    holders = [i for i, s in states.items() if 100 in s.entries]
+    if (shed.status != "shed" or shed.shed_code != QUOTA_EXCEEDED or not shed.retryable
+            or router.quota_sheds_by_tenant != {"tight": 1} or len(holders) != 1
+            or router.reroutes_total):
+        raise AssertionError(f"[slice-fleet] quota shed: {shed}, quota sheds "
+                             f"{router.quota_sheds_by_tenant}, journals holding it {holders}, "
+                             f"reroutes {router.reroutes_total}")
+    log(f"[slice-fleet] hidden {cfg.hidden_size}, {cfg.num_layers} layers, fp32, 3 replicas on "
+        f"{device}: {len(mixed) + 1} requests ok and token-identical to the uninterrupted run; wave 2's replica 0 crashed "
+        f"mid-decode past its budget (max_restarts 1), drained, {router.migrated_requests_total} "
+        f"requests migrated ({sum(e['emitted'] > 0 for e in migrations)} with an emitted prefix), "
+        f"lost 0, every journaled admit terminal; fleet counters monotone over 3 scrapes "
+        f"({len(fleet_counters(scrape3))} counter samples); prefix hits on home replica {home}: "
+        f"{max(hits):.0f}; tenant tight's request shed quota_exceeded (retry_after_s "
+        f"{shed.retry_after_s}), surfaced once, in one journal, not re-routed; routed "
+        f"{router.routed_total}; {time.perf_counter() - t0:.1f} s")
+    max_memory_line("slice-fleet", device, "end")
+    del router
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ phase 5
 TRAIN_PEAK_FLOPS = 989e12  # bf16 dense tensor-core peak of the H100 SXM
 KERNEL_NAMES = ("paged_attention", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "fused_adamw",
@@ -4191,6 +4824,8 @@ def main() -> int:
             phase_slice_prefix()
         with phase_timer("slice-recover"):
             phase_slice_recover()
+        with phase_timer("slice-fleet"):
+            phase_slice_fleet()
     with phase_timer("train"):
         train_launches, dense = phase_train(card)
     with phase_timer("train-telemetry"):

@@ -11,15 +11,15 @@ from typing import Optional
 import torch
 
 from ..runtime.config import (KVObservabilityConfig, OpsServerConfig, ServingFastpathConfig,
-                              ServingFaultToleranceConfig, ServingPerfConfig,
-                              ServingPrefixCacheConfig, ServingResilienceConfig,
-                              ServingTracingConfig)
+                              ServingFaultToleranceConfig, ServingFleetConfig, ServingPerfConfig,
+                              ServingPrefixCacheConfig, ServingQosConfig,
+                              ServingResilienceConfig, ServingTracingConfig)
 from ..runtime.config_utils import ConfigModel, Field
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 # sections of the JAX InferenceConfig the port does not implement yet
-UNPORTED_SECTIONS = ("serving_qos", "serving_spec_decode", "serving_fleet")
+UNPORTED_SECTIONS = ("serving_spec_decode", )
 
 
 class TPConfig(ConfigModel):
@@ -65,6 +65,11 @@ class InferenceConfig(ConfigModel):
     # durable request journal, serve-iteration heartbeat and the supervisor's
     # restart budget (inference/v2/journal.py, supervisor.py)
     serving_fault_tolerance: ServingFaultToleranceConfig = Field(ServingFaultToleranceConfig)
+    # fleet front-end over N supervised replicas (inference/v2/router.py)
+    serving_fleet: ServingFleetConfig = Field(ServingFleetConfig)
+    # multi-tenant QoS: per-tenant quotas, weighted-fair dequeue across
+    # service classes, preemption steering (inference/v2/qos.py)
+    serving_qos: ServingQosConfig = Field(ServingQosConfig)
     # phase attribution of the serve loop, the compile ledger's snapshot and
     # the live roofline (monitor/perf.py)
     serving_perf: ServingPerfConfig = Field(ServingPerfConfig)

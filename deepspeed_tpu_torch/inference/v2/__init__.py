@@ -1,23 +1,32 @@
 """v2 ragged serving: continuous batching with SplitFuse over a paged KV pool,
-with the durable request journal and the serving supervisor."""
+with the durable request journal, the serving supervisor, multi-tenant QoS
+and the fleet router."""
 
-from .admission import (AdmissionQueue, RecoveredRequest, RequestResult, ServingStalledError,
-                        ShedReason)
+from .admission import (REQUEST_STATUSES, AdmissionQueue, RecoveredRequest, RequestResult,
+                        ServingStalledError, ShedReason)
 from .blocked_allocator import BlockedAllocator, KVAllocationError
 from .engine_factory import build_engine
 from .engine_v2 import InferenceEngineV2
+from .fastpath import PENDING_TOKEN, DeferredTokens, DeviceBatchState, ServeCounters
 from .journal import JournalEntry, JournalState, RequestJournal, replay_journal
 from .kv_metrics import (BlockCensus, CapacityForecaster, CensusInvariantError, KVObservability,
                          PrefixObservatory, block_hashes, tenant_namespace)
-from .ragged_manager import PrefixCache, RaggedStateManager
-from .scheduler import SplitFuseScheduler
+from .qos import QUOTA_EXCEEDED, DeficitRoundRobin, QosPolicy, TenantQuota, TokenBucket
+from .ragged_manager import (EmptyPromptError, PrefixCache, PrefixEntry, RaggedStateManager,
+                             SequenceDescriptor, UnknownSequenceError)
+from .router import FleetRouter, ReplicaHandle
+from .scheduler import ScheduledChunk, SplitFuseScheduler
 from .supervisor import (RecoveryPlan, ServeSpec, ServingSupervisor, plan_recovery,
                          recover_and_serve)
 
 __all__ = ["AdmissionQueue", "BlockCensus", "BlockedAllocator", "CapacityForecaster",
-           "CensusInvariantError", "InferenceEngineV2", "JournalEntry", "JournalState",
-           "KVAllocationError", "KVObservability", "PrefixCache", "PrefixObservatory",
-           "RaggedStateManager", "RecoveredRequest", "RecoveryPlan", "RequestJournal",
-           "RequestResult", "ServeSpec", "ServingStalledError", "ServingSupervisor", "ShedReason",
-           "SplitFuseScheduler", "block_hashes", "build_engine", "plan_recovery",
+           "CensusInvariantError", "DeferredTokens", "DeficitRoundRobin", "DeviceBatchState",
+           "EmptyPromptError", "FleetRouter", "InferenceEngineV2", "JournalEntry",
+           "JournalState", "KVAllocationError", "KVObservability", "PENDING_TOKEN",
+           "PrefixCache", "PrefixEntry", "PrefixObservatory", "QUOTA_EXCEEDED", "QosPolicy",
+           "REQUEST_STATUSES", "RaggedStateManager", "RecoveredRequest", "RecoveryPlan",
+           "ReplicaHandle", "RequestJournal", "RequestResult", "ScheduledChunk",
+           "SequenceDescriptor", "ServeCounters", "ServeSpec", "ServingStalledError",
+           "ServingSupervisor", "ShedReason", "SplitFuseScheduler", "TenantQuota", "TokenBucket",
+           "UnknownSequenceError", "block_hashes", "build_engine", "plan_recovery",
            "recover_and_serve", "replay_journal", "tenant_namespace"]

@@ -15,6 +15,10 @@ Counterpart of ``deepspeed_tpu/inference/v2/admission.py``:
   recovery (``supervisor.py`` → ``engine.serve_recovered``): a journaled
   request with the token prefix it already emitted and its remaining TTL.
 
+With a multi-tenant QoS policy (``qos.py``) the single priority heap becomes
+per-service-class heaps drained by deficit-round-robin on token cost, and
+``submit`` adds the tenant's quota verdict after the structural checks.
+
 Thresholds come from ``ServingResilienceConfig``.  All host-side.
 """
 
@@ -53,6 +57,9 @@ class RequestResult:
     queue_wait_s: float = 0.0
     preemptions: int = 0
     retry_after_s: Optional[float] = None  # the shed's backoff hint
+    # machine-readable shed code: routers must distinguish a per-tenant
+    # quota shed (rerouting to a sibling cannot help — the quota is
+    # tenant-global) from replica-local pressure without parsing `reason`
     shed_code: Optional[str] = None
 
     @property
@@ -65,7 +72,7 @@ class ShedReason:
     """Structured admission rejection, decided before any KV allocation.
     ``retry_after_s`` (retryable sheds only) estimates how long the pressure
     that caused the shed takes to clear; None on fatal sheds."""
-    code: str      # empty_prompt | prompt_over_cap | queue_full | kv_pressure
+    code: str      # empty_prompt | prompt_over_cap | queue_full | kv_pressure | quota_exceeded
     detail: str
     retryable: bool
     retry_after_s: Optional[float] = None
@@ -102,10 +109,16 @@ class AdmissionTicket:
     # generated output, not prompt) instead of restarting from scratch.
     prefix: List[int] = dataclasses.field(default_factory=list)
     recovered: bool = False
+    # multi-tenant QoS identity: who this request belongs to and which
+    # service class it rides, carried end to end (ticket → sequence →
+    # journal → recovery) so policy decisions always see the same identity
+    tenant: str = "default"
+    service_class: str = "interactive"
 
     @property
     def total_len(self) -> int:
-        """Full token history, prompt + recovered prefix."""
+        """Full token history, prompt + recovered prefix: the DRR and quota
+        charging unit."""
         return len(self.prompt) + len(self.prefix)
 
 
@@ -127,6 +140,11 @@ class RecoveredRequest:
     # life had no TTL must not be handed one by the new engine's
     # default_ttl_s.  False (new requests): ttl_s=None falls through to the
     # config default exactly like generate().
+    # QoS identity, replayed from the journal admit record, so a restart can
+    # neither launder a best-effort request into interactive nor strip a
+    # tenant of its quota accounting
+    tenant: str = "default"
+    service_class: str = "interactive"
 
 
 class AdmissionQueue:
@@ -141,11 +159,12 @@ class AdmissionQueue:
     (``monitor/tracing.py`` ``RequestTracer``) hears about every intake
     decision: a ``queue_wait`` span opens at submit, a shed becomes a
     terminal trace event, and shed/submit land in the always-on flight
-    recorder.
+    recorder.  ``qos`` (an enabled ``qos.QosPolicy``) arms per-tenant quotas
+    and the weighted-fair dequeue; None keeps the single priority heap.
     """
 
     def __init__(self, config: Optional[ServingResilienceConfig] = None, *,
-                 clock=time.monotonic, tracer=None):
+                 clock=time.monotonic, tracer=None, qos=None):
         self.config = config if config is not None else ServingResilienceConfig()
         self.clock = clock
         self.tracer = tracer
@@ -157,8 +176,17 @@ class AdmissionQueue:
         # Prometheus shed families next to the unlabeled shed_total
         self.shed_by_code: Dict[str, int] = {}
         self.last_retry_after: Dict[str, float] = {}
+        # multi-tenant QoS: with an enabled policy the single priority heap
+        # becomes per-service-class heaps drained by deficit-round-robin on
+        # token cost; quota sheds happen in submit.  qos=None keeps every
+        # code path below byte-identical to the policy-free queue
+        self.qos = qos if (qos is not None and qos.enabled) else None
+        self._drr = self.qos.make_drr() if self.qos is not None else None
+        self._classes: Dict[str, List[Tuple[int, int, AdmissionTicket]]] = {}
 
     def __len__(self) -> int:
+        if self._drr is not None:
+            return sum(len(h) for h in self._classes.values())
         return len(self._heap)
 
     # ------------------------------------------------------------- shedding
@@ -192,8 +220,9 @@ class AdmissionQueue:
     def submit(self, uid: int, prompt: List[int], *, priority: int = 0,
                ttl_s: Optional[float] = None, kv_utilization: Optional[float] = None,
                token_cap: Optional[int] = None, prefix: Optional[List[int]] = None,
-               apply_default_ttl: bool = True,
-               recovered: bool = False) -> Optional[ShedReason]:
+               apply_default_ttl: bool = True, recovered: bool = False,
+               tenant: Optional[str] = None,
+               service_class: Optional[str] = None) -> Optional[ShedReason]:
         """Admit-or-shed.  Returns None on admission, else the ShedReason.
         ``ttl_s=None`` falls back to the config's ``default_ttl_s``.
 
@@ -203,15 +232,33 @@ class AdmissionQueue:
         cap is a genuine rejection, not an accounting accident.
         ``apply_default_ttl=False`` pins ``ttl_s`` as authoritative
         (None = deadline-free) so a re-admission never refreshes or invents
-        a deadline the original request didn't have."""
+        a deadline the original request didn't have.
+
+        ``tenant``/``service_class``: with a QoS policy armed the structural
+        checks run first (an over-cap prompt is fatal no matter whose it
+        is), then the tenant's token-rate/KV quotas — a quota violation is a
+        retryable ``quota_exceeded`` shed whose ``retry_after_s`` is the
+        bucket's exact refill time.  Recovered requests bypass quota
+        enforcement: their cost was charged in the life that admitted them,
+        and recovery must not double-charge (or shed) work the journal
+        already accepted."""
         prefix = list(prefix) if prefix else []
+        tenant = str(tenant) if tenant else "default"
+        if self.qos is not None:
+            service_class = self.qos.service_class(service_class)
+        elif service_class is None:
+            service_class = "interactive"
         reason = self.shed_reason(len(prompt) + len(prefix), kv_utilization=kv_utilization,
                                   token_cap=token_cap)
+        if reason is None and self.qos is not None and not recovered:
+            reason = self.qos.admission_check(tenant, service_class, len(prompt) + len(prefix))
         if reason is not None:
             self.shed_total += 1
             self.shed_by_code[reason.code] = self.shed_by_code.get(reason.code, 0) + 1
             if reason.retry_after_s is not None:
                 self.last_retry_after[reason.code] = reason.retry_after_s
+            if self.qos is not None:
+                self.qos.note_shed(tenant, reason.code, reason.retry_after_s)
             if self.tracer is not None:
                 if self.tracer.enabled:
                     # sheds never reach the ticket stamp below, so span
@@ -231,8 +278,14 @@ class AdmissionQueue:
         # budget) means "already expired", not "no deadline"
         ticket = AdmissionTicket(uid=int(uid), prompt=list(prompt), priority=int(priority),
                                  deadline=(now + ttl) if ttl is not None else None,
-                                 enqueue_t=now, prefix=prefix, recovered=bool(recovered))
-        heapq.heappush(self._heap, (ticket.priority, self._seq, ticket))
+                                 enqueue_t=now, prefix=prefix, recovered=bool(recovered),
+                                 tenant=tenant, service_class=service_class)
+        if self._drr is not None:
+            heapq.heappush(self._classes.setdefault(service_class, []),
+                           (ticket.priority, self._seq, ticket))
+            self.qos.note_admit(tenant, service_class, ticket.total_len)
+        else:
+            heapq.heappush(self._heap, (ticket.priority, self._seq, ticket))
         self._seq += 1
         if self.tracer is not None:
             # the queue_wait span opens on the SAME clock value the ticket
@@ -240,7 +293,8 @@ class AdmissionQueue:
             self.tracer.tick(now)
             self.tracer.event("submit", uid=ticket.uid, priority=ticket.priority)
             self.tracer.on_submit(ticket.uid, now, prompt_len=ticket.total_len,
-                                  priority=ticket.priority)
+                                  priority=ticket.priority,
+                                  tenant=(tenant if self.qos is not None else None))
         return None
 
     # ---------------------------------------------------------------- drain
@@ -252,6 +306,8 @@ class AdmissionQueue:
         now = self.clock()
         if self.tracer is not None:
             self.tracer.tick(now)  # donate the already-read clock value
+        if self._drr is not None:
+            return self._pop_fair(now, expired), expired
         while self._heap:
             _, _, ticket = heapq.heappop(self._heap)
             if ticket.deadline is not None and now >= ticket.deadline:
@@ -260,16 +316,47 @@ class AdmissionQueue:
             return ticket, expired
         return None, expired
 
+    def _pop_fair(self, now: float,
+                  expired: List[AdmissionTicket]) -> Optional[AdmissionTicket]:
+        """Weighted-fair pop: sweep each class's expired heads (they never
+        reach the DRR — a dead ticket must not charge its class's deficit),
+        then let the DRR pick among the live heads by token cost."""
+        head_costs: Dict[str, int] = {}
+        for cls, heap in list(self._classes.items()):
+            while heap:
+                ticket = heap[0][2]
+                if ticket.deadline is not None and now >= ticket.deadline:
+                    expired.append(heapq.heappop(heap)[2])
+                    continue
+                head_costs[cls] = max(1, ticket.total_len)
+                break
+            if not heap:
+                del self._classes[cls]
+        cls = self._drr.select(head_costs)
+        if cls is None:
+            return None
+        ticket = heapq.heappop(self._classes[cls])[2]
+        if not self._classes[cls]:
+            del self._classes[cls]
+        return ticket
+
+    def _entries(self) -> List[Tuple[int, int, AdmissionTicket]]:
+        if self._drr is not None:
+            return [e for heap in self._classes.values() for e in heap]
+        return self._heap
+
     def queued_stats(self) -> Tuple[int, int]:
         """(depth, longest queued history, prompt + recovered prefix) without
         mutating the queue: the serve-time prewarm sizes its candidate
         buckets from what is waiting."""
-        if not self._heap:
+        entries = self._entries()
+        if not entries:
             return 0, 0
-        return len(self._heap), max(entry[2].total_len for entry in self._heap)
+        return len(entries), max(entry[2].total_len for entry in entries)
 
     def drain(self) -> List[AdmissionTicket]:
         """Remove and return every queued ticket (stall cleanup), in pop order."""
-        out = [entry[2] for entry in sorted(self._heap, key=lambda e: (e[0], e[1]))]
+        out = [entry[2] for entry in sorted(self._entries(), key=lambda e: (e[0], e[1]))]
         self._heap = []
+        self._classes = {}
         return out

@@ -64,9 +64,18 @@ at its build); ``ops_server`` (or a supervisor's ``DSTPU_OPS_DIR``) publishes
 ``/metrics``, ``/healthz`` and ``/statez`` from host snapshots refreshed by
 the loop, throttled on the engine clock.  None of them syncs the device.
 
+Multi-tenant QoS (``serving_qos``, off by default as in the JAX engine): per-
+tenant token-rate and resident-KV quotas shed as retryable
+``quota_exceeded`` with an exact ``retry_after_s``, weighted-fair dequeue
+across the ``interactive`` / ``batch`` / ``best_effort`` classes, and
+preemption steered to over-quota tenants and lower classes (``qos.py``);
+``generate``/``put`` take ``tenants``/``service_classes``.  Off, the engine
+builds no policy and its tokens, counters, journal and exposition are those
+of the policy-free engine.
+
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU; it
-never falls back from one to the other.  QoS, speculative decoding and
-tensor parallelism of the JAX engine are not ported yet.
+never falls back from one to the other.  Speculative decoding and tensor
+parallelism of the JAX engine are not ported yet.
 """
 
 import collections
@@ -98,6 +107,7 @@ from .fastpath import (FED_SENTINEL, PENDING_TOKEN, DeferredTokens, DeviceBatchS
                        ServeCounters, materialize, round_up_pow2, upload)
 from .journal import RequestJournal, journal_bytes
 from .kv_metrics import KVObservability
+from .qos import QosPolicy
 from .ragged_manager import PrefixCache, RaggedStateManager
 from .scheduler import SplitFuseScheduler
 
@@ -185,7 +195,16 @@ class InferenceEngineV2:
         # clock only, at points the host already touches (no device syncs)
         self.tracer = RequestTracer(self.config.serving_tracing, clock=self._clock,
                                     telemetry=telemetry)
-        self.admission = AdmissionQueue(self.resilience, clock=self._clock, tracer=self.tracer)
+        # multi-tenant QoS: per-tenant quotas + weighted-fair dequeue +
+        # victim steering.  Constructed only when the section is armed —
+        # self.qos is None otherwise and every downstream seam (admission,
+        # scheduler, metrics) keeps its policy-free behavior
+        self.qos = None
+        if self.config.serving_qos.enabled:
+            self.qos = QosPolicy(self.config.serving_qos, clock=self._clock)
+            self.qos.kv_blocks_of = self.manager.tenant_blocks
+        self.admission = AdmissionQueue(self.resilience, clock=self._clock, tracer=self.tracer,
+                                        qos=self.qos)
         self._queue_wait_s = 0.0  # the last admission's queue wait (a serving gauge)
         # the scheduler's gauge stamp reads the tracer, not the engine: no
         # reference cycle keeps a dropped engine's pool and graphs alive
@@ -194,6 +213,7 @@ class InferenceEngineV2:
             tracer=self.tracer,
             gauge_timestamp=(functools.partial(getattr, self.tracer, "last_now")
                              if self._clock_injected else None))
+        self.scheduler.qos = self.qos
         # serving fault tolerance: durable request journal + serve-iteration
         # liveness heartbeat, armed from config OR the ServingSupervisor's
         # env exports (DSTPU_SERVING_JOURNAL + DSTPU_HEARTBEAT_DIR), so a
@@ -293,13 +313,25 @@ class InferenceEngineV2:
 
     # ------------------------------------------------------------------ intake
     def put(self, uids: Sequence[int], prompts: Sequence[Sequence[int]],
-            ttl_s: Optional[float] = None) -> None:
+            ttl_s: Optional[float] = None, *, tenant: Optional[str] = None,
+            service_class: Optional[str] = None) -> None:
         """Enqueue requests directly into the state manager, bypassing the
         admission queue — the step()-level API for callers running their own
         loop.  ``ttl_s`` stamps a deadline that step() enforces between
         forwards: an expired sequence is evicted (done, ``finish_reason:
-        deadline_expired``, blocks reclaimed) before the next batch."""
+        deadline_expired``, blocks reclaimed) before the next batch.
+
+        ``tenant``/``service_class`` stamp QoS identity on the whole batch:
+        the prefix cache keys on the tenant and the per-tenant gauges
+        attribute the load.  put() bypasses the admission queue, so quota
+        SHEDDING does not apply here — callers running their own loop own
+        their own backpressure — but identity and accounting do."""
         ttl = ttl_s if ttl_s is not None else self.resilience.default_ttl_s
+        tenant = str(tenant) if tenant else "default"
+        if self.qos is not None:
+            service_class = self.qos.service_class(service_class)
+        elif service_class is None:
+            service_class = "interactive"
         now = None
         if ttl is not None or self.tracer.enabled:
             # one clock read covers the whole batch: the deadline stamp, the
@@ -310,15 +342,20 @@ class InferenceEngineV2:
         self._reset_table_width_if_idle()
         for uid, prompt in zip(uids, prompts):
             seq = self.manager.add_sequence(int(uid), [int(t) for t in prompt],
-                                            deadline=deadline)
+                                            deadline=deadline, tenant=tenant,
+                                            service_class=service_class)
             self._map_prefix(seq)  # shared prompt blocks already computed
+            if self.qos is not None:
+                self.qos.note_admit(tenant, service_class, len(prompt))
             if self.journal is not None:
                 # step()-level requests journal too (max_new_tokens=0: the
                 # caller's own loop owns the budget)
                 self.journal.record_admit(int(uid), [int(t) for t in prompt], ttl_s=ttl,
-                                          max_new_tokens=0)
+                                          max_new_tokens=0, tenant=tenant,
+                                          service_class=service_class)
             self.tracer.event("admit", uid=int(uid), direct=True)
-            self.tracer.on_admit(int(uid), now, prompt_len=len(prompt))
+            self.tracer.on_admit(int(uid), now, prompt_len=len(prompt),
+                                 tenant=(tenant if self.qos is not None else None))
         # prefix-sharing opportunity over the post-intake live set
         self._observe_prefix({})
 
@@ -927,7 +964,9 @@ class InferenceEngineV2:
     def generate(self, prompts: Sequence[Sequence[int]], max_new_tokens: int = 32,
                  eos_token_id: Optional[int] = None, greedy: bool = True, *,
                  strict: bool = True, priorities: Optional[Sequence[int]] = None,
-                 ttl_s: Optional[float] = None
+                 ttl_s: Optional[float] = None,
+                 tenants: Optional[Sequence[str]] = None,
+                 service_classes: Optional[Sequence[str]] = None
                  ) -> Union[List[List[int]], List[RequestResult]]:
         """Serve a batch to completion through the continuous-batching loop.
 
@@ -944,11 +983,16 @@ class InferenceEngineV2:
         shed, deadline_expired, preempt_requeued_exhausted, failed}).
 
         ``greedy=False`` samples with the engine config's temperature/top-k/
-        top-p from the engine's seeded generator."""
+        top-p from the engine's seeded generator.
+
+        ``tenants``/``service_classes`` (one per prompt) carry the QoS
+        identity: with ``serving_qos`` on they select the quotas and the
+        dequeue class; off, the tenant still seeds the prefix keying."""
         uids = list(range(len(prompts)))
         results = self._serve(uids, prompts, max_new_tokens=max_new_tokens,
                               eos_token_id=eos_token_id, greedy=greedy, strict=strict,
-                              priorities=priorities, ttl_s=ttl_s)
+                              priorities=priorities, ttl_s=ttl_s,
+                              tenants=tenants, service_classes=service_classes)
         if strict:
             return [results[u].tokens for u in uids]
         return [results[u] for u in uids]
@@ -971,6 +1015,11 @@ class InferenceEngineV2:
         prefixes = {int(r.uid): [int(t) for t in r.prefix] for r in requests if r.prefix}
         ttls = {int(r.uid): r.ttl_s for r in requests if r.pin_ttl}
         priorities = [int(r.priority) for r in requests]
+        # QoS identity rides recovery AS JOURNALED: the planner copied
+        # tenant/class from the journal entry, so a crash can never launder
+        # a best-effort request into interactive
+        tenants = [r.tenant for r in requests]
+        service_classes = [r.service_class for r in requests]
         self.ft_stats["recovered_requests_total"] += len(prefixes)
         for r in requests:
             if r.prefix:
@@ -979,7 +1028,8 @@ class InferenceEngineV2:
                                         prefix_tokens=len(r.prefix))
         return self._serve(uids, prompts, max_new_tokens=max_new_tokens,
                            eos_token_id=eos_token_id, greedy=greedy, strict=strict,
-                           priorities=priorities, ttl_s=None, prefixes=prefixes, ttls=ttls)
+                           priorities=priorities, ttl_s=None, prefixes=prefixes, ttls=ttls,
+                           tenants=tenants, service_classes=service_classes)
 
     @torch.no_grad()
     def _serve(self, uids: List[int], prompts: Sequence[Sequence[int]], *,
@@ -987,7 +1037,9 @@ class InferenceEngineV2:
                strict: bool, priorities: Optional[Sequence[int]],
                ttl_s: Optional[float],
                prefixes: Optional[Dict[int, List[int]]] = None,
-               ttls: Optional[Dict[int, Optional[float]]] = None
+               ttls: Optional[Dict[int, Optional[float]]] = None,
+               tenants: Optional[Sequence[str]] = None,
+               service_classes: Optional[Sequence[str]] = None
                ) -> Dict[int, RequestResult]:
         my = set(uids)
         self._reset_table_width_if_idle()
@@ -1017,11 +1069,20 @@ class InferenceEngineV2:
                 else:
                     t, apply_default = ttl_s, True
                 priority = priorities[i] if priorities is not None else 0
+                tenant = tenants[i] if tenants is not None else None
+                service_class = service_classes[i] if service_classes is not None else None
+                if self.qos is not None:
+                    # normalize HERE (not just inside submit) so the journal
+                    # admit record carries the class the policy resolved —
+                    # replay must reconstruct identity, not re-default it
+                    tenant = str(tenant) if tenant else "default"
+                    service_class = self.qos.service_class(service_class)
                 shed = self.admission.submit(
                     uid, [int(tok) for tok in prompt], priority=priority, ttl_s=t,
                     apply_default_ttl=apply_default,
                     kv_utilization=self.manager.kv_utilization(), token_cap=token_cap,
-                    prefix=prefix or None, recovered=bool(prefix))
+                    prefix=prefix or None, recovered=bool(prefix), tenant=tenant,
+                    service_class=service_class)
                 if shed is not None:
                     self._record_resilience("serving_shed", uid=uid, code=shed.code,
                                             retryable=shed.retryable, detail=shed.detail)
@@ -1031,8 +1092,11 @@ class InferenceEngineV2:
                         # recovered one re-shed here is only in a PREVIOUS
                         # generation's watched set), yet its terminal must be
                         # durable or replay re-serves it forever
-                        self.journal.record_terminal(uid, SHED, reason=str(shed),
-                                                     retryable=shed.retryable)
+                        self.journal.record_terminal(
+                            uid, SHED, reason=str(shed), retryable=shed.retryable,
+                            # gated on qos: a QoS-off journal keeps the
+                            # policy-free record format
+                            shed_code=shed.code if self.qos is not None else None)
                     if strict:
                         raise RuntimeError(f"request {uid} shed: {shed}")
                     results[uid] = RequestResult(uid=uid, status=SHED, reason=str(shed),
@@ -1048,7 +1112,10 @@ class InferenceEngineV2:
                     self.journal.record_admit(
                         uid, [int(tok) for tok in prompt], priority=priority,
                         ttl_s=effective, max_new_tokens=max_new_tokens,
-                        eos_token_id=eos_token_id, greedy=greedy, prefix_len=len(prefix))
+                        eos_token_id=eos_token_id, greedy=greedy, prefix_len=len(prefix),
+                        tenant=tenant if tenant is not None else "default",
+                        service_class=(service_class if service_class is not None
+                                       else "interactive"))
             # counterfactual prefix-cache report for THIS pass: the queued
             # (non-shed) prompts joining whatever is already live
             self._observe_prefix({uid: [int(t) for t in prompt]
@@ -1436,14 +1503,17 @@ class InferenceEngineV2:
             # as generated output, not prompt
             seq = self.manager.add_sequence(ticket.uid, ticket.prompt + ticket.prefix,
                                             priority=ticket.priority, deadline=ticket.deadline,
-                                            queue_wait_s=wait, prompt_len=len(ticket.prompt))
+                                            queue_wait_s=wait, prompt_len=len(ticket.prompt),
+                                            tenant=ticket.tenant,
+                                            service_class=ticket.service_class)
             # admit-time prefix lookup; the scheduler re-checks per prefill
             # chunk for blocks computed later
             self._map_prefix(seq)
             self.tracer.event("admit", step=self.scheduler.steps, uid=ticket.uid,
                               **({"recovered": True} if ticket.recovered else {}))
             self.tracer.on_admit(ticket.uid, now, queue_wait_s=wait,
-                                 prompt_len=ticket.total_len)
+                                 prompt_len=ticket.total_len,
+                                 tenant=(ticket.tenant if self.qos is not None else None))
 
     def _prewarm(self, max_new_tokens: int) -> None:
         """Serve-time prewarm: build the forward bucket programs (capture
@@ -1611,10 +1681,10 @@ class InferenceEngineV2:
         """Liveness snapshot for external probes: pool state, queue depth,
         the lifetime resilience counters, KV-pool observability, the
         realized prefix cache, the fast path's host-link counters, the SLO
-        latency histograms, the recovery counters, the perf observatory and
-        the flight recorder's recent events: the keys of the JAX engine's
-        ``health()`` that the port has state for (QoS and speculative
-        decoding are not ported yet)."""
+        latency histograms, the recovery counters, the perf observatory,
+        the flight recorder's recent events and the QoS ledger: the keys of
+        the JAX engine's ``health()`` that the port has state for
+        (speculative decoding is not ported yet)."""
         return {
             "generated_at": self._health_generated_at,
             "live_seqs": len(self.manager.live_uids()),
@@ -1648,4 +1718,8 @@ class InferenceEngineV2:
             "perf": self._perf_snapshot(),
             # the recent engine-event history (always on, bounded ring)
             "flight_recorder": self.tracer.recorder.tail(32),
+            # multi-tenant QoS: per-tenant admit/shed/token counters —
+            # {"enabled": False} when the policy layer is off so probes can
+            # key on one shape
+            "qos": (self.qos.snapshot() if self.qos is not None else {"enabled": False}),
         }

@@ -73,11 +73,20 @@ class ServeCounters:
 
 
 def materialize(dev_tensor: torch.Tensor,
-                counters: Optional[ServeCounters] = None) -> np.ndarray:
+                counters: Optional[ServeCounters] = None, *,
+                copy: Optional[Tuple[torch.Tensor, object]] = None) -> np.ndarray:
     """THE device->host sync for v2 serving step results: every fetch of
-    sampled tokens and done masks funnels through here, so it is counted."""
+    sampled tokens and done masks funnels through here, so it is counted.
+
+    ``copy`` is ``(pinned host tensor, CUDA event)`` of a copy already on
+    the stream (``DeferredTokens`` starts it at dispatch): the sync then
+    waits for that copy alone, not for whatever the stream ran after it."""
     if counters is not None:
         counters.host_syncs += 1
+    if copy is not None:
+        host, ready = copy
+        ready.synchronize()
+        return host.numpy()
     return dev_tensor.cpu().numpy()
 
 
@@ -103,6 +112,12 @@ class DeferredTokens:
     buffer — tokens the journal never saw die with a crash and are
     regenerated identically from the journaled prefix, so buffering at this
     seam adds no device sync and no extra fetch.
+
+    On the card the tokens' copy to pinned host memory is enqueued at
+    construction, right behind the step's pick, with an event after it:
+    :meth:`wait` waits for that copy, not for the next step the serve loop
+    has dispatched meanwhile (as a JAX fetch waits for its own array), so
+    the host absorbs step N-1 while the device runs step N.
     """
     toks_dev: object
     emits: List[Tuple[int, int, int]]
@@ -112,11 +127,20 @@ class DeferredTokens:
     journal: Optional[object] = None
     _cached: Optional[np.ndarray] = None
     _trace_reported: bool = False
+    _copy: Optional[Tuple[torch.Tensor, object]] = None
+
+    def __post_init__(self):
+        if isinstance(self.toks_dev, torch.Tensor) and self.toks_dev.is_cuda:
+            host = torch.empty(self.toks_dev.shape, dtype=self.toks_dev.dtype, pin_memory=True)
+            host.copy_(self.toks_dev, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            self._copy = (host, ready)
 
     def wait(self) -> np.ndarray:
         """Materialize the sampled tokens (idempotent)."""
         if self._cached is None:
-            self._cached = materialize(self.toks_dev, self.counters)
+            self._cached = materialize(self.toks_dev, self.counters, copy=self._copy)
         return self._cached
 
     def patch(self, manager) -> Dict[int, int]:

@@ -4,9 +4,10 @@ Counterpart of ``deepspeed_tpu/inference/v2/journal.py``, and format-
 compatible with it: the frame layout (``utils/wal.py``), the record schema
 (``JOURNAL_FORMAT_VERSION``) and the binary ``tok`` payload are the same, so
 a journal written by either package replays in the other's
-:func:`replay_journal` to the same :class:`JournalState`.  The port writes
-the QoS-off admit and end records (no ``tenant``/``cls``/``code`` keys,
-multi-tenant QoS being unported); replay reads those keys all the same.
+:func:`replay_journal` to the same :class:`JournalState`.  The multi-tenant
+QoS identity (``tenant``/``cls`` on the admit record, the shed ``code`` on
+the end record) is written only when it differs from the defaults, so a
+QoS-off journal carries none of those keys.
 
 A serving-process crash (OOM, preempted VM, wedged device) would otherwise
 destroy every queued and in-flight request: the engine's admission, deadline
@@ -123,9 +124,10 @@ class JournalEntry:
     prefix_len: int = 0                    # provenance of the latest admit
     admits: int = 0                        # admit records seen (1 + recoveries)
     terminal: Optional[Dict[str, Any]] = None
-    # QoS identity, read from the JAX package's QoS-on admit records (the
-    # port writes the QoS-off format, whose absent keys fold to these
-    # defaults), so a JAX journal replays here to the JAX state
+    # QoS identity: journaled at admit so recovery re-admits a request
+    # under its ORIGINAL tenant and service class — a restart can never
+    # launder best-effort traffic into interactive or detach a request from
+    # its tenant's quota accounting.  Absent keys fold to these defaults
     tenant: str = "default"
     service_class: str = "interactive"
 
@@ -273,16 +275,29 @@ class RequestJournal:
     def record_admit(self, uid: int, prompt: Iterable[int], *, priority: int = 0,
                      ttl_s: Optional[float] = None, max_new_tokens: int = 0,
                      eos_token_id: Optional[int] = None, greedy: bool = True,
-                     prefix_len: int = 0) -> None:
+                     prefix_len: int = 0, admit_wall: Optional[float] = None,
+                     tenant: str = "default",
+                     service_class: str = "interactive") -> None:
         uid = int(uid)
         self.watched.add(uid)
+        # ``admit_wall`` transplants an entry between journals (fleet
+        # failover migration): the ORIGINAL wall stamp rides along with the
+        # original ttl_s so the deadline keeps ticking on the request's own
+        # clock.  Fresh admits stamp their own wall
+        wall = self._wall() if admit_wall is None else float(admit_wall)
         # strict mode fsyncs admits eagerly: losing one loses the request.
         # The key order is the JAX writer's, so the bytes are too.
         rec = {"t": "admit", "uid": uid, "prompt": [int(t) for t in prompt],
                "priority": int(priority), "ttl_s": ttl_s,
-               "wall": self._wall(), "max_new_tokens": int(max_new_tokens),
+               "wall": wall, "max_new_tokens": int(max_new_tokens),
                "eos": eos_token_id, "greedy": bool(greedy),
                "key": [self.seed, uid], "prefix_len": int(prefix_len)}
+        # QoS identity rides the admit record only when it differs from the
+        # defaults: a QoS-off engine's journal carries no such keys
+        if tenant and tenant != "default":
+            rec["tenant"] = str(tenant)
+        if service_class and service_class != "interactive":
+            rec["cls"] = str(service_class)
         self._emit(rec, durable=True)
 
     def note_tokens(self, uid: int, tokens) -> None:
@@ -330,7 +345,8 @@ class RequestJournal:
     def record_terminal(self, uid: int, status: str, *,
                         finish_reason: Optional[str] = None,
                         reason: Optional[str] = None, retryable: bool = False,
-                        n_tokens: int = 0) -> None:
+                        n_tokens: int = 0,
+                        shed_code: Optional[str] = None) -> None:
         """No uid filtering here — the ENGINE's hooks filter on ``watched``;
         the supervisor writes terminals directly (drain-mode sheds,
         budget-exhaustion finalization) for uids it owns by contract.
@@ -348,6 +364,13 @@ class RequestJournal:
         end = {"t": "end", "uid": int(uid), "status": str(status),
                "finish_reason": finish_reason, "reason": reason,
                "retryable": bool(retryable), "n_tokens": int(n_tokens)}
+        if shed_code is not None:
+            # machine-readable shed code, written only when the caller has
+            # one: a quota shed adopted from this journal after a crash must
+            # still read as quota_exceeded to the fleet router (rerouting to
+            # a sibling cannot help), and records without codes keep the
+            # QoS-off format
+            end["code"] = str(shed_code)
         if self.strict:
             self._write_records(([tok] if tok else []) + [end], fsync=True)
         else:
@@ -435,8 +458,8 @@ def replay_journal(path: str, *, truncate: bool = True) -> JournalState:
             key = rec.get("key") or [0, uid]
             entry.sampling_key = (int(key[0]), int(key[1]))
             entry.prefix_len = prefix_len
-            # QoS identity: absent keys (the port's QoS-off records) fold
-            # to the defaults
+            # QoS identity: absent keys (QoS-off records, which omit default
+            # values) fold to the defaults
             entry.tenant = str(rec.get("tenant", "default"))
             entry.service_class = str(rec.get("cls", "interactive"))
             entry.admits += 1

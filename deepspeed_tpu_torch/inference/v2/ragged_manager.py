@@ -24,8 +24,10 @@ the device block copy) so the one recomputed position writes a private
 block, never a shared one.  Entries are weak: the tree serves a block only
 while some sequence still maps it (the allocator's free() reports
 refcount-zero releases and the tree drops those entries), so a drained pool
-is a fully-reclaimed pool.  Only the default tenant's keying is used: the
-port has no tenants yet.
+is a fully-reclaimed pool.  The hash chain is seeded with the owner tenant's
+namespace (``kv_metrics.tenant_namespace``): two tenants' byte-identical
+prompts never share a block, and the default tenant keeps the single-tenant
+keying.
 """
 
 import dataclasses
@@ -87,8 +89,12 @@ class SequenceDescriptor:
     prefix_registered: int = 0
     # prefill tokens this sequence skipped by mapping shared blocks
     prefix_cached_tokens: int = 0
-    # owner tenant: seeds the prefix hash chain (always the default here)
+    # multi-tenant QoS identity: owner tenant + service class, carried from
+    # the admission ticket — the prefix-cache keying folds the tenant in
+    # (cross-tenant sharing is impossible) and KV-pressure preemption
+    # prefers over-quota / lower-class victims
     tenant: str = "default"
+    service_class: str = "interactive"
 
     @property
     def pending_tokens(self) -> int:
@@ -248,7 +254,8 @@ class RaggedStateManager:
 
     def add_sequence(self, uid: int, prompt_tokens: List[int], *, priority: int = 0,
                      deadline: Optional[float] = None, queue_wait_s: float = 0.0,
-                     prompt_len: Optional[int] = None) -> SequenceDescriptor:
+                     prompt_len: Optional[int] = None, tenant: str = "default",
+                     service_class: str = "interactive") -> SequenceDescriptor:
         """``prompt_len`` pins where prompt ends and generated output begins
         when it differs from ``len(prompt_tokens)`` — crash recovery
         re-admits ``prompt + already-emitted-prefix`` as the token history
@@ -266,11 +273,16 @@ class RaggedStateManager:
         seq = SequenceDescriptor(uid=uid, tokens=list(prompt_tokens),
                                  prompt_len=int(prompt_len), arrival=self._arrivals,
                                  priority=priority, deadline=deadline,
-                                 queue_wait_s=queue_wait_s)
+                                 queue_wait_s=queue_wait_s,
+                                 tenant=str(tenant) if tenant else "default",
+                                 service_class=service_class)
         if self.prefix_cache is not None:
             # the tree's keying, computed once per life over the PROMPT
             # portion only (a recovered request's replayed prefix is
-            # generated output, never shareable read-only)
+            # generated output, never shareable read-only).  The chain is
+            # seeded with the tenant namespace: cross-tenant prompts hash to
+            # disjoint chains, so the cache structurally cannot share a
+            # block across tenants; the default tenant keeps the empty seed
             seq.prefix_hashes = block_hashes(seq.tokens[:seq.prompt_len], self.block_size,
                                              tenant_namespace(seq.tenant))
         self._arrivals += 1
@@ -525,3 +537,21 @@ class RaggedStateManager:
         excluded)."""
         usable = self.allocator.num_blocks - 1
         return (usable - self.allocator.free_blocks) / max(usable, 1)
+
+    def tenant_blocks(self, tenant: str) -> int:
+        """Resident KV blocks mapped by ``tenant``'s live sequences — the
+        QoS layer's KV-quota denominator.  Shared (prefix) blocks count once
+        per mapper: a tenant pays for every mapping it holds, which is
+        exactly what its eviction would release pressure on.  List copy
+        first (GIL-atomic): health() threads may call this while the serve
+        thread admits and retires sequences."""
+        return sum(len(s.blocks) for s in list(self.seqs.values())
+                   if not s.done and s.tenant == tenant)
+
+    def tenant_block_usage(self) -> Dict[str, int]:
+        """{tenant: resident blocks} over live sequences (gauge export)."""
+        out: Dict[str, int] = {}
+        for s in list(self.seqs.values()):
+            if not s.done and s.blocks:
+                out[s.tenant] = out.get(s.tenant, 0) + len(s.blocks)
+        return out

@@ -51,6 +51,11 @@ class SplitFuseScheduler:
         # under an injected clock the engine returns the clock's last read,
         # so gauge records stamp deterministically
         self.gauge_timestamp = gauge_timestamp
+        # QosPolicy (inference/v2/qos.py), installed by the engine when
+        # serving_qos is armed: steers preemption-victim choice toward
+        # over-quota tenants and lower service classes.  None → the
+        # newest-prefill heuristic, byte-identical
+        self.qos = None
         self.resilience = resilience if resilience is not None else ServingResilienceConfig()
         self.steps = 0
         self.preempted_total = 0
@@ -176,6 +181,14 @@ class SplitFuseScheduler:
         hold completed prefill work — never starve behind fresh prompts."""
         scheduled = {c.uid for c in chunks}
         max_preempt = self.resilience.max_preemptions
+        # victim preference: with a QoS policy armed, over-quota tenants are
+        # preempted first, then lower classes, and only then the
+        # newest-prefill heuristic breaks ties; without one the rank prefix
+        # is constant and max() degenerates to the arrival order
+        if self.qos is not None:
+            victim_key = lambda s: self.qos.victim_rank(s) + (s.arrival,)
+        else:
+            victim_key = lambda s: s.arrival
         for seq in starved:
             if budget <= 0 or len(chunks) >= self.max_seqs:
                 break
@@ -194,7 +207,7 @@ class SplitFuseScheduler:
                 fresh = [p for p in victims if p.preemptions < max_preempt
                          and manager.releasable_blocks(p, len(p.blocks) // 2) > 0]
                 if fresh:
-                    victim = max(fresh, key=lambda s: s.arrival)
+                    victim = max(fresh, key=victim_key)
                     freed = manager.preempt(victim, keep_blocks=len(victim.blocks) // 2)
                     victim.preemptions += 1
                     self.preempted_total += 1
@@ -211,7 +224,7 @@ class SplitFuseScheduler:
                 elif victims:
                     # every candidate exhausted its requeue budget: evict the
                     # newest one for good rather than deadlock the decodes
-                    victim = max(victims, key=lambda s: s.arrival)
+                    victim = max(victims, key=victim_key)
                     freed = manager.evict(victim, "preempt_requeued_exhausted")
                     self.preempted_total += 1
                     self._record("serving_preempt_exhausted", uid=victim.uid,

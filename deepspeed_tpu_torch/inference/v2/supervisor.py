@@ -87,6 +87,10 @@ class ServeSpec:
     prompt: List[int]
     priority: int = 0
     ttl_s: Optional[float] = None
+    # QoS identity: the caller's tenant + service class, carried through
+    # admission, the journal and recovery unchanged
+    tenant: str = "default"
+    service_class: str = "interactive"
 
 
 @dataclasses.dataclass
@@ -145,7 +149,8 @@ def plan_recovery(state: JournalState, specs: Sequence[ServeSpec], *,
                 plan.entries.append(RecoveredRequest(
                     uid=uid, prompt=list(spec.prompt), prefix=[],
                     priority=spec.priority, ttl_s=spec.ttl_s,
-                    pin_ttl=spec.ttl_s is not None))
+                    pin_ttl=spec.ttl_s is not None,
+                    tenant=spec.tenant, service_class=spec.service_class))
             continue
         if entry.done:
             plan.adopted[uid] = result_from_entry(entry)
@@ -186,9 +191,14 @@ def plan_recovery(state: JournalState, specs: Sequence[ServeSpec], *,
             plan.finalize.append((uid, OK, {"finish_reason": finish,
                                             "n_tokens": len(emitted)}))
             continue
+        # identity comes from the JOURNAL, not the spec: the journaled
+        # tenant/class is what admission actually accepted — recovery must
+        # not let a resubmitted spec launder a best-effort request into
+        # interactive (or reassign its tenant) across a crash
         plan.entries.append(RecoveredRequest(
             uid=uid, prompt=list(prompt), prefix=list(emitted),
-            priority=entry.priority, ttl_s=remaining, pin_ttl=True))
+            priority=entry.priority, ttl_s=remaining, pin_ttl=True,
+            tenant=entry.tenant, service_class=entry.service_class))
         if emitted:
             plan.recovered += 1
     return plan
@@ -492,7 +502,7 @@ class ServingSupervisor:
         """In-process crash-restart serve that STOPS at budget exhaustion
         instead of degrading to drain-only: returns ``(results, exhausted)``.
 
-        This is the JAX fleet router's failover seam.  ``serve()``
+        This is the fleet router's failover seam (``router.py``).  ``serve()``
         owns the single-replica endgame — drain-only final attempt, then
         finalize-as-failed — because a lone engine has nowhere else to send
         work.  A router DOES: on ``exhausted=True`` the journal still holds

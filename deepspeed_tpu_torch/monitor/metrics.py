@@ -1,7 +1,7 @@
 """Unified metrics registry: the export half of observability.
 
-Counterpart of ``deepspeed_tpu/monitor/metrics.py`` (its router and elastic
-agent adapters wait for those components).  The reference DeepSpeed ships a
+Counterpart of ``deepspeed_tpu/monitor/metrics.py`` (its elastic agent
+adapter waits for that component).  The reference DeepSpeed ships a
 ``monitor/`` subsystem with PUSH backends (TensorBoard/WandB/CSV); a serving
 fleet needs the PULL half: a registry of named counters/gauges/histograms an
 HTTP endpoint renders as Prometheus text and an aggregator merges across
@@ -16,7 +16,7 @@ population can never read a device value):
   engine's ``ServeCounters``/admission/scheduler/tracer ints,
   :func:`populate_from_telemetry` the training collector's cached last
   record, :func:`populate_from_supervisor` the serving supervisor's
-  lifecycle counters).
+  lifecycle counters, :func:`populate_from_router` the fleet router's).
 - snapshot / restore: :meth:`MetricsRegistry.snapshot` is a JSON-safe dict
   (histograms carry their raw log-buckets, so cross-process merges stay
   EXACT) written atomically per rank by workers and read back tolerantly by
@@ -770,3 +770,67 @@ def populate_from_supervisor(reg: MetricsRegistry, supervisor) -> None:
     reg.set_gauge(f"{reg.namespace}_supervisor_degraded",
                   1.0 if supervisor.degraded else 0.0,
                   help_text="1 when the restart budget degraded to drain-only")
+
+
+def populate_from_router(reg: MetricsRegistry, router) -> None:
+    """FleetRouter → registry: the fleet-level view no single replica can
+    see — routing distribution, prefix-affinity effectiveness, shed
+    re-routes and backoff, failover migrations, and the zero-lost-requests
+    invariant — merged into the same registry the FleetAggregator already
+    filled with replica-carried counters."""
+    ns = reg.namespace
+    for index, count in enumerate(router.routed_total):
+        reg.set_counter(f"{ns}_router_routed_total", count,
+                        labels={"replica": str(index)},
+                        help_text="requests routed, by destination replica")
+    reg.set_counter(f"{ns}_router_affinity_routed_total",
+                    router.affinity_routed_total,
+                    help_text="requests routed to their prefix-affinity home")
+    reg.set_counter(f"{ns}_router_affinity_overridden_total",
+                    router.affinity_overridden_total,
+                    help_text="requests whose affinity home was unhealthy or "
+                              "overloaded (fell back to least-loaded)")
+    reg.set_counter(f"{ns}_router_reroutes_total", router.reroutes_total,
+                    help_text="retryable sheds re-routed to another replica")
+    reg.set_counter(f"{ns}_router_backoff_seconds_total",
+                    router.backoff_seconds_total,
+                    help_text="cumulative shed-backoff wait")
+    reg.set_counter(f"{ns}_router_migrations_total", router.migrations_total,
+                    help_text="replicas drained after restart-budget "
+                              "exhaustion (journaled work migrated)")
+    reg.set_counter(f"{ns}_router_migrated_requests_total",
+                    router.migrated_requests_total,
+                    help_text="in-flight journal entries transplanted to a "
+                              "healthy replica")
+    reg.set_counter(f"{ns}_router_adopted_from_journal_total",
+                    router.adopted_from_journal_total,
+                    help_text="terminals adopted from a drained replica's "
+                              "journal during migration")
+    reg.set_counter(f"{ns}_router_lost_total", router.lost_total,
+                    help_text="requests finalized failed with NO replica "
+                              "available — staying at zero is the fleet's "
+                              "durability invariant")
+    reg.set_gauge(f"{ns}_router_replicas", len(router.replicas),
+                  help_text="fleet size")
+    reg.set_gauge(f"{ns}_router_healthy_replicas",
+                  len(router.healthy_indices()),
+                  help_text="replicas currently routable and health-fresh")
+    for replica in router.replicas:
+        reg.set_gauge(f"{ns}_router_replica_drained",
+                      1.0 if replica.drained else 0.0,
+                      labels={"replica": str(replica.index)},
+                      help_text="1 once the replica's restart budget "
+                                "exhausted and its work migrated away")
+    # per-tenant fleet counters: placement distribution and
+    # tenant-global quota sheds (the sheds the router refuses to re-route —
+    # families absent until a tenant-labeled workload arrives)
+    for tenant, count in sorted(router.routed_by_tenant.items()):
+        reg.set_counter(f"{ns}_router_tenant_routed_total", count,
+                        labels={"tenant": tenant},
+                        help_text="requests routed, by tenant")
+    for tenant, count in sorted(router.quota_sheds_by_tenant.items()):
+        reg.set_counter(f"{ns}_router_tenant_quota_sheds_total", count,
+                        labels={"tenant": tenant},
+                        help_text="quota_exceeded sheds surfaced to the "
+                                  "caller (tenant-global — never re-routed "
+                                  "to a sibling replica)")

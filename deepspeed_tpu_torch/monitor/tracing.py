@@ -323,6 +323,13 @@ class RequestTracer:
         # chrome-trace events accumulate only when an export path is set;
         # bounded so a long-lived server can't grow the buffer unboundedly
         self._chrome: collections.deque = collections.deque(maxlen=100_000)
+        # per-tenant SLO histograms: filled only for requests whose intake
+        # hook carried a tenant id (the QoS layer supplies it), keyed
+        # (tenant, ttft|e2e) — the serving_tenant_* exposition reads these;
+        # single-tenant/no-QoS runs never populate the map
+        self._hist = hist
+        self._tenant_of: Dict[int, str] = {}
+        self.tenant_hists: Dict[Tuple[str, str], StreamingHistogram] = {}
 
     # ------------------------------------------------------------ time plumbing
     def tick(self, now: float) -> None:
@@ -359,12 +366,24 @@ class RequestTracer:
             self._live[uid] = tr
         return tr
 
+    def _note_tenant(self, uid: int, tenant: Optional[str]) -> None:
+        if tenant:
+            self._tenant_of[int(uid)] = str(tenant)
+
+    def _tenant_hist(self, tenant: str, name: str) -> StreamingHistogram:
+        key = (tenant, name)
+        h = self.tenant_hists.get(key)
+        if h is None:
+            h = self.tenant_hists[key] = self._hist()
+        return h
+
     def on_submit(self, uid: int, t: float, *, prompt_len: int = 0,
-                  priority: int = 0) -> None:
+                  priority: int = 0, tenant: Optional[str] = None) -> None:
         """Request entered the admission queue (t = the ticket's enqueue_t —
         a clock value the queue already read)."""
         if not self.enabled:
             return
+        self._note_tenant(uid, tenant)
         tr = self._ensure(uid)
         tr.submit_t = t
         tr.open_span(SPAN_QUEUE_WAIT, t, prompt_len=int(prompt_len),
@@ -387,14 +406,17 @@ class RequestTracer:
         tr.status = TERMINAL_SHED
         tr.reason = code
         tr.end_t = t
+        self._tenant_of.pop(uid, None)
         self._finalize(tr)
 
     def on_admit(self, uid: int, t: Optional[float] = None, *,
-                 queue_wait_s: float = 0.0, prompt_len: int = 0) -> None:
+                 queue_wait_s: float = 0.0, prompt_len: int = 0,
+                 tenant: Optional[str] = None) -> None:
         """Request left the queue and entered the state manager (or was
         ``put()`` directly, queue_wait 0)."""
         if not self.enabled:
             return
+        self._note_tenant(uid, tenant)
         if t is None:
             t = self.now()
         tr = self._ensure(uid)
@@ -443,6 +465,9 @@ class RequestTracer:
             tr.open_span(SPAN_DECODE, t)
             base = tr.submit_t if tr.submit_t is not None else t
             self.ttft.add(max(0.0, t - base))
+            tenant = self._tenant_of.get(uid)
+            if tenant is not None:
+                self._tenant_hist(tenant, "ttft").add(max(0.0, t - base))
             n_gap = n - 1
         else:
             n_gap = n
@@ -510,6 +535,10 @@ class RequestTracer:
                           if finish_reason else {}))
         if status == TERMINAL_OK and tr.submit_t is not None:
             self.e2e.add(max(0.0, t - tr.submit_t))
+            tenant = self._tenant_of.get(uid)
+            if tenant is not None:
+                self._tenant_hist(tenant, "e2e").add(max(0.0, t - tr.submit_t))
+        self._tenant_of.pop(uid, None)
         self._finalize(tr)
 
     def abort_all(self, uids: Iterable[int], *, reason: str = "aborted") -> None:
@@ -629,3 +658,8 @@ class RequestTracer:
 
     def live_uids(self) -> List[int]:
         return sorted(self._live)
+
+    def tenant_histograms(self) -> Dict[Tuple[str, str], StreamingHistogram]:
+        """{(tenant, ttft|e2e): histogram} — the per-tenant SLO view the
+        serving_tenant_* Prometheus families export (empty without QoS)."""
+        return dict(self.tenant_hists)

@@ -3,8 +3,8 @@
 Counterpart of ``deepspeed_tpu/runtime/config.py``; the port carries the
 ``serving_resilience``, ``serving_fastpath``, ``serving_kv_observability``,
 ``serving_prefix_cache``, ``serving_tracing``, ``serving_fault_tolerance``,
-``serving_perf`` and ``ops_server`` sections and the training sections its
-single-GPU engine reads (:class:`TrainingConfig`), ``sparse_attention``,
+``serving_fleet``, ``serving_qos``, ``serving_perf`` and ``ops_server``
+sections and the training sections its single-GPU engine reads (:class:`TrainingConfig`), ``sparse_attention``,
 ``telemetry`` and the monitor writers among them.
 """
 
@@ -216,6 +216,106 @@ class ServingFaultToleranceConfig(ConfigModel):
             raise ValueError("serving_fault_tolerance.heartbeat=true needs "
                              "heartbeat_dir (or launch under ServingSupervisor, "
                              "which exports DSTPU_HEARTBEAT_DIR)")
+
+
+class ServingFleetConfig(ConfigModel):
+    """Fleet front-end over N supervised serving replicas
+    (``inference/v2/router.py``), with the JAX package's fields, defaults
+    and bounds.
+
+    ``replicas`` sizes the fleet the router fronts.  Admission is
+    least-loaded-healthy: the router scores each replica from its last
+    ``health()`` snapshot (queue depth weighted by ``queue_weight``, KV
+    utilization by ``kv_weight``) and steers AWAY from any replica whose
+    ``CapacityForecaster`` predicts KV exhaustion within
+    ``exhaustion_steer_steps`` serve steps — pressure-avoidance before the
+    replica ever sheds.  A snapshot older than ``health_stale_s`` (per its
+    ``generated_at`` stamp) marks the replica unhealthy: a frozen replica's
+    last-good gauges must not keep attracting traffic.
+
+    ``affinity_blocks`` > 0 routes shared-header prompts by prefix
+    affinity: the chained token-block hash (the ``PrefixCache`` keying) of
+    the prompt's leading full blocks picks a stable home replica, so one
+    header's prefix tree stays hot on one replica instead of lukewarm on all
+    of them.  0 disables affinity (pure least-loaded).
+
+    A retryable per-replica shed is never surfaced to the caller while
+    budget remains: the router re-routes it up to ``max_reroutes`` times
+    with exponential backoff (``backoff_base_s`` doubling per attempt,
+    capped at ``backoff_max_s``), honoring the shed's ``retry_after_s``
+    hint when the admission door supplied one.
+
+    Failover: each replica keeps its own journal under its own
+    ``ServingSupervisor`` (restart budget per ``serving_fault_tolerance``);
+    a replica that exhausts its budget is drained and its journaled
+    in-flight work MIGRATES to a healthy replica — emitted prefixes are
+    copied into the target's journal with their ORIGINAL wall-clock admit
+    stamps, so ``serve_recovered`` continues them byte-identically on
+    their original TTL clocks.  Zero lost requests.
+    """
+    enabled: bool = False
+    replicas: int = Field(2, ge=1)
+    health_stale_s: float = Field(5.0, gt=0.0)
+    affinity_blocks: int = Field(1, ge=0)  # full prompt blocks hashed; 0 = off
+    max_reroutes: int = Field(3, ge=0)
+    backoff_base_s: float = Field(0.05, ge=0.0)
+    backoff_max_s: float = Field(2.0, gt=0.0)
+    exhaustion_steer_steps: float = Field(32.0, gt=0.0)
+    queue_weight: float = Field(1.0, ge=0.0)
+    kv_weight: float = Field(8.0, ge=0.0)
+    namespace: str = "dstpu"
+
+
+class ServingQosConfig(ConfigModel):
+    """Multi-tenant QoS policy over the v2 serving engine
+    (``inference/v2/qos.py``: the *policy* layer on the admission,
+    preemption and prefix-cache *mechanisms*), with the JAX package's
+    fields, defaults and bounds.
+
+    Every request carries a ``tenant`` id and a service class
+    (``interactive`` / ``batch`` / ``best_effort``).  With
+    ``enabled=false`` (the default) the layer is inert: requests get the
+    default tenant, and dequeue order, prefix-cache keying and preemption
+    victims are byte-identical to the policy-free engine.
+
+    Front-door quotas (checked BEFORE any KV allocation, like every other
+    shed): ``tenant_tokens_per_s`` rate-limits each tenant's admitted
+    token volume through a token bucket of capacity ``tenant_token_burst``
+    (0 disables; burst defaults to one second of rate).
+    ``tenant_max_kv_blocks`` caps a tenant's RESIDENT KV blocks; a tenant
+    at its cap is shed rather than allowed to starve its neighbors' pool.
+    Both produce a structured, retryable ``quota_exceeded`` shed whose
+    ``retry_after_s`` is the exact bucket refill time (rate) or a
+    pressure-scaled hint (KV).  ``tenants`` maps tenant id to per-tenant
+    overrides (``tokens_per_s`` / ``token_burst`` / ``max_kv_blocks``).
+
+    Weighted-fair dequeue: the admission queue becomes per-class with
+    deficit-round-robin on TOKEN cost — each visit grants a class
+    ``drr_quantum_tokens * weight`` deficit, so interactive (weight 8 by
+    default) drains ~8x the token volume of best-effort per round while
+    best-effort still makes progress.  Priority ordering within a class is
+    preserved.  The DRR state is pure arrival-sequence arithmetic (no clock
+    reads), so dequeue order is deterministic and rerun-identical.
+
+    ``preempt_over_quota`` steers KV-pressure preemption: victims are
+    preferred over-quota-tenant first, then lower class, then the
+    newest-prefill heuristic as the tie-break.
+
+    Isolation: the tenant id is folded into the chained block-hash key, so
+    cross-tenant prompts can NEVER share prefix blocks; the default tenant
+    keeps the single-tenant keying, so its sharing is unchanged.
+    """
+    enabled: bool = False
+    default_class: str = Field("interactive", choices=("interactive", "batch", "best_effort"))
+    interactive_weight: int = Field(8, ge=1)
+    batch_weight: int = Field(2, ge=1)
+    best_effort_weight: int = Field(1, ge=1)
+    drr_quantum_tokens: int = Field(64, ge=1)
+    tenant_tokens_per_s: float = Field(0.0, ge=0.0)  # 0 => no rate quota
+    tenant_token_burst: float = Field(0.0, ge=0.0)  # 0 => 1s of rate
+    tenant_max_kv_blocks: int = Field(0, ge=0)  # 0 => no KV quota
+    tenants: Dict[str, Any] = Field(dict)  # per-tenant quota overrides
+    preempt_over_quota: bool = True
 
 
 class ServingPerfConfig(ConfigModel):

@@ -132,6 +132,18 @@ class ConfigModel:
     def model_validate(self):
         """Subclass hook for cross-field validation."""
 
+    def to_dict(self):
+        """The fields as a plain dict, nested sections as dicts."""
+        out = {}
+        for name in type(self)._fields:
+            value = getattr(self, name)
+            if isinstance(value, ConfigModel):
+                value = value.to_dict()
+            elif isinstance(value, list):
+                value = [v.to_dict() if isinstance(v, ConfigModel) else v for v in value]
+            out[name] = value
+        return out
+
     def __repr__(self):
         inner = ", ".join(f"{k}={getattr(self, k)!r}" for k in type(self)._fields)
         return f"{type(self).__name__}({inner})"

@@ -223,10 +223,13 @@ def test_engine_defaults_to_cuda_and_raises_without_a_gpu(monkeypatch):
 def test_config_unknown_key_and_unported_sections_raise():
     with pytest.raises(ValueError, match="unknown config field 'max_out_tokenz'"):
         load_inference_config({"max_out_tokenz": 8})
-    # serving_perf is ported: it loads; the still-unported sections raise
+    # serving_perf, serving_qos and serving_fleet are ported: they load; the
+    # still-unported section raises
     assert load_inference_config({"serving_perf": {"enabled": True}}).serving_perf.enabled
-    with pytest.raises(NotImplementedError, match="serving_qos"):
-        load_inference_config({"serving_qos": {"enabled": False}})
+    assert load_inference_config({"serving_qos": {"enabled": True}}).serving_qos.enabled
+    assert load_inference_config({"serving_fleet": {"replicas": 3}}).serving_fleet.replicas == 3
+    with pytest.raises(NotImplementedError, match="serving_spec_decode"):
+        load_inference_config({"serving_spec_decode": {"enabled": False}})
     with pytest.raises(ValueError, match="not in"):
         load_inference_config({"dtype": "float64"})
     cfg = load_inference_config({"serving_resilience": {"max_preemptions": 3}})

@@ -911,3 +911,24 @@ def test_graph_serve_traces_match_cpu_and_leave_counters(cuda):
     assert views["graphs"]["tokens"] == views["off"]["tokens"]
     assert views["graphs"]["counters"] == views["off"]["counters"]
     assert not views["off"]["records"]
+
+
+def test_deferred_tokens_wait_for_their_own_copy(cuda):
+    """A dispatched step's tokens start their copy to pinned host memory at
+    dispatch, behind an event: ``wait()`` returns them (one counted host
+    sync) while a later long kernel on the stream may still run, and the
+    values equal the device tensor's."""
+    from deepspeed_tpu_torch.inference.v2.fastpath import DeferredTokens, ServeCounters
+    counters = ServeCounters()
+    toks = torch.arange(7, dtype=torch.int32, device=cuda) * 3
+    deferred = DeferredTokens(toks_dev=toks, emits=[], row_of={}, counters=counters)
+    assert deferred._copy is not None and deferred._copy[0].is_pinned()
+    big = torch.randn(4096, 4096, device=cuda)
+    for _ in range(20):  # work queued after the step, still running at the wait
+        big = big @ big
+        big = big / big.norm()
+    got = deferred.wait()
+    assert got.tolist() == toks.cpu().tolist() and counters.host_syncs == 1
+    assert deferred.wait() is got and counters.host_syncs == 1
+    cpu = DeferredTokens(toks_dev=toks.cpu(), emits=[], row_of={}, counters=counters)
+    assert cpu._copy is None and cpu.wait().tolist() == got.tolist()

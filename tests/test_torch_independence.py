@@ -55,7 +55,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "deepspeed_tpu_torch.monitor.monitor",
                      "deepspeed_tpu_torch.monitor.metrics",
                      "deepspeed_tpu_torch.monitor.exposition",
-                     "deepspeed_tpu_torch.monitor.ops_server"):
+                     "deepspeed_tpu_torch.monitor.ops_server",
+                     "deepspeed_tpu_torch.inference.v2.qos",
+                     "deepspeed_tpu_torch.inference.v2.router"):
         assert expected in report["modules"]
 
 
