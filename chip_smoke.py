@@ -24,7 +24,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      16-key block of every sequence, or the last 64 rows scaled by 1.05, and
      a decode run whose last split of every sequence is left out of the
      merge, must fail it), fp32 at 1e-4, and a split-size A/B at the Llama-2
-     decode shape; the flash forward and both backward
+     decode shape; speculative decoding's verify rounds (Mistral-7B, 16
+     sequences of about 1,024 keys, T = 4, 5, 8 and 9 on the decode kernel,
+     16 on the tensor-core kernel, fp32 T = 5); the flash forward and both backward
      kernels at the training shape (B=2, S=2048, 32 heads, head dim 128, bf16,
      causal), GQA, sq < sk, sq > sk (rows that see no key), non-causal, head
      dim 64 and unaligned lengths, bf16/fp16 forward, dK/dV and dQ on tensor
@@ -78,7 +80,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      torch.profiler splits
      the device time by kernel (decode, merge, prefill and the CUDA-core
      kernel apart); the reference loop (``serving_fastpath.enabled=False``)
-     and the fast path serve the same prompts in three pairs, in turns; with
+     and the fast path serve the same prompts in two pairs, in turns; with
      nothing shared between the prompts the prefix cache (on by default)
      leaves the loop's 62 forward steps and 47 host syncs as they were;
      serve-journal: the warm engine serves the prompts with the request
@@ -96,7 +98,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      counterfactual, the device runs exactly the positions the cache left,
      the census invariant holds, pool and prefix tree drain, and every block
      the tree registered holds its bytes until its last mapper releases it;
-     three on/off pairs in turns, then one serve of each under
+     two on/off pairs in turns, then one serve of each under
      torch.profiler; serve-qos: an engine with tracing and multi-tenant QoS
      on serves [serve]'s prompts in the default tenant with [serve]'s
      counters, tokens and paged launches, then an interactive tenant's 4
@@ -109,6 +111,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      requests on its affinity home with prefix hits there, placement and
      hit blocks equal to the CPU rehearsal's, no block shared across
      tenants, the fleet /metrics strict-parsed;
+     serve-spec: speculative decoding on the same params and pool: the
+     n-gram drafter (k 4) on the 16 prompts cold and warm (launches by
+     route equal to the forwards the verify rounds add, no warm capture,
+     the spec families agree with the counters), the cycling workload of
+     the bench's spec A/B at full width (attention output zeroed, 16
+     self-continued 512-token prompts, 128 new tokens, spec off against
+     n-gram k 8, best of 3: acceptance >= 0.5) and the target attached as
+     its own drafter (k 15, the tensor-core verify; both pools reclaimed);
   4. slice: a 2-layer, full-width Mistral in fp32, one prefill and three
      decode steps of ``forward_paged`` on CUDA (kernel) and on a CPU copy
      (plain path) with the same weights and KV; slice-serve: the same width
@@ -136,7 +146,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      its restart budget: every request ok and token-identical to an
      uninterrupted engine, its journaled work migrated, none lost, the
      fleet counters monotone, prefix hits on the affinity home, a quota
-     shed surfaced and not re-routed;
+     shed surfaced and not re-routed; slice-spec: ``spec_decode_smoke``'s
+     contract at the slice's width: greedy spec on equal to spec off under
+     25 % allocator faults and under expiring deadlines, the sampler's
+     marginal on the card within TV 0.08, health and families agreeing,
+     the target as its own drafter accepting every draft;
   5. train: ``initialize`` with Llama-2-7B at full width cut to 8 layers, bf16,
      remat, fused AdamW, WarmupLR, clipping; 6 optimizer steps of 2 x 2 x 2048
      tokens through the flash and fused-AdamW kernels, launch counts checked
@@ -155,7 +169,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      one more step under torch.profiler;
   7. train slice: 1 full-width layer in fp32, sequences of 128 tokens, the
      CUDA engine (kernels) against the CPU engine (plain versions) from the
-     same params: losses, step-1 grads and the params after 3 steps; once
+     same params: losses, step-1 grads and the params after 2 steps; once
      with fused_adam and dense attention, once with the sparse section and
      fused_adam8bit, once with lion (delta form), followed by one fused Lion
      step through ``fused_lion_flat`` on every leaf;
@@ -585,6 +599,7 @@ def phase_kernel(card):
         for dtype, tag in ((bf16, "bf16"), (fp16, "fp16")):
             cases[f"prefill_{edge}_{tag}"] = make_case(seed, dtype=dtype, **kw)
     cases.update(decode_edges())
+    cases.update(verify_cases())
     # the CUDA-core kernel's chunks (T >= 16 off the tensor-core rule): the
     # fp32 slice's Mistral-width prefill, head dim 256 and 32, a group of 128
     cuda_core_edges = {
@@ -616,7 +631,7 @@ def phase_kernel(card):
                     for r in ROUTE_NAMES))
     recs = {name: measure(name, cases[name])
             for name in ("mistral_decode", "mistral_prefill", "llama2_decode", "llama2_prefill",
-                         "serve_decode_n16", *cuda_core_edges)}
+                         "serve_decode_n16", *cuda_core_edges, *VERIFY_CASES)}
     for name, rec in recs.items():
         log(f"[kernel] {name} on {card}: {json.dumps({k: rec[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')})}")
     for name in ("llama2_decode", "mistral_decode", "serve_decode_n16"):
@@ -666,6 +681,35 @@ def decode_edges():
     cases["serve_decode_n16"]["tables"] = torch.cat(
         [tables, torch.full((16, 256 - tables.shape[1]), trash, dtype=torch.int32,
                             device=tables.device)], 1).contiguous()
+    return cases
+
+
+# [serve-spec]'s verify shapes: a speculative round of n = 16 Mistral-7B
+# sequences scores k + 1 positions each over about 1,024 keys; widths 2-15
+# take the split-K decode route (rows = T x group 4: the row blocks change
+# at 4 and 8, and 5 and 9 are the first odd counts the default ladders
+# give), 16 the tensor-core prefill route; the fp32 case runs at the
+# [slice-spec] width
+VERIFY_CASES = ("verify_t4_bf16", "verify_t5_bf16", "verify_t8_bf16", "verify_t9_bf16",
+                "verify_t16_bf16", "verify_t5_fp32")
+
+
+def verify_cases():
+    """Paged Mistral-7B verify rounds, n = 16, blocks of 16, a context of
+    1,000-1,050 keys (a 4096-key window), one row padded past a short
+    n_tokens: the kernel must see keys up to each row's own position."""
+    import torch
+    rng = np.random.default_rng(11)
+    mistral = dict(N=16, H=32, KV=8, Dh=128, bs=16, window=4096)
+    cases = {}
+    for i, name in enumerate(VERIFY_CASES):
+        t = int(name.split("_")[1][1:])
+        dtype = torch.float32 if name.endswith("fp32") else torch.bfloat16
+        lengths = rng.integers(1000, 1051, 16)
+        n_tokens = np.full(16, t)
+        n_tokens[3] = max(1, t // 2)  # a row whose tail positions merge to zeros
+        cases[name] = make_case(400 + i, T=t, lengths=lengths, n_tokens=n_tokens, dtype=dtype,
+                                **mistral)
     return cases
 
 
@@ -1869,7 +1913,7 @@ def phase_serve(card, seed=0):
     from deepspeed_tpu_torch.runtime.tree import tree_leaves
     from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
     from deepspeed_tpu_torch.models.mistral import MistralConfig, init_params, num_params
-    from deepspeed_tpu_torch.ops.attention.paged import paged_attention, paged_route
+    from deepspeed_tpu_torch.ops.attention.paged import paged_attention
     cfg = MistralConfig.mistral_7b()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1903,24 +1947,10 @@ def phase_serve(card, seed=0):
     steps = engine.forward_steps - steps0
     widths = {t: k - widths0.get(t, 0) for t, k in engine.chunk_widths.items()
               if k > widths0.get(t, 0)}
-    head_dim = cfg.hidden_size // cfg.num_heads
-    group = cfg.num_heads // cfg.num_kv_heads
-    tc_steps = sum(k for t, k in widths.items()
-                   if paged_route(torch.bfloat16, head_dim, t, group) == "prefill_tc")
-    decode_steps = sum(k for t, k in widths.items()
-                       if paged_route(torch.bfloat16, head_dim, t, group) == "decode")
-    for prompt, res in zip(prompts, results):
-        if res.status != "ok" or len(res.tokens) != len(prompt) + max_new:
-            raise AssertionError(f"request {res.uid}: status {res.status} ({res.reason}), "
-                                 f"{len(res.tokens)} tokens for a {len(prompt)}-token prompt")
-        if res.tokens[:len(prompt)] != prompt:
-            raise AssertionError(f"request {res.uid}: prompt not echoed")
-        if not all(0 <= tok < cfg.vocab_size for tok in res.tokens[len(prompt):]):
-            raise AssertionError(f"request {res.uid}: token id outside the vocabulary")
-    free = engine.manager.allocator.free_blocks
-    if free != num_blocks - 1 or engine.manager.seqs:
-        raise AssertionError(f"KV pool not reclaimed: {free} of {num_blocks - 1} blocks free, "
-                             f"{len(engine.manager.seqs)} sequences tracked")
+    _, tc_steps, decode_steps = route_launches(widths, 1, torch.bfloat16,
+                                               cfg.hidden_size // cfg.num_heads,
+                                               cfg.num_heads // cfg.num_kv_heads)
+    check_serve_results("serve", engine, prompts, results, max_new, cfg.vocab_size)
     if launches != steps * cfg.num_layers:
         raise AssertionError(f"paged_attention launched {launches} times over {steps} forward "
                              f"steps x {cfg.num_layers} layers")
@@ -1994,10 +2024,12 @@ def phase_serve(card, seed=0):
                   seed)
     with phase_timer("serve-fleet"):
         serve_fleet(card, cfg, params, kw, seed)
+    with phase_timer("serve-spec"):
+        spec = serve_spec(card, cfg, params, kw, prompts, max_new, results, wall2, seed)
     del params
     torch.cuda.empty_cache()
     return {"launches": launches, "tc_launches": tc_launches, "decode_launches": decode_launches,
-            "serve_prefix": prefix}
+            "serve_prefix": prefix, "serve_spec": spec}
 
 
 def serve_tracing(card, cfg, params, kw, off, prompts, max_new, results, first, warm, wall_off):
@@ -2322,8 +2354,8 @@ def serve_telemetry(card, cfg, params, kw, off, prompts, max_new, results, first
 def serve_pairs(card, cfg, params, kw, fast, prompts, max_new, busy):
     """The parent's loop (``serving_fastpath.enabled=False``: rebuild and
     upload every step, one sync a step, pow2 table widths, eager bursts)
-    against the fast path on the same prompts, three pairs in turns
-    (reference, fast, fast, reference, reference, fast): wall of each serve,
+    against the fast path on the same prompts, two pairs in turns
+    (reference, fast, fast, reference): wall of each serve,
     device busy time of each loop from one profiled serve, idle share.  In
     bf16 the two loops may pick different split-K widths (pow2 against
     stepped tables), so tokens can differ: the first diverging position of
@@ -2336,7 +2368,7 @@ def serve_pairs(card, cfg, params, kw, fast, prompts, max_new, busy):
     engines = {"reference": ref, "fast path": fast}
     walls = {name: [] for name in engines}
     outs = {}
-    for name in ("reference", "fast path", "fast path", "reference", "reference", "fast path"):
+    for name in ("reference", "fast path", "fast path", "reference"):
         outs[name], wall = serve_timed(engines[name], prompts, max_new)
         walls[name].append(wall)
     busy["reference"] = profile_device(
@@ -2901,7 +2933,7 @@ def phase_serve_prefix(card, cfg, params, kw, seed=0):
     32-256 tokens and two that are exactly the prompt, in 4 waves, 32 greedy
     new tokens each, through the cache-on engine (the default) and a
     cache-off one.  The first serve of each is checked (the cache-on one
-    with every shared block watched) and builds its graphs; then three pairs
+    with every shared block watched) and builds its graphs; then two pairs
     in turns; then one serve of each under torch.profiler.  Both engines
     trace requests: each serve's TTFT, TBT and end-to-end percentiles
     (from ``put`` to the first token, between tokens, to ``flush``) show
@@ -2945,7 +2977,7 @@ def phase_serve_prefix(card, cfg, params, kw, seed=0):
             prefix_launches = dict(zip(("launches", "tc_launches", "decode_launches"),
                                        r["launches"]))
         runs[name].append(r)
-    for name in ("cache on", "cache off", "cache off", "cache on", "cache on", "cache off"):
+    for name in ("cache on", "cache off", "cache off", "cache on"):
         got, r = prefix_serve(engines[name], prompts, waves, max_new)
         if got != outs[name]:
             raise AssertionError(f"[serve-prefix] {name}: a repeated serve's tokens differ at "
@@ -2960,7 +2992,7 @@ def phase_serve_prefix(card, cfg, params, kw, seed=0):
             + ", ".join(f"{r['wall']:.3f}" for r in rs[1:]) + " s (in turns); programs built "
             f"after the first serve: {sum(sum(r['built'].values()) for r in rs[1:])}")
         log(f"[serve-prefix] {name}, last timed serve on {card}: {rs[-1]['latency']}")
-        log(f"[serve-prefix] {name}, TTFT p50/p95/p99 of the three timed serves on {card}: "
+        log(f"[serve-prefix] {name}, TTFT p50/p95/p99 of the two timed serves on {card}: "
             + ", ".join(f"{r['ttft']['p50'] * 1e3:.3f} / {r['ttft']['p95'] * 1e3:.3f} / "
                         f"{r['ttft']['p99'] * 1e3:.3f} ms" for r in rs[1:]))
     busy = {}
@@ -4170,6 +4202,530 @@ def phase_slice_fleet(device="cuda", cfg=None):
 
 
 # ------------------------------------------------------------------ phase 5
+# -------------------------------------------------- speculative decoding
+SPEC_NGRAM = {"enabled": True, "drafter": "ngram", "k": 4}
+SPEC_CYCLE = {"enabled": True, "drafter": "ngram", "k": 8}
+SPEC_SELF = {"enabled": True, "drafter": "model", "k": 15, "adaptive_k": False}
+SPEC_CYCLE_REQUESTS, SPEC_CYCLE_PROMPT, SPEC_CYCLE_NEW = 16, 512, 128
+SPEC_DRAFT_BLOCKS = 1280  # the drafter's pool: [serve]'s prompts need about 1,040 blocks
+
+
+def route_launches(widths, layers, dtype, head_dim, group):
+    """(total, tensor-core prefill, split-K decode) paged launches that
+    forwards by padded chunk width (``{width: forwards}``) make over
+    ``layers`` layers, by the wrapper's own shape rule."""
+    from deepspeed_tpu_torch.ops.attention.paged import paged_route
+    routes = [(paged_route(dtype, head_dim, t, group), k) for t, k in widths.items()]
+    return (sum(k for _, k in routes) * layers,
+            sum(k for r, k in routes if r == "prefill_tc") * layers,
+            sum(k for r, k in routes if r == "decode") * layers)
+
+
+def program_keys(engine):
+    """The (site, key) of every program the engine has built."""
+    return {(site, repr(key)) for site in ("fwd", "burst", "spec_verify", "draft")
+            for key in engine.programs.keys(site)}
+
+
+def widths_since(counter, before):
+    return {t: k - before.get(t, 0) for t, k in counter.items() if k > before.get(t, 0)}
+
+
+def check_serve_results(tag, engine, prompts, results, max_new, vocab):
+    """Every request ok with the prompt echoed and ``max_new`` tokens in the
+    vocabulary; the pool reclaimed, nothing tracked."""
+    for prompt, res in zip(prompts, results):
+        if res.status != "ok" or len(res.tokens) != len(prompt) + max_new:
+            raise AssertionError(f"[{tag}] request {res.uid}: status {res.status} "
+                                 f"({res.reason}), {len(res.tokens)} tokens for a "
+                                 f"{len(prompt)}-token prompt")
+        if res.tokens[:len(prompt)] != prompt:
+            raise AssertionError(f"[{tag}] request {res.uid}: prompt not echoed")
+        if not all(0 <= tok < vocab for tok in res.tokens[len(prompt):]):
+            raise AssertionError(f"[{tag}] request {res.uid}: token id outside the vocabulary")
+    free = engine.manager.allocator.free_blocks
+    if free != engine.manager.allocator.num_blocks - 1 or engine.manager.seqs:
+        raise AssertionError(f"[{tag}] KV pool not reclaimed: {free} blocks free, "
+                             f"{len(engine.manager.seqs)} sequences tracked")
+
+
+def counted_pass(tag, engine, cfg, run, drafter=None):
+    """``run()`` synchronized: (its result, wall s, programs built, paged
+    launches by route, the engine's and the drafter's forwards by padded
+    width).  Gates: the launches equal the forwards the engine (fwd steps,
+    burst steps, verify rounds) and the model drafter (catch-ups, steps)
+    ran, by padded width and route, times the layers."""
+    counts0, widths0 = paged_counts(), dict(engine.chunk_widths)
+    dwidths0 = dict(drafter.chunk_widths) if drafter is not None else {}
+    built = engine.ledger.total
+    _sync(engine.device)
+    t0 = time.perf_counter()
+    results = run()
+    _sync(engine.device)
+    wall = time.perf_counter() - t0
+    launches = tuple(b - a for a, b in zip(counts0, paged_counts()))
+    widths = widths_since(engine.chunk_widths, widths0)
+    dwidths = widths_since(drafter.chunk_widths, dwidths0) if drafter is not None else {}
+    dtype = engine.dtype
+    head_dim, group = cfg.hidden_size // cfg.num_heads, cfg.num_heads // cfg.num_kv_heads
+    want = tuple(a + b for a, b in zip(
+        route_launches(widths, cfg.num_layers, dtype, head_dim, group),
+        route_launches(dwidths, cfg.num_layers, dtype, head_dim, group)))
+    if engine.device.type == "cuda" and launches != want:
+        raise AssertionError(f"[{tag}] paged launches (total, tensor-core, decode) {launches}; "
+                             f"the engine's forwards by width {widths} and the drafter's "
+                             f"{dwidths} x {cfg.num_layers} layers give {want}")
+    return results, wall, engine.ledger.total - built, launches, widths, dwidths
+
+
+def spec_line(engine):
+    h = engine.health()["spec_decode"]
+    per_round = (h["emitted_total"] / max(sum(h["tokens_per_verify"].values()), 1))
+    return h, (f"acceptance {h['acceptance_rate']:.4f}, tokens per verify per sequence "
+               f"{per_round:.3f} (histogram {h['tokens_per_verify']}), rounds "
+               f"{h['rounds_total']}, fallback rounds {h['fallback_rounds_total']}, live k "
+               f"{h['k']}")
+
+
+def check_spec_families(tag, engine):
+    """The serving_spec_* families strict-parse and agree with
+    ``health()["spec_decode"]`` and the ServeCounters."""
+    from deepspeed_tpu_torch.monitor.exposition import parse_exposition, render
+    from deepspeed_tpu_torch.monitor.metrics import MetricsRegistry, populate_from_engine
+    h = engine.health()["spec_decode"]
+    c = engine.counters
+    if (c.spec_proposed, c.spec_accepted, c.spec_rounds) != (
+            h["proposed_total"], h["accepted_total"], h["rounds_total"]):
+        raise AssertionError(f"[{tag}] ServeCounters spec tail {c.snapshot()} against the stats "
+                             f"{h}")
+    reg = MetricsRegistry()
+    populate_from_engine(reg, engine)
+    fams = parse_exposition(render(reg))
+    val = lambda name: fams[f"dstpu_serving_spec_{name}"]["samples"][0][2]  # noqa: E731
+    tpv = sum(v for n, _, v in fams["dstpu_serving_spec_tokens_per_verify"]["samples"]
+              if n.endswith("_count"))
+    got = (val("proposed_total"), val("accepted_total"), val("rounds_total"),
+           val("fallback_rounds_total"), tpv)
+    want = (h["proposed_total"], h["accepted_total"], h["rounds_total"],
+            h["fallback_rounds_total"], sum(h["tokens_per_verify"].values()))
+    if (got != tuple(float(x) for x in want)
+            or abs(val("acceptance") - h["acceptance_rate"]) > 1e-4):
+        raise AssertionError(f"[{tag}] serving_spec_* families {got} against health {want}")
+    return len(fams)
+
+
+def spec_cycle_params(params):
+    """[serve-spec]'s cycling target: the params with every layer's attention
+    output projection zeroed (a new leaf; the others shared), so the logits
+    depend on the current token alone and greedy decode falls into a cycle."""
+    import torch
+    layers = params["layers"]
+    attn = {**layers["attn"], "wo": torch.zeros_like(layers["attn"]["wo"])}
+    return {**params, "layers": {**layers, "attn": attn}}
+
+
+def spec_drive(engine, prompts, max_new):
+    """``bench.measure_serving_spec``'s drive: one wave put at once, then
+    ``_fused_decode`` over the smallest remaining budget while it is 2 or
+    more, ``step`` otherwise, each request flushed at ``max_new`` tokens.
+    Returns (tokens generated, wall s, each request's tokens)."""
+    n = len(prompts)
+    device = engine.device
+    produced = {u: 0 for u in range(n)}
+    final = {}
+    tokens = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    engine.put(list(range(n)), prompts)
+    for _ in range(100 * n * max_new):
+        if len(final) == n:
+            break
+        k = min(max_new - produced[u] for u in range(n) if u not in final)
+        out = engine._fused_decode(k, greedy=True, eos_token_id=None) if k >= 2 else None
+        if out is None:
+            out = {u: [t] for u, t in engine.step().items()}
+        for uid, toks in out.items():
+            produced[uid] += len(toks)
+            tokens += len(toks)
+            if produced[uid] >= max_new:
+                final[uid] = list(engine.manager.seqs[uid].tokens)
+                engine.manager.seqs[uid].done = True
+                engine.flush(uid)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    if len(final) != n:
+        raise AssertionError(f"spec drive: {n - len(final)} requests unfinished")
+    return tokens, wall, [final[u] for u in range(n)]
+
+
+def cycle_departure(prompt, generated):
+    """The first generated position whose token is not the successor the
+    prompt's cycle gives its predecessor (None if the stream stays on it)."""
+    succ = dict(zip(prompt[:-1], prompt[1:]))  # the latest occurrence wins
+    prev = prompt[-1]
+    for i, tok in enumerate(generated):
+        if succ.get(prev) != tok:
+            return i
+        prev = tok
+    return None
+
+
+def cycle_entered(prompt):
+    """(whether the prompt's last token occurred before in it, the distance
+    back to that occurrence): with the logits a function of the current
+    token, a repeat means the greedy stream has entered its cycle."""
+    last = prompt[-1]
+    for back in range(1, len(prompt)):
+        if prompt[-1 - back] == last:
+            return True, back
+    return False, None
+
+
+def serve_spec(card, cfg, params, kw, prompts, max_new, results, warm_wall, seed=0):
+    """[serve-spec]: speculative decoding on [serve]'s Mistral-7B bf16 engine
+    setup (pool, budget, fast path with graphs), in three parts:
+
+    1. n-gram (k 4) on [serve]'s 16 prompts, 32 new tokens, cold, warm and
+       again: every request ok, rounds > 0, warm recompiles 0 and the third
+       serve captures nothing (the controller carries its floor count from
+       serve to serve, so the warm serve may first reach a bucket), the
+       pool reclaimed; the paged launches equal the fwd
+       steps, burst steps and verify rounds by padded width and route x 32
+       layers; the spec counters equal the stats and the serving_spec_*
+       families strict-parse and agree.
+    2. The cycling workload of ``bench.measure_serving_spec`` at full width:
+       ``wo`` zeroed, 16 seeded 8-token seeds continued 504 tokens by the
+       spec-off engine, then 128 new tokens spec off and on (n-gram, k 8),
+       each engine warmed once and timed best of 3 through
+       ``_fused_decode``: every request finished, acceptance >= 0.5, no warm
+       recompile (the captures of each pass are printed).
+    3. The target attached as its own drafter (k 15, adaptive off) on
+       [serve]'s prompts, cold then warm: every request ok, both pools
+       reclaimed, the draft and verify programs captured once (the warm
+       serve builds nothing), the launches of the engine's and the
+       drafter's forwards as in 1; then twice through part 2's drive on its
+       prompts (its window lets the k 15 round run): verify rounds of width
+       16 on the tensor-core route.
+    Returns the parts' numbers."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    device = kw["device"]
+    on_card = torch.device(device).type == "cuda"
+    vocab = cfg.vocab_size
+    log(f"[serve-spec] {nvidia_smi_line() if on_card else card}")
+    max_memory_line("serve-spec", device, "start")
+    out = {}
+    # ---- 1. n-gram on [serve]'s prompts
+    engine = build_engine("mistral", cfg, params, **kw, config={
+        "dtype": "bfloat16", "seed": seed, "serving_spec_decode": SPEC_NGRAM})
+    passes = {}
+    for label in ("cold", "warm", "again"):
+        before, keys = engine.counters.snapshot(), program_keys(engine)
+        res, wall, built, launches, widths, _ = counted_pass(
+            "serve-spec", engine, cfg,
+            lambda: engine.generate(prompts, max_new_tokens=max_new, strict=False))
+        check_serve_results("serve-spec", engine, prompts, res, max_new, vocab)
+        passes[label] = (res, wall, sorted(program_keys(engine) - keys), launches, widths,
+                         engine.counters.delta_since(before))
+    # the adaptive controller carries its floor count across serves, so the
+    # warm serve's re-probe may reach a (live set, k) the cold serve did not:
+    # it builds that bucket cold (never a key again: warm recompiles stay 0),
+    # and once the walk has been seen a serve builds nothing
+    res, wall, built, launches, widths, delta = passes["warm"]
+    if passes["again"][2] or engine.ledger.warm_total:
+        raise AssertionError(f"[serve-spec] the third n-gram serve built {passes['again'][2]} "
+                             f"({engine.ledger.warm_total} warm recompiles)")
+    h, line = spec_line(engine)
+    if h["rounds_total"] <= 0:
+        raise AssertionError(f"[serve-spec] no verify round ran: {h}")
+    n_fams = check_spec_families("serve-spec", engine)
+    same = sum(a.tokens == b.tokens for a, b in zip(res, results))
+    verify = {t: k for t, k in widths.items() if t > 1 and t <= SPEC_NGRAM["k"] + 1}
+    log(f"[serve-spec] n-gram k {SPEC_NGRAM['k']} on [serve]'s {len(prompts)} prompts, "
+        f"{max_new} new tokens, on {card}: cold {passes['cold'][1]:.3f} s "
+        f"({len(passes['cold'][2])} captures, by site and class "
+        f"{json.dumps(engine.ledger.by_site)} after all three serves), warm {wall:.3f} s "
+        f"(captures {built}), again {passes['again'][1]:.3f} s (0 captures), warm recompiles "
+        f"0, against [serve]'s warm {warm_wall:.3f} s; all ok, pool reclaimed; {line}; verify "
+        f"rounds cold {passes['cold'][5]['spec_rounds']}, warm {delta['spec_rounds']}, again "
+        f"{passes['again'][5]['spec_rounds']} (the controller keeps its k across serves); "
+        f"warm serve: host syncs {delta['host_syncs']}, forwards by padded width "
+        f"{dict(sorted(widths.items()))} (verify widths {verify}); paged launches (total, "
+        f"tensor-core prefill, split-K decode) {launches} = those forwards x {cfg.num_layers} "
+        f"layers; spec counters equal the stats, {n_fams} families strict-parsed; "
+        f"{same} of {len(prompts)} streams token-identical to [serve]'s spec-off serve (bf16, "
+        f"not gated)")
+    out["ngram"] = {"cold_s": passes["cold"][1], "warm_s": wall, "launches": launches,
+                    "acceptance": h["acceptance_rate"], "rounds": h["rounds_total"],
+                    "same": same}
+    max_memory_line("serve-spec", device, "after the n-gram part")
+    del engine, passes, res
+    if on_card:
+        torch.cuda.empty_cache()
+    # ---- 2. the cycling workload
+    log(f"[serve-spec] {nvidia_smi_line() if on_card else card}")
+    cyc = spec_cycle_params(params)
+    mk = lambda spec: build_engine("mistral", cfg, cyc, **kw, config={  # noqa: E731
+        "dtype": "bfloat16", "seed": seed, **({"serving_spec_decode": spec} if spec else {})})
+    eng_off, eng_on = mk(None), mk(SPEC_CYCLE)
+    rng = np.random.default_rng(seed + 30)
+    seeds = [rng.integers(1, vocab, 8).tolist() for _ in range(SPEC_CYCLE_REQUESTS)]
+    t0 = time.perf_counter()
+    cont = eng_off.generate(seeds, max_new_tokens=SPEC_CYCLE_PROMPT - 8)
+    cyc_prompts = [c[:SPEC_CYCLE_PROMPT] for c in cont]
+    entered = [cycle_entered(p) for p in cyc_prompts]
+    log(f"[serve-spec] cycling prompts: {len(seeds)} seeds of 8 tokens continued "
+        f"{SPEC_CYCLE_PROMPT - 8} tokens spec off in {time.perf_counter() - t0:.2f} s; "
+        f"{sum(e for e, _ in entered)} of {len(entered)} have entered their cycle, cycle "
+        f"lengths {[b for _, b in entered]}")
+    walls, streams, builds = {}, {}, {}
+    for name, eng in (("off", eng_off), ("on", eng_on)):
+        # one warm pass, then the best of 3 (the bench's discipline); the
+        # controller carries its EWMA from pass to pass, so a timed pass may
+        # still reach a new bucket: its captures are printed
+        built = eng.ledger.total
+        spec_drive(eng, cyc_prompts, SPEC_CYCLE_NEW)
+        warm = eng.ledger.total - built
+        timed = []
+        best = 0.0
+        for _ in range(3):
+            built = eng.ledger.total
+            toks, wall, finals = spec_drive(eng, cyc_prompts, SPEC_CYCLE_NEW)
+            timed.append(eng.ledger.total - built)
+            if toks != SPEC_CYCLE_REQUESTS * SPEC_CYCLE_NEW:
+                raise AssertionError(f"[serve-spec] cycling drive ({name}) made {toks} tokens")
+            best = max(best, toks / wall) if wall > 0 else best
+        if eng.ledger.warm_total:
+            raise AssertionError(f"[serve-spec] cycling drive ({name}): "
+                                 f"{eng.ledger.warm_total} warm recompiles")
+        check_serve_results("serve-spec", eng, [], [], 0, vocab)
+        walls[name], streams[name], builds[name] = best, finals, (warm, timed)
+    h, line = spec_line(eng_on)
+    if h["acceptance_rate"] < 0.5:
+        raise AssertionError(f"[serve-spec] cycling acceptance {h['acceptance_rate']} < 0.5: {h}")
+    same = sum(a == b for a, b in zip(streams["on"], streams["off"]))
+    ratio = walls["on"] / walls["off"] if walls["off"] else float("nan")
+    departs = [cycle_departure(p, f[len(p):]) for p, f in zip(cyc_prompts, streams["on"])]
+    log(f"[serve-spec] cycling workload on {card} ({SPEC_CYCLE_REQUESTS} requests of "
+        f"{SPEC_CYCLE_PROMPT} tokens, {SPEC_CYCLE_NEW} new, wo zeroed, best of 3 after a warm "
+        f"pass, through _fused_decode): spec off {walls['off']:.1f} tok/s, spec on (n-gram k "
+        f"{SPEC_CYCLE['k']}) {walls['on']:.1f} tok/s, ratio {ratio:.3f}; {line}; captures off "
+        f"{json.dumps(eng_off.ledger.by_site)}, on {json.dumps(eng_on.ledger.by_site)}, "
+        f"captures in the warm pass and the timed passes: off {builds['off']}, on "
+        f"{builds['on']}, warm recompiles 0; {same} of {len(cyc_prompts)} streams "
+        f"token-identical spec on and off (bf16, not gated); the first generated token off "
+        f"the prompt's cycle, by request (None: on it throughout) {departs}")
+    out["cycle"] = {"off_tok_s": walls["off"], "on_tok_s": walls["on"], "ratio": ratio,
+                    "acceptance": h["acceptance_rate"], "k": h["k"], "same": same}
+    max_memory_line("serve-spec", device, "after the cycling part")
+    del eng_off, eng_on, cyc, mk
+    if on_card:
+        torch.cuda.empty_cache()
+    # ---- 3. the target as its own drafter
+    log(f"[serve-spec] {nvidia_smi_line() if on_card else card}")
+    from deepspeed_tpu_torch.models import mistral
+    engine = build_engine("mistral", cfg, params, **kw, config={
+        "dtype": "bfloat16", "seed": seed, "serving_spec_decode": SPEC_SELF})
+    engine.attach_draft_model(mistral, cfg, params, num_blocks=SPEC_DRAFT_BLOCKS)
+    drafter = engine._drafter
+    passes = {}
+    for label in ("cold", "warm"):
+        res, wall, built, launches, widths, dwidths = counted_pass(
+            "serve-spec", engine, cfg,
+            lambda: engine.generate(prompts, max_new_tokens=max_new, strict=False),
+            drafter=drafter)
+        check_serve_results("serve-spec", engine, prompts, res, max_new, vocab)
+        drafter._gc(set())
+        if len(drafter._free) != SPEC_DRAFT_BLOCKS - 1:
+            raise AssertionError(f"[serve-spec] the drafter's pool holds "
+                                 f"{SPEC_DRAFT_BLOCKS - 1 - len(drafter._free)} blocks")
+        passes[label] = (res, wall, built, launches, widths, dwidths)
+    res, wall, built, launches, widths, dwidths = passes["warm"]
+    by_site = engine.ledger.by_site
+    if built or engine.ledger.warm_total or not by_site.get("draft") \
+            or not by_site.get("spec_verify"):
+        raise AssertionError(f"[serve-spec] self-drafting: the warm serve built {built} programs "
+                             f"({engine.ledger.warm_total} warm), captures {by_site}")
+    h, line = spec_line(engine)
+    same = sum(a.tokens == b.tokens for a, b in zip(res, results))
+    log(f"[serve-spec] the target as its own drafter (k {SPEC_SELF['k']}, adaptive off, draft "
+        f"pool {SPEC_DRAFT_BLOCKS} blocks) on [serve]'s prompts on {card}: cold "
+        f"{passes['cold'][1]:.3f} s, warm {wall:.3f} s against [serve]'s warm {warm_wall:.3f} "
+        f"s; all ok, both pools reclaimed; {line}; captures by site "
+        f"{json.dumps(by_site)}, the warm serve 0; warm forwards by padded width: engine "
+        f"{dict(sorted(widths.items()))}, drafter {dict(sorted(dwidths.items()))}; paged "
+        f"launches {launches} = their forwards x {cfg.num_layers} layers; {same} of "
+        f"{len(prompts)} streams token-identical to [serve]'s (bf16, not gated)")
+    # [serve]'s SplitFuse serve leaves a fused window of a few tokens, so
+    # its rounds stay narrow; the cycling drive's window (about 113 tokens)
+    # lets the k 15 round run: a verify of width 16 on the tensor-core route
+    drives = []
+    for _ in range(2):  # the first builds what the drive hits
+        before = engine.counters.snapshot()
+        drive, dwall, dbuilt, dlaunches, dw, ddw = counted_pass(
+            "serve-spec", engine, cfg, lambda: spec_drive(engine, cyc_prompts, SPEC_CYCLE_NEW),
+            drafter=drafter)
+        if drive[0] != SPEC_CYCLE_REQUESTS * SPEC_CYCLE_NEW:
+            raise AssertionError(f"[serve-spec] self-drafting drive made {drive[0]} tokens")
+        drives.append((drive, dwall, dbuilt, dlaunches, dw, ddw,
+                       engine.counters.delta_since(before)))
+    drive, dwall, dbuilt, dlaunches, dw, ddw, dd = drives[1]
+    wide = dw.get(SPEC_SELF["k"] + 1, 0)
+    if not wide or (on_card and dlaunches[1] < wide * cfg.num_layers) \
+            or engine.ledger.warm_total:
+        raise AssertionError(f"[serve-spec] self-drafting drive: {wide} verify rounds of width "
+                             f"{SPEC_SELF['k'] + 1}, launches {dlaunches}, "
+                             f"{engine.ledger.warm_total} warm recompiles")
+    log(f"[serve-spec] the self-drafting engine through the cycling drive's prompts (wo kept; "
+        f"{SPEC_CYCLE_REQUESTS} x {SPEC_CYCLE_PROMPT} tokens, {SPEC_CYCLE_NEW} new) on {card}: "
+        f"{drive[0] / drive[1]:.1f} tok/s in its second pass ({dbuilt} captures; the first "
+        f"{drives[0][2]}), {wide} verify rounds of width {SPEC_SELF['k'] + 1} on the tensor-core "
+        f"route, acceptance over the pass "
+        f"{dd['spec_accepted'] / max(dd['spec_proposed'], 1):.4f} ({dd['spec_rounds']} rounds); "
+        f"forwards by padded width: engine {dict(sorted(dw.items()))}, drafter "
+        f"{dict(sorted(ddw.items()))}; paged launches (total, tensor-core prefill, split-K "
+        f"decode) {dlaunches} = their forwards x {cfg.num_layers} layers")
+    out["self"] = {"cold_s": passes["cold"][1], "warm_s": wall, "launches": launches,
+                   "acceptance": h["acceptance_rate"], "same": same,
+                   "drive_tok_s": drive[0] / drive[1], "drive_launches": dlaunches}
+    max_memory_line("serve-spec", device, "end")
+    del engine, drafter, passes
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def faulty_allocator(num_blocks, fail_rate, seed):
+    """The port's allocator failing each ``allocate`` with probability
+    ``fail_rate`` from a seeded ``random.Random`` (the JAX package's test
+    allocator's schedule), before the free list changes."""
+    import random
+
+    from deepspeed_tpu_torch.inference.v2.blocked_allocator import (BlockedAllocator,
+                                                                    KVAllocationError)
+
+    class FaultyAllocator(BlockedAllocator):
+
+        def __init__(self):
+            super().__init__(num_blocks)
+            self._rng = random.Random(seed)
+            self.injected_failures = 0
+
+        def allocate(self, n):
+            if self._rng.random() < fail_rate:
+                self.injected_failures += 1
+                raise KVAllocationError("injected allocation failure")
+            return super().allocate(n)
+
+    return FaultyAllocator()
+
+
+def phase_slice_spec(device="cuda", cfg=None):
+    """[slice-spec]: ``spec_decode_smoke``'s contract at [slice-serve]'s fp32
+    2-layer Mistral-7B width and pool, on the card: (a) greedy spec on
+    (n-gram, k 4) token-identical to spec off under 25 % allocator faults,
+    the pool reclaimed, no stall, speculation engaged; (b) the same with
+    deadlines expiring mid-decode on a fake clock; (c) the card's
+    ``rejection_select`` at T > 0 ((0.9, 0, 1.0), V 24, k 3, 4,000 draws)
+    within total variation 0.08 of the filtered target; (d) the health
+    section and the families agree with the counters, and a spec-off engine
+    renders no spec family; (e) the target attached as its own drafter
+    accepts every draft (rate 1.0) with the spec-off tokens."""
+    import torch
+    from deepspeed_tpu_torch.inference.engine import _filter_logits
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    from deepspeed_tpu_torch.inference.v2.spec_decode import rejection_select
+    from deepspeed_tpu_torch.models import mistral
+    from deepspeed_tpu_torch.monitor.metrics import MetricsRegistry, populate_from_engine
+    on_card = torch.device(device).type == "cuda"
+    if cfg is None:
+        cfg = dataclasses.replace(mistral.MistralConfig.mistral_7b(), num_layers=2)
+    log(f"[slice-spec] {nvidia_smi_line() if on_card else device}")
+    params = slice_recover_model(cfg, device)
+    prompts = slice_recover_prompts(cfg.vocab_size)
+    nb = SLICE_KW["num_blocks"]
+
+    def mk(spec, **over):
+        conf = {"dtype": "float32"}
+        if spec:
+            conf["serving_spec_decode"] = spec
+        return build_engine("mistral", cfg, params, config=conf, device=device,
+                            **{**SLICE_KW, **over})
+
+    # (a) greedy identity under 25 % allocator faults
+    def faulted(spec):
+        engine = mk(spec)
+        engine.manager.allocator = faulty_allocator(nb, 0.25, 7)
+        res = engine.generate(prompts, max_new_tokens=SLICE_MAX_NEW, strict=False)
+        alloc = engine.manager.allocator
+        if not alloc.injected_failures or alloc.free_blocks != nb - 1 \
+                or engine.health()["stalls_total"]:
+            raise AssertionError(f"[slice-spec] faulted serve: {alloc.injected_failures} "
+                                 f"injected failures, {alloc.free_blocks} of {nb - 1} blocks "
+                                 f"free, {engine.health()['stalls_total']} stalls")
+        return [(r.status, r.tokens) for r in res], engine
+
+    spec_res, spec_eng = faulted(SPEC_NGRAM)
+    off_res, _ = faulted(None)
+    if spec_res != off_res:
+        raise AssertionError(f"[slice-spec] spec on diverged from spec off under faults at "
+                             f"{[_first_diff(a[1], b[1]) for a, b in zip(spec_res, off_res)]}")
+    h = spec_eng.health()["spec_decode"]
+    healthy = mk(SPEC_NGRAM).generate(prompts, max_new_tokens=SLICE_MAX_NEW)
+    if h["rounds_total"] <= 0 or [t for _, t in spec_res] != healthy:
+        raise AssertionError(f"[slice-spec] speculation did not engage ({h}) or the faulted "
+                             f"run differs from the healthy one")
+    # (b) deadlines expiring mid-decode on a fake clock
+    expiring = {}
+    for name, spec in (("on", SPEC_NGRAM), ("off", None)):
+        engine = mk(spec, clock=StepClock(0.05))
+        res = engine.generate(prompts[:2], max_new_tokens=64, strict=False, ttl_s=0.4)
+        expiring[name] = [(r.uid, r.status, r.tokens) for r in res]
+    if expiring["on"] != expiring["off"]:
+        raise AssertionError(f"[slice-spec] deadline partials differ: {expiring}")
+    # (c) the sampler's first-position marginal at T > 0, on the device
+    sample_cfg, v, k, draws = (0.9, 0, 1.0), 24, 3, 4000
+    base = torch.from_numpy(np.random.default_rng(3).normal(0.0, 1.5, size=(1, k + 1, v))
+                            .astype(np.float32)).to(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    packed = rejection_select(base.repeat(draws, 1, 1),
+                              torch.tensor([[1, 2, 3]], dtype=torch.int32,
+                                           device=device).repeat(draws, 1),
+                              gen, sample_cfg=sample_cfg)
+    freq = np.bincount(packed[:, 1].cpu().numpy(), minlength=v) / draws
+    target = torch.softmax(_filter_logits(base[0, :1], temperature=sample_cfg[0],
+                                          top_k=sample_cfg[1], top_p=sample_cfg[2])[0],
+                           dim=-1).cpu().numpy()
+    tv = 0.5 * float(np.abs(freq - target).sum())
+    if tv >= 0.08:
+        raise AssertionError(f"[slice-spec] the sampler's marginal is {tv:.4f} from the "
+                             f"filtered target in total variation (limit 0.08)")
+    # (d) the health section and the families agree; spec off renders none
+    n_fams = check_spec_families("slice-spec", spec_eng)
+    reg = MetricsRegistry()
+    populate_from_engine(reg, mk(None))
+    if any("spec" in name for name in reg.families):
+        raise AssertionError(f"[slice-spec] a spec-off engine renders "
+                             f"{[n for n in reg.families if 'spec' in n]}")
+    # (e) the target as its own drafter
+    self_eng = mk({"enabled": True, "drafter": "model", "k": 4})
+    self_eng.attach_draft_model(mistral, cfg, params)
+    got = self_eng.generate(prompts, max_new_tokens=SLICE_MAX_NEW)
+    hs = self_eng.health()["spec_decode"]
+    if got != healthy or hs["acceptance_rate"] != 1.0 or hs["rounds_total"] <= 0:
+        raise AssertionError(f"[slice-spec] self-drafting: acceptance {hs['acceptance_rate']}, "
+                             f"tokens equal to spec off: {got == healthy}")
+    log(f"[slice-spec] mistral_7b width, 2 layers, fp32, on {device}: (a) spec on == spec off "
+        f"under 25 % allocator faults ({spec_eng.manager.allocator.injected_failures} injected "
+        f"with spec on), == the healthy run, pool reclaimed, 0 stalls, {h['rounds_total']} "
+        f"rounds, acceptance {h['acceptance_rate']}; (b) deadline partials equal "
+        f"({[s for _, s, _ in expiring['on']]}); (c) sampler TV {tv:.4f} < 0.08 over {draws} "
+        f"draws; (d) health, counters and {n_fams} families agree, spec off renders no spec "
+        f"family; (e) self-drafting acceptance {hs['acceptance_rate']} over "
+        f"{hs['rounds_total']} rounds, tokens equal to spec off")
+    return {"tv": tv, "rounds": h["rounds_total"]}
+
+
 TRAIN_PEAK_FLOPS = 989e12  # bf16 dense tensor-core peak of the H100 SXM
 KERNEL_NAMES = ("paged_attention", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "fused_adamw",
                 "sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq", "adamw8bit", "fused_lion",
@@ -4457,7 +5013,7 @@ def profile_train(engine, batch, card, step_s, tag="profile-train"):
 TRAIN_SLICE_LAYERS = 1
 
 
-def phase_train_slice(seed=1, steps=3, micro=2, gas=2, seq=128, tag="train-slice",
+def phase_train_slice(seed=1, steps=2, micro=2, gas=2, seq=128, tag="train-slice",
                       optimizer="fused_adam", sparse=None):
     """``TRAIN_SLICE_LAYERS`` full-width Llama-2-7B layers in fp32: the CUDA engine (kernels)
     against the CPU engine (plain versions), same params and batch, with
@@ -4826,6 +5382,8 @@ def main() -> int:
             phase_slice_recover()
         with phase_timer("slice-fleet"):
             phase_slice_fleet()
+        with phase_timer("slice-spec"):
+            phase_slice_spec()
     with phase_timer("train"):
         train_launches, dense = phase_train(card)
     with phase_timer("train-telemetry"):
@@ -4855,6 +5413,8 @@ def main() -> int:
                 "decode_launches": launches["decode_launches"],
                 "tc_launches": launches["tc_launches"], "max_abs_err": max_err,
                 "serve_prefix_launches": launches["serve_prefix"],
+                "serve_spec_launches": {part: launches["serve_spec"][part]["launches"]
+                                        for part in ("ngram", "self")},
                 **{k: recs["mistral_decode"][k] for k in fields},
                 "shape": "mistral_7b decode N=32 T=1 lengths 1-4096 bf16",
                 "variant": "three routes by shape: split-K decode (paged_decode_kernel + "
@@ -4868,7 +5428,8 @@ def main() -> int:
                 "llama2_decode": {k: recs["llama2_decode"][k] for k in fields},
                 "llama2_prefill": {k: recs["llama2_prefill"][k] for k in fields},
                 "cuda_core": {name: {k: rec[k] for k in fields} for name, rec in recs.items()
-                              if name.startswith("cuda_core")}}]
+                              if name.startswith("cuda_core")},
+                "verify": {name: {k: recs[name][k] for k in fields} for name in VERIFY_CASES}}]
     for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         kernels.append({"name": name, "route": "cuda", "source": FLASH_SOURCE,
                         "replaces": FLASH_REPLACES[name], "launches": train_launches[name],

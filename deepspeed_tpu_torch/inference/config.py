@@ -13,13 +13,14 @@ import torch
 from ..runtime.config import (KVObservabilityConfig, OpsServerConfig, ServingFastpathConfig,
                               ServingFaultToleranceConfig, ServingFleetConfig, ServingPerfConfig,
                               ServingPrefixCacheConfig, ServingQosConfig,
-                              ServingResilienceConfig, ServingTracingConfig)
+                              ServingResilienceConfig, ServingSpecDecodeConfig,
+                              ServingTracingConfig)
 from ..runtime.config_utils import ConfigModel, Field
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 # sections of the JAX InferenceConfig the port does not implement yet
-UNPORTED_SECTIONS = ("serving_spec_decode", )
+UNPORTED_SECTIONS = ()
 
 
 class TPConfig(ConfigModel):
@@ -54,6 +55,9 @@ class InferenceConfig(ConfigModel):
     # device-resident batch state, pipelined dispatch, fused decode bursts and
     # per-bucket CUDA graphs (inference/v2/fastpath.py, cuda_graphs.py)
     serving_fastpath: ServingFastpathConfig = Field(ServingFastpathConfig)
+    # speculative decoding on the fused decode path: draft/verify with
+    # rejection sampling on the device (inference/v2/spec_decode.py)
+    serving_spec_decode: ServingSpecDecodeConfig = Field(ServingSpecDecodeConfig)
     # block census, counterfactual prefix observatory, capacity forecast
     # (inference/v2/kv_metrics.py)
     serving_kv_observability: KVObservabilityConfig = Field(KVObservabilityConfig)

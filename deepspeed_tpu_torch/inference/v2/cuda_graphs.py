@@ -79,8 +79,10 @@ class BucketProgram:
 class BucketPrograms:
     """The engine's program cache, keyed ``(site, key)``: ``("fwd", (n, t,
     b))`` for a stepwise bucket forward, ``("burst", (n, b))`` for one step
-    of a decode burst.  ``graphs`` selects capture (the fast path on the
-    card) over eager functions.  ``on_build(site, key)``, when given, runs
+    of a decode burst, ``("spec_verify", (n, k, b, sample_cfg))`` for a
+    speculative verify and ``("draft", ...)`` for a draft model's catch-up
+    and step.  ``graphs`` selects capture (the fast path on the card) over
+    eager functions.  ``on_build(site, key)``, when given, runs
     once after each build."""
 
     def __init__(self, ledger, device, graphs: bool,

@@ -73,9 +73,20 @@ preemption steered to over-quota tenants and lower classes (``qos.py``);
 builds no policy and its tokens, counters, journal and exposition are those
 of the policy-free engine.
 
+Speculative decoding (``serving_spec_decode``, off by default as in the JAX
+engine): on a pure-decode fused window a drafter (prompt lookup on the host,
+or a draft model over a pool of its own, ``attach_draft_model``) proposes k
+tokens a sequence, one target forward over the paged pool at width k+1
+scores them (a captured graph per ``(n, k, b, sample)`` verify bucket on
+the card), and rejection sampling on the device emits the
+accepted prefix plus one token, absorbed in one host sync (``spec_decode.py``,
+``fastpath.DeferredRuns``).  An adaptive k walks a static ladder of
+prewarmed verify widths and falls back to the plain burst at its floor.
+Off, the engine builds no drafter, controller or stats.
+
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU; it
-never falls back from one to the other.  Speculative decoding and tensor
-parallelism of the JAX engine are not ported yet.
+never falls back from one to the other.  Tensor parallelism of the JAX engine
+is not ported yet.
 """
 
 import collections
@@ -103,13 +114,15 @@ from .admission import (DEADLINE_EXPIRED, FAILED, OK, PREEMPT_REQUEUED_EXHAUSTED
                         AdmissionQueue, RecoveredRequest, RequestResult, ServingStalledError)
 from .blocked_allocator import KVAllocationError
 from .cuda_graphs import BucketPrograms
-from .fastpath import (FED_SENTINEL, PENDING_TOKEN, DeferredTokens, DeviceBatchState,
-                       ServeCounters, materialize, round_up_pow2, upload)
+from .fastpath import (FED_SENTINEL, PENDING_TOKEN, DeferredRuns, DeferredTokens,
+                       DeviceBatchState, ServeCounters, materialize, round_up_pow2, upload)
 from .journal import RequestJournal, journal_bytes
 from .kv_metrics import KVObservability
 from .qos import QosPolicy
 from .ragged_manager import PrefixCache, RaggedStateManager
 from .scheduler import SplitFuseScheduler
+from .spec_decode import (AdaptiveKController, ModelDrafter, NgramDrafter, SpecDecodeStats,
+                          rejection_select)
 
 
 def resolve_device(device) -> torch.device:
@@ -302,6 +315,22 @@ class InferenceEngineV2:
             on_build=functools.partial(self._note_bucket_cost, self.roofline, self.perf_cfg,
                                        model_module, model_config, block_size, self.dtype))
         self._burst_inputs: Dict = {}  # (n, b) -> the burst step's static inputs
+        self._verify_inputs: Dict = {}  # (n, k, b) -> the verify's static inputs
+        # speculative decoding: drafter + adaptive-k controller + accounting
+        # behind the fused draft/verify round (decode_spec), built only when
+        # the section is armed: off, tokens, counters, journal and exposition
+        # are those of the engine without it
+        self.spec_cfg = self.config.serving_spec_decode
+        self.spec_stats: Optional[SpecDecodeStats] = None
+        self._spec_controller: Optional[AdaptiveKController] = None
+        self._drafter = None
+        if self.spec_cfg.enabled:
+            self.spec_stats = SpecDecodeStats()
+            self._spec_controller = AdaptiveKController(self.spec_cfg)
+            if self.spec_cfg.drafter == "ngram":
+                self._drafter = NgramDrafter(self.spec_cfg.ngram_max, self.spec_cfg.ngram_min)
+            # drafter "model": speculation stays dormant (plain burst) until
+            # the caller attaches weights with attach_draft_model()
         self._inflight: Optional[DeferredTokens] = None
         self._table_width = 0
         self._table_slack = 0
@@ -770,11 +799,19 @@ class InferenceEngineV2:
                           block_size: int, dtype, site: str, key) -> None:
         """The bucket programs' build hook: a ``"fwd"`` bucket's analytic
         (FLOPs, bytes) go to the roofline once, at its build (a graph capture
-        on the card, the first eager use on the CPU)."""
-        if site == "fwd" and perf_cfg.capture_cost_analysis:
+        on the card, the first eager use on the CPU), and so do a
+        ``"spec_verify"`` bucket's, a forward of width k+1."""
+        if not perf_cfg.capture_cost_analysis:
+            return
+        if site == "fwd":
             n, t, b = key
-            roofline.note_cost(key, *model.paged_bucket_cost(model_config, n, t, b, block_size,
-                                                             dtype))
+        elif site == "spec_verify":
+            n, k, b, _ = key
+            t = k + 1
+        else:
+            return
+        roofline.note_cost(key, *model.paged_bucket_cost(model_config, n, t, b, block_size,
+                                                         dtype))
 
     @staticmethod
     def _cow_copy_block(kv, counters: ServeCounters, device, src: int, dst: int) -> None:
@@ -848,6 +885,47 @@ class InferenceEngineV2:
             return decode_step, inputs, neutralize
 
         return self.programs.get("burst", (n, b), make), inputs
+
+    def _verify_program(self, n: int, k: int, b: int, sample_cfg, *, prewarmed: bool = False):
+        """The speculative verify of an ``n``-sequence round with ``k`` draft
+        tokens over a ``b``-slot table: ONE target forward of width k+1 over
+        static inputs of its own (tokens [n, k+1] = input token then the
+        draft, the constant width k+1, start positions, tables).  Greedy
+        (``sample_cfg`` None) it ends in the rejection sampler and returns
+        the packed [n, k+2] rows; sampled it returns the logits [n, k+1, V]
+        and the caller samples after the replay, from the engine's generator
+        (a captured draw would repeat its numbers on every replay).  The
+        bucket key is ``(n, k, b, sample_cfg)`` under the site
+        ``"spec_verify"``."""
+        inputs = self._verify_inputs.get((n, k, b))
+        if inputs is None:
+            ints = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=self.device)
+            inputs = (ints(n, k + 1),
+                      torch.full((n, ), k + 1, dtype=torch.int32, device=self.device), ints(n),
+                      torch.full((n, b), self.manager.trash_block, dtype=torch.int32,
+                                 device=self.device))
+            self._verify_inputs[(n, k, b)] = inputs
+        trash = self.manager.trash_block
+
+        def make():
+            model, cfg, params, kv, bs = (self.model, self.model_config, self.params, self.kv,
+                                          self.block_size)
+
+            def verify():
+                logits, _ = model.forward_paged(cfg, params, *inputs, kv, block_size=bs)
+                if sample_cfg is None:
+                    return rejection_select(logits, inputs[0][:, 1:], None, sample_cfg=None)
+                return logits
+
+            def neutralize():
+                inputs[1].zero_()
+                inputs[2].zero_()
+                inputs[3].fill_(trash)
+
+            return verify, inputs, neutralize
+
+        return (self.programs.get("spec_verify", (n, k, b, sample_cfg), make, prewarmed=prewarmed),
+                inputs)
 
     # ------------------------------------------------------------ decode burst
     @torch.no_grad()
@@ -959,6 +1037,206 @@ class InferenceEngineV2:
         self._refresh_kv()
         self._emit_serving_gauges(tokens_run=sum(len(v) for v in out.values()))
         return out
+
+    # ----------------------------------------------------- speculative decode
+    def attach_draft_model(self, model_module, model_config, params, *,
+                           num_blocks: Optional[int] = None,
+                           block_size: Optional[int] = None) -> None:
+        """Arm ``drafter: "model"`` speculative decoding with a draft model
+        (a module of ``models/``): it proposes greedily against a paged pool
+        of its own, and its proposals feed the verify without visiting the
+        host.  ``num_blocks``/``block_size`` size that pool (by default as
+        the target's).  The draft model runs on the engine's one device."""
+        if not self.spec_cfg.enabled:
+            raise ValueError("serving_spec_decode.enabled is off: arm the section before "
+                             "attaching a draft model")
+        if self.spec_cfg.drafter != "model":
+            raise ValueError(f"serving_spec_decode.drafter is '{self.spec_cfg.drafter}', "
+                             f"not 'model'")
+        self._drafter = ModelDrafter(
+            model_module, model_config, params,
+            num_blocks=(num_blocks if num_blocks is not None
+                        else self.manager.allocator.num_blocks),
+            block_size=block_size if block_size is not None else self.block_size,
+            max_blocks_per_seq=self.max_blocks_per_seq, dtype=self.dtype, device=self.device,
+            programs=self.programs)
+
+    @torch.no_grad()
+    def decode_spec(self, k: int, greedy: bool = True,
+                    eos_token_id: Optional[int] = None) -> Optional[Dict[int, List[int]]]:
+        """One speculative draft/verify round over the pure-decode live set:
+        the drafter proposes ``k`` tokens a sequence, ONE target forward
+        scores them all over the paged pool, and the rejection sampler emits
+        the accepted prefix plus one corrected or bonus token: 1 to k+1
+        tokens a sequence for one pass over the target's weights, with the
+        plain decode's distribution (its tokens, greedy).
+
+        The bookkeeping follows ``decode_burst``: an all-or-nothing block
+        grab up front (rolled back on an allocator failure), ONE host sync
+        for the packed runs, each sequence advanced by its accepted run with
+        the draft-overshoot blocks rolled back before prefix registration,
+        and journal frames of verified tokens only.  Returns None when the
+        round does not apply (the caller runs the plain burst)."""
+        drafter = self._drafter
+        if drafter is None:
+            return None
+        live, prefilling = self.scheduler.live_split(self.manager)
+        if not live or prefilling:
+            return None  # speculate only over a pure-decode live set
+        if len(live) > self.scheduler.max_seqs:
+            return None
+        if any(seq.deadline is not None for seq in live):
+            # deadline-armed sequences take the plain path: a round emits a
+            # variable-length run per loop iteration, which would move
+            # eviction times against the engine without speculation
+            return None
+        if self._inflight is not None:
+            # the drafter reads token HISTORY: a deferred pick still in
+            # flight would leave PENDING_TOKEN placeholders in it
+            self._inflight.patch(self.manager)
+        max_pos = getattr(self.model_config, "max_seq_len", None)
+        total_new = 0
+        for seq in live:
+            upto = seq.seen_tokens + 1 + k
+            if self.manager.over_cap(upto):
+                return None
+            if max_pos is not None and upto > max_pos:
+                return None
+            total_new += self.manager.blocks_needed(seq, upto)
+        if not self.manager.can_allocate(total_new):
+            return None
+        grown: List = []
+        try:
+            for seq in live:
+                prior = len(seq.blocks)
+                self.manager.ensure_blocks(seq, seq.seen_tokens + 1 + k)
+                grown.append((seq, prior))
+        except KVAllocationError:
+            # a transient allocator failure mid-grab: roll every sequence
+            # back so nothing is stranded, and decline
+            for seq, prior in grown:
+                self.manager.rollback_blocks(seq, prior)
+            return None
+
+        n = self._bucket(len(live))
+        b = self._table_width_for(max(len(s.blocks) for s in live))
+        tok0 = np.zeros((n, 1), np.int32)
+        start0 = np.zeros((n, ), np.int32)
+        tables = np.full((n, b), self.manager.trash_block, np.int32)
+        for i, seq in enumerate(live):
+            tok0[i, 0] = seq.tokens[seq.seen_tokens]
+            start0[i] = seq.seen_tokens
+            tables[i] = self.manager.block_table_row(seq, width=b)
+        draft = drafter.propose_batch(live, k, n, counters=self.counters)
+        if draft is None:
+            # the drafter's private pool cannot cover the round: undo the
+            # target-pool grab and let the plain burst run instead
+            for seq, prior in grown:
+                self.manager.rollback_blocks(seq, prior)
+            return None
+        sample_cfg = None if greedy else (self.config.temperature, self.config.top_k,
+                                          self.config.top_p)
+        program, (tokens, _, start, tables_dev) = self._verify_program(n, k, b, sample_cfg)
+        self.counters.dispatches += 1
+        if isinstance(draft, np.ndarray):
+            self.counters.uploads += 4
+            self.counters.upload_ints += int(tok0.size + start0.size + tables.size
+                                             + draft.size)
+            tokens[:, 1:].copy_(upload(draft, self.device))
+        else:
+            # a model drafter's proposals are already on the device
+            self.counters.uploads += 3
+            self.counters.upload_ints += int(tok0.size + start0.size + tables.size)
+            tokens[:, 1:].copy_(draft)
+        # every input is rewritten each round: a block rolled back after an
+        # earlier round never stays in a table a replay reads
+        for dst, arr in ((tokens[:, :1], tok0), (start, start0), (tables_dev, tables)):
+            dst.copy_(upload(arr, self.device))
+        packed = program()
+        if sample_cfg is not None:
+            packed = rejection_select(packed, tokens[:, 1:], self._generator,
+                                      sample_cfg=sample_cfg)
+        self._count_forward(n, k + 1, len(live) * (k + 1))
+        raw = DeferredRuns(packed_dev=packed, uids=[s.uid for s in live],
+                           counters=self.counters).runs()  # ONE sync for the round
+        bs = self.manager.block_size
+        out: Dict[int, List[int]] = {}
+        accepted_total = 0
+        max_run = 1
+        for seq in live:
+            run = raw[seq.uid]
+            if eos_token_id is not None:
+                for j, tok in enumerate(run):
+                    if tok == int(eos_token_id):
+                        run = run[:j + 1]
+                        break
+            accepted_total += max(0, len(run) - 1)
+            seq.tokens.extend(run)
+            seq.seen_tokens += len(run)
+            # the verify wrote KV at every draft position; past the accepted
+            # run it is stale, and the trailing blocks holding only such
+            # positions go back now (census and prefix watermarks follow),
+            # before the allocator could hand one to another sequence
+            keep = -(-len(seq.tokens) // bs)
+            if len(seq.blocks) > keep:
+                self.manager.rollback_blocks(seq, keep)
+            # a round's first position can complete the FINAL prompt block
+            # (the burst's seam)
+            self.manager.register_prefix_blocks(seq)
+            self.counters.burst_tokens += len(run)
+            max_run = max(max_run, len(run))
+            out[seq.uid] = run
+        self.counters.spec_rounds += 1
+        self.counters.spec_proposed += len(live) * k
+        self.counters.spec_accepted += accepted_total
+        self.spec_stats.note_round(len(live) * k, accepted_total, [len(r) for r in out.values()])
+        self._spec_controller.note_round(len(live) * k, accepted_total)
+        # the deepest accepted run is the round's sequential-step equivalent
+        self.scheduler.note_fused_work(max_run, sum(len(r) for r in out.values()))
+        self.tracer.event("spec_verify", step=self.scheduler.steps, k=k, seqs=len(live),
+                          accepted=accepted_total)
+        self.tracer.on_burst_tokens({uid: len(r) for uid, r in out.items()})
+        if self.journal is not None:
+            # VERIFIED tokens only reach the journal: the accepted prefix +
+            # the corrected token just materialized are the frame, so a
+            # replay after a crash mid-verify regenerates the same streams
+            self.journal.note_token_map(out)
+            self.journal.flush()
+        self._kv_steps += max_run
+        self._refresh_kv()
+        self._emit_serving_gauges(tokens_run=sum(len(r) for r in out.values()))
+        return out
+
+    def _fused_decode(self, window: int, *, greedy: bool,
+                      eos_token_id: Optional[int]) -> Optional[Dict[int, List[int]]]:
+        """One fused decode round: a speculative draft/verify when the
+        section is armed and the adaptive-k controller is off its floor, the
+        plain burst otherwise.  The draft length is snapped DOWN to the
+        largest ladder rung within both the controller's pick and the
+        remaining-budget window (so a round emits at most ``window`` tokens a
+        sequence), so every verify width is a prewarmed bucket."""
+        if self._drafter is not None and self._spec_controller is not None:
+            nk = self._spec_controller.next_k()
+            if nk > 1:
+                cap = min(nk, window - 1)
+                k_d = max((r for r in self._spec_controller.ladder if r <= cap), default=0)
+                if k_d >= 1:
+                    out = self.decode_spec(k_d, greedy=greedy, eos_token_id=eos_token_id)
+                    if out is not None:
+                        return out
+                    self.spec_stats.fallback_rounds_total += 1
+        return self.decode_burst(window, greedy=greedy, eos_token_id=eos_token_id)
+
+    def _spec_snapshot(self) -> Dict[str, Any]:
+        """``health()["spec_decode"]``: {"enabled": False} with the section
+        off, else the controller's state (live k, acceptance EWMA, ladder),
+        the lifetime counters and the tokens-per-verify histogram."""
+        if self.spec_stats is None or self._spec_controller is None:
+            return {"enabled": False}
+        return {"enabled": True,
+                "drafter": self.spec_cfg.drafter if self._drafter is not None else "none",
+                **self._spec_controller.snapshot(),
+                **self.spec_stats.snapshot()}
 
     # ---------------------------------------------------------------- serving
     def generate(self, prompts: Sequence[Sequence[int]], max_new_tokens: int = 32,
@@ -1120,7 +1398,7 @@ class InferenceEngineV2:
             # (non-shed) prompts joining whatever is already live
             self._observe_prefix({uid: [int(t) for t in prompt]
                                   for uid, prompt in zip(uids, prompts) if uid not in results})
-            self._prewarm(max_new_tokens)
+            self._prewarm(max_new_tokens, greedy=greedy)
             if self.telemetry is not None:
                 # re-arm the serve-loop profiler window for THIS call
                 self.telemetry.serve_profile_begin()
@@ -1217,7 +1495,7 @@ class InferenceEngineV2:
                 k = self._fusion_window(uids, results, produced, max_new_tokens)
             if fusible and k >= fusion_min:
                 with self._phase_annotation("burst"):
-                    burst = self.decode_burst(k, greedy=greedy, eos_token_id=eos_token_id)
+                    burst = self._fused_decode(k, greedy=greedy, eos_token_id=eos_token_id)
                 if burst:
                     for uid, toks in burst.items():
                         if uid not in my or uid in results:
@@ -1515,11 +1793,14 @@ class InferenceEngineV2:
                                  prompt_len=ticket.total_len,
                                  tenant=(ticket.tenant if self.qos is not None else None))
 
-    def _prewarm(self, max_new_tokens: int) -> None:
+    def _prewarm(self, max_new_tokens: int, greedy: bool = True) -> None:
         """Serve-time prewarm: build the forward bucket programs (capture
         their graphs, on the card) that this call's queued and live requests
         are about to hit, at most ``serving_fastpath.prewarm_buckets`` of
-        them, so the first wave does not pay a capture mid-serve."""
+        them, so the first wave does not pay a capture mid-serve.  With
+        speculative decoding armed, also the verify bucket of every rung of
+        the adaptive-k ladder at the decode and verify table widths (as many
+        again at most), so a k drift mid-serve replays a built program."""
         fp = self.fastpath
         if not fp.enabled or fp.prewarm_buckets <= 0:
             return
@@ -1545,6 +1826,23 @@ class InferenceEngineV2:
                 continue
             self._fwd_program(key, prewarmed=True)
             warmed += 1
+        if self._drafter is None or self._spec_controller is None:
+            return
+        sample_cfg = None if greedy else (self.config.temperature, self.config.top_k,
+                                          self.config.top_p)
+        ladder = self._spec_controller.ladder
+        # deepest verify reach: prompt + the round's input token + the run
+        # budget + the largest rung of draft overshoot the rollback trims
+        w_verify = self._stepped_width(-(-(max_prompt + 1 + max_new_tokens + max(ladder)) // bs))
+        warmed_spec = 0
+        for rung in ladder:
+            for w in sorted({w_decode, w_verify}):
+                if warmed_spec >= fp.prewarm_buckets:
+                    return
+                if ("spec_verify", (n_b, rung, w, sample_cfg)) in self.programs:
+                    continue
+                self._verify_program(n_b, rung, w, sample_cfg, prewarmed=True)
+                warmed_spec += 1
 
     def _handle_stall(self, my: set, results: Dict[int, RequestResult],
                       strict: bool) -> None:
@@ -1682,9 +1980,8 @@ class InferenceEngineV2:
         the lifetime resilience counters, KV-pool observability, the
         realized prefix cache, the fast path's host-link counters, the SLO
         latency histograms, the recovery counters, the perf observatory,
-        the flight recorder's recent events and the QoS ledger: the keys of
-        the JAX engine's ``health()`` that the port has state for
-        (speculative decoding is not ported yet)."""
+        the flight recorder's recent events, the QoS ledger and speculative
+        decoding's: the keys of the JAX engine's ``health()``."""
         return {
             "generated_at": self._health_generated_at,
             "live_seqs": len(self.manager.live_uids()),
@@ -1722,4 +2019,8 @@ class InferenceEngineV2:
             # {"enabled": False} when the policy layer is off so probes can
             # key on one shape
             "qos": (self.qos.snapshot() if self.qos is not None else {"enabled": False}),
+            # speculative decoding: the adaptive-k controller, the lifetime
+            # proposal/acceptance counters and the tokens-per-verify
+            # histogram; {"enabled": False} with the section off
+            "spec_decode": self._spec_snapshot(),
         }

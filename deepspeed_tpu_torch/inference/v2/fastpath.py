@@ -17,12 +17,14 @@ module holds the host-link pieces the engine's fast path composes:
   in the pipelined serve loop, at once in the synchronous ``step()`` API.
   :func:`materialize` is the one place v2 serving converts a device value to
   the host.
+- :class:`DeferredRuns` is its variable-length sibling for speculative
+  decoding: one verify round's packed accept runs, absorbed in one sync.
 - :class:`ServeCounters` counts host syncs, dispatches, uploads and builds,
   which is what the fast-path tests assert on.
 
 Nothing here schedules or owns sequences: that stays in the scheduler and the
-ragged manager.  The JAX module's ``DeferredRuns`` (speculative decoding) and
-its mesh placement (tensor-parallel serving) are not ported yet.
+ragged manager.  The JAX module's mesh placement (tensor-parallel serving) is
+not ported yet.
 """
 
 import dataclasses
@@ -54,7 +56,7 @@ class ServeCounters:
     ``step_tokens`` / ``burst_tokens``  tokens emitted stepwise vs fused
     ``flushes``      pipeline flushes forced by wave boundaries
     ``spec_rounds`` / ``spec_proposed`` / ``spec_accepted``  speculative
-    decoding's counters, kept at 0 (speculative decoding is not ported yet)
+    decoding's verify rounds, draft tokens proposed and draft tokens accepted
     """
 
     FIELDS = ("host_syncs", "dispatches", "uploads", "upload_ints", "compiles",
@@ -88,6 +90,20 @@ def materialize(dev_tensor: torch.Tensor,
         ready.synchronize()
         return host.numpy()
     return dev_tensor.cpu().numpy()
+
+
+def pinned_copy(dev_tensor) -> Optional[Tuple[torch.Tensor, object]]:
+    """On the card, enqueue ``dev_tensor``'s copy to pinned host memory with
+    an event after it: ``(host tensor, event)`` for :func:`materialize` to
+    wait on, so the sync waits for this copy alone and not for whatever the
+    stream runs after it.  None elsewhere."""
+    if not (isinstance(dev_tensor, torch.Tensor) and dev_tensor.is_cuda):
+        return None
+    host = torch.empty(dev_tensor.shape, dtype=dev_tensor.dtype, pin_memory=True)
+    host.copy_(dev_tensor, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return host, ready
 
 
 @dataclasses.dataclass
@@ -130,12 +146,7 @@ class DeferredTokens:
     _copy: Optional[Tuple[torch.Tensor, object]] = None
 
     def __post_init__(self):
-        if isinstance(self.toks_dev, torch.Tensor) and self.toks_dev.is_cuda:
-            host = torch.empty(self.toks_dev.shape, dtype=self.toks_dev.dtype, pin_memory=True)
-            host.copy_(self.toks_dev, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-            self._copy = (host, ready)
+        self._copy = pinned_copy(self.toks_dev)
 
     def wait(self) -> np.ndarray:
         """Materialize the sampled tokens (idempotent)."""
@@ -173,6 +184,51 @@ class DeferredTokens:
         """Forget a uid's pending emit (its overshoot token was truncated)."""
         self.emits = [e for e in self.emits if e[0] != uid]
         self.row_of.pop(uid, None)
+
+
+@dataclasses.dataclass
+class DeferredRuns:
+    """Handle to one speculative verify round's packed accept runs still on
+    the device: the variable-length sibling of :class:`DeferredTokens`.
+
+    ``packed_dev`` holds ``[n, k+2]`` int32 rows ``[count | e_0 .. e_k]``
+    from the verify's rejection sampler: row i emits its first ``count``
+    tokens (1 <= count <= k+1, the accepted draft prefix plus one corrected
+    or bonus token).  The count and the run ride the SAME tensor, so a whole
+    round costs one counted :func:`materialize`, whatever the per-sequence
+    acceptance lengths.  On the card its copy to pinned memory is enqueued
+    at construction, right behind the verify, and the fetch waits on that
+    copy's event alone.
+
+    ``uids`` maps batch row -> sequence uid for the live rows; padded rows
+    beyond ``len(uids)`` carry garbage runs and are never read.
+    """
+    packed_dev: object
+    uids: List[int]
+    counters: Optional[ServeCounters] = None
+    _cached: Optional[np.ndarray] = None
+    _copy: Optional[Tuple[torch.Tensor, object]] = None
+
+    def __post_init__(self):
+        self._copy = pinned_copy(self.packed_dev)
+
+    def wait(self) -> np.ndarray:
+        """Materialize the packed accept runs (idempotent)."""
+        if self._cached is None:
+            self._cached = materialize(self.packed_dev, self.counters, copy=self._copy)
+        return self._cached
+
+    def runs(self) -> Dict[int, List[int]]:
+        """``{uid: emitted tokens}``, each row cut to its accept count.  The
+        runs are VERIFIED output (accepted prefix + the resampled token):
+        unverified draft tails never leave this handle, so the journal and
+        the tracer never see a token the target did not endorse."""
+        packed = self.wait()
+        out: Dict[int, List[int]] = {}
+        for i, uid in enumerate(self.uids):
+            count = int(packed[i, 0])
+            out[uid] = [int(t) for t in packed[i, 1:1 + count]]
+        return out
 
 
 @dataclasses.dataclass

@@ -16,13 +16,14 @@ forward runs to the device-memory roofline:
 - :class:`CompileLedger`: the single source of ``ServeCounters.compiles``.
   In the port a "compile" is the build of one bucket program: a CUDA-graph
   capture on the card, or the first eager use of a bucket key on the CPU.
-  Every build is recorded as ``(site, key)`` with a class (``prewarmed`` /
-  ``cold`` / ``warm``, a key built again after it was seen: a recompile) and
-  bumps the counter exactly once.
+  Every build is recorded as ``(site, key)`` (sites ``fwd``, ``burst``,
+  ``spec_verify``, ``draft``) with a class (``prewarmed`` / ``cold`` /
+  ``warm``, a key built again after it was seen: a recompile) and bumps the
+  counter exactly once.
 - :class:`RooflineModel`: per-bucket FLOPs and device-memory bytes noted
   once at the bucket's build (the engine hands in plain floats from the
-  model's analytic cost, ``models.llama.paged_bucket_cost``), accumulated per
-  dispatch into live ``hbm_bytes_per_token`` / ``roofline_fraction`` /
+  model's analytic cost, ``models.llama.paged_bucket_cost``, for fwd and
+  verify buckets), accumulated per stepwise dispatch into live ``hbm_bytes_per_token`` / ``roofline_fraction`` /
   ``model_flops_utilization`` gauges.
 
 Zero-device-sync contract: nothing here imports torch or numpy, and every

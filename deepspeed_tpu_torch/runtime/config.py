@@ -1,8 +1,9 @@
 """Config sections shared by training and serving.
 
 Counterpart of ``deepspeed_tpu/runtime/config.py``; the port carries the
-``serving_resilience``, ``serving_fastpath``, ``serving_kv_observability``,
-``serving_prefix_cache``, ``serving_tracing``, ``serving_fault_tolerance``,
+``serving_resilience``, ``serving_fastpath``, ``serving_spec_decode``,
+``serving_kv_observability``, ``serving_prefix_cache``, ``serving_tracing``,
+``serving_fault_tolerance``,
 ``serving_fleet``, ``serving_qos``, ``serving_perf`` and ``ops_server``
 sections and the training sections its single-GPU engine reads (:class:`TrainingConfig`), ``sparse_attention``,
 ``telemetry`` and the monitor writers among them.
@@ -66,6 +67,45 @@ class ServingFastpathConfig(ConfigModel):
     pipeline_depth: int = Field(1, choices=(0, 1))
     fusion_min_steps: int = Field(2, ge=2)
     prewarm_buckets: int = Field(4, ge=0)
+
+
+class ServingSpecDecodeConfig(ConfigModel):
+    """Speculative decoding on the v2 engine's fused decode path
+    (``inference/v2/spec_decode.py``), with the JAX package's fields,
+    defaults and bounds.
+
+    ``enabled`` arms draft/verify: on every pure-decode fused window a
+    drafter proposes ``k`` tokens per sequence, the target scores all of
+    them in ONE batched forward over the paged KV pool, and rejection
+    sampling on the device accepts the longest valid prefix plus one
+    resampled token (1 to k+1 tokens per sequence a round).  Greedy output
+    is token-identical to spec off; sampled output has its distribution.
+    Off (the default) the engine builds no drafter, controller or stats.
+
+    ``drafter``: ``"ngram"`` is prompt lookup over the sequence's own token
+    history on the host; ``"model"`` is a draft model attached with
+    ``InferenceEngineV2.attach_draft_model(...)``, greedy over a paged pool
+    of its own.
+
+    ``k`` caps the draft length.  The adaptive controller moves the live k
+    over a static ladder (1, 3, 7, 15, ... capped at ``k``) on an EWMA of
+    the acceptance (``ewma_alpha``; up above ``raise_threshold``, down
+    below ``lower_threshold``), so every verify width is a prewarmed
+    bucket.  At the k=1 floor the engine runs the plain burst and re-probes
+    every ``probe_every`` fused rounds.  ``adaptive_k=False`` pins k.
+    ``ngram_max``/``ngram_min`` bound the suffix match the n-gram drafter
+    tries, longest first.
+    """
+    enabled: bool = False
+    drafter: str = Field("ngram", choices=("ngram", "model"))
+    k: int = Field(4, ge=1)
+    adaptive_k: bool = True
+    ewma_alpha: float = Field(0.3, gt=0.0, le=1.0)
+    raise_threshold: float = Field(0.7, ge=0.0, le=1.0)
+    lower_threshold: float = Field(0.3, ge=0.0, le=1.0)
+    probe_every: int = Field(16, ge=1)
+    ngram_max: int = Field(3, ge=1)
+    ngram_min: int = Field(1, ge=1)
 
 
 class KVObservabilityConfig(ConfigModel):

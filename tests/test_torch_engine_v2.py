@@ -223,13 +223,15 @@ def test_engine_defaults_to_cuda_and_raises_without_a_gpu(monkeypatch):
 def test_config_unknown_key_and_unported_sections_raise():
     with pytest.raises(ValueError, match="unknown config field 'max_out_tokenz'"):
         load_inference_config({"max_out_tokenz": 8})
-    # serving_perf, serving_qos and serving_fleet are ported: they load; the
-    # still-unported section raises
+    # serving_perf, serving_qos, serving_fleet and serving_spec_decode are
+    # ported: they load, the last with the JAX package's defaults
     assert load_inference_config({"serving_perf": {"enabled": True}}).serving_perf.enabled
     assert load_inference_config({"serving_qos": {"enabled": True}}).serving_qos.enabled
     assert load_inference_config({"serving_fleet": {"replicas": 3}}).serving_fleet.replicas == 3
-    with pytest.raises(NotImplementedError, match="serving_spec_decode"):
-        load_inference_config({"serving_spec_decode": {"enabled": False}})
+    from deepspeed_tpu.runtime.config import ServingSpecDecodeConfig as JaxSpecConfig
+    spec = load_inference_config({"serving_spec_decode": {"enabled": False}}).serving_spec_decode
+    fields = lambda c: {k: v for k, v in vars(c).items() if not k.startswith("_")}  # noqa: E731
+    assert fields(spec) == fields(JaxSpecConfig())
     with pytest.raises(ValueError, match="not in"):
         load_inference_config({"dtype": "float64"})
     cfg = load_inference_config({"serving_resilience": {"max_preemptions": 3}})

@@ -633,8 +633,11 @@ def test_config_section_has_the_jax_fields_defaults_and_errors(tmp_path, monkeyp
               "startup_grace_s", "poll_interval_s")
     assert [getattr(ours, f) for f in fields] == [getattr(theirs, f) for f in fields]
     assert "serving_fault_tolerance" not in UNPORTED_SECTIONS
-    with pytest.raises(NotImplementedError, match="serving_spec_decode"):
-        load_inference_config({"serving_spec_decode": {}})
+    # serving_spec_decode is ported: it loads with the JAX package's defaults
+    from deepspeed_tpu.runtime.config import ServingSpecDecodeConfig as JaxSpecConfig
+    spec = load_inference_config({"serving_spec_decode": {}}).serving_spec_decode
+    assert ({k: v for k, v in vars(spec).items() if not k.startswith("_")}
+            == {k: v for k, v in vars(JaxSpecConfig()).items() if not k.startswith("_")})
     for section in ("serving_perf", "ops_server", "serving_qos", "serving_fleet"):  # ported
         assert not getattr(load_inference_config({section: {}}), section).enabled
     for bad, match in (({"enabled": True}, "needs journal_path"),

@@ -78,6 +78,20 @@ CASES = [
      [70, 33], 4096, False),
     ("cuda_core_d32_t20_alibi_fp32", torch.float32, 4, 4, 32, 8, 20, [20, 57, 0],
      [20, 11, 0], 30, True),
+    # speculative verify rounds of Mistral-7B shape on the split-K decode
+    # route: T = k + 1 rows a sequence, each seeing keys up to its own
+    # position; the row blocks change at 4 and 8 rows a kv group, 5 and 9
+    # are the first odd counts; a short row merges its tail to zeros
+    ("verify_t4_gqa4_bf16", torch.bfloat16, 32, 8, 128, 16, 4, [1024, 1000, 1040, 0],
+     [4, 4, 2, 0], 4096, False),
+    ("verify_t5_gqa4_bf16", torch.bfloat16, 32, 8, 128, 16, 5, [1024, 1001, 1037, 6],
+     [5, 5, 3, 5], 4096, False),
+    ("verify_t8_gqa4_bf16", torch.bfloat16, 32, 8, 128, 16, 8, [1024, 1003, 1050, 8],
+     [8, 8, 1, 8], 4096, False),
+    ("verify_t9_gqa4_bf16", torch.bfloat16, 32, 8, 128, 16, 9, [1024, 1009, 1049, 0],
+     [9, 9, 4, 0], 4096, False),
+    ("verify_t5_gqa4_fp32", torch.float32, 32, 8, 128, 16, 5, [1024, 1001, 1037, 6],
+     [5, 5, 3, 5], 4096, False),
 ]
 
 
@@ -932,3 +946,51 @@ def test_deferred_tokens_wait_for_their_own_copy(cuda):
     assert deferred.wait() is got and counters.host_syncs == 1
     cpu = DeferredTokens(toks_dev=toks.cpu(), emits=[], row_of={}, counters=counters)
     assert cpu._copy is None and cpu.wait().tolist() == got.tolist()
+
+
+# ------------------------------------------- v2 fast path: speculative decoding
+def test_spec_verify_under_graphs_matches_spec_off(cuda):
+    """Greedy speculative rounds replayed from their captured verify (and
+    draft) graphs give the spec-off tokens: the n-gram drafter, and the
+    target attached as its own drafter with every draft accepted; with k
+    pinned (the same rounds each serve) a second serve builds nothing, and
+    the drafter starts each reused uid's request afresh."""
+    prompts = [p * 3 for p in GRAPH_PROMPTS]  # repetitive: the n-gram drafter finds matches
+    want = _graph_engine().generate(prompts, max_new_tokens=20)
+    ngram = _graph_engine({"serving_spec_decode": {"enabled": True, "k": 4,
+                                                   "adaptive_k": False}})
+    selfd = _graph_engine({"serving_spec_decode": {"enabled": True, "drafter": "model",
+                                                   "k": 7, "adaptive_k": False}})
+    selfd.attach_draft_model(mistral, GRAPH_CONFIG,
+                             mistral.init_params(GRAPH_CONFIG, torch.Generator().manual_seed(3)))
+    for engine in (ngram, selfd):
+        assert engine.generate(prompts, max_new_tokens=20) == want
+        built = engine.ledger.total
+        assert engine.generate(prompts, max_new_tokens=20) == want
+        assert engine.ledger.total == built and engine.ledger.warm_total == 0
+        assert engine.counters.spec_rounds > 0
+        assert all(engine.programs._programs[("spec_verify", key)].graph is not None
+                   for key in engine.programs.keys("spec_verify"))
+    assert selfd.health()["spec_decode"]["acceptance_rate"] == 1.0
+    assert selfd.ledger.by_site["draft"]["cold"] > 0
+
+
+def test_sampled_verify_rounds_under_graphs_draw_fresh_numbers(cuda):
+    """The sampled verify samples after its graph's replay, from the engine's
+    generator: two rounds never repeat a draw, and a seeded rerun repeats
+    the run."""
+    from deepspeed_tpu_torch.inference.v2.spec_decode import rejection_select
+    conf = {"temperature": 1.0, "top_k": 0, "seed": 5,
+            "serving_spec_decode": {"enabled": True, "k": 3, "adaptive_k": False}}
+    a = _graph_engine(conf).generate(GRAPH_PROMPTS, max_new_tokens=12, greedy=False)
+    engine = _graph_engine(conf)
+    assert engine.generate(GRAPH_PROMPTS, max_new_tokens=12, greedy=False) == a
+    assert engine.counters.spec_rounds > 0
+    logits = torch.randn((512, 4, 128), device=cuda)
+    draft = torch.zeros((512, 3), dtype=torch.int32, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    r1 = rejection_select(logits, draft, gen, sample_cfg=(1.0, 0, 1.0))
+    r2 = rejection_select(logits, draft, gen, sample_cfg=(1.0, 0, 1.0))
+    assert not torch.equal(r1, r2)
+    gen.manual_seed(7)
+    assert torch.equal(rejection_select(logits, draft, gen, sample_cfg=(1.0, 0, 1.0)), r1)

@@ -371,7 +371,7 @@ def test_config_section_has_the_jax_fields_and_defaults():
         assert getattr(ours, field) == getattr(theirs, field)
     assert (ours.enabled, ours.flight_recorder_events) == (False, 256)
     assert "serving_tracing" not in UNPORTED_SECTIONS and "serving_perf" not in UNPORTED_SECTIONS
-    assert set(UNPORTED_SECTIONS) == {"serving_spec_decode"}
+    assert set(UNPORTED_SECTIONS) == set()  # serving_spec_decode is ported too
     assert load_inference_config(TRACED).serving_tracing.enabled
     with pytest.raises(ValueError):
         load_inference_config({"serving_tracing": {"flight_recorder_events": 8}})
@@ -457,8 +457,8 @@ def test_health_reports_queue_wait_percentiles_without_span_tracing():
     assert h["flight_recorder"], "the flight recorder is always on"
 
 
-# keys of unported items: speculative decoding
-UNPORTED_KEYS = {"spec_decode"}
+# keys of unported items: none since speculative decoding is ported
+UNPORTED_KEYS = set()
 
 
 def test_snapshot_and_health_keys_match_jax():
