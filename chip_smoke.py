@@ -26,7 +26,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      merge, must fail it), fp32 at 1e-4, and a split-size A/B at the Llama-2
      decode shape; speculative decoding's verify rounds (Mistral-7B, 16
      sequences of about 1,024 keys, T = 4, 5, 8 and 9 on the decode kernel,
-     16 on the tensor-core kernel, fp32 T = 5); the flash forward and both backward
+     16 on the tensor-core kernel, fp32 T = 5); the served families' heads:
+     Qwen2-7B (a GQA group of 7, head dim 128) at decode over about 1,024
+     keys, T = 5, a 512-token prefill on tensor cores and fp32 decode, and
+     GPT-J-6B (16 over 16, head dim 256) at decode and a 512-token prefill
+     on the CUDA-core kernel, OPT-125m (12 over 12, head dim 64) at decode
+     and a 512-token prefill on tensor cores; the flash forward and both backward
      kernels at the training shape (B=2, S=2048, 32 heads, head dim 128, bf16,
      causal), GQA, sq < sk, sq > sk (rows that see no key), non-causal, head
      dim 64 and unaligned lengths, bf16/fp16 forward, dK/dV and dQ on tensor
@@ -80,7 +85,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      torch.profiler splits
      the device time by kernel (decode, merge, prefill and the CUDA-core
      kernel apart); the reference loop (``serving_fastpath.enabled=False``)
-     and the fast path serve the same prompts in two pairs, in turns; with
+     and the fast path serve the same prompts in two pairs, in turns,
+     after one untimed serve of the reference; with
      nothing shared between the prompts the prefix cache (on by default)
      leaves the loop's 62 forward steps and 47 host syncs as they were;
      serve-journal: the warm engine serves the prompts with the request
@@ -117,8 +123,18 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      the spec families agree with the counters), the cycling workload of
      the bench's spec A/B at full width (attention output zeroed, 16
      self-continued 512-token prompts, 128 new tokens, spec off against
-     n-gram k 8, best of 3: acceptance >= 0.5) and the target attached as
+     n-gram k 8, best of 2: acceptance >= 0.5) and the target attached as
      its own drafter (k 15, the tensor-core verify; both pools reclaimed);
+     serve-qwen2, serve-mixtral, serve-opt, serve-gptj: ``build_engine``
+     under each family's key, bf16, seeded random weights, the fast path
+     with graphs, at full width (Qwen2-7B, OPT-125m and GPT-J-6B at full
+     depth, Mixtral-8x7B at 8 of its 32 layers); 8 prompts of 32-1,024
+     tokens, 16 new tokens, a cold and a warm serve: every request ok, the
+     pool reclaimed, paged launches by route equal to the forward steps by
+     padded width times the layers (prefill steps on tensor cores, GPT-J's
+     on the CUDA-core kernel, decode steps on split-K), the warm serve
+     building nothing and giving the same tokens; tok/s, mean step, idle
+     share, peak memory and graph pool printed;
   4. slice: a 2-layer, full-width Mistral in fp32, one prefill and three
      decode steps of ``forward_paged`` on CUDA (kernel) and on a CPU copy
      (plain path) with the same weights and KV; slice-serve: the same width
@@ -150,7 +166,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      contract at the slice's width: greedy spec on equal to spec off under
      25 % allocator faults and under expiring deadlines, the sampler's
      marginal on the card within TV 0.08, health and families agreeing,
-     the target as its own drafter accepting every draft;
+     the target as its own drafter accepting every draft; slice-families:
+     each family at its serve's width and 2 layers in fp32, on the card:
+     ``forward_paged`` through the kernel against the same function with
+     the plain paged version (a prefill chunk and two decode steps, 1e-4),
+     and the fast path with graphs against the eager reference loop, token
+     for token;
   5. train: ``initialize`` with Llama-2-7B at full width cut to 8 layers, bf16,
      remat, fused AdamW, WarmupLR, clipping; 6 optimizer steps of 2 x 2 x 2048
      tokens through the flash and fused-AdamW kernels, launch counts checked
@@ -159,7 +180,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      a fresh engine on the same config with telemetry (a record a step, the
      first step's FLOPs counted by FlopCounterMode and held to the count
      from the shapes, mfu against the peak named by the device) and the ops
-     endpoint, 6 steps, a torch.profiler step window;
+     endpoint, 6 steps, a torch.profiler step window (the steps neither
+     profiled nor writing its trace timed apart, the trace export alone);
   6. train-8bit: the same run with ``fused_adam8bit`` (int8 moments) through
      the AdamW-8bit kernel; train-sparse: the config's ``sparse_attention``
      section (DeepSpeed's documented ``fixed`` example, unidirectional) with
@@ -600,6 +622,7 @@ def phase_kernel(card):
             cases[f"prefill_{edge}_{tag}"] = make_case(seed, dtype=dtype, **kw)
     cases.update(decode_edges())
     cases.update(verify_cases())
+    cases.update(family_cases())
     # the CUDA-core kernel's chunks (T >= 16 off the tensor-core rule): the
     # fp32 slice's Mistral-width prefill, head dim 256 and 32, a group of 128
     cuda_core_edges = {
@@ -631,7 +654,7 @@ def phase_kernel(card):
                     for r in ROUTE_NAMES))
     recs = {name: measure(name, cases[name])
             for name in ("mistral_decode", "mistral_prefill", "llama2_decode", "llama2_prefill",
-                         "serve_decode_n16", *cuda_core_edges, *VERIFY_CASES)}
+                         "serve_decode_n16", *cuda_core_edges, *VERIFY_CASES, *FAMILY_CASES)}
     for name, rec in recs.items():
         log(f"[kernel] {name} on {card}: {json.dumps({k: rec[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')})}")
     for name in ("llama2_decode", "mistral_decode", "serve_decode_n16"):
@@ -711,6 +734,51 @@ def verify_cases():
         cases[name] = make_case(400 + i, T=t, lengths=lengths, n_tokens=n_tokens, dtype=dtype,
                                 **mistral)
     return cases
+
+
+# the served families' heads that no earlier case had: Qwen2-7B (28 q heads
+# over 4 kv heads, a GQA group of 7, head dim 128) at decode (16 sequences
+# of about 1,024 keys), a T = 5 chunk, a 512-token prefill on tensor cores
+# and fp32 decode; GPT-J-6B (16 over 16, head dim 256) at decode and a
+# 512-token prefill on the CUDA-core route; OPT-125m (12 over 12, head dim
+# 64) at decode and a 512-token prefill on tensor cores, the two bf16
+# routes [serve-opt] runs
+FAMILY_CASES = ("qwen2_decode_n16_bf16", "qwen2_t5_n16_bf16", "qwen2_prefill_t512_bf16",
+                "qwen2_decode_n16_fp32", "gptj_decode_n16_bf16",
+                "cuda_core_gptj_prefill_t512_bf16", "opt_decode_n16_bf16",
+                "opt_prefill_t512_bf16")
+
+
+def family_cases():
+    """Qwen2-7B, GPT-J-6B and OPT-125m shapes, blocks of 16: a group of 7
+    packs 9 tokens x 7 heads = 63 rows into a tensor-core block (a warp's 16
+    rows straddle tokens) and cuts a token's heads across decode row blocks;
+    OPT's group of 1 at head dim 64 fills a tensor-core block with 64
+    tokens of one head."""
+    import torch
+    rng = np.random.default_rng(13)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    qwen2 = dict(H=28, KV=4, Dh=128, bs=16)
+    gptj = dict(H=16, KV=16, Dh=256, bs=16)
+    opt = dict(H=12, KV=12, Dh=64, bs=16)
+    decode = lambda: dict(N=16, T=1, lengths=rng.integers(1000, 1051, 16),  # noqa: E731
+                          n_tokens=[1] * 16)
+    t5_lengths = rng.integers(1000, 1051, 16)
+    t5_tokens = np.full(16, 5)
+    t5_tokens[3] = 2  # a row whose tail positions merge to zeros
+    prefill = dict(N=2, T=512, lengths=[2048, 700], n_tokens=[512, 300])
+    shapes = {
+        "qwen2_decode_n16_bf16": dict(dtype=bf16, **decode(), **qwen2),
+        "qwen2_t5_n16_bf16": dict(N=16, T=5, lengths=t5_lengths, n_tokens=t5_tokens, dtype=bf16,
+                                  **qwen2),
+        "qwen2_prefill_t512_bf16": dict(dtype=bf16, **prefill, **qwen2),
+        "qwen2_decode_n16_fp32": dict(dtype=fp32, **decode(), **qwen2),
+        "gptj_decode_n16_bf16": dict(dtype=bf16, **decode(), **gptj),
+        "cuda_core_gptj_prefill_t512_bf16": dict(dtype=bf16, **prefill, **gptj),
+        "opt_decode_n16_bf16": dict(dtype=bf16, **decode(), **opt),
+        "opt_prefill_t512_bf16": dict(dtype=bf16, **prefill, **opt),
+    }
+    return {name: make_case(500 + i, **kw) for i, (name, kw) in enumerate(shapes.items())}
 
 
 def split_ab(name, c):
@@ -2354,8 +2422,9 @@ def serve_telemetry(card, cfg, params, kw, off, prompts, max_new, results, first
 def serve_pairs(card, cfg, params, kw, fast, prompts, max_new, busy):
     """The parent's loop (``serving_fastpath.enabled=False``: rebuild and
     upload every step, one sync a step, pow2 table widths, eager bursts)
-    against the fast path on the same prompts, two pairs in turns
-    (reference, fast, fast, reference): wall of each serve,
+    against the fast path on the same prompts: the reference engine's first
+    serve (its warm-up, untimed), then two pairs in turns (reference, fast,
+    fast, reference): wall of each timed serve,
     device busy time of each loop from one profiled serve, idle share.  In
     bf16 the two loops may pick different split-K widths (pow2 against
     stepped tables), so tokens can differ: the first diverging position of
@@ -2368,6 +2437,7 @@ def serve_pairs(card, cfg, params, kw, fast, prompts, max_new, busy):
     engines = {"reference": ref, "fast path": fast}
     walls = {name: [] for name in engines}
     outs = {}
+    ref.generate(prompts, max_new_tokens=max_new, strict=False)
     for name in ("reference", "fast path", "fast path", "reference"):
         outs[name], wall = serve_timed(engines[name], prompts, max_new)
         walls[name].append(wall)
@@ -2376,7 +2446,8 @@ def serve_pairs(card, cfg, params, kw, fast, prompts, max_new, busy):
         "reference-loop serve", walls["reference"][-1] * 1e3, PAGED_NEEDLES)
     for name, ws in walls.items():
         b = busy[name]
-        log(f"[serve-pairs] {name} on {card}: walls " + ", ".join(f"{w:.3f}" for w in ws)
+        log(f"[serve-pairs] {name} on {card}: walls in turns "
+            + ", ".join(f"{w:.3f}" for w in ws)
             + f" s (mean {statistics.mean(ws):.3f}); device busy "
             + ("not measured" if b is None else
                f"{b:.1f} ms, idle " + ", ".join(f"{1 - b / (w * 1e3):.1%}" for w in ws)))
@@ -2934,7 +3005,8 @@ def phase_serve_prefix(card, cfg, params, kw, seed=0):
     new tokens each, through the cache-on engine (the default) and a
     cache-off one.  The first serve of each is checked (the cache-on one
     with every shared block watched) and builds its graphs; then two pairs
-    in turns; then one serve of each under torch.profiler.  Both engines
+    in turns (on, off, off, on); then one serve of each under
+    torch.profiler.  Both engines
     trace requests: each serve's TTFT, TBT and end-to-end percentiles
     (from ``put`` to the first token, between tokens, to ``flush``) show
     what the cache does for users.  Returns the checked cache-on serve's
@@ -4267,7 +4339,7 @@ def counted_pass(tag, engine, cfg, run, drafter=None):
     widths = widths_since(engine.chunk_widths, widths0)
     dwidths = widths_since(drafter.chunk_widths, dwidths0) if drafter is not None else {}
     dtype = engine.dtype
-    head_dim, group = cfg.hidden_size // cfg.num_heads, cfg.num_heads // cfg.num_kv_heads
+    head_dim, group = heads_of(cfg)
     want = tuple(a + b for a, b in zip(
         route_launches(widths, cfg.num_layers, dtype, head_dim, group),
         route_launches(dwidths, cfg.num_layers, dtype, head_dim, group)))
@@ -4396,7 +4468,7 @@ def serve_spec(card, cfg, params, kw, prompts, max_new, results, warm_wall, seed
     2. The cycling workload of ``bench.measure_serving_spec`` at full width:
        ``wo`` zeroed, 16 seeded 8-token seeds continued 504 tokens by the
        spec-off engine, then 128 new tokens spec off and on (n-gram, k 8),
-       each engine warmed once and timed best of 3 through
+       each engine warmed once and timed best of 2 through
        ``_fused_decode``: every request finished, acceptance >= 0.5, no warm
        recompile (the captures of each pass are printed).
     3. The target attached as its own drafter (k 15, adaptive off) on
@@ -4480,7 +4552,7 @@ def serve_spec(card, cfg, params, kw, prompts, max_new, results, warm_wall, seed
         f"lengths {[b for _, b in entered]}")
     walls, streams, builds = {}, {}, {}
     for name, eng in (("off", eng_off), ("on", eng_on)):
-        # one warm pass, then the best of 3 (the bench's discipline); the
+        # one warm pass, then the best of 2 (the bench takes 3); the
         # controller carries its EWMA from pass to pass, so a timed pass may
         # still reach a new bucket: its captures are printed
         built = eng.ledger.total
@@ -4488,7 +4560,7 @@ def serve_spec(card, cfg, params, kw, prompts, max_new, results, warm_wall, seed
         warm = eng.ledger.total - built
         timed = []
         best = 0.0
-        for _ in range(3):
+        for _ in range(2):
             built = eng.ledger.total
             toks, wall, finals = spec_drive(eng, cyc_prompts, SPEC_CYCLE_NEW)
             timed.append(eng.ledger.total - built)
@@ -4507,7 +4579,7 @@ def serve_spec(card, cfg, params, kw, prompts, max_new, results, warm_wall, seed
     ratio = walls["on"] / walls["off"] if walls["off"] else float("nan")
     departs = [cycle_departure(p, f[len(p):]) for p, f in zip(cyc_prompts, streams["on"])]
     log(f"[serve-spec] cycling workload on {card} ({SPEC_CYCLE_REQUESTS} requests of "
-        f"{SPEC_CYCLE_PROMPT} tokens, {SPEC_CYCLE_NEW} new, wo zeroed, best of 3 after a warm "
+        f"{SPEC_CYCLE_PROMPT} tokens, {SPEC_CYCLE_NEW} new, wo zeroed, best of 2 after a warm "
         f"pass, through _fused_decode): spec off {walls['off']:.1f} tok/s, spec on (n-gram k "
         f"{SPEC_CYCLE['k']}) {walls['on']:.1f} tok/s, ratio {ratio:.3f}; {line}; captures off "
         f"{json.dumps(eng_off.ledger.by_site)}, on {json.dumps(eng_on.ledger.by_site)}, "
@@ -4726,6 +4798,277 @@ def phase_slice_spec(device="cuda", cfg=None):
     return {"tv": tv, "rounds": h["rounds_total"]}
 
 
+# ------------------------------------------------------------ model families
+# the families build_engine serves beside Llama and Mistral, at their
+# published widths and depths, but Mixtral-8x7B: 8 of its 32 layers (about
+# 93 GB of bf16 weights at full depth, more than one card holds)
+SERVE_FAMILIES = ("qwen2", "mixtral", "opt", "gptj")
+FAMILY_SERVE_LAYERS = {"mixtral": 8}
+FAMILY_REQUESTS, FAMILY_MAX_NEW = 8, 16
+# 8 prompts of at most 1,024 tokens and 16 new: at most 65 blocks of 16 each
+FAMILY_KW = dict(num_blocks=576, block_size=16, max_blocks_per_seq=72, token_budget=512,
+                 max_seqs_per_step=32)
+# the paged route a family's prefill steps (padded chunk >= 16) take in bf16
+FAMILY_PREFILL_ROUTE = {"qwen2": "prefill_tc", "mixtral": "prefill_tc", "opt": "prefill_tc",
+                        "gptj": "cuda_core"}
+
+
+def family_config(key, layers=None):
+    """(module, config) of a served family at its published width, at
+    ``layers`` layers (default: its own depth, or FAMILY_SERVE_LAYERS's)."""
+    from deepspeed_tpu_torch.inference.v2.engine_factory import REGISTRY
+    from deepspeed_tpu_torch.models import gptj, mixtral, opt, qwen
+    cfg = {"qwen2": qwen.QwenConfig.qwen2_7b, "mixtral": mixtral.MixtralConfig.mixtral_8x7b,
+           "opt": opt.OPTConfig.opt_125m, "gptj": gptj.GPTJConfig.gptj_6b}[key]()
+    layers = layers or FAMILY_SERVE_LAYERS.get(key)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return REGISTRY[key], cfg
+
+
+def family_params(module, cfg, seed, dtype, device="cuda"):
+    """Seeded random weights drawn on ``device``; Qwen2's q/k/v biases
+    (zeros from ``init_params``) are drawn too, so that they add something."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = module.init_params(cfg, gen, dtype=dtype, device=device)
+    attn = params["layers"].get("attn", {})
+    for name in ("bq", "bk", "bv"):
+        if name in attn:
+            attn[name].normal_(0.0, 0.1, generator=gen)
+    return params
+
+
+def heads_of(cfg):
+    """(head dim, GQA group) of a model config (MHA families have no
+    ``num_kv_heads``)."""
+    kv = getattr(cfg, "num_kv_heads", cfg.num_heads)
+    return cfg.hidden_size // cfg.num_heads, cfg.num_heads // kv
+
+
+def family_prompts(seed, vocab):
+    """A family serve's prompts: lengths 32, 1024 and 6 drawn from 32-1024."""
+    rng = np.random.default_rng(seed)
+    lens = np.concatenate([[32, 1024], rng.integers(32, 1025, FAMILY_REQUESTS - 2)])
+    return [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+
+
+def route_split(launches):
+    """(tensor-core prefill, split-K decode, CUDA-core) of a (total,
+    tensor-core, decode) launch count."""
+    total, tc, dec = launches
+    return tc, dec, total - tc - dec
+
+
+def serve_family(card, key, seed=0, device="cuda", config=None, kw=None):
+    """[serve-<key>]: ``build_engine(key, ...)`` in bf16 (fp32 off the card)
+    from seeded random weights drawn on the device, the fast path with CUDA
+    graphs; 8 prompts of 32-1,024 tokens, greedy, 16 new tokens, a cold and a
+    warm serve.  Gates: every request ok and the pool reclaimed; paged
+    launches equal the forward steps by padded width and route times the
+    layers (counted under replay), prefill steps on the family's route
+    (tensor cores, or the CUDA-core kernel at head dim 256) and decode steps
+    on split-K; the warm serve builds nothing and gives the cold serve's
+    tokens.  Prints tok/s, the mean step, the device's idle share (the warm
+    serve again under torch.profiler), peak memory and the graph pool."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves
+    tag = f"serve-{key}"
+    module, cfg = config or family_config(key)
+    on_card = torch.device(device).type == "cuda"
+    dtype_name = "bfloat16" if on_card else "float32"
+    dtype = getattr(torch, dtype_name)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = family_params(module, cfg, seed, dtype, device)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    if n_params != module.num_params(cfg):
+        raise AssertionError(f"[{tag}] init_params made {n_params} params, num_params says "
+                             f"{module.num_params(cfg)}")
+    engine = build_engine(key, cfg, params, config={"dtype": dtype_name, "seed": seed},
+                          device=device, **(kw or FAMILY_KW))
+    if on_card and not (engine.fastpath.enabled and engine.programs.graphs):
+        raise AssertionError(f"[{tag}] the engine on CUDA does not run the fast path's graphs")
+    _sync(device)
+    head_dim, group = heads_of(cfg)
+    log(f"[{tag}] {cfg.num_layers} layers, hidden {cfg.hidden_size}, {cfg.num_heads} q heads "
+        f"over {cfg.num_heads // group} kv heads, head dim {head_dim}, vocab {cfg.vocab_size}: "
+        f"{n_params / 1e9:.3f} B params "
+        f"({sum(p.numel() * p.element_size() for p in tree_leaves(params)) / 1e9:.2f} GB "
+        f"{dtype}), set up in {time.perf_counter() - t0:.2f} s")
+    prompts = family_prompts(seed, cfg.vocab_size)
+    generated = FAMILY_MAX_NEW * len(prompts)
+    run = lambda: engine.generate(prompts, max_new_tokens=FAMILY_MAX_NEW, strict=False)  # noqa: E731
+    passes = {}
+    for label in ("cold", "warm"):
+        results, wall, built, launches, widths, _ = counted_pass(tag, engine, cfg, run)
+        check_serve_results(tag, engine, prompts, results, FAMILY_MAX_NEW, cfg.vocab_size)
+        steps = sum(widths.values())
+        tc, dec, cc = route_split(launches)
+        prefill = {"prefill_tc": tc, "cuda_core": cc}
+        want = FAMILY_PREFILL_ROUTE[key]
+        if on_card and (not dec or not prefill[want] or any(
+                v for route, v in prefill.items() if route != want)):
+            raise AssertionError(f"[{tag}] {label}: launches tensor-core {tc}, split-K {dec}, "
+                                 f"CUDA-core {cc}; prefill steps belong on {ROUTE_NAMES[want]}")
+        passes[label] = dict(results=results, wall=wall, built=built, launches=launches,
+                             steps=steps)
+        log(f"[{tag}] {label} serve on {card}: {len(prompts)} requests "
+            f"({sum(len(p) for p in prompts)} prompt tokens, {generated} generated) all ok, wall "
+            f"{wall:.3f} s, {generated / wall:.1f} generated tok/s, {steps} forward steps, mean "
+            f"step {wall / steps * 1e3:.2f} ms, {built} programs built; paged launches "
+            f"{launches[0]} = {steps} x {cfg.num_layers}: tensor-core prefill {tc}, split-K "
+            f"decode {dec}, CUDA-core {cc} (steps by padded width {dict(sorted(widths.items()))})")
+    cold, warm = passes["cold"], passes["warm"]
+    if warm["built"] or engine.ledger.warm_total:
+        raise AssertionError(f"[{tag}] the warm serve built {warm['built']} programs "
+                             f"({engine.ledger.warm_total} warm)")
+    if [r.tokens for r in warm["results"]] != [r.tokens for r in cold["results"]]:
+        raise AssertionError(f"[{tag}] the warm serve's tokens differ from the cold serve's at "
+                             f"{first_divergence(cold['results'], warm['results'], prompts)}")
+    busy = None
+    if on_card:
+        busy = profile_device(run, card, f"profile-{key}", "warm serve", warm["wall"] * 1e3,
+                              PAGED_NEEDLES, top=6)
+    pool = engine.programs.pool_bytes()
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    idle = "not measured" if busy is None else f"{1 - busy / (warm['wall'] * 1e3):.1%}"
+    peak_s = "not measured" if peak is None else f"{peak / 2**30:.2f} GiB"
+    pool_s = "not measured" if pool is None else f"{pool / 2**30:.3f} GiB"
+    log(f"[{tag}] warm serve: 0 captures, tokens identical to the cold serve; idle share "
+        f"{idle}, peak memory {peak_s}, graph pool {pool_s}")
+    del engine, params
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"launches": dict(zip(("tensor_core", "split_k", "cuda_core"),
+                                 route_split(cold["launches"]))),
+            "steps": cold["steps"], "layers": cfg.num_layers,
+            "tok_s": generated / warm["wall"], "step_ms": warm["wall"] / warm["steps"] * 1e3}
+
+
+def phase_serve_families(card, seed=0):
+    """[serve-qwen2], [serve-mixtral], [serve-opt], [serve-gptj] one after
+    the other (each frees its weights before the next)."""
+    out = {}
+    for key in SERVE_FAMILIES:
+        with phase_timer(f"serve-{key}"):
+            out[key] = serve_family(card, key, seed)
+    return out
+
+
+@contextlib.contextmanager
+def plain_paged_attention():
+    """The families' ``forward_paged`` with the paged attention's plain
+    version (``paged_attention_reference``) in place of the kernel wrapper,
+    on the same (CUDA) tensors: Llama-shaped families (Qwen2, Mixtral) call
+    it from ``models/llama.py``, OPT and GPT-J from their own modules."""
+    from deepspeed_tpu_torch.models import gptj, llama, opt
+    from deepspeed_tpu_torch.ops.attention.paged import paged_attention_reference
+
+    def plain(q, kpool, vpool, tables, lengths, start_pos, n_tokens, *, block_size,
+              softmax_scale=None, window=None, alibi_slopes=None):
+        scale = softmax_scale if softmax_scale is not None else 1.0 / np.sqrt(q.shape[-1])
+        return paged_attention_reference(q, kpool, vpool, tables, lengths, start_pos, n_tokens,
+                                         scale, window, alibi_slopes)
+
+    modules = (llama, opt, gptj)
+    saved = [m.paged_attention for m in modules]
+    for m in modules:
+        m.paged_attention = plain
+    try:
+        yield
+    finally:
+        for m, fn in zip(modules, saved):
+            m.paged_attention = fn
+
+
+def slice_family_paged(key, module, cfg, params, device):
+    """Check 1: one prefill chunk (70 and 33 tokens in a chunk of 128) and
+    two decode steps of ``forward_paged`` through the kernel and through the
+    plain paged version, each on its own pool: logits of every live row
+    within atol = rtol = 1e-4, fed the kernel path's greedy picks.  Returns
+    the largest error and the (total, tensor-core, decode) launches."""
+    import torch
+    bs, nb = 16, 40
+    kv = module.init_paged_cache(cfg, nb, bs, dtype=torch.float32, device=device)
+    kv_plain = module.init_paged_cache(cfg, nb, bs, dtype=torch.float32, device=device)
+    rng = np.random.default_rng(SERVE_FAMILIES.index(key))
+    tables = np.full((2, 8), nb - 1, np.int32)
+    tables[0, :6] = [3, 9, 1, 12, 20, 7]
+    tables[1, :4] = [5, 30, 2, 11]
+    plen = [70, 33]
+    tokens = np.zeros((2, 128), np.int32)
+    for i, n in enumerate(plen):
+        tokens[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    n_tokens, start = np.asarray(plen, np.int32), np.zeros(2, np.int32)
+    worst = 0.0
+    counts0 = paged_counts()
+    for step in range(3):
+        args = [torch.from_numpy(a).to(device) for a in (tokens, n_tokens, start, tables)]
+        got, _ = module.forward_paged(cfg, params, *args, kv, block_size=bs)
+        with plain_paged_attention():
+            ref, _ = module.forward_paged(cfg, params, *args, kv_plain, block_size=bs)
+        live = torch.arange(tokens.shape[1], device=device)[None, :] < args[1].long()[:, None]
+        err = (got - ref).abs()[live]
+        bad = err > 1e-4 + 1e-4 * ref.abs()[live]
+        if not torch.isfinite(got).all() or bad.any():
+            raise AssertionError(f"[slice-families] {key} step {step}: the kernel path's logits "
+                                 f"differ from the plain version's by up to "
+                                 f"{err.max().item():.3e} ({int(bad.sum())} beyond 1e-4)")
+        worst = max(worst, err.max().item())
+        last = (args[1].long() - 1).clamp_min(0)
+        picks = got[torch.arange(2, device=device), last].argmax(-1)
+        start = start + n_tokens
+        tokens = picks.cpu().numpy().astype(np.int32)[:, None]
+        n_tokens = np.ones(2, np.int32)
+    return worst, tuple(b - a for a, b in zip(counts0, paged_counts()))
+
+
+def phase_slice_families(seed=6, device="cuda", configs=None):
+    """[slice-families]: each served family in fp32 at its serve's width
+    and 2 layers, on the card alone: check 1 (:func:`slice_family_paged`),
+    with the prefill chunk on the CUDA-core route and the decode steps on
+    split-K in each layer; check 2, the fast path with CUDA graphs against
+    the eager reference loop, token for token, over 4 prompts."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
+    kw = dict(num_blocks=64, block_size=16, max_blocks_per_seq=8, token_budget=64,
+              max_seqs_per_step=4)
+    fp32 = {"dtype": "float32"}
+    for key in SERVE_FAMILIES:
+        t0 = time.perf_counter()
+        module, cfg = (configs or {}).get(key) or family_config(key, layers=2)
+        params = family_params(module, cfg, seed, torch.float32, device)
+        worst, launches = slice_family_paged(key, module, cfg, params, device)
+        on_card = torch.device(device).type == "cuda"
+        if on_card and launches != (3 * cfg.num_layers, 0, 2 * cfg.num_layers):
+            raise AssertionError(f"[slice-families] {key}: paged (launches, tensor-core, decode) "
+                                 f"{launches}, expected a CUDA-core prefill and two split-K "
+                                 f"decode steps x {cfg.num_layers} layers")
+        graphs = build_engine(key, cfg, params, config=fp32, device=device, **kw)
+        eager = build_engine(key, cfg, params, device=device, **kw,
+                             config={**fp32, "serving_fastpath": {"enabled": False}})
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in (5, 40, 17, 90)]
+        got = graphs.generate(prompts, max_new_tokens=8)
+        ref = eager.generate(prompts, max_new_tokens=8)
+        if got != ref or graphs.programs.graphs != on_card:
+            raise AssertionError(f"[slice-families] {key}: graphs ({graphs.programs.graphs}) vs "
+                                 f"eager tokens differ at "
+                                 f"{[_first_diff(a, b) for a, b in zip(got, ref)]}")
+        log(f"[slice-families] {key} at its serve's width, {cfg.num_layers} layers, fp32, on "
+            f"{device}: forward_paged through the kernel vs the plain paged version, prefill + "
+            f"2 decode steps, max logit abs err {worst:.3e} (atol=rtol=1e-4), paged launches "
+            f"(total, tensor-core, decode) {launches}; fast path with {graphs.ledger.total} "
+            f"captures == eager reference loop, token for token, over {len(prompts)} prompts; "
+            f"{time.perf_counter() - t0:.1f} s")
+        del graphs, eager, params
+        if on_card:
+            torch.cuda.empty_cache()
+
+
 TRAIN_PEAK_FLOPS = 989e12  # bf16 dense tensor-core peak of the H100 SXM
 KERNEL_NAMES = ("paged_attention", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "fused_adamw",
                 "sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq", "adamw8bit", "fused_lion",
@@ -4930,6 +5273,18 @@ def phase_train_telemetry(card, baseline, seed=0, layers=TRAIN_LAYERS, steps=6, 
     torch.cuda.empty_cache()
     batch = llama.causal_lm_batch(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (micro * gas, seq)))
+    # the window's trace is written when the window closes, at the start of
+    # the step after it: time that export on its own and note its step
+    exports = []
+    stop_trace = engine.telemetry.stop_trace
+
+    def timed_stop_trace():
+        t0 = time.perf_counter()
+        path = stop_trace()
+        exports.append((len(times) + 1, time.perf_counter() - t0))
+        return path
+
+    engine.telemetry.stop_trace = timed_stop_trace
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -4980,11 +5335,21 @@ def phase_train_telemetry(card, baseline, seed=0, layers=TRAIN_LAYERS, steps=6, 
         f"vs max_memory_allocated {peak} ({(last['hbm']['peak_bytes_in_use'] - peak) / peak:+.2%}); "
         f"trace {os.path.relpath(traces[0])} {os.path.getsize(traces[0]) / 2**20:.2f} MiB; "
         f"/metrics dstpu_train_steps_total {steps_total['samples'][0][2]:.0f}")
+    # step 1 counts FLOPs, the window [2, 3) profiles step 3, and the step
+    # that closes the window writes the trace: the steps outside all three
+    export_step, export_s = exports[0] if exports else (None, 0.0)
+    plain = [t for i, t in enumerate(times, start=1) if i not in (1, 3, export_step)]
+    plain_s = statistics.mean(plain) if plain else float("nan")
     log(f"[train-telemetry] step ms {[round(t * 1e3, 1) for t in times]} (step 1 counts FLOPs, "
-        f"step 3 is profiled); steps 2-{steps}: {step_s * 1e3:.1f} ms a step against [train]'s "
-        f"{baseline['step_ms']:.1f} ms ({step_s * 1e3 / baseline['step_ms'] - 1:+.2%}); without "
-        f"the profiled step {statistics.mean(times[1:2] + times[3:]) * 1e3:.1f} ms; record step "
-        f"times {[round(r['step_time_ms'], 1) for r in records]} ms")
+        f"step 3 is profiled, step {export_step} writes the trace); steps 2-{steps}: "
+        f"{step_s * 1e3:.1f} ms a step against [train]'s {baseline['step_ms']:.1f} ms "
+        f"({step_s * 1e3 / baseline['step_ms'] - 1:+.2%}); the {len(plain)} steps neither "
+        f"profiled nor writing the trace: {plain_s * 1e3:.1f} ms a step "
+        f"({plain_s * 1e3 / baseline['step_ms'] - 1:+.2%} against [train]); the trace export "
+        f"alone {export_s * 1e3:.1f} ms, inside step {export_step}'s "
+        f"{times[export_step - 1] * 1e3 if export_step else float('nan'):.1f} ms; record step "
+        f"times {[round(r['step_time_ms'], 1) for r in records]} ms (a record's span leaves the "
+        f"export out)")
     del engine
     torch.cuda.empty_cache()
 
@@ -5144,6 +5509,7 @@ def lion_fused_step(engines, batch, lr):
 
 # ------------------------------------------------------------------ phase 8
 V1_BATCH, V1_PROMPT, V1_NEW = 8, 512, 64
+V1_PROFILE_NEW = 8  # new tokens of the generate run again under torch.profiler
 # int8 against dense logits at full depth.  Random weights lose correlation
 # with depth (a CPU study at hidden 512: 0.9993 at 2 layers, 0.9988 at 8,
 # 0.9986 at 32); the H100 gave 0.99803 at Llama-2-7B's 32 layers.  The JAX
@@ -5155,8 +5521,8 @@ def serve_v1(card, tag, engine, prompts, vocab):
     """Greedy ``generate`` of ``V1_NEW`` tokens for ``prompts`` after a
     ``generate`` of one token (prefill and the first pick), after a short
     warm-up call; peak device memory from a reset after construction; checks
-    the output, profiles the same ``generate`` once more and returns the
-    summary."""
+    the output, profiles a ``generate`` of ``V1_PROFILE_NEW`` tokens and
+    returns the summary."""
     import torch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5183,8 +5549,16 @@ def serve_v1(card, tag, engine, prompts, vocab):
         f"{summary['prefill_ms']:.2f} ms, mean decode step {summary['decode_ms']:.2f} ms, "
         f"{summary['tokens_s']:.1f} generated tok/s ({total_s:.3f} s), peak memory "
         f"{peak_gb:.2f} GB from a reset after construction")
-    profile_device(lambda: engine.generate(prompts, max_new_tokens=V1_NEW, temperature=0.0),
-                   card, f"profile-{tag}", "generate", total_s * 1e3, (("softmax", "softmax"), ))
+    # the profiler's own cost grows with the kernels it records (about 47 s
+    # for a 64-token generate, each engine): profile a shorter generate,
+    # against the same generate unprofiled
+    t0 = time.perf_counter()
+    engine.generate(prompts, max_new_tokens=V1_PROFILE_NEW, temperature=0.0)
+    short_s = time.perf_counter() - t0
+    profile_device(lambda: engine.generate(prompts, max_new_tokens=V1_PROFILE_NEW,
+                                           temperature=0.0),
+                   card, f"profile-{tag}", f"generate of {V1_PROFILE_NEW} tokens",
+                   short_s * 1e3, (("softmax", "softmax"), ))
     return summary
 
 
@@ -5372,6 +5746,8 @@ def main() -> int:
             lion_recs = phase_lion_kernels(card)
         with phase_timer("serve, all of its parts"):
             launches = phase_serve(card)
+        with phase_timer("serve-families"):
+            families = phase_serve_families(card)
         with phase_timer("slice"):
             phase_slice()
         with phase_timer("slice-serve"):
@@ -5384,6 +5760,8 @@ def main() -> int:
             phase_slice_fleet()
         with phase_timer("slice-spec"):
             phase_slice_spec()
+        with phase_timer("slice-families"):
+            phase_slice_families()
     with phase_timer("train"):
         train_launches, dense = phase_train(card)
     with phase_timer("train-telemetry"):
@@ -5429,7 +5807,9 @@ def main() -> int:
                 "llama2_prefill": {k: recs["llama2_prefill"][k] for k in fields},
                 "cuda_core": {name: {k: rec[k] for k in fields} for name, rec in recs.items()
                               if name.startswith("cuda_core")},
-                "verify": {name: {k: recs[name][k] for k in fields} for name in VERIFY_CASES}}]
+                "verify": {name: {k: recs[name][k] for k in fields} for name in VERIFY_CASES},
+                "families": {name: {k: recs[name][k] for k in fields} for name in FAMILY_CASES},
+                "serve_families_launches": families}]
     for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         kernels.append({"name": name, "route": "cuda", "source": FLASH_SOURCE,
                         "replaces": FLASH_REPLACES[name], "launches": train_launches[name],

@@ -921,6 +921,12 @@ cudaError_t launch_decode(const void* q, const void* kpool, const void* vpool, c
                                                     stream);
 }
 
+}  // namespace
+
+// launch_decode_dtype and launch_dtype have external linkage: a split build
+// instantiates each type's in a translation unit of its own (see the end)
+namespace paged_parts {
+
 template <typename T>
 cudaError_t launch_decode_dtype(int head_dim, const void* q, const void* kpool,
                                 const void* vpool, const int* tables, const int* lengths,
@@ -949,6 +955,10 @@ cudaError_t launch_decode_dtype(int head_dim, const void* q, const void* kpool,
       return cudaErrorInvalidValue;
   }
 }
+
+}  // namespace paged_parts
+
+namespace {
 
 template <typename T>
 cudaError_t launch_merge(const float* ml, const float* acc, const int* n_tokens, void* out, int N,
@@ -1005,6 +1015,10 @@ cudaError_t launch_tc(const void* q, const void* kpool, const void* vpool, const
   return cudaGetLastError();
 }
 
+}  // namespace
+
+namespace paged_parts {
+
 template <typename T>
 cudaError_t launch_dtype(int head_dim, const void* q, const void* kpool, const void* vpool,
                          const int* tables, const int* lengths, const int* start_pos,
@@ -1029,6 +1043,10 @@ cudaError_t launch_dtype(int head_dim, const void* q, const void* kpool, const v
   }
 }
 
+}  // namespace paged_parts
+
+namespace {
+
 template <typename T>
 cudaError_t launch_tc_dtype(int head_dim, const void* q, const void* kpool, const void* vpool,
                             const int* tables, const int* lengths, const int* start_pos,
@@ -1048,6 +1066,50 @@ cudaError_t launch_tc_dtype(int head_dim, const void* q, const void* kpool, cons
 }
 
 }  // namespace
+
+// The file builds as one translation unit, or as seven at once (ops/_build.py
+// passes -DPAGED_PART=0..6 and links the objects into one library): part 0
+// holds the C interface, the tensor-core prefill and the merge; parts 1-3 the
+// split-K decode kernels for float, bfloat16 and half; parts 4-6 the CUDA-core
+// kernels for the same types.  Part 0 declares the others' instances extern.
+#ifdef PAGED_PART
+#define PAGED_DECODE_ARGS                                                                      \
+  int, const void*, const void*, const void*, const int*, const int*, const int*, const int*, \
+      const float*, float*, float*, int, int, int, int, int, int, float, int, int, int,         \
+      cudaStream_t
+#define PAGED_CORE_ARGS                                                                        \
+  int, const void*, const void*, const void*, const int*, const int*, const int*, const int*, \
+      const float*, void*, int, int, int, int, int, int, float, int, cudaStream_t
+#if PAGED_PART == 0
+#define PAGED_INSTANCE extern template
+#else
+#define PAGED_INSTANCE template
+#endif
+namespace paged_parts {
+#if PAGED_PART == 0 || PAGED_PART == 1
+PAGED_INSTANCE cudaError_t launch_decode_dtype<float>(PAGED_DECODE_ARGS);
+#endif
+#if PAGED_PART == 0 || PAGED_PART == 2
+PAGED_INSTANCE cudaError_t launch_decode_dtype<__nv_bfloat16>(PAGED_DECODE_ARGS);
+#endif
+#if PAGED_PART == 0 || PAGED_PART == 3
+PAGED_INSTANCE cudaError_t launch_decode_dtype<__half>(PAGED_DECODE_ARGS);
+#endif
+#if PAGED_PART == 0 || PAGED_PART == 4
+PAGED_INSTANCE cudaError_t launch_dtype<float>(PAGED_CORE_ARGS);
+#endif
+#if PAGED_PART == 0 || PAGED_PART == 5
+PAGED_INSTANCE cudaError_t launch_dtype<__nv_bfloat16>(PAGED_CORE_ARGS);
+#endif
+#if PAGED_PART == 0 || PAGED_PART == 6
+PAGED_INSTANCE cudaError_t launch_dtype<__half>(PAGED_CORE_ARGS);
+#endif
+}  // namespace paged_parts
+#endif
+
+#if !defined(PAGED_PART) || PAGED_PART == 0
+using paged_parts::launch_decode_dtype;
+using paged_parts::launch_dtype;
 
 extern "C" {
 
@@ -1185,3 +1247,4 @@ int paged_decode_merge_launch(int dtype, const void* ml, const void* acc, const 
 }
 
 }  // extern "C"
+#endif

@@ -5,7 +5,7 @@ supervisor, multi-tenant QoS and the fleet router."""
 from .admission import (REQUEST_STATUSES, AdmissionQueue, RecoveredRequest, RequestResult,
                         ServingStalledError, ShedReason)
 from .blocked_allocator import BlockedAllocator, KVAllocationError
-from .engine_factory import build_engine
+from .engine_factory import build_engine, build_hf_engine
 from .engine_v2 import InferenceEngineV2
 from .fastpath import PENDING_TOKEN, DeferredRuns, DeferredTokens, DeviceBatchState, ServeCounters
 from .journal import JournalEntry, JournalState, RequestJournal, replay_journal
@@ -31,6 +31,6 @@ __all__ = ["AdaptiveKController", "AdmissionQueue", "BlockCensus", "BlockedAlloc
            "RequestJournal", "RequestResult", "ScheduledChunk", "SequenceDescriptor",
            "ServeCounters", "ServeSpec", "ServingStalledError", "ServingSupervisor", "ShedReason",
            "SpecDecodeStats", "SplitFuseScheduler", "TenantQuota", "TokenBucket",
-           "UnknownSequenceError", "block_hashes", "build_engine", "plan_recovery",
-           "recover_and_serve", "rejection_select", "replay_journal", "spec_k_ladder",
-           "tenant_namespace"]
+           "UnknownSequenceError", "block_hashes", "build_engine", "build_hf_engine",
+           "plan_recovery", "recover_and_serve", "rejection_select", "replay_journal",
+           "spec_k_ladder", "tenant_namespace"]

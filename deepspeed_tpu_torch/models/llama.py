@@ -23,8 +23,8 @@ from ..runtime.activation_checkpointing import checkpoint
 from ..runtime.tree import tree_map
 from .transformer import (attention_block, cross_entropy_loss, device_rotary_tables,
                           hf_stack, hf_tensor, init_linear, init_paged_kv_pool, materialize,
-                          paged_chunk_indices, resolve_attention, rms_norm, rotate_half,
-                          swiglu_mlp)
+                          paged_chunk_indices, paged_cost, paged_write_index, project,
+                          resolve_attention, rms_norm, rotate_half, swiglu_mlp, tree_to_torch)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,28 +101,15 @@ def paged_bucket_cost(config: LlamaConfig, n: int, t: int, b: int, block_size: i
     """(FLOPs, bytes) of one :func:`forward_paged` over an ``(n, t, b)``
     bucket: ``n`` sequences of ``t`` padded tokens over block tables of
     ``b`` blocks, weights and KV pool in ``dtype``.  The serving roofline's
-    cost source, noted once per bucket at its build.
-
-    FLOPs: ``2 n t`` times each layer's weight elements, the attention
-    products ``4 n t (b block_size) H Dh`` a layer (scores and values over
-    every table position), and the ``lm_head`` over the ``n t`` rows the
-    forward projects.  Bytes: every weight leaf once, the KV read of
-    ``n b block_size`` positions and the KV write of ``n t`` positions over
-    all layers, the int32 token rows and the logit rows.  These are the
-    least bytes the bucket must move, so a roofline fraction over them is a
-    fraction of a lower bound."""
+    cost source, noted once per bucket at its build
+    (:func:`transformer.paged_cost` says what is counted)."""
     D, F, L, V = config.hidden_size, config.intermediate_size, config.num_layers, config.vocab_size
     H, KV = config.num_heads, config.num_kv_heads
     Dh = D // H
-    item = torch.empty((), dtype=dtype).element_size()
-    rows = n * t
-    layer_weights = D * H * Dh + 2 * D * KV * Dh + H * Dh * D + 3 * D * F
-    flops = (2.0 * rows * L * layer_weights + 4.0 * rows * b * block_size * H * Dh * L
-             + 2.0 * rows * D * V)
-    kv_position = 2 * L * KV * Dh * item  # k and v of one position, every layer
-    nbytes = (num_params(config) * item + n * b * block_size * kv_position + rows * kv_position
-              + rows * 4 + rows * V * item)
-    return flops, float(nbytes)
+    return paged_cost(n=n, t=t, b=b, block_size=block_size, dtype=dtype, layers=L, heads=H,
+                      kv_heads=KV, head_dim=Dh,
+                      layer_weights=D * H * Dh + 2 * D * KV * Dh + H * Dh * D + 3 * D * F,
+                      hidden=D, vocab=V, n_params=num_params(config))
 
 
 def flops_per_token(config: LlamaConfig, seq_len: int) -> float:
@@ -189,10 +176,6 @@ def causal_lm_batch(input_ids: np.ndarray):
     return {"input_ids": input_ids, "labels": labels}
 
 
-def _tree_to_torch(tree, device, dtype):
-    return tree_map(lambda x: torch.from_numpy(np.array(x)).to(device=device, dtype=dtype), tree)
-
-
 def params_from_jax(config: LlamaConfig, params_np, device, dtype=torch.float32):
     """The JAX params pytree (leaves as numpy arrays, or anything
     ``np.array`` takes) -> this package's params, same layout."""
@@ -201,13 +184,13 @@ def params_from_jax(config: LlamaConfig, params_np, device, dtype=torch.float32)
         missing |= {"lm_head"} - set(params_np)
     if missing:
         raise KeyError(f"params_from_jax: the JAX params lack {sorted(missing)}")
-    return _tree_to_torch(params_np, device, dtype)
+    return tree_to_torch(params_np, device, dtype)
 
 
 def kv_from_jax(kv_np, device, dtype=torch.float32):
     """A JAX paged KV pool {"k", "v"} [L, NB, KV, bs, Dh] -> tensors."""
-    return {"k": _tree_to_torch(kv_np["k"], device, dtype),
-            "v": _tree_to_torch(kv_np["v"], device, dtype)}
+    return {"k": tree_to_torch(kv_np["k"], device, dtype),
+            "v": tree_to_torch(kv_np["v"], device, dtype)}
 
 
 # ------------------------------------------------------------------ inference
@@ -318,8 +301,8 @@ def config_from_hf(hf_config) -> LlamaConfig:
 
 def cache_from_jax(cache_np, device, dtype=torch.float32):
     """A JAX v1 KV cache {"k", "v" [L, B, S, KV, Dh], "len"} -> this package's."""
-    return {"k": _tree_to_torch(cache_np["k"], device, dtype),
-            "v": _tree_to_torch(cache_np["v"], device, dtype),
+    return {"k": tree_to_torch(cache_np["k"], device, dtype),
+            "v": tree_to_torch(cache_np["v"], device, dtype),
             "len": int(np.asarray(cache_np["len"]))}
 
 
@@ -354,6 +337,22 @@ def forward_paged(config: LlamaConfig, params, tokens, n_tokens, start_pos, bloc
     tables on the device (:func:`device_rotary_tables`) and the paged
     kernel library.
     """
+    head = params["embed"].T if config.tie_embeddings else params["lm_head"]
+    return rotary_paged_forward(
+        config, params, head, tokens, n_tokens, start_pos, block_tables, kv_cache,
+        block_size=block_size, window=window,
+        ffn=lambda layers, i, x: swiglu_mlp({k: w[i] for k, w in layers["mlp"].items()}, x))
+
+
+def rotary_paged_forward(config, params, head, tokens, n_tokens, start_pos, block_tables,
+                         kv_cache, *, block_size: int, window: Optional[int], ffn):
+    """The paged forward of the Llama-shaped families (Llama, Mistral,
+    Qwen2, Mixtral): RMSNorm, rotary, grouped-query attention through the
+    paged kernel and ``ffn(layers, i, x)`` for layer i's feed-forward, then
+    the final norm and ``head`` [D, V].  ``config`` needs ``hidden_size``,
+    ``num_heads``, ``num_kv_heads``, ``num_layers``, ``max_seq_len``,
+    ``rope_theta`` and ``rms_eps``; the q/k/v projections add their biases
+    where the params hold them (Qwen2)."""
     b, tchunk = tokens.shape
     Dh = config.hidden_size // config.num_heads
     H, KV = config.num_heads, config.num_kv_heads
@@ -364,17 +363,16 @@ def forward_paged(config: LlamaConfig, params, tokens, n_tokens, start_pos, bloc
     # rotary angles depend on the position only: gather them once for all layers
     c = cos[safe_pos.long()][:, :, None, :]
     s = sin[safe_pos.long()][:, :, None, :]
-    write_idx = (blk.long()[:, :, None], torch.arange(KV, device=tokens.device)[None, None, :],
-                 off.long()[:, :, None])
+    write_idx = paged_write_index(blk, off, KV)
     scale = 1.0 / math.sqrt(Dh)
     layers = params["layers"]
     x = params["embed"][tokens.long()].to(kv_cache["k"].dtype)
     for i in range(config.num_layers):
         attn = {k: w[i] for k, w in layers["attn"].items()}
         attn_in = rms_norm(x, layers["attn_norm"][i], config.rms_eps)
-        q = (attn_in @ attn["wq"].to(x.dtype)).reshape(b, tchunk, H, Dh)
-        k = (attn_in @ attn["wk"].to(x.dtype)).reshape(b, tchunk, KV, Dh)
-        v = (attn_in @ attn["wv"].to(x.dtype)).reshape(b, tchunk, KV, Dh)
+        q = project(attn_in, attn, "q").reshape(b, tchunk, H, Dh)
+        k = project(attn_in, attn, "k").reshape(b, tchunk, KV, Dh)
+        v = project(attn_in, attn, "v").reshape(b, tchunk, KV, Dh)
         q = rotate_half(q, c, s)
         k = rotate_half(k, c, s)
         kpool, vpool = kv_cache["k"][i], kv_cache["v"][i]
@@ -385,9 +383,7 @@ def forward_paged(config: LlamaConfig, params, tokens, n_tokens, start_pos, bloc
                               n_tokens, block_size=block_size, softmax_scale=scale,
                               window=window)
         x = x + out.reshape(b, tchunk, H * Dh) @ attn["wo"].to(x.dtype)
-        mlp = {k: w[i] for k, w in layers["mlp"].items()}
         mlp_in = rms_norm(x, layers["mlp_norm"][i], config.rms_eps)
-        x = x + swiglu_mlp(mlp, mlp_in)
+        x = x + ffn(layers, i, mlp_in)
     x = rms_norm(x, params["final_norm"], config.rms_eps)
-    head = params["embed"].T if config.tie_embeddings else params["lm_head"]
     return x @ head.to(x.dtype), kv_cache

@@ -33,8 +33,16 @@ init_params = llama.init_params
 num_params = llama.num_params
 params_from_jax = llama.params_from_jax
 kv_from_jax = llama.kv_from_jax
+from_hf_state_dict = llama.from_hf_state_dict
 init_paged_cache = llama.init_paged_cache
 paged_bucket_cost = llama.paged_bucket_cost
+
+
+def config_from_hf(hf_config) -> MistralConfig:
+    """A MistralConfig from a transformers MistralConfig (not imported)."""
+    base = llama.config_from_hf(hf_config)
+    return MistralConfig(**dataclasses.asdict(base),
+                         sliding_window=getattr(hf_config, "sliding_window", None))
 
 
 def forward_paged(config: MistralConfig, params, tokens, n_tokens, start_pos, block_tables,

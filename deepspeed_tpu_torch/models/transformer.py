@@ -27,6 +27,16 @@ def rms_norm(x, weight, eps=1e-6):
     return (x * weight.float()).to(dtype)
 
 
+def layer_norm(x, weight, bias, eps=1e-5):
+    """LayerNorm in fp32 inside (population variance, as ``jnp.var``)."""
+    dtype = x.dtype
+    x = x.float()
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mean) * (x - mean), dim=-1, keepdim=True)
+    x = (x - mean) * torch.rsqrt(var + eps)
+    return (x * weight.float() + bias.float()).to(dtype)
+
+
 # ----------------------------------------------------------------- rotary
 def rotary_tables(head_dim: int, max_seq: int, theta: float = 10000.0):
     """numpy cos/sin tables [max_seq, head_dim / 2], bit-identical to the JAX
@@ -151,11 +161,20 @@ def resolve_attention(attention_fn, device):
     return default_attention(device)
 
 
+def project(x, params, name):
+    """``x @ params["w<name>"]``, plus ``params["b<name>"]`` where the
+    params hold that bias (Qwen2's q/k/v), in x's dtype."""
+    y = x @ params["w" + name].to(x.dtype)
+    bias = params.get("b" + name)
+    return y if bias is None else y + bias.to(x.dtype)
+
+
 def attention_block(params, x, *, n_heads, n_kv_heads, cos, sin, causal=True,
                     attention_fn=None, positions=None, kv_cache=None):
     """Multi-head attention with rotary + GQA.
 
-    params: {wq, wk, wv, wo}, [model, heads*dim] / [heads*dim, model].
+    params: {wq, wk, wv, wo}, [model, heads*dim] / [heads*dim, model], and
+    optionally the q/k/v biases {bq, bk, bv} [heads*dim] (Qwen2).
     kv_cache: optional (k_cache [B, S_max, KV, Dh], v_cache, cache_len) of one
     layer for incremental decoding: this call's keys and values are written
     into the caches IN PLACE at ``cache_len`` (JAX's functional
@@ -165,9 +184,9 @@ def attention_block(params, x, *, n_heads, n_kv_heads, cos, sin, causal=True,
     """
     b, s, _ = x.shape
     head_dim = params["wq"].shape[1] // n_heads
-    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, n_heads, head_dim)
-    k = (x @ params["wk"].to(x.dtype)).reshape(b, s, n_kv_heads, head_dim)
-    v = (x @ params["wv"].to(x.dtype)).reshape(b, s, n_kv_heads, head_dim)
+    q = project(x, params, "q").reshape(b, s, n_heads, head_dim)
+    k = project(x, params, "k").reshape(b, s, n_kv_heads, head_dim)
+    v = project(x, params, "v").reshape(b, s, n_kv_heads, head_dim)
     q = apply_rotary(q, cos, sin, positions)
     k = apply_rotary(k, cos, sin, positions)
     attn_fn = resolve_attention(attention_fn, x.device)
@@ -226,6 +245,23 @@ def causal_lm_batch(ids):
 
 
 # ------------------------------------------------------------- params / pools
+def count_params(init_fn) -> int:
+    """Parameter count of the tree ``init_fn()`` builds, drawn on the meta
+    device (no storage; the analogue of ``jax.eval_shape``).  ``init_fn``
+    must leave the device to the default (``device=None``) and draw from no
+    generator."""
+    from ..runtime.tree import tree_leaves
+    with torch.device("meta"):
+        return sum(leaf.numel() for leaf in tree_leaves(init_fn()))
+
+
+def tree_to_torch(tree, device, dtype):
+    """A pytree of numpy arrays (or anything ``np.array`` takes, such as JAX
+    arrays) -> the same nesting of tensors on ``device`` in ``dtype``."""
+    from ..runtime.tree import tree_map
+    return tree_map(lambda x: torch.from_numpy(np.array(x)).to(device=device, dtype=dtype), tree)
+
+
 def init_linear(generator, in_dim, out_dim, scale=None, dtype=torch.float32, device=None,
                 layers: Optional[int] = None):
     """Normal(0, scale^2) weight [in, out] (or [layers, in, out] stacked),
@@ -260,6 +296,40 @@ def hf_stack(state_dict, fmt, num_layers, dtype, transpose=True):
 
 
 # -------------------------------------------------------- paged-serving shared
+def paged_cost(*, n: int, t: int, b: int, block_size: int, dtype, layers: int, heads: int,
+               kv_heads: int, head_dim: int, layer_weights: int, hidden: int, vocab: int,
+               n_params: int):
+    """(FLOPs, bytes) of one ``forward_paged`` over an ``(n, t, b)`` bucket,
+    the families' ``paged_bucket_cost``: ``layer_weights`` are the weight
+    elements one layer multiplies every row by (matrix products only; bias
+    adds and norms are not counted).
+
+    FLOPs: ``2 n t`` times every layer's weight elements and the head's
+    ``hidden x vocab`` (every row the forward projects), and the attention
+    products ``4 n t (b block_size) heads head_dim`` a layer (scores and
+    values over every table position).  Bytes: every
+    parameter once, the KV read of ``n b block_size`` positions and the KV
+    write of ``n t`` positions over all layers, the int32 token rows and the
+    logit rows: the least bytes the bucket must move."""
+    item = torch.empty((), dtype=dtype).element_size()
+    rows = n * t
+    flops = (2.0 * rows * layers * layer_weights
+             + 4.0 * rows * b * block_size * heads * head_dim * layers
+             + 2.0 * rows * hidden * vocab)
+    kv_position = 2 * layers * kv_heads * head_dim * item  # k and v of one position
+    nbytes = (n_params * item + n * b * block_size * kv_position + rows * kv_position
+              + rows * 4 + rows * vocab * item)
+    return flops, float(nbytes)
+
+
+def paged_write_index(blk, off, kv_heads: int):
+    """The advanced index that writes a chunk's [N, T, KV, Dh] keys or
+    values into one layer's pool [NB, KV, bs, Dh]: pool[blk, h, off] =
+    k[n, t, h]."""
+    return (blk.long()[:, :, None], torch.arange(kv_heads, device=blk.device)[None, None, :],
+            off.long()[:, :, None])
+
+
 def paged_chunk_indices(tokens, n_tokens, start_pos, block_tables, num_blocks: int,
                         block_size: int):
     """Maps the ragged chunk's absolute positions onto paged-KV pool

@@ -258,3 +258,26 @@ def test_generate_sheds_over_cap_prompt_and_expires_deadlines():
     res = eng.generate([[2, 3]], max_new_tokens=50, strict=False, ttl_s=4.0)
     assert res[0].status == "deadline_expired" and res[0].retryable
     assert eng.manager.allocator.free_blocks == 15 and not eng.manager.seqs
+
+
+def test_factory_serves_the_jax_keys_but_falcon_and_phi(tmp_path):
+    """``build_engine`` serves the JAX registry's keys whose heads the paged
+    kernel takes; Falcon and Phi raise, naming the served keys.
+    ``build_hf_engine`` also takes a local checkpoint directory."""
+    from deepspeed_tpu.inference.v2 import engine_factory as jfactory
+    from deepspeed_tpu_torch.inference.v2 import build_hf_engine
+    from deepspeed_tpu_torch.inference.v2.engine_factory import REGISTRY
+    assert set(REGISTRY) == set(jfactory._registry()) - {"falcon", "phi"}
+    cfg = llama.LlamaConfig.tiny(vocab=64, hidden=32, layers=1, heads=2, kv_heads=2)
+    for key in ("falcon", "phi"):
+        with pytest.raises(ValueError, match="gptj"):
+            build_engine(key, cfg, {}, device="cpu")
+    transformers = pytest.importorskip("transformers")
+    torch.manual_seed(0)
+    transformers.OPTForCausalLM(transformers.OPTConfig(
+        vocab_size=64, hidden_size=32, ffn_dim=64, num_hidden_layers=1, num_attention_heads=2,
+        max_position_embeddings=64)).save_pretrained(tmp_path)
+    engine = build_hf_engine(str(tmp_path), config={"dtype": "float32"}, device="cpu",
+                             num_blocks=16, block_size=8, max_blocks_per_seq=4)
+    assert engine.model.__name__.endswith(".opt")
+    assert len(engine.generate([[5, 6, 7]], max_new_tokens=3)[0]) == 6

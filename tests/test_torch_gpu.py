@@ -18,8 +18,8 @@ import pytest
 import torch
 
 import deepspeed_tpu_torch
-from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
-from deepspeed_tpu_torch.models import llama, mistral
+from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, build_engine
+from deepspeed_tpu_torch.models import gptj, llama, mistral, mixtral, opt, qwen
 from deepspeed_tpu_torch.ops.adam import adam8bit
 from deepspeed_tpu_torch.inference import quantization as woq
 from deepspeed_tpu_torch.ops.adam.fused_adam import (fused_adamw_flat, fused_adamw_flat_reference,
@@ -92,6 +92,33 @@ CASES = [
      [9, 9, 4, 0], 4096, False),
     ("verify_t5_gqa4_fp32", torch.float32, 32, 8, 128, 16, 5, [1024, 1001, 1037, 6],
      [5, 5, 3, 5], 4096, False),
+    # Qwen2-7B's heads: a GQA group of 7 (28 over 4), head dim 128. A decode
+    # row block of 8 cuts a token's 7 heads; a tensor-core block packs 9
+    # tokens x 7 heads = 63 rows, so a warp's 16 rows straddle tokens
+    ("qwen2_decode_group7_bf16", torch.bfloat16, 28, 4, 128, 16, 1, [1, 700, 1024, 0],
+     [1, 1, 1, 0], None, False),
+    ("qwen2_verify_t5_group7_bf16", torch.bfloat16, 28, 4, 128, 16, 5, [1024, 1001, 37, 5],
+     [5, 5, 3, 5], None, False),
+    ("tc_qwen2_group7_t64_bf16", torch.bfloat16, 28, 4, 128, 16, 64, [64, 500, 77],
+     [64, 64, 13], None, False),
+    ("qwen2_decode_group7_fp32", torch.float32, 28, 4, 128, 16, 1, [1, 700, 1024, 0],
+     [1, 1, 1, 0], None, False),
+    ("cuda_core_qwen2_group7_t32_fp32", torch.float32, 28, 4, 128, 16, 32, [32, 300],
+     [32, 9], None, False),
+    # GPT-J-6B's heads: 16 over 16, head dim 256 (prefill on the CUDA-core route)
+    ("gptj_decode_mha_d256_bf16", torch.bfloat16, 16, 16, 256, 16, 1, [1, 900, 2048],
+     [1, 1, 1], None, False),
+    ("cuda_core_gptj_mha_d256_t32_bf16", torch.bfloat16, 16, 16, 256, 16, 32, [32, 300],
+     [32, 9], None, False),
+    ("gptj_decode_mha_d256_fp32", torch.float32, 16, 16, 256, 16, 1, [1, 900, 2048],
+     [1, 1, 1], None, False),
+    ("cuda_core_gptj_mha_d256_t32_fp32", torch.float32, 16, 16, 256, 16, 32, [32, 300],
+     [32, 9], None, False),
+    # OPT-125m's heads: 12 over 12, head dim 64, both bf16 routes
+    ("opt_decode_mha_d64_bf16", torch.bfloat16, 12, 12, 64, 16, 1, [1, 900, 1024, 0],
+     [1, 1, 1, 0], None, False),
+    ("tc_opt_mha_d64_t64_bf16", torch.bfloat16, 12, 12, 64, 16, 64, [64, 500, 77],
+     [64, 64, 13], None, False),
 ]
 
 
@@ -231,6 +258,49 @@ def test_bf16_engine_runs_the_prefill_kernel_on_wide_chunks(cuda):
         assert res.status == "ok" and res.tokens[:len(prompt)] == prompt
         assert all(0 <= tok < config.vocab_size for tok in res.tokens[len(prompt):])
     assert engine.manager.allocator.free_blocks == 63 and not engine.manager.seqs
+
+
+# the served families at kernel head dims (the JAX tiny configs have 16):
+# Qwen2 with a GQA group of 7, Mixtral's dense MoE FFN, OPT at 64, GPT-J at 256
+FAMILIES = {
+    "qwen2": qwen.QwenConfig.tiny(vocab=128, hidden=448, layers=2, heads=14, kv_heads=2, seq=256),
+    "mixtral": mixtral.MixtralConfig.tiny(vocab=128, hidden=128, layers=2, heads=4, kv_heads=2,
+                                          seq=256),
+    "opt": opt.OPTConfig.tiny(vocab=128, hidden=128, layers=2, heads=2, seq=256),
+    "gptj": gptj.GPTJConfig(vocab_size=128, hidden_size=512, ffn_dim=1024, num_layers=2,
+                            num_heads=2, rotary_dim=64, max_seq_len=256),
+}
+
+
+@pytest.mark.parametrize("key", sorted(FAMILIES))
+def test_family_graphs_match_the_eager_reference_loop(cuda, key):
+    """Each served family in fp32 at 2 layers: the fast path with CUDA
+    graphs (``build_engine``'s default on the card) and the eager reference
+    loop give the same greedy tokens, with every forward step's paged
+    launches on the route the shape rule names."""
+    from deepspeed_tpu_torch.inference.v2.engine_factory import REGISTRY
+    module, cfg = REGISTRY[key], FAMILIES[key]
+    params = module.init_params(cfg, torch.Generator().manual_seed(0))
+    if key == "qwen2":  # the q/k/v biases start at zero: give them something to add
+        gen = torch.Generator().manual_seed(1)
+        for name in ("bq", "bk", "bv"):
+            params["layers"]["attn"][name].normal_(0.0, 0.1, generator=gen)
+    kw = dict(num_blocks=64, block_size=16, max_blocks_per_seq=8, token_budget=32,
+              max_seqs_per_step=4)
+    graphs = build_engine(key, cfg, params, config={"dtype": "float32"}, **kw)
+    eager = build_engine(key, cfg, params, **kw, config={"dtype": "float32",
+                                                          "serving_fastpath": {"enabled": False}})
+    assert graphs.programs.graphs and not eager.programs.graphs
+    ref = eager.generate(GRAPH_PROMPTS, max_new_tokens=6)
+    before = (paged_attention.launches, paged_attention.decode_launches)
+    got = graphs.generate(GRAPH_PROMPTS, max_new_tokens=6)
+    assert got == ref
+    head_dim = cfg.hidden_size // cfg.num_heads
+    group = cfg.num_heads // getattr(cfg, "num_kv_heads", cfg.num_heads)
+    narrow = sum(k for t, k in graphs.chunk_widths.items()
+                 if paged_module.paged_route(torch.float32, head_dim, t, group) == "decode")
+    assert (paged_attention.launches - before[0], paged_attention.decode_launches - before[1]) \
+        == (graphs.forward_steps * cfg.num_layers, narrow * cfg.num_layers)
 
 
 # ----------------------------------------------------------- training path

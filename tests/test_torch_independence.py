@@ -57,7 +57,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "deepspeed_tpu_torch.monitor.exposition",
                      "deepspeed_tpu_torch.monitor.ops_server",
                      "deepspeed_tpu_torch.inference.v2.qos",
-                     "deepspeed_tpu_torch.inference.v2.router"):
+                     "deepspeed_tpu_torch.inference.v2.router",
+                     "deepspeed_tpu_torch.inference.v2.engine_factory",
+                     "deepspeed_tpu_torch.models.qwen",
+                     "deepspeed_tpu_torch.models.mixtral",
+                     "deepspeed_tpu_torch.models.opt",
+                     "deepspeed_tpu_torch.models.gptj",
+                     "deepspeed_tpu_torch.moe.experts",
+                     "deepspeed_tpu_torch.moe.sharded_moe",
+                     "deepspeed_tpu_torch.moe.layer"):
         assert expected in report["modules"]
 
 

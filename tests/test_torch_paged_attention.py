@@ -3,6 +3,9 @@ JAX package: the dense-gather fallback and the Pallas kernel in interpret
 mode, on the same numpy inputs.  fp32, atol 2e-5: the JAX package's own
 kernel-vs-fallback tolerance."""
 
+import subprocess
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -116,6 +119,44 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
     _without_toolkit(monkeypatch)
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.load("paged_attention")
+
+
+@pytest.mark.parametrize("failing_part", [None, 3])
+def test_split_source_builds_each_part_then_links_one_library(monkeypatch, tmp_path,
+                                                              failing_part):
+    """The paged source builds as seven translation units (-DPAGED_PART=0..6,
+    each compiled with -c) and one link of their objects into the library;
+    the parts' objects are removed. A part nvcc refuses raises with its
+    command, links nothing and leaves no library."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
+    ran = []
+
+    def fake_nvcc(cmd):
+        ran.append(cmd)
+        refused = f"-DPAGED_PART={failing_part}" in cmd
+        if not refused:
+            Path(cmd[cmd.index("-o") + 1]).write_bytes(b"built")
+        return subprocess.CompletedProcess(cmd, int(refused), "", "refused" if refused else "")
+
+    monkeypatch.setattr(_build, "_run", fake_nvcc)
+    if failing_part is not None:
+        with pytest.raises(_build.KernelBuildError, match=f"-DPAGED_PART={failing_part}"):
+            _build.build("paged_attention")
+        assert all("-c" in cmd for cmd in ran) and len(ran) == 7
+        assert list(tmp_path.iterdir()) == []
+        return
+    out = _build.build("paged_attention")
+    compiles, link = ran[:-1], ran[-1]
+    assert sorted(f for cmd in compiles for f in cmd if f.startswith("-D")) == \
+        [f"-DPAGED_PART={i}" for i in range(7)]
+    assert all("-c" in cmd and "-shared" not in cmd for cmd in compiles)
+    assert "-shared" in link and "-c" not in link
+    assert link[link.index("-o") + 1].endswith(".tmp")
+    assert sorted(link[link.index("-o") + 2:]) == sorted(cmd[cmd.index("-o") + 1]
+                                                         for cmd in compiles)
+    assert out == _build.library_path("paged_attention") and out.read_bytes() == b"built"
+    assert list(tmp_path.iterdir()) == [out]
 
 
 def test_kernel_route_raises_instead_of_computing(monkeypatch):

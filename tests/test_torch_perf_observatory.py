@@ -280,27 +280,47 @@ def test_cost_capture_off_leaves_dispatches_uncosted():
     assert not roof.snapshot()["costed_buckets"]
 
 
-@pytest.mark.parametrize("n,t,b", [(1, 1, 2), (2, 4, 3), (4, 16, 8)])
-def test_paged_bucket_cost_flops_equal_the_counted_forward(n, t, b):
+def _family(name):
+    """(module, tiny config, params) of a served family, seeded torch weights."""
+    from deepspeed_tpu_torch.models import gptj, mixtral, opt, qwen
+    if name == "llama":
+        return (llama, *_params()[2:])
+    mod, cfg = {"qwen2": (qwen, qwen.QwenConfig.tiny(vocab=128, heads=4, kv_heads=1)),
+                "mixtral": (mixtral, mixtral.MixtralConfig.tiny(vocab=128)),
+                "opt": (opt, opt.OPTConfig.tiny(vocab=128)),
+                "gptj": (gptj, gptj.GPTJConfig.tiny(vocab=128))}[name]
+    return mod, cfg, mod.init_params(cfg, torch.Generator().manual_seed(0))
+
+
+# Llama's cases keep their ids; each other family adds one bucket
+@pytest.mark.parametrize("family,n,t,b", [
+    pytest.param("llama", 1, 1, 2, id="1-1-2"), pytest.param("llama", 2, 4, 3, id="2-4-3"),
+    pytest.param("llama", 4, 16, 8, id="4-16-8"), pytest.param("qwen2", 2, 4, 3, id="qwen2-2-4-3"),
+    pytest.param("mixtral", 2, 4, 3, id="mixtral-2-4-3"),
+    pytest.param("opt", 4, 16, 8, id="opt-4-16-8"), pytest.param("gptj", 1, 1, 2, id="gptj-1-1-2")])
+def test_paged_bucket_cost_flops_equal_the_counted_forward(family, n, t, b):
     """paged_bucket_cost's FLOPs equal FlopCounterMode's count of the plain
     forward_paged over the same bucket (weights, attention over every table
-    position, lm_head over every row); its bytes count every weight once,
-    the KV read and write, and the token and logit rows."""
+    position, the head over every row; Mixtral's router, all its experts on
+    every row and their combine); its bytes count every parameter once, the
+    KV read and write, and the token and logit rows."""
     from torch.utils.flop_counter import FlopCounterMode
-    _, _, cfg, params = _params()
+    mod, cfg, params = _family(family)
     bs = 8
-    kv = llama.init_paged_cache(cfg, 64, bs, dtype=torch.float32)
+    kv = mod.init_paged_cache(cfg, 64, bs, dtype=torch.float32)
     gen = torch.Generator().manual_seed(n * 100 + t)
     tokens = torch.randint(0, cfg.vocab_size, (n, t), generator=gen, dtype=torch.int32)
     n_tokens = torch.full((n, ), t, dtype=torch.int32)
     start = torch.zeros(n, dtype=torch.int32)
     tables = torch.arange(n * b, dtype=torch.int32).reshape(n, b)
     with FlopCounterMode(display=False) as counter:
-        llama.forward_paged(cfg, params, tokens, n_tokens, start, tables, kv, block_size=bs)
-    flops, nbytes = llama.paged_bucket_cost(cfg, n, t, b, bs, torch.float32)
+        mod.forward_paged(cfg, params, tokens, n_tokens, start, tables, kv, block_size=bs)
+    flops, nbytes = mod.paged_bucket_cost(cfg, n, t, b, bs, torch.float32)
     assert flops == counter.get_total_flops()
     D, L, V = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
-    kv_pos = 2 * L * cfg.num_kv_heads * (D // cfg.num_heads) * 4
-    assert nbytes == (llama.num_params(cfg) * 4 + n * b * bs * kv_pos + n * t * kv_pos
+    kv_heads = getattr(cfg, "num_kv_heads", cfg.num_heads)
+    kv_pos = 2 * L * kv_heads * (D // cfg.num_heads) * 4
+    assert kv["k"].shape[2] == kv_heads
+    assert nbytes == (mod.num_params(cfg) * 4 + n * b * bs * kv_pos + n * t * kv_pos
                       + n * t * 4 + n * t * V * 4)
-    assert llama.paged_bucket_cost(cfg, n, t, b, bs, torch.bfloat16)[1] < nbytes
+    assert mod.paged_bucket_cost(cfg, n, t, b, bs, torch.bfloat16)[1] < nbytes
