@@ -215,6 +215,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -299,7 +300,33 @@ def phase_device():
         for line in _build.build_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[device] ptxas: {line.strip()}")
+    for kernel, (regs, spill) in sorted(paged_prefill_usage(_build.build_log["paged_attention"])
+                                        .items()):
+        log(f"[device] ptxas {kernel}: {regs} registers, {spill} bytes spill stores")
     return card
+
+
+PAGED_TYPES = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
+
+
+def paged_prefill_usage(build_log):
+    """{"<kernel><type, head dim>": (registers, spill-store bytes)} of the
+    paged prefill kernels (tensor-core and CUDA-core) from nvcc's ``-Xptxas
+    -v`` output: an entry's "Compiling entry" line, then its spill line and
+    its "Used N registers" line."""
+    usage, entry, spill = {}, None, 0
+    for line in build_log.splitlines():
+        found = re.search(r"Compiling entry function '\S*?(paged_prefill_tc_kernel|"
+                          r"paged_attention_kernel)I(\w+?)Li(\d+)E", line)
+        if "Compiling entry" in line:
+            entry = (f"{found.group(1)}<{PAGED_TYPES.get(found.group(2), found.group(2))}, "
+                     f"{found.group(3)}>" if found else None)
+        elif entry and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif entry and "registers" in line:
+            usage[entry] = (int(re.search(r"Used (\d+) registers", line).group(1)), spill)
+            entry = None
+    return usage
 
 
 # ------------------------------------------------------------------ phase 2
@@ -356,15 +383,16 @@ def run_plain(c, round_to=None, fp32=False):
 
 
 def paged_variant(c):
-    """The route the case takes by the wrapper's own shape rule: "decode"
-    (split-K decode kernel and merge), "prefill_tc" or "cuda_core"."""
+    """The route the case takes by the wrapper's own rule: "decode" (split-K
+    decode kernel and merge), "prefill_tc" or "cuda_core"."""
     from deepspeed_tpu_torch.ops.attention.paged import paged_route
-    _, t, hq, dh = c["q"].shape
-    return paged_route(c["q"].dtype, dh, t, hq // c["kpool"].shape[1])
+    return paged_route(c["q"].dtype, c["q"].shape[1])
 
 
 ROUTE_NAMES = {"decode": "split-K decode", "prefill_tc": "tensor-core prefill",
                "cuda_core": "CUDA-core"}
+# a paged case's record in the kernels line: the times, and the bound
+PAGED_FIELDS = ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
 
 
 def decode_parts(c, keys=None):
@@ -543,6 +571,46 @@ def library_call(c):
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
 
 
+GRAPH_CALLS = 16
+
+
+def graph_ms(fn):
+    """The device's time for one call of ``fn``: a CUDA graph of
+    ``GRAPH_CALLS`` calls back to back, replayed, over ``GRAPH_CALLS``.  No
+    host work (the wrapper's checks, the launch) lies between the calls, as
+    when the v2 engine replays a step; ``time_ms`` of one eager call also
+    holds the host's share, all of it for a call that takes the device a
+    few microseconds."""
+    import torch
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    return time_ms(graph.replay) / GRAPH_CALLS
+
+
+def prefill_times(card):
+    """[prefill-times]: one eager call (``time_ms``) and the graph-replay
+    time (``graph_ms``) of each case of ``PREFILL_TIMED``, with whatever
+    ``deepspeed_tpu_torch`` is first on sys.path; builds only the paged
+    library.  ``python3 chip_smoke.py --prefill-times DIR`` puts the
+    checkout in DIR first, so that two trees are compared on one card, in
+    turns, by the same cases and clocks.  Prints one JSON line."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention import paged
+    log(f"[prefill-times] {paged.__file__} on {card}")
+    paged._lib()
+    cases = paged_cases()
+    out = {}
+    with torch.no_grad():
+        for name in PREFILL_TIMED:
+            c = cases[name]
+            out[name] = {"ms": time_ms(lambda: run_kernel(c)),
+                         "graph_ms": graph_ms(lambda: run_kernel(c))}
+    log(json.dumps({"prefill_times": out, "package": paged.__file__}))
+    return 0
+
+
 def measure(name, c):
     import torch
     nbytes, flops = work(c)
@@ -550,6 +618,7 @@ def measure(name, c):
     t_ops = flops / PEAK_FLOPS[str(c["q"].dtype)] * 1e3
     rec = {
         "ms": time_ms(lambda: run_kernel(c)),
+        "graph_ms": graph_ms(lambda: run_kernel(c)),
         "plain_ms": time_ms(lambda: run_plain(c)),
         "library_ms": time_ms(library_call(c)),
         "bound_ms": max(t_bytes, t_ops),
@@ -557,17 +626,19 @@ def measure(name, c):
         "bytes": nbytes, "flops": flops,
     }
     torch.cuda.synchronize()
-    log(f"[kernel] {name}: kernel_ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
-        f"library_ms {rec['library_ms']:.4f} bound_ms {rec['bound_ms']:.4f} "
-        f"({rec['bound_by']}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    log(f"[kernel] {name}: kernel_ms {rec['ms']:.4f} (graph replay {rec['graph_ms']:.4f}) "
+        f"plain_ms {rec['plain_ms']:.4f} library_ms {rec['library_ms']:.4f} bound_ms "
+        f"{rec['bound_ms']:.4f} ({rec['bound_by']}: {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP)")
     return rec
 
 
-def phase_kernel(card):
-    """Kernel vs plain on the card; returns the Mistral and Llama-2 decode and
-    prefill measurements and the largest bf16 error at Mistral shapes."""
+def paged_cases():
+    """The paged cases of [kernel], by name: Mistral-7B and Llama-2-7B decode
+    and prefill, the small edges, the tensor-core prefill kernel's edges,
+    the decode kernel's, the verify rounds, the families' heads and the
+    CUDA-core kernel's fp32 chunks."""
     import torch
-    from deepspeed_tpu_torch.ops.attention.paged import paged_attention
     rng = np.random.default_rng(0)
     bf16, fp16 = torch.bfloat16, torch.float16
     decode_lengths = np.concatenate([[1, 4096], rng.integers(1, 4097, 30)])
@@ -596,9 +667,10 @@ def phase_kernel(card):
                                            lengths=[3, 9, 17, 0, 33], n_tokens=[3, 1, 2, 0, 3],
                                            dtype=torch.float32, alibi=True, window=9)
     # the tensor-core prefill kernel's edges: chunk starts off the 64-key
-    # tile, T = 16 / 64 / 512, blocks of 8-128 keys, head dim 64 and 128, GQA
-    # groups of 1, 4, 8, 32 and 64 (MQA), a window, ALiBi, zero-length rows and
-    # a decode row padded into a 512-token step
+    # tile, T = 16 / 20 / 64 / 512, blocks of 8-128 keys, head dims 32, 64,
+    # 128 and 256 (32-key tiles), GQA groups of 1, 4, 8, 32, 64 and 128 (MQA;
+    # a token's heads over two row blocks), a window, ALiBi, zero-length rows
+    # and a decode row padded into a 512-token step
     prefill_edges = {
         "t16_bs8_d64_gqa4_window": dict(N=3, T=16, H=8, KV=2, Dh=64, bs=8, lengths=[37, 100, 0],
                                         n_tokens=[16, 5, 0], window=20),
@@ -616,6 +688,12 @@ def phase_kernel(card):
                                     n_tokens=[16, 3]),
         "t32_bs128_d64_mqa64_alibi": dict(N=2, T=32, H=64, KV=1, Dh=64, bs=128,
                                           lengths=[290, 40], n_tokens=[32, 7], alibi=True),
+        "t16_bs16_d256_gqa4_window": dict(N=3, T=16, H=8, KV=2, Dh=256, bs=16,
+                                          lengths=[40, 300, 0], n_tokens=[16, 9, 0], window=100),
+        "t20_bs8_d32_alibi_window": dict(N=3, T=20, H=4, KV=4, Dh=32, bs=8, lengths=[20, 57, 300],
+                                         n_tokens=[20, 11, 1], alibi=True, window=30),
+        "t16_bs16_d64_mqa128": dict(N=2, T=16, H=128, KV=1, Dh=64, bs=16, lengths=[100, 16],
+                                    n_tokens=[16, 16]),
     }
     for seed, (edge, kw) in enumerate(prefill_edges.items(), start=100):
         for dtype, tag in ((bf16, "bf16"), (fp16, "fp16")):
@@ -623,40 +701,41 @@ def phase_kernel(card):
     cases.update(decode_edges())
     cases.update(verify_cases())
     cases.update(family_cases())
-    # the CUDA-core kernel's chunks (T >= 16 off the tensor-core rule): the
-    # fp32 slice's Mistral-width prefill, head dim 256 and 32, a group of 128
+    # the CUDA-core kernel's chunks (fp32 at T >= 16): the fp32 slice's
+    # Mistral-width prefill and head dim 256
     cuda_core_edges = {
         "cuda_core_slice_t128_fp32": dict(N=2, T=128, lengths=[70, 33], n_tokens=[70, 33],
                                           dtype=torch.float32, **mistral),
-        "cuda_core_t16_d256_gqa4_window_bf16": dict(N=3, T=16, H=8, KV=2, Dh=256, bs=16,
-                                                    lengths=[40, 300, 0], n_tokens=[16, 9, 0],
-                                                    dtype=bf16, window=100),
         "cuda_core_t64_d256_mha_fp32": dict(N=2, T=64, H=4, KV=4, Dh=256, bs=32,
                                             lengths=[64, 500], n_tokens=[64, 37],
                                             dtype=torch.float32),
-        "cuda_core_t20_d32_alibi_fp16": dict(N=3, T=20, H=4, KV=4, Dh=32, bs=8,
-                                             lengths=[20, 57, 300], n_tokens=[20, 11, 1],
-                                             dtype=fp16, alibi=True, window=30),
-        "cuda_core_t16_d64_mqa128_bf16": dict(N=2, T=16, H=128, KV=1, Dh=64, bs=16,
-                                              lengths=[100, 16], n_tokens=[16, 16], dtype=bf16),
     }
     for seed, (edge, kw) in enumerate(cuda_core_edges.items(), start=300):
         cases[edge] = make_case(seed, **kw)
+    return cases
+
+
+def phase_kernel(card):
+    """Kernel vs plain on the card; returns the Mistral and Llama-2 decode and
+    prefill measurements and the largest bf16 error at Mistral shapes."""
+    from deepspeed_tpu_torch.ops.attention.paged import paged_attention
+    cases = paged_cases()
     errs = {name: compare(name, c) for name, c in cases.items()}
     routes = {name: paged_variant(c) for name, c in cases.items()}
     wrong = {name: route for name, route in routes.items()
              if route != ("decode" if cases[name]["q"].shape[1] < 16
                           else "cuda_core" if name.startswith("cuda_core") else "prefill_tc")}
     if wrong or set(routes.values()) != set(ROUTE_NAMES):
-        raise AssertionError(f"cases do not follow the shape rule: {wrong or routes}")
+        raise AssertionError(f"cases do not follow the route rule: {wrong or routes}")
     log(f"[kernel] paged cases by route: "
         + ", ".join(f"{ROUTE_NAMES[r]} {sum(v == r for v in routes.values())}"
                     for r in ROUTE_NAMES))
     recs = {name: measure(name, cases[name])
             for name in ("mistral_decode", "mistral_prefill", "llama2_decode", "llama2_prefill",
-                         "serve_decode_n16", *cuda_core_edges, *VERIFY_CASES, *FAMILY_CASES)}
+                         "serve_decode_n16", *CUDA_CORE_CASES, *MOVED_CASES, *VERIFY_CASES,
+                         *FAMILY_CASES)}
     for name, rec in recs.items():
-        log(f"[kernel] {name} on {card}: {json.dumps({k: rec[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')})}")
+        log(f"[kernel] {name} on {card}: {json.dumps({k: rec[k] for k in PAGED_FIELDS})}")
     for name in ("llama2_decode", "mistral_decode", "serve_decode_n16"):
         split_ab(name, cases[name])
     paged_attention.launches = paged_attention.tc_launches = paged_attention.decode_launches = 0
@@ -740,19 +819,28 @@ def verify_cases():
 # over 4 kv heads, a GQA group of 7, head dim 128) at decode (16 sequences
 # of about 1,024 keys), a T = 5 chunk, a 512-token prefill on tensor cores
 # and fp32 decode; GPT-J-6B (16 over 16, head dim 256) at decode and a
-# 512-token prefill on the CUDA-core route; OPT-125m (12 over 12, head dim
-# 64) at decode and a 512-token prefill on tensor cores, the two bf16
-# routes [serve-opt] runs
+# 512-token prefill on tensor cores (32-key tiles); OPT-125m (12 over 12,
+# head dim 64) at decode and a 512-token prefill on tensor cores, the two
+# bf16 routes [serve-opt] runs
 FAMILY_CASES = ("qwen2_decode_n16_bf16", "qwen2_t5_n16_bf16", "qwen2_prefill_t512_bf16",
-                "qwen2_decode_n16_fp32", "gptj_decode_n16_bf16",
-                "cuda_core_gptj_prefill_t512_bf16", "opt_decode_n16_bf16",
-                "opt_prefill_t512_bf16")
+                "qwen2_decode_n16_fp32", "gptj_decode_n16_bf16", "gptj_prefill_t512_bf16",
+                "opt_decode_n16_bf16", "opt_prefill_t512_bf16")
+CUDA_CORE_CASES = ("cuda_core_slice_t128_fp32", "cuda_core_t64_d256_mha_fp32")
+# the bf16/fp16 shapes the CUDA-core kernel served until it kept only fp32,
+# timed on tensor cores: head dim 256 with GQA 4 and a window, head dim 32
+# with ALiBi and a window, a group of 128
+MOVED_CASES = ("prefill_t16_bs16_d256_gqa4_window_bf16", "prefill_t20_bs8_d32_alibi_window_fp16",
+               "prefill_t16_bs16_d64_mqa128_bf16")
+# the paged prefill cases (bf16/fp16, T >= 16) --prefill-times times
+PREFILL_TIMED = ("mistral_prefill", "llama2_prefill", "qwen2_prefill_t512_bf16",
+                 "opt_prefill_t512_bf16", "gptj_prefill_t512_bf16", *MOVED_CASES)
 
 
 def family_cases():
     """Qwen2-7B, GPT-J-6B and OPT-125m shapes, blocks of 16: a group of 7
-    packs 9 tokens x 7 heads = 63 rows into a tensor-core block (a warp's 16
-    rows straddle tokens) and cuts a token's heads across decode row blocks;
+    fills a tensor-core block with 64 rows (9 tokens x 7 heads and one more
+    row, so a warp's 16 rows straddle tokens and a token's heads straddle
+    blocks) and cuts a token's heads across decode row blocks;
     OPT's group of 1 at head dim 64 fills a tensor-core block with 64
     tokens of one head."""
     import torch
@@ -774,7 +862,7 @@ def family_cases():
         "qwen2_prefill_t512_bf16": dict(dtype=bf16, **prefill, **qwen2),
         "qwen2_decode_n16_fp32": dict(dtype=fp32, **decode(), **qwen2),
         "gptj_decode_n16_bf16": dict(dtype=bf16, **decode(), **gptj),
-        "cuda_core_gptj_prefill_t512_bf16": dict(dtype=bf16, **prefill, **gptj),
+        "gptj_prefill_t512_bf16": dict(dtype=bf16, **prefill, **gptj),
         "opt_decode_n16_bf16": dict(dtype=bf16, **decode(), **opt),
         "opt_prefill_t512_bf16": dict(dtype=bf16, **prefill, **opt),
     }
@@ -2015,9 +2103,7 @@ def phase_serve(card, seed=0):
     steps = engine.forward_steps - steps0
     widths = {t: k - widths0.get(t, 0) for t, k in engine.chunk_widths.items()
               if k > widths0.get(t, 0)}
-    _, tc_steps, decode_steps = route_launches(widths, 1, torch.bfloat16,
-                                               cfg.hidden_size // cfg.num_heads,
-                                               cfg.num_heads // cfg.num_kv_heads)
+    _, tc_steps, decode_steps = route_launches(widths, 1, torch.bfloat16)
     check_serve_results("serve", engine, prompts, results, max_new, cfg.vocab_size)
     if launches != steps * cfg.num_layers:
         raise AssertionError(f"paged_attention launched {launches} times over {steps} forward "
@@ -4282,12 +4368,12 @@ SPEC_CYCLE_REQUESTS, SPEC_CYCLE_PROMPT, SPEC_CYCLE_NEW = 16, 512, 128
 SPEC_DRAFT_BLOCKS = 1280  # the drafter's pool: [serve]'s prompts need about 1,040 blocks
 
 
-def route_launches(widths, layers, dtype, head_dim, group):
+def route_launches(widths, layers, dtype):
     """(total, tensor-core prefill, split-K decode) paged launches that
     forwards by padded chunk width (``{width: forwards}``) make over
-    ``layers`` layers, by the wrapper's own shape rule."""
+    ``layers`` layers, by the wrapper's own rule."""
     from deepspeed_tpu_torch.ops.attention.paged import paged_route
-    routes = [(paged_route(dtype, head_dim, t, group), k) for t, k in widths.items()]
+    routes = [(paged_route(dtype, t), k) for t, k in widths.items()]
     return (sum(k for _, k in routes) * layers,
             sum(k for r, k in routes if r == "prefill_tc") * layers,
             sum(k for r, k in routes if r == "decode") * layers)
@@ -4339,10 +4425,8 @@ def counted_pass(tag, engine, cfg, run, drafter=None):
     widths = widths_since(engine.chunk_widths, widths0)
     dwidths = widths_since(drafter.chunk_widths, dwidths0) if drafter is not None else {}
     dtype = engine.dtype
-    head_dim, group = heads_of(cfg)
-    want = tuple(a + b for a, b in zip(
-        route_launches(widths, cfg.num_layers, dtype, head_dim, group),
-        route_launches(dwidths, cfg.num_layers, dtype, head_dim, group)))
+    want = tuple(a + b for a, b in zip(route_launches(widths, cfg.num_layers, dtype),
+                                       route_launches(dwidths, cfg.num_layers, dtype)))
     if engine.device.type == "cuda" and launches != want:
         raise AssertionError(f"[{tag}] paged launches (total, tensor-core, decode) {launches}; "
                              f"the engine's forwards by width {widths} and the drafter's "
@@ -4810,7 +4894,7 @@ FAMILY_KW = dict(num_blocks=576, block_size=16, max_blocks_per_seq=72, token_bud
                  max_seqs_per_step=32)
 # the paged route a family's prefill steps (padded chunk >= 16) take in bf16
 FAMILY_PREFILL_ROUTE = {"qwen2": "prefill_tc", "mixtral": "prefill_tc", "opt": "prefill_tc",
-                        "gptj": "cuda_core"}
+                        "gptj": "prefill_tc"}
 
 
 def family_config(key, layers=None):
@@ -4867,8 +4951,8 @@ def serve_family(card, key, seed=0, device="cuda", config=None, kw=None):
     warm serve.  Gates: every request ok and the pool reclaimed; paged
     launches equal the forward steps by padded width and route times the
     layers (counted under replay), prefill steps on the family's route
-    (tensor cores, or the CUDA-core kernel at head dim 256) and decode steps
-    on split-K; the warm serve builds nothing and gives the cold serve's
+    (tensor cores at every head dim, none on the CUDA-core kernel) and
+    decode steps on split-K; the warm serve builds nothing and gives the cold serve's
     tokens.  Prints tok/s, the mean step, the device's idle share (the warm
     serve again under torch.profiler), peak memory and the graph pool."""
     import torch
@@ -5724,6 +5808,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--prefill-times"]:
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        return prefill_times(nvidia_smi_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("[setup] TF32 off for matmul and cuDNN: fp32 runs in full fp32")
@@ -5795,20 +5882,25 @@ def main() -> int:
                                         for part in ("ngram", "self")},
                 **{k: recs["mistral_decode"][k] for k in fields},
                 "shape": "mistral_7b decode N=32 T=1 lengths 1-4096 bf16",
-                "variant": "three routes by shape: split-K decode (paged_decode_kernel + "
-                           "paged_decode_merge_kernel, CUDA cores, cp.async) for every chunk of "
-                           "T < 16; tensor cores (paged_prefill_tc_kernel, mma.sync m16n8k16) "
-                           "for bf16/fp16 chunks of T >= 16 with head_dim 64 or 128 and a GQA "
-                           "group <= 64; CUDA cores (paged_attention_kernel) for the rest (fp32, "
-                           "head_dim 32 or 256 at T >= 16)",
-                "serve_decode_n16": {k: recs["serve_decode_n16"][k] for k in fields},
-                "prefill": {k: recs["mistral_prefill"][k] for k in fields},
-                "llama2_decode": {k: recs["llama2_decode"][k] for k in fields},
-                "llama2_prefill": {k: recs["llama2_prefill"][k] for k in fields},
-                "cuda_core": {name: {k: rec[k] for k in fields} for name, rec in recs.items()
-                              if name.startswith("cuda_core")},
-                "verify": {name: {k: recs[name][k] for k in fields} for name in VERIFY_CASES},
-                "families": {name: {k: recs[name][k] for k in fields} for name in FAMILY_CASES},
+                "variant": "three routes by dtype and chunk: split-K decode "
+                           "(paged_decode_kernel + paged_decode_merge_kernel, CUDA cores, "
+                           "cp.async) for every chunk of T < 16; tensor cores "
+                           "(paged_prefill_tc_kernel, mma.sync m16n8k16, 64-row blocks of the "
+                           "T x group rows, 64-key tiles, 32 at head dim 256) for bf16/fp16 "
+                           "chunks of T >= 16 at head dim 32-256 and any group; CUDA cores "
+                           "(paged_attention_kernel, fp32 only) for fp32 chunks of T >= 16",
+                "serve_decode_n16": {k: recs["serve_decode_n16"][k] for k in PAGED_FIELDS},
+                "prefill": {k: recs["mistral_prefill"][k] for k in PAGED_FIELDS},
+                "llama2_decode": {k: recs["llama2_decode"][k] for k in PAGED_FIELDS},
+                "llama2_prefill": {k: recs["llama2_prefill"][k] for k in PAGED_FIELDS},
+                "cuda_core": {name: {k: rec[k] for k in PAGED_FIELDS}
+                              for name, rec in recs.items() if name.startswith("cuda_core")},
+                "moved_to_tensor_cores": {name: {k: recs[name][k] for k in PAGED_FIELDS}
+                                          for name in MOVED_CASES},
+                "verify": {name: {k: recs[name][k] for k in PAGED_FIELDS}
+                           for name in VERIFY_CASES},
+                "families": {name: {k: recs[name][k] for k in PAGED_FIELDS}
+                             for name in FAMILY_CASES},
                 "serve_families_launches": families}]
     for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         kernels.append({"name": name, "route": "cuda", "source": FLASH_SOURCE,

@@ -12,12 +12,12 @@
 // t >= n_tokens[n] (and whole rows with lengths[n] == 0) come out as exact
 // zeros.  Accumulation is fp32 whatever the storage type.
 //
-// Three routes, chosen by one shape rule in ops/attention/paged.py
-// (paged_route; no fallback between them): every chunk of T < 16 tokens
-// (decode) goes to the split-K decode kernel and its merge, for every dtype
-// and head dim; bf16/fp16 chunks of T >= 16 with head_dim 64 or 128 and a
-// GQA group of at most 64 to the tensor-core prefill kernel; the rest (fp32,
-// head_dim 32 or 256 at T >= 16) to the CUDA-core kernel.
+// Three routes, chosen by one rule in ops/attention/paged.py (paged_route;
+// no fallback between them): every chunk of T < 16 tokens (decode) goes to
+// the split-K decode kernel and its merge, for every dtype and head dim;
+// bf16/fp16 chunks of T >= 16 to the tensor-core prefill kernel, for every
+// head dim (32, 64, 128, 256) and GQA group the wrapper takes; fp32 chunks
+// of T >= 16 to the CUDA-core kernel, which is built for fp32 only.
 //
 // Split-K decode kernel (paged_decode_kernel + paged_decode_merge_kernel;
 // replaces _paged_kernel at decode).  What bounds it on the H100: every live
@@ -47,7 +47,7 @@
 //   - fp32 arithmetic with no rounding of P, so the result differs from the
 //     plain version only by the order of summation.
 //
-// CUDA-core kernel (fp32 and head_dim 32/256 chunks of T >= 16).  One block
+// CUDA-core kernel (fp32 chunks of T >= 16).  One block
 // per (sequence, group of q heads sharing one kv head, tile of query
 // tokens), so the K/V tiles a block stages in shared memory feed every q
 // head of its GQA group and every query token of the tile; the TPU kernel's
@@ -58,18 +58,25 @@
 // state lives in registers of the warp that owns the row; K/V rows come in
 // as 16-byte loads, several in flight per thread.
 //
-// Tensor-core prefill kernel.  A chunk of T tokens does 4 Dh operations for
-// each visible (row, key) pair against Dh elements of K and V a key, so at
-// T = 512 it is bound by arithmetic (989 TFLOP/s for bf16/fp16 on
-// mma.sync.m16n8k16, fp32 accumulators).  A block of 4 warps owns 64 rows of
-// one (sequence, kv head), row r = token t0 + r / group and q head
-// g * group + r % group, so every K/V tile it stages feeds all the heads of
-// the group (Mistral: 16 tokens x 4 heads; Llama MHA: 64 tokens x 1 head).
-// Each (pool block, kv head) slab is bs x Dh contiguous, so a 64-key tile is
-// gathered by cp.async 16 bytes at a time through the block table, and
-// double-buffered.  P is rounded to the storage type before P V, as
-// FlashAttention does; the result is held to flash.tensor_core_limit against
-// the plain version that rounds P the same way (paged.py, round_to=).
+// Tensor-core prefill kernel (bf16/fp16 chunks of T >= 16).  A chunk of T
+// tokens does 4 Dh operations for each visible (row, key) pair against Dh
+// elements of K and V a key, so at T = 512 it is bound by arithmetic (989
+// TFLOP/s for bf16/fp16 on mma.sync.m16n8k16, fp32 accumulators).  The T x
+// group rows of one (sequence, kv head), row r = token r / group and q head
+// g * group + r % group, are cut into blocks of 64 consecutive rows
+// (paged.py prefill_tc_blocks), so every K/V tile a block stages feeds all
+// the heads of the group it holds, whatever the group: Mistral 16 tokens x
+// 4 heads, Llama MHA 64 tokens x 1 head, Qwen2 9 tokens x 7 heads and one
+// more row, a group of 128 half of one token's heads.  Each (pool block, kv
+// head) slab is bs x Dh contiguous, so a key tile is gathered by cp.async 16
+// bytes at a time through the block table, and double-buffered.  Head dims
+// 32, 64 and 128 take 64-key tiles with Q's A fragments held in registers;
+// head dim 256 takes 32-key tiles with Q's fragments read from shared
+// memory at each k-step: its O accumulator alone is 128 fp32 registers a
+// thread, and 101 KB of shared memory lets two blocks share an SM.  P is
+// rounded to the storage type before P V, as FlashAttention does; the
+// result is held to flash.tensor_core_limit against the plain version that
+// rounds P the same way (paged.py, round_to=).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -307,64 +314,82 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 
 // ------------------------------------------------- tensor-core chunked prefill
 constexpr int kTcRows = 64;      // rows (token x q head of one kv group) a block, 16 a warp
-constexpr int kTcKeys = 64;      // keys a tile
 constexpr int kTcThreads = 128;
 
-// One block per (64 rows, kv head, sequence): row r is token t0 + r / group,
-// q head g * group + r % group, so the K/V tiles a block stages feed every
-// head of the GQA group.  Warp w owns rows 16w..16w+15 with the accumulator
-// layout of mma.sync; its Q A-fragments, loaded once, stay in registers.  Per
-// 64-key tile, gathered through the block table (slots looked up one tile
-// ahead into shared memory, each pool row copied by cp.async in 16-byte
-// chunks into rows of D + 8, dead chunks zero-filled, K/V double-buffered):
-// S = Q K^T by mma.sync; the online softmax in fp32 registers with exp2 and
-// the scale folded into log2(e), ALiBi added and the causal, length and
-// window masks applied by each row's own token and head; P rounded to T into
-// A fragments, l summing the fp32 P; O += P V with V through ldmatrix.trans.
-// Rows past n_tokens and rows that see no key are written as exact zeros; a
-// block whose tokens all lie past n_tokens reads nothing.  Token tiles are
-// launched latest (most keys) first.
+// keys a tile: 64, or 32 at head dim 256, where a 16 x 256 fp32 accumulator
+// takes 128 registers a thread and a 64-key score tile 32 more
+template <int D>
+__host__ __device__ constexpr int tc_keys() { return D >= 256 ? 32 : 64; }
+
+// dynamic shared memory: the Q tile and two K and two V tiles, rows of D + 8
+template <int D>
+__host__ __device__ constexpr int tc_smem() { return (kTcRows + 4 * tc_keys<D>()) * (D + 8) * 2; }
+
+// One block per (64 rows, kv head, sequence): rows row0 .. row0 + 63 of the
+// (sequence, kv head)'s T x group rows, row r being token r / group and q
+// head g * group + r % group, so the K/V tiles a block stages feed every head
+// of the GQA group it holds, and a block may hold part of a token's heads.
+// The block reads the keys from the window start of its first row's token
+// to the causal end of its last live row's token.  Warp w owns rows row0 +
+// 16w .. row0 + 16w + 15 with the accumulator layout of mma.sync; its Q
+// A-fragments stay in registers (D <= 128) or are read from shared memory at
+// each k-step (D = 256).  Per key tile, gathered through the block table
+// (slots looked up one tile ahead into shared memory, each pool row copied
+// by cp.async in 16-byte chunks into rows of D + 8, dead chunks zero-filled,
+// K/V double-buffered): S = Q K^T by mma.sync; the online softmax in fp32
+// registers with exp2 and the scale folded into log2(e), ALiBi added and the
+// causal, length and window masks applied by each row's own token and head;
+// P rounded to T into A fragments, l summing the fp32 P; O += P V with V
+// through ldmatrix.trans.  Rows past n_tokens and rows that see no key are
+// written as exact zeros; a block whose rows all lie past n_tokens reads
+// nothing.  Row blocks are launched latest (most keys) first.
 template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads)
 paged_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                         const T* __restrict__ vpool, const int* __restrict__ tables,
                         const int* __restrict__ lengths, const int* __restrict__ start_pos,
                         const int* __restrict__ n_tokens, const float* __restrict__ alibi,
-                        T* __restrict__ out, int T_, int H, int KV, int bs, int maxb, int q_tile,
+                        T* __restrict__ out, int T_, int H, int KV, int bs, int maxb,
                         float scale_log2, int window) {
+  constexpr int KT = tc_keys<D>();
+  constexpr bool kQRegs = D <= 128;  // Q's A fragments held in registers
   constexpr int kLd = D + 8;
   constexpr int kKD = D / 16;
   constexpr int kND = D / 8;
-  constexpr int kNK = kTcKeys / 8;  // n8 tiles of a score tile
+  constexpr int kNK = KT / 8;       // n8 tiles of a score tile
   constexpr int kChunks = D / 8;    // 16-byte chunks of a row
-  constexpr int kTileElems = kTcKeys * kLd;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  __shared__ int blk_s[2][kTcKeys];  // pool block of each table slot a tile spans, -1 if dead
-  T* q_s = reinterpret_cast<T*>(tc_smem);  // [kTcRows][kLd]
-  T* k_s = q_s + kTcRows * kLd;             // [2][kTcKeys][kLd]
-  T* v_s = k_s + 2 * kTileElems;            // [2][kTcKeys][kLd]
+  constexpr int kTileElems = KT * kLd;
+  static_assert(D % 16 == 0 && KT % 16 == 0, "tensor-core prefill tile shape");
+  extern __shared__ __align__(16) unsigned char tc_smem_buf[];
+  __shared__ int blk_s[2][KT];  // pool block of each table slot a tile spans, -1 if dead
+  T* q_s = reinterpret_cast<T*>(tc_smem_buf);  // [kTcRows][kLd]
+  T* k_s = q_s + kTcRows * kLd;                 // [2][KT][kLd]
+  T* v_s = k_s + 2 * kTileElems;                // [2][KT][kLd]
 
   const int n = blockIdx.z;
   const int g = blockIdx.y;
-  const int t0 = (gridDim.x - 1 - blockIdx.x) * q_tile;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * kTcRows;
   const int group = H / KV;
-  const int rows = q_tile * group;  // rows of the block that map to a token (<= kTcRows)
+  const int rows = T_ * group;  // rows of the (sequence, kv head)
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int length = lengths[n];
   const int start = start_pos[n];
-  const int t_hi = min(t0 + q_tile, min(T_, n_tokens[n]));  // live tokens: [t0, t_hi)
-  const int key_lim = min(length, maxb * bs);               // keys that exist
+  const int live_tok = min(T_, n_tokens[n]);  // live tokens: [0, live_tok)
+  const int key_lim = min(length, maxb * bs);  // keys that exist
 
-  // keys any row of this block may see: [key_begin, key_end)
+  // the block's live tokens [t_lo, t_hi] and the keys any of its rows may
+  // see: [key_begin, key_end)
+  const int t_lo = row0 / group;
+  const int t_hi = min((min(row0 + kTcRows, rows) - 1) / group, live_tok - 1);
   int key_begin = 0;
   int key_end = 0;
-  if (t_hi > t0) {
-    key_end = min(key_lim, start + t_hi);
-    if (window > 0) key_begin = max(0, start + t0 - window + 1);
+  if (t_hi >= t_lo) {
+    key_end = min(key_lim, start + t_hi + 1);
+    if (window > 0) key_begin = max(0, start + t_lo - window + 1);
   }
-  const int kt0 = (key_begin / kTcKeys) * kTcKeys;
-  const int n_tiles = key_end > kt0 ? (key_end - kt0 + kTcKeys - 1) / kTcKeys : 0;
+  const int kt0 = (key_begin / KT) * KT;
+  const int n_tiles = key_end > kt0 ? (key_end - kt0 + KT - 1) / KT : 0;
 
   // the thread's two rows: token, q head, liveness, ALiBi slope in log2 units
   int qpos[2], head[2];
@@ -372,31 +397,31 @@ paged_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   float slope2[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = warp * 16 + lane / 4 + 8 * i;
-    const int tok = t0 + r / group;
+    const int r = row0 + warp * 16 + lane / 4 + 8 * i;
+    const int tok = r / group;
     head[i] = g * group + r % group;
     qpos[i] = start + tok;
-    live[i] = r < rows && tok < t_hi;
+    live[i] = tok < live_tok;
     slope2[i] = alibi != nullptr ? alibi[head[i]] * kLog2e : 0.f;
   }
   // the warp's live tokens [wt_lo, wt_hi]
-  const int wr0 = warp * 16;
-  const bool warp_live = wr0 < rows && t0 + wr0 / group < t_hi;
-  const int wt_lo = t0 + wr0 / group;
-  const int wt_hi = min(t0 + (min(wr0 + 15, rows - 1)) / group, t_hi - 1);
-  const bool warp_full = wr0 + 15 < rows && t0 + (wr0 + 15) / group < t_hi;
+  const int wr0 = row0 + warp * 16;
+  const int wt_lo = wr0 / group;
+  const int wt_hi = min(min(wr0 + 15, rows - 1) / group, live_tok - 1);
+  const bool warp_live = wt_lo <= wt_hi;
+  const bool warp_full = (wr0 + 15) / group < live_tok;
 
-  const int nslots = bs >= kTcKeys ? 1 : kTcKeys / bs;
+  const int nslots = bs >= KT ? 1 : KT / bs;
   auto lookup = [&](int tile, int buf) {
-    const int slot0 = (kt0 + tile * kTcKeys) / bs;
+    const int slot0 = (kt0 + tile * KT) / bs;
     for (int i = threadIdx.x; i < nslots; i += kTcThreads)
       blk_s[buf][i] = (slot0 + i) * bs < key_end ? tables[(int64_t)n * maxb + slot0 + i] : -1;
   };
   auto issue = [&](int tile, int buf) {
-    const int k0 = kt0 + tile * kTcKeys;
+    const int k0 = kt0 + tile * KT;
     const uint32_t kb = smem_u32(k_s + buf * kTileElems);
     const uint32_t vb = smem_u32(v_s + buf * kTileElems);
-    for (int idx = threadIdx.x; idx < kTcKeys * kChunks; idx += kTcThreads) {
+    for (int idx = threadIdx.x; idx < KT * kChunks; idx += kTcThreads) {
       const int j = idx / kChunks;
       const int c = idx % kChunks;
       const int kpos = k0 + j;
@@ -416,28 +441,30 @@ paged_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
-  uint32_t qf[kKD][4];
+  uint32_t qf[kQRegs ? kKD : 1][4];
 
   if (n_tiles > 0) {
     lookup(0, 0);
     if (n_tiles > 1) lookup(1, 1);
     for (int idx = threadIdx.x; idx < kTcRows * kChunks; idx += kTcThreads) {
-      const int r = idx / kChunks;
+      const int r = row0 + idx / kChunks;
       const int c = idx % kChunks;
-      const int tok = t0 + r / group;
-      const bool ok = r < rows && tok < t_hi;
+      const int tok = r / group;
+      const bool ok = tok < live_tok;
       const T* src =
           ok ? q + (((int64_t)n * T_ + tok) * H + g * group + r % group) * D + c * 8 : q;
-      cp_async16(smem_u32(q_s + r * kLd + c * 8), src, ok);
+      cp_async16(smem_u32(q_s + (idx / kChunks) * kLd + c * 8), src, ok);
     }
     __syncthreads();  // the slots of tiles 0 and 1 are visible
     issue(0, 0);
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
+    if constexpr (kQRegs) {
 #pragma unroll
-    for (int kk = 0; kk < kKD; ++kk)
-      ldsm_x4(qf[kk], smem_u32(q_s) + a_frag<kLd>(lane, warp * 16, kk * 16));
+      for (int kk = 0; kk < kKD; ++kk)
+        ldsm_x4(qf[kk], smem_u32(q_s) + a_frag<kLd>(lane, warp * 16, kk * 16));
+    }
   }
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait_all();
@@ -447,10 +474,9 @@ paged_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       cp_async_commit();
     }
     if (t + 2 < n_tiles) lookup(t + 2, t & 1);
-    const int k0 = kt0 + t * kTcKeys;
+    const int k0 = kt0 + t * KT;
     // no row of the warp sees these keys: past every row's query, or before every window
-    if (!warp_live || k0 > start + wt_hi ||
-        (window > 0 && k0 + kTcKeys - 1 <= start + wt_lo - window))
+    if (!warp_live || k0 > start + wt_hi || (window > 0 && k0 + KT - 1 <= start + wt_lo - window))
       continue;
     const uint32_t kt = smem_u32(k_s + (t & 1) * kTileElems);
     const uint32_t vt = smem_u32(v_s + (t & 1) * kTileElems);
@@ -461,17 +487,25 @@ paged_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < kKD; ++kk)
+    for (int kk = 0; kk < kKD; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldsm_x4(qa, smem_u32(q_s) + a_frag<kLd>(lane, warp * 16, kk * 16));
+      }
 #pragma unroll
       for (int np = 0; np < kNK / 2; ++np) {
         uint32_t bk[4];
         ldsm_x4(bk, kt + b_frag<kLd>(lane, np * 16, kk * 16));
-        mma16816<T>(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma16816<T>(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        mma16816<T>(s[2 * np], qa, bk[0], bk[1]);
+        mma16816<T>(s[2 * np + 1], qa, bk[2], bk[3]);
       }
+    }
 
     // every key of the tile visible to every row of the warp: no mask needed
-    const bool edge = !(warp_full && k0 + kTcKeys <= key_lim && k0 + kTcKeys - 1 <= start + wt_lo &&
+    const bool edge = !(warp_full && k0 + KT <= key_lim && k0 + KT - 1 <= start + wt_lo &&
                         (window <= 0 || k0 > start + wt_hi - window));
     float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -534,9 +568,9 @@ paged_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float li = quad_sum(l[i]);
-    const int r = warp * 16 + lane / 4 + 8 * i;
-    const int tok = t0 + r / group;
-    if (r >= rows || tok >= T_) continue;
+    const int r = row0 + warp * 16 + lane / 4 + 8 * i;
+    const int tok = r / group;
+    if (tok >= T_) continue;
     const float inv = live[i] && li > 0.f ? 1.f / li : 0.f;
     T* orow = out + (((int64_t)n * T_ + tok) * H + head[i]) * D + (lane % 4) * 2;
 #pragma unroll
@@ -995,23 +1029,40 @@ cudaError_t launch(const void* q, const void* kpool, const void* vpool, const in
   return cudaGetLastError();
 }
 
-int tc_smem_bytes(int head_dim) { return (kTcRows + 4 * kTcKeys) * (head_dim + 8) * 2; }
+int tc_smem_bytes(int head_dim) {
+  switch (head_dim) {
+    case 32:
+      return tc_smem<32>();
+    case 64:
+      return tc_smem<64>();
+    case 128:
+      return tc_smem<128>();
+    case 256:
+      return tc_smem<256>();
+    default:
+      return -1;
+  }
+}
 
 template <typename T, int DH>
 cudaError_t launch_tc(const void* q, const void* kpool, const void* vpool, const int* tables,
                       const int* lengths, const int* start_pos, const int* n_tokens,
                       const float* alibi, void* out, int N, int T_, int H, int KV, int bs,
-                      int maxb, float scale, int window, cudaStream_t stream) {
-  const int q_tile = kTcRows / (H / KV);
-  const int smem = tc_smem_bytes(DH);
+                      int maxb, float scale, int window, int row_blocks, cudaStream_t stream) {
+  constexpr int smem = tc_smem<DH>();
   cudaError_t err = cudaFuncSetAttribute(paged_prefill_tc_kernel<T, DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((T_ + q_tile - 1) / q_tile, KV, N);
+  // all of the SM's shared memory for blocks: two of 101 KB share an SM at D = 256
+  err = cudaFuncSetAttribute(paged_prefill_tc_kernel<T, DH>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  dim3 grid(row_blocks, KV, N);
   paged_prefill_tc_kernel<T, DH><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kpool), static_cast<const T*>(vpool),
       tables, lengths, start_pos, n_tokens, alibi, static_cast<T*>(out), T_, H, KV, bs, maxb,
-      q_tile, scale * kLog2e, window);
+      scale * kLog2e, window);
   return cudaGetLastError();
 }
 
@@ -1019,6 +1070,8 @@ cudaError_t launch_tc(const void* q, const void* kpool, const void* vpool, const
 
 namespace paged_parts {
 
+// the CUDA-core kernel; built for float only (bf16/fp16 chunks of T >= 16
+// take the tensor-core kernel)
 template <typename T>
 cudaError_t launch_dtype(int head_dim, const void* q, const void* kpool, const void* vpool,
                          const int* tables, const int* lengths, const int* start_pos,
@@ -1043,35 +1096,38 @@ cudaError_t launch_dtype(int head_dim, const void* q, const void* kpool, const v
   }
 }
 
-}  // namespace paged_parts
-
-namespace {
-
 template <typename T>
 cudaError_t launch_tc_dtype(int head_dim, const void* q, const void* kpool, const void* vpool,
                             const int* tables, const int* lengths, const int* start_pos,
                             const int* n_tokens, const float* alibi, void* out, int N, int T_,
                             int H, int KV, int bs, int maxb, float scale, int window,
-                            cudaStream_t stream) {
+                            int row_blocks, cudaStream_t stream) {
   switch (head_dim) {
+    case 32:
+      return launch_tc<T, 32>(q, kpool, vpool, tables, lengths, start_pos, n_tokens, alibi, out,
+                              N, T_, H, KV, bs, maxb, scale, window, row_blocks, stream);
     case 64:
       return launch_tc<T, 64>(q, kpool, vpool, tables, lengths, start_pos, n_tokens, alibi, out,
-                              N, T_, H, KV, bs, maxb, scale, window, stream);
+                              N, T_, H, KV, bs, maxb, scale, window, row_blocks, stream);
     case 128:
       return launch_tc<T, 128>(q, kpool, vpool, tables, lengths, start_pos, n_tokens, alibi, out,
-                               N, T_, H, KV, bs, maxb, scale, window, stream);
+                               N, T_, H, KV, bs, maxb, scale, window, row_blocks, stream);
+    case 256:
+      return launch_tc<T, 256>(q, kpool, vpool, tables, lengths, start_pos, n_tokens, alibi, out,
+                               N, T_, H, KV, bs, maxb, scale, window, row_blocks, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
+}  // namespace paged_parts
 
 // The file builds as one translation unit, or as seven at once (ops/_build.py
 // passes -DPAGED_PART=0..6 and links the objects into one library): part 0
-// holds the C interface, the tensor-core prefill and the merge; parts 1-3 the
-// split-K decode kernels for float, bfloat16 and half; parts 4-6 the CUDA-core
-// kernels for the same types.  Part 0 declares the others' instances extern.
+// holds the C interface and the merge; parts 1-3 the split-K decode kernels
+// for float, bfloat16 and half; part 4 the CUDA-core kernels (float); parts
+// 5 and 6 the tensor-core prefill kernels for bfloat16 and half.  Part 0
+// declares the others' instances extern.
 #ifdef PAGED_PART
 #define PAGED_DECODE_ARGS                                                                      \
   int, const void*, const void*, const void*, const int*, const int*, const int*, const int*, \
@@ -1080,6 +1136,9 @@ cudaError_t launch_tc_dtype(int head_dim, const void* q, const void* kpool, cons
 #define PAGED_CORE_ARGS                                                                        \
   int, const void*, const void*, const void*, const int*, const int*, const int*, const int*, \
       const float*, void*, int, int, int, int, int, int, float, int, cudaStream_t
+#define PAGED_TC_ARGS                                                                          \
+  int, const void*, const void*, const void*, const int*, const int*, const int*, const int*, \
+      const float*, void*, int, int, int, int, int, int, float, int, int, cudaStream_t
 #if PAGED_PART == 0
 #define PAGED_INSTANCE extern template
 #else
@@ -1099,10 +1158,10 @@ PAGED_INSTANCE cudaError_t launch_decode_dtype<__half>(PAGED_DECODE_ARGS);
 PAGED_INSTANCE cudaError_t launch_dtype<float>(PAGED_CORE_ARGS);
 #endif
 #if PAGED_PART == 0 || PAGED_PART == 5
-PAGED_INSTANCE cudaError_t launch_dtype<__nv_bfloat16>(PAGED_CORE_ARGS);
+PAGED_INSTANCE cudaError_t launch_tc_dtype<__nv_bfloat16>(PAGED_TC_ARGS);
 #endif
 #if PAGED_PART == 0 || PAGED_PART == 6
-PAGED_INSTANCE cudaError_t launch_dtype<__half>(PAGED_CORE_ARGS);
+PAGED_INSTANCE cudaError_t launch_tc_dtype<__half>(PAGED_TC_ARGS);
 #endif
 }  // namespace paged_parts
 #endif
@@ -1110,6 +1169,7 @@ PAGED_INSTANCE cudaError_t launch_dtype<__half>(PAGED_CORE_ARGS);
 #if !defined(PAGED_PART) || PAGED_PART == 0
 using paged_parts::launch_decode_dtype;
 using paged_parts::launch_dtype;
+using paged_parts::launch_tc_dtype;
 
 extern "C" {
 
@@ -1119,7 +1179,11 @@ int paged_attention_smem_bytes(int head_dim, int block_size) {
   return smem_bytes(head_dim, block_size < 32 ? 32 : block_size);
 }
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  All tensors contiguous on
+// The same for the tensor-core prefill kernel (-1 for a head dim it lacks).
+int paged_prefill_tc_smem_bytes(int head_dim) { return tc_smem_bytes(head_dim); }
+
+// The CUDA-core kernel.  dtype: 0 = float32 (the only one it is built for;
+// 1 = bfloat16 and 2 = float16 return an error).  All tensors contiguous on
 // one device: q/out [N, T, H, Dh]; pools [NB, KV, bs, Dh]; tables [N, maxb]
 // and lengths/start_pos/n_tokens [N] int32; alibi [H] float32 or null.
 // window <= 0 means no sliding window.  Returns a cudaError_t (0 = launched).
@@ -1128,41 +1192,32 @@ int paged_attention_launch(int dtype, const void* q, const void* kpool, const vo
                            const void* n_tokens, const void* alibi, void* out, int N, int T_,
                            int H, int KV, int head_dim, int block_size, int maxb, float scale,
                            int window, void* stream) {
+  if (dtype != 0) return cudaErrorInvalidValue;
   if (N <= 0 || T_ <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
   const int group = H / KV;
   if (group > 32 && group % 32 != 0) return cudaErrorInvalidValue;
   if (block_size <= 0 || block_size > 32 * kMaxKeysPerLane) return cudaErrorInvalidValue;
   if (block_size < 32 ? 32 % block_size != 0 : block_size % 32 != 0) return cudaErrorInvalidValue;
-  const int* tb = static_cast<const int*>(tables);
-  const int* ln = static_cast<const int*>(lengths);
-  const int* sp = static_cast<const int*>(start_pos);
-  const int* nt = static_cast<const int*>(n_tokens);
-  const float* al = static_cast<const float*>(alibi);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch_dtype<float>(head_dim, q, kpool, vpool, tb, ln, sp, nt, al, out, N, T_, H, KV,
-                                 block_size, maxb, scale, window, s);
-    case 1:
-      return launch_dtype<__nv_bfloat16>(head_dim, q, kpool, vpool, tb, ln, sp, nt, al, out, N, T_,
-                                         H, KV, block_size, maxb, scale, window, s);
-    case 2:
-      return launch_dtype<__half>(head_dim, q, kpool, vpool, tb, ln, sp, nt, al, out, N, T_, H, KV,
-                                  block_size, maxb, scale, window, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch_dtype<float>(head_dim, q, kpool, vpool, static_cast<const int*>(tables),
+                             static_cast<const int*>(lengths), static_cast<const int*>(start_pos),
+                             static_cast<const int*>(n_tokens), static_cast<const float*>(alibi),
+                             out, N, T_, H, KV, block_size, maxb, scale, window,
+                             static_cast<cudaStream_t>(stream));
 }
 
-// The tensor-core chunked-prefill kernel: the same arguments; dtype 1
-// (bfloat16) or 2 (float16), head_dim 64 or 128, a GQA group of at most 64
-// q heads, block_size a power of two; all tensors 16-byte aligned.
+// The tensor-core chunked-prefill kernel: the same arguments, and row_blocks,
+// the blocks of 64 rows one (sequence, kv head) takes (paged.py
+// prefill_tc_blocks: T x group / 64 rounded up); dtype 1 (bfloat16) or 2
+// (float16), head_dim 32, 64, 128 or 256, any GQA group, block_size a power
+// of two; all tensors 16-byte aligned.
 int paged_prefill_tc_launch(int dtype, const void* q, const void* kpool, const void* vpool,
                             const void* tables, const void* lengths, const void* start_pos,
                             const void* n_tokens, const void* alibi, void* out, int N, int T_,
                             int H, int KV, int head_dim, int block_size, int maxb, float scale,
-                            int window, void* stream) {
-  if (N <= 0 || T_ <= 0 || KV <= 0 || H % KV != 0 || H / KV > kTcRows) return cudaErrorInvalidValue;
+                            int window, int row_blocks, void* stream) {
+  if (N <= 0 || T_ <= 0 || KV <= 0 || H % KV != 0 || N > 65535 || KV > 65535)
+    return cudaErrorInvalidValue;
+  if (row_blocks != ((int64_t)T_ * (H / KV) + kTcRows - 1) / kTcRows) return cudaErrorInvalidValue;
   if (block_size <= 0 || (block_size & (block_size - 1)) != 0) return cudaErrorInvalidValue;
   const int* tb = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lengths);
@@ -1173,10 +1228,11 @@ int paged_prefill_tc_launch(int dtype, const void* q, const void* kpool, const v
   switch (dtype) {
     case 1:
       return launch_tc_dtype<__nv_bfloat16>(head_dim, q, kpool, vpool, tb, ln, sp, nt, al, out,
-                                            N, T_, H, KV, block_size, maxb, scale, window, s);
+                                            N, T_, H, KV, block_size, maxb, scale, window,
+                                            row_blocks, s);
     case 2:
       return launch_tc_dtype<__half>(head_dim, q, kpool, vpool, tb, ln, sp, nt, al, out, N, T_,
-                                     H, KV, block_size, maxb, scale, window, s);
+                                     H, KV, block_size, maxb, scale, window, row_blocks, s);
     default:
       return cudaErrorInvalidValue;
   }

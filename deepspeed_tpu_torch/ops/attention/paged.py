@@ -9,14 +9,17 @@ int32.  Causality is on absolute positions, so chunked prefill and decode
 share one function.
 
 On CUDA tensors it launches one of three hand-written routes in
-``csrc/paged_attention.cu``, chosen by one shape rule (:func:`paged_route`,
-no fallback between them): chunks of fewer than ``TC_MIN_CHUNK`` tokens
-(decode) go to the split-K decode kernel and its merge, for every dtype and
-head dim; bf16/fp16 chunks of at least 16 tokens with head_dim 64 or 128 and
-a GQA group of at most 64 to the tensor-core prefill kernel, which rounds P
-to the input type before ``P V`` and is held to ``flash.tensor_core_limit``;
-the rest (fp32, head_dim 32 or 256 at T >= 16) to the CUDA-core kernel.  On
-CPU tensors it runs :func:`paged_attention_reference`, the plain version.
+``csrc/paged_attention.cu``, chosen by one rule on the dtype and the chunk
+(:func:`paged_route`, no fallback between them): chunks of fewer than
+``TC_MIN_CHUNK`` tokens (decode) go to the split-K decode kernel and its
+merge, for every dtype and head dim; bf16/fp16 chunks of at least 16 tokens
+to the tensor-core prefill kernel, for every head dim and GQA group the
+wrapper takes, which rounds P to the input type before ``P V`` and is held
+to ``flash.tensor_core_limit``; fp32 chunks of at least 16 tokens to the
+CUDA-core kernel, built for fp32 only.  The tensor-core kernel cuts a
+(sequence, kv head)'s T x group rows into blocks of ``TC_ROWS``
+(:func:`prefill_tc_blocks`, :func:`prefill_tc_keys`).  On CPU tensors it
+runs :func:`paged_attention_reference`, the plain version.
 
 The split-K decode is sized on the host from shapes alone
 (:func:`decode_split`: no value of ``lengths`` is read back): each block
@@ -38,9 +41,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (32, 64, 128, 256)
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 _TC_DTYPES = (torch.bfloat16, torch.float16)
-_TC_HEAD_DIMS = (64, 128)
-TC_MIN_CHUNK = 16   # chunk tokens from which the tensor-core prefill kernel runs
-_TC_MAX_GROUP = 64  # q heads of one kv head that one tensor-core block can hold
+TC_MIN_CHUNK = 16  # chunk tokens from which the tensor-core prefill kernel runs
+TC_ROWS = 64       # rows (token x q head of one kv head) a tensor-core prefill block holds
 # split-K decode: a launch aims at DECODE_BLOCKS_PER_SM blocks an SM (several
 # waves, so that sequences of 1 and 4096 keys even out), splits of whole 64-key
 # tiles and whole table slots, none shorter than DECODE_MIN_SPLIT keys.
@@ -57,22 +59,57 @@ _SM_COUNT = {}
 _LIB: Optional[ctypes.CDLL] = None
 
 
-def uses_prefill_tensor_cores(dtype: torch.dtype, head_dim: int, chunk: int, group: int) -> bool:
+def uses_prefill_tensor_cores(dtype: torch.dtype, chunk: int) -> bool:
     """The tensor-core prefill part of :func:`paged_route`: bf16/fp16 chunks
-    of at least ``TC_MIN_CHUNK`` tokens with head_dim 64 or 128 and at most
-    64 q heads per kv head."""
-    return (dtype in _TC_DTYPES and head_dim in _TC_HEAD_DIMS and chunk >= TC_MIN_CHUNK
-            and group <= _TC_MAX_GROUP)
+    of at least ``TC_MIN_CHUNK`` tokens, at every head dim and GQA group the
+    wrapper takes."""
+    return dtype in _TC_DTYPES and chunk >= TC_MIN_CHUNK
 
 
-def paged_route(dtype: torch.dtype, head_dim: int, chunk: int, group: int) -> str:
+def paged_route(dtype: torch.dtype, chunk: int) -> str:
     """The dispatch rule: ``"decode"`` (split-K decode kernel and merge) for
-    T < 16, ``"prefill_tc"`` (tensor-core prefill kernel) for bf16/fp16 chunks
-    of T >= 16 with head_dim 64/128 and a group <= 64, ``"cuda_core"`` (the
-    CUDA-core kernel) for the rest."""
+    T < 16 in every dtype, ``"prefill_tc"`` (tensor-core prefill kernel) for
+    bf16/fp16 chunks of T >= 16, ``"cuda_core"`` (the CUDA-core kernel) for
+    fp32 chunks of T >= 16.  Neither the head dim nor the GQA group enters:
+    each route takes every one the wrapper takes."""
     if chunk < TC_MIN_CHUNK:
         return "decode"
-    return "prefill_tc" if uses_prefill_tensor_cores(dtype, head_dim, chunk, group) else "cuda_core"
+    return "prefill_tc" if uses_prefill_tensor_cores(dtype, chunk) else "cuda_core"
+
+
+def prefill_tc_blocks(chunk: int, group: int) -> int:
+    """Blocks of the tensor-core prefill kernel one (sequence, kv head)
+    takes: its ``chunk x group`` rows, row r being token r // group and q
+    head kv_head * group + r % group, cut into blocks of ``TC_ROWS``
+    consecutive rows (the last one short).  For a group that divides 64, a
+    block holds 64 / group whole tokens; a larger group cuts a token's heads
+    across blocks."""
+    return -(-chunk * group // TC_ROWS)
+
+
+def prefill_tc_key_tile(head_dim: int) -> int:
+    """Keys a tile of the tensor-core prefill kernel (tc_keys in
+    csrc/paged_attention.cu): 32 at head dim 256, where the O accumulator
+    alone is 128 fp32 registers a thread, else 64."""
+    return 32 if head_dim >= 256 else 64
+
+
+def prefill_tc_keys(block: int, chunk: int, group: int, start: int, keys: int, n_tokens: int,
+                    window: Optional[int]) -> tuple:
+    """Keys [begin, end) block ``block`` of :func:`prefill_tc_blocks` reads
+    for a sequence whose chunk starts at ``start``, with ``keys`` keys that
+    exist (its length, cut at the table's reach) and ``n_tokens`` live
+    tokens: from the window start of its first row's token to the causal end
+    of its last live row's token; (0, 0) when none of its rows is live.  The
+    kernel reads whole tiles of :func:`prefill_tc_key_tile` keys from the one
+    holding ``begin``."""
+    first = block * TC_ROWS // group
+    last = min((min((block + 1) * TC_ROWS, chunk * group) - 1) // group,
+               min(chunk, n_tokens) - 1)
+    if last < first:
+        return 0, 0
+    begin = max(0, start + first - window + 1) if window else 0
+    return begin, min(keys, start + last + 1)
 
 
 def decode_rows(head_dim: int, rows: int) -> int:
@@ -183,7 +220,7 @@ def paged_attention(q, kpool, vpool, tables, lengths, start_pos, n_tokens, *, bl
     if not use_kernel(*operands):
         return paged_attention_reference(q, kpool, vpool, tables, lengths, start_pos, n_tokens,
                                          scale, window, alibi_slopes)
-    route = paged_route(q.dtype, dh, t, hq // kpool.shape[1])
+    route = paged_route(q.dtype, t)
     _check(q, kpool, vpool, ints, alibi_slopes, block_size, window, route)
     if route == "decode":
         keys, splits = decode_split(tables.shape[1] * block_size, block_size, n,
@@ -193,15 +230,17 @@ def paged_attention(q, kpool, vpool, tables, lengths, start_pos, n_tokens, *, bl
         out = _merge(ml, acc, n_tokens, q.dtype)
     else:
         out = torch.empty_like(q)
-        launch = (_lib().paged_prefill_tc_launch if route == "prefill_tc"
-                  else _lib().paged_attention_launch)
-        with torch.cuda.device(q.device):
-            rc = launch(
-                _DTYPE_CODES[q.dtype], q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+        args = (_DTYPE_CODES[q.dtype], q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
                 tables.data_ptr(), lengths.data_ptr(), start_pos.data_ptr(), n_tokens.data_ptr(),
                 _ptr(alibi_slopes), out.data_ptr(), n, t, hq, kpool.shape[1], dh,
                 kpool.shape[2], tables.shape[1], float(scale),
-                int(window) if window is not None else 0, _stream(q))
+                int(window) if window is not None else 0)
+        with torch.cuda.device(q.device):
+            if route == "prefill_tc":
+                rc = _lib().paged_prefill_tc_launch(
+                    *args, prefill_tc_blocks(t, hq // kpool.shape[1]), _stream(q))
+            else:
+                rc = _lib().paged_attention_launch(*args, _stream(q))
         _raise_on(rc, route)
     paged_attention.launches += 1
     paged_attention.tc_launches += route == "prefill_tc"
@@ -296,10 +335,12 @@ def _check(q, kpool, vpool, ints, alibi_slopes, block_size, window, route):
         raise ValueError(f"paged_attention kernel: head_dim {dh} not in {_HEAD_DIMS}")
     if bs < 1 or bs > 128 or bs & (bs - 1):
         raise ValueError(f"paged_attention kernel: block_size {bs} must be a power of two <= 128")
-    smem = _lib().paged_attention_smem_bytes(dh, bs)
-    if route == "cuda_core" and smem > _SMEM_LIMIT:
+    lib = _lib()
+    smem = (lib.paged_prefill_tc_smem_bytes(dh) if route == "prefill_tc"
+            else lib.paged_attention_smem_bytes(dh, bs) if route == "cuda_core" else 0)
+    if smem > _SMEM_LIMIT:
         raise ValueError(f"paged_attention kernel: head_dim {dh} with block_size {bs} needs "
-                         f"{smem} bytes of shared memory (> {_SMEM_LIMIT})")
+                         f"{smem} bytes of shared memory on the {route} route (> {_SMEM_LIMIT})")
     if window is not None and window < 1:
         raise ValueError(f"paged_attention kernel: window must be >= 1, got {window}")
     tables = ints[0]
@@ -334,8 +375,10 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("paged_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
+        args = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i]
+        lib.paged_attention_launch.argtypes = args + [p]
+        lib.paged_prefill_tc_launch.argtypes = args + [i, p]
         for fn in (lib.paged_attention_launch, lib.paged_prefill_tc_launch):
-            fn.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
             fn.restype = i
         lib.paged_decode_launch.argtypes = [i] + [p] * 10 + [i] * 7 + [ctypes.c_float] + \
             [i] * 3 + [p]
@@ -343,6 +386,8 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.paged_decode_launch, lib.paged_decode_merge_launch):
             fn.restype = i
         lib.paged_attention_smem_bytes.argtypes = [i, i]
-        lib.paged_attention_smem_bytes.restype = i
+        lib.paged_prefill_tc_smem_bytes.argtypes = [i]
+        for fn in (lib.paged_attention_smem_bytes, lib.paged_prefill_tc_smem_bytes):
+            fn.restype = i
         _LIB = lib
     return _LIB

@@ -42,8 +42,9 @@ def cuda():
 
 
 # (name, dtype, H, KV, Dh, bs, T, lengths, n_tokens, window, alibi); T < 16
-# takes the split-K decode kernel, T >= 16 with bf16/fp16 and head dim 64 or
-# 128 the tensor-core prefill kernel, the rest the CUDA-core kernel
+# takes the split-K decode kernel, T >= 16 with bf16/fp16 the tensor-core
+# prefill kernel (every head dim and group), fp32 at T >= 16 the CUDA-core
+# kernel
 CASES = [
     ("gqa_decode_fp32", torch.float32, 8, 2, 128, 16, 1, [1, 37, 300, 0], [1, 1, 1, 0], None,
      False),
@@ -70,8 +71,13 @@ CASES = [
      [4096, 1, 768, 769, 1536, 0], [1, 1, 1, 1, 1, 0], 1000, False),
     ("mqa32_decode_split_edges_fp32", torch.float32, 32, 1, 64, 64, 1,
      [4096, 1, 768, 769, 1536, 0], [1, 1, 1, 1, 1, 0], 700, True),
-    ("cuda_core_d256_t16_bf16", torch.bfloat16, 8, 2, 256, 16, 16, [40, 300], [16, 9], None,
+    ("tc_d256_t16_bf16", torch.bfloat16, 8, 2, 256, 16, 16, [40, 300], [16, 9], None, False),
+    # the tensor-core prefill kernel's other widths: a group of 128 (a
+    # token's heads over two row blocks), head dim 32 with ALiBi and a window
+    ("tc_mqa128_t16_bf16", torch.bfloat16, 128, 1, 64, 16, 16, [100, 16, 0], [16, 7, 0], None,
      False),
+    ("tc_d32_t20_alibi_window_fp16", torch.float16, 4, 4, 32, 8, 20, [20, 57, 300],
+     [20, 11, 1], 30, True),
     # fp32 chunks of T >= 16 take the CUDA-core kernel: the fp32 slice's
     # Mistral-width prefill (T = 128) and a head dim 32 chunk with ALiBi
     ("cuda_core_gqa4_t128_window_fp32", torch.float32, 32, 8, 128, 16, 128, [70, 33],
@@ -105,11 +111,14 @@ CASES = [
      [1, 1, 1, 0], None, False),
     ("cuda_core_qwen2_group7_t32_fp32", torch.float32, 28, 4, 128, 16, 32, [32, 300],
      [32, 9], None, False),
-    # GPT-J-6B's heads: 16 over 16, head dim 256 (prefill on the CUDA-core route)
+    # GPT-J-6B's heads: 16 over 16, head dim 256 (bf16 prefill on tensor cores,
+    # 32-key tiles; fp32 on the CUDA-core kernel), and its 512-token prefill
     ("gptj_decode_mha_d256_bf16", torch.bfloat16, 16, 16, 256, 16, 1, [1, 900, 2048],
      [1, 1, 1], None, False),
-    ("cuda_core_gptj_mha_d256_t32_bf16", torch.bfloat16, 16, 16, 256, 16, 32, [32, 300],
+    ("tc_gptj_mha_d256_t32_bf16", torch.bfloat16, 16, 16, 256, 16, 32, [32, 300],
      [32, 9], None, False),
+    ("tc_gptj_prefill_t512_bf16", torch.bfloat16, 16, 16, 256, 16, 512, [2048, 700],
+     [512, 300], None, False),
     ("gptj_decode_mha_d256_fp32", torch.float32, 16, 16, 256, 16, 1, [1, 900, 2048],
      [1, 1, 1], None, False),
     ("cuda_core_gptj_mha_d256_t32_fp32", torch.float32, 16, 16, 256, 16, 32, [32, 300],
@@ -162,7 +171,7 @@ def test_kernel_matches_plain_version(cuda, name, dtype, H, KV, Dh, bs, T, lengt
     the route the shape rule names (``decode_launches`` for T < 16); padding
     rows are exact zeros."""
     x = _case(len(name), dtype, H, KV, Dh, bs, T, lengths, n_tokens, alibi, cuda)
-    route = paged_module.paged_route(dtype, Dh, T, H // KV)
+    route = paged_module.paged_route(dtype, T)
     tc = route == "prefill_tc"
     assert tc == name.startswith("tc_") and (route == "decode") == (T < 16)
     counts = lambda: (paged_attention.launches, paged_attention.tc_launches,  # noqa: E731
@@ -188,7 +197,7 @@ def test_kernel_matches_plain_version(cuda, name, dtype, H, KV, Dh, bs, T, lengt
     assert bool((got[pad] == 0).all())
 
 
-def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, monkeypatch):
     x48 = _case(0, torch.float32, 4, 2, 48, 8, 1, [5, 9], [1, 1], False, cuda)
     with pytest.raises(ValueError, match="head_dim 48"):
         paged_attention(x48["q"], x48["kpool"], x48["vpool"], x48["tables"], x48["lengths"],
@@ -199,6 +208,24 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         paged_attention(x["q"], *args[:3], x["lengths"].long(), *args[4:], block_size=8)
     with pytest.raises(ValueError, match="block_size"):
         paged_attention(x["q"], *args, block_size=16)
+    # the CUDA-core kernel is built for fp32 only: its C entry refuses bf16
+    # and fp16 (the wrapper sends those to the tensor-core kernel)
+    xb = _case(0, torch.bfloat16, 4, 2, 64, 8, 16, [20, 9], [16, 9], False, cuda)
+    out = torch.empty_like(xb["q"])
+    for code in (1, 2):
+        rc = paged_module._lib().paged_attention_launch(
+            code, xb["q"].data_ptr(), xb["kpool"].data_ptr(), xb["vpool"].data_ptr(),
+            xb["tables"].data_ptr(), xb["lengths"].data_ptr(), xb["start_pos"].data_ptr(),
+            xb["n_tokens"].data_ptr(), None, out.data_ptr(), 2, 16, 4, 2, 64, 8,
+            xb["tables"].shape[1], 0.125, 0, torch.cuda.current_stream().cuda_stream)
+        assert rc != 0
+    # the tensor-core route checks its own shared memory against the limit
+    assert paged_module._lib().paged_prefill_tc_smem_bytes(256) == 101376
+    monkeypatch.setattr(paged_module, "_SMEM_LIMIT",
+                        paged_module._lib().paged_prefill_tc_smem_bytes(64) - 1)
+    with pytest.raises(ValueError, match="prefill_tc"):
+        paged_attention(xb["q"], xb["kpool"], xb["vpool"], xb["tables"], xb["lengths"],
+                        xb["start_pos"], xb["n_tokens"], block_size=8)
 
 
 @pytest.mark.parametrize("module,config", [
@@ -221,10 +248,8 @@ def test_engine_on_gpu_matches_engine_on_cpu(cuda, module, config):
     assert got == ref
     # fp32: steps of padded chunk < 16 on the split-K decode kernel, the rest
     # on the CUDA-core kernel, none on the tensor-core prefill kernel
-    head_dim = config.hidden_size // config.num_heads
-    group = config.num_heads // config.num_kv_heads
     narrow = sum(k for t, k in engine.chunk_widths.items()
-                 if paged_module.paged_route(torch.float32, head_dim, t, group) == "decode")
+                 if paged_module.paged_route(torch.float32, t) == "decode")
     assert 0 < narrow
     assert (paged_attention.launches - before[0], paged_attention.tc_launches - before[1],
             paged_attention.decode_launches - before[2]) == (
@@ -248,7 +273,7 @@ def test_bf16_engine_runs_the_prefill_kernel_on_wide_chunks(cuda):
               paged_attention.decode_launches)
     results = engine.generate(prompts, max_new_tokens=5, strict=False)
     wide = sum(k for t, k in engine.chunk_widths.items()
-               if paged_module.uses_prefill_tensor_cores(torch.bfloat16, 64, t, 4))
+               if paged_module.uses_prefill_tensor_cores(torch.bfloat16, t))
     assert 0 < wide < engine.forward_steps
     assert (paged_attention.launches - before[0], paged_attention.tc_launches - before[1],
             paged_attention.decode_launches - before[2]) == (
@@ -295,10 +320,8 @@ def test_family_graphs_match_the_eager_reference_loop(cuda, key):
     before = (paged_attention.launches, paged_attention.decode_launches)
     got = graphs.generate(GRAPH_PROMPTS, max_new_tokens=6)
     assert got == ref
-    head_dim = cfg.hidden_size // cfg.num_heads
-    group = cfg.num_heads // getattr(cfg, "num_kv_heads", cfg.num_heads)
     narrow = sum(k for t, k in graphs.chunk_widths.items()
-                 if paged_module.paged_route(torch.float32, head_dim, t, group) == "decode")
+                 if paged_module.paged_route(torch.float32, t) == "decode")
     assert (paged_attention.launches - before[0], paged_attention.decode_launches - before[1]) \
         == (graphs.forward_steps * cfg.num_layers, narrow * cfg.num_layers)
 

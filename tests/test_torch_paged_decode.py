@@ -238,19 +238,21 @@ def test_merge_of_all_empty_splits_is_zero():
 
 
 def test_dispatch_rule_and_cpu_counts():
-    """T < 16 takes the decode route for every dtype and head dim; bf16/fp16
-    chunks of T >= 16 with head dim 64/128 and a group <= 64 the tensor-core
-    prefill; the rest the CUDA-core kernel.  CPU calls count nothing."""
+    """T < 16 takes the decode route for every dtype; bf16/fp16 chunks of
+    T >= 16 the tensor-core prefill, whatever their head dim and group (the
+    rule reads neither); fp32 chunks of T >= 16 the CUDA-core kernel.  The
+    tensor-core kernel's row blocks cover every head dim's and group's
+    T x group rows.  CPU calls count nothing."""
     route = paged.paged_route
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        for dh in (32, 64, 128, 256):
-            assert route(dtype, dh, 1, 4) == route(dtype, dh, 15, 64) == "decode"
-            assert route(dtype, dh, 5, 128) == "decode"
+        assert route(dtype, 1) == route(dtype, 5) == route(dtype, 15) == "decode"
     for dtype in (torch.bfloat16, torch.float16):
-        assert route(dtype, 128, 16, 4) == route(dtype, 64, 512, 64) == "prefill_tc"
-        assert route(dtype, 32, 16, 4) == route(dtype, 256, 64, 1) == "cuda_core"
-        assert route(dtype, 128, 64, 128) == "cuda_core"
-    assert route(torch.float32, 128, 512, 4) == "cuda_core"
+        assert route(dtype, 16) == route(dtype, 64) == route(dtype, 512) == "prefill_tc"
+    assert route(torch.float32, 16) == route(torch.float32, 512) == "cuda_core"
+    for group in (1, 4, 7, 32, 64, 96, 128):
+        for chunk in (16, 20, 512):
+            blocks = paged.prefill_tc_blocks(chunk, group)
+            assert (blocks - 1) * paged.TC_ROWS < chunk * group <= blocks * paged.TC_ROWS
     _, t = _inputs(3, 2, 1, 4, 2, 64, 16, [40, 16], [1, 1], False)
     fn = paged.paged_attention
     before = (fn.launches, fn.tc_launches, fn.decode_launches)

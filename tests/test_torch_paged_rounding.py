@@ -8,7 +8,9 @@ of the plain version that rounds P the same way (``paged_attention_reference(
 versions and a tile emulation of the prefill kernel pass the limit, that the
 limit rejects the faults such a kernel could plausibly have, and that the fp32
 plain version still equals the JAX package's paged attention (the Pallas
-kernel in interpret mode and its dense fallback) on a prefill-shaped case."""
+kernel in interpret mode and its dense fallback) on prefill-shaped cases,
+and that the host geometry of the kernel's row blocks and key ranges covers
+every row and key for any group."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,15 +24,19 @@ from deepspeed_tpu_torch.models.transformer import sdpa
 from deepspeed_tpu_torch.ops.attention import flash, paged
 
 DTYPES = [torch.bfloat16, torch.float16]
-KEY_TILE = 64  # keys a tile in the tensor-core prefill kernel
 ALIBI = [0.5, 0.25, 0.125, 0.0625]
 
 # (name, N, T, H, KV, Dh, bs, lengths, n_tokens, window, alibi): chunks that
-# start off a key tile, GQA, MHA, a window, ALiBi, padding and zero-length rows
+# start off a key tile, GQA, MHA, a window, ALiBi, padding and zero-length
+# rows, at every head dim the tensor-core kernel takes (D = 256 with its
+# 32-key tiles) and a group of 128 (a token's heads over two row blocks)
 CASES = [
     ("gqa_window_ragged_start", 2, 80, 4, 2, 64, 16, [200, 90], [80, 50], 64, False),
     ("mha_alibi_padding", 3, 32, 4, 4, 64, 8, [150, 32, 0], [32, 7, 0], None, True),
     ("mqa_window_alibi", 2, 16, 4, 1, 64, 32, [300, 16], [16, 16], 100, True),
+    ("d256_gqa4_window_padding", 3, 16, 8, 2, 256, 16, [40, 300, 0], [16, 9, 0], 100, False),
+    ("d32_mha_alibi_window", 3, 20, 4, 4, 32, 8, [20, 57, 300], [20, 11, 1], 30, True),
+    ("mqa128_alibi_padding", 2, 16, 128, 1, 64, 16, [100, 16], [16, 7], None, True),
 ]
 
 
@@ -58,7 +64,7 @@ def _inputs(seed, N, T, H, KV, Dh, bs, lengths, n_tokens, alibi, dtype=torch.flo
          "vpool": rng.normal(size=(nb, KV, bs, Dh)).astype(np.float32),
          "tables": tables, "lengths": lengths, "start_pos": lengths - n_tokens,
          "n_tokens": n_tokens,
-         "slopes": np.asarray(ALIBI[:H] + ALIBI[:max(0, H - 4)], np.float32) if alibi else None}
+         "slopes": np.asarray([ALIBI[h % 4] for h in range(H)], np.float32) if alibi else None}
     t = {k: torch.from_numpy(v) for k, v in x.items() if v is not None}
     for name in ("q", "kpool", "vpool"):
         t[name] = t[name].to(dtype)
@@ -98,13 +104,15 @@ def plain_before_round_to(q, kpool, vpool, tables, lengths, start_pos, n_tokens,
 
 def emulate_prefill(q, kpool, vpool, tables, lengths, start_pos, n_tokens, scale, window,
                     alibi_slopes=None, fault=None):
-    """The tensor-core prefill kernel's arithmetic: 64-key tiles read through
-    the block table, per row a running max, P relative to it rounded to the
-    input type before ``P V``, l summing the fp32 P, the correction applied to
-    l and the accumulator, masks by each row's own token and head; rows with
-    l == 0 and padding rows are zero.  (A block's 64 rows of tokens x heads
-    only choose which tiles it visits; a tile that is masked for a row leaves
-    that row's state as it was.)  ``fault``: ``"last_block_dropped"`` (the
+    """The tensor-core prefill kernel's arithmetic, block by block: each
+    (sequence, kv head)'s T x group rows cut into blocks of ``paged.TC_ROWS``
+    (``paged.prefill_tc_blocks``), each block reading the keys of
+    ``paged.prefill_tc_keys`` in tiles of ``paged.prefill_tc_key_tile(Dh)``
+    through the block table (keys of a tile past the block's range come in
+    as zeros and are masked); per row a running max, P relative to it rounded to the input type before
+    ``P V``, l summing the fp32 P, the correction applied to l and the
+    accumulator, masks by each row's own token and head; rows with l == 0
+    and padding rows are zero.  ``fault``: ``"last_block_dropped"`` (the
     last 16 keys of every sequence unseen), ``"causal_off_by_one"`` (one key
     past the query seen), ``"window_off_by_one"`` (one key before the window
     seen), ``"alibi_dropped"``, ``"stale_max"`` (the accumulator not
@@ -112,41 +120,50 @@ def emulate_prefill(q, kpool, vpool, tables, lengths, start_pos, n_tokens, scale
     n, t, hq, dh = q.shape
     kvh, bs = kpool.shape[1], kpool.shape[2]
     maxb = tables.shape[1]
-    dt = q.dtype
-    idx = tables.long()
     group = hq // kvh
+    tile = paged.prefill_tc_key_tile(dh)
+    reach = 1 if fault == "causal_off_by_one" else 0
+    early = 1 if fault == "window_off_by_one" else 0
+    idx = tables.long()
     ctx_k = kpool[idx].transpose(2, 3).reshape(n, maxb * bs, kvh, dh).float()
     ctx_v = vpool[idx].transpose(2, 3).reshape(n, maxb * bs, kvh, dh).float()
-    ctx_k, ctx_v = (x.repeat_interleave(group, 2) for x in (ctx_k, ctx_v))
-    qpos = (start_pos.long()[:, None] + torch.arange(t)[None, :])[:, None, :, None]  # [n,1,t,1]
-    live = (torch.arange(t)[None, :] < n_tokens.long()[:, None])[:, None, :, None]
-    length = lengths.long()[:, None, None, None]
-    if fault == "last_block_dropped":
-        length = (length - 16).clamp_min(0)
-    reach = 1 if fault == "causal_off_by_one" else 0
-    keys = maxb * bs
-    m = torch.full((n, hq, t, 1), flash.NEG_INF)
-    l = torch.zeros(n, hq, t, 1)
-    acc = torch.zeros(n, hq, t, dh)
-    for k0 in range(0, keys, KEY_TILE):
-        kpos = torch.arange(k0, min(k0 + KEY_TILE, keys))[None, None, None, :]
-        vis = live & (kpos < length) & (kpos <= qpos + reach)
-        if window is not None:
-            vis = vis & (kpos > qpos - window - (1 if fault == "window_off_by_one" else 0))
-        s = torch.einsum("nthd,nkhd->nhtk", q.float(), ctx_k[:, k0:k0 + KEY_TILE]) * scale
-        if alibi_slopes is not None and fault != "alibi_dropped":
-            s = s + alibi_slopes.float()[None, :, None, None] * kpos.float()
-        s = torch.where(vis, s, flash.NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        p = torch.where(vis, torch.exp(s - m_new), 0.0)
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(-1, keepdim=True)
-        acc_corr = torch.ones_like(corr) if fault == "stale_max" else corr
-        acc = acc * acc_corr + torch.einsum("nhtk,nkhd->nhtd", p.to(dt).float(),
-                                            ctx_v[:, k0:k0 + KEY_TILE])
-        m = m_new
-    out = torch.where((l > 0) & live, acc / torch.where(l > 0, l, 1.0), 0.0)
-    return out.permute(0, 2, 1, 3).to(dt)
+    out = torch.zeros(n, t, hq, dh)
+    for i in range(n):
+        length = int(lengths[i]) - (16 if fault == "last_block_dropped" else 0)
+        keys = min(max(0, length), maxb * bs)
+        start, live = int(start_pos[i]), min(t, int(n_tokens[i]))
+        for g in range(kvh):
+            for b in range(paged.prefill_tc_blocks(t, group)):
+                begin, end = paged.prefill_tc_keys(b, t, group, start, keys, live, window)
+                r = torch.arange(b * paged.TC_ROWS, min((b + 1) * paged.TC_ROWS, t * group))
+                tok, head = r // group, g * group + r % group
+                qpos = (start + tok)[:, None]
+                qr = q[i, tok, head].float()
+                m = torch.full((len(r), 1), flash.NEG_INF)
+                l = torch.zeros(len(r), 1)
+                acc = torch.zeros(len(r), dh)
+                for k0 in range(begin // tile * tile, end, tile):
+                    kpos = torch.arange(k0, k0 + tile)[None, :]
+                    read = (kpos[0] < end)[:, None]  # keys past the range come in as zeros
+                    kt = torch.where(read, ctx_k[i, kpos[0].clamp_max(keys - 1), g], 0.0)
+                    vt = torch.where(read, ctx_v[i, kpos[0].clamp_max(keys - 1), g], 0.0)
+                    vis = (tok < live)[:, None] & (kpos < keys) & (kpos <= qpos + reach)
+                    if window is not None:
+                        vis = vis & (kpos > qpos - window - early)
+                    s = qr @ kt.T * scale
+                    if alibi_slopes is not None and fault != "alibi_dropped":
+                        s = s + alibi_slopes.float()[head][:, None] * kpos.float()
+                    s = torch.where(vis, s, flash.NEG_INF)
+                    m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                    p = torch.where(vis, torch.exp(s - m_new), 0.0)
+                    corr = torch.exp(m - m_new)
+                    l = l * corr + p.sum(-1, keepdim=True)
+                    acc = (acc * (1.0 if fault == "stale_max" else corr)
+                           + p.to(q.dtype).float() @ vt)
+                    m = m_new
+                out[i, tok, head] = torch.where((l > 0) & (tok < live)[:, None],
+                                                acc / torch.where(l > 0, l, 1.0), 0.0)
+    return out.to(q.dtype)
 
 
 def _limits(t, Dh, window, dtype):
@@ -193,14 +210,24 @@ def test_rounding_versions_and_prefill_emulation_pass_the_limit(dtype, name, N, 
 
 FAULTS = ["last_block_dropped", "causal_off_by_one", "window_off_by_one", "alibi_dropped",
           "stale_max"]
-FAULT_CASE = ("fault", 2, 80, 4, 2, 64, 16, [200, 90], [80, 50], 64, True)
+# each with a window, ALiBi and rows that see several key tiles, so that
+# every fault shows: GQA at head dim 64, head dim 256 (32-key tiles), head
+# dim 32, a group of 128
+FAULT_CASES = [
+    ("fault", 2, 80, 4, 2, 64, 16, [200, 90], [80, 50], 64, True),
+    ("fault_d256", 3, 16, 8, 2, 256, 16, [40, 300, 0], [16, 9, 0], 30, True),
+    ("fault_d32", 3, 20, 4, 4, 32, 8, [20, 150, 300], [20, 11, 1], 30, True),
+    ("fault_mqa128", 2, 16, 128, 1, 64, 16, [100, 40], [16, 7], 30, True),
+]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp16"])
 @pytest.mark.parametrize("fault", FAULTS)
-def test_limit_rejects_prefill_faults(dtype, fault):
-    name, N, T, H, KV, Dh, bs, lengths, n_tokens, window, alibi = FAULT_CASE
-    _, t = _inputs(11, N, T, H, KV, Dh, bs, lengths, n_tokens, alibi, dtype)
+@pytest.mark.parametrize("case", FAULT_CASES, ids=_ids(FAULT_CASES))
+def test_limit_rejects_prefill_faults(dtype, fault, case):
+    name, N, T, H, KV, Dh, bs, lengths, n_tokens, window, alibi = case
+    _, t = _inputs(11 + FAULT_CASES.index(case), N, T, H, KV, Dh, bs, lengths, n_tokens, alibi,
+                   dtype)
     ref, rounded = _limits(t, Dh, window, dtype)
     args = _args(t, Dh, window)
     assert flash.tensor_core_limit(emulate_prefill(*args), ref, rounded)[0]
@@ -224,12 +251,22 @@ def test_decode_limit_is_the_store_and_rejects_a_dropped_block(dtype):
     assert not flash.tensor_core_limit(dropped, ref, ref)[0]
 
 
-def test_fp32_plain_version_matches_jax_on_a_prefill_case():
-    """Several key tiles, GQA, a window and a chunk that starts off a tile:
-    the fp32 plain version against the JAX package's Pallas kernel (interpret
-    mode) and dense fallback at 2e-5, as tests/test_torch_paged_attention.py
-    does at decode sizes."""
-    name, N, T, H, KV, Dh, bs, lengths, n_tokens, window, _ = CASES[0]
+# small enough for the JAX kernel's interpret mode (a grid of N x H x table
+# slots): CASES[0], head dim 256 and a group of 128
+JAX_CASES = [
+    CASES[0],
+    ("d256_gqa4_window", 2, 16, 8, 2, 256, 16, [40, 100], [16, 9], 50, False),
+    ("mqa128_window", 1, 16, 128, 1, 64, 32, [40], [16], 20, False),
+]
+
+
+@pytest.mark.parametrize("case", JAX_CASES, ids=_ids(JAX_CASES))
+def test_fp32_plain_version_matches_jax_on_a_prefill_case(case):
+    """Several key tiles, GQA, a window and a chunk that starts off a tile;
+    head dim 256; a group of 128: the fp32 plain version against the JAX
+    package's Pallas kernel (interpret mode) and dense fallback at 2e-5, as
+    tests/test_torch_paged_attention.py does at decode sizes."""
+    name, N, T, H, KV, Dh, bs, lengths, n_tokens, window, _ = case
     x, t = _inputs(13, N, T, H, KV, Dh, bs, lengths, n_tokens, False)
     got = paged.paged_attention(t["q"], t["kpool"], t["vpool"], t["tables"], t["lengths"],
                                 t["start_pos"], t["n_tokens"], block_size=bs,
@@ -250,18 +287,73 @@ def test_fp32_plain_version_matches_jax_on_a_prefill_case():
 
 
 def test_dispatch_rule_and_cpu_counts():
-    """bf16/fp16 chunks of 16 or more tokens with head dim 64 or 128 and a
-    GQA group of at most 64 take the tensor-core prefill kernel; decode,
-    fp32, head dim 32 or 256 and larger groups the CUDA-core one.  CPU
-    tensors launch nothing and count nothing."""
+    """bf16/fp16 chunks of 16 or more tokens take the tensor-core prefill
+    kernel at every head dim and group (the rule reads neither); decode and
+    fp32 chunks do not.  CPU tensors launch nothing and count nothing."""
     rule = paged.uses_prefill_tensor_cores
     for dtype in DTYPES:
-        assert rule(dtype, 128, 16, 4) and rule(dtype, 64, 512, 1) and rule(dtype, 128, 32, 64)
-        assert not (rule(dtype, 128, 15, 4) or rule(dtype, 128, 1, 4) or rule(dtype, 32, 64, 1)
-                    or rule(dtype, 256, 64, 1) or rule(dtype, 128, 64, 128))
-    assert not rule(torch.float32, 128, 512, 4)
+        assert rule(dtype, 16) and rule(dtype, 512)
+        assert not (rule(dtype, 15) or rule(dtype, 1))
+    assert not (rule(torch.float32, 512) or rule(torch.float32, 16))
     _, t = _inputs(14, 2, 16, 4, 2, 64, 16, [40, 16], [16, 16], False, torch.bfloat16)
     before = (paged.paged_attention.launches, paged.paged_attention.tc_launches)
     paged.paged_attention(t["q"], t["kpool"], t["vpool"], t["tables"], t["lengths"],
                           t["start_pos"], t["n_tokens"], block_size=16)
     assert (paged.paged_attention.launches, paged.paged_attention.tc_launches) == before
+
+
+def _old_tiling(t, group, start, keys, n_tokens, window):
+    """The tensor-core kernel's blocks before any group was taken (groups
+    dividing 64 only): block b held tokens [b q_tile, (b + 1) q_tile), q_tile
+    = 64 / group, and read keys from the window start of its first token to
+    the causal end of its last live one; (first token, last token, begin,
+    end) a block."""
+    q_tile = paged.TC_ROWS // group
+    out = []
+    for b in range(-(-t // q_tile)):
+        t0 = b * q_tile
+        t_hi = min(t0 + q_tile, min(t, n_tokens))
+        begin = end = 0
+        if t_hi > t0:
+            end = min(keys, start + t_hi)
+            begin = max(0, start + t0 - window + 1) if window else 0
+        out.append((t0, min(t0 + q_tile, t) - 1, begin, end))
+    return out
+
+
+@pytest.mark.parametrize("group", [1, 4, 7, 64, 128])
+def test_prefill_row_blocks_and_key_ranges(group):
+    """The tensor-core prefill kernel's host geometry at T = 16, 64 and 512:
+    every row of the T x group row space lies in one block of 64 (the last
+    short); each block's key range starts at its first row's window start
+    and ends at its last live row's causal end, so it holds every key any of
+    its live rows sees, and is (0, 0) for a block with no live row.  For
+    groups that divide 64 the blocks and ranges equal the old tiling of
+    64 / group whole tokens a block."""
+    for t in (16, 64, 512):
+        blocks = paged.prefill_tc_blocks(t, group)
+        assert (blocks - 1) * paged.TC_ROWS < t * group <= blocks * paged.TC_ROWS
+        # (start, keys, live tokens, window): a whole chunk, a ragged one
+        # with a window, a decode row padded into the chunk, an empty one
+        for start, keys, live, window in ((0, t, t, None), (100, 100 + t - 3, t - 3, 50),
+                                          (36, 37, 1, 20), (0, 0, 0, None)):
+            ranges = [paged.prefill_tc_keys(b, t, group, start, keys, live, window)
+                      for b in range(blocks)]
+            for b, (begin, end) in enumerate(ranges):
+                rows = range(b * paged.TC_ROWS, min((b + 1) * paged.TC_ROWS, t * group))
+                toks = sorted({r // group for r in rows if r // group < live})
+                if not toks:
+                    assert (begin, end) == (0, 0)
+                    continue
+                for tok in toks:  # the keys the row's token sees lie in the range
+                    lo = max(0, start + tok - window + 1) if window else 0
+                    assert begin <= lo and min(keys, start + tok + 1) <= end
+                assert begin == (max(0, start + toks[0] - window + 1) if window else 0)
+                assert end == min(keys, start + toks[-1] + 1)
+            if paged.TC_ROWS % group == 0:
+                old = _old_tiling(t, group, start, keys, live, window)
+                assert len(old) == blocks
+                for b, (t0, t1, begin, end) in enumerate(old):
+                    assert (t0, t1) == (b * paged.TC_ROWS // group,
+                                        (min((b + 1) * paged.TC_ROWS, t * group) - 1) // group)
+                    assert (begin, end) == ranges[b]
