@@ -310,17 +310,19 @@ PAGED_TYPES = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
 
 
 def paged_prefill_usage(build_log):
-    """{"<kernel><type, head dim>": (registers, spill-store bytes)} of the
-    paged prefill kernels (tensor-core and CUDA-core) from nvcc's ``-Xptxas
-    -v`` output: an entry's "Compiling entry" line, then its spill line and
-    its "Used N registers" line."""
+    """{"<kernel><type, head dim[, rows]>": (registers, spill-store bytes)}
+    of the paged kernels (tensor-core prefill, CUDA-core, split-K decode)
+    from nvcc's ``-Xptxas -v`` output: an entry's "Compiling entry" line,
+    then its spill line and its "Used N registers" line."""
     usage, entry, spill = {}, None, 0
     for line in build_log.splitlines():
         found = re.search(r"Compiling entry function '\S*?(paged_prefill_tc_kernel|"
-                          r"paged_attention_kernel)I(\w+?)Li(\d+)E", line)
+                          r"paged_attention_kernel|paged_decode_kernel)I(\w+?)Li(\d+)E"
+                          r"(?:Li(\d+)E)?", line)
         if "Compiling entry" in line:
+            rows = f", {found.group(4)}" if found and found.group(4) else ""
             entry = (f"{found.group(1)}<{PAGED_TYPES.get(found.group(2), found.group(2))}, "
-                     f"{found.group(3)}>" if found else None)
+                     f"{found.group(3)}{rows}>" if found else None)
         elif entry and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
         elif entry and "registers" in line:
@@ -438,6 +440,25 @@ def late_rows_scaled(got, n_tokens, rows=64, factor=1.05):
     return bad
 
 
+def width_faults(c, got):
+    """The failures a kernel that covered only 32-divisible widths or 32-row
+    head blocks would show: at head dim 80 ``got`` with columns 64-79
+    zeroed; at a GQA group of 71 with q heads 64-70 of every kv head
+    zeroed.  Empty for other shapes."""
+    n, t, h, d = got.shape
+    group = h // c["kpool"].shape[1]
+    faults = {}
+    if d == 80:
+        bad = got.clone()
+        bad[..., 64:] = 0
+        faults["columns 64-79 zeroed"] = bad
+    if group == 71:
+        bad = got.clone()
+        bad.view(n, t, h // group, group, d)[:, :, :, 64:] = 0
+        faults["heads 64-70 zeroed"] = bad
+    return faults
+
+
 def compare(name, c):
     """The kernel once against its plain version.  fp32 at atol=rtol 1e-4;
     bf16/fp16 held to ``flash.tensor_core_limit`` row by row (a row is one
@@ -448,7 +469,8 @@ def compare(name, c):
     limit must reject the kernel run with the last 16-key block of every
     sequence dropped, the last 64 live rows of every sequence scaled by 1.05
     and, for the decode kernel, the last split of every sequence left out of
-    the merge.  Padding rows are exact zeros."""
+    the merge.  At head dim 80 and at a group of 71 the check (either one)
+    must also reject :func:`width_faults`.  Padding rows are exact zeros."""
     import torch
     from deepspeed_tpu_torch.ops.attention import flash
     from deepspeed_tpu_torch.ops.attention.paged import paged_attention
@@ -472,6 +494,14 @@ def compare(name, c):
                                  f"{err.max().item():.3e}, {int(bad.sum())} elements beyond "
                                  f"atol=rtol=1e-4")
         max_err, rule = err.max().item(), "atol=rtol=1e-4"
+        beyond = {}
+        for fault, wrong in width_faults(c, got).items():
+            beyond[fault] = int(((wrong - ref).abs() > 1e-4 + 1e-4 * ref.abs()).sum())
+            if not beyond[fault]:
+                raise AssertionError(f"{name}: atol=rtol=1e-4 passes a kernel with the {fault}")
+        if beyond:
+            rule += "; " + ", ".join(f"{fault}: {k} elements beyond, rejected"
+                                     for fault, k in beyond.items())
     else:
         ref = run_plain(c, fp32=True)
         rounded = run_plain(c, round_to=dtype if tc else None, fp32=True)
@@ -485,6 +515,7 @@ def compare(name, c):
                   "last 64 rows x1.05": late_rows_scaled(got, c["n_tokens"])}
         if dec:
             faults["last split left out of the merge"] = last_split_dropped(c)
+        faults.update(width_faults(c, got))
         shares = {}
         for fault, bad in faults.items():
             passed, _, shares[fault], _ = flash.tensor_core_limit(bad, ref, rounded)
@@ -589,25 +620,25 @@ def graph_ms(fn):
     return time_ms(graph.replay) / GRAPH_CALLS
 
 
-def prefill_times(card):
-    """[prefill-times]: one eager call (``time_ms``) and the graph-replay
-    time (``graph_ms``) of each case of ``PREFILL_TIMED``, with whatever
+def paged_times(card):
+    """[paged-times]: one eager call (``time_ms``) and the graph-replay time
+    (``graph_ms``) of each case of ``PAGED_TIMED``, with whatever
     ``deepspeed_tpu_torch`` is first on sys.path; builds only the paged
-    library.  ``python3 chip_smoke.py --prefill-times DIR`` puts the
-    checkout in DIR first, so that two trees are compared on one card, in
-    turns, by the same cases and clocks.  Prints one JSON line."""
+    library.  ``python3 chip_smoke.py --paged-times DIR`` puts the checkout
+    in DIR first, so that two trees are compared on one card, in turns, by
+    the same cases and clocks.  Prints one JSON line."""
     import torch
     from deepspeed_tpu_torch.ops.attention import paged
-    log(f"[prefill-times] {paged.__file__} on {card}")
+    log(f"[paged-times] {paged.__file__} on {card}")
     paged._lib()
     cases = paged_cases()
     out = {}
     with torch.no_grad():
-        for name in PREFILL_TIMED:
+        for name in PAGED_TIMED:
             c = cases[name]
             out[name] = {"ms": time_ms(lambda: run_kernel(c)),
                          "graph_ms": graph_ms(lambda: run_kernel(c))}
-    log(json.dumps({"prefill_times": out, "package": paged.__file__}))
+    log(json.dumps({"paged_times": out, "package": paged.__file__}))
     return 0
 
 
@@ -702,13 +733,21 @@ def paged_cases():
     cases.update(verify_cases())
     cases.update(family_cases())
     # the CUDA-core kernel's chunks (fp32 at T >= 16): the fp32 slice's
-    # Mistral-width prefill and head dim 256
+    # Mistral-width prefill, head dim 256, Phi-2's heads (32 over 32 at head
+    # dim 80: a lane's third column masked) and Falcon-7B's (71 over 1 at
+    # head dim 64: a token's heads across 32-row blocks)
     cuda_core_edges = {
         "cuda_core_slice_t128_fp32": dict(N=2, T=128, lengths=[70, 33], n_tokens=[70, 33],
                                           dtype=torch.float32, **mistral),
         "cuda_core_t64_d256_mha_fp32": dict(N=2, T=64, H=4, KV=4, Dh=256, bs=32,
                                             lengths=[64, 500], n_tokens=[64, 37],
                                             dtype=torch.float32),
+        "cuda_core_t64_d80_mha_fp32": dict(N=2, T=64, H=32, KV=32, Dh=80, bs=16,
+                                           lengths=[64, 500], n_tokens=[64, 37],
+                                           dtype=torch.float32),
+        "cuda_core_t32_d64_mqa71_fp32": dict(N=2, T=32, H=71, KV=1, Dh=64, bs=16,
+                                             lengths=[32, 300], n_tokens=[32, 9],
+                                             dtype=torch.float32),
     }
     for seed, (edge, kw) in enumerate(cuda_core_edges.items(), start=300):
         cases[edge] = make_case(seed, **kw)
@@ -733,7 +772,7 @@ def phase_kernel(card):
     recs = {name: measure(name, cases[name])
             for name in ("mistral_decode", "mistral_prefill", "llama2_decode", "llama2_prefill",
                          "serve_decode_n16", *CUDA_CORE_CASES, *MOVED_CASES, *VERIFY_CASES,
-                         *FAMILY_CASES)}
+                         *FAMILY_CASES, *PHI_FALCON_CASES)}
     for name, rec in recs.items():
         log(f"[kernel] {name} on {card}: {json.dumps({k: rec[k] for k in PAGED_FIELDS})}")
     for name in ("llama2_decode", "mistral_decode", "serve_decode_n16"):
@@ -825,24 +864,42 @@ def verify_cases():
 FAMILY_CASES = ("qwen2_decode_n16_bf16", "qwen2_t5_n16_bf16", "qwen2_prefill_t512_bf16",
                 "qwen2_decode_n16_fp32", "gptj_decode_n16_bf16", "gptj_prefill_t512_bf16",
                 "opt_decode_n16_bf16", "opt_prefill_t512_bf16")
-CUDA_CORE_CASES = ("cuda_core_slice_t128_fp32", "cuda_core_t64_d256_mha_fp32")
+# Phi-2 (32 q heads over 32 at head dim 80) and Falcon-7B (71 over 1 at head
+# dim 64) at the shapes of FAMILY_CASES: decode on the small-row instance
+# (Phi) and on 9 row blocks of 8 a kv head (Falcon), a T = 5 chunk on the
+# 8-row instance, a 512-token prefill on tensor cores (568 row blocks of 64
+# a sequence for Falcon), Phi's fp32 decode on 32-key tiles; and the masks
+# (ALiBi, a window) at head dim 80 on both bf16/fp16 routes
+PHI_FALCON_CASES = ("phi2_decode_n16_bf16", "phi2_t5_n16_bf16", "phi2_prefill_t512_bf16",
+                    "phi2_decode_n16_fp32", "falcon7b_decode_n16_bf16", "falcon7b_t5_n16_bf16",
+                    "falcon7b_prefill_t512_bf16", "prefill_t20_bs8_d80_alibi_window_fp16",
+                    "decode_t1_bs8_d80_alibi_window_fp16")
+CUDA_CORE_CASES = ("cuda_core_slice_t128_fp32", "cuda_core_t64_d256_mha_fp32",
+                   "cuda_core_t64_d80_mha_fp32", "cuda_core_t32_d64_mqa71_fp32")
 # the bf16/fp16 shapes the CUDA-core kernel served until it kept only fp32,
 # timed on tensor cores: head dim 256 with GQA 4 and a window, head dim 32
 # with ALiBi and a window, a group of 128
 MOVED_CASES = ("prefill_t16_bs16_d256_gqa4_window_bf16", "prefill_t20_bs8_d32_alibi_window_fp16",
                "prefill_t16_bs16_d64_mqa128_bf16")
-# the paged prefill cases (bf16/fp16, T >= 16) --prefill-times times
-PREFILL_TIMED = ("mistral_prefill", "llama2_prefill", "qwen2_prefill_t512_bf16",
-                 "opt_prefill_t512_bf16", "gptj_prefill_t512_bf16", *MOVED_CASES)
+# the paged cases --paged-times times: the prefill cases (bf16/fp16, T >= 16),
+# the decode cases at head dims 64, 128 and 256 and the fp32 CUDA-core chunk,
+# shapes that a tree without head dim 80 or a group of 71 takes too
+PAGED_TIMED = ("mistral_prefill", "llama2_prefill", "qwen2_prefill_t512_bf16",
+               "opt_prefill_t512_bf16", "gptj_prefill_t512_bf16", *MOVED_CASES,
+               "mistral_decode", "llama2_decode", "serve_decode_n16", "qwen2_decode_n16_bf16",
+               "qwen2_t5_n16_bf16", "qwen2_decode_n16_fp32", "gptj_decode_n16_bf16",
+               "opt_decode_n16_bf16", "verify_t5_bf16", "verify_t9_bf16",
+               "decode_t1_d256_bs128_fp32", "cuda_core_slice_t128_fp32")
 
 
 def family_cases():
-    """Qwen2-7B, GPT-J-6B and OPT-125m shapes, blocks of 16: a group of 7
-    fills a tensor-core block with 64 rows (9 tokens x 7 heads and one more
-    row, so a warp's 16 rows straddle tokens and a token's heads straddle
-    blocks) and cuts a token's heads across decode row blocks;
-    OPT's group of 1 at head dim 64 fills a tensor-core block with 64
-    tokens of one head."""
+    """Qwen2-7B, GPT-J-6B, OPT-125m, Phi-2 and Falcon-7B shapes, blocks of
+    16: a group of 7 fills a tensor-core block with 64 rows (9 tokens x 7
+    heads and one more row, so a warp's 16 rows straddle tokens and a
+    token's heads straddle blocks) and cuts a token's heads across decode
+    row blocks; OPT's group of 1 at head dim 64 fills a tensor-core block
+    with 64 tokens of one head; Phi-2 runs head dim 80 and Falcon-7B a group
+    of 71 on every route (``PHI_FALCON_CASES``)."""
     import torch
     rng = np.random.default_rng(13)
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -866,6 +923,23 @@ def family_cases():
         "opt_decode_n16_bf16": dict(dtype=bf16, **decode(), **opt),
         "opt_prefill_t512_bf16": dict(dtype=bf16, **prefill, **opt),
     }
+    phi2 = dict(H=32, KV=32, Dh=80, bs=16)
+    falcon7b = dict(H=71, KV=1, Dh=64, bs=16)
+    t5 = lambda: dict(N=16, T=5, lengths=t5_lengths, n_tokens=t5_tokens)  # noqa: E731
+    masks = dict(N=3, H=4, KV=4, Dh=80, bs=8, lengths=[20, 57, 300], alibi=True, window=30)
+    shapes.update({
+        "phi2_decode_n16_bf16": dict(dtype=bf16, **decode(), **phi2),
+        "phi2_t5_n16_bf16": dict(dtype=bf16, **t5(), **phi2),
+        "phi2_prefill_t512_bf16": dict(dtype=bf16, **prefill, **phi2),
+        "phi2_decode_n16_fp32": dict(dtype=fp32, **decode(), **phi2),
+        "falcon7b_decode_n16_bf16": dict(dtype=bf16, **decode(), **falcon7b),
+        "falcon7b_t5_n16_bf16": dict(dtype=bf16, **t5(), **falcon7b),
+        "falcon7b_prefill_t512_bf16": dict(dtype=bf16, **prefill, **falcon7b),
+        "prefill_t20_bs8_d80_alibi_window_fp16": dict(T=20, n_tokens=[20, 11, 1],
+                                                      dtype=torch.float16, **masks),
+        "decode_t1_bs8_d80_alibi_window_fp16": dict(T=1, n_tokens=[1, 1, 1],
+                                                    dtype=torch.float16, **masks),
+    })
     return {name: make_case(500 + i, **kw) for i, (name, kw) in enumerate(shapes.items())}
 
 
@@ -4886,7 +4960,7 @@ def phase_slice_spec(device="cuda", cfg=None):
 # the families build_engine serves beside Llama and Mistral, at their
 # published widths and depths, but Mixtral-8x7B: 8 of its 32 layers (about
 # 93 GB of bf16 weights at full depth, more than one card holds)
-SERVE_FAMILIES = ("qwen2", "mixtral", "opt", "gptj")
+SERVE_FAMILIES = ("qwen2", "mixtral", "opt", "gptj", "phi", "falcon")
 FAMILY_SERVE_LAYERS = {"mixtral": 8}
 FAMILY_REQUESTS, FAMILY_MAX_NEW = 8, 16
 # 8 prompts of at most 1,024 tokens and 16 new: at most 65 blocks of 16 each
@@ -4894,16 +4968,17 @@ FAMILY_KW = dict(num_blocks=576, block_size=16, max_blocks_per_seq=72, token_bud
                  max_seqs_per_step=32)
 # the paged route a family's prefill steps (padded chunk >= 16) take in bf16
 FAMILY_PREFILL_ROUTE = {"qwen2": "prefill_tc", "mixtral": "prefill_tc", "opt": "prefill_tc",
-                        "gptj": "prefill_tc"}
+                        "gptj": "prefill_tc", "phi": "prefill_tc", "falcon": "prefill_tc"}
 
 
 def family_config(key, layers=None):
     """(module, config) of a served family at its published width, at
     ``layers`` layers (default: its own depth, or FAMILY_SERVE_LAYERS's)."""
     from deepspeed_tpu_torch.inference.v2.engine_factory import REGISTRY
-    from deepspeed_tpu_torch.models import gptj, mixtral, opt, qwen
+    from deepspeed_tpu_torch.models import falcon, gptj, mixtral, opt, phi, qwen
     cfg = {"qwen2": qwen.QwenConfig.qwen2_7b, "mixtral": mixtral.MixtralConfig.mixtral_8x7b,
-           "opt": opt.OPTConfig.opt_125m, "gptj": gptj.GPTJConfig.gptj_6b}[key]()
+           "opt": opt.OPTConfig.opt_125m, "gptj": gptj.GPTJConfig.gptj_6b,
+           "phi": phi.PhiConfig.phi_2, "falcon": falcon.FalconConfig.falcon_7b}[key]()
     layers = layers or FAMILY_SERVE_LAYERS.get(key)
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
@@ -4911,15 +4986,16 @@ def family_config(key, layers=None):
 
 
 def family_params(module, cfg, seed, dtype, device="cuda"):
-    """Seeded random weights drawn on ``device``; Qwen2's q/k/v biases
-    (zeros from ``init_params``) are drawn too, so that they add something."""
+    """Seeded random weights drawn on ``device``; the q/k/v biases (zeros
+    from ``init_params``: Qwen2's ``layers.attn.b*``, OPT's and Phi's flat
+    ``layers.b*``) are drawn too, so that they add something."""
     import torch
     gen = torch.Generator(device=device).manual_seed(seed)
     params = module.init_params(cfg, gen, dtype=dtype, device=device)
-    attn = params["layers"].get("attn", {})
-    for name in ("bq", "bk", "bv"):
-        if name in attn:
-            attn[name].normal_(0.0, 0.1, generator=gen)
+    for leaves in (params["layers"].get("attn", {}), params["layers"]):
+        for name in ("bq", "bk", "bv"):
+            if name in leaves:
+                leaves[name].normal_(0.0, 0.1, generator=gen)
     return params
 
 
@@ -5033,8 +5109,9 @@ def serve_family(card, key, seed=0, device="cuda", config=None, kw=None):
 
 
 def phase_serve_families(card, seed=0):
-    """[serve-qwen2], [serve-mixtral], [serve-opt], [serve-gptj] one after
-    the other (each frees its weights before the next)."""
+    """[serve-qwen2], [serve-mixtral], [serve-opt], [serve-gptj],
+    [serve-phi], [serve-falcon] one after the other (each frees its weights
+    before the next)."""
     out = {}
     for key in SERVE_FAMILIES:
         with phase_timer(f"serve-{key}"):
@@ -5047,8 +5124,9 @@ def plain_paged_attention():
     """The families' ``forward_paged`` with the paged attention's plain
     version (``paged_attention_reference``) in place of the kernel wrapper,
     on the same (CUDA) tensors: Llama-shaped families (Qwen2, Mixtral) call
-    it from ``models/llama.py``, OPT and GPT-J from their own modules."""
-    from deepspeed_tpu_torch.models import gptj, llama, opt
+    it from ``models/llama.py``, OPT, GPT-J, Phi and Falcon from their own
+    modules."""
+    from deepspeed_tpu_torch.models import falcon, gptj, llama, opt, phi
     from deepspeed_tpu_torch.ops.attention.paged import paged_attention_reference
 
     def plain(q, kpool, vpool, tables, lengths, start_pos, n_tokens, *, block_size,
@@ -5057,7 +5135,7 @@ def plain_paged_attention():
         return paged_attention_reference(q, kpool, vpool, tables, lengths, start_pos, n_tokens,
                                          scale, window, alibi_slopes)
 
-    modules = (llama, opt, gptj)
+    modules = (llama, opt, gptj, phi, falcon)
     saved = [m.paged_attention for m in modules]
     for m in modules:
         m.paged_attention = plain
@@ -5808,9 +5886,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--prefill-times"]:
+    if sys.argv[1:2] == ["--paged-times"]:
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
-        return prefill_times(nvidia_smi_line())
+        return paged_times(nvidia_smi_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("[setup] TF32 off for matmul and cuDNN: fp32 runs in full fp32")
@@ -5887,8 +5965,9 @@ def main() -> int:
                            "cp.async) for every chunk of T < 16; tensor cores "
                            "(paged_prefill_tc_kernel, mma.sync m16n8k16, 64-row blocks of the "
                            "T x group rows, 64-key tiles, 32 at head dim 256) for bf16/fp16 "
-                           "chunks of T >= 16 at head dim 32-256 and any group; CUDA cores "
-                           "(paged_attention_kernel, fp32 only) for fp32 chunks of T >= 16",
+                           "chunks of T >= 16; CUDA cores (paged_attention_kernel, fp32 only, "
+                           "32-row blocks of the T x group rows) for fp32 chunks of T >= 16; "
+                           "each route at head dims 32, 64, 80, 128 and 256 and any group",
                 "serve_decode_n16": {k: recs["serve_decode_n16"][k] for k in PAGED_FIELDS},
                 "prefill": {k: recs["mistral_prefill"][k] for k in PAGED_FIELDS},
                 "llama2_decode": {k: recs["llama2_decode"][k] for k in PAGED_FIELDS},
@@ -5900,7 +5979,7 @@ def main() -> int:
                 "verify": {name: {k: recs[name][k] for k in PAGED_FIELDS}
                            for name in VERIFY_CASES},
                 "families": {name: {k: recs[name][k] for k in PAGED_FIELDS}
-                             for name in FAMILY_CASES},
+                             for name in FAMILY_CASES + PHI_FALCON_CASES},
                 "serve_families_launches": families}]
     for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         kernels.append({"name": name, "route": "cuda", "source": FLASH_SOURCE,

@@ -15,9 +15,10 @@
 // Three routes, chosen by one rule in ops/attention/paged.py (paged_route;
 // no fallback between them): every chunk of T < 16 tokens (decode) goes to
 // the split-K decode kernel and its merge, for every dtype and head dim;
-// bf16/fp16 chunks of T >= 16 to the tensor-core prefill kernel, for every
-// head dim (32, 64, 128, 256) and GQA group the wrapper takes; fp32 chunks
-// of T >= 16 to the CUDA-core kernel, which is built for fp32 only.
+// bf16/fp16 chunks of T >= 16 to the tensor-core prefill kernel, and fp32
+// chunks of T >= 16 to the CUDA-core kernel, which is built for fp32 only;
+// each route takes every head dim (32, 64, 80, 128, 256) and GQA group the
+// wrapper takes.
 //
 // Split-K decode kernel (paged_decode_kernel + paged_decode_merge_kernel;
 // replaces _paged_kernel at decode).  What bounds it on the H100: every live
@@ -40,17 +41,17 @@
 //     with its own (m, l, acc), merged in shared memory at the end, so no
 //     warp idles at T = 1;
 //   - loads: K/V rows arrive by cp.async, 16 bytes a lane, into
-//     double-buffered shared tiles of 16 KB of K (and V) kept in the storage
+//     double-buffered shared tiles of at most 16 KB of K (and V) in the storage
 //     type (tile t + 1 loads while tile t computes), table slots looked up
 //     a tile ahead, rows outside the block's keys zero-filled and masked,
 //     never read;
 //   - fp32 arithmetic with no rounding of P, so the result differs from the
 //     plain version only by the order of summation.
 //
-// CUDA-core kernel (fp32 chunks of T >= 16).  One block
-// per (sequence, group of q heads sharing one kv head, tile of query
-// tokens), so the K/V tiles a block stages in shared memory feed every q
-// head of its GQA group and every query token of the tile; the TPU kernel's
+// CUDA-core kernel (fp32 chunks of T >= 16).  One block per (sequence, kv
+// head, 32 of its T x group rows), so the K/V tiles a block stages in
+// shared memory feed every q head of its GQA group and every query token of
+// its rows; the TPU kernel's
 // sequential grid axis over table slots, which carried the online-softmax
 // state in VMEM, becomes a loop inside the block over the live key tiles
 // only (from the first inside the window to the last key any row of the
@@ -70,7 +71,7 @@
 // more row, a group of 128 half of one token's heads.  Each (pool block, kv
 // head) slab is bs x Dh contiguous, so a key tile is gathered by cp.async 16
 // bytes at a time through the block table, and double-buffered.  Head dims
-// 32, 64 and 128 take 64-key tiles with Q's A fragments held in registers;
+// 32, 64, 80 and 128 take 64-key tiles with Q's A fragments held in registers;
 // head dim 256 takes 32-key tiles with Q's fragments read from shared
 // memory at each k-step: its O accumulator alone is 128 fp32 registers a
 // thread, and 101 KB of shared memory lets two blocks share an SM.  P is
@@ -122,6 +123,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// One block per (32 rows, kv head, sequence): rows row0 .. row0 + 31 of the
+// (sequence, kv head)'s T x group rows, row r being token r / group and q
+// head g * group + r % group, as the other two routes map them, so the K/V
+// tiles a block stages feed every head of the GQA group it holds, whatever
+// the group, and a block may hold part of a token's heads (paged.py
+// cuda_core_blocks).  The block reads the keys from the window start of its
+// first row's token to the causal end of its last live row's token.  A lane
+// owns columns lane + 32 dd of P V and of the output, masked past DH.
 // Shared memory: q tile [kRows][DH], K tile [tile_keys][DH + 1] (padded so the
 // lanes of a warp, one key each, hit distinct banks), V tile [tile_keys][DH].
 template <typename T, int DH>
@@ -131,9 +140,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                        const int* __restrict__ lengths, const int* __restrict__ start_pos,
                        const int* __restrict__ n_tokens, const float* __restrict__ alibi,
                        T* __restrict__ out, int T_, int H, int KV, int bs, int maxb,
-                       int heads_per_block, int q_tile, int tile_keys, float scale,
-                       int window) {
-  constexpr int kDimPerLane = DH / 32;
+                       int tile_keys, float scale, int window) {
+  constexpr int kDimPerLane = (DH + 31) / 32;
+  static_assert(DH % (16 / (int)sizeof(T)) == 0, "CUDA-core rows load in 16-byte vectors");
   extern __shared__ float smem[];
   __shared__ int blk_s[32];  // pool block of each table slot the current tile spans
   float* q_s = smem;
@@ -141,11 +150,10 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   float* v_s = k_s + tile_keys * (DH + 1);
 
   const int n = blockIdx.z;
-  const int h0 = blockIdx.y * heads_per_block;
-  const int t0 = blockIdx.x * q_tile;
+  const int g = blockIdx.y;
+  const int row0 = blockIdx.x * kRows;
   const int group = H / KV;
-  const int g = h0 / group;
-  const int rows = heads_per_block * q_tile;
+  const int rows = min(kRows, T_ * group - row0);  // rows of this block
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -153,23 +161,25 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   const int length = lengths[n];
   const int start = start_pos[n];
   const int ntok = n_tokens[n];
-  const int t_hi = min(t0 + q_tile, min(T_, ntok));  // valid tokens of the tile: [t0, t_hi)
+  // the block's live tokens [t_lo, t_hi]
+  const int t_lo = row0 / group;
+  const int t_hi = min((row0 + rows - 1) / group, min(T_, ntok) - 1);
 
-  // keys any row of this tile may see: [key_begin, key_end)
+  // keys any row of this block may see: [key_begin, key_end)
   int key_end = 0;
   int key_begin = 0;
-  if (t_hi > t0) {
-    key_end = min(min(length, start + t_hi), maxb * bs);
-    if (window > 0) key_begin = max(0, start + t0 - window + 1);
+  if (t_hi >= t_lo) {
+    key_end = min(min(length, start + t_hi + 1), maxb * bs);
+    if (window > 0) key_begin = max(0, start + t_lo - window + 1);
   }
 
   for (int idx = tid; idx < kRows * DH; idx += kThreads) {
     const int r = idx / DH;
     const int d = idx % DH;
-    const int t = t0 + r / heads_per_block;
-    const int h = h0 + r % heads_per_block;
+    const int t = (row0 + r) / group;
+    const int h = g * group + (row0 + r) % group;
     float val = 0.f;
-    if (r < rows && t < T_) val = to_float(q[((int64_t)(n * T_ + t) * H + h) * DH + d]);
+    if (r < rows) val = to_float(q[((int64_t)(n * T_ + t) * H + h) * DH + d]);
     q_s[idx] = val;
   }
 
@@ -241,9 +251,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int r = warp + kWarps * i;
       if (r >= rows) continue;
-      const int t = t0 + r / heads_per_block;
-      if (t >= T_ || t >= ntok) continue;  // warp-uniform: the row is padding
-      const int h = h0 + r % heads_per_block;
+      const int t = (row0 + r) / group;
+      if (t >= ntok) continue;  // warp-uniform: the row is padding
+      const int h = g * group + (row0 + r) % group;
       const int qpos = start + t;
       const float slope = alibi != nullptr ? alibi[h] : 0.f;
       const float* qr = q_s + r * DH;
@@ -289,7 +299,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
             const float pj = __shfl_sync(0xffffffffu, p[c], jj);
             const float* vr = v_s + (32 * c + jj) * DH + lane;
 #pragma unroll
-            for (int dd = 0; dd < kDimPerLane; ++dd) acc[i][dd] += pj * vr[32 * dd];
+            for (int dd = 0; dd < kDimPerLane; ++dd)
+              if (DH % 32 == 0 || lane + 32 * dd < DH) acc[i][dd] += pj * vr[32 * dd];
           }
         }
       }
@@ -300,15 +311,15 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = warp + kWarps * i;
     if (r >= rows) continue;
-    const int t = t0 + r / heads_per_block;
-    if (t >= T_) continue;
-    const int h = h0 + r % heads_per_block;
+    const int t = (row0 + r) / group;
+    const int h = g * group + (row0 + r) % group;
     T* o = out + ((int64_t)(n * T_ + t) * H + h) * DH + lane;
     const bool live = t < ntok;
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int dd = 0; dd < kDimPerLane; ++dd)
-      o[32 * dd] = from_float<T>(live ? acc[i][dd] / l_safe : 0.f);
+      if (DH % 32 == 0 || lane + 32 * dd < DH)
+        o[32 * dd] = from_float<T>(live ? acc[i][dd] / l_safe : 0.f);
   }
 }
 
@@ -586,21 +597,44 @@ constexpr int kDecodeMaxKeys = 64;  // keys a tile at most (paged.py DECODE_TILE
 constexpr int kDecStages = 2;       // K/V tiles in the cp.async ring: kDecStages - 1 in flight
 constexpr int kDecTileBytes = 16384;  // bytes of K rows a tile
 
-// rows (token x q head of one kv group) a block: each warp keeps D / 32
-// accumulators a lane for every row, 32 at most, and at most 8 rows (16
-// rows spilled at D = 64); a (sequence, kv head) of at most kDecSmallRows
-// rows (T = 1 with a group of 1-4: MHA, Mistral) takes a kernel sized for
-// them (paged.py decode_rows)
+// rows (token x q head of one kv group) a block: each warp keeps about
+// D / 32 accumulators a lane for every row (decode_cols), 32 at most, and at
+// most 8 rows (16 rows spilled at D = 64); a (sequence, kv head) of at most
+// kDecSmallRows rows (T = 1 with a group of 1-4: MHA, Mistral) takes a
+// kernel sized for them (paged.py decode_rows)
 constexpr int kDecSmallRows = 4;
 template <int D>
 __host__ __device__ constexpr int decode_rows() { return 1024 / D < 8 ? 1024 / D : 8; }
 
-// keys a tile: kDecTileBytes of K rows, at most kDecodeMaxKeys
+// keys a tile: the largest power of two, at most kDecodeMaxKeys, whose K
+// rows fit in kDecTileBytes (paged.py decode_key_tile): a warp takes a
+// quarter of the tile, which must divide 32 lanes
 template <typename T, int D>
 __host__ __device__ constexpr int decode_keys() {
-  return kDecTileBytes / (D * (int)sizeof(T)) < kDecodeMaxKeys
-             ? kDecTileBytes / (D * (int)sizeof(T)) : kDecodeMaxKeys;
+  int keys = kDecodeMaxKeys;
+  while (keys > 4 && keys * D * (int)sizeof(T) > kDecTileBytes) keys /= 2;
+  return keys;
 }
+
+// The accumulator columns of a lane.  Where 32 divides D, lane l owns the
+// D / 32 consecutive columns l D / 32 ..; else (D = 80) it owns the pairs
+// 64 c + 2 l, 64 c + 2 l + 1 for c < ceil(D / 64), a pair at or past D
+// masked: at D = 80 lanes 0-7 own a second pair, 64-79.
+template <int D>
+struct decode_cols {
+  static constexpr bool kPairs = D % 32 != 0;
+  static constexpr int kWidth = kPairs ? 2 : D / 32;        // columns of one load
+  static constexpr int kLoads = kPairs ? (D + 63) / 64 : 1;  // loads a lane
+  static constexpr int kPerLane = kWidth * kLoads;           // accumulators a lane
+  static_assert(kPairs ? D % 2 == 0 : D % 32 == 0, "a lane's columns lie inside D");
+  // the first column of load c of lane `lane`
+  __device__ __forceinline__ static int col(int lane, int c) {
+    return kPairs ? 64 * c + 2 * lane : lane * kWidth;
+  }
+  __device__ __forceinline__ static bool live(int lane, int c) {
+    return !kPairs || col(lane, c) < D;
+  }
+};
 
 // wait until at most N committed cp.async groups are pending
 template <int N>
@@ -608,10 +642,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// N consecutive elements of T (2 to 32 bytes, aligned to their size) as fp32
+// N consecutive elements of T (one element, 4 or 8 bytes, or a multiple of
+// 16 bytes, aligned to their size) as fp32
 template <typename T, int N>
 __device__ __forceinline__ void load_vals(const T* p, float (&out)[N]) {
   constexpr int kBytes = N * (int)sizeof(T);
+  static_assert(N == 1 || kBytes == 4 || kBytes == 8 || kBytes % 16 == 0,
+                "load_vals: a width it loads whole");
   if constexpr (kBytes >= 16) {
     constexpr int kPer = 16 / (int)sizeof(T);
 #pragma unroll
@@ -640,6 +677,7 @@ template <typename T, int D, int R>
 __host__ __device__ constexpr int decode_smem() {
   constexpr int kKeys = decode_keys<T, D>();
   constexpr int kParts = 32 / (kKeys / 4);
+  static_assert(D % kParts == 0, "decode q parts");
   return 2 * kDecStages * kKeys * (D + 16 / (int)sizeof(T)) * (int)sizeof(T) +
          R * kParts * (D / kParts + 4) * 4 + (kDecStages * kKeys + 2 * R) * 4;
 }
@@ -650,7 +688,7 @@ __host__ __device__ constexpr int decode_smem() {
 // each tile; lane (j, part) = (lane % KW, lane / KW) computes the part-th
 // slice of D of key j's score for every row (the parts summed by shuffles),
 // then, for each row, the online softmax over the warp's keys and
-// acc += p v with the lane owning D / 32 consecutive columns.  Partials go to
+// acc += p v with the lane owning the columns of decode_cols<D>.  Partials go to
 // ml [N, T, H, S, 2] (m in log2 units, l) and acc [N, T, H, S, D].
 template <typename T, int D, int R>
 __global__ void __launch_bounds__(kDecThreads)
@@ -667,11 +705,13 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   constexpr int DP = D / kParts;      // columns of a part
   constexpr int E = 16 / (int)sizeof(T);
   constexpr int VP = DP / E;          // 16-byte vectors of a part
-  constexpr int DPL = D / 32;         // accumulator columns a lane
+  using Cols = decode_cols<D>;
+  constexpr int DPL = Cols::kPerLane;  // accumulator columns a lane
   constexpr int LDK = D + E;          // K/V row stride (elements): 16 bytes of padding
   constexpr int LDQ = DP + 4;         // q part stride (floats): parts on distinct banks
   constexpr int QROW = kParts * LDQ;
-  static_assert(DP % E == 0 && KT % 4 == 0 && 32 % KW == 0, "decode tile shape");
+  static_assert(D % kParts == 0 && DP % E == 0 && KT % 4 == 0 && 32 % KW == 0,
+                "decode tile shape");
   constexpr int S_ = kDecStages;
   static_assert(4 * R * (D + 2) * 4 <= 2 * S_ * KT * LDK * (int)sizeof(T), "merge scratch fits");
   extern __shared__ __align__(16) unsigned char dec_smem[];
@@ -838,10 +878,15 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 #pragma unroll
       for (int jj = 0; jj < KW; ++jj) {
         const float pj = __shfl_sync(0xffffffffu, p, jj);
-        float vf[DPL];
-        load_vals<T, DPL>(vt + (warp * KW + jj) * LDK + lane * DPL, vf);
 #pragma unroll
-        for (int dd = 0; dd < DPL; ++dd) acc[r][dd] = fmaf(pj, vf[dd], acc[r][dd]);
+        for (int c = 0; c < Cols::kLoads; ++c) {
+          if (!Cols::live(lane, c)) continue;
+          float vf[Cols::kWidth];
+          load_vals<T, Cols::kWidth>(vt + (warp * KW + jj) * LDK + Cols::col(lane, c), vf);
+#pragma unroll
+          for (int e = 0; e < Cols::kWidth; ++e)
+            acc[r][c * Cols::kWidth + e] = fmaf(pj, vf[e], acc[r][c * Cols::kWidth + e]);
+        }
       }
     }
   }
@@ -860,7 +905,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       l_s[warp * R + r] = l[r];
     }
 #pragma unroll
-    for (int dd = 0; dd < DPL; ++dd) a_s[(warp * R + r) * D + lane * DPL + dd] = acc[r][dd];
+    for (int c = 0; c < Cols::kLoads; ++c) {
+      if (!Cols::live(lane, c)) continue;
+#pragma unroll
+      for (int e = 0; e < Cols::kWidth; ++e)
+        a_s[(warp * R + r) * D + Cols::col(lane, c) + e] = acc[r][c * Cols::kWidth + e];
+    }
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < rows * D; idx += kDecThreads) {
@@ -977,6 +1027,10 @@ cudaError_t launch_decode_dtype(int head_dim, const void* q, const void* kpool,
       return launch_decode<T, 64>(q, kpool, vpool, tables, lengths, start_pos, n_tokens, alibi,
                                   ml, acc, N, T_, H, KV, bs, maxb, scale, window, split_keys,
                                   splits, stream);
+    case 80:
+      return launch_decode<T, 80>(q, kpool, vpool, tables, lengths, start_pos, n_tokens, alibi,
+                                  ml, acc, N, T_, H, KV, bs, maxb, scale, window, split_keys,
+                                  splits, stream);
     case 128:
       return launch_decode<T, 128>(q, kpool, vpool, tables, lengths, start_pos, n_tokens, alibi,
                                    ml, acc, N, T_, H, KV, bs, maxb, scale, window, split_keys,
@@ -1013,19 +1067,18 @@ cudaError_t launch(const void* q, const void* kpool, const void* vpool, const in
                    const int* lengths, const int* start_pos, const int* n_tokens,
                    const float* alibi, void* out, int N, int T_, int H, int KV, int bs,
                    int maxb, float scale, int window, cudaStream_t stream) {
-  const int group = H / KV;
-  const int heads_per_block = group < 32 ? group : 32;
-  const int q_tile = kRows / heads_per_block > 0 ? kRows / heads_per_block : 1;
   const int tile_keys = bs < 32 ? 32 : bs;
   const int smem = smem_bytes(DH, tile_keys);
+  const int64_t row_blocks = ((int64_t)T_ * (H / KV) + kRows - 1) / kRows;  // cuda_core_blocks
+  if (row_blocks > 0x7fffffff || KV > 65535 || N > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(paged_attention_kernel<T, DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((T_ + q_tile - 1) / q_tile, H / heads_per_block, N);
+  dim3 grid((unsigned)row_blocks, KV, N);
   paged_attention_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kpool), static_cast<const T*>(vpool),
       tables, lengths, start_pos, n_tokens, alibi, static_cast<T*>(out), T_, H, KV, bs, maxb,
-      heads_per_block, q_tile, tile_keys, scale, window);
+      tile_keys, scale, window);
   return cudaGetLastError();
 }
 
@@ -1035,6 +1088,8 @@ int tc_smem_bytes(int head_dim) {
       return tc_smem<32>();
     case 64:
       return tc_smem<64>();
+    case 80:
+      return tc_smem<80>();
     case 128:
       return tc_smem<128>();
     case 256:
@@ -1085,6 +1140,9 @@ cudaError_t launch_dtype(int head_dim, const void* q, const void* kpool, const v
     case 64:
       return launch<T, 64>(q, kpool, vpool, tables, lengths, start_pos, n_tokens, alibi, out, N,
                            T_, H, KV, bs, maxb, scale, window, stream);
+    case 80:
+      return launch<T, 80>(q, kpool, vpool, tables, lengths, start_pos, n_tokens, alibi, out, N,
+                           T_, H, KV, bs, maxb, scale, window, stream);
     case 128:
       return launch<T, 128>(q, kpool, vpool, tables, lengths, start_pos, n_tokens, alibi, out, N,
                             T_, H, KV, bs, maxb, scale, window, stream);
@@ -1108,6 +1166,9 @@ cudaError_t launch_tc_dtype(int head_dim, const void* q, const void* kpool, cons
                               N, T_, H, KV, bs, maxb, scale, window, row_blocks, stream);
     case 64:
       return launch_tc<T, 64>(q, kpool, vpool, tables, lengths, start_pos, n_tokens, alibi, out,
+                              N, T_, H, KV, bs, maxb, scale, window, row_blocks, stream);
+    case 80:
+      return launch_tc<T, 80>(q, kpool, vpool, tables, lengths, start_pos, n_tokens, alibi, out,
                               N, T_, H, KV, bs, maxb, scale, window, row_blocks, stream);
     case 128:
       return launch_tc<T, 128>(q, kpool, vpool, tables, lengths, start_pos, n_tokens, alibi, out,
@@ -1194,8 +1255,6 @@ int paged_attention_launch(int dtype, const void* q, const void* kpool, const vo
                            int window, void* stream) {
   if (dtype != 0) return cudaErrorInvalidValue;
   if (N <= 0 || T_ <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
-  const int group = H / KV;
-  if (group > 32 && group % 32 != 0) return cudaErrorInvalidValue;
   if (block_size <= 0 || block_size > 32 * kMaxKeysPerLane) return cudaErrorInvalidValue;
   if (block_size < 32 ? 32 % block_size != 0 : block_size % 32 != 0) return cudaErrorInvalidValue;
   return launch_dtype<float>(head_dim, q, kpool, vpool, static_cast<const int*>(tables),
@@ -1208,7 +1267,7 @@ int paged_attention_launch(int dtype, const void* q, const void* kpool, const vo
 // The tensor-core chunked-prefill kernel: the same arguments, and row_blocks,
 // the blocks of 64 rows one (sequence, kv head) takes (paged.py
 // prefill_tc_blocks: T x group / 64 rounded up); dtype 1 (bfloat16) or 2
-// (float16), head_dim 32, 64, 128 or 256, any GQA group, block_size a power
+// (float16), head_dim 32, 64, 80, 128 or 256, any GQA group, block_size a power
 // of two; all tensors 16-byte aligned.
 int paged_prefill_tc_launch(int dtype, const void* q, const void* kpool, const void* vpool,
                             const void* tables, const void* lengths, const void* start_pos,

@@ -1,16 +1,17 @@
 """v2 engine factory: assemble a ragged serving engine for a known family,
 from ready params or from a HuggingFace model.
 
-Counterpart of ``deepspeed_tpu/inference/v2/engine_factory.py``.  The port
-serves ``llama``, ``mistral`` (sliding window), ``mixtral`` (MoE), ``opt``,
-``qwen2`` and ``gptj``; ``falcon`` and ``phi`` wait for the paged kernel to
-take their heads (a GQA group of 71, head dim 80).  BLOOM serves through the
-v1 engine (ALiBi needs the biased dense attention).
+Counterpart of ``deepspeed_tpu/inference/v2/engine_factory.py``, with the
+same keys: ``llama``, ``mistral`` (sliding window), ``mixtral`` (MoE),
+``opt``, ``qwen2``, ``gptj``, ``falcon`` (multi-query: 71 q heads over one
+kv head on 7B) and ``phi`` (head dim 80).  Every family's attention runs on
+the paged kernel's routes (``ops/attention/paged.py::paged_route``).  BLOOM
+serves through the v1 engine (ALiBi needs the biased dense attention).
 """
 
 from typing import Any, Dict, Optional
 
-from ...models import gptj, llama, mistral, mixtral, opt, qwen
+from ...models import falcon, gptj, llama, mistral, mixtral, opt, phi, qwen
 from .engine_v2 import InferenceEngineV2
 
 # model_type -> model module (each defines ``config_from_hf``)
@@ -21,6 +22,8 @@ REGISTRY = {
     "opt": opt,
     "qwen2": qwen,
     "gptj": gptj,
+    "falcon": falcon,
+    "phi": phi,
 }
 
 

@@ -18,7 +18,8 @@ wrapper takes, which rounds P to the input type before ``P V`` and is held
 to ``flash.tensor_core_limit``; fp32 chunks of at least 16 tokens to the
 CUDA-core kernel, built for fp32 only.  The tensor-core kernel cuts a
 (sequence, kv head)'s T x group rows into blocks of ``TC_ROWS``
-(:func:`prefill_tc_blocks`, :func:`prefill_tc_keys`).  On CPU tensors it
+(:func:`prefill_tc_blocks`, :func:`prefill_tc_keys`), the CUDA-core kernel
+into blocks of ``CUDA_CORE_ROWS`` (:func:`cuda_core_blocks`).  On CPU tensors it
 runs :func:`paged_attention_reference`, the plain version.
 
 The split-K decode is sized on the host from shapes alone
@@ -38,11 +39,12 @@ import torch
 from .. import _build, use_kernel
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (32, 64, 128, 256)
+_HEAD_DIMS = (32, 64, 80, 128, 256)
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 _TC_DTYPES = (torch.bfloat16, torch.float16)
 TC_MIN_CHUNK = 16  # chunk tokens from which the tensor-core prefill kernel runs
 TC_ROWS = 64       # rows (token x q head of one kv head) a tensor-core prefill block holds
+CUDA_CORE_ROWS = 32  # rows a block of the CUDA-core kernel holds (kRows)
 # split-K decode: a launch aims at DECODE_BLOCKS_PER_SM blocks an SM (several
 # waves, so that sequences of 1 and 4096 keys even out), splits of whole 64-key
 # tiles and whole table slots, none shorter than DECODE_MIN_SPLIT keys.
@@ -55,6 +57,7 @@ TC_ROWS = 64       # rows (token x q head of one kv head) a tensor-core prefill 
 DECODE_BLOCKS_PER_SM = 16
 DECODE_MIN_SPLIT = 256
 DECODE_TILE = 64  # keys of the decode kernel's largest tile (kDecodeMaxKeys)
+DECODE_TILE_BYTES = 16384  # bytes of K rows a decode tile holds at most (kDecTileBytes)
 _SM_COUNT = {}
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -87,6 +90,27 @@ def prefill_tc_blocks(chunk: int, group: int) -> int:
     return -(-chunk * group // TC_ROWS)
 
 
+def cuda_core_blocks(chunk: int, group: int) -> int:
+    """Blocks of the CUDA-core kernel one (sequence, kv head) takes: its
+    ``chunk x group`` rows, mapped as :func:`prefill_tc_blocks` maps them,
+    cut into blocks of ``CUDA_CORE_ROWS``; the launch grid is (this, kv
+    heads, sequences).  For a group that divides 32, a block holds 32 /
+    group whole tokens."""
+    return -(-chunk * group // CUDA_CORE_ROWS)
+
+
+def decode_key_tile(head_dim: int, itemsize: int) -> int:
+    """Keys a tile of the split-K decode kernel (decode_keys in
+    csrc/paged_attention.cu): the largest power of two up to
+    ``DECODE_TILE`` whose K rows fit in ``DECODE_TILE_BYTES``, so that a
+    warp's quarter of the tile divides its 32 lanes (32 keys in fp32 at head
+    dim 80, 64 in bf16)."""
+    keys = DECODE_TILE
+    while keys > 4 and keys * head_dim * itemsize > DECODE_TILE_BYTES:
+        keys //= 2
+    return keys
+
+
 def prefill_tc_key_tile(head_dim: int) -> int:
     """Keys a tile of the tensor-core prefill kernel (tc_keys in
     csrc/paged_attention.cu): 32 at head dim 256, where the O accumulator
@@ -115,8 +139,8 @@ def prefill_tc_keys(block: int, chunk: int, group: int, start: int, keys: int, n
 def decode_rows(head_dim: int, rows: int) -> int:
     """Rows (token x q head of one kv group) one decode block holds when a
     (sequence, kv head) has ``rows`` of them: every warp keeps an fp32
-    accumulator of head_dim / 32 values a lane for each row, 32 values and
-    8 rows at most; up to 4 rows (T = 1 with a group of 1-4) take a kernel
+    accumulator of about head_dim / 32 values a lane for each row (4 at head
+    dim 80: two column pairs), 32 values and 8 rows at most; up to 4 rows (T = 1 with a group of 1-4) take a kernel
     sized for 4 (decode_rows / kDecSmallRows in csrc/paged_attention.cu)."""
     if rows <= 4:
         return 4
@@ -328,8 +352,7 @@ def _check(q, kpool, vpool, ints, alibi_slopes, block_size, window, route):
     if bs != block_size:
         raise ValueError(f"paged_attention kernel: block_size={block_size} but the pool holds "
                          f"blocks of {bs}")
-    group = hq // kvh if kvh else 0
-    if kvh == 0 or hq % kvh or (group > 32 and group % 32):
+    if kvh == 0 or hq % kvh:
         raise ValueError(f"paged_attention kernel: {hq} q heads over {kvh} kv heads")
     if dh not in _HEAD_DIMS:
         raise ValueError(f"paged_attention kernel: head_dim {dh} not in {_HEAD_DIMS}")

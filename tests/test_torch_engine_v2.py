@@ -261,17 +261,27 @@ def test_generate_sheds_over_cap_prompt_and_expires_deadlines():
 
 
 def test_factory_serves_the_jax_keys_but_falcon_and_phi(tmp_path):
-    """``build_engine`` serves the JAX registry's keys whose heads the paged
-    kernel takes; Falcon and Phi raise, naming the served keys.
+    """The port's ``REGISTRY`` equals the JAX registry: ``build_engine``
+    serves every JAX key, Falcon and Phi included, each with the module of
+    its own name, and an unknown key raises naming the served keys.
     ``build_hf_engine`` also takes a local checkpoint directory."""
     from deepspeed_tpu.inference.v2 import engine_factory as jfactory
     from deepspeed_tpu_torch.inference.v2 import build_hf_engine
     from deepspeed_tpu_torch.inference.v2.engine_factory import REGISTRY
-    assert set(REGISTRY) == set(jfactory._registry()) - {"falcon", "phi"}
-    cfg = llama.LlamaConfig.tiny(vocab=64, hidden=32, layers=1, heads=2, kv_heads=2)
-    for key in ("falcon", "phi"):
-        with pytest.raises(ValueError, match="gptj"):
-            build_engine(key, cfg, {}, device="cpu")
+    from deepspeed_tpu_torch.models import falcon, phi
+    assert set(REGISTRY) == set(jfactory._registry())
+    for key, module in REGISTRY.items():
+        assert module.__name__.rsplit(".", 1)[1] == jfactory._registry()[key][0].__name__.rsplit(
+            ".", 1)[1]
+    for key, module, cfg in (("falcon", falcon, falcon.FalconConfig.tiny(vocab=64)),
+                             ("phi", phi, phi.PhiConfig.tiny(vocab=64))):
+        params = module.init_params(cfg, torch.Generator().manual_seed(0))
+        engine = build_engine(key, cfg, params, config={"dtype": "float32"}, device="cpu",
+                              num_blocks=16, block_size=8, max_blocks_per_seq=4)
+        assert engine.model is module
+        assert len(engine.generate([[5, 6, 7]], max_new_tokens=3)[0]) == 6
+    with pytest.raises(ValueError, match="gptj"):
+        build_engine("bloom", llama.LlamaConfig.tiny(vocab=64), {}, device="cpu")
     transformers = pytest.importorskip("transformers")
     torch.manual_seed(0)
     transformers.OPTForCausalLM(transformers.OPTConfig(

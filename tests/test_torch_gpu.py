@@ -19,7 +19,7 @@ import torch
 
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, build_engine
-from deepspeed_tpu_torch.models import gptj, llama, mistral, mixtral, opt, qwen
+from deepspeed_tpu_torch.models import falcon, gptj, llama, mistral, mixtral, opt, phi, qwen
 from deepspeed_tpu_torch.ops.adam import adam8bit
 from deepspeed_tpu_torch.inference import quantization as woq
 from deepspeed_tpu_torch.ops.adam.fused_adam import (fused_adamw_flat, fused_adamw_flat_reference,
@@ -128,6 +128,40 @@ CASES = [
      [1, 1, 1, 0], None, False),
     ("tc_opt_mha_d64_t64_bf16", torch.bfloat16, 12, 12, 64, 16, 64, [64, 500, 77],
      [64, 64, 13], None, False),
+    # Phi-2's heads: 32 over 32 at head dim 80 (the decode kernel's column
+    # pairs, its 32-key fp32 tiles; the tensor-core kernel's 5 k-steps; the
+    # CUDA-core kernel's masked third column a lane), on every route and dtype
+    ("phi_decode_d80_bf16", torch.bfloat16, 32, 32, 80, 16, 1, [1, 900, 2048, 0],
+     [1, 1, 1, 0], None, False),
+    ("phi_verify_t5_d80_alibi_window_fp16", torch.float16, 32, 32, 80, 16, 5,
+     [1024, 1001, 37, 5], [5, 5, 3, 5], 500, True),
+    ("phi_decode_d80_split_edges_fp32", torch.float32, 32, 32, 80, 16, 1,
+     [4096, 1, 768, 769, 0], [1, 1, 1, 1, 0], None, False),
+    ("tc_phi_d80_t64_bf16", torch.bfloat16, 32, 32, 80, 16, 64, [64, 500, 77], [64, 64, 13],
+     None, False),
+    ("tc_d80_gqa4_t20_alibi_window_fp16", torch.float16, 8, 2, 80, 8, 20, [20, 57, 300],
+     [20, 11, 1], 30, True),
+    ("cuda_core_phi_d80_t32_fp32", torch.float32, 32, 32, 80, 16, 32, [32, 300], [32, 9],
+     None, False),
+    ("cuda_core_d80_t20_alibi_window_fp32", torch.float32, 4, 4, 80, 8, 20, [20, 57, 0],
+     [20, 11, 0], 30, True),
+    # Falcon-7B's heads: 71 q heads over 1 kv head at head dim 64 (9 decode
+    # row blocks a token; a token's heads across tensor-core and CUDA-core
+    # row blocks), on every route and dtype
+    ("falcon_decode_mqa71_bf16", torch.bfloat16, 71, 1, 64, 16, 1, [1, 900, 2048, 0],
+     [1, 1, 1, 0], None, False),
+    ("falcon_verify_t5_mqa71_alibi_window_fp16", torch.float16, 71, 1, 64, 16, 5,
+     [1024, 1001, 37, 5], [5, 5, 3, 5], 400, True),
+    ("falcon_decode_mqa71_fp32", torch.float32, 71, 1, 64, 16, 1, [4096, 1, 769, 0],
+     [1, 1, 1, 0], None, False),
+    ("tc_falcon_mqa71_t64_bf16", torch.bfloat16, 71, 1, 64, 16, 64, [64, 500, 77],
+     [64, 64, 13], None, False),
+    ("tc_mqa71_t20_alibi_window_fp16", torch.float16, 71, 1, 64, 8, 20, [20, 57, 300],
+     [20, 11, 1], 30, True),
+    ("cuda_core_falcon_mqa71_t32_fp32", torch.float32, 71, 1, 64, 16, 32, [32, 300], [32, 9],
+     None, False),
+    ("cuda_core_mqa71_t20_alibi_window_fp32", torch.float32, 71, 1, 64, 8, 20, [20, 57, 0],
+     [20, 11, 0], 30, True),
 ]
 
 
@@ -294,6 +328,11 @@ FAMILIES = {
     "opt": opt.OPTConfig.tiny(vocab=128, hidden=128, layers=2, heads=2, seq=256),
     "gptj": gptj.GPTJConfig(vocab_size=128, hidden_size=512, ffn_dim=1024, num_layers=2,
                             num_heads=2, rotary_dim=64, max_seq_len=256),
+    # head dim 80 (32 of it rotated); 71 q heads over one kv head at head dim 32
+    "phi": phi.PhiConfig(vocab_size=128, hidden_size=320, ffn_dim=1280, num_layers=2,
+                         num_heads=4, max_seq_len=256),
+    "falcon": falcon.FalconConfig(vocab_size=128, hidden_size=71 * 32, num_layers=2,
+                                  num_heads=71, num_kv_heads=1, max_seq_len=256),
 }
 
 
@@ -306,10 +345,11 @@ def test_family_graphs_match_the_eager_reference_loop(cuda, key):
     from deepspeed_tpu_torch.inference.v2.engine_factory import REGISTRY
     module, cfg = REGISTRY[key], FAMILIES[key]
     params = module.init_params(cfg, torch.Generator().manual_seed(0))
-    if key == "qwen2":  # the q/k/v biases start at zero: give them something to add
+    if key in ("qwen2", "phi"):  # the q/k/v biases start at zero: give them something to add
         gen = torch.Generator().manual_seed(1)
+        biases = params["layers"]["attn"] if key == "qwen2" else params["layers"]
         for name in ("bq", "bk", "bv"):
-            params["layers"]["attn"][name].normal_(0.0, 0.1, generator=gen)
+            biases[name].normal_(0.0, 0.1, generator=gen)
     kw = dict(num_blocks=64, block_size=16, max_blocks_per_seq=8, token_budget=32,
               max_seqs_per_step=4)
     graphs = build_engine(key, cfg, params, config={"dtype": "float32"}, **kw)

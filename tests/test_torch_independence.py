@@ -63,6 +63,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "deepspeed_tpu_torch.models.mixtral",
                      "deepspeed_tpu_torch.models.opt",
                      "deepspeed_tpu_torch.models.gptj",
+                     "deepspeed_tpu_torch.models.phi",
+                     "deepspeed_tpu_torch.models.falcon",
                      "deepspeed_tpu_torch.moe.experts",
                      "deepspeed_tpu_torch.moe.sharded_moe",
                      "deepspeed_tpu_torch.moe.layer"):

@@ -1,7 +1,10 @@
 """The port's paged attention on CPU tensors (its plain version) against the
 JAX package: the dense-gather fallback and the Pallas kernel in interpret
-mode, on the same numpy inputs.  fp32, atol 2e-5: the JAX package's own
-kernel-vs-fallback tolerance."""
+mode, on the same numpy inputs, at head dims 32 and 80 (Phi-2's) and at 71
+q heads over one kv head (Falcon-7B's group).  fp32, atol 2e-5: the JAX
+package's own kernel-vs-fallback tolerance.  Also the kernels' host
+geometry: the CUDA-core and tensor-core row blocks and the decode key
+tile."""
 
 import subprocess
 from pathlib import Path
@@ -20,8 +23,8 @@ from deepspeed_tpu_torch.ops.attention.paged import paged_attention
 
 ATOL = 2e-5
 
-# (name, H, KV, T, n_tokens, lengths, window, alibi)
-CASES = [
+# (name, H, KV, T, n_tokens, lengths, window, alibi), at head dim 32
+BASE_CASES = [
     ("mha_decode", 4, 4, 1, [1, 1, 1], [5, 20, 31], None, False),
     ("gqa_decode", 4, 2, 1, [1, 1, 1], [5, 20, 31], None, False),
     ("gqa_prefill_padding_rows", 4, 2, 4, [3, 4, 2], [5, 20, 31], None, False),
@@ -30,6 +33,11 @@ CASES = [
     ("gqa_alibi", 4, 2, 4, [3, 4, 4], [5, 20, 31], None, True),
     ("mha_decode_window_alibi_zero_row", 4, 4, 1, [1, 0, 1], [17, 0, 31], 6, True),
 ]
+# the same cases at head dim 80, and with Falcon-7B's 71 q heads over 1 kv head
+# (name, H, KV, T, n_tokens, lengths, window, alibi, Dh)
+CASES = ([(*c, 32) for c in BASE_CASES]
+         + [(f"{c[0]}_d80", *c[1:], 80) for c in BASE_CASES]
+         + [(f"{c[0]}_mqa71", 71, 1, *c[3:], 32) for c in BASE_CASES])
 
 
 def _inputs(seed, H, KV, T, n_tokens, lengths, alibi, Dh=32, NB=16, BS=8, MAXB=4):
@@ -45,15 +53,15 @@ def _inputs(seed, H, KV, T, n_tokens, lengths, alibi, Dh=32, NB=16, BS=8, MAXB=4
         "lengths": lengths,
         "start_pos": lengths - n_tokens,
         "n_tokens": n_tokens,
-        "slopes": (np.asarray([0.5, 0.25, 0.125, 0.0625][:H], np.float32) if alibi else None),
+        "slopes": (np.asarray([2.0**-(h + 1) for h in range(H)], np.float32) if alibi else None),
     }
 
 
-@pytest.mark.parametrize("name,H,KV,T,n_tokens,lengths,window,alibi", CASES,
+@pytest.mark.parametrize("name,H,KV,T,n_tokens,lengths,window,alibi,Dh", CASES,
                          ids=[c[0] for c in CASES])
-def test_paged_attention_matches_jax(name, H, KV, T, n_tokens, lengths, window, alibi):
-    x = _inputs(len(name), H, KV, T, n_tokens, lengths, alibi)
-    BS, Dh = 8, 32
+def test_paged_attention_matches_jax(name, H, KV, T, n_tokens, lengths, window, alibi, Dh):
+    x = _inputs(len(name), H, KV, T, n_tokens, lengths, alibi, Dh=Dh)
+    BS = 8
     scale = 1.0 / np.sqrt(Dh)
     tt = {k: torch.from_numpy(v) for k, v in x.items() if v is not None}
     got = paged_attention(tt["q"], tt["kpool"], tt["vpool"], tt["tables"], tt["lengths"],
@@ -172,3 +180,56 @@ def test_kernel_route_raises_instead_of_computing(monkeypatch):
         paged_attention(t["q"], t["kpool"], t["vpool"], t["tables"], t["lengths"],
                         t["start_pos"], t["n_tokens"], block_size=8)
     assert paged_attention.launches == before
+
+
+def _row_blocks(chunk, group, rows_a_block):
+    """Row-by-row enumeration of a (sequence, kv head)'s chunk x group rows,
+    row r being token r // group and q head r % group of the kv head's
+    group: {block: [(token, head), ...]} for blocks of ``rows_a_block``."""
+    blocks = {}
+    for r in range(chunk * group):
+        blocks.setdefault(r // rows_a_block, []).append((r // group, r % group))
+    return blocks
+
+
+@pytest.mark.parametrize("group", [1, 4, 7, 32, 64, 71, 128])
+def test_cuda_core_and_tensor_core_row_blocks(group):
+    """``cuda_core_blocks`` and ``prefill_tc_blocks`` equal a row-by-row
+    enumeration at T = 16, 20, 64 and 512: every (token, head) of the kv
+    head's group lies in exactly one block.  Falcon-7B's group of 71 cuts
+    tokens across blocks; for a group that divides 32, a CUDA-core block
+    holds 32 / group whole tokens, as the kernel's blocks did before any
+    group was taken (q_tile = 32 / group tokens of group heads a block)."""
+    for t in (16, 20, 64, 512):
+        for rows, count in ((paged_module.CUDA_CORE_ROWS, paged_module.cuda_core_blocks),
+                            (paged_module.TC_ROWS, paged_module.prefill_tc_blocks)):
+            blocks = _row_blocks(t, group, rows)
+            assert count(t, group) == len(blocks)
+            assert sorted(p for b in blocks.values() for p in b) == \
+                [(tok, h) for tok in range(t) for h in range(group)]
+            assert all(len(b) == rows for i, b in blocks.items() if i < len(blocks) - 1)
+        if 32 % group == 0:
+            q_tile = 32 // group
+            for b, pairs in _row_blocks(t, group, paged_module.CUDA_CORE_ROWS).items():
+                assert {tok for tok, _ in pairs} == set(range(b * q_tile,
+                                                               min((b + 1) * q_tile, t)))
+    assert paged_module.prefill_tc_blocks(512, 71) == 568
+    assert paged_module.cuda_core_blocks(64, 71) == 142
+
+
+def test_decode_key_tile_and_rows():
+    """The decode kernel's tile is the largest power of two up to 64 keys
+    whose K rows fit in 16 KB, so a warp's quarter divides 32 lanes: the
+    tiles of the four tuned head dims are unchanged, and head dim 80 takes
+    32 keys in fp32 and 64 in bf16/fp16; 8 rows a block at head dim 80."""
+    tile = paged_module.decode_key_tile
+    assert [tile(d, 4) for d in (32, 64, 128, 256)] == [64, 64, 32, 16]
+    assert [tile(d, 2) for d in (32, 64, 128, 256)] == [64, 64, 64, 32]
+    assert (tile(80, 4), tile(80, 2)) == (32, 64)
+    for d in paged_module._HEAD_DIMS:
+        for item in (2, 4):
+            keys = tile(d, item)
+            assert keys & (keys - 1) == 0 and 32 % (keys // 4) == 0
+            assert keys * d * item <= paged_module.DECODE_TILE_BYTES
+            assert d % (32 // (keys // 4)) == 0  # q parts: D split over the lanes of a key
+    assert paged_module.decode_rows(80, 71) == 8 and paged_module.decode_rows(80, 1) == 4
