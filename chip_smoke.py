@@ -31,10 +31,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      keys, T = 5, a 512-token prefill on tensor cores and fp32 decode, and
      GPT-J-6B (16 over 16, head dim 256) at decode and a 512-token prefill
      on the CUDA-core kernel, OPT-125m (12 over 12, head dim 64) at decode
-     and a 512-token prefill on tensor cores; the flash forward and both backward
+     and a 512-token prefill on tensor cores; BLOOM-7b1 (32 over 32, head
+     dim 128) with its ALiBi slopes at decode, T = 5 and a 512-token
+     prefill, and BLOOM-176B's 112 heads on short sequences on every route,
+     each BLOOM case also run without its slopes, which must fail (SDPA's
+     yardstick takes the bias as a float mask); the flash forward and both backward
      kernels at the training shape (B=2, S=2048, 32 heads, head dim 128, bf16,
      causal), GQA, sq < sk, sq > sk (rows that see no key), non-causal, head
-     dim 64 and unaligned lengths, bf16/fp16 forward, dK/dV and dQ on tensor
+     dim 64 and unaligned lengths, BERT-base's non-causal attention (B=8,
+     S=512, 12 heads, head dim 64, bf16), bf16/fp16 forward, dK/dV and dQ on tensor
      cores held to ``flash.tensor_core_limit`` row by row (and a late query
      tile of out or dQ scaled by 1.05 or the last key tile of dK/dV zeroed
      must fail it), fp32 on CUDA cores at 1e-4; the fused AdamW kernel over
@@ -134,7 +139,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      padded width times the layers (prefill steps on tensor cores, GPT-J's
      on the CUDA-core kernel, decode steps on split-K), the warm serve
      building nothing and giving the same tokens; tok/s, mean step, idle
-     share, peak memory and graph pool printed;
+     share, peak memory and graph pool printed; the same for Phi-2 and
+     Falcon-7B, and for BLOOM-7b1 through ``InferenceEngineV2(bloom, ...)``
+     (serve-bloom: ALiBi on the paged kernel's slopes operand), whose
+     weights then serve-v1-bloom serves through ``init_inference`` (8
+     prompts of 512 tokens, 64 new; no kernel launched);
   4. slice: a 2-layer, full-width Mistral in fp32, one prefill and three
      decode steps of ``forward_paged`` on CUDA (kernel) and on a CPU copy
      (plain path) with the same weights and KV; slice-serve: the same width
@@ -171,7 +180,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      ``forward_paged`` through the kernel against the same function with
      the plain paged version (a prefill chunk and two decode steps, 1e-4),
      and the fast path with graphs against the eager reference loop, token
-     for token;
+     for token; BLOOM also its v1 ``forward_with_cache`` on the card
+     against the CPU (a prefill and 3 decode steps, greedy picks equal);
   5. train: ``initialize`` with Llama-2-7B at full width cut to 8 layers, bf16,
      remat, fused AdamW, WarmupLR, clipping; 6 optimizer steps of 2 x 2 x 2048
      tokens through the flash and fused-AdamW kernels, launch counts checked
@@ -194,7 +204,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      same params: losses, step-1 grads and the params after 2 steps; once
      with fused_adam and dense attention, once with the sparse section and
      fused_adam8bit, once with lion (delta form), followed by one fused Lion
-     step through ``fused_lion_flat`` on every leaf;
+     step through ``fused_lion_flat`` on every leaf; train-gpt2-bert:
+     GPT-2-350m (S=1024) and BERT-base (S=512, no mask) at full width and
+     depth in bf16, 5 steps each through the flash kernels (causal and
+     non-causal) and fused AdamW, launch counts against the step formula,
+     BERT once more with a padding mask (no flash launch); each at 2 layers
+     in fp32 on the card against the CPU (forward and grads), BERT with a
+     mask (a token behind it changes no unmasked logit), and Mistral-7B's
+     windowed dense forward at 2 layers;
   8. serve-v1: ``init_inference`` with Llama-2-7B at full width and depth in
      bf16, 8 prompts of 512 tokens, 64 greedy new tokens through
      ``generate``; serve-v1-int8: the same with weight-only int8 (11 leaves
@@ -333,11 +350,14 @@ def paged_prefill_usage(build_log):
 
 # ------------------------------------------------------------------ phase 2
 def make_case(seed, *, N, T, H, KV, Dh, bs, lengths, n_tokens, dtype, window=None,
-              alibi=False):
+              alibi=False, slopes=None):
     """Random q and pools, each sequence's blocks scattered over the pool,
-    padded table slots pointing at the trash block (the last one)."""
+    padded table slots pointing at the trash block (the last one).  ALiBi
+    with ``slopes`` [H] (BLOOM's) or, with ``alibi``, 2^(-8 (h + 1) / H)."""
     import torch
     rng = np.random.default_rng(seed)
+    if slopes is None and alibi:
+        slopes = [2.0**(-8.0 * (h + 1) / H) for h in range(H)]
     lengths = np.asarray(lengths, np.int32)
     n_tokens = np.asarray(n_tokens, np.int32)
     need = [-(-int(L) // bs) for L in lengths]
@@ -359,8 +379,8 @@ def make_case(seed, *, N, T, H, KV, Dh, bs, lengths, n_tokens, dtype, window=Non
         "lengths": torch.from_numpy(lengths).to(dev),
         "start_pos": torch.from_numpy(lengths - n_tokens).to(dev),
         "n_tokens": torch.from_numpy(n_tokens).to(dev),
-        "alibi_slopes": (torch.tensor([2.0**(-8.0 * (h + 1) / H) for h in range(H)],
-                                      device=dev) if alibi else None),
+        "alibi_slopes": (None if slopes is None else
+                         torch.from_numpy(np.asarray(slopes, np.float32)).to(dev)),
         "block_size": bs, "window": window,
     }
     return case
@@ -459,6 +479,15 @@ def width_faults(c, got):
     return faults
 
 
+def slope_faults(name, c):
+    """A BLOOM case's kernel run without its ALiBi slopes: the failure a
+    wrapper or model that lost the operand would show.  Empty for other
+    cases."""
+    if "bloom" not in name:
+        return {}
+    return {"slopes dropped": run_kernel(dict(c, alibi_slopes=None))}
+
+
 def compare(name, c):
     """The kernel once against its plain version.  fp32 at atol=rtol 1e-4;
     bf16/fp16 held to ``flash.tensor_core_limit`` row by row (a row is one
@@ -470,7 +499,9 @@ def compare(name, c):
     sequence dropped, the last 64 live rows of every sequence scaled by 1.05
     and, for the decode kernel, the last split of every sequence left out of
     the merge.  At head dim 80 and at a group of 71 the check (either one)
-    must also reject :func:`width_faults`.  Padding rows are exact zeros."""
+    must also reject :func:`width_faults`, and a BLOOM case the kernel run
+    without its slopes (:func:`slope_faults`).  Padding rows are exact
+    zeros."""
     import torch
     from deepspeed_tpu_torch.ops.attention import flash
     from deepspeed_tpu_torch.ops.attention.paged import paged_attention
@@ -495,7 +526,7 @@ def compare(name, c):
                                  f"atol=rtol=1e-4")
         max_err, rule = err.max().item(), "atol=rtol=1e-4"
         beyond = {}
-        for fault, wrong in width_faults(c, got).items():
+        for fault, wrong in {**width_faults(c, got), **slope_faults(name, c)}.items():
             beyond[fault] = int(((wrong - ref).abs() > 1e-4 + 1e-4 * ref.abs()).sum())
             if not beyond[fault]:
                 raise AssertionError(f"{name}: atol=rtol=1e-4 passes a kernel with the {fault}")
@@ -516,6 +547,7 @@ def compare(name, c):
         if dec:
             faults["last split left out of the merge"] = last_split_dropped(c)
         faults.update(width_faults(c, got))
+        faults.update(slope_faults(name, c))
         shares = {}
         for fault, bad in faults.items():
             passed, _, shares[fault], _ = flash.tensor_core_limit(bad, ref, rounded)
@@ -556,8 +588,9 @@ def work(c):
             qpos = int(start[n]) + t
             first = 0 if window is None else max(0, qpos - window + 1)
             row_keys += min(qpos + 1, int(lengths[n])) - first
+    slopes = 0 if c["alibi_slopes"] is None else H * 4
     nbytes = (2 * live_keys * KV * Dh * elt + 2 * N * T * H * Dh * elt
-              + c["tables"].numel() * 4 + 3 * N * 4)
+              + c["tables"].numel() * 4 + 3 * N * 4 + slopes)
     flops = 4.0 * row_keys * H * Dh
     return nbytes, flops
 
@@ -580,7 +613,9 @@ def time_ms(fn, runs=TIMED_RUNS):
 
 def library_call(c):
     """torch's scaled_dot_product_attention over the gathered dense context
-    (gathered outside the timed call): the yardstick, never used by the port."""
+    (gathered outside the timed call), the ALiBi bias of an ALiBi case as a
+    float ``attn_mask`` in q's type (built outside the timed call): the
+    yardstick, never used by the port."""
     import torch
     import torch.nn.functional as F
     q = c["q"]
@@ -599,6 +634,9 @@ def library_call(c):
     if c["window"] is not None:
         mask = mask & (kpos > qpos[:, :, None] - c["window"])
     mask = mask[:, None]
+    if c["alibi_slopes"] is not None:
+        bias = c["alibi_slopes"].float()[None, :, None, None] * kpos[:, :, None, :].float()
+        mask = torch.where(mask, bias, torch.finfo(q.dtype).min).to(q.dtype)
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
 
 
@@ -732,6 +770,7 @@ def paged_cases():
     cases.update(decode_edges())
     cases.update(verify_cases())
     cases.update(family_cases())
+    cases.update(bloom_cases())
     # the CUDA-core kernel's chunks (fp32 at T >= 16): the fp32 slice's
     # Mistral-width prefill, head dim 256, Phi-2's heads (32 over 32 at head
     # dim 80: a lane's third column masked) and Falcon-7B's (71 over 1 at
@@ -772,7 +811,7 @@ def phase_kernel(card):
     recs = {name: measure(name, cases[name])
             for name in ("mistral_decode", "mistral_prefill", "llama2_decode", "llama2_prefill",
                          "serve_decode_n16", *CUDA_CORE_CASES, *MOVED_CASES, *VERIFY_CASES,
-                         *FAMILY_CASES, *PHI_FALCON_CASES)}
+                         *FAMILY_CASES, *PHI_FALCON_CASES, *BLOOM_CASES)}
     for name, rec in recs.items():
         log(f"[kernel] {name} on {card}: {json.dumps({k: rec[k] for k in PAGED_FIELDS})}")
     for name in ("llama2_decode", "mistral_decode", "serve_decode_n16"):
@@ -874,6 +913,13 @@ PHI_FALCON_CASES = ("phi2_decode_n16_bf16", "phi2_t5_n16_bf16", "phi2_prefill_t5
                     "phi2_decode_n16_fp32", "falcon7b_decode_n16_bf16", "falcon7b_t5_n16_bf16",
                     "falcon7b_prefill_t512_bf16", "prefill_t20_bs8_d80_alibi_window_fp16",
                     "decode_t1_bs8_d80_alibi_window_fp16")
+# BLOOM-7b1 (32 over 32 at head dim 128, ALiBi with BLOOM's slopes) at the
+# shapes of FAMILY_CASES, timed: decode and a T = 5 chunk on the split-K
+# kernel, a 512-token prefill on tensor cores, the scores gaining up to
+# 2,048 x 0.84; bloom_cases() adds BLOOM-176B's 112 heads (the interleaved
+# slopes of a head count that is no power of two, heads past 64) on short
+# sequences, on every route
+BLOOM_CASES = ("bloom7b1_decode_n16_bf16", "bloom7b1_t5_n16_bf16", "bloom7b1_prefill_t512_bf16")
 CUDA_CORE_CASES = ("cuda_core_slice_t128_fp32", "cuda_core_t64_d256_mha_fp32",
                    "cuda_core_t64_d80_mha_fp32", "cuda_core_t32_d64_mqa71_fp32")
 # the bf16/fp16 shapes the CUDA-core kernel served until it kept only fp32,
@@ -941,6 +987,40 @@ def family_cases():
                                                     dtype=torch.float16, **masks),
     })
     return {name: make_case(500 + i, **kw) for i, (name, kw) in enumerate(shapes.items())}
+
+
+def bloom_cases():
+    """``BLOOM_CASES`` and four BLOOM-176B cases (112 heads: decode at T = 3,
+    a T = 16 prefill on tensor cores, fp32 decode, a T = 16 fp32 chunk on
+    CUDA cores), blocks of 16, with the slopes of
+    ``models.bloom.alibi_slopes``; the BLOOM-7b1 lengths and token counts
+    are FAMILY_CASES'."""
+    import torch
+    from deepspeed_tpu_torch.models.bloom import alibi_slopes
+    rng = np.random.default_rng(17)
+    bf16 = torch.bfloat16
+    b7 = dict(H=32, KV=32, Dh=128, bs=16, slopes=alibi_slopes(32))
+    b176 = dict(H=112, KV=112, Dh=128, bs=16, slopes=alibi_slopes(112))
+    t5_tokens = np.full(16, 5)
+    t5_tokens[3] = 2  # a row whose tail positions merge to zeros
+    shapes = {
+        "bloom7b1_decode_n16_bf16": dict(N=16, T=1, lengths=rng.integers(1000, 1051, 16),
+                                         n_tokens=[1] * 16, dtype=bf16, **b7),
+        "bloom7b1_t5_n16_bf16": dict(N=16, T=5, lengths=rng.integers(1000, 1051, 16),
+                                     n_tokens=t5_tokens, dtype=bf16, **b7),
+        "bloom7b1_prefill_t512_bf16": dict(N=2, T=512, lengths=[2048, 700], n_tokens=[512, 300],
+                                           dtype=bf16, **b7),
+        "bloom176b_h112_decode_t3_bf16": dict(N=3, T=3, lengths=[40, 130, 7], n_tokens=[3, 3, 2],
+                                              dtype=bf16, **b176),
+        "bloom176b_h112_prefill_t16_bf16": dict(N=2, T=16, lengths=[200, 16], n_tokens=[16, 16],
+                                                dtype=bf16, **b176),
+        "bloom176b_h112_decode_t1_fp32": dict(N=3, T=1, lengths=[90, 1, 33], n_tokens=[1, 1, 1],
+                                              dtype=torch.float32, **b176),
+        "cuda_core_bloom176b_h112_t16_fp32": dict(N=2, T=16, lengths=[70, 16],
+                                                  n_tokens=[16, 16], dtype=torch.float32,
+                                                  **b176),
+    }
+    return {name: make_case(600 + i, **kw) for i, (name, kw) in enumerate(shapes.items())}
 
 
 def split_ab(name, c):
@@ -1230,10 +1310,14 @@ def measure_adamw(name, n, grad_dtype, seed):
     return rec
 
 
+BERT_FLASH_CASE = "bert_base_noncausal_b8_s512_bf16"
+
+
 def phase_train_kernels(card):
     """The training path's kernels against their plain versions on the card:
-    flash at the training shape, GQA and edge cases; fused AdamW over one
-    7B-width leaf.  Returns the measured records and the largest errors."""
+    flash at the training shape, BERT-base's non-causal shape, GQA and edge
+    cases; fused AdamW over one 7B-width leaf.  Returns the measured records
+    (the BERT case's under ``<kernel>_bert``) and the largest errors."""
     import torch
     bf16 = torch.bfloat16
     cases = {
@@ -1263,12 +1347,17 @@ def phase_train_kernels(card):
                                               dtype=bf16), True),
         "sq200_gt_sk90_d128_fp16": (flash_case(22, B=2, Sq=200, Sk=90, H=2, KV=1, D=128,
                                                dtype=torch.float16), True),
+        # [train-gpt2-bert]'s BERT-base attention: non-causal, head dim 64
+        BERT_FLASH_CASE: (flash_case(23, B=8, Sq=512, Sk=512, H=12, KV=12, D=64, dtype=bf16),
+                          False),
     }
     errs = {}
     for name, (c, causal) in cases.items():
         for kname, e in compare_flash(name, c, causal).items():
             errs[kname] = max(errs.get(kname, 0.0), e)
     recs = measure_flash("train_causal_bf16", *cases["train_causal_bf16"])
+    for kname, rec in measure_flash(BERT_FLASH_CASE, *cases[BERT_FLASH_CASE]).items():
+        recs[f"{kname}_bert"] = rec
     del cases
     torch.cuda.empty_cache()
     adam_f32 = measure_adamw("adamw_w_gate_fp32_grad", W_GATE, torch.float32, 21)
@@ -4961,6 +5050,9 @@ def phase_slice_spec(device="cuda", cfg=None):
 # published widths and depths, but Mixtral-8x7B: 8 of its 32 layers (about
 # 93 GB of bf16 weights at full depth, more than one card holds)
 SERVE_FAMILIES = ("qwen2", "mixtral", "opt", "gptj", "phi", "falcon")
+# [slice-families]'s: the served families and BLOOM, which [serve-bloom]
+# serves on its own (its weights go on to [serve-v1-bloom])
+SLICE_FAMILIES = SERVE_FAMILIES + ("bloom", )
 FAMILY_SERVE_LAYERS = {"mixtral": 8}
 FAMILY_REQUESTS, FAMILY_MAX_NEW = 8, 16
 # 8 prompts of at most 1,024 tokens and 16 new: at most 65 blocks of 16 each
@@ -4968,32 +5060,45 @@ FAMILY_KW = dict(num_blocks=576, block_size=16, max_blocks_per_seq=72, token_bud
                  max_seqs_per_step=32)
 # the paged route a family's prefill steps (padded chunk >= 16) take in bf16
 FAMILY_PREFILL_ROUTE = {"qwen2": "prefill_tc", "mixtral": "prefill_tc", "opt": "prefill_tc",
-                        "gptj": "prefill_tc", "phi": "prefill_tc", "falcon": "prefill_tc"}
+                        "gptj": "prefill_tc", "phi": "prefill_tc", "falcon": "prefill_tc",
+                        "bloom": "prefill_tc"}
 
 
 def family_config(key, layers=None):
     """(module, config) of a served family at its published width, at
     ``layers`` layers (default: its own depth, or FAMILY_SERVE_LAYERS's)."""
     from deepspeed_tpu_torch.inference.v2.engine_factory import REGISTRY
-    from deepspeed_tpu_torch.models import falcon, gptj, mixtral, opt, phi, qwen
+    from deepspeed_tpu_torch.models import bloom, falcon, gptj, mixtral, opt, phi, qwen
     cfg = {"qwen2": qwen.QwenConfig.qwen2_7b, "mixtral": mixtral.MixtralConfig.mixtral_8x7b,
            "opt": opt.OPTConfig.opt_125m, "gptj": gptj.GPTJConfig.gptj_6b,
-           "phi": phi.PhiConfig.phi_2, "falcon": falcon.FalconConfig.falcon_7b}[key]()
+           "phi": phi.PhiConfig.phi_2, "falcon": falcon.FalconConfig.falcon_7b,
+           "bloom": bloom.BloomConfig.bloom_7b1}[key]()
     layers = layers or FAMILY_SERVE_LAYERS.get(key)
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
-    return REGISTRY[key], cfg
+    return (bloom if key == "bloom" else REGISTRY[key]), cfg
+
+
+def family_engine(key, module, cfg, params, **kw):
+    """``build_engine`` under the family's key; BLOOM, which has none (as in
+    the JAX factory), through ``InferenceEngineV2(bloom, ...)``."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.engine_factory import REGISTRY, build_engine
+    if key in REGISTRY:
+        return build_engine(key, cfg, params, **kw)
+    return InferenceEngineV2(module, cfg, params, **kw)
 
 
 def family_params(module, cfg, seed, dtype, device="cuda"):
     """Seeded random weights drawn on ``device``; the q/k/v biases (zeros
     from ``init_params``: Qwen2's ``layers.attn.b*``, OPT's and Phi's flat
-    ``layers.b*``) are drawn too, so that they add something."""
+    ``layers.b*``, BLOOM's fused ``layers.b_qkv``) are drawn too, so that
+    they add something."""
     import torch
     gen = torch.Generator(device=device).manual_seed(seed)
     params = module.init_params(cfg, gen, dtype=dtype, device=device)
     for leaves in (params["layers"].get("attn", {}), params["layers"]):
-        for name in ("bq", "bk", "bv"):
+        for name in ("bq", "bk", "bv", "b_qkv"):
             if name in leaves:
                 leaves[name].normal_(0.0, 0.1, generator=gen)
     return params
@@ -5020,9 +5125,10 @@ def route_split(launches):
     return tc, dec, total - tc - dec
 
 
-def serve_family(card, key, seed=0, device="cuda", config=None, kw=None):
-    """[serve-<key>]: ``build_engine(key, ...)`` in bf16 (fp32 off the card)
-    from seeded random weights drawn on the device, the fast path with CUDA
+def serve_family(card, key, seed=0, device="cuda", config=None, kw=None, params=None):
+    """[serve-<key>]: ``build_engine(key, ...)`` (:func:`family_engine`) in
+    bf16 (fp32 off the card) from seeded random weights drawn on the device
+    (or ``params``, the caller's), the fast path with CUDA
     graphs; 8 prompts of 32-1,024 tokens, greedy, 16 new tokens, a cold and a
     warm serve.  Gates: every request ok and the pool reclaimed; paged
     launches equal the forward steps by padded width and route times the
@@ -5032,7 +5138,6 @@ def serve_family(card, key, seed=0, device="cuda", config=None, kw=None):
     tokens.  Prints tok/s, the mean step, the device's idle share (the warm
     serve again under torch.profiler), peak memory and the graph pool."""
     import torch
-    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
     from deepspeed_tpu_torch.runtime.tree import tree_leaves
     tag = f"serve-{key}"
     module, cfg = config or family_config(key)
@@ -5042,13 +5147,14 @@ def serve_family(card, key, seed=0, device="cuda", config=None, kw=None):
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = family_params(module, cfg, seed, dtype, device)
+    if params is None:
+        params = family_params(module, cfg, seed, dtype, device)
     n_params = sum(p.numel() for p in tree_leaves(params))
     if n_params != module.num_params(cfg):
         raise AssertionError(f"[{tag}] init_params made {n_params} params, num_params says "
                              f"{module.num_params(cfg)}")
-    engine = build_engine(key, cfg, params, config={"dtype": dtype_name, "seed": seed},
-                          device=device, **(kw or FAMILY_KW))
+    engine = family_engine(key, module, cfg, params, config={"dtype": dtype_name, "seed": seed},
+                           device=device, **(kw or FAMILY_KW))
     if on_card and not (engine.fastpath.enabled and engine.programs.graphs):
         raise AssertionError(f"[{tag}] the engine on CUDA does not run the fast path's graphs")
     _sync(device)
@@ -5119,14 +5225,47 @@ def phase_serve_families(card, seed=0):
     return out
 
 
+def phase_serve_bloom(card, seed=0):
+    """[serve-bloom]: BLOOM-7b1 at full width and depth in bf16 (seeded
+    random weights on the card) through ``InferenceEngineV2(bloom, ...)``,
+    :func:`serve_family`'s serve and gates, ALiBi on the paged kernel's
+    slopes operand; then [serve-v1-bloom], the same weights through
+    ``init_inference(model_module=bloom, ...)`` after the v2 engine and its
+    pool are freed, with :func:`serve_v1`'s serve and gates and no kernel
+    launched.  Returns [serve-bloom]'s summary."""
+    import torch
+    import deepspeed_tpu_torch
+    module, cfg = family_config("bloom")
+    params = family_params(module, cfg, seed, torch.bfloat16)
+    with phase_timer("serve-bloom"):
+        served = serve_family(card, "bloom", seed, params=params)
+    torch.cuda.empty_cache()
+    with phase_timer("serve-v1-bloom"):
+        t0 = time.perf_counter()
+        engine = deepspeed_tpu_torch.init_inference(
+            model_module=module, model_config=cfg, params=params,
+            config={"dtype": "bfloat16", "max_seq_len": V1_PROMPT + V1_NEW})
+        log(f"[serve-v1-bloom] bloom_7b1 through the v1 engine, the [serve-bloom] weights, set "
+            f"up in {time.perf_counter() - t0:.2f} s")
+        prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (V1_BATCH, V1_PROMPT))
+        before = launch_counts()
+        serve_v1(card, "serve-v1-bloom", engine, prompts, cfg.vocab_size)
+        if launch_counts() != before:
+            raise AssertionError(f"[serve-v1-bloom] launched {launch_counts()} (before "
+                                 f"{before}); the v1 path's biased attention is plain torch")
+    del engine, params
+    torch.cuda.empty_cache()
+    return served
+
+
 @contextlib.contextmanager
 def plain_paged_attention():
     """The families' ``forward_paged`` with the paged attention's plain
     version (``paged_attention_reference``) in place of the kernel wrapper,
     on the same (CUDA) tensors: Llama-shaped families (Qwen2, Mixtral) call
-    it from ``models/llama.py``, OPT, GPT-J, Phi and Falcon from their own
-    modules."""
-    from deepspeed_tpu_torch.models import falcon, gptj, llama, opt, phi
+    it from ``models/llama.py``, OPT, GPT-J, Phi, Falcon and BLOOM from
+    their own modules."""
+    from deepspeed_tpu_torch.models import bloom, falcon, gptj, llama, opt, phi
     from deepspeed_tpu_torch.ops.attention.paged import paged_attention_reference
 
     def plain(q, kpool, vpool, tables, lengths, start_pos, n_tokens, *, block_size,
@@ -5135,7 +5274,7 @@ def plain_paged_attention():
         return paged_attention_reference(q, kpool, vpool, tables, lengths, start_pos, n_tokens,
                                          scale, window, alibi_slopes)
 
-    modules = (llama, opt, gptj, phi, falcon)
+    modules = (llama, opt, gptj, phi, falcon, bloom)
     saved = [m.paged_attention for m in modules]
     for m in modules:
         m.paged_attention = plain
@@ -5156,7 +5295,7 @@ def slice_family_paged(key, module, cfg, params, device):
     bs, nb = 16, 40
     kv = module.init_paged_cache(cfg, nb, bs, dtype=torch.float32, device=device)
     kv_plain = module.init_paged_cache(cfg, nb, bs, dtype=torch.float32, device=device)
-    rng = np.random.default_rng(SERVE_FAMILIES.index(key))
+    rng = np.random.default_rng(SLICE_FAMILIES.index(key))
     tables = np.full((2, 8), nb - 1, np.int32)
     tables[0, :6] = [3, 9, 1, 12, 20, 7]
     tables[1, :4] = [5, 30, 2, 11]
@@ -5189,17 +5328,18 @@ def slice_family_paged(key, module, cfg, params, device):
 
 
 def phase_slice_families(seed=6, device="cuda", configs=None):
-    """[slice-families]: each served family in fp32 at its serve's width
-    and 2 layers, on the card alone: check 1 (:func:`slice_family_paged`),
-    with the prefill chunk on the CUDA-core route and the decode steps on
-    split-K in each layer; check 2, the fast path with CUDA graphs against
-    the eager reference loop, token for token, over 4 prompts."""
+    """[slice-families]: each served family and BLOOM in fp32 at its serve's
+    width and 2 layers, on the card alone: check 1
+    (:func:`slice_family_paged`), with the prefill chunk on the CUDA-core
+    route and the decode steps on split-K in each layer; check 2, the fast
+    path with CUDA graphs against the eager reference loop, token for token,
+    over 4 prompts; for BLOOM, check 3 (:func:`slice_bloom_v1`), its v1
+    cached forward on the card against the CPU."""
     import torch
-    from deepspeed_tpu_torch.inference.v2.engine_factory import build_engine
     kw = dict(num_blocks=64, block_size=16, max_blocks_per_seq=8, token_budget=64,
               max_seqs_per_step=4)
     fp32 = {"dtype": "float32"}
-    for key in SERVE_FAMILIES:
+    for key in SLICE_FAMILIES:
         t0 = time.perf_counter()
         module, cfg = (configs or {}).get(key) or family_config(key, layers=2)
         params = family_params(module, cfg, seed, torch.float32, device)
@@ -5209,9 +5349,9 @@ def phase_slice_families(seed=6, device="cuda", configs=None):
             raise AssertionError(f"[slice-families] {key}: paged (launches, tensor-core, decode) "
                                  f"{launches}, expected a CUDA-core prefill and two split-K "
                                  f"decode steps x {cfg.num_layers} layers")
-        graphs = build_engine(key, cfg, params, config=fp32, device=device, **kw)
-        eager = build_engine(key, cfg, params, device=device, **kw,
-                             config={**fp32, "serving_fastpath": {"enabled": False}})
+        graphs = family_engine(key, module, cfg, params, config=fp32, device=device, **kw)
+        eager = family_engine(key, module, cfg, params, device=device, **kw,
+                              config={**fp32, "serving_fastpath": {"enabled": False}})
         rng = np.random.default_rng(seed)
         prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in (5, 40, 17, 90)]
         got = graphs.generate(prompts, max_new_tokens=8)
@@ -5224,11 +5364,46 @@ def phase_slice_families(seed=6, device="cuda", configs=None):
             f"{device}: forward_paged through the kernel vs the plain paged version, prefill + "
             f"2 decode steps, max logit abs err {worst:.3e} (atol=rtol=1e-4), paged launches "
             f"(total, tensor-core, decode) {launches}; fast path with {graphs.ledger.total} "
-            f"captures == eager reference loop, token for token, over {len(prompts)} prompts; "
+            f"captures == eager reference loop, token for token, over {len(prompts)} prompts"
+            f"{slice_bloom_v1(cfg, params, device) if key == 'bloom' else ''}; "
             f"{time.perf_counter() - t0:.1f} s")
         del graphs, eager, params
         if on_card:
             torch.cuda.empty_cache()
+
+
+def slice_bloom_v1(cfg, params, device, seed=7):
+    """Check 3 of [slice-families] for BLOOM: ``forward_with_cache`` over a
+    prefill of 2 x 16 tokens and 3 greedy decode steps on ``device`` against
+    the same on a CPU copy of the weights, each with its own cache: logits
+    within atol = rtol = 1e-4, the greedy picks equal, no kernel launched
+    (the v1 path's biased attention is plain torch).  Returns a note for the
+    phase's line."""
+    import torch
+    from deepspeed_tpu_torch.models import bloom
+    from deepspeed_tpu_torch.runtime.tree import tree_map
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    cache, cache_cpu = (bloom.init_cache(cfg, 2, 32, dtype=torch.float32, device=dev)
+                        for dev in (device, "cpu"))
+    ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 16))
+    before, worst, picks = launch_counts(), 0.0, []
+    for step in range(4):
+        x = torch.from_numpy(ids if step == 0 else picks[-1][:, None])
+        got, cache = bloom.forward_with_cache(cfg, params, x.to(device), cache)
+        ref, cache_cpu = bloom.forward_with_cache(cfg, params_cpu, x, cache_cpu)
+        worst = max(worst, _max_err(f"[slice-families] bloom v1 step {step}", got.cpu(), ref,
+                                    1e-4, 1e-4))
+        pick, pick_cpu = got[:, -1].argmax(-1).cpu().numpy(), ref[:, -1].argmax(-1).numpy()
+        if not np.array_equal(pick, pick_cpu):
+            raise AssertionError(f"[slice-families] bloom v1 step {step}: greedy picks "
+                                 f"{pick} on {device}, {pick_cpu} on the CPU")
+        picks.append(pick)
+    if launch_counts() != before:
+        raise AssertionError(f"[slice-families] bloom v1: launched {launch_counts()} (before "
+                             f"{before}); the v1 path runs no kernel")
+    return (f"; v1 forward_with_cache (prefill 2 x 16, 3 decode steps) on {device} vs the CPU: "
+            f"max logit abs err {worst:.3e} (atol=rtol=1e-4), greedy picks "
+            f"{np.stack(picks, 1).tolist()} equal, no kernel launched")
 
 
 TRAIN_PEAK_FLOPS = 989e12  # bf16 dense tensor-core peak of the H100 SXM
@@ -5529,6 +5704,236 @@ def profile_train(engine, batch, card, step_s, tag="profile-train"):
     the rest, against the unprofiled mean step."""
     profile_device(lambda: engine.train_batch(batch), card, tag, "step", step_s * 1e3,
                    PROFILE_GROUPS)
+
+
+# [train-gpt2-bert]: optimizer steps, micro-batch x gas, and the lr that
+# WarmupLR reaches after its 10 warm-up steps
+GPT2_BERT_STEPS, GPT2_BERT_MICRO, GPT2_BERT_GAS, GPT2_BERT_LR = 5, 4, 2, 1e-3
+
+
+def dense_families():
+    """{key: (module, published config, sequence length)} of [train-gpt2-bert]."""
+    from deepspeed_tpu_torch.models import bert, gpt2
+    return {"gpt2": (gpt2, gpt2.GPT2Config.gpt2_350m(), 1024),
+            "bert": (bert, bert.BertConfig.bert_base(), 512)}
+
+
+def dense_batch(key, vocab, rows, seq, seed):
+    """GPT-2: next-token pairs (``llama.causal_lm_batch``); BERT: MLM labels
+    at every 4th position (``tests/unit/test_models.py``'s drive)."""
+    from deepspeed_tpu_torch.models import llama
+    ids = np.random.default_rng(seed).integers(0, vocab, (rows, seq))
+    if key == "gpt2":
+        return llama.causal_lm_batch(ids)
+    labels = np.full_like(ids, -100)
+    labels[:, ::4] = ids[:, ::4]
+    return {"input_ids": ids, "labels": labels}
+
+
+def padding_mask(rows, seq, pad):
+    """[rows, seq] int32 attention mask whose odd rows pad their last ``pad``
+    keys."""
+    mask = np.ones((rows, seq), np.int32)
+    mask[1::2, seq - pad:] = 0
+    return mask
+
+
+def train_dense_family(card, key, module, cfg, seq, seed=0, device="cuda"):
+    """``GPT2_BERT_STEPS`` ``train_batch`` steps of ``module`` at ``cfg``
+    through ``initialize`` (bf16 on the card, remat, ``fused_adam``, WarmupLR,
+    clip 1.0) on one fixed batch of micro x gas rows of ``seq`` tokens.
+    Gates: finite losses that fall; launches equal to the step formula,
+    every flash launch a tensor-core one.  For BERT one more step with a
+    padding mask: no flash launch (the masked attention is plain ``sdpa``),
+    the fused AdamW step as before.  Returns (launches, summary)."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves
+    tag = f"train-{key}"
+    on_card = torch.device(device).type == "cuda"
+    micro, gas, steps = GPT2_BERT_MICRO, GPT2_BERT_GAS, GPT2_BERT_STEPS
+    t0 = time.perf_counter()
+    params = module.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                                dtype=torch.float32, device=device)
+    n_leaves, n_params = len(tree_leaves(params)), module.num_params(cfg)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        loss_fn=module.make_loss_fn(cfg), model_parameters=params, device=device,
+        config=train_config(micro=micro, gas=gas, bf16=on_card, seed=seed, lr=GPT2_BERT_LR))
+    del params
+    batch = dense_batch(key, cfg.vocab_size, micro * gas, seq, seed)
+    tokens = micro * gas * seq
+    # 6 N a token and the attention products (llama.flops_per_token's term)
+    step_flops = (6.0 * n_params + 12 * cfg.num_layers * cfg.hidden_size * seq) * tokens
+    log(f"[{tag}] {cfg.num_layers} layers, hidden {cfg.hidden_size}, {cfg.num_heads} heads, "
+        f"vocab {cfg.vocab_size}: {n_params / 1e6:.1f} M params, set up in "
+        f"{time.perf_counter() - t0:.2f} s; {'bf16' if on_card else 'fp32'}, remat, fused_adam, "
+        f"WarmupLR to {GPT2_BERT_LR}, clip 1.0, micro {micro} x gas {gas} x seq {seq} = "
+        f"{tokens} tokens a step, {step_flops / 1e12:.2f} TFLOP a step")
+    _sync(device)
+    reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        metrics = engine.train_batch(batch)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics.loss))
+    launches = launch_counts()
+    expected = expected_launches(steps=steps, gas=gas, layers=cfg.num_layers, n_leaves=n_leaves,
+                                 optimizer="fused_adam", sparse=None)
+    wrappers = _kernel_wrappers()
+    tc = {name: wrappers[name].tc_launches for name in TC_TRAIN_KERNELS[:3]}
+    if on_card and (launches != expected or any(tc[k] != launches[k] for k in tc)):
+        raise AssertionError(f"[{tag}] launches {launches}, tensor-core {tc}; the step formula "
+                             f"gives {expected}, every flash launch on tensor cores")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[{tag}] losses not finite and falling: {losses}")
+    step_s = statistics.mean(times[1:])
+    summary = {"step_ms": step_s * 1e3, "tokens_s": tokens / step_s,
+               "mfu": step_flops / step_s / TRAIN_PEAK_FLOPS, "launches": launches}
+    log(f"[{tag}] {steps} steps on {card}: losses {[round(x, 4) for x in losses]}; step ms "
+        f"{[round(t * 1e3, 1) for t in times]} (first includes warm-up); steps 2-{steps}: "
+        f"{summary['step_ms']:.1f} ms a step, {summary['tokens_s']:.1f} tokens/s, mfu "
+        f"{summary['mfu']:.4f} (of {TRAIN_PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16); launches "
+        f"{ {k: v for k, v in launches.items() if v} } = step formula, tensor-core "
+        f"{ {k: v for k, v in tc.items() if v} }")
+    if on_card:
+        profile_train(engine, batch, card, step_s, tag=f"profile-{tag}")
+    if key == "bert":
+        masked = dict(batch, attention_mask=padding_mask(micro * gas, seq, 64))
+        reset_launch_counts()
+        loss = float(engine.train_batch(masked).loss)
+        _sync(device)
+        got = {k: v for k, v in launch_counts().items() if v}
+        if not np.isfinite(loss) or (on_card and got != {"fused_adamw": n_leaves}):
+            raise AssertionError(f"[{tag}] the masked step: loss {loss}, launches {got}; "
+                                 f"expected fused_adamw {n_leaves} and no flash launch")
+        log(f"[{tag}] one more step with a padding mask (64 keys of every other row): loss "
+            f"{loss:.4f}, launches {got}: the masked attention goes to sdpa, no flash launch")
+    del engine
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, summary
+
+
+def dense_slice_check(tag, module, cfg, batch, device, seed=3, **forward_kw):
+    """``module.forward`` and the grads of its loss (``make_loss_fn``'s
+    cross entropy) in fp32 on ``device`` against a CPU copy of the same
+    weights, the tolerances of [train-slice]: the loss at rtol 1e-4, the
+    logits and each leaf's grad at rtol 1e-4 and an atol of 1e-4 of its
+    largest value.  Returns (max logit error, max grad error relative to
+    its leaf's largest grad, launches on ``device``)."""
+    import torch
+    from deepspeed_tpu_torch.models.transformer import cross_entropy_loss
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves, tree_map
+    params = module.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                                dtype=torch.float32, device=device)
+    out = []
+    for dev, p in ((device, params), ("cpu", tree_map(lambda t: t.cpu(), params))):
+        p = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        kw = {k: torch.from_numpy(v).to(dev) for k, v in forward_kw.items()}
+        before = launch_counts()
+        with torch.enable_grad():
+            logits = module.forward(cfg, p, torch.from_numpy(batch["input_ids"]).to(dev), **kw)
+            loss = cross_entropy_loss(logits, torch.from_numpy(batch["labels"]).to(dev))
+            # BERT's type_emb without token types: a zero grad, as the engine gives it
+            grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True,
+                                        materialize_grads=True)
+        _sync(dev)
+        launched = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+        out.append((logits.detach().cpu(), loss.item(), [g.cpu() for g in grads], launched))
+    (logits, loss, grads, launched), (ref_logits, ref_loss, ref_grads, _) = out
+    if not abs(loss - ref_loss) <= 1e-4 * abs(ref_loss):
+        raise AssertionError(f"[{tag}] loss {loss} on {device}, {ref_loss} on the CPU")
+    top = ref_logits.abs().max().item()
+    logit_err = _max_err(f"[{tag}] logits", logits, ref_logits, 1e-4 * top, 1e-4)
+    grad_rel = 0.0
+    for i, (g, r) in enumerate(zip(grads, ref_grads)):
+        top = r.abs().max().item()
+        err = _max_err(f"[{tag}] grad of leaf {i}", g, r, 1e-4 * top, 1e-4)
+        grad_rel = max(grad_rel, err / top if top else 0.0)
+    return logit_err, grad_rel, launched
+
+
+def phase_train_gpt2_bert(card, device="cuda", configs=None, mistral_cfg=None):
+    """[train-gpt2-bert]: GPT-2-350m (S = 1024, causal) and BERT-base
+    (S = 512, non-causal, no mask) at full width and depth trained by
+    :func:`train_dense_family` through the flash kernels and fused AdamW;
+    then each at 2 layers in fp32 (:func:`dense_slice_check`: a flash
+    forward, the remat recompute and both backward kernels a layer), BERT
+    with a padding mask (no flash launch; a token changed behind the mask
+    leaves every unmasked logit as it was), and Mistral-7B's windowed dense
+    forward at 2 layers with a window of 32 under a sequence of 96 (the
+    masked ``sdpa`` on every device), each on ``device`` against the CPU.
+    ``configs`` ({key: (module, cfg, seq)}) and ``mistral_cfg`` replace the
+    published configurations for a rehearsal.  Returns the flash and AdamW launches
+    of the full-size runs, by family."""
+    import torch
+    from deepspeed_tpu_torch.models import mistral
+    from deepspeed_tpu_torch.runtime.tree import tree_map
+    on_card = torch.device(device).type == "cuda"
+    families = configs or dense_families()
+    out = {}
+    for key, (module, cfg, seq) in families.items():
+        with phase_timer(f"train-{key}"):
+            out[key] = train_dense_family(card, key, module, cfg, seq, device=device)[0]
+    for key, (module, cfg, _) in families.items():
+        small = dataclasses.replace(cfg, num_layers=2)
+        batch = dense_batch(key, small.vocab_size, 2, 128, seed=5)
+        logit_err, grad_rel, launched = dense_slice_check(f"train-{key}-slice", module, small,
+                                                          batch, device)
+        want = {"flash_fwd": 4, "flash_bwd_dkdv": 2, "flash_bwd_dq": 2}
+        if on_card and launched != want:
+            raise AssertionError(f"[train-{key}-slice] launched {launched}, expected {want}")
+        log(f"[train-{key}-slice] 2 layers at full width, fp32, 2 x 128 tokens, {device} vs the "
+            f"CPU: loss within rtol 1e-4, logits max abs err {logit_err:.3e}, grads at most "
+            f"{grad_rel:.3e} of their leaf's largest (rtol 1e-4, atol 1e-4 x max|leaf|); "
+            f"launches {launched}")
+    module, cfg, _ = families["bert"]
+    small = dataclasses.replace(cfg, num_layers=2)
+    batch = dense_batch("bert", small.vocab_size, 2, 128, seed=6)
+    mask = padding_mask(2, 128, 32)
+    logit_err, grad_rel, launched = dense_slice_check("train-bert-masked", module, small, batch,
+                                                      device, attention_mask=mask)
+    if launched:
+        raise AssertionError(f"[train-bert-masked] launched {launched}: a masked attention "
+                             f"goes to sdpa")
+    params = module.init_params(small, torch.Generator(device=device).manual_seed(3),
+                                device=device)
+    ids = batch["input_ids"].copy()
+    ids[1, -5] = (ids[1, -5] + 7) % small.vocab_size  # behind row 1's mask
+    run = lambda x: module.forward(small, params, torch.from_numpy(x).to(device),  # noqa: E731
+                                   attention_mask=torch.from_numpy(mask).to(device))
+    moved = (run(ids) - run(batch["input_ids"]))[1, :128 - 32].abs().max().item()
+    if moved > 1e-5:
+        raise AssertionError(f"[train-bert-masked] a token behind the mask moved the unmasked "
+                             f"logits by {moved:.3e}")
+    log(f"[train-bert-masked] 2 layers, fp32, a padding mask over 32 keys of row 1, {device} vs "
+        f"the CPU: logits max abs err {logit_err:.3e}, grads at most {grad_rel:.3e} of their "
+        f"leaf's largest; no flash launch; a token changed behind the mask moved the unmasked "
+        f"logits by {moved:.3e} (gate 1e-5)")
+    mcfg = mistral_cfg or dataclasses.replace(mistral.MistralConfig.mistral_7b(), num_layers=2,
+                                              sliding_window=32)
+    mparams = mistral.init_params(mcfg, torch.Generator(device=device).manual_seed(4),
+                                  device=device)
+    ids = np.random.default_rng(4).integers(0, mcfg.vocab_size, (1, 96))
+    before = launch_counts()
+    got = mistral.forward(mcfg, mparams, torch.from_numpy(ids).to(device)).cpu()
+    launched = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    ref = mistral.forward(mcfg, tree_map(lambda t: t.cpu(), mparams), torch.from_numpy(ids))
+    err = _max_err("[train-mistral-windowed] logits", got, ref, 1e-4 * ref.abs().max().item(),
+                   1e-4)
+    if launched:
+        raise AssertionError(f"[train-mistral-windowed] launched {launched}: the windowed "
+                             f"attention is the masked sdpa")
+    log(f"[train-mistral-windowed] mistral_7b width, 2 layers, fp32, window "
+        f"{mcfg.sliding_window} under 96 tokens, {device} vs the CPU: logits max abs err "
+        f"{err:.3e} (rtol 1e-4, atol 1e-4 x max|logit|); no kernel launched")
+    del params, mparams
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
 
 
 # [train-slice*]'s depth: one full-width layer, and sequences of 128
@@ -5913,6 +6318,7 @@ def main() -> int:
             launches = phase_serve(card)
         with phase_timer("serve-families"):
             families = phase_serve_families(card)
+        families["bloom"] = phase_serve_bloom(card)
         with phase_timer("slice"):
             phase_slice()
         with phase_timer("slice-serve"):
@@ -5945,6 +6351,8 @@ def main() -> int:
                           sparse=SPARSE_CONFIG)
     with phase_timer("train-slice-lion"):
         lion_launches = phase_train_slice(tag="train-slice-lion", optimizer="lion", seq=128)
+    with phase_timer("train-gpt2-bert"):
+        dense_launches = phase_train_gpt2_bert(card)
     with phase_timer("serve-v1, serve-v1-int8"):
         _, quant_launches = phase_serve_v1(card)
     with phase_timer("slice-v1"):
@@ -5979,7 +6387,7 @@ def main() -> int:
                 "verify": {name: {k: recs[name][k] for k in PAGED_FIELDS}
                            for name in VERIFY_CASES},
                 "families": {name: {k: recs[name][k] for k in PAGED_FIELDS}
-                             for name in FAMILY_CASES + PHI_FALCON_CASES},
+                             for name in FAMILY_CASES + PHI_FALCON_CASES + BLOOM_CASES},
                 "serve_families_launches": families}]
     for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         kernels.append({"name": name, "route": "cuda", "source": FLASH_SOURCE,
@@ -5987,6 +6395,10 @@ def main() -> int:
                         "max_abs_err": train_errs[name],
                         **{k: train_recs[name][k] for k in fields},
                         "shape": "B=2 S=2048 H=KV=32 D=128 bf16 causal",
+                        "bert_noncausal": {k: train_recs[f"{name}_bert"][k] for k in fields},
+                        "bert_shape": "B=8 S=512 H=KV=12 D=64 bf16 non-causal",
+                        "train_gpt2_bert_launches": {key: dense_launches[key][name]
+                                                     for key in dense_launches},
                         "variant": ("tensor cores for bf16/fp16 (mma.sync m16n8k16), CUDA "
                                     "cores for fp32" if name == "flash_bwd_dq" else
                                     "tensor cores for bf16/fp16 (forward wgmma, dK/dV "
@@ -5997,6 +6409,8 @@ def main() -> int:
                     "max_abs_err": train_errs["fused_adamw"], **{k: adam[k] for k in fields},
                     "shape": f"n={W_GATE} (the stacked w_gate leaf of [train]) fp32 p/m/v, "
                              f"fp32 grad",
+                    "train_gpt2_bert_launches": {key: dense_launches[key]["fused_adamw"]
+                                                 for key in dense_launches},
                     "bf16_grad": {k: train_recs["fused_adamw_bf16_grad"][k] for k in fields}})
     for name in ("sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq"):
         kernels.append({"name": name, "route": "cuda", "source": SPARSE_SOURCE,

@@ -6,7 +6,9 @@ same keys: ``llama``, ``mistral`` (sliding window), ``mixtral`` (MoE),
 ``opt``, ``qwen2``, ``gptj``, ``falcon`` (multi-query: 71 q heads over one
 kv head on 7B) and ``phi`` (head dim 80).  Every family's attention runs on
 the paged kernel's routes (``ops/attention/paged.py::paged_route``).  BLOOM
-serves through the v1 engine (ALiBi needs the biased dense attention).
+has no key here, as in the JAX factory: it serves through
+``InferenceEngineV2(models.bloom, ...)`` (ALiBi on the paged kernel's
+``alibi_slopes`` operand) and through the v1 engine.
 """
 
 from typing import Any, Dict, Optional

@@ -1,5 +1,8 @@
-from . import falcon, gptj, llama, mistral, mixtral, opt, phi, qwen, transformer
+from . import bert, bloom, falcon, gpt2, gptj, llama, mistral, mixtral, opt, phi, qwen, transformer
+from .bert import BertConfig
+from .bloom import BloomConfig
 from .falcon import FalconConfig
+from .gpt2 import GPT2Config
 from .gptj import GPTJConfig
 from .llama import LlamaConfig
 from .mistral import MistralConfig

@@ -13,7 +13,7 @@ layer it needs, ``leaf[i]``, so only that layer is ever dense.
 import dataclasses
 import functools
 import math
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -280,6 +280,77 @@ def from_hf_state_dict(config: LlamaConfig, state_dict, dtype=torch.float32):
         key = "lm_head.weight" if "lm_head.weight" in state_dict else "model.embed_tokens.weight"
         params["lm_head"] = t(key).T.contiguous().to(dtype)
     return params
+
+
+def abstract_params(config: LlamaConfig, dtype=torch.float32):
+    """The params tree on the meta device: :func:`init_params`'s paths,
+    shapes and dtypes, zero bytes held (the abstract half of ``OnDevice`` /
+    ``zero.Init``; JAX's ``jax.eval_shape``)."""
+    return init_params(config, None, dtype=dtype, device="meta")
+
+
+def hf_streaming_loader(config: LlamaConfig, get_tensor: Callable[[str], Any]):
+    """``get_leaf(path, leaf)`` that streams a HuggingFace Llama checkpoint
+    one layer tensor at a time.  ``get_tensor(hf_name)`` gives a tensor or
+    array (a safetensors handle's lookup, a state dict's ``__getitem__``);
+    for a name it lacks it raises a ``LookupError`` or gives None.
+
+    ``embed``, ``final_norm`` and ``lm_head`` (HF's transposed, or the
+    embedding's when ``lm_head.weight`` is absent) come back whole as fp32
+    numpy arrays.  A stacked layer leaf comes back as ``slice_cb(idx)``,
+    which reads only the layers ``idx[0]`` selects, transposes torch's
+    [out, in] to [in, out] and applies ``idx[1:]`` to each: peak host
+    memory is one layer tensor, not the leaf.  Its consumer,
+    ``zero.Init.materialize_from_loader``, is not ported yet (ROADMAP item
+    11)."""
+
+    def t(name):
+        w = get_tensor(name)
+        if isinstance(w, torch.Tensor):
+            return w.detach().to("cpu", torch.float32).numpy()
+        return np.asarray(w, dtype=np.float32)
+
+    fmt = {
+        "layers.attn.wq": ("model.layers.{}.self_attn.q_proj.weight", True),
+        "layers.attn.wk": ("model.layers.{}.self_attn.k_proj.weight", True),
+        "layers.attn.wv": ("model.layers.{}.self_attn.v_proj.weight", True),
+        "layers.attn.wo": ("model.layers.{}.self_attn.o_proj.weight", True),
+        "layers.mlp.w_gate": ("model.layers.{}.mlp.gate_proj.weight", True),
+        "layers.mlp.w_up": ("model.layers.{}.mlp.up_proj.weight", True),
+        "layers.mlp.w_down": ("model.layers.{}.mlp.down_proj.weight", True),
+        "layers.attn_norm": ("model.layers.{}.input_layernorm.weight", False),
+        "layers.mlp_norm": ("model.layers.{}.post_attention_layernorm.weight", False),
+    }
+
+    def get_leaf(path, leaf):
+        if path == "embed":
+            return t("model.embed_tokens.weight")
+        if path == "final_norm":
+            return t("model.norm.weight")
+        if path == "lm_head":
+            name = ("lm_head.weight" if _has(get_tensor, "lm_head.weight")
+                    else "model.embed_tokens.weight")
+            return t(name).T
+        name_fmt, transpose = fmt[path]
+
+        def slice_cb(idx):
+            parts = []
+            for i in range(*idx[0].indices(config.num_layers)):
+                w = t(name_fmt.format(i))
+                w = w.T if transpose else w
+                parts.append(w[idx[1:]] if len(idx) > 1 else w)
+            return np.stack(parts)
+
+        return slice_cb
+
+    return get_leaf
+
+
+def _has(get_tensor, name) -> bool:
+    try:
+        return get_tensor(name) is not None
+    except LookupError:
+        return False
 
 
 def config_from_hf(hf_config) -> LlamaConfig:

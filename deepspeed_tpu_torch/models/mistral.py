@@ -1,15 +1,21 @@
 """Mistral causal LM: the Llama architecture with sliding-window attention.
 
-Counterpart of ``deepspeed_tpu/models/mistral.py`` for the v2 serving path:
-everything delegates to :mod:`.llama`, and ``forward_paged`` hands
-``sliding_window`` to the paged-attention kernel.
+Counterpart of ``deepspeed_tpu/models/mistral.py``: everything delegates to
+:mod:`.llama`.  Training masks the window inside plain ``sdpa``
+(:func:`windowed_attention`, on every device, as the JAX package leaves the
+masked attention to XLA); ``forward_paged`` hands ``sliding_window`` to the
+paged-attention kernel.  Not ported: the tensor-parallel rules (ROADMAP item
+11).
 """
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
+
+import torch
 
 from . import llama
 from .llama import LlamaConfig
+from .transformer import sdpa
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,13 +35,49 @@ class MistralConfig(LlamaConfig):
                              max_seq_len=seq, sliding_window=window)
 
 
+def windowed_attention(window: Optional[int]):
+    """The training path's attention function: causal within the last
+    ``window`` keys of each query (queries at the end of the keys), and
+    within ``mask`` where the caller gives one; None without a window."""
+    if window is None:
+        return None
+
+    def attn(q, k, v, causal=True, mask=None, softmax_scale=None):
+        sq, sk = q.shape[1], k.shape[1]
+        qp = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        kp = torch.arange(sk, device=q.device)[None, :]
+        wmask = ((kp <= qp) & (kp > qp - window))[None, None]
+        if mask is not None:
+            wmask = mask & wmask
+        return sdpa(q, k, v, causal=False, mask=wmask, softmax_scale=softmax_scale)
+
+    return attn
+
+
 init_params = llama.init_params
 num_params = llama.num_params
+flops_per_token = llama.flops_per_token
+abstract_params = llama.abstract_params
+hf_streaming_loader = llama.hf_streaming_loader
 params_from_jax = llama.params_from_jax
 kv_from_jax = llama.kv_from_jax
 from_hf_state_dict = llama.from_hf_state_dict
+init_cache = llama.init_cache
 init_paged_cache = llama.init_paged_cache
+causal_lm_batch = llama.causal_lm_batch
 paged_bucket_cost = llama.paged_bucket_cost
+
+
+def forward(config: MistralConfig, params, input_ids, attention_fn=None):
+    """``llama.forward`` with :func:`windowed_attention` unless the caller
+    gives an attention function."""
+    fn = attention_fn or windowed_attention(config.sliding_window)
+    return llama.forward(config, params, input_ids, attention_fn=fn)
+
+
+def make_loss_fn(config: MistralConfig, attention_fn=None) -> Callable:
+    fn = attention_fn or windowed_attention(config.sliding_window)
+    return llama.make_loss_fn(config, attention_fn=fn)
 
 
 def config_from_hf(hf_config) -> MistralConfig:

@@ -1,7 +1,8 @@
 """Shared transformer building blocks, as plain functions on tensors.
 
 Counterpart of ``deepspeed_tpu/models/transformer.py`` for what the paged
-serving path, the dense training forward and the v1 cached forward use.  Layouts follow the JAX
+serving path, the dense training forward and the v1 cached forward use
+(Llama's SwiGLU and GPT-2's and BERT's GELU MLPs among them).  Layouts follow the JAX
 package: activations
 ``[B, S, H, D]``, weight matrices ``[in, out]``, stacked ``[L, ...]`` layer
 leaves, KV pool ``[L, NB, KV, bs, Dh]``.  Casting order is kept so fp32 runs
@@ -218,6 +219,12 @@ def swiglu_mlp(params, x):
     gate = F.silu(x @ params["w_gate"].to(x.dtype))
     up = x @ params["w_up"].to(x.dtype)
     return (gate * up) @ params["w_down"].to(x.dtype)
+
+
+def gelu_mlp(params, x):
+    """GPT-2/BERT-style MLP: fc2(gelu_tanh(fc1(x))), both with biases."""
+    h = F.gelu(x @ params["w_fc1"].to(x.dtype) + params["b_fc1"].to(x.dtype), approximate="tanh")
+    return h @ params["w_fc2"].to(x.dtype) + params["b_fc2"].to(x.dtype)
 
 
 # ------------------------------------------------------------------ losses

@@ -29,7 +29,9 @@ def accumulate_micro_grads(loss_fn: Callable, params16, batch, micro_rngs,
         micro_batch = tree_map(lambda x: x[i], batch)
         out = loss_fn(params16, micro_batch, micro_rngs[i])
         loss = (out[0] if isinstance(out, tuple) else out).float() * scale
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not read (BERT's type_emb without token types)
+        # gets a zero grad, as jax.value_and_grad gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         if acc is None:
             acc = [g.float() if g.dtype != torch.float32 else g.clone() for g in grads]
         else:

@@ -8,7 +8,9 @@ serve with graphs (shared blocks never written, tokens equal to the eager
 loop's), request tracing on the graph path, and tiny
 serving engines (v2; v1 dense and weight-only int8) and tiny training engines
 (dense with fused AdamW; block-sparse with 8-bit AdamW) on the GPU against the
-same engines on the CPU.  Every test here needs a card and
+same engines on the CPU; BLOOM's paged forward (ALiBi on the kernel's slopes
+operand), GPT-2's and BERT's forward and grads, and BERT's non-causal flash
+attention.  Every test here needs a card and
 skips without one.  This file imports no JAX, so it runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest tests/test_torch_gpu.py``
 (the suite's conftest imports JAX)."""
@@ -19,7 +21,8 @@ import torch
 
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, build_engine
-from deepspeed_tpu_torch.models import falcon, gptj, llama, mistral, mixtral, opt, phi, qwen
+from deepspeed_tpu_torch.models import (bert, bloom, falcon, gpt2, gptj, llama, mistral, mixtral,
+                                        opt, phi, qwen)
 from deepspeed_tpu_torch.ops.adam import adam8bit
 from deepspeed_tpu_torch.inference import quantization as woq
 from deepspeed_tpu_torch.ops.adam.fused_adam import (fused_adamw_flat, fused_adamw_flat_reference,
@@ -534,6 +537,127 @@ def test_bf16_train_batch_runs_the_tensor_core_kernels(cuda):
     assert (fwd, dkdv, dq) == (24, 12, 12)
     assert (fwd_tc, dkdv_tc, dq_tc) == (fwd, dkdv, dq)
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_bloom_forward_paged_on_gpu_matches_the_plain_version(cuda, dtype, monkeypatch):
+    """BLOOM's ``forward_paged`` (head dim 128, ALiBi with BLOOM's slopes)
+    over a prefill chunk of 40 and 25 tokens and two decode steps: every
+    paged call checked against the plain version on the same inputs (fp32
+    at 1e-4; bf16 at ``flash.tensor_core_limit``, P rounded for the
+    tensor-core prefill), every route of the dtype taken, and in fp32 the
+    logits within 1e-4 of the same forward through the plain version."""
+    cfg = bloom.BloomConfig.tiny(vocab=128, hidden=512, layers=2, heads=4, seq=256)
+    params = bloom.init_params(cfg, torch.Generator().manual_seed(0))
+    params["layers"]["b_qkv"].normal_(0.0, 0.1, generator=torch.Generator().manual_seed(1))
+    params = _to(params, cuda, dtype)
+    routes = []
+
+    def checked(q, kpool, vpool, tables, lengths, start_pos, n_tokens, *, block_size,
+                softmax_scale, window=None, alibi_slopes=None):
+        got = paged_attention(q, kpool, vpool, tables, lengths, start_pos, n_tokens,
+                              block_size=block_size, softmax_scale=softmax_scale,
+                              alibi_slopes=alibi_slopes)
+        route = paged_module.paged_route(q.dtype, q.shape[1])
+        routes.append(route)
+        f32 = [x.float() for x in (q, kpool, vpool)]
+        ints = (tables, lengths, start_pos, n_tokens, softmax_scale, window, alibi_slopes)
+        ref = paged_attention_reference(*f32, *ints)
+        if q.dtype == torch.float32:
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+        else:
+            rounded = paged_attention_reference(
+                *f32, *ints, round_to=q.dtype if route == "prefill_tc" else None)
+            ok, err, ratio, _ = flash.tensor_core_limit(got, ref, rounded)
+            assert ok, f"{route}: max abs err {err:.3e}, {ratio:.3f} of the limit"
+        return got
+
+    def plain(q, kpool, vpool, tables, lengths, start_pos, n_tokens, *, block_size,
+              softmax_scale, window=None, alibi_slopes=None):
+        return paged_attention_reference(q, kpool, vpool, tables, lengths, start_pos, n_tokens,
+                                         softmax_scale, window, alibi_slopes)
+
+    outs = {}
+    for name, fn in (("kernel", checked), ("plain", plain)):
+        monkeypatch.setattr(bloom, "paged_attention", fn)
+        kv = bloom.init_paged_cache(cfg, 16, 16, dtype=dtype, device=cuda)
+        tables = torch.tensor([[3, 9, 1, 12], [5, 2, 15, 15]], dtype=torch.int32, device=cuda)
+        tokens = torch.zeros((2, 40), dtype=torch.int32, device=cuda)
+        tokens[0] = torch.arange(40) % 128
+        tokens[1, :25] = (torch.arange(25) * 7) % 128
+        n_tokens = torch.tensor([40, 25], dtype=torch.int32, device=cuda)
+        start = torch.zeros(2, dtype=torch.int32, device=cuda)
+        logits = []
+        for _ in range(3):
+            out, kv = bloom.forward_paged(cfg, params, tokens, n_tokens, start, tables, kv,
+                                          block_size=16)
+            logits.append(out.float())
+            start = start + n_tokens
+            tokens = torch.tensor([[17], [33]], dtype=torch.int32, device=cuda)
+            n_tokens = torch.ones(2, dtype=torch.int32, device=cuda)
+        outs[name] = logits
+    wide = "cuda_core" if dtype == torch.float32 else "prefill_tc"
+    assert routes == [wide] * 2 + ["decode"] * 4
+    if dtype == torch.float32:
+        live = [torch.arange(40, device=cuda)[None, :] < torch.tensor([40, 25], device=cuda)[:, None],
+                slice(None), slice(None)]
+        for got, ref, keep in zip(outs["kernel"], outs["plain"], live):
+            torch.testing.assert_close(got[keep], ref[keep], atol=1e-4, rtol=1e-4)
+
+
+def _to(tree, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _to(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("key", ["gpt2", "bert"])
+def test_gpt2_and_bert_forward_and_grads_on_gpu_match_cpu(cuda, key):
+    """fp32, head dim 64: the flash kernels (causal for GPT-2, non-causal
+    for BERT; the forward, the remat recompute and both backward kernels a
+    layer) against the CPU's plain attention, logits and every grad at
+    1e-4."""
+    module, config = {"gpt2": (gpt2, gpt2.GPT2Config), "bert": (bert, bert.BertConfig)}[key]
+    cfg = config.tiny(vocab=128, hidden=128, layers=2, heads=2, seq=64)
+    params = module.init_params(cfg, torch.Generator().manual_seed(0))
+    ids = torch.from_numpy(np.random.default_rng(3).integers(0, 128, (2, 64)))
+    labels = torch.roll(ids, -1, 1)
+    results = []
+    before = [fn.launches for fn in (flash.flash_fwd, flash.flash_bwd_dkdv, flash.flash_bwd_dq)]
+    for dev in ("cpu", cuda):
+        p = _to(params, dev, torch.float32)
+        leaves = list(_leaves(p))
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        logits = module.forward(cfg, p, ids.to(dev))
+        loss = torch.nn.functional.cross_entropy(logits.flatten(0, 1), labels.to(dev).flatten())
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        results.append((logits.detach().cpu(), [g.cpu() for g in grads]))
+    after = [fn.launches for fn in (flash.flash_fwd, flash.flash_bwd_dkdv, flash.flash_bwd_dq)]
+    assert [a - b for a, b in zip(after, before)] == [4, 2, 2]
+    torch.testing.assert_close(results[1][0], results[0][0], atol=1e-4, rtol=1e-4)
+    for got, ref in zip(results[1][1], results[0][1]):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+def test_bert_noncausal_flash_is_held_to_the_rounding_limit(cuda):
+    """BERT-base's attention (12 heads, head dim 64, 512 keys, no mask) in
+    bf16 on the tensor-core forward, against ``flash_fwd_reference`` on fp32
+    copies at ``flash.tensor_core_limit`` with P rounded to bf16; lse at
+    1e-4."""
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 512, 12, 64)).astype(np.float32))
+               .to(cuda, torch.bfloat16) for _ in range(3))
+    scale = 1.0 / np.sqrt(64)
+    before = flash.flash_fwd.tc_launches
+    out, lse = flash.flash_fwd(q, k, v, scale, False)
+    assert flash.flash_fwd.tc_launches == before + 1
+    f = [x.float() for x in (q, k, v)]
+    ref, ref_lse = flash.flash_fwd_reference(*f, scale, False)
+    rounded, _ = flash.flash_fwd_reference(*f, scale, False, round_to=torch.bfloat16)
+    ok, err, ratio, _ = flash.tensor_core_limit(out, ref, rounded)
+    assert ok, f"max abs err {err:.3e}, {ratio:.3f} of the limit"
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
 
 
 def _leaves(tree):

@@ -65,6 +65,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "deepspeed_tpu_torch.models.gptj",
                      "deepspeed_tpu_torch.models.phi",
                      "deepspeed_tpu_torch.models.falcon",
+                     "deepspeed_tpu_torch.models.bloom",
+                     "deepspeed_tpu_torch.models.gpt2",
+                     "deepspeed_tpu_torch.models.bert",
                      "deepspeed_tpu_torch.moe.experts",
                      "deepspeed_tpu_torch.moe.sharded_moe",
                      "deepspeed_tpu_torch.moe.layer"):

@@ -1,12 +1,14 @@
 """Checks that hold one model family of the port against the JAX package on
-the CPU, shared by ``tests/test_torch_{qwen,mixtral,opt,gptj}.py``.
+the CPU, shared by the ``tests/test_torch_<family>.py`` files.
 
 Weights are drawn by the JAX ``init_params`` and then every leaf is moved by
 seeded noise (so zero biases, unit norms and zero-initialised heads carry
 information), carried across by the port's ``params_from_jax``; inputs are
 seeded numpy.  The JAX side runs its off-TPU paths: the dense sdpa and the
-dense-gather paged attention.  fp32 throughout, atol = rtol = 1e-4; HF
-parity at the 2e-3 of ``tests/unit/test_model_families.py::_hf_parity``."""
+dense-gather paged attention, each under ``jax.jit`` (an eager
+``lax.scan`` dispatch costs seconds a call here).  fp32 throughout, atol =
+rtol = 1e-4; HF parity at the 2e-3 of
+``tests/unit/test_model_families.py::_hf_parity``."""
 
 import jax
 import jax.numpy as jnp
@@ -68,7 +70,8 @@ def first(out):
 
 def check_forward(jmod, mod, jcfg, cfg, jparams, params, **kw):
     ids = token_ids(cfg, (2, 12))
-    ref = jmod.forward(jcfg, jparams, jnp.asarray(ids), **kw)
+    ref = jax.jit(jmod.forward, static_argnums=0, static_argnames=tuple(kw))(
+        jcfg, jparams, jnp.asarray(ids), **kw)
     got = mod.forward(cfg, params, torch.from_numpy(ids), **kw)
     if isinstance(ref, tuple):
         np.testing.assert_allclose(float(got[1]), float(ref[1]), atol=ATOL, rtol=RTOL)
@@ -76,16 +79,18 @@ def check_forward(jmod, mod, jcfg, cfg, jparams, params, **kw):
                                rtol=RTOL)
 
 
-def check_loss_and_grads(jmod, mod, jcfg, cfg, jparams, params, has_aux=False):
+def check_loss_and_grads(jmod, mod, jcfg, cfg, jparams, params, has_aux=False, batch=None):
     """The loss and every leaf of its gradient against ``jax.value_and_grad``
-    of the JAX loss function, on a next-token batch with an ignored label."""
-    batch = mod.causal_lm_batch(token_ids(cfg, (2, 13), seed=1))
-    batch["labels"] = np.array(batch["labels"])
-    batch["labels"][0, 2] = -100
+    of the JAX loss function, on ``batch`` (numpy leaves) or a next-token
+    batch with an ignored label."""
+    if batch is None:
+        batch = mod.causal_lm_batch(token_ids(cfg, (2, 13), seed=1))
+        batch["labels"] = np.array(batch["labels"])
+        batch["labels"][0, 2] = -100
     jloss_fn = jmod.make_loss_fn(jcfg)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    jout, jgrads = jax.value_and_grad(lambda p: jloss_fn(p, jbatch, None),
-                                      has_aux=has_aux)(jparams)
+    jout, jgrads = jax.jit(jax.value_and_grad(lambda p: jloss_fn(p, jbatch, None),
+                                              has_aux=has_aux))(jparams)
     params = tree_map(lambda t: t.clone().requires_grad_(True), params)
     out = mod.make_loss_fn(cfg)(params, {k: torch.from_numpy(v) for k, v in batch.items()}, None)
     loss, jloss = (out[0], jout[0]) if has_aux else (out, jout)
@@ -123,10 +128,11 @@ def check_forward_paged(jmod, mod, jcfg, cfg, jparams, params, prompts, *, block
         tokens[i, :len(p)] = p
     n_tokens = np.asarray([len(p) for p in prompts] + [0], np.int32)
     start = np.zeros(n, np.int32)
+    jforward_paged = jax.jit(jmod.forward_paged, static_argnums=0, static_argnames=("block_size", ))
     for _ in range(3):
         args = (tokens, n_tokens, start, tables)
-        jlogits, jkv = jmod.forward_paged(jcfg, jparams, *(jnp.asarray(a) for a in args), jkv,
-                                          block_size=block_size)
+        jlogits, jkv = jforward_paged(jcfg, jparams, *(jnp.asarray(a) for a in args), jkv,
+                                      block_size=block_size)
         logits, kv = mod.forward_paged(cfg, params, *(torch.from_numpy(a) for a in args), kv,
                                        block_size=block_size)
         valid = np.arange(tokens.shape[1])[None, :] < n_tokens[:, None]
