@@ -39,10 +39,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      kernels at the training shape (B=2, S=2048, 32 heads, head dim 128, bf16,
      causal), GQA, sq < sk, sq > sk (rows that see no key), non-causal, head
      dim 64 and unaligned lengths, BERT-base's non-causal attention (B=8,
-     S=512, 12 heads, head dim 64, bf16), bf16/fp16 forward, dK/dV and dQ on tensor
+     S=512, 12 heads, head dim 64, bf16), Phi-2's (32 heads of 80) and
+     GPT-J-6B's (16 heads of 256) attention at B=2, S=2048, bf16, causal and
+     their edges in fp32, bf16 and fp16, bf16/fp16 forward, dK/dV and dQ on tensor
      cores held to ``flash.tensor_core_limit`` row by row (and a late query
      tile of out or dQ scaled by 1.05 or the last key tile of dK/dV zeroed
-     must fail it), fp32 on CUDA cores at 1e-4; the fused AdamW kernel over
+     must fail it), fp32 on CUDA cores at 1e-4, and at head dims 80 and 256
+     every output with columns 64-79 or 128-255 zeroed must fail its check;
+     the fused AdamW kernel over
      the training run's
      largest leaf (w_gate of 8 layers, 360.7 M elements) with an fp32 and a
      bf16 grad; the three block-sparse kernels at the sparse training shape
@@ -204,14 +208,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      same params: losses, step-1 grads and the params after 2 steps; once
      with fused_adam and dense attention, once with the sparse section and
      fused_adam8bit, once with lion (delta form), followed by one fused Lion
-     step through ``fused_lion_flat`` on every leaf; train-gpt2-bert:
-     GPT-2-350m (S=1024) and BERT-base (S=512, no mask) at full width and
-     depth in bf16, 5 steps each through the flash kernels (causal and
-     non-causal) and fused AdamW, launch counts against the step formula,
-     BERT once more with a padding mask (no flash launch); each at 2 layers
-     in fp32 on the card against the CPU (forward and grads), BERT with a
-     mask (a token behind it changes no unmasked logit), and Mistral-7B's
-     windowed dense forward at 2 layers;
+     step through ``fused_lion_flat`` on every leaf; train-dense:
+     GPT-2-350m (S=1024), BERT-base (S=512, no mask) and Phi-2 (S=2048, head
+     dim 80) at full width and depth and GPT-J-6B (S=2048, head dim 256) at
+     full width and 8 of its 28 layers, in bf16, 5 steps each through the
+     flash kernels (causal and non-causal) and fused AdamW, launch counts
+     against the step formula, BERT once more with a padding mask (no flash
+     launch); each at 2 layers in fp32 on the card against the CPU (forward
+     and grads), BERT with a mask (a token behind it changes no unmasked
+     logit), and Mistral-7B's windowed dense forward at 2 layers;
   8. serve-v1: ``init_inference`` with Llama-2-7B at full width and depth in
      bf16, 8 prompts of 512 tokens, 64 greedy new tokens through
      ``generate``; serve-v1-int8: the same with weight-only int8 (11 leaves
@@ -251,6 +256,16 @@ FLASH_REPLACES = {  # bodies in deepspeed_tpu/ops/attention/flash.py (pallas_cal
     "flash_fwd": "deepspeed_tpu/ops/attention/flash.py:37",
     "flash_bwd_dkdv": "deepspeed_tpu/ops/attention/flash.py:133",
     "flash_bwd_dq": "deepspeed_tpu/ops/attention/flash.py:177",
+}
+FLASH_VARIANTS = {
+    "flash_fwd": "tensor cores for bf16/fp16 (wgmma; 64-key tiles at head dim 256, head dim 80 "
+                 "in two 64-column swizzle blocks), CUDA cores for fp32",
+    "flash_bwd_dkdv": "tensor cores for bf16/fp16 (mma.sync m16n8k16; at head dim 256 8 warps "
+                      "a block, P^T and dS^T through shared memory), CUDA cores for fp32 "
+                      "(32-row tiles at 256)",
+    "flash_bwd_dq": "tensor cores for bf16/fp16 (mma.sync m16n8k16; at head dim 256 8 warps a "
+                    "block, dS through shared memory), CUDA cores for fp32 (32-row tiles at "
+                    "256)",
 }
 ADAM_SOURCE = "deepspeed_tpu_torch/csrc/fused_adam.cu"
 ADAM_REPLACES = "deepspeed_tpu/ops/adam/fused_adam.py:53"  # _adamw_kernel, pallas_call at :41
@@ -317,25 +332,36 @@ def phase_device():
         for line in _build.build_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[device] ptxas: {line.strip()}")
-    for kernel, (regs, spill) in sorted(paged_prefill_usage(_build.build_log["paged_attention"])
-                                        .items()):
-        log(f"[device] ptxas {kernel}: {regs} registers, {spill} bytes spill stores")
+    for source, kernels in USAGE_KERNELS.items():
+        for kernel, (regs, spill) in sorted(ptxas_usage(_build.build_log[source], kernels)
+                                            .items()):
+            log(f"[device] ptxas {kernel}: {regs} registers, {spill} bytes spill stores")
     return card
 
 
 PAGED_TYPES = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
+# the kernels whose instances [device] lists one a line, by source; the last
+# template argument of a CUDA-core flash backward instance is its tile
+USAGE_KERNELS = {
+    "paged_attention": ("paged_prefill_tc_kernel", "paged_attention_kernel",
+                        "paged_decode_kernel"),
+    "flash_attention": ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
+                        "flash_bwd_dkdv_tc_wide_kernel", "flash_bwd_dq_tc_kernel",
+                        "flash_bwd_dq_tc_wide_kernel", "flash_fwd_kernel",
+                        "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"),
+}
 
 
-def paged_prefill_usage(build_log):
-    """{"<kernel><type, head dim[, rows]>": (registers, spill-store bytes)}
-    of the paged kernels (tensor-core prefill, CUDA-core, split-K decode)
-    from nvcc's ``-Xptxas -v`` output: an entry's "Compiling entry" line,
-    then its spill line and its "Used N registers" line."""
+def ptxas_usage(build_log, kernels):
+    """{"<kernel><type, head dim[, n]>": (registers, spill-store bytes)} of
+    the named kernels' instances from nvcc's ``-Xptxas -v`` output: an
+    entry's "Compiling entry" line, then its spill line and its "Used N
+    registers" line."""
     usage, entry, spill = {}, None, 0
+    pattern = re.compile(r"Compiling entry function '\S*?(" + "|".join(kernels)
+                         + r")I(\w+?)Li(\d+)E(?:Li(\d+)E)?")
     for line in build_log.splitlines():
-        found = re.search(r"Compiling entry function '\S*?(paged_prefill_tc_kernel|"
-                          r"paged_attention_kernel|paged_decode_kernel)I(\w+?)Li(\d+)E"
-                          r"(?:Li(\d+)E)?", line)
+        found = pattern.search(line)
         if "Compiling entry" in line:
             rows = f", {found.group(4)}" if found and found.group(4) else ""
             entry = (f"{found.group(1)}<{PAGED_TYPES.get(found.group(2), found.group(2))}, "
@@ -1163,6 +1189,8 @@ def compare_flash(name, c, causal):
                 f"{ratios['dk']:.3f}/{ratios['dv']:.3f}/{ratios['dq']:.3f} of it; faulty last "
                 f"tile (out and dq x1.05, dk/dv zeroed) at {faults['out']:.2f}/"
                 f"{faults['dk']:.2f}/{faults['dv']:.2f}/{faults['dq']:.2f}, rejected")
+        passes = lambda part, bad: flash.tensor_core_limit(  # noqa: E731
+            bad, refs[part], rounded[part], floors.get(part))[0]
     else:
         bwd_args = (q, k, v, do, lse_ref, delta, scale, causal)
         refs = {"out": flash.flash_fwd_reference(q, k, v, scale, causal)[0],
@@ -1172,6 +1200,10 @@ def compare_flash(name, c, causal):
             rms[part] = _rms(refs[part])
             err[part] = _max_err(f"{name} {part}", got[part], refs[part], 1e-4, 1e-4)
         rule = "CUDA cores, atol=rtol=1e-4"
+        passes = lambda part, bad: bool(  # noqa: E731
+            ((bad.float() - refs[part].float()).abs()
+             <= 1e-4 + 1e-4 * refs[part].float().abs()).all())
+    rule += flash_column_faults(name, got, passes)
     errs = {"flash_fwd": max(err["out"], _max_err(f"{name} lse", lse, lse_ref, 1e-4, 1e-4)),
             "flash_bwd_dkdv": max(err["dk"], err["dv"]),
             "flash_bwd_dq": err["dq"]}
@@ -1180,6 +1212,28 @@ def compare_flash(name, c, causal):
         f"{rms['out']:.3e} dk {rms['dk']:.3e} dv {rms['dv']:.3e} dq {rms['dq']:.3e}; lse "
         f"atol=rtol=1e-4; {q.dtype}, causal={causal})")
     return errs
+
+
+# the head-dim columns a flash kernel could drop at Phi-2's and GPT-J-6B's
+# widths: at D = 80 the 16 past the first 64-column block (a forward that
+# took D / 64 blocks would leave them out), at D = 256 the upper half
+FLASH_COLUMN_FAULTS = {80: (64, 80), 256: (128, 256)}
+
+
+def flash_column_faults(name, got, passes):
+    """At a head dim of ``FLASH_COLUMN_FAULTS``, each of out, dK, dV and dQ
+    with those columns zeroed must fail ``passes(part, faulty output)``, the
+    case's own rule; returns the log's note ("" at other head dims)."""
+    d = got["out"].shape[-1]
+    if d not in FLASH_COLUMN_FAULTS:
+        return ""
+    lo, hi = FLASH_COLUMN_FAULTS[d]
+    for part, out in got.items():
+        bad = out.clone()
+        bad[..., lo:hi] = 0
+        if passes(part, bad):
+            raise AssertionError(f"{name} {part}: the check passes columns {lo}-{hi - 1} zeroed")
+    return f"; columns {lo}-{hi - 1} zeroed rejected on out/dk/dv/dq"
 
 
 def flash_work(c, causal):
@@ -1311,13 +1365,20 @@ def measure_adamw(name, n, grad_dtype, seed):
 
 
 BERT_FLASH_CASE = "bert_base_noncausal_b8_s512_bf16"
+# [train-phi]'s and [train-gptj]'s attention at B = 2 (the Llama training
+# shape's batch): Phi-2's 32 heads of 80, GPT-J-6B's 16 of 256 (the Llama
+# shape's work, 4096 wide)
+FAMILY_FLASH_CASES = {"phi": "phi2_train_causal_b2_s2048_d80_bf16",
+                      "gptj": "gptj_train_causal_b2_s2048_d256_bf16"}
 
 
 def phase_train_kernels(card):
     """The training path's kernels against their plain versions on the card:
-    flash at the training shape, BERT-base's non-causal shape, GQA and edge
-    cases; fused AdamW over one 7B-width leaf.  Returns the measured records
-    (the BERT case's under ``<kernel>_bert``) and the largest errors."""
+    flash at the training shape, BERT-base's non-causal shape, Phi-2's and
+    GPT-J-6B's training shapes (head dims 80 and 256), GQA and edge cases;
+    fused AdamW over one 7B-width leaf.  Returns the measured records (the
+    BERT, Phi-2 and GPT-J cases' under ``<kernel>_bert``, ``_phi``, ``_gptj``)
+    and the largest errors."""
     import torch
     bf16 = torch.bfloat16
     cases = {
@@ -1347,17 +1408,46 @@ def phase_train_kernels(card):
                                               dtype=bf16), True),
         "sq200_gt_sk90_d128_fp16": (flash_case(22, B=2, Sq=200, Sk=90, H=2, KV=1, D=128,
                                                dtype=torch.float16), True),
-        # [train-gpt2-bert]'s BERT-base attention: non-causal, head dim 64
+        # [train-bert]'s BERT-base attention: non-causal, head dim 64
         BERT_FLASH_CASE: (flash_case(23, B=8, Sq=512, Sk=512, H=12, KV=12, D=64, dtype=bf16),
                           False),
+        # [train-phi] and [train-gptj]: head dims 80 and 256
+        FAMILY_FLASH_CASES["phi"]: (flash_case(24, B=2, Sq=2048, Sk=2048, H=32, KV=32, D=80,
+                                               dtype=bf16), True),
+        FAMILY_FLASH_CASES["gptj"]: (flash_case(25, B=2, Sq=2048, Sk=2048, H=16, KV=16,
+                                                D=256, dtype=bf16), True),
+        # their edges on both routes: sq < sk, sq > sk (rows that see no
+        # key), non-causal, GQA, lengths off the tiles
+        "sq100_lt_sk300_gqa_d80_fp32": (flash_case(26, B=1, Sq=100, Sk=300, H=4, KV=2, D=80,
+                                                   dtype=torch.float32), True),
+        "sq130_gt_sk70_d80_fp16": (flash_case(27, B=1, Sq=130, Sk=70, H=4, KV=2, D=80,
+                                              dtype=torch.float16), True),
+        "noncausal_s130_kv1_d80_fp16": (flash_case(28, B=1, Sq=130, Sk=70, H=4, KV=1, D=80,
+                                                   dtype=torch.float16), False),
+        "unaligned_s77_d80_bf16": (flash_case(29, B=1, Sq=77, Sk=77, H=8, KV=4, D=80,
+                                              dtype=bf16), True),
+        "noncausal_s200_d80_fp32": (flash_case(30, B=2, Sq=200, Sk=200, H=2, KV=2, D=80,
+                                               dtype=torch.float32), False),
+        "sq90_lt_sk130_gqa_d256_fp16": (flash_case(31, B=2, Sq=90, Sk=130, H=4, KV=2, D=256,
+                                                   dtype=torch.float16), True),
+        "sq130_gt_sk70_d256_fp32": (flash_case(32, B=1, Sq=130, Sk=70, H=4, KV=2, D=256,
+                                               dtype=torch.float32), True),
+        "noncausal_s200_d256_fp16": (flash_case(33, B=2, Sq=200, Sk=200, H=2, KV=2, D=256,
+                                                dtype=torch.float16), False),
+        "unaligned_s77_kv1_d256_bf16": (flash_case(34, B=1, Sq=77, Sk=77, H=4, KV=1, D=256,
+                                                   dtype=bf16), True),
+        "unaligned_s200_gqa_d256_fp32": (flash_case(35, B=1, Sq=200, Sk=200, H=4, KV=1,
+                                                    D=256, dtype=torch.float32), True),
     }
     errs = {}
     for name, (c, causal) in cases.items():
         for kname, e in compare_flash(name, c, causal).items():
             errs[kname] = max(errs.get(kname, 0.0), e)
     recs = measure_flash("train_causal_bf16", *cases["train_causal_bf16"])
-    for kname, rec in measure_flash(BERT_FLASH_CASE, *cases[BERT_FLASH_CASE]).items():
-        recs[f"{kname}_bert"] = rec
+    for suffix, case in (("bert", BERT_FLASH_CASE), ("phi", FAMILY_FLASH_CASES["phi"]),
+                         ("gptj", FAMILY_FLASH_CASES["gptj"])):
+        for kname, rec in measure_flash(case, *cases[case]).items():
+            recs[f"{kname}_{suffix}"] = rec
     del cases
     torch.cuda.empty_cache()
     adam_f32 = measure_adamw("adamw_w_gate_fp32_grad", W_GATE, torch.float32, 21)
@@ -5706,24 +5796,36 @@ def profile_train(engine, batch, card, step_s, tag="profile-train"):
                    PROFILE_GROUPS)
 
 
-# [train-gpt2-bert]: optimizer steps, micro-batch x gas, and the lr that
-# WarmupLR reaches after its 10 warm-up steps
-GPT2_BERT_STEPS, GPT2_BERT_MICRO, GPT2_BERT_GAS, GPT2_BERT_LR = 5, 4, 2, 1e-3
+# [train-dense]: optimizer steps, micro-batch x gas, and by family the lr
+# that WarmupLR reaches after its 10 warm-up steps: 1e-3 for the small
+# models, [train]'s 3e-4 for the billions (at 1e-3 Phi-2's and GPT-J's
+# fifth loss rose above the fourth)
+DENSE_STEPS, DENSE_MICRO, DENSE_GAS = 5, 4, 2
+DENSE_LR = {"gpt2": 1e-3, "bert": 1e-3, "phi": 3e-4, "gptj": 3e-4}
+# GPT-J-6B trains at 8 of its 28 layers: at full depth its 6.05 B params'
+# fp32 state (params, grads, two moments: 16 bytes a param, about 97 GB)
+# exceeds one card
+GPTJ_TRAIN_LAYERS = 8
 
 
 def dense_families():
-    """{key: (module, published config, sequence length)} of [train-gpt2-bert]."""
-    from deepspeed_tpu_torch.models import bert, gpt2
+    """{key: (module, published config, sequence length)} of [train-dense]:
+    GPT-2-350m, BERT-base and Phi-2 at full depth, GPT-J-6B at
+    ``GPTJ_TRAIN_LAYERS``."""
+    from deepspeed_tpu_torch.models import bert, gpt2, gptj, phi
     return {"gpt2": (gpt2, gpt2.GPT2Config.gpt2_350m(), 1024),
-            "bert": (bert, bert.BertConfig.bert_base(), 512)}
+            "bert": (bert, bert.BertConfig.bert_base(), 512),
+            "phi": (phi, phi.PhiConfig.phi_2(), 2048),
+            "gptj": (gptj, dataclasses.replace(gptj.GPTJConfig.gptj_6b(),
+                                               num_layers=GPTJ_TRAIN_LAYERS), 2048)}
 
 
 def dense_batch(key, vocab, rows, seq, seed):
-    """GPT-2: next-token pairs (``llama.causal_lm_batch``); BERT: MLM labels
-    at every 4th position (``tests/unit/test_models.py``'s drive)."""
+    """Causal LMs: next-token pairs (``llama.causal_lm_batch``); BERT: MLM
+    labels at every 4th position (``tests/unit/test_models.py``'s drive)."""
     from deepspeed_tpu_torch.models import llama
     ids = np.random.default_rng(seed).integers(0, vocab, (rows, seq))
-    if key == "gpt2":
+    if key != "bert":
         return llama.causal_lm_batch(ids)
     labels = np.full_like(ids, -100)
     labels[:, ::4] = ids[:, ::4]
@@ -5738,39 +5840,42 @@ def padding_mask(rows, seq, pad):
     return mask
 
 
-def train_dense_family(card, key, module, cfg, seq, seed=0, device="cuda"):
-    """``GPT2_BERT_STEPS`` ``train_batch`` steps of ``module`` at ``cfg``
+def train_dense_family(card, key, module, cfg, seq, seed=0, device="cuda", cut=""):
+    """``DENSE_STEPS`` ``train_batch`` steps of ``module`` at ``cfg``
     through ``initialize`` (bf16 on the card, remat, ``fused_adam``, WarmupLR,
-    clip 1.0) on one fixed batch of micro x gas rows of ``seq`` tokens.
-    Gates: finite losses that fall; launches equal to the step formula,
-    every flash launch a tensor-core one.  For BERT one more step with a
-    padding mask: no flash launch (the masked attention is plain ``sdpa``),
-    the fused AdamW step as before.  Returns (launches, summary)."""
+    clip 1.0) on one fixed batch of micro x gas rows of ``seq`` tokens;
+    ``cut`` names a depth cut in the log.  Gates: finite losses that fall;
+    launches equal to the step formula, every flash launch a tensor-core
+    one.  For BERT one more step with a padding mask: no flash launch (the
+    masked attention is plain ``sdpa``), the fused AdamW step as before.
+    Returns (launches, summary)."""
     import torch
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models import llama
     from deepspeed_tpu_torch.runtime.tree import tree_leaves
     tag = f"train-{key}"
     on_card = torch.device(device).type == "cuda"
-    micro, gas, steps = GPT2_BERT_MICRO, GPT2_BERT_GAS, GPT2_BERT_STEPS
+    micro, gas, steps, lr = DENSE_MICRO, DENSE_GAS, DENSE_STEPS, DENSE_LR[key]
     t0 = time.perf_counter()
     params = module.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
                                 dtype=torch.float32, device=device)
     n_leaves, n_params = len(tree_leaves(params)), module.num_params(cfg)
     engine, _, _, _ = deepspeed_tpu_torch.initialize(
         loss_fn=module.make_loss_fn(cfg), model_parameters=params, device=device,
-        config=train_config(micro=micro, gas=gas, bf16=on_card, seed=seed, lr=GPT2_BERT_LR))
+        config=train_config(micro=micro, gas=gas, bf16=on_card, seed=seed, lr=lr))
     del params
     batch = dense_batch(key, cfg.vocab_size, micro * gas, seq, seed)
     tokens = micro * gas * seq
     # 6 N a token and the attention products (llama.flops_per_token's term)
     step_flops = (6.0 * n_params + 12 * cfg.num_layers * cfg.hidden_size * seq) * tokens
-    log(f"[{tag}] {cfg.num_layers} layers, hidden {cfg.hidden_size}, {cfg.num_heads} heads, "
-        f"vocab {cfg.vocab_size}: {n_params / 1e6:.1f} M params, set up in "
-        f"{time.perf_counter() - t0:.2f} s; {'bf16' if on_card else 'fp32'}, remat, fused_adam, "
-        f"WarmupLR to {GPT2_BERT_LR}, clip 1.0, micro {micro} x gas {gas} x seq {seq} = "
-        f"{tokens} tokens a step, {step_flops / 1e12:.2f} TFLOP a step")
+    log(f"[{tag}] {cfg.num_layers} layers{cut}, hidden {cfg.hidden_size}, {cfg.num_heads} "
+        f"heads of {cfg.hidden_size // cfg.num_heads}, vocab {cfg.vocab_size}: "
+        f"{n_params / 1e6:.1f} M params, set up in {time.perf_counter() - t0:.2f} s; "
+        f"{'bf16' if on_card else 'fp32'}, remat, fused_adam, WarmupLR to {lr}, clip "
+        f"1.0, micro {micro} x gas {gas} x seq {seq} = {tokens} tokens a step, "
+        f"{step_flops / 1e12:.2f} TFLOP a step")
     _sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     losses, times = [], []
     for _ in range(steps):
@@ -5790,14 +5895,16 @@ def train_dense_family(card, key, module, cfg, seq, seed=0, device="cuda"):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"[{tag}] losses not finite and falling: {losses}")
     step_s = statistics.mean(times[1:])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
     summary = {"step_ms": step_s * 1e3, "tokens_s": tokens / step_s,
-               "mfu": step_flops / step_s / TRAIN_PEAK_FLOPS, "launches": launches}
+               "mfu": step_flops / step_s / TRAIN_PEAK_FLOPS, "peak_gb": peak_gb,
+               "launches": launches}
     log(f"[{tag}] {steps} steps on {card}: losses {[round(x, 4) for x in losses]}; step ms "
         f"{[round(t * 1e3, 1) for t in times]} (first includes warm-up); steps 2-{steps}: "
         f"{summary['step_ms']:.1f} ms a step, {summary['tokens_s']:.1f} tokens/s, mfu "
-        f"{summary['mfu']:.4f} (of {TRAIN_PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16); launches "
-        f"{ {k: v for k, v in launches.items() if v} } = step formula, tensor-core "
-        f"{ {k: v for k, v in tc.items() if v} }")
+        f"{summary['mfu']:.4f} (of {TRAIN_PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16), peak memory "
+        f"{peak_gb:.2f} GB; launches { {k: v for k, v in launches.items() if v} } = step "
+        f"formula, tensor-core { {k: v for k, v in tc.items() if v} }")
     if on_card:
         profile_train(engine, batch, card, step_s, tag=f"profile-{tag}")
     if key == "bert":
@@ -5856,28 +5963,34 @@ def dense_slice_check(tag, module, cfg, batch, device, seed=3, **forward_kw):
     return logit_err, grad_rel, launched
 
 
-def phase_train_gpt2_bert(card, device="cuda", configs=None, mistral_cfg=None):
-    """[train-gpt2-bert]: GPT-2-350m (S = 1024, causal) and BERT-base
-    (S = 512, non-causal, no mask) at full width and depth trained by
+def phase_train_dense(card, device="cuda", configs=None, mistral_cfg=None):
+    """[train-dense]: GPT-2-350m (S = 1024, causal), BERT-base (S = 512,
+    non-causal, no mask) and Phi-2 (S = 2048, head dim 80) at full width and
+    depth, and GPT-J-6B (S = 2048, head dim 256) at full width and
+    ``GPTJ_TRAIN_LAYERS`` of its 28 layers, trained by
     :func:`train_dense_family` through the flash kernels and fused AdamW;
     then each at 2 layers in fp32 (:func:`dense_slice_check`: a flash
-    forward, the remat recompute and both backward kernels a layer), BERT
-    with a padding mask (no flash launch; a token changed behind the mask
-    leaves every unmasked logit as it was), and Mistral-7B's windowed dense
-    forward at 2 layers with a window of 32 under a sequence of 96 (the
-    masked ``sdpa`` on every device), each on ``device`` against the CPU.
-    ``configs`` ({key: (module, cfg, seq)}) and ``mistral_cfg`` replace the
-    published configurations for a rehearsal.  Returns the flash and AdamW launches
-    of the full-size runs, by family."""
+    forward, the remat recompute and both backward kernels a layer, on the
+    CUDA-core kernels at head dims 64, 80 and 256), BERT with a padding mask
+    (no flash launch; a token changed behind the mask leaves every unmasked
+    logit as it was), and Mistral-7B's windowed dense forward at 2 layers
+    with a window of 32 under a sequence of 96 (the masked ``sdpa`` on every
+    device), each on ``device`` against the CPU.  ``configs`` ({key:
+    (module, cfg, seq)}) and ``mistral_cfg`` replace the published
+    configurations for a rehearsal.  Returns the flash and AdamW launches of
+    the full-size runs, and their summaries, by family."""
     import torch
     from deepspeed_tpu_torch.models import mistral
     from deepspeed_tpu_torch.runtime.tree import tree_map
     on_card = torch.device(device).type == "cuda"
     families = configs or dense_families()
-    out = {}
+    out, summaries = {}, {}
     for key, (module, cfg, seq) in families.items():
+        cut = f" (of {module.GPTJConfig.gptj_6b().num_layers}: the fp32 state of all of them " \
+              f"exceeds one card)" if key == "gptj" and configs is None else ""
         with phase_timer(f"train-{key}"):
-            out[key] = train_dense_family(card, key, module, cfg, seq, device=device)[0]
+            out[key], summaries[key] = train_dense_family(card, key, module, cfg, seq,
+                                                          device=device, cut=cut)
     for key, (module, cfg, _) in families.items():
         small = dataclasses.replace(cfg, num_layers=2)
         batch = dense_batch(key, small.vocab_size, 2, 128, seed=5)
@@ -5933,7 +6046,7 @@ def phase_train_gpt2_bert(card, device="cuda", configs=None, mistral_cfg=None):
     del params, mparams
     if on_card:
         torch.cuda.empty_cache()
-    return out
+    return out, summaries
 
 
 # [train-slice*]'s depth: one full-width layer, and sequences of 128
@@ -6351,8 +6464,8 @@ def main() -> int:
                           sparse=SPARSE_CONFIG)
     with phase_timer("train-slice-lion"):
         lion_launches = phase_train_slice(tag="train-slice-lion", optimizer="lion", seq=128)
-    with phase_timer("train-gpt2-bert"):
-        dense_launches = phase_train_gpt2_bert(card)
+    with phase_timer("train-dense"):
+        dense_launches, _ = phase_train_dense(card)
     with phase_timer("serve-v1, serve-v1-int8"):
         _, quant_launches = phase_serve_v1(card)
     with phase_timer("slice-v1"):
@@ -6397,20 +6510,22 @@ def main() -> int:
                         "shape": "B=2 S=2048 H=KV=32 D=128 bf16 causal",
                         "bert_noncausal": {k: train_recs[f"{name}_bert"][k] for k in fields},
                         "bert_shape": "B=8 S=512 H=KV=12 D=64 bf16 non-causal",
-                        "train_gpt2_bert_launches": {key: dense_launches[key][name]
-                                                     for key in dense_launches},
-                        "variant": ("tensor cores for bf16/fp16 (mma.sync m16n8k16), CUDA "
-                                    "cores for fp32" if name == "flash_bwd_dq" else
-                                    "tensor cores for bf16/fp16 (forward wgmma, dK/dV "
-                                    "mma.sync m16n8k16), CUDA cores for fp32")})
+                        "phi2": {k: train_recs[f"{name}_phi"][k] for k in fields},
+                        "phi2_shape": "B=2 S=2048 H=KV=32 D=80 bf16 causal",
+                        "gptj": {k: train_recs[f"{name}_gptj"][k] for k in fields},
+                        "gptj_shape": "B=2 S=2048 H=KV=16 D=256 bf16 causal",
+                        "head_dims": [64, 80, 128, 256],
+                        "train_dense_launches": {key: dense_launches[key][name]
+                                                 for key in dense_launches},
+                        "variant": FLASH_VARIANTS[name]})
     adam = train_recs["fused_adamw"]
     kernels.append({"name": "fused_adamw", "route": "cuda", "source": ADAM_SOURCE,
                     "replaces": ADAM_REPLACES, "launches": train_launches["fused_adamw"],
                     "max_abs_err": train_errs["fused_adamw"], **{k: adam[k] for k in fields},
                     "shape": f"n={W_GATE} (the stacked w_gate leaf of [train]) fp32 p/m/v, "
                              f"fp32 grad",
-                    "train_gpt2_bert_launches": {key: dense_launches[key]["fused_adamw"]
-                                                 for key in dense_launches},
+                    "train_dense_launches": {key: dense_launches[key]["fused_adamw"]
+                                             for key in dense_launches},
                     "bf16_grad": {k: train_recs["fused_adamw_bf16_grad"][k] for k in fields}})
     for name in ("sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq"):
         kernels.append({"name": name, "route": "cuda", "source": SPARSE_SOURCE,

@@ -8,9 +8,9 @@ library's file name carries a hash of its source and of the shared headers
 (``csrc/*.cuh``), so an edited kernel is rebuilt and a stale build is never
 loaded.  A source listed in ``SPLIT_SOURCES`` compiles as several
 translation units at once (one ``nvcc -c`` each), linked into its one
-library: the paged source's kernel instances would otherwise build one after
-another.  Nothing is compiled when a module is imported: the CPU-only test
-box has no ``nvcc``.
+library: the paged source's kernel instances, and the flash source's by head
+dim, would otherwise build one after another.  Nothing is compiled when a
+module is imported: the CPU-only test box has no ``nvcc``.
 """
 
 import concurrent.futures
@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC")
 # sources built as several translation units at once, one nvcc each with
 # -D<macro>=<part>, linked into the one library: name -> (macro, parts)
-SPLIT_SOURCES = {"paged_attention": ("PAGED_PART", 7)}
+SPLIT_SOURCES = {"paged_attention": ("PAGED_PART", 7), "flash_attention": ("FLASH_PART", 5)}
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -22,7 +22,9 @@ forward, dK/dV and dQ kernels, which round P (and dS) to the input type
 before the second product; fp32 inputs go to the CUDA-core kernels, whose
 results differ from the plain versions only by the order of summation.  There
 is no fallback between them.  The tensor-core kernels are held to
-:func:`tensor_core_limit`.
+:func:`tensor_core_limit`.  Both designs take head dims 64, 80 (Phi-2), 128
+and 256 (GPT-J-6B), as the Pallas kernel takes any head dim as a full block
+axis; the plain versions take any.
 """
 
 import ctypes
@@ -35,7 +37,7 @@ from .. import _build, use_kernel
 
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 80, 128, 256)
 _TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
 _LIB: Optional[ctypes.CDLL] = None
 

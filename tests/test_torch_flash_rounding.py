@@ -23,17 +23,22 @@ from deepspeed_tpu.ops.attention import flash as jflash
 from deepspeed_tpu_torch.ops.attention import flash
 
 DTYPES = [torch.bfloat16, torch.float16]
-KEY_TILE = 128  # keys a tile in the tensor-core forward kernel
+KEY_TILE = 128  # keys a tile in the tensor-core forward kernel (64 at head dim 256)
 DQ_TILE = 64  # query rows a block and keys a tile in the tensor-core dQ kernel
 LATE = 64  # the late rows or keys a fault spoils: a query tile of a warpgroup, a dK/dV key block
 
 # (name, B, Sq, Sk, H, KV, D, causal): ragged tails, GQA, sq < sk, sq > sk
-# (causal rows that see no key), non-causal
+# (causal rows that see no key), non-causal; Phi-2's head dim 80 and
+# GPT-J-6B's 256 among them
 SHAPES = [
     ("causal_gqa_s200", 1, 200, 200, 4, 2, 64, True),
     ("causal_sq90_lt_sk130", 2, 90, 130, 4, 2, 64, True),
     ("causal_sq130_gt_sk70", 1, 130, 70, 2, 1, 64, True),
     ("full_s77_d128", 1, 77, 77, 2, 2, 128, False),
+    ("causal_gqa_s200_d80", 1, 200, 200, 4, 2, 80, True),
+    ("full_sq90_lt_sk130_d80", 1, 90, 130, 2, 1, 80, False),
+    ("causal_sq130_gt_sk70_d256", 1, 130, 70, 2, 1, 256, True),
+    ("full_s77_gqa_d256", 1, 77, 77, 4, 2, 256, False),
 ]
 
 
@@ -55,9 +60,10 @@ def _visible(sq, sk, causal, shift=0):
 
 
 def emulate_fwd(q, k, v, scale, causal, fault=None):
-    """The tensor-core forward kernel's arithmetic: 128-key tiles, a running
-    max, P relative to it rounded to the input type before ``P V``, l summing
-    the fp32 P, the correction applied to l and the accumulator.  ``fault``:
+    """The tensor-core forward kernel's arithmetic: 128-key tiles (64 at head
+    dim 256), a running max, P relative to it rounded to the input type
+    before ``P V``, l summing the fp32 P, the correction applied to l and the
+    accumulator.  ``fault``:
     ``"mask_off_by_one"`` lets each row see one key past the diagonal;
     ``"stale_max"`` drops the accumulator's correction, so P of earlier tiles
     stays summed against their stale max."""
@@ -69,16 +75,17 @@ def emulate_fwd(q, k, v, scale, causal, fault=None):
     m = torch.full((B, H, Sq), flash.NEG_INF)
     l = torch.zeros(B, H, Sq)
     acc = torch.zeros(B, H, Sq, D)
-    for k0 in range(0, Sk, KEY_TILE):
-        tile_vis = vis[:, k0:k0 + KEY_TILE]
-        st = torch.where(tile_vis, s[..., k0:k0 + KEY_TILE], flash.NEG_INF)
+    tile = KEY_TILE // 2 if D >= 256 else KEY_TILE
+    for k0 in range(0, Sk, tile):
+        tile_vis = vis[:, k0:k0 + tile]
+        st = torch.where(tile_vis, s[..., k0:k0 + tile], flash.NEG_INF)
         m_new = torch.maximum(m, st.amax(-1))
         p = torch.where(tile_vis, torch.exp(st - m_new[..., None]), 0.0)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
         acc_corr = torch.ones_like(corr) if fault == "stale_max" else corr
         acc = acc * acc_corr[..., None] + torch.einsum(
-            "bhqk,bkhd->bhqd", p.to(dt).float(), vf[:, k0:k0 + KEY_TILE])
+            "bhqk,bkhd->bhqd", p.to(dt).float(), vf[:, k0:k0 + tile])
         m = m_new
     l_safe = torch.where(l == 0, 1.0, l)
     out = (acc / l_safe[..., None]).permute(0, 2, 1, 3).to(dt)
@@ -300,6 +307,32 @@ def test_limit_rejects_late_tile_faults_at_the_train_shape(dtype, fault):
         bad[:, -LATE:] = 0
     ok, ratio = _within(bad, refs[part])
     assert not ok, f"{fault} passed at {ratio:.3f} of the limit"
+
+
+# a head dim's columns a kernel could drop: at D = 80 the 16 past the first
+# 64-column block (a forward that took D / 64 blocks, or an n64 product
+# alone, would leave them out), at D = 256 the upper half
+COLUMN_FAULTS = {80: slice(64, 80), 256: slice(128, 256)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp16"])
+@pytest.mark.parametrize("d", sorted(COLUMN_FAULTS))
+def test_limit_rejects_dropped_head_dim_columns(dtype, d):
+    """The emulated kernels pass at head dims 80 and 256; the same outputs
+    with the columns of ``COLUMN_FAULTS`` zeroed fail the limit on each of
+    out, dK, dV and dQ (``chip_smoke.py`` does the same on the card)."""
+    q, k, v, do = _inputs(12, dtype, 1, 160, 160, 4, 2, d)
+    scale = 1.0 / np.sqrt(d)
+    refs, lse, delta = _references(q, k, v, do, scale, True)
+    dk, dv = emulate_dkdv(q, k, v, do, lse, delta, scale, True)
+    good = {"out": emulate_fwd(q, k, v, scale, True)[0], "dk": dk, "dv": dv,
+            "dq": emulate_dq(q, k, v, do, lse, delta, scale, True)}
+    for part, got in good.items():
+        assert _within(got, refs[part])[0], part
+        bad = got.clone()
+        bad[..., COLUMN_FAULTS[d]] = 0
+        ok, ratio = _within(bad, refs[part])
+        assert not ok, f"{part}: columns {COLUMN_FAULTS[d]} zeroed passed at {ratio:.3f}"
 
 
 def test_limit_takes_the_store_and_refuses_non_finite():

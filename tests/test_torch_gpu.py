@@ -9,8 +9,8 @@ loop's), request tracing on the graph path, and tiny
 serving engines (v2; v1 dense and weight-only int8) and tiny training engines
 (dense with fused AdamW; block-sparse with 8-bit AdamW) on the GPU against the
 same engines on the CPU; BLOOM's paged forward (ALiBi on the kernel's slopes
-operand), GPT-2's and BERT's forward and grads, and BERT's non-causal flash
-attention.  Every test here needs a card and
+operand), GPT-2's, BERT's, Phi's (head dim 80) and GPT-J's (256) forward
+and grads, and BERT's non-causal flash attention.  Every test here needs a card and
 skips without one.  This file imports no JAX, so it runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest tests/test_torch_gpu.py``
 (the suite's conftest imports JAX)."""
@@ -374,9 +374,9 @@ FLASH_BASE = (2, 90, 130, 4, 2)  # B, Sq, Sk, H, KV: GQA, sq < sk, lengths not m
 FLASH_SHAPES = {"sq130_gt_sk70": (1, 130, 70, 2, 1),  # causal: the first rows see no key
                 "s77": (1, 77, 77, 8, 4), "s200": (2, 200, 200, 2, 2)}
 FLASH_GRID = ([(dtype, d, causal, None) for dtype in (torch.float32, torch.bfloat16, torch.float16)
-               for d in (64, 128) for causal in (True, False)]
+               for d in flash._HEAD_DIMS for causal in (True, False)]
               + [(dtype, d, causal, name) for dtype in (torch.bfloat16, torch.float16)
-                 for d in (64, 128) for causal in (True, False) for name in FLASH_SHAPES])
+                 for d in flash._HEAD_DIMS for causal in (True, False) for name in FLASH_SHAPES])
 
 
 @pytest.mark.parametrize("dtype,D,causal,shape", FLASH_GRID,
@@ -632,6 +632,41 @@ def test_gpt2_and_bert_forward_and_grads_on_gpu_match_cpu(cuda, key):
         logits = module.forward(cfg, p, ids.to(dev))
         loss = torch.nn.functional.cross_entropy(logits.flatten(0, 1), labels.to(dev).flatten())
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        results.append((logits.detach().cpu(), [g.cpu() for g in grads]))
+    after = [fn.launches for fn in (flash.flash_fwd, flash.flash_bwd_dkdv, flash.flash_bwd_dq)]
+    assert [a - b for a, b in zip(after, before)] == [4, 2, 2]
+    torch.testing.assert_close(results[1][0], results[0][0], atol=1e-4, rtol=1e-4)
+    for got, ref in zip(results[1][1], results[0][1]):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("key", ["phi", "gptj"])
+def test_phi_and_gptj_forward_and_grads_on_gpu_match_cpu(cuda, key):
+    """fp32 at Phi-2's head dim 80 (partial rotary 32) and GPT-J-6B's 256
+    (rotary 64), 2 narrow layers: the flash kernels (the forward, the remat
+    recompute and both backward kernels a layer) against the CPU's plain
+    attention, logits and every grad at 1e-4."""
+    import dataclasses
+    if key == "phi":
+        module = phi
+        cfg = dataclasses.replace(phi.PhiConfig.tiny(vocab=128, hidden=160, heads=2),
+                                  partial_rotary_factor=0.4)
+    else:
+        module = gptj
+        cfg = gptj.GPTJConfig.tiny(vocab=128, hidden=512, heads=2, rotary_dim=64)
+    params = module.init_params(cfg, torch.Generator().manual_seed(0))
+    ids = torch.from_numpy(np.random.default_rng(4).integers(0, 128, (2, 64)))
+    labels = torch.roll(ids, -1, 1)
+    results = []
+    before = [fn.launches for fn in (flash.flash_fwd, flash.flash_bwd_dkdv, flash.flash_bwd_dq)]
+    for dev in ("cpu", cuda):
+        p = _to(params, dev, torch.float32)
+        leaves = list(_leaves(p))
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        logits = module.forward(cfg, p, ids.to(dev))
+        loss = torch.nn.functional.cross_entropy(logits.flatten(0, 1), labels.to(dev).flatten())
+        grads = torch.autograd.grad(loss, leaves)
         results.append((logits.detach().cpu(), [g.cpu() for g in grads]))
     after = [fn.launches for fn in (flash.flash_fwd, flash.flash_bwd_dkdv, flash.flash_bwd_dq)]
     assert [a - b for a, b in zip(after, before)] == [4, 2, 2]

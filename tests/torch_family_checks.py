@@ -68,31 +68,42 @@ def first(out):
     return out[0] if isinstance(out, tuple) else out
 
 
-def check_forward(jmod, mod, jcfg, cfg, jparams, params, **kw):
+def check_forward(jmod, mod, jcfg, cfg, jparams, params, attention_fns=None, **kw):
+    """``attention_fns``: (JAX's, the port's) ``attention_fn`` for the two
+    forwards, where each should take another than its default."""
     ids = token_ids(cfg, (2, 12))
-    ref = jax.jit(jmod.forward, static_argnums=0, static_argnames=tuple(kw))(
-        jcfg, jparams, jnp.asarray(ids), **kw)
-    got = mod.forward(cfg, params, torch.from_numpy(ids), **kw)
+    jkw, pkw = dict(kw), dict(kw)
+    if attention_fns is not None:
+        jkw["attention_fn"], pkw["attention_fn"] = attention_fns
+    ref = jax.jit(jmod.forward, static_argnums=0, static_argnames=tuple(jkw))(
+        jcfg, jparams, jnp.asarray(ids), **jkw)
+    got = mod.forward(cfg, params, torch.from_numpy(ids), **pkw)
     if isinstance(ref, tuple):
         np.testing.assert_allclose(float(got[1]), float(ref[1]), atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(first(got).detach().numpy(), np.asarray(first(ref)), atol=ATOL,
                                rtol=RTOL)
 
 
-def check_loss_and_grads(jmod, mod, jcfg, cfg, jparams, params, has_aux=False, batch=None):
+def check_loss_and_grads(jmod, mod, jcfg, cfg, jparams, params, has_aux=False, batch=None,
+                         attention_fns=None):
     """The loss and every leaf of its gradient against ``jax.value_and_grad``
     of the JAX loss function, on ``batch`` (numpy leaves) or a next-token
-    batch with an ignored label."""
+    batch with an ignored label; ``attention_fns`` as in
+    :func:`check_forward`."""
     if batch is None:
         batch = mod.causal_lm_batch(token_ids(cfg, (2, 13), seed=1))
         batch["labels"] = np.array(batch["labels"])
         batch["labels"][0, 2] = -100
-    jloss_fn = jmod.make_loss_fn(jcfg)
+    jkw, pkw = {}, {}
+    if attention_fns is not None:
+        jkw["attention_fn"], pkw["attention_fn"] = attention_fns
+    jloss_fn = jmod.make_loss_fn(jcfg, **jkw)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     jout, jgrads = jax.jit(jax.value_and_grad(lambda p: jloss_fn(p, jbatch, None),
                                               has_aux=has_aux))(jparams)
     params = tree_map(lambda t: t.clone().requires_grad_(True), params)
-    out = mod.make_loss_fn(cfg)(params, {k: torch.from_numpy(v) for k, v in batch.items()}, None)
+    out = mod.make_loss_fn(cfg, **pkw)(params, {k: torch.from_numpy(v) for k, v in batch.items()},
+                                       None)
     loss, jloss = (out[0], jout[0]) if has_aux else (out, jout)
     if has_aux:
         np.testing.assert_allclose(out[1]["aux_loss"].item(), float(jout[1]["aux_loss"]),
