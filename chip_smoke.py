@@ -217,6 +217,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      launch); each at 2 layers in fp32 on the card against the CPU (forward
      and grads), BERT with a mask (a token behind it changes no unmasked
      logit), and Mistral-7B's windowed dense forward at 2 layers;
+     train-resume: Llama-2-7B width at 2 layers in bf16 with fused_adam and
+     with fused_adam8bit, 4 unbroken steps against 2 + save_checkpoint + a
+     fresh engine from another seed + load_checkpoint + 2, bit for bit, the
+     resumed launches against the step formula, a truncated leaf refused
+     and fallback_to_valid taking the earlier tag, save and load GB/s,
+     get_fp32_params and the save_16bit_model header; train-fp16: the same
+     model in fp16 with a dynamic loss scale from 2**32: skipped steps
+     launch no fused AdamW and halve the scale, then falling losses, fp16
+     flash on tensor cores, a mid-run checkpoint resumed bit for bit;
   8. serve-v1: ``init_inference`` with Llama-2-7B at full width and depth in
      bf16, 8 prompts of 512 tokens, 64 greedy new tokens through
      ``generate``; serve-v1-int8: the same with weight-only int8 (11 leaves
@@ -6049,6 +6058,455 @@ def phase_train_dense(card, device="cuda", configs=None, mistral_cfg=None):
     return out, summaries
 
 
+# [train-resume] and [train-fp16]: Llama-2-7B at full width cut to 2 layers
+# (about 0.667 B params), micro 2 x gas 2 x seq 2048
+RESUME_LAYERS = 2
+RESUME_OPTIMIZERS = ("fused_adam", "fused_adam8bit")
+RESUME_STEPS = 4  # two before the save, two after the load
+# the optimizer whose run also saves an earlier tag and loads a copy with a
+# truncated leaf: the smaller state, since a save runs at about 0.4 GB/s on
+# an H100 host's disk and the two phases have 100 s
+FALLBACK_OPTIMIZER = "fused_adam8bit"
+# fp16: from 2**32 the scale halves on every overflow (hysteresis 1); the
+# phase steps until FP16_CLEAN steps have been taken (at most FP16_MAX_STEPS)
+# and saves after the FP16_SAVE_AFTER-th clean one
+FP16_CONFIG = {"enabled": True, "initial_scale_power": 32, "hysteresis": 1,
+               "loss_scale_window": 1000}
+FP16_CLEAN, FP16_SAVE_AFTER, FP16_MAX_STEPS = 6, 2, 40
+# the first clean fp16 step's grad norm against bf16's at the same params:
+# the two differ by rounding only (2**-8 a bf16 element), while a grad left
+# scaled, unscaled twice or not divided by gas misses by 2x or more
+FP16_NORM_RTOL = 5e-2
+
+
+class LaunchDtypes:
+    """Stands in for the flash library while a phase runs: counts each
+    ``*_launch`` call by its dtype code (0 fp32, 1 bf16, 2 fp16) and
+    forwards it."""
+
+    def __init__(self, lib):
+        self.lib, self.codes = lib, collections.Counter()
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if not name.endswith("_launch"):
+            return fn
+
+        def call(*args):
+            self.codes[(name, args[0])] += 1
+            return fn(*args)
+
+        return call
+
+
+@contextlib.contextmanager
+def flash_dtypes(on_card):
+    """Yield a Counter of flash launches by (C entry, dtype code) while the
+    block runs on the card (empty on the CPU, where no kernel launches)."""
+    from deepspeed_tpu_torch.ops.attention import flash
+    if not on_card:
+        yield collections.Counter()
+        return
+    original = flash._lib
+    recorder = LaunchDtypes(original())
+    flash._lib = lambda: recorder
+    try:
+        yield recorder.codes
+    finally:
+        flash._lib = original
+
+
+def resume_engine(cfg, conf, seed, device):
+    """A Llama engine on ``device`` with params drawn from ``seed``."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import llama
+    params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                               dtype=torch.float32, device=device)
+    return deepspeed_tpu_torch.initialize(loss_fn=llama.make_loss_fn(cfg), model_parameters=params,
+                                          config=dict(conf, seed=seed), device=device)[0]
+
+
+def resume_batches(cfg, n, seq, rows, seed):
+    from deepspeed_tpu_torch.models import llama
+    rng = np.random.default_rng(seed)
+    return [llama.causal_lm_batch(rng.integers(0, cfg.vocab_size, (rows, seq)))
+            for _ in range(n)]
+
+
+def states_identical(tag, got, want):
+    """Raise unless every leaf of the two train states is equal bit for bit
+    (tensors compared on their device); returns the number of leaves."""
+    import torch
+    from deepspeed_tpu_torch.runtime.checkpointing import flatten_with_keys
+    a, b = dict(flatten_with_keys(got)), dict(flatten_with_keys(want))
+    if list(a) != list(b):
+        raise AssertionError(f"[{tag}] state keys differ: {list(a)} vs {list(b)}")
+    for key in a:
+        x, y = a[key], b[key]
+        same = torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        if not same:
+            diff = ((x.float() - y.float()).abs().max().item() if isinstance(x, torch.Tensor)
+                    else f"{x} vs {y}")
+            raise AssertionError(f"[{tag}] leaf {key} differs from the unbroken run: {diff}")
+    return len(a)
+
+
+def checkpoint_bytes(path):
+    from deepspeed_tpu_torch.runtime.checkpointing import read_metadata
+    return sum(e["nbytes"] for e in read_metadata(path)["manifest"])
+
+
+@contextlib.contextmanager
+def checkpoint_parts(engine):
+    """Seconds spent in the parts of a save or load while the block runs:
+    each leaf's copy to the host, its ``.npy`` write, its fsync and its CRC
+    read-back (a save), each leaf's copy to the device (a load; its read
+    from the file falls in the rest).  The
+    timers wrap the checkpointing module's own helpers and the engine's
+    writer, so the save and load themselves do no extra work."""
+    from deepspeed_tpu_torch.runtime import checkpointing
+    parts = collections.Counter()
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                parts[name] += time.perf_counter() - t0
+        return call
+
+    names = {"to_host": "device to host", "fsync_file": "fsync", "file_crc32": "CRC read-back",
+             "_restore_leaf": "host to device"}
+    saved = {name: getattr(checkpointing, name) for name in names}
+    writer = engine.checkpoint_engine
+    for name, label in names.items():
+        setattr(checkpointing, name, timed(label, saved[name]))
+    writer.save = timed("npy write", writer.save)
+    try:
+        yield parts
+    finally:
+        for name, fn in saved.items():
+            setattr(checkpointing, name, fn)
+        del writer.save
+
+
+def parts_line(parts, total):
+    rest = total - sum(parts.values())
+    return ", ".join([f"{k} {v:.2f} s" for k, v in parts.items()] + [f"the rest {rest:.2f} s"])
+
+
+def truncated_copy(src, dst, tag, key):
+    """``dst``: ``src`` hard-linked file by file, with leaf ``key`` of ``tag``
+    a separate copy cut to half its bytes."""
+    shutil.copytree(src, dst, copy_function=os.link)
+    leaf = os.path.join(dst, tag, key + ".npy")
+    with open(leaf, "rb") as fh:
+        data = fh.read()
+    os.remove(leaf)  # break the link before writing
+    with open(leaf, "wb") as fh:
+        fh.write(data[:len(data) // 2])
+
+
+def train_resume_one(card, cfg, optimizer, root, seed, device, micro, gas, seq):
+    """One optimizer of [train-resume]; see :func:`phase_train_resume`."""
+    import torch
+    from deepspeed_tpu_torch.runtime.checkpointing import CheckpointError
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves
+    from deepspeed_tpu_torch.utils import safetensors_io
+    tag = f"train-resume {optimizer}"
+    on_card = torch.device(device).type == "cuda"
+    conf = train_config(micro=micro, gas=gas, bf16=True, seed=seed, optimizer=optimizer)
+    batches = resume_batches(cfg, RESUME_STEPS, seq, micro * gas, seed)
+    half = RESUME_STEPS // 2
+    unbroken = resume_engine(cfg, conf, seed, device)
+    n_leaves = len(tree_leaves(unbroken.state.params))
+    ref, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        ref.append(float(unbroken.train_batch(batch).loss))
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    fallback = optimizer == FALLBACK_OPTIMIZER
+    first = resume_engine(cfg, conf, seed, device)
+    losses = [float(first.train_batch(batches[0]).loss)]
+    if fallback:
+        first.save_checkpoint(os.path.join(root, "ck"))  # the earlier tag
+    losses.append(float(first.train_batch(batches[1]).loss))
+    _sync(device)
+    with checkpoint_parts(first) as save_parts:
+        t0 = time.perf_counter()
+        saved_tag = first.save_checkpoint(os.path.join(root, "ck"))
+        save_s = time.perf_counter() - t0
+    del first
+    if on_card:
+        torch.cuda.empty_cache()
+    nbytes = checkpoint_bytes(os.path.join(root, "ck", saved_tag))
+    resumed = resume_engine(cfg, conf, seed + 1, device)
+    fell_back = "not run"
+    if fallback:
+        truncated_copy(os.path.join(root, "ck"), os.path.join(root, "cut"), saved_tag,
+                       "params.layers.mlp.w_down")
+        try:
+            resumed.load_checkpoint(os.path.join(root, "cut"))
+            raise AssertionError(f"[{tag}] a truncated leaf loaded without an error")
+        except CheckpointError as exc:
+            fell_back = f"refused ({str(exc)[:90]}...), then loaded "
+        loaded, _ = resumed.load_checkpoint(os.path.join(root, "cut"), fallback_to_valid=True)
+        if loaded != "global_step1" or resumed.global_steps != 1 or resumed.state.step != 1:
+            raise AssertionError(f"[{tag}] fallback_to_valid loaded {loaded} at step "
+                                 f"{resumed.global_steps}, expected global_step1")
+        fell_back += f"{loaded} with fallback_to_valid"
+        shutil.rmtree(os.path.join(root, "cut"))
+    _sync(device)
+    with checkpoint_parts(resumed) as load_parts:
+        t0 = time.perf_counter()
+        loaded, _ = resumed.load_checkpoint(os.path.join(root, "ck"))  # through `latest`
+        _sync(device)
+        load_s = time.perf_counter() - t0
+    reset_launch_counts()
+    with flash_dtypes(on_card) as dtypes:
+        losses += [float(resumed.train_batch(b).loss) for b in batches[half:]]
+    launches = launch_counts()
+    expected = expected_launches(steps=RESUME_STEPS - half, gas=gas, layers=cfg.num_layers,
+                                 n_leaves=n_leaves, optimizer=optimizer, sparse=None)
+    wrappers = _kernel_wrappers()
+    tc = {name: wrappers[name].tc_launches for name in TC_TRAIN_KERNELS[:3]}
+    if on_card and (launches != expected or any(tc[k] != launches[k] for k in tc)
+                    or set(code for _, code in dtypes) != {1}):
+        raise AssertionError(f"[{tag}] resumed launches {launches}, tensor-core {tc}, by dtype "
+                             f"{dict(dtypes)}; the step formula gives {expected}, every flash "
+                             f"launch a bf16 tensor-core one")
+    if losses != ref:
+        raise AssertionError(f"[{tag}] losses {losses} != the unbroken run's {ref}")
+    n = states_identical(tag, resumed.state, unbroken.state)
+    if not all(np.isfinite(ref)):
+        raise AssertionError(f"[{tag}] losses not finite: {ref}")
+    summary = {"step_ms": statistics.mean(times[1:]) * 1e3, "save_s": save_s, "load_s": load_s,
+               "gb": nbytes / 1e9}
+    log(f"[{tag}] on {card}: losses {[round(x, 4) for x in ref]} unbroken = 2 steps + "
+        f"save_checkpoint + a fresh engine from seed {seed + 1} + load_checkpoint ({loaded}, "
+        f"through latest) + 2 steps, bit for bit; {n} state leaves identical (params, "
+        f"{type(resumed.state.opt_state).__name__}); unbroken step ms "
+        f"{[round(t * 1e3, 1) for t in times]}; checkpoint {nbytes / 1e9:.3f} GB: save "
+        f"{save_s:.2f} s ({nbytes / 1e9 / save_s:.2f} GB/s: {parts_line(save_parts, save_s)}), "
+        f"load {load_s:.2f} s ({nbytes / 1e9 / load_s:.2f} GB/s: "
+        f"{parts_line(load_parts, load_s)}) on the host's disk (warm page cache); resumed "
+        f"launches { {k: v for k, v in launches.items() if v} } = step formula, flash by dtype "
+        f"code {dict(dtypes)}; a copy with a truncated w_down leaf: {fell_back}")
+    if optimizer == "fused_adam":
+        fp32 = resumed.get_fp32_params()
+        for (key, p), (_, arr) in zip(flatten_state(resumed.state.params), flatten_state(fp32)):
+            if not np.array_equal(p.cpu().numpy(), arr):
+                raise AssertionError(f"[{tag}] get_fp32_params() differs from the state at {key}")
+        del fp32
+        t0 = time.perf_counter()
+        path = resumed.save_16bit_model(os.path.join(root, "model16"))
+        header = safetensors_io.read_header(path)
+        keys = [k for k, _ in flatten_state(resumed.state.params)]
+        bad = [k for k, p in flatten_state(resumed.state.params)
+               if header[k]["dtype"] != "BF16" or header[k]["shape"] != list(p.shape)
+               or header[k]["data_offsets"][1] - header[k]["data_offsets"][0] != 2 * p.numel()]
+        if sorted(k for k in header if k != "__metadata__") != sorted(keys) or bad:
+            raise AssertionError(f"[{tag}] save_16bit_model header: bad entries {bad}")
+        log(f"[{tag}] get_fp32_params() equals the state bit for bit; save_16bit_model wrote "
+            f"{os.path.getsize(path) / 1e9:.3f} GB in {time.perf_counter() - t0:.2f} s, its header "
+            f"lists all {len(keys)} param keys as BF16 with 2 bytes an element")
+        os.remove(path)
+    shutil.rmtree(os.path.join(root, "ck"))
+    del resumed, unbroken
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, summary
+
+
+def flatten_state(tree):
+    from deepspeed_tpu_torch.runtime.checkpointing import flatten_with_keys
+    return list(flatten_with_keys(tree))
+
+
+def resume_config(layers=RESUME_LAYERS):
+    from deepspeed_tpu_torch.models import llama
+    return dataclasses.replace(llama.LlamaConfig.llama2_7b(), num_layers=layers, remat=True)
+
+
+def scratch_dir(cfg, tag):
+    """A fresh directory under the system's temp dir for the phase's
+    checkpoints, after checking it can hold twice the largest state (fp32
+    params, m and v)."""
+    import tempfile
+    from deepspeed_tpu_torch.models import llama
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    need = 2 * 12 * llama.num_params(cfg)
+    usage = shutil.disk_usage(root)
+    log(f"[{tag}] checkpoints under {root}: disk {usage.total / 1e9:.1f} GB, free "
+        f"{usage.free / 1e9:.1f} GB, twice the largest state {need / 1e9:.1f} GB")
+    if usage.free < need:
+        shutil.rmtree(root, ignore_errors=True)
+        raise RuntimeError(f"[{tag}] {root} has {usage.free / 1e9:.1f} GB free, under twice the "
+                           f"largest state ({need / 1e9:.1f} GB)")
+    return root
+
+
+def phase_train_resume(card, seed=0, device="cuda", cfg=None, micro=2, gas=2, seq=2048):
+    """[train-resume]: Llama-2-7B at full width cut to ``RESUME_LAYERS``
+    layers, bf16, remat, WarmupLR, clip 1.0, micro 2 x gas 2 x seq 2048, once
+    with ``fused_adam`` and once with ``fused_adam8bit``.  For each: one
+    engine takes 4 steps unbroken; a second from the same seed takes 2, saves
+    (``global_step2``) and is deleted; a third from another seed loads and
+    takes the last 2.  Gates: the losses
+    and every state leaf bit for bit equal to the unbroken run's; the resumed
+    steps' launches equal to the step formula, every flash launch a bf16
+    tensor-core one.  In the ``FALLBACK_OPTIMIZER`` run the second engine
+    also saves after its first step, and a copy with one leaf of the newer
+    tag truncated must raise ``CheckpointError`` and, with
+    ``fallback_to_valid``, load the earlier tag.  With ``fused_adam`` also
+    ``get_fp32_params`` against the state and the header of
+    ``save_16bit_model``.  ``cfg`` (and the batch shape) replace the
+    published configuration for a rehearsal.  Returns (launches by optimizer,
+    summaries by optimizer)."""
+    cfg = cfg or resume_config()
+    root = scratch_dir(cfg, "train-resume")
+    launches, summaries = {}, {}
+    try:
+        for optimizer in RESUME_OPTIMIZERS:
+            with phase_timer(f"train-resume {optimizer}"):
+                launches[optimizer], summaries[optimizer] = train_resume_one(
+                    card, cfg, optimizer, root, seed, device, micro, gas, seq)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, summaries
+
+
+def phase_train_fp16(card, bf16_ms, seed=0, device="cuda", cfg=None, micro=2, gas=2, seq=2048):
+    """[train-fp16]: [train-resume]'s model and batch in fp16 with
+    ``fused_adam`` and a dynamic loss scale from 2**32 (hysteresis 1, window
+    1000), stepping until ``FP16_CLEAN`` steps have been taken.  Gates: at
+    least one early step skipped; on each skipped step 0 fused AdamW
+    launches, ``TrainState.step`` unchanged and the scale halved; after the
+    first clean step, finite losses that fall; every flash launch a
+    tensor-core one on fp16 inputs; a ``save_checkpoint`` after the
+    ``FP16_SAVE_AFTER``-th clean step, loaded by a fresh engine from another
+    seed, whose steps from there equal the unbroken ones bit for bit (loss
+    scale included); the first clean step's grad norm (unscaled, before
+    clipping, at the initial params since every skip left them put) within
+    ``FP16_NORM_RTOL`` of a bf16 engine's from the same seed on the same
+    batch.  ``bf16_ms`` maps names to bf16 step times of the same run,
+    printed beside the fp16 one."""
+    import torch
+    from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adamw_flat
+    from deepspeed_tpu_torch.runtime.optimizers import global_grad_norm
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves
+    on_card = torch.device(device).type == "cuda"
+    cfg = cfg or resume_config()
+    conf = dict(train_config(micro=micro, gas=gas, bf16=False, seed=seed), fp16=FP16_CONFIG)
+    batches = resume_batches(cfg, 4, seq, micro * gas, seed + 7)
+    # the reference norms, before the counted run: bf16 needs no loss scale
+    reference = resume_engine(cfg, train_config(micro=micro, gas=gas, bf16=True, seed=seed),
+                              seed, device)
+    ref_norms = [float(global_grad_norm(reference.accumulate_gradients(b)[0])) for b in batches]
+    del reference
+    if on_card:
+        torch.cuda.empty_cache()
+    root = scratch_dir(cfg, "train-fp16")
+    try:
+        engine = resume_engine(cfg, conf, seed, device)
+        if engine.compute_dtype != torch.float16:
+            raise AssertionError(f"[train-fp16] compute dtype {engine.compute_dtype}")
+        n_leaves = len(tree_leaves(engine.state.params))
+        reset_launch_counts()
+        rows, saved_at = [], None
+        with flash_dtypes(on_card) as dtypes:
+            while sum(not r["skipped"] for r in rows) < FP16_CLEAN:
+                if len(rows) == FP16_MAX_STEPS:
+                    raise AssertionError(f"[train-fp16] {FP16_MAX_STEPS} steps, only "
+                                         f"{sum(not r['skipped'] for r in rows)} clean: {rows}")
+                step_before, adam_before = engine.state.step, fused_adamw_flat.launches
+                t0 = time.perf_counter()
+                m = engine.train_batch(batches[len(rows) % len(batches)])
+                loss = float(m.loss)
+                _sync(device)
+                row = {"loss": loss, "skipped": m.skipped, "scale": m.loss_scale,
+                       "ms": (time.perf_counter() - t0) * 1e3,
+                       "adam": fused_adamw_flat.launches - adam_before,
+                       "norm": float(m.grad_norm)}
+                rows.append(row)
+                if m.skipped:
+                    if (engine.state.step != step_before or (on_card and row["adam"] != 0)
+                            or engine.state.loss_scale.cur_scale != m.loss_scale / 2):
+                        raise AssertionError(f"[train-fp16] skipped step {len(rows)}: step "
+                                             f"{step_before} -> {engine.state.step}, AdamW "
+                                             f"launches {row['adam']}, scale {m.loss_scale} -> "
+                                             f"{engine.state.loss_scale.cur_scale}")
+                elif engine.state.step != step_before + 1 or (on_card and row["adam"] != n_leaves):
+                    raise AssertionError(f"[train-fp16] clean step {len(rows)}: {row}")
+                if saved_at is None and sum(not r["skipped"] for r in rows) == FP16_SAVE_AFTER:
+                    t0 = time.perf_counter()
+                    engine.save_checkpoint(os.path.join(root, "ck"))
+                    save_s = time.perf_counter() - t0
+                    saved_at = len(rows)
+        launches = launch_counts()
+        wrappers = _kernel_wrappers()
+        tc = {name: wrappers[name].tc_launches for name in TC_TRAIN_KERNELS[:3]}
+        steps = len(rows)
+        clean = [r for r in rows if not r["skipped"]]
+        expected = expected_launches(steps=steps, gas=gas, layers=cfg.num_layers,
+                                     n_leaves=n_leaves, optimizer="fused_adam", sparse=None)
+        expected["fused_adamw"] = len(clean) * n_leaves
+        if on_card and (launches != expected or any(tc[k] != launches[k] for k in tc)
+                        or set(code for _, code in dtypes) != {2}):
+            raise AssertionError(f"[train-fp16] launches {launches}, tensor-core {tc}, by dtype "
+                                 f"{dict(dtypes)}; expected {expected}, every flash launch an "
+                                 f"fp16 tensor-core one")
+        first_clean = next(i for i, r in enumerate(rows) if not r["skipped"])
+        after = [r["loss"] for r in rows[first_clean:]]
+        if not rows[0]["skipped"] or not all(np.isfinite(after)) or not after[-1] < after[0]:
+            raise AssertionError(f"[train-fp16] want a skipped first step, then finite falling "
+                                 f"losses: {rows}")
+        norm, ref_norm = rows[first_clean]["norm"], ref_norms[first_clean % len(batches)]
+        norm_err = abs(norm - ref_norm) / ref_norm
+        if not norm_err <= FP16_NORM_RTOL:
+            raise AssertionError(f"[train-fp16] first clean step's grad norm {norm} (scale "
+                                 f"{rows[first_clean]['scale']}) against bf16's {ref_norm}: "
+                                 f"relative difference {norm_err} over {FP16_NORM_RTOL}")
+        resumed = resume_engine(cfg, conf, seed + 1, device)
+        t0 = time.perf_counter()
+        resumed.load_checkpoint(os.path.join(root, "ck"))
+        load_s = time.perf_counter() - t0
+        tail = []
+        for i in range(saved_at, steps):
+            m = resumed.train_batch(batches[i % len(batches)])
+            tail.append({"loss": float(m.loss), "skipped": m.skipped, "scale": m.loss_scale})
+        want = [{k: r[k] for k in ("loss", "skipped", "scale")} for r in rows[saved_at:]]
+        if tail != want:
+            raise AssertionError(f"[train-fp16] resumed steps {tail} != unbroken {want}")
+        n = states_identical("train-fp16", resumed.state, engine.state)
+        nbytes = checkpoint_bytes(os.path.join(root, "ck", f"global_step{saved_at}"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    clean_ms = statistics.mean(r["ms"] for r in clean[1:])
+    beside = ", ".join(f"{name} {ms:.1f} ms" for name, ms in bf16_ms.items())
+    log(f"[train-fp16] llama2_7b width x {cfg.num_layers} layers on {card}, fp16, fused_adam, "
+        f"dynamic loss scale from 2**32 (hysteresis 1, window 1000): {steps} steps, "
+        f"{steps - len(clean)} skipped (scales {[r['scale'] for r in rows]}), losses "
+        f"{[round(r['loss'], 4) for r in rows]}; fused AdamW launches by step "
+        f"{[r['adam'] for r in rows]}; first clean step's grad norm {norm:.6g} (unscaled "
+        f"from {rows[first_clean]['scale']:g}) against a bf16 engine's {ref_norm:.6g} at the "
+        f"same params and batch: relative difference {norm_err:.3g} (limit {FP16_NORM_RTOL}); "
+        f"launches { {k: v for k, v in launches.items() if v} } = "
+        f"step formula with AdamW on clean steps only, flash by dtype code {dict(dtypes)}; "
+        f"clean steps 2-{len(clean)}: {clean_ms:.1f} ms a step (bf16 beside it: {beside}); "
+        f"saved after step {saved_at} ({nbytes / 1e9:.3f} GB, {save_s:.2f} s), a fresh engine "
+        f"from seed {seed + 1} loaded it in {load_s:.2f} s and its {steps - saved_at} steps "
+        f"equal the unbroken ones bit for bit, {n} state leaves identical (loss_scale "
+        f"{engine.state.loss_scale})")
+    del engine, resumed
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, {"step_ms": clean_ms, "steps": steps, "skipped": steps - len(clean)}
+
+
 # [train-slice*]'s depth: one full-width layer, and sequences of 128
 # tokens.  Its CPU engine sets the phase's time (on an NVIDIA H100 80GB
 # HBM3 at 700.00 W: about 250 s for the three at 2 layers; 197.5 s at one
@@ -6466,6 +6924,12 @@ def main() -> int:
         lion_launches = phase_train_slice(tag="train-slice-lion", optimizer="lion", seq=128)
     with phase_timer("train-dense"):
         dense_launches, _ = phase_train_dense(card)
+    with phase_timer("train-resume"):
+        resume_launches, resumed = phase_train_resume(card)
+    with phase_timer("train-fp16"):
+        fp16_launches, _ = phase_train_fp16(
+            card, {f"[train-resume] fused_adam, {RESUME_LAYERS} layers": resumed["fused_adam"]
+                   ["step_ms"], f"[train] {TRAIN_LAYERS} layers": dense["step_ms"]})
     with phase_timer("serve-v1, serve-v1-int8"):
         _, quant_launches = phase_serve_v1(card)
     with phase_timer("slice-v1"):
@@ -6517,6 +6981,9 @@ def main() -> int:
                         "head_dims": [64, 80, 128, 256],
                         "train_dense_launches": {key: dense_launches[key][name]
                                                  for key in dense_launches},
+                        "train_resume_launches": {opt: resume_launches[opt][name]
+                                                  for opt in resume_launches},
+                        "train_fp16_launches": fp16_launches[name],
                         "variant": FLASH_VARIANTS[name]})
     adam = train_recs["fused_adamw"]
     kernels.append({"name": "fused_adamw", "route": "cuda", "source": ADAM_SOURCE,
@@ -6526,6 +6993,8 @@ def main() -> int:
                              f"fp32 grad",
                     "train_dense_launches": {key: dense_launches[key]["fused_adamw"]
                                              for key in dense_launches},
+                    "train_resume_launches": resume_launches["fused_adam"]["fused_adamw"],
+                    "train_fp16_launches": fp16_launches["fused_adamw"],
                     "bf16_grad": {k: train_recs["fused_adamw_bf16_grad"][k] for k in fields}})
     for name in ("sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq"):
         kernels.append({"name": name, "route": "cuda", "source": SPARSE_SOURCE,
@@ -6540,6 +7009,7 @@ def main() -> int:
     adam8 = adam8_recs["adamw8bit"]
     kernels.append({"name": "adamw8bit", "route": "cuda", "source": ADAM8_SOURCE,
                     "replaces": ADAM8_REPLACES, "launches": adam8_launches["adamw8bit"],
+                    "train_resume_launches": resume_launches["fused_adam8bit"]["adamw8bit"],
                     "max_abs_err": adam8_err, **{k: adam8[k] for k in fields},
                     "shape": f"n={W_GATE} (the stacked w_gate leaf of [train-8bit]) fp32 p, int8 "
                              f"m/sqrt(v), fp32 grad",

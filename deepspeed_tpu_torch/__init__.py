@@ -7,6 +7,9 @@ kernel written by hand for Hopper (``csrc/``), built at first use.  Entry
 points run on ``device="cuda"`` unless the caller asks for the CPU.
 """
 
+from .runtime.checkpointing import CheckpointError
+from .runtime.config import TrainingConfig, load_config
+
 
 def initialize(args=None, model=None, loss_fn=None, model_parameters=None, training_data=None,
                config=None, device="cuda", **kwargs):
@@ -17,6 +20,9 @@ def initialize(args=None, model=None, loss_fn=None, model_parameters=None, train
     ``models.llama.make_loss_fn(config)`` with ``models.llama.init_params``.
     Returns ``(engine, optimizer, None, lr_scheduler)``: the dataloader is not
     ported, and ``training_data`` raises ``NotImplementedError``.  The engine
+    trains with ``train_batch`` or ``forward``/``backward``/``step``, and
+    saves and resumes with ``save_checkpoint``/``load_checkpoint`` (files the
+    JAX package reads and writes too).  The engine
     runs on ``device`` ("cuda" unless the caller passes "cpu") and raises when
     asked for CUDA without a GPU.
     """

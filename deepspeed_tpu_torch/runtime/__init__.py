@@ -1,0 +1,1 @@
+from .config import TrainingConfig, ZeroConfig, load_config

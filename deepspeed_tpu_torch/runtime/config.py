@@ -509,13 +509,65 @@ class TelemetryConfig(ConfigModel):
 
 
 class FP16Config(ConfigModel):
-    """Only ``enabled: false`` is accepted: fp16 loss scaling is not ported."""
+    """fp16 compute with loss scaling (``deepspeed_tpu/runtime/config.py``
+    FP16Config): ``loss_scale`` 0 is dynamic, starting at
+    ``2**initial_scale_power``, halved on overflow after ``hysteresis``
+    overflows and doubled after ``loss_scale_window`` clean steps, never
+    below ``min_loss_scale``; ``loss_scale > 0`` is a static scale.
+    ``auto_cast`` is parsed and read by nothing, as in JAX."""
     enabled: bool = False
+    auto_cast: bool = False
+    loss_scale: float = Field(0.0, ge=0.0)  # 0 => dynamic
+    initial_scale_power: int = Field(16, ge=0)
+    loss_scale_window: int = Field(1000, ge=1)
+    hysteresis: int = Field(2, ge=1)
+    consecutive_hysteresis: bool = False
+    min_loss_scale: float = Field(1.0, ge=0.0)
 
 
 class BF16Config(ConfigModel):
     """bf16 compute; on unless fp16 is asked for, as in the JAX package."""
     enabled: bool = True
+
+
+class CheckpointSectionConfig(ConfigModel):
+    """The ``checkpoint`` section (``deepspeed_tpu/runtime/config.py``
+    CheckpointSectionConfig): ``checkpoint_engine`` selects the plug-in of
+    ``runtime/checkpoint_engine`` (``native``/``torch`` synchronous,
+    ``async``/``nebula`` a background writer).  ``keep_last_n`` deletes tags
+    beyond the newest N after each save (never the newest VALID one);
+    ``verify_integrity`` re-checks each leaf's CRC32 at load;
+    ``save_retries``/``retry_backoff_secs`` bound the exponential-backoff
+    retries of a save over a transient ``OSError``; ``save_on_preemption``
+    installs a SIGTERM handler that makes one best-effort final save (tag
+    ``preempt_step<N>``, ``client_state["preempted"]`` true) before the
+    process dies.  ``tag_validation``, ``use_node_local_storage`` and
+    ``parallel_write`` are parsed as JAX parses them and read by nothing: the
+    port saves from one process.  An unknown key raises, where JAX keeps
+    it."""
+    checkpoint_engine: str = Field("native", choices=("native", "torch", "async", "nebula"))
+    async_max_queue: int = Field(64, ge=1)
+    tag_validation: Optional[str] = Field(None, choices=(None, "Ignore", "Warn", "Fail",
+                                                         "ignore", "warn", "fail"))
+    use_node_local_storage: bool = False
+    parallel_write: Optional[Dict[str, Any]] = None
+    keep_last_n: Optional[int] = Field(None, ge=1)
+    verify_integrity: bool = False
+    save_retries: int = Field(2, ge=0)
+    retry_backoff_secs: float = Field(0.5, ge=0.0)
+    save_on_preemption: bool = False
+
+
+class NebulaConfig(ConfigModel):
+    """The top-level ``nebula`` section: ``enabled`` selects the async
+    (background-writer) checkpoint engine; the other fields are parsed as
+    JAX parses them and read by nothing.  An unknown key raises, where JAX
+    keeps it."""
+    enabled: bool = False
+    persistent_storage_path: Optional[str] = None
+    persistent_time_interval: int = Field(100, ge=1)
+    num_of_version_in_retention: int = Field(2, ge=1)
+    enable_nebula_load: bool = True
 
 
 class OffloadConfig(ConfigModel):
@@ -615,11 +667,13 @@ UNPORTED_TRAINING_SECTIONS = ("data_efficiency", )
 
 class TrainingConfig(ConfigModel):
     """The training config the port's engine reads: the batch triple,
-    optimizer, scheduler, precision (bf16 by default, fp32 with
-    ``"bf16": {"enabled": false}``), gradient clipping, seed, print cadence,
-    the ZeRO stage, block-sparse attention, the monitor writers, telemetry
-    and the ops endpoints.  Load it with :func:`load_config`, which refuses
-    the JAX package's other sections."""
+    optimizer, scheduler, precision (bf16 by default, fp16 with loss scaling
+    under ``"fp16": {"enabled": true}``, fp32 with ``"bf16": {"enabled":
+    false}``), gradient clipping, seed, print cadence, the ZeRO stage,
+    block-sparse attention, checkpoints (``checkpoint``, ``nebula``,
+    ``checkpoint_tag_validation``), the monitor writers, telemetry and the
+    ops endpoints.  Load it with :func:`load_config`, which refuses the JAX
+    package's other sections."""
     train_batch_size: Optional[int] = Field(None, ge=1)
     train_micro_batch_size_per_gpu: Optional[int] = Field(None, ge=1)
     gradient_accumulation_steps: Optional[int] = Field(None, ge=1)
@@ -640,6 +694,12 @@ class TrainingConfig(ConfigModel):
     csv_monitor: CSVConfig = Field(CSVConfig)
     telemetry: TelemetryConfig = Field(TelemetryConfig)
     ops_server: OpsServerConfig = Field(OpsServerConfig)
+    checkpoint: CheckpointSectionConfig = Field(CheckpointSectionConfig)
+    nebula: NebulaConfig = Field(NebulaConfig)
+    checkpoint_tag_validation: str = Field("Warn", choices=("Ignore", "Warn", "Fail", "ignore",
+                                                            "warn", "fail"))
+    load_universal_checkpoint: bool = False
+    use_node_local_storage: bool = False
     wall_clock_breakdown: bool = False
     memory_breakdown: bool = False
 
@@ -648,11 +708,17 @@ class TrainingConfig(ConfigModel):
             # the reference's top-level memory_breakdown key routes to the
             # see_memory_usage cadence the telemetry section controls
             object.__setattr__(self.telemetry, "memory_breakdown", True)
-        if self.fp16.enabled:
-            raise NotImplementedError("fp16 training (dynamic loss scaling) is not ported to "
-                                      "PyTorch yet: use bf16 or fp32")
+        if self.fp16.enabled and self.bf16 is not None and self.bf16.enabled:
+            raise ValueError("fp16 and bf16 cannot both be enabled")
         if self.bf16 is None:
-            object.__setattr__(self, "bf16", BF16Config(enabled=True))
+            # bf16 on unless fp16 is asked for, as in the JAX package
+            object.__setattr__(self, "bf16", BF16Config(enabled=not self.fp16.enabled))
+        if self.checkpoint.tag_validation is not None:
+            object.__setattr__(self, "checkpoint_tag_validation", self.checkpoint.tag_validation)
+        if self.load_universal_checkpoint:
+            raise NotImplementedError("load_universal_checkpoint: the universal checkpoint "
+                                      "format (checkpoint/universal.py) is not ported to PyTorch "
+                                      "yet (ROADMAP item 12)")
         for name in ("offload_param", "offload_optimizer"):
             section = getattr(self.zero_optimization, name)
             if section is not None and section.device != "none":
@@ -696,8 +762,17 @@ class TrainingConfig(ConfigModel):
         object.__setattr__(self, "gradient_accumulation_steps", gas)
         return tb, mb, gas
 
+    def checkpoint_engine_kind(self) -> str:
+        """The checkpoint engine plug-in: the ``nebula`` section wins, else
+        ``checkpoint.checkpoint_engine``."""
+        if self.nebula.enabled:
+            return "async"
+        return self.checkpoint.checkpoint_engine
+
     @property
     def precision_dtype(self):
+        if self.fp16.enabled:
+            return torch.float16
         return torch.bfloat16 if self.bf16.enabled else torch.float32
 
 

@@ -5,12 +5,36 @@ master copy of the params, a compute-dtype copy made at every step,
 micro-batch gradient accumulation in fp32, global-norm clipping, the lr
 schedule and the optimizer step.  The step follows ``engine.py:586-655``:
 
-1. grads of each micro-batch, summed in fp32, then divided by gas * scale;
+1. grads of each micro-batch of ``loss * scale`` (the fp16 loss scale, 1
+   in bf16 and fp32), summed in fp32, then divided by gas * scale;
 2. the global grad norm;
 3. clipping to ``gradient_clipping``;
 4. ``lr = schedule(step)`` with the step count before this step;
 5. the fused optimizer step (``optimizer.step_fn``, the fused AdamW kernel on
    CUDA) when the optimizer has one, else the delta form ``update``.
+
+fp16: an overflow (an inf or NaN grad, or a non-finite norm) skips step 5
+entirely, the step count (and so the lr schedule) stays put, and the loss
+scale follows ``optimizers.update_loss_scale``; the host counters
+(``global_steps``, ``global_samples``, the scheduler's ``last_step``)
+advance on every call, skipped or not.  JAX takes the update and then
+selects the old state with ``where``; the port's fused kernels update
+params and moments in place, so it reads the overflow flag on the host and
+does not call the optimizer: ONE host sync a step, in fp16 only (the
+reference DeepSpeed fp16 optimizer reads it the same way).  bf16 and fp32
+steps make no sync.
+
+Checkpoints (``runtime/checkpointing.py``) hold the JAX package's files:
+``save_checkpoint`` writes the train state's leaves under JAX's keys
+(``step``, ``params.*``, ``opt_state.*``, ``loss_scale.*``) plus the
+engine's ``torch.Generator`` state as a ``uint8`` leaf ``torch_rng``, which
+the JAX loader ignores (the JAX ``rng`` leaf is read by nobody here).
+``load_checkpoint`` takes a checkpoint of either package, matching leaves
+by key.  The training engine has no heartbeat yet (the watchdog is ROADMAP
+item 9d), so the JAX engine's heartbeat stamps around checkpoint IO have no
+counterpart.  ``forward``/``backward``/``step`` are the JAX three-call shim
+(``engine.py:957-972``): ``step`` stacks the queued micro-batches and runs
+``train_batch``.
 
 On one device the JAX engine takes the fused step too (``engine.py:544``),
 and ZeRO partitions nothing, so every ZeRO stage runs this same step.  The
@@ -28,14 +52,16 @@ once, on the first step under ``torch.utils.flop_counter.FlopCounterMode``:
 every aten product, the remat recompute included, and nothing inside the
 hand kernels (called through ``ctypes``, as XLA's cost analysis does not see
 inside a Pallas call).  ``ops_server`` publishes ``/metrics``, ``/healthz``
-and ``/statez`` refreshed at the step boundary.  Not ported yet: fp16 loss
-scaling, offload, checkpoints and the watchdog (ROADMAP Queue 1).
+and ``/statez`` refreshed at the step boundary.  Not ported yet:
+offload, the dataloader and the watchdog (ROADMAP Queue 1).
 """
 
 import contextlib
 import json
 import logging
 import os
+import signal
+import threading
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
@@ -47,11 +73,17 @@ from ..monitor.metrics import populate_from_telemetry
 from ..monitor.monitor import MonitorMaster
 from ..monitor.ops_server import OpsPublisher
 from ..monitor.telemetry import TelemetryCollector
+from ..utils import safetensors_io
 from ..utils.memory import see_memory_usage
 from . import lr_schedules, optimizers
+from .checkpointing import (CheckpointError, flatten_with_keys, find_latest_valid_tag,
+                            get_latest_tag, load_checkpoint_dir, read_metadata,
+                            save_checkpoint_with_retries, sweep_retention,
+                            validate_checkpoint_tag)
 from .config import OpsServerConfig, TrainingConfig, load_config
 from .grad_accum import accumulate_micro_grads
-from .heartbeat import OPS_DIR_ENV
+from .heartbeat import OPS_DIR_ENV, RESUME_DIR_ENV, RESUME_TAG_ENV
+from .optimizers import LossScaleState, has_overflow, init_loss_scale, update_loss_scale
 from .tree import tree_leaves, tree_map
 
 logger = logging.getLogger(__name__)
@@ -59,17 +91,28 @@ logger = logging.getLogger(__name__)
 
 class TrainState(NamedTuple):
     """Everything a step reads and writes."""
-    step: int  # optimizer steps taken
+    step: int  # optimizer steps taken (a skipped fp16 step takes none)
     params: Any  # fp32 master params, on the engine's device
     opt_state: Any
+    loss_scale: Optional[LossScaleState] = None  # fp16 only
+
+
+class _SavedState(NamedTuple):
+    """What a checkpoint holds: the train state's leaves under JAX's keys,
+    then the engine's generator state (JAX's template has ``rng`` there)."""
+    step: int
+    params: Any
+    opt_state: Any
+    loss_scale: Optional[LossScaleState]
+    torch_rng: Optional[np.ndarray]
 
 
 class StepMetrics(NamedTuple):
     loss: torch.Tensor  # mean micro-batch loss, fp32 0-d, on the device
     grad_norm: torch.Tensor  # before clipping
     lr: float
-    skipped: bool  # always False: there is no fp16 overflow skip without loss scaling
-    loss_scale: float
+    skipped: bool  # fp16: the overflow skipped the update; always False in bf16/fp32
+    loss_scale: float  # the scale this step's loss was multiplied by
 
 
 def resolve_device(device) -> torch.device:
@@ -105,8 +148,22 @@ class Engine:
             base_lr=self.base_lr)
         self.lr_scheduler = lr_schedules.LRScheduler(self.lr_schedule)
         self.compute_dtype = config.precision_dtype
+        self.fp16_enabled = config.fp16.enabled
         self.global_steps = 0
         self.global_samples = 0
+        # per-process counter bases of the ops plane: load_checkpoint moves
+        # them to the restored position, so exported counters count this
+        # process's work only
+        self._ops_steps_base = 0
+        self._ops_samples_base = 0
+        self._micro_batches: list = []
+        self._ckpt_engine = None  # built at the first save from the config
+        # the SIGTERM best-effort final save, armed by the first
+        # save_checkpoint() when checkpoint.save_on_preemption is set
+        self._preempt_save_dir: Optional[str] = None
+        self._preempt_prev_handler = None
+        self._preempt_registered = False
+        self._in_preempt_save = False
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self._last_grad_norm: Optional[torch.Tensor] = None
         # monitor writers and the per-step telemetry collector (the engine
@@ -137,7 +194,9 @@ class Engine:
 
         master = tree_map(lambda p: _as_tensor(p).detach().to(
             device=self.device, dtype=torch.float32).clone(), params)
-        self.state = TrainState(step=0, params=master, opt_state=self.optimizer.init(master))
+        self.state = TrainState(step=0, params=master, opt_state=self.optimizer.init(master),
+                                loss_scale=(init_loss_scale(config.fp16) if self.fp16_enabled
+                                            else None))
         n_params = sum(p.numel() for p in tree_leaves(master))
         logger.info(f"Engine: device={self.device} zero_stage={self.zero_stage} "
                     f"batch={self.train_batch_size} (micro={self.micro_batch_size} x gas="
@@ -167,19 +226,23 @@ class Engine:
                         self.state.params)
 
     # ---------------------------------------------------------------- step
-    def accumulate_gradients(self, batch):
-        """(fp32 grads averaged over the micro-batches, mean loss) for
-        ``batch`` at the current params, without stepping: step 1 of the
-        train step."""
-        return self._accumulate(self._gas_layout(batch))
+    def _loss_scale(self) -> float:
+        ls = self.state.loss_scale
+        return 1.0 if ls is None else ls.cur_scale
 
-    def _accumulate(self, batch):
+    def accumulate_gradients(self, batch):
+        """(fp32 grads averaged over the micro-batches and unscaled, mean
+        loss) for ``batch`` at the current params, without stepping: step 1
+        of the train step."""
+        return self._accumulate(self._gas_layout(batch), self._loss_scale())
+
+    def _accumulate(self, batch, scale: float):
         gas = self.gradient_accumulation_steps
-        scale = 1.0  # no loss scaling in bf16/fp32
         grads, loss_sum = accumulate_micro_grads(self.loss_fn, self._compute_params(), batch,
                                                  [self.generator] * gas, scale)
+        divisor = float(np.float32(gas) * np.float32(scale))  # float32, as JAX's gas * scale
         for g in tree_leaves(grads):
-            g.div_(gas * scale)
+            g.div_(divisor)
         return grads, loss_sum / gas
 
     def train_batch(self, batch) -> StepMetrics:
@@ -235,25 +298,60 @@ class Engine:
 
     def _step(self, batch) -> StepMetrics:
         """Grads, norm, clipping, lr and the optimizer step on a gas-layout
-        batch; advances the step counters."""
-        grads, loss = self._accumulate(batch)
+        batch; advances the step counters.  In fp16 an overflow skips the
+        optimizer (see the module docstring)."""
+        state = self.state
+        scale = self._loss_scale()
+        grads, loss = self._accumulate(batch, scale)
         norm = optimizers.global_grad_norm(grads)
         clip = self.config.gradient_clipping
         if clip > 0:
             grads, norm = optimizers.clip_by_global_norm(grads, clip, precomputed_norm=norm)
-        state = self.state
         lr = float(self.lr_schedule(state.step))
-        if self.optimizer.step_fn is not None:
+        overflow = False
+        if state.loss_scale is not None:
+            # the fp16 step's one host sync: the fused kernels update in
+            # place, so the skip is decided before the optimizer runs
+            overflow = bool(has_overflow(grads) | ~torch.isfinite(norm))
+        if overflow:
+            params, opt_state = state.params, state.opt_state
+        elif self.optimizer.step_fn is not None:
             params, opt_state = self.optimizer.step_fn(grads, state.opt_state, state.params, lr)
         else:
             updates, opt_state = self.optimizer.update(grads, state.opt_state, state.params, lr)
             params = tree_map(lambda p, u: p.add_(u), state.params, updates)
-        self.state = TrainState(step=state.step + 1, params=params, opt_state=opt_state)
+        loss_scale = (None if state.loss_scale is None else
+                      update_loss_scale(state.loss_scale, overflow, self.config.fp16))
+        self.state = TrainState(step=state.step + (0 if overflow else 1), params=params,
+                                opt_state=opt_state, loss_scale=loss_scale)
         self.global_steps += 1
         self.global_samples += self.train_batch_size
         self.lr_scheduler.last_step = self.global_steps
         self._last_grad_norm = norm
-        return StepMetrics(loss=loss, grad_norm=norm, lr=lr, skipped=False, loss_scale=1.0)
+        return StepMetrics(loss=loss, grad_norm=norm, lr=lr, skipped=overflow, loss_scale=scale)
+
+    # ------------------------------------------------- the three-call shim
+    def forward(self, micro_batch):
+        """Queue one micro-batch (leaves [micro, ...]); returns None, as in
+        JAX: the loss comes from ``step()``."""
+        self._micro_batches.append(micro_batch)
+        return None
+
+    def backward(self, loss=None):
+        return None
+
+    def step(self) -> StepMetrics:
+        """``train_batch`` over the ``gradient_accumulation_steps``
+        micro-batches queued by ``forward``, stacked on a new leading dim."""
+        gas = self.gradient_accumulation_steps
+        if len(self._micro_batches) != gas:
+            raise RuntimeError(f"engine.step() called after {len(self._micro_batches)} forward() "
+                               f"calls; gradient_accumulation_steps={gas} micro-batches are "
+                               f"required")
+        stacked = tree_map(lambda *xs: torch.stack([_as_tensor(x) for x in xs]),
+                           *self._micro_batches)
+        self._micro_batches = []
+        return self.train_batch(stacked)
 
     def _report(self, metrics: StepMetrics, loss: Optional[float]) -> None:
         """The steps_per_print line and the monitor writers' events."""
@@ -311,9 +409,12 @@ class Engine:
         # telemetry first, then the engine's own families (the engine's live
         # position wins the global-step/samples gauges)
         populate_from_telemetry(reg, self.telemetry)
-        reg.set_counter(f"{ns}_train_steps_total", self.global_steps,
+        # counters count THIS process's work (since the last checkpoint
+        # load); the absolute position rides as a gauge
+        reg.set_counter(f"{ns}_train_steps_total", self.global_steps - self._ops_steps_base,
                         help_text="optimizer steps run by this process")
-        reg.set_counter(f"{ns}_train_samples_total", self.global_samples,
+        reg.set_counter(f"{ns}_train_samples_total",
+                        self.global_samples - self._ops_samples_base,
                         help_text="samples consumed by this process")
         reg.set_gauge(f"{ns}_train_global_step", self.global_steps,
                       help_text="absolute training step (checkpoint position)")
@@ -342,6 +443,230 @@ class Engine:
     def get_global_grad_norm(self) -> Optional[float]:
         """The last step's grad norm before clipping (None before the first)."""
         return None if self._last_grad_norm is None else float(self._last_grad_norm)
+
+    def get_fp32_params(self):
+        """The fp32 master params as a tree of numpy arrays (copies)."""
+        return tree_map(lambda p: p.detach().to("cpu", copy=True).numpy(), self.state.params)
+
+    def save_16bit_model(self, save_dir: str, filename: str = "model.safetensors") -> str:
+        """The params cast to the compute dtype, in one safetensors file
+        keyed by their leaf keys (``layers.attn.wq``), as the JAX engine
+        writes it; bf16 leaves are ``"BF16"``.  Returns the file's path."""
+        os.makedirs(save_dir, exist_ok=True)
+        out = {key: p.detach().to(self.compute_dtype)
+               for key, p in flatten_with_keys(self.state.params)}
+        path = os.path.join(save_dir, filename)
+        safetensors_io.save_file(out, path)
+        logger.info(f"saved 16-bit model weights ({len(out)} leaves) -> {path}")
+        return path
+
+    # --------------------------------------------------------- checkpointing
+    def _validate_tag(self, tag: str):
+        """Cross-process tag consistency (JAX ``engine.py:1103-1120``): every
+        process must save under the same tag.  The port trains in one
+        process, where there is nothing to compare, whatever
+        ``checkpoint_tag_validation`` says."""
+
+    @property
+    def checkpoint_engine(self):
+        """The config's persistence plug-in (``checkpoint.checkpoint_engine``,
+        or the async writer when the ``nebula`` section is on), built at the
+        first use so that an engine that never saves starts no writer
+        thread."""
+        if self._ckpt_engine is None:
+            from .checkpoint_engine import build_checkpoint_engine
+            kind = self.config.checkpoint_engine_kind()
+            self._ckpt_engine = build_checkpoint_engine(
+                kind, max_queue=self.config.checkpoint.async_max_queue)
+        return self._ckpt_engine
+
+    def _saved_state(self) -> _SavedState:
+        return _SavedState(*self.state, torch_rng=self.generator.get_state().numpy())
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[dict] = None) -> str:
+        """Save the train state under ``save_dir/<tag>`` (default
+        ``global_step<N>``) through the configured checkpoint engine, with
+        the configured retries; ``client_state`` gains ``global_steps``,
+        ``global_samples`` and the scheduler's state.  Afterwards
+        ``keep_last_n`` retention runs and, with
+        ``checkpoint.save_on_preemption``, the SIGTERM handler is armed.
+        Returns the tag."""
+        tag = tag or f"global_step{self.global_steps}"
+        self._validate_tag(tag)
+        client_state = dict(client_state or {})
+        client_state.update({"global_steps": self.global_steps,
+                             "global_samples": self.global_samples,
+                             "lr_scheduler": self.lr_scheduler.state_dict()})
+        ck = self.config.checkpoint
+        t0 = time.perf_counter()
+        with self.telemetry.annotation("checkpoint_save"):
+            save_checkpoint_with_retries(
+                save_dir, tag, self._saved_state(), client_state,
+                engine=self.checkpoint_engine, retries=ck.save_retries,
+                backoff_secs=ck.retry_backoff_secs,
+                on_retry=lambda attempt, exc: self.telemetry.record_resilience(
+                    "save_retry", step=self.global_steps, samples=self.global_samples, tag=tag,
+                    attempt=attempt, error=repr(exc)))
+        self.telemetry.record_events([("Train/Checkpoint/save_time_ms",
+                                       (time.perf_counter() - t0) * 1e3, self.global_samples)])
+        if ck.keep_last_n:
+            sweep_retention(save_dir, ck.keep_last_n, verify_integrity=ck.verify_integrity)
+        self._register_preemption_handler(save_dir)
+        return tag
+
+    def _register_preemption_handler(self, save_dir: str):
+        """Arm the best-effort final save (``checkpoint.save_on_preemption``):
+        on SIGTERM save one last checkpoint tagged ``preempt_step<N>`` with
+        ``client_state["preempted"]`` set, then chain to the handler that was
+        installed before (so the default die-on-TERM still happens)."""
+        self._preempt_save_dir = save_dir
+        if self._preempt_registered or not self.config.checkpoint.save_on_preemption:
+            return
+        if threading.current_thread() is not threading.main_thread():
+            return  # signal.signal works from the main thread only
+        try:
+            self._preempt_prev_handler = signal.signal(signal.SIGTERM, self._on_preemption)
+            self._preempt_registered = True
+            logger.info("checkpoint: save_on_preemption armed (SIGTERM -> final save)")
+        except (ValueError, OSError) as exc:
+            logger.warning(f"save_on_preemption: could not install SIGTERM handler ({exc})")
+
+    def _on_preemption(self, signum=None, frame=None):
+        # CPython runs signal handlers on the main thread between bytecodes,
+        # so this never runs concurrently with a step
+        if not self._in_preempt_save and self._preempt_save_dir is not None:
+            self._in_preempt_save = True
+            try:
+                tag = f"preempt_step{self.global_steps}"
+                logger.warning(f"SIGTERM: best-effort preemption save -> "
+                               f"{self._preempt_save_dir}/{tag}")
+                self.save_checkpoint(self._preempt_save_dir, tag=tag,
+                                     client_state={"preempted": True})
+                self.telemetry.record_resilience("preemption_save", step=self.global_steps,
+                                                 samples=self.global_samples, tag=tag)
+            except BaseException as exc:  # best-effort: never mask the signal
+                logger.error(f"preemption save failed: {exc!r}")
+            finally:
+                self._in_preempt_save = False
+        prev = self._preempt_prev_handler
+        if callable(prev):
+            prev(signum, frame)
+        elif prev == signal.SIG_DFL and signum is not None:
+            # restore the default disposition and re-deliver, so that the
+            # process still dies the way its supervisor expects
+            signal.signal(signum, signal.SIG_DFL)
+            os.kill(os.getpid(), signum)
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True, fallback_to_valid: bool = False):
+        """Resume from ``load_dir``: a checkpoint of this package or of the
+        JAX package.  With ``fallback_to_valid`` a missing, incomplete or
+        corrupt tag (manifest sizes, and CRC32s with
+        ``checkpoint.verify_integrity``) walks back to the newest earlier tag
+        that validates; without it, it raises :class:`CheckpointError`.
+        With ``tag`` None, a resume tag pinned in ``DSTPU_RESUME_TAG`` (and
+        scoped by ``DSTPU_RESUME_DIR``) wins over ``latest``.  Restores
+        ``global_steps``, ``global_samples`` and the scheduler;
+        ``load_optimizer_states=False`` keeps this engine's optimizer and
+        loss-scale state.  Leaves land on the engine's device.  Returns
+        ``(tag, client_state)``."""
+        t0 = time.perf_counter()
+        with self.telemetry.annotation("checkpoint_load"):
+            tag = self._resolve_load_tag(load_dir, tag, fallback_to_valid)
+            template = self._saved_state()
+            template = template._replace(
+                torch_rng=self._generator_template(load_dir, tag, template.torch_rng))
+            saved, client_state = load_checkpoint_dir(
+                load_dir, tag, template, self.device,
+                load_optimizer_states=load_optimizer_states,
+                validate=False)  # _resolve_load_tag validated it
+            self.state = TrainState(step=saved.step, params=saved.params,
+                                    opt_state=saved.opt_state, loss_scale=saved.loss_scale)
+            if saved.torch_rng is not None:
+                self.generator.set_state(torch.from_numpy(np.array(saved.torch_rng)))
+            self.global_steps = client_state.get("global_steps", 0)
+            self.global_samples = client_state.get("global_samples", 0)
+            self._ops_steps_base = self.global_steps
+            self._ops_samples_base = self.global_samples
+            if "lr_scheduler" in client_state:
+                self.lr_scheduler.load_state_dict(client_state["lr_scheduler"])
+        self.telemetry.record_events([("Train/Checkpoint/load_time_ms",
+                                       (time.perf_counter() - t0) * 1e3, self.global_samples)])
+        return tag, client_state
+
+    @staticmethod
+    def _generator_template(load_dir: str, tag: str, current: np.ndarray):
+        """The ``torch_rng`` leaf to load: ``current`` (the generator's own
+        state) unless the checkpoint's was written by a generator of another
+        kind (a CPU generator's state does not fit a CUDA one), which is
+        left out with a warning, keeping this engine's seeded generator."""
+        entry = next((m for m in read_metadata(os.path.join(load_dir, tag))["manifest"]
+                      if m.get("key") == "torch_rng"), None)
+        if entry is not None and tuple(entry["shape"]) != current.shape:
+            logger.warning(f"checkpoint {tag}: torch_rng of shape {tuple(entry['shape'])} comes "
+                           f"from a generator of another device type than this engine's "
+                           f"{current.shape}; keeping the engine's seeded generator")
+            return None
+        return current
+
+    def _resolve_load_tag(self, load_dir: str, tag: Optional[str],
+                          fallback_to_valid: bool) -> str:
+        """The tag to load: the requested one (or the pinned
+        ``DSTPU_RESUME_TAG``, or ``latest``) when it validates; otherwise,
+        only with ``fallback_to_valid``, the newest earlier tag that does.
+        A pinned tag that fails validation raises: falling back would resume
+        from another tag than the pin names."""
+        pinned = None
+        if tag is None:
+            pinned = os.environ.get(RESUME_TAG_ENV) or None
+            # the pin applies to the supervised checkpoint dir only: a
+            # warm-start load from an unrelated directory keeps its 'latest'
+            if pinned is not None and os.path.isdir(os.path.join(load_dir, pinned)):
+                resume_dir = os.environ.get(RESUME_DIR_ENV) or None
+                if resume_dir is not None:
+                    try:
+                        inside = os.path.commonpath(
+                            [os.path.realpath(load_dir), os.path.realpath(resume_dir)]
+                        ) == os.path.realpath(resume_dir)
+                    except ValueError:  # different drives / mixed abs-rel
+                        inside = False
+                    if not inside:
+                        pinned = None
+            else:
+                pinned = None
+            tag = pinned
+        verify = self.config.checkpoint.verify_integrity
+        requested, failure = tag, None
+        try:
+            requested = tag or get_latest_tag(load_dir)
+            if requested is None:
+                raise CheckpointError(
+                    f"checkpoint dir {load_dir!r} has no 'latest' file and no tag was "
+                    f"given — nothing to resume from")
+            validate_checkpoint_tag(load_dir, requested, verify_integrity=verify)
+            return requested
+        except CheckpointError as exc:
+            if pinned is not None:
+                raise CheckpointError(
+                    f"agent-pinned resume tag {pinned!r} failed validation on this "
+                    f"rank ({exc}); refusing to fall back to a per-rank tag — all "
+                    f"ranks must resume from the same checkpoint") from exc
+            if not fallback_to_valid:
+                raise
+            failure = exc
+        exclude = (requested, ) if requested else ()
+        found = find_latest_valid_tag(load_dir, verify_integrity=verify, exclude=exclude)
+        if found is None:
+            raise CheckpointError(
+                f"checkpoint dir {load_dir!r}: no valid checkpoint to fall back to "
+                f"(requested tag {requested!r} failed: {failure})")
+        logger.warning(f"checkpoint tag {requested!r} is unusable ({failure}); "
+                       f"falling back to newest valid tag {found!r}")
+        self.telemetry.record_resilience(
+            "fallback_load", step=self.global_steps, samples=self.global_samples,
+            requested=str(requested), fallback=found, reason=str(failure))
+        return found
 
 
 def _as_tensor(x) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Optimizers: Adam/AdamW in delta form, the fused AdamW step, AdamW with
-8-bit moments, and Lion.
+8-bit moments, Lion, SGD, Adagrad and LAMB; fp16 loss scaling.
 
 Counterpart of ``deepspeed_tpu/runtime/optimizers.py`` for adam, adamw,
-fused_adam, fused_adam8bit and lion.  Interface as in JAX: ``opt =
+fused_adam, fused_adam8bit, lion, sgd, adagrad and lamb; the 1-bit family
+waits for multi-GPU training (ROADMAP item 11).  Interface as in JAX: ``opt =
 get_optimizer(name, **hyper)``; ``state = opt.init(params)``; ``updates, state
 = opt.update(grads, state, params, lr)`` with ``updates`` deltas for the
 master params, or, where ``opt.step_fn`` is set, ``params, state =
@@ -11,6 +12,10 @@ PLACE through the fused AdamW kernel (``ops/adam/fused_adam.py``) or the
 AdamW-8bit kernel (``ops/adam/adam8bit.py``), one launch per leaf as in JAX.
 Trees are nested dicts of tensors.  Scalars (bias corrections, 1 - beta) are
 float32 as the JAX code computes them.
+
+The loss-scale state (``LossScaleState``) lives on the host as Python
+numbers: the engine reads each fp16 step's overflow flag once, so the
+update is host arithmetic, in float32 where JAX's is.
 """
 
 import dataclasses
@@ -192,6 +197,106 @@ def lion(betas=(0.9, 0.99), weight_decay=0.0) -> Optimizer:
     return Optimizer(init=init, update=update, name="lion")
 
 
+class SGDState(NamedTuple):
+    momentum_buf: Any
+
+
+def sgd(momentum=0.0, weight_decay=0.0, nesterov=False) -> Optimizer:
+    """SGD with L2 weight decay, momentum and Nesterov momentum, in delta
+    form (``optimizers.py:201-219``)."""
+    fm, fwd = float(f32(momentum)), float(f32(weight_decay))
+
+    def init(params):
+        return SGDState(momentum_buf=tree_map(torch.zeros_like, params))
+
+    def update(grads, state, params, lr):
+        lr32 = float(f32(lr))
+
+        def leaf(g, buf, p):
+            if weight_decay != 0.0:
+                g = g + fwd * p
+            buf_new = fm * buf + g
+            d = (g + fm * buf_new) if nesterov else (buf_new if momentum != 0.0 else g)
+            return -lr32 * d, buf_new
+
+        out = tree_map(leaf, grads, state.momentum_buf, params)
+        updates, buf = (tree_map(lambda t, i=i: t[i], out) for i in range(2))
+        return updates, SGDState(momentum_buf=buf)
+
+    return Optimizer(init=init, update=update, name="sgd")
+
+
+class AdagradState(NamedTuple):
+    accum: Any
+
+
+def adagrad(eps=1e-10, weight_decay=0.0) -> Optimizer:
+    """Adagrad with L2 weight decay, in delta form (``optimizers.py:254-272``,
+    DeepSpeedCPUAdagrad semantics)."""
+    feps, fwd = float(f32(eps)), float(f32(weight_decay))
+
+    def init(params):
+        return AdagradState(accum=tree_map(torch.zeros_like, params))
+
+    def update(grads, state, params, lr):
+        lr32 = float(f32(lr))
+
+        def leaf(g, acc, p):
+            if weight_decay != 0.0:
+                g = g + fwd * p
+            acc_new = acc + g * g
+            return (-lr32 * g) / (torch.sqrt(acc_new) + feps), acc_new
+
+        out = tree_map(leaf, grads, state.accum, params)
+        updates, acc = (tree_map(lambda t, i=i: t[i], out) for i in range(2))
+        return updates, AdagradState(accum=acc)
+
+    return Optimizer(init=init, update=update, name="adagrad")
+
+
+class LambState(NamedTuple):
+    step: int
+    exp_avg: Any
+    exp_avg_sq: Any
+
+
+def lamb(betas=(0.9, 0.999), eps=1e-6, weight_decay=0.0, max_coeff=10.0,
+         min_coeff=0.01) -> Optimizer:
+    """FusedLamb semantics in delta form (``optimizers.py:281-307``): the
+    Adam direction without bias correction, rescaled per leaf by the trust
+    ratio ||p|| / ||update|| clamped to [min_coeff, max_coeff] (1 where
+    either norm is 0)."""
+    b1, b2 = betas
+    fb1, fb2, feps, fwd = (float(f32(x)) for x in (b1, b2, eps, weight_decay))
+    c1, c2 = float(f32(1.0 - b1)), float(f32(1.0 - b2))
+
+    def init(params):
+        return LambState(step=0, exp_avg=tree_map(torch.zeros_like, params),
+                         exp_avg_sq=tree_map(torch.zeros_like, params))
+
+    def update(grads, state, params, lr):
+        lr32 = float(f32(lr))
+
+        def leaf(g, m, v, p):
+            m_new = fb1 * m + c1 * g
+            v_new = fb2 * v + c2 * (g * g)
+            u = m_new / (torch.sqrt(v_new) + feps)
+            if weight_decay != 0.0:
+                u = u + fwd * p
+            p_norm = torch.linalg.vector_norm(p.float())
+            u_norm = torch.linalg.vector_norm(u.float())
+            trust = torch.where((p_norm > 0) & (u_norm > 0),
+                                torch.clamp(p_norm / u_norm, min_coeff, max_coeff),
+                                torch.ones_like(p_norm))
+            return (-lr32 * trust) * u, m_new, v_new
+
+        out = tree_map(leaf, grads, state.exp_avg, state.exp_avg_sq, params)
+        updates, m, v = (tree_map(lambda t, i=i: t[i], out) for i in range(3))
+        return updates, LambState(step=state.step + 1, exp_avg=m, exp_avg_sq=v)
+
+    return Optimizer(init=init, update=update, name="lamb")
+
+
 _OPTIMIZERS = {
     "adam": lambda **kw: adam(adam_w_mode=False, **kw),
     "adamw": lambda **kw: adam(adam_w_mode=True, **kw),
@@ -202,10 +307,15 @@ _OPTIMIZERS = {
     "adam8bit": fused_adam8bit,
     "lion": lion,
     "fusedlion": lion,
+    "sgd": sgd,
+    "adagrad": adagrad,
+    "lamb": lamb,
+    "fusedlamb": lamb,
 }
-# the JAX package's other optimizer types, not ported yet (ROADMAP Queue 1)
-_UNPORTED = ("sgd", "adagrad", "lamb", "fusedlamb", "onebitadam",
-             "onebit_adam", "onebitlamb", "onebit_lamb", "zerooneadam", "zero_one_adam")
+# the JAX package's 1-bit optimizers: comm-coupled, they wait for multi-GPU
+# training (ROADMAP item 11)
+_UNPORTED = ("onebitadam", "onebit_adam", "onebitlamb", "onebit_lamb", "zerooneadam",
+             "zero_one_adam")
 # torch-style kwargs that do not map (dropped, as the JAX package drops them)
 _DROPPED = {"lr", "torch_adam", "fused", "cuda_aware", "adam_w_mode", "comm_backend_name",
             "check_overflow", "pipeline_enabled"}
@@ -214,8 +324,9 @@ _DROPPED = {"lr", "torch_adam", "fused", "cuda_aware", "adam_w_mode", "comm_back
 def get_optimizer(name: str, **params) -> Optimizer:
     key = name.lower()
     if key in _UNPORTED:
-        raise NotImplementedError(f"optimizer {name!r} is not ported to PyTorch yet (ROADMAP "
-                                  f"Queue 1); ported: {sorted(_OPTIMIZERS)}")
+        raise NotImplementedError(f"optimizer {name!r} is not ported to PyTorch yet: the 1-bit "
+                                  f"optimizers come with multi-GPU training (ROADMAP item 11); "
+                                  f"ported: {sorted(_OPTIMIZERS)}")
     if key not in _OPTIMIZERS:
         raise ValueError(f"unknown optimizer {name!r}; supported: {sorted(_OPTIMIZERS)}")
     kw = {k: v for k, v in params.items() if k not in _DROPPED}
@@ -250,6 +361,84 @@ def lion_state_from_jax(state_np, device, dtype=torch.float32) -> LionState:
     ``np.array`` takes) -> this package's, on ``device``."""
     to = lambda x: torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
     return LionState(exp_avg=tree_map(to, state_np.exp_avg))
+
+
+def sgd_state_from_jax(state_np, device, dtype=torch.float32) -> SGDState:
+    """A JAX ``SGDState`` (``momentum_buf``) -> this package's, on ``device``."""
+    to = lambda x: torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+    return SGDState(momentum_buf=tree_map(to, state_np.momentum_buf))
+
+
+def adagrad_state_from_jax(state_np, device, dtype=torch.float32) -> AdagradState:
+    """A JAX ``AdagradState`` (``accum``) -> this package's, on ``device``."""
+    to = lambda x: torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+    return AdagradState(accum=tree_map(to, state_np.accum))
+
+
+def lamb_state_from_jax(state_np, device, dtype=torch.float32) -> LambState:
+    """A JAX ``LambState`` (``step``, ``exp_avg``, ``exp_avg_sq``) -> this
+    package's, on ``device``."""
+    to = lambda x: torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+    return LambState(step=int(np.asarray(state_np.step)), exp_avg=tree_map(to, state_np.exp_avg),
+                     exp_avg_sq=tree_map(to, state_np.exp_avg_sq))
+
+
+# ---------------------------------------------------------------------------
+# fp16 loss scaling (optimizers.py:371-426; reference runtime/fp16/loss_scaler.py)
+# ---------------------------------------------------------------------------
+class LossScaleState(NamedTuple):
+    cur_scale: float  # a float32 value
+    growth_counter: int  # consecutive non-overflow steps
+    hysteresis: int
+
+
+def _is_static(fp16_cfg) -> bool:
+    return bool(fp16_cfg.loss_scale and fp16_cfg.loss_scale > 0)
+
+
+def init_loss_scale(fp16_cfg) -> LossScaleState:
+    """A static ``loss_scale > 0``, else ``2**initial_scale_power``."""
+    scale = fp16_cfg.loss_scale if _is_static(fp16_cfg) else 2.0**fp16_cfg.initial_scale_power
+    return LossScaleState(cur_scale=float(f32(scale)), growth_counter=0,
+                          hysteresis=int(fp16_cfg.hysteresis))
+
+
+def update_loss_scale(state: LossScaleState, overflow: bool, fp16_cfg) -> LossScaleState:
+    """DynamicLossScaler.update_scale as JAX computes it: on overflow,
+    count the hysteresis down and halve the scale (not below
+    ``max(min_loss_scale, 1)``) when it reaches 0, resetting it; on a clean
+    step, double the scale after ``loss_scale_window`` clean steps in a row,
+    and restore the hysteresis unless ``consecutive_hysteresis``.  A static
+    scale never changes."""
+    if _is_static(fp16_cfg):
+        return state
+    if overflow:
+        hyst = state.hysteresis - 1
+        if hyst > 0:
+            return LossScaleState(cur_scale=state.cur_scale, growth_counter=0, hysteresis=hyst)
+        min_scale = f32(max(fp16_cfg.min_loss_scale, 1.0))
+        return LossScaleState(cur_scale=float(max(f32(state.cur_scale) / f32(2.0), min_scale)),
+                              growth_counter=0, hysteresis=int(fp16_cfg.hysteresis))
+    counter = state.growth_counter + 1
+    grow = counter >= fp16_cfg.loss_scale_window
+    with np.errstate(over="ignore"):  # float32 overflows to inf, as in JAX
+        scale = float(f32(state.cur_scale) * f32(2.0)) if grow else state.cur_scale
+    return LossScaleState(cur_scale=scale, growth_counter=0 if grow else counter,
+                          hysteresis=(state.hysteresis if fp16_cfg.consecutive_hysteresis
+                                      else int(fp16_cfg.hysteresis)))
+
+
+def has_overflow(grads) -> torch.Tensor:
+    """A 0-d bool on the grads' device: some leaf holds an inf or a NaN."""
+    return torch.stack([~torch.isfinite(g).all() for g in tree_leaves(grads)]).any()
+
+
+def loss_scale_from_jax(state_np) -> LossScaleState:
+    """A JAX ``LossScaleState`` (0-d ``cur_scale``, ``growth_counter``,
+    ``hysteresis``) -> this package's host numbers."""
+    return LossScaleState(cur_scale=float(np.asarray(state_np.cur_scale)),
+                          growth_counter=int(np.asarray(state_np.growth_counter)),
+                          hysteresis=int(np.asarray(state_np.hysteresis)))
 
 
 def global_grad_norm(grads) -> torch.Tensor:

@@ -131,10 +131,12 @@ def test_adam_state_from_jax_resumes():
 
 
 def test_get_optimizer_refuses_unported_and_unknown():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optimizers.get_optimizer("sgd")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        optimizers.get_optimizer("onebitadam")
     with pytest.raises(NotImplementedError):
-        optimizers.get_optimizer("lamb")
+        optimizers.get_optimizer("onebit_lamb")
+    assert [optimizers.get_optimizer(name).name for name in ("sgd", "adagrad", "fusedlamb")] \
+        == ["sgd", "adagrad", "lamb"]  # ported since the 1-bit family alone waits
     with pytest.raises(ValueError, match="unknown optimizer"):
         optimizers.get_optimizer("adamax")
     opt = optimizers.get_optimizer("FusedAdam", lr=1.0, torch_adam=True, betas=[0.8, 0.9])

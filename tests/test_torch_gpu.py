@@ -1286,3 +1286,84 @@ def test_sampled_verify_rounds_under_graphs_draw_fresh_numbers(cuda):
     assert not torch.equal(r1, r2)
     gen.manual_seed(7)
     assert torch.equal(rejection_select(logits, draft, gen, sample_cfg=(1.0, 0, 1.0)), r1)
+
+
+# ------------------------------------------------- checkpoints and fp16 training
+def _ckpt_engine(cfg, params, device, **over):
+    conf = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+            "gradient_clipping": 1.0, "bf16": {"enabled": False},
+            "optimizer": {"type": "fused_adam", "params": {"lr": 1e-3, "weight_decay": 0.1}},
+            "checkpoint": {"checkpoint_engine": "async"}}
+    conf.update(over)
+    return deepspeed_tpu_torch.initialize(loss_fn=llama.make_loss_fn(cfg), model_parameters=params,
+                                          config=conf, device=device)[0]
+
+
+def _state_leaves(engine):
+    from deepspeed_tpu_torch.runtime.checkpointing import flatten_with_keys
+    return [(k, v.cpu() if isinstance(v, torch.Tensor) else v)
+            for k, v in flatten_with_keys(engine.state)]
+
+
+@pytest.mark.parametrize("writer,reader", [("cuda", "cuda"), ("cpu", "cuda"), ("cuda", "cpu")])
+def test_checkpoint_round_trip_between_devices_with_the_async_engine(cuda, tmp_path, writer,
+                                                                     reader):
+    """A bf16 engine's state, saved by the async writer from one device,
+    loads on the other (the device taken from the loading engine); the
+    loaded state equals the saved one bit for bit, and on the card the next
+    two steps equal the writer's."""
+    cfg = llama.LlamaConfig.tiny(vocab=128, hidden=128, layers=2, heads=2, kv_heads=1, seq=64)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    batches = [llama.causal_lm_batch(np.random.default_rng(s).integers(0, 128, (4, 64)))
+               for s in range(4)]
+    src = _ckpt_engine(cfg, params, writer, bf16={"enabled": True})
+    for b in batches[:2]:
+        src.train_batch(b)
+    src.save_checkpoint(str(tmp_path))
+    dst = _ckpt_engine(cfg, llama.init_params(cfg, torch.Generator().manual_seed(1)), reader,
+                       bf16={"enabled": True}, seed=7)
+    assert dst.load_checkpoint(str(tmp_path))[0] == "global_step2"
+    assert all(v.device.type == reader for _, v in _state_leaves_raw(dst))
+    for (key, a), (_, b) in zip(_state_leaves(dst), _state_leaves(src)):
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b), key
+    if writer == reader:
+        for b in batches[2:]:
+            assert float(src.train_batch(b).loss) == float(dst.train_batch(b).loss)
+        for (key, a), (_, b) in zip(_state_leaves(dst), _state_leaves(src)):
+            assert (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b), key
+
+
+def _state_leaves_raw(engine):
+    from deepspeed_tpu_torch.runtime.checkpointing import flatten_with_keys
+    return [(k, v) for k, v in flatten_with_keys(engine.state) if isinstance(v, torch.Tensor)]
+
+
+def test_fp16_overflow_step_launches_no_fused_adamw(cuda):
+    """fp16 on the card: a step that overflows (a static scale of 2**30)
+    launches the fp16 flash kernels on tensor cores and no fused AdamW,
+    keeps ``TrainState.step`` and the params; a step at a scale of 128
+    launches AdamW once a leaf and agrees with the CPU engine."""
+    cfg = llama.LlamaConfig.tiny(vocab=128, hidden=128, layers=2, heads=2, kv_heads=1, seq=64)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    n_leaves = len(list(_leaves(params)))
+    batch = llama.causal_lm_batch(np.random.default_rng(2).integers(0, 128, (4, 64)))
+    big = _ckpt_engine(cfg, params, "cuda", bf16=None, fp16={"enabled": True,
+                                                             "loss_scale": 2.0**30})
+    assert big.compute_dtype == torch.float16
+    before = {k: v.clone() for k, v in _state_leaves_raw(big)}
+    counts = (flash.flash_fwd.tc_launches, fused_adamw_flat.launches)
+    m = big.train_batch(batch)
+    assert m.skipped and big.state.step == 0 and big.global_steps == 1
+    assert (flash.flash_fwd.tc_launches - counts[0], fused_adamw_flat.launches - counts[1]) \
+        == (8, 0)
+    for key, value in _state_leaves_raw(big):
+        assert torch.equal(value, before[key]), key
+    engines = {dev: _ckpt_engine(cfg, params, dev, bf16=None,
+                                 fp16={"enabled": True, "loss_scale": 128.0})
+               for dev in ("cpu", "cuda")}
+    counts = fused_adamw_flat.launches
+    losses = {dev: engines[dev].train_batch(batch) for dev in engines}
+    assert fused_adamw_flat.launches - counts == n_leaves
+    assert not losses["cuda"].skipped and not losses["cpu"].skipped
+    assert abs(float(losses["cuda"].loss) - float(losses["cpu"].loss)) <= 2e-3 * float(
+        losses["cpu"].loss)

@@ -1,6 +1,7 @@
 """The port stands alone: importing ``deepspeed_tpu_torch`` (every submodule)
-and ``chip_smoke`` pulls in neither ``jax`` nor ``deepspeed_tpu``, and the
-port's source spells no such import."""
+and ``chip_smoke`` pulls in neither ``jax``, ``deepspeed_tpu`` nor
+``safetensors`` (absent on the card's machine), and the port's source spells
+no such import."""
 
 import json
 import os
@@ -21,8 +22,8 @@ for name in mods:
     importlib.import_module(name)
 import chip_smoke  # guarded by __main__: importing it runs nothing
 leaked = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith(("jax.", "jaxlib", "deepspeed_tpu."))
-                or m == "deepspeed_tpu")
+                if m in ("jax", "deepspeed_tpu", "safetensors")
+                or m.startswith(("jax.", "jaxlib", "deepspeed_tpu.", "safetensors.")))
 print(json.dumps({"modules": mods, "leaked": leaked}))
 """
 
@@ -70,13 +71,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "deepspeed_tpu_torch.models.bert",
                      "deepspeed_tpu_torch.moe.experts",
                      "deepspeed_tpu_torch.moe.sharded_moe",
-                     "deepspeed_tpu_torch.moe.layer"):
+                     "deepspeed_tpu_torch.moe.layer",
+                     "deepspeed_tpu_torch.runtime.checkpointing",
+                     "deepspeed_tpu_torch.runtime.checkpoint_engine",
+                     "deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine",
+                     "deepspeed_tpu_torch.runtime.optimizers",
+                     "deepspeed_tpu_torch.utils.safetensors_io"):
         assert expected in report["modules"]
 
 
 def test_port_source_spells_no_jax_import():
-    pattern = re.compile(r"^\s*(import\s+(jax|jaxlib|deepspeed_tpu)\b|"
-                         r"from\s+(jax|jaxlib|deepspeed_tpu)(\.|\s))", re.MULTILINE)
+    pattern = re.compile(r"^\s*(import\s+(jax|jaxlib|deepspeed_tpu|safetensors)\b|"
+                         r"from\s+(jax|jaxlib|deepspeed_tpu|safetensors)(\.|\s))", re.MULTILINE)
     files = [f for f in sorted(PACKAGE.rglob("*.py"))
              if "build" not in f.relative_to(PACKAGE).parts]  # kernel build outputs
     files.append(ROOT / "chip_smoke.py")

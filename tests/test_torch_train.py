@@ -55,6 +55,12 @@ def _configs(**kw):
             dataclasses.replace(llama.LlamaConfig.tiny(**shape), **kw))
 
 
+def _no_remat_configs():
+    """Tiny Llama without remat on both sides: the JAX step compiles faster."""
+    jcfg, cfg = _configs(remat=False)
+    return dataclasses.replace(jcfg, remat=False), cfg
+
+
 def _params(jcfg, cfg, seed=0):
     jparams = jllama.init_params(jcfg, jax.random.PRNGKey(seed))
     return jparams, llama.params_from_jax(cfg, jax.tree_util.tree_map(np.asarray, jparams), "cpu")
@@ -235,12 +241,27 @@ def test_engine_refuses_what_is_not_ported():
             deepspeed_tpu_torch.initialize(config=_config(), **kw)  # device defaults to cuda
     with pytest.raises(NotImplementedError, match="dataloader"):
         deepspeed_tpu_torch.initialize(config=_config(), training_data=[1], device="cpu", **kw)
-    for bad in ({"fp16": {"enabled": True}},
-                {"data_efficiency": {"enabled": True}},
+    for bad in ({"data_efficiency": {"enabled": True}},
                 {"zero_optimization": {"stage": 3, "offload_optimizer": {"device": "cpu"}}},
-                {"optimizer": {"type": "onebitadam", "params": {"lr": 1e-3}}}):
+                {"optimizer": {"type": "onebitadam", "params": {"lr": 1e-3}}},
+                {"optimizer": {"type": "zero_one_adam", "params": {"lr": 1e-3}}},
+                {"load_universal_checkpoint": True}):
         with pytest.raises(NotImplementedError):
             deepspeed_tpu_torch.initialize(config=_config(**bad), device="cpu", **kw)
+    with pytest.raises(ValueError, match="fp16 and bf16"):
+        load_config(_config(fp16={"enabled": True}, bf16={"enabled": True}))
+    with pytest.raises(ValueError, match="unknown config field 'max_consecutive_skips'"):
+        load_config(_config(max_consecutive_skips=3))  # the watchdog, ROADMAP item 9d
+    # fp16 with loss scaling and the sgd, adagrad and lamb optimizers are ported
+    for ok in ({"fp16": {"enabled": True}, "bf16": None},
+               {"optimizer": {"type": "sgd", "params": {"lr": 1e-3, "momentum": 0.9}}},
+               {"optimizer": {"type": "adagrad", "params": {"lr": 1e-3}}},
+               {"optimizer": {"type": "lamb", "params": {"lr": 1e-3}}},
+               {"load_universal_checkpoint": False, "checkpoint": {"keep_last_n": 2},
+                "nebula": {"enabled": False}}):
+        conf = {k: v for k, v in _config(**ok).items() if v is not None}
+        engine, *_ = deepspeed_tpu_torch.initialize(config=conf, device="cpu", **kw)
+        assert np.isfinite(float(engine.train_batch(llama.causal_lm_batch(_ids(61, 4))).loss))
     # telemetry and the ops plane are ported: both sections load and run a step
     engine, *_ = deepspeed_tpu_torch.initialize(
         config=_config(telemetry={"enabled": True}, ops_server={"enabled": True}),
@@ -251,8 +272,10 @@ def test_engine_refuses_what_is_not_ported():
         assert "dstpu_train_steps_total 1" in engine._ops.cache.metrics_text
     finally:
         engine.close_ops()
-    with pytest.raises(ValueError, match="unknown config field"):
-        load_config(_config(zero_optimization={"stage": 2, "bucket": 1}))
+    for section in ({"zero_optimization": {"stage": 2, "bucket": 1}},
+                    {"checkpoint": {"keep_last": 2}}, {"nebula": {"enabled": True, "path": "x"}}):
+        with pytest.raises(ValueError, match="unknown config field"):
+            load_config(_config(**section))
 
 
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
