@@ -196,6 +196,22 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      from the shapes, mfu against the peak named by the device) and the ops
      endpoint, 6 steps, a torch.profiler step window (the steps neither
      profiled nor writing its trace timed apart, the trace export alone);
+     both under LlamaConfig's default remat policy
+     (``dots_with_no_batch_dims_saveable``: the x @ W outputs kept);
+     train-remat: the same model, params and batch under
+     ``nothing_saveable``, ``dots_saveable`` and ``offload_inputs`` (3
+     steps each, one engine at a time): step-1 loss and grad norm equal
+     [train]'s bit for bit, launches by each policy's formula, the products
+     a micro-batch's backward reruns, the layer inputs parked in pinned host
+     memory and the micro-batch peak they take off the card; train-data: 64
+     seeded documents written and read as an ``MMIDIDX`` dataset and trained
+     through ``initialize(training_data=)`` at 4 layers with
+     ``data_efficiency`` (a seqlen curriculum 1024 -> 2048, random-LTD
+     keeping 512 -> 1536 tokens of the two middle layers, flash at those
+     lengths), the watchdog and the heartbeat, 8 steps: the schedules, the
+     launch formula, a loader resumed at step 3, the heartbeat's last step,
+     the fp32 kernels against the plain attention with one fixed index set,
+     and the Hessian eigenvalue (equal to the CPU's; refused through flash);
   6. train-8bit: the same run with ``fused_adam8bit`` (int8 moments) through
      the AdamW-8bit kernel; train-sparse: the config's ``sparse_attention``
      section (DeepSpeed's documented ``fixed`` example, unidirectional) with
@@ -206,9 +222,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
   7. train slice: 1 full-width layer in fp32, sequences of 128 tokens, the
      CUDA engine (kernels) against the CPU engine (plain versions) from the
      same params: losses, step-1 grads and the params after 2 steps; once
-     with fused_adam and dense attention, once with the sparse section and
-     fused_adam8bit, once with lion (delta form), followed by one fused Lion
-     step through ``fused_lion_flat`` on every leaf; train-dense:
+     with fused_adam and dense attention, followed on the same two engines
+     by one fused Lion step through ``fused_lion_flat`` on every leaf
+     (train-slice-lion), once with the sparse section and fused_adam8bit;
+     train-dense:
      GPT-2-350m (S=1024), BERT-base (S=512, no mask) and Phi-2 (S=2048, head
      dim 80) at full width and depth and GPT-J-6B (S=2048, head dim 256) at
      full width and 8 of its 28 layers, in bf16, 5 steps each through the
@@ -5554,13 +5571,20 @@ def reset_launch_counts():
             fn.decode_launches = 0
 
 
-def expected_launches(*, steps, gas, layers, n_leaves, optimizer, sparse):
+REMAT_DEFAULT = "dots_with_no_batch_dims_saveable"  # LlamaConfig's, as JAX's
+
+
+def expected_launches(*, steps, gas, layers, n_leaves, optimizer, sparse,
+                      policy=REMAT_DEFAULT):
     """Each kernel's launches over ``steps`` train steps: the attention forward
-    twice a layer and micro-batch (forward and the remat recompute), each
-    backward kernel once, the optimizer kernel once a leaf and step."""
+    twice a layer and micro-batch (forward and the remat recompute: the
+    kernels run through ctypes, where no remat policy can keep their
+    outputs) but once under ``everything_saveable``, each backward kernel
+    once, the optimizer kernel once a leaf and step."""
     attn = "sparse" if sparse is not None else "flash"
     counts = dict.fromkeys(KERNEL_NAMES, 0)
-    counts.update({f"{attn}_fwd": steps * gas * layers * 2,
+    counts.update({f"{attn}_fwd": steps * gas * layers * (1 if policy == "everything_saveable"
+                                                          else 2),
                    f"{attn}_bwd_dkdv": steps * gas * layers,
                    f"{attn}_bwd_dq": steps * gas * layers,
                    "adamw8bit" if optimizer == "fused_adam8bit" else "fused_adamw": steps * n_leaves})
@@ -5608,20 +5632,22 @@ def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=
                 f"(forward, recompute, backward; {pairs} live pairs a sequence), not "
                 f"flops_per_token's dense attention term")
     log(f"[{tag}] llama2_7b width x {layers} layers: {n_params / 1e9:.3f} B params, set up in "
-        f"{time.perf_counter() - t0:.2f} s; bf16, remat, {optimizer}, WarmupLR, clip 1.0, "
+        f"{time.perf_counter() - t0:.2f} s; bf16, remat ({cfg.remat_policy}), {optimizer}, "
+        f"WarmupLR, clip 1.0, "
         f"{'sparse_attention ' + json.dumps(sparse) + ', ' if sparse else ''}micro {micro} x "
         f"gas {gas} x seq {seq} = {tokens} tokens a step, {step_flops / 1e12:.1f} TFLOP a step "
         f"({work})")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    losses, times = [], []
+    losses, times, norms = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
         metrics = engine.train_batch(batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(metrics.loss))
+        norms.append(float(metrics.grad_norm))
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = expected_launches(steps=steps, gas=gas, layers=layers, n_leaves=n_leaves,
@@ -5638,7 +5664,7 @@ def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=
     step_s = statistics.mean(times[1:])
     summary = {"step_ms": step_s * 1e3, "tokens_s": tokens / step_s,
                "mfu": step_flops / step_s / TRAIN_PEAK_FLOPS, "peak_gb": peak_gb,
-               "tc_launches": tc}
+               "tc_launches": tc, "loss1": losses[0], "norm1": norms[0]}
     beside = ""
     if baseline is not None:
         beside = (f" ([train]: {baseline['step_ms']:.1f} ms, {baseline['tokens_s']:.1f} "
@@ -5659,11 +5685,13 @@ def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=
 def train_step_products(cfg, micro, gas, seq):
     """The FLOPs ``FlopCounterMode`` must count in one [train] step on the
     card, from the shapes: per micro-batch and layer, each weight product
-    forward, twice in the backward (grads of input and weight) and again in
-    the remat recompute but ``w_down`` (non-reentrant checkpointing stops
-    the recompute at the last activation the backward saves); the lm_head
-    forward and twice backward; the embedding a gather; nothing from the
-    flash kernels, which run through ctypes where the counter cannot see."""
+    forward and twice in the backward (grads of input and weight); under
+    ``nothing_saveable`` again in the remat recompute but ``w_down``
+    (non-reentrant checkpointing stops the recompute at the last activation
+    the backward saves), under the default ``dots_with_no_batch_dims_saveable``
+    not at all (the products are kept); the lm_head forward and twice
+    backward; the embedding a gather; nothing from the flash kernels, which
+    run through ctypes where the counter cannot see."""
     D, F, L, V = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers, cfg.vocab_size
     H, KV = cfg.num_heads, cfg.num_kv_heads
     Dh = D // H
@@ -5671,7 +5699,8 @@ def train_step_products(cfg, micro, gas, seq):
     layer = 2 * tokens * (D * H * Dh + 2 * D * KV * Dh + H * Dh * D + 3 * D * F)
     w_down = 2 * tokens * F * D
     head = 2 * tokens * D * V
-    return gas * (L * (4 * layer - w_down) + 3 * head)
+    recompute = layer - w_down if cfg.remat_policy in (None, "nothing_saveable") else 0
+    return gas * (L * (3 * layer + recompute) + 3 * head)
 
 
 def phase_train_telemetry(card, baseline, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2,
@@ -5788,6 +5817,376 @@ def phase_train_telemetry(card, baseline, seed=0, layers=TRAIN_LAYERS, steps=6, 
         f"export out)")
     del engine
     torch.cuda.empty_cache()
+
+
+REMAT_POLICIES = ("nothing_saveable", "dots_saveable", "offload_inputs")
+# the backward's recomputed x @ W products a layer (w_down's is not rerun under
+# nothing_saveable: the recompute stops at the last activation the backward
+# needs; offload_inputs reruns the whole layer)
+REMAT_RECOMPUTED = {"nothing_saveable": 6, "dots_saveable": 0, "offload_inputs": 7,
+                    REMAT_DEFAULT: 0}
+
+
+def micro_batch_probe(engine, batch):
+    """One micro-batch's forward and backward at the engine's params, the
+    peak counter reset just before the forward.  Returns a dict, bytes above
+    the allocation before the forward: ``fwd_peak`` (the forward's peak),
+    ``held`` (what the forward leaves for the backward), ``peak`` (forward
+    and backward); ``parked`` (pinned host bytes after the forward) and
+    ``products`` (``aten.mm``/``addmm`` run in the backward)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import offload_checkpoint
+    from deepspeed_tpu_torch.runtime.tree import tree_map
+
+    class Products(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+            return func(*args, **(kwargs or {}))
+
+    on_card = engine.device.type == "cuda"
+    micro = tree_map(lambda x: x[0], engine._gas_layout(batch))
+    params = engine._compute_params()
+    _sync(engine.device)
+    offload_checkpoint.host_bytes = offload_checkpoint.peak_host_bytes = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if on_card else 0
+    loss = engine.loss_fn(params, micro, engine.generator)
+    parked = offload_checkpoint.host_bytes
+    _sync(engine.device)
+    fwd_peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+    held = torch.cuda.memory_allocated() - base if on_card else 0
+    with Products() as seen:
+        loss.backward()
+    _sync(engine.device)
+    peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+    if offload_checkpoint.host_bytes:
+        raise AssertionError(f"{offload_checkpoint.host_bytes} pinned bytes still parked after "
+                             f"the backward")
+    del params, loss
+    return {"fwd_peak": fwd_peak, "held": held, "peak": peak, "parked": parked,
+            "products": seen.n}
+
+
+def phase_train_remat(card, baseline, seed=0, layers=TRAIN_LAYERS, steps=3, micro=2, gas=2,
+                      seq=2048, device="cuda", width=None):
+    """[train-remat]: [train]'s model, config, params and batch under each of
+    ``REMAT_POLICIES`` ([train] itself is the default policy's run), one
+    engine at a time, ``steps`` steps each.  Gates: the step-1 loss and grad
+    norm equal [train]'s (``baseline``) bit for bit; launches equal the
+    policy's formula; one micro-batch's backward reruns the policy's
+    products; under ``offload_inputs`` the forward parks layers x micro x
+    seq x hidden x 2 bytes in pinned host memory, and leaves exactly that
+    much less on the card for the backward than ``nothing_saveable``, with
+    a forward peak at least half of it lower.  (The micro-batch's peak over
+    forward and backward comes at the backward's end, where the weight
+    grads are stacked and no layer input is held any more: there offload
+    saves nothing, and it is printed beside the others.)  Returns
+    the launch counts by policy.  ``device="cpu"`` with ``width`` (a tiny
+    LlamaConfig) and a ``baseline`` from ``phase_train`` at that config
+    rehearses it on the CPU (nothing is parked there, peaks are not read)."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves
+    rng = np.random.default_rng(seed)
+    batch = None
+    out, launches_by_policy = {}, {}
+    on_card = device == "cuda"
+    for policy in REMAT_POLICIES:
+        cfg = dataclasses.replace(width or llama.LlamaConfig.llama2_7b(), num_layers=layers,
+                                  remat=True, remat_policy=policy)
+        if batch is None:
+            batch = llama.causal_lm_batch(rng.integers(0, cfg.vocab_size, (micro * gas, seq)))
+        params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                                   dtype=torch.float32, device=device)
+        n_leaves = len(tree_leaves(params))
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(
+            loss_fn=llama.make_loss_fn(cfg), model_parameters=params,
+            config=train_config(micro=micro, gas=gas, bf16=True, seed=seed), device=device)
+        del params
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        times, first = [], None
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            metrics = engine.train_batch(batch)
+            _sync(device)
+            times.append(time.perf_counter() - t0)
+            if first is None:
+                first = (float(metrics.loss), float(metrics.grad_norm))
+        launches = launch_counts() if on_card else expected_launches(
+            steps=steps, gas=gas, layers=layers, n_leaves=n_leaves, optimizer="fused_adam",
+            sparse=None, policy=policy)  # the CPU launches no kernel
+        step_peak = torch.cuda.max_memory_allocated() if on_card else 0
+        expected = expected_launches(steps=steps, gas=gas, layers=layers, n_leaves=n_leaves,
+                                     optimizer="fused_adam", sparse=None, policy=policy)
+        if launches != expected:
+            raise AssertionError(f"[train-remat] {policy}: launches {launches} != formula "
+                                 f"{expected}")
+        if first != (baseline["loss1"], baseline["norm1"]):
+            raise AssertionError(f"[train-remat] {policy}: step-1 loss and grad norm {first} != "
+                                 f"[train]'s {(baseline['loss1'], baseline['norm1'])}")
+        probe = micro_batch_probe(engine, batch)
+        parked = probe["parked"]
+        recomputed = probe["products"] - 2 * (7 * layers + 1)  # the backward's own: 2 a product
+        want_parked = layers * micro * seq * cfg.hidden_size * 2 \
+            if policy == "offload_inputs" and on_card else 0
+        if parked != want_parked or recomputed != REMAT_RECOMPUTED[policy] * layers:
+            raise AssertionError(f"[train-remat] {policy}: {parked} pinned bytes parked (want "
+                                 f"{want_parked}), {recomputed} products recomputed (want "
+                                 f"{REMAT_RECOMPUTED[policy] * layers})")
+        out[policy] = {"step_ms": statistics.mean(times[1:]) * 1e3, "step_peak": step_peak,
+                       **probe, "recomputed": recomputed}
+        launches_by_policy[policy] = launches
+        del engine
+        if on_card:
+            torch.cuda.empty_cache()
+    off, full = out["offload_inputs"], out["nothing_saveable"]
+    held_drop, fwd_drop = full["held"] - off["held"], full["fwd_peak"] - off["fwd_peak"]
+    if on_card and (held_drop != off["parked"] or fwd_drop < off["parked"] // 2):
+        raise AssertionError(f"[train-remat] offload_inputs leaves {held_drop} bytes less on the "
+                             f"card after the forward than nothing_saveable (want the "
+                             f"{off['parked']} parked) and peaks {fwd_drop} bytes lower in the "
+                             f"forward (want at least {off['parked'] // 2})")
+    rows = "; ".join(
+        f"{p}: {r['step_ms']:.1f} ms a step, step peak {r['step_peak'] / 1e9:.2f} GB; a "
+        f"micro-batch (above its start): forward peak {r['fwd_peak'] / 1e6:.1f} MB, held for the "
+        f"backward {r['held'] / 1e6:.1f} MB, forward + backward peak {r['peak'] / 1e6:.1f} MB; "
+        f"{r['recomputed']} products recomputed, {r['parked']} bytes parked"
+        for p, r in out.items())
+    log(f"[train-remat] llama2_7b width x {layers} layers, bf16, fused_adam, {micro} x {gas} x "
+        f"{seq}, {steps} steps a policy on {card}: {rows}; [{REMAT_DEFAULT}] ([train]): "
+        f"{baseline['step_ms']:.1f} ms, peak {baseline['peak_gb']:.2f} GB; step-1 loss "
+        f"{baseline['loss1']!r} and grad norm {baseline['norm1']!r} equal under every policy; "
+        f"offload_inputs against nothing_saveable: {held_drop} bytes less held after the forward "
+        f"(= the bytes parked), forward peak {fwd_drop / 1e6:.1f} MB lower, forward + backward "
+        f"peak {(full['peak'] - off['peak']) / 1e6:+.1f} MB lower")
+    return launches_by_policy
+
+
+DATA_LAYERS = 4  # two middle layers for random-LTD
+DATA_DOCS, DATA_SEQ, DATA_TOKENS = 64, 2048, 4096  # documents drawn from 4096 token ids
+DATA_STEPS = 8
+DATA_CURRICULUM = {"schedule_type": "fixed_linear", "min_difficulty": 1024,
+                   "max_difficulty": 2048,
+                   "schedule_config": {"total_curriculum_step": 6, "difficulty_step": 256}}
+DATA_LTD = {"random_ltd_schedule": {"min_value": 512, "max_value": 1536,
+                                    "schedule_config": {"seq_per_step": 256,
+                                                        "require_steps": 6}}}
+
+
+class TokenDocs:
+    """Documents of an ``MMapIndexedDataset`` as {input_ids, labels} rows."""
+
+    def __init__(self, data):
+        self.data = data
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, i):
+        from deepspeed_tpu_torch.models import llama
+        row = llama.causal_lm_batch(np.asarray(self.data[i], np.int64)[None])
+        return {k: v[0] for k, v in row.items()}
+
+
+def ramp(lo, hi, step, total, quantum):
+    """The curriculum's and random-LTD's linear schedule, from its formula."""
+    value = int((lo + min(1.0, step / total) * (hi - lo)) // quantum * quantum)
+    return max(lo, min(hi, value))
+
+
+def phase_train_data(card, seed=0, layers=DATA_LAYERS, micro=2, gas=2, device="cuda",
+                     width=None):
+    """[train-data]: 64 seeded documents of 2,048 tokens written with
+    ``MMapIndexedDatasetBuilder`` and read back through
+    ``MMapIndexedDataset``, trained through ``initialize(training_data=,
+    config=)`` at Llama-2-7B width and ``layers`` layers in bf16 with
+    ``data_efficiency`` (a seqlen curriculum 1024 -> 2048 over 6 steps,
+    random-LTD keeping 512 -> 1536 tokens over 6 steps), the watchdog and
+    the heartbeat, ``DATA_STEPS`` steps.  Gates: finite falling losses; each
+    step's length and kept tokens are the schedules'; launches equal the
+    formula; the loader's state after step 3 gives a fresh loader batch 4;
+    the heartbeat carries the last step; one fp32 forward and backward with
+    one fixed index set, flash kernels against the plain attention on the
+    card (rtol 1e-4); ``Eigenvalue`` on a small CUDA MLP equal to the CPU's
+    (1e-3) and refused on a flash-backed loss.  Returns the launch counts.
+    ``device="cpu"`` with ``width`` (a tiny LlamaConfig) rehearses it on the
+    CPU, where no kernel launches and flash's plain version runs."""
+    import tempfile
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import llama, transformer
+    from deepspeed_tpu_torch.ops.attention.flash import flash_attention
+    from deepspeed_tpu_torch.runtime import eigenvalue
+    from deepspeed_tpu_torch.runtime.data_pipeline import (MMapIndexedDataset,
+                                                           MMapIndexedDatasetBuilder, random_ltd)
+    from deepspeed_tpu_torch.runtime.dataloader import CurriculumDataLoader
+    from deepspeed_tpu_torch.runtime.heartbeat import read_heartbeats
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves, tree_map
+    root = tempfile.mkdtemp(prefix="train_data_")
+    try:
+        t0 = time.perf_counter()
+        builder = MMapIndexedDatasetBuilder(os.path.join(root, "docs"), dtype=np.uint16)
+        docs = np.random.default_rng(seed).integers(0, DATA_TOKENS, (DATA_DOCS, DATA_SEQ))
+        for doc in docs:
+            builder.add_item(doc)
+            builder.end_document()
+        builder.finalize()
+        data = MMapIndexedDataset(os.path.join(root, "docs"))
+        if len(data) != DATA_DOCS or not np.array_equal(data[DATA_DOCS - 1], docs[-1]):
+            raise AssertionError("[train-data] the indexed dataset does not read back")
+        dataset = TokenDocs(data)
+        on_card = device == "cuda"
+        cfg = dataclasses.replace(width or llama.LlamaConfig.llama2_7b(), num_layers=layers,
+                                  remat=True)
+        conf = train_config(micro=micro, gas=gas, bf16=True, seed=seed)
+        conf.update({"max_consecutive_skips": 3,
+                     "fault_tolerance": {"heartbeat": True, "heartbeat_interval_s": 0.0,
+                                         "heartbeat_dir": os.path.join(root, "hb")},
+                     "data_efficiency": {"enabled": True, "seed": seed, "data_sampling": {
+                         "curriculum_learning": {"enabled": True, "curriculum_metrics": {
+                             "seqlen": DATA_CURRICULUM}}},
+                         "data_routing": {"enabled": True, "random_ltd": DATA_LTD}}})
+        params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                                   dtype=torch.float32, device=device)
+        n_leaves = len(tree_leaves(params))
+        engine, _, loader, _ = deepspeed_tpu_torch.initialize(
+            loss_fn=llama.make_loss_fn(cfg), model_parameters=params, training_data=dataset,
+            config=conf, device=device)
+        del params
+        if on_card:
+            torch.cuda.empty_cache()
+        if not isinstance(loader, CurriculumDataLoader):
+            raise AssertionError(f"[train-data] initialize built a {type(loader).__name__}")
+        setup_s = time.perf_counter() - t0
+        losses, seqs, keeps, times, batches = [], [], [], [], []
+        resume_state = None
+        _sync(device)
+        reset_launch_counts()
+        it = iter(loader)
+        for step in range(DATA_STEPS):
+            batch = next(it)
+            batches.append(batch)
+            t0 = time.perf_counter()
+            metrics = engine.train_batch(batch)
+            losses.append(float(metrics.loss))
+            times.append(time.perf_counter() - t0)
+            seqs.append(batch["input_ids"].shape[1])
+            keeps.append(engine._ltd_state["keep"])
+            if step == 2:
+                resume_state = json.loads(json.dumps(loader.state_dict()))
+        expected = expected_launches(steps=DATA_STEPS, gas=gas, layers=layers, n_leaves=n_leaves,
+                                     optimizer="fused_adam", sparse=None)
+        launches = launch_counts() if on_card else expected  # the CPU launches no kernel
+        engine.heartbeat.close()
+        want_seqs = [ramp(1024, 2048, k, 6, 256) for k in range(1, DATA_STEPS + 1)]
+        want_keeps = [ramp(512, 1536, s, 6, 256) for s in range(DATA_STEPS)]
+        beat = read_heartbeats(os.path.join(root, "hb")).get(0, {})
+        fresh = CurriculumDataLoader(dataset, batch_size=engine.train_batch_size,
+                                     gradient_accumulation_steps=gas,
+                                     curriculum=engine.config.effective_curriculum(), seed=seed)
+        fresh.load_state_dict(resume_state)
+        again = next(iter(fresh))
+        if (not all(np.isfinite(losses)) or not losses[-1] < losses[0] or seqs != want_seqs
+                or keeps != want_keeps or launches != expected or beat.get("step") != DATA_STEPS
+                or not engine._ltd_state.get("engaged")
+                or any(not np.array_equal(again[k], batches[3][k]) for k in again)):
+            raise AssertionError(
+                f"[train-data] losses {losses}, lengths {seqs} (want {want_seqs}), kept {keeps} "
+                f"(want {want_keeps}), launches {launches} (formula {expected}), heartbeat "
+                f"{beat}, LTD engaged {engine._ltd_state.get('engaged')}, resumed batch 4 "
+                f"{'equal' if all(np.array_equal(again[k], batches[3][k]) for k in again) else 'differs'}")
+        del engine
+        if on_card:
+            torch.cuda.empty_cache()
+        log(f"[train-data] {DATA_DOCS} documents of {DATA_SEQ} tokens through "
+            f"MMapIndexedDataset, initialize(training_data=) -> CurriculumDataLoader, llama2_7b "
+            f"width x {layers} layers, bf16, fused_adam, watchdog 3, heartbeat; set up in "
+            f"{setup_s:.2f} s; {DATA_STEPS} steps on {card}: losses "
+            f"{[round(x, 4) for x in losses]}; lengths {seqs} and kept tokens {keeps} = the "
+            f"schedules; step ms {[round(t * 1e3, 1) for t in times]}; launches "
+            f"{ {k: v for k, v in launches.items() if v} } = formula; batch 4 from a fresh "
+            f"loader resumed at step 3 equal; heartbeat step {beat.get('step')}")
+        # one fp32 forward and backward at these shapes, one fixed index set:
+        # flash kernels against the plain attention, both on the card
+        keep = 1024
+        fixed = torch.sort(torch.randperm(DATA_SEQ, generator=torch.Generator().manual_seed(
+            seed))[:keep]).values.to(device)
+        sampler = random_ltd.sample_token_indices
+        random_ltd.sample_token_indices = lambda generator, seq_len, k: fixed
+        try:
+            cfg32 = dataclasses.replace(cfg, remat_policy=REMAT_DEFAULT)
+            params = llama.init_params(cfg32, torch.Generator(device=device).manual_seed(seed + 1),
+                                       dtype=torch.float32, device=device)
+            row = {k: torch.from_numpy(np.stack([dataset[i][k] for i in range(micro)])).to(device)
+                   for k in ("input_ids", "labels")}
+            res = {}
+            for name, fn in (("kernel", None), ("plain", transformer.sdpa)):
+                p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+                loss_fn = transformer.scoped_random_ltd(llama.make_loss_fn(cfg32, attention_fn=fn),
+                                                        {"keep": keep})
+                loss = loss_fn(p, row, torch.Generator(device=device))
+                res[name] = (float(loss.detach()), torch.autograd.grad(loss, tree_leaves(p)))
+                del p, loss
+        finally:
+            random_ltd.sample_token_indices = sampler
+        losses32 = (res["kernel"][0], res["plain"][0])
+        if not abs(losses32[0] - losses32[1]) <= 1e-4 * abs(losses32[1]):
+            raise AssertionError(f"[train-data] fp32 losses {losses32} (kernel, plain; rtol "
+                                 f"1e-4)")
+        worst = 0.0
+        for i, (g, r) in enumerate(zip(res["kernel"][1], res["plain"][1])):
+            top = r.abs().max().item()
+            worst = max(worst, _max_err(f"[train-data] fp32 grad of leaf {i}", g, r,
+                                        1e-4 * top, 1e-4) / (top or 1.0))
+        del res, params
+        if on_card:
+            torch.cuda.empty_cache()
+        # the Hessian eigenvalue: double backward on plain math, refused by flash
+        gen = np.random.default_rng(seed)
+        mlp = {"w1": gen.normal(size=(64, 128)).astype(np.float32) / 8,
+               "w2": gen.normal(size=(128, 1)).astype(np.float32) / 11}
+        xy = {"x": gen.normal(size=(256, 64)).astype(np.float32),
+              "y": gen.normal(size=(256, 1)).astype(np.float32)}
+
+        def mlp_loss(p, b, r):
+            return ((torch.tanh(b["x"] @ p["w1"]) @ p["w2"] - b["y"]) ** 2).mean()
+
+        eig = {}
+        for dev in (device, "cpu"):
+            to = lambda tree: {k: torch.from_numpy(v).to(dev) for k, v in tree.items()}
+            eig[dev] = eigenvalue.Eigenvalue(max_iter=300, tol=1e-7).compute_eigenvalue(
+                mlp_loss, to(mlp), to(xy))["eigenvalue"]
+        if not abs(eig[device] - eig["cpu"]) <= 1e-3 * abs(eig["cpu"]):
+            raise AssertionError(f"[train-data] Hessian eigenvalue {eig[device]} on the card vs "
+                                 f"{eig['cpu']} on the CPU (rtol 1e-3)")
+        q = torch.randn(1, 256, 2, 128, device=device)
+        try:
+            eigenvalue.Eigenvalue(max_iter=2).compute_eigenvalue(
+                lambda p, b, r: flash_attention(p["q"], p["q"], p["q"]).sum(), {"q": q}, None)
+            raise AssertionError("[train-data] a second derivative through flash did not raise")
+        except RuntimeError as exc:
+            if "differentiable once" not in str(exc):
+                raise
+        log(f"[train-data] fp32 forward and backward at {micro} x {DATA_SEQ}, keep {keep} of "
+            f"one fixed index set: flash kernels vs plain attention on the card, losses "
+            f"{losses32[0]!r} vs {losses32[1]!r}, grads at most {worst:.3e} of their leaf's "
+            f"largest (rtol 1e-4, atol 1e-4 x max|leaf|); Hessian eigenvalue of a 64-128-1 MLP "
+            f"{eig[device]!r} on the card vs {eig['cpu']!r} on the CPU (rtol 1e-3); a second "
+            f"derivative through flash refused")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 PROFILE_GROUPS = (("flash_fwd", "flash_fwd"), ("flash_bwd_dkdv", "flash_bwd_dkdv"),
@@ -6517,12 +6916,13 @@ TRAIN_SLICE_LAYERS = 1
 
 
 def phase_train_slice(seed=1, steps=2, micro=2, gas=2, seq=128, tag="train-slice",
-                      optimizer="fused_adam", sparse=None):
+                      optimizer="fused_adam", sparse=None, lion_step=False):
     """``TRAIN_SLICE_LAYERS`` full-width Llama-2-7B layers in fp32: the CUDA engine (kernels)
     against the CPU engine (plain versions), same params and batch, with
     ``optimizer`` and, where given, the ``sparse`` attention section.  With
-    ``lion`` one fused Lion step a leaf follows (:func:`lion_fused_step`);
-    returns its Lion launches (None for the other optimizers)."""
+    ``lion_step`` one fused Lion step a leaf follows on the same two engines
+    ([train-slice-lion], :func:`lion_fused_step`); returns its Lion launches
+    (None without it)."""
     import torch
     from deepspeed_tpu_torch.runtime.tree import tree_leaves, tree_map
     import deepspeed_tpu_torch
@@ -6561,9 +6961,8 @@ def phase_train_slice(seed=1, steps=2, micro=2, gas=2, seq=128, tag="train-slice
         lrs.append(metrics.lr)
     launches = {k: v for k, v in launch_counts().items() if v}
     attn = "sparse" if sparse is not None else "flash"
-    # lion has no fused step in the engine (nor in JAX): no optimizer kernel
-    adam = {"fused_adam": "fused_adamw", "fused_adam8bit": "adamw8bit"}.get(optimizer)
-    if set(launches) != {f"{attn}_fwd", f"{attn}_bwd_dkdv", f"{attn}_bwd_dq"} | {adam} - {None}:
+    adam = {"fused_adam": "fused_adamw", "fused_adam8bit": "adamw8bit"}[optimizer]
+    if set(launches) != {f"{attn}_fwd", f"{attn}_bwd_dkdv", f"{attn}_bwd_dq", adam}:
         raise AssertionError(f"[{tag}] the CUDA engine launched {launches}, not the "
                              f"{attn} and {adam} kernels alone")
     for lg, lc in zip(losses["cuda"], losses["cpu"]):
@@ -6576,13 +6975,15 @@ def phase_train_slice(seed=1, steps=2, micro=2, gas=2, seq=128, tag="train-slice
     worst, n_close, n_total, limit = params_agree(tag, engines, lrs, steps)
     fused = ""
     lion_launches = None
-    if optimizer == "lion":
+    if lion_step:
+        t_lion = time.perf_counter()
         lion_launches, lr = lion_fused_step(engines, batch, lrs[-1])
         lrs.append(lr)
         steps += 1
         worst, n_close, n_total, limit = params_agree(tag, engines, lrs, steps)
-        fused = (f"; then one fused Lion step a leaf through fused_lion_flat ({lion_launches} "
-                 f"launches on CUDA)")
+        fused = (f"; then [train-slice-lion]: one fused Lion step a leaf through "
+                 f"fused_lion_flat on the same engines ({lion_launches} launches on CUDA, "
+                 f"{time.perf_counter() - t_lion:.1f} s)")
     log(f"[{tag}] llama2_7b width, {cfg.num_layers} layers, fp32, seq {seq}, micro {micro} x gas {gas}, "
         f"{optimizer}{', sparse ' + sparse['mode'] + ' block ' + str(sparse['block']) if sparse else ''}, "
         f"{steps} steps, CUDA kernels ({launches}) vs CPU plain versions in "
@@ -6908,6 +7309,10 @@ def main() -> int:
         train_launches, dense = phase_train(card)
     with phase_timer("train-telemetry"):
         phase_train_telemetry(card, dense)
+    with phase_timer("train-remat"):
+        remat_launches = phase_train_remat(card, dense)
+    with phase_timer("train-data"):
+        data_launches = phase_train_data(card)
     with phase_timer("train-8bit"):
         adam8_launches, _ = phase_train(card, tag="train-8bit", optimizer="fused_adam8bit",
                                         baseline=dense)
@@ -6915,13 +7320,11 @@ def main() -> int:
         sparse_launches, sparse_train = phase_train(
             card, tag="train-sparse", optimizer="fused_adam8bit", sparse=SPARSE_CONFIG, micro=1,
             gas=2, seq=4096, baseline=dense)
-    with phase_timer("train-slice"):
-        phase_train_slice()
+    with phase_timer("train-slice, train-slice-lion"):
+        lion_launches = phase_train_slice(lion_step=True)
     with phase_timer("train-slice-sparse"):
         phase_train_slice(tag="train-slice-sparse", optimizer="fused_adam8bit",
                           sparse=SPARSE_CONFIG)
-    with phase_timer("train-slice-lion"):
-        lion_launches = phase_train_slice(tag="train-slice-lion", optimizer="lion", seq=128)
     with phase_timer("train-dense"):
         dense_launches, _ = phase_train_dense(card)
     with phase_timer("train-resume"):
@@ -6984,6 +7387,9 @@ def main() -> int:
                         "train_resume_launches": {opt: resume_launches[opt][name]
                                                   for opt in resume_launches},
                         "train_fp16_launches": fp16_launches[name],
+                        "train_remat_launches": {policy: remat_launches[policy][name]
+                                                 for policy in remat_launches},
+                        "train_data_launches": data_launches[name],
                         "variant": FLASH_VARIANTS[name]})
     adam = train_recs["fused_adamw"]
     kernels.append({"name": "fused_adamw", "route": "cuda", "source": ADAM_SOURCE,
@@ -6995,6 +7401,9 @@ def main() -> int:
                                              for key in dense_launches},
                     "train_resume_launches": resume_launches["fused_adam"]["fused_adamw"],
                     "train_fp16_launches": fp16_launches["fused_adamw"],
+                    "train_remat_launches": {policy: remat_launches[policy]["fused_adamw"]
+                                             for policy in remat_launches},
+                    "train_data_launches": data_launches["fused_adamw"],
                     "bf16_grad": {k: train_recs["fused_adamw_bf16_grad"][k] for k in fields}})
     for name in ("sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq"):
         kernels.append({"name": name, "route": "cuda", "source": SPARSE_SOURCE,

@@ -9,27 +9,32 @@ points run on ``device="cuda"`` unless the caller asks for the CPU.
 
 from .runtime.checkpointing import CheckpointError
 from .runtime.config import TrainingConfig, load_config
+from .runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
 
 
 def initialize(args=None, model=None, loss_fn=None, model_parameters=None, training_data=None,
-               config=None, device="cuda", **kwargs):
+               config=None, device="cuda", collate_fn=None, **kwargs):
     """Build a single-GPU training engine (``deepspeed_tpu.initialize``).
 
     The model is a loss function ``loss_fn(params, batch, rng) -> loss`` over
     a params tree of tensors (nested dicts), e.g.
     ``models.llama.make_loss_fn(config)`` with ``models.llama.init_params``.
-    Returns ``(engine, optimizer, None, lr_scheduler)``: the dataloader is not
-    ported, and ``training_data`` raises ``NotImplementedError``.  The engine
-    trains with ``train_batch`` or ``forward``/``backward``/``step``, and
-    saves and resumes with ``save_checkpoint``/``load_checkpoint`` (files the
-    JAX package reads and writes too).  The engine
-    runs on ``device`` ("cuda" unless the caller passes "cpu") and raises when
-    asked for CUDA without a GPU.
+    Returns ``(engine, optimizer, dataloader, lr_scheduler)``: with
+    ``training_data`` (an indexable dataset, e.g. an ``MMapIndexedDataset``
+    or anything with ``__len__``/``__getitem__``) the dataloader yields
+    global batches of numpy arrays (a ``DeepSpeedDataLoader``, or a
+    ``CurriculumDataLoader`` under a curriculum schedule, batched by
+    ``collate_fn`` when given), else it is None.  The engine trains with
+    ``train_batch`` or ``forward``/``backward``/``step``, and saves and
+    resumes with ``save_checkpoint``/``load_checkpoint`` (files the JAX
+    package reads and writes too).  The engine runs on ``device`` ("cuda"
+    unless the caller passes "cpu") and raises when asked for CUDA without a
+    GPU.
     """
     from .runtime.engine import initialize as _initialize
     return _initialize(args=args, model=model, loss_fn=loss_fn,
                        model_parameters=model_parameters, training_data=training_data,
-                       config=config, device=device, **kwargs)
+                       config=config, device=device, collate_fn=collate_fn, **kwargs)
 
 
 def init_inference(model_module=None, model_config=None, params=None, config=None,

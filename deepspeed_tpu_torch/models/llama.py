@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..ops.attention.paged import paged_attention
-from ..runtime.activation_checkpointing import checkpoint
+from ..runtime.activation_checkpointing import checkpoint, checkpoint_name, offload_checkpoint
 from ..runtime.tree import tree_map
 from .transformer import (attention_block, cross_entropy_loss, device_rotary_tables,
                           hf_stack, hf_tensor, init_linear, init_paged_kv_pool, materialize,
@@ -39,9 +39,11 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     tie_embeddings: bool = False
-    # recompute each layer in the backward (torch.utils.checkpoint); the JAX
-    # package's named remat policies are not ported yet
     remat: bool = True
+    # the JAX package's default: the x @ W outputs are kept, the rest of each
+    # layer is recomputed (runtime/activation_checkpointing.py);
+    # "offload_inputs" / "cpu_checkpointing" park each layer's input on the host
+    remat_policy: Optional[str] = "dots_with_no_batch_dims_saveable"
 
     @staticmethod
     def llama2_7b():
@@ -119,25 +121,32 @@ def flops_per_token(config: LlamaConfig, seq_len: int) -> float:
 
 
 # ------------------------------------------------------------------ training
-def _layer(config: LlamaConfig, cos, sin, attention_fn, x, layer_params):
+def _layer(config: LlamaConfig, cos, sin, attention_fn, x, layer_params, positions=None):
     attn_in = rms_norm(x, layer_params["attn_norm"], config.rms_eps)
     attn_out, _ = attention_block(layer_params["attn"], attn_in, n_heads=config.num_heads,
                                   n_kv_heads=config.num_kv_heads, cos=cos, sin=sin, causal=True,
-                                  attention_fn=attention_fn)
-    x = x + attn_out
+                                  attention_fn=attention_fn, positions=positions)
+    # residual-stream names: identities unless a naming remat policy is active
+    x = checkpoint_name(x + attn_out, "attn_resid")
     mlp_in = rms_norm(x, layer_params["mlp_norm"], config.rms_eps)
-    return x + swiglu_mlp(layer_params["mlp"], mlp_in)
+    return checkpoint_name(x + swiglu_mlp(layer_params["mlp"], mlp_in), "mlp_resid")
 
 
-def forward(config: LlamaConfig, params, input_ids, attention_fn=None):
+def forward(config: LlamaConfig, params, input_ids, attention_fn=None, rng=None):
     """input_ids [B, S] -> logits [B, S, V], in the dtype of the params (the
     engine hands in its compute-dtype copy).  With ``config.remat`` each layer
-    is recomputed in the backward instead of keeping its activations.
+    is rematerialised under ``config.remat_policy`` (``offload_inputs`` and
+    ``cpu_checkpointing`` through ``offload_checkpoint``).  When an engine's
+    random-LTD state is in scope (``initialize`` with
+    ``data_efficiency.data_routing``) and ``rng`` (a ``torch.Generator``) is
+    given, the middle layers see a random subset of the tokens
+    (``transformer.random_ltd_scan``).
 
     The attention function is resolved once, here, and bound into the layer:
     the recompute runs in the backward, after the engine's configured
     attention scope (``transformer.scoped_default_attention``) has closed, and
     must run the same attention as the forward."""
+    from .transformer import configured_ltd, random_ltd_scan
     device = params["embed"].device
     attention_fn = resolve_attention(attention_fn, device)
     cos, sin = device_rotary_tables(config.hidden_size // config.num_heads, config.max_seq_len,
@@ -145,12 +154,20 @@ def forward(config: LlamaConfig, params, input_ids, attention_fn=None):
     x = params["embed"][input_ids.long()]
     layer = functools.partial(_layer, config, cos, sin, attention_fn)
     if config.remat:
-        layer = checkpoint(layer)
-    # one unbind per stacked leaf: its backward stacks the L layer grads once,
-    # where indexing leaf[i] per layer would build and sum L full-size grads
-    per_layer = tree_map(lambda w: w.unbind(0), params["layers"])
-    for i in range(config.num_layers):
-        x = layer(x, tree_map(lambda ws: ws[i], per_layer))
+        if config.remat_policy in ("offload_inputs", "cpu_checkpointing"):
+            layer = offload_checkpoint(layer)
+        else:
+            layer = checkpoint(layer, config.remat_policy)
+    ltd = configured_ltd()
+    if ltd is not None and rng is not None:
+        x = random_ltd_scan(layer, x, params["layers"], rng, int(ltd["keep"]))
+    else:
+        # one unbind per stacked leaf: its backward stacks the L layer grads
+        # once, where indexing leaf[i] per layer would build and sum L
+        # full-size grads
+        per_layer = tree_map(lambda w: w.unbind(0), params["layers"])
+        for i in range(config.num_layers):
+            x = layer(x, tree_map(lambda ws: ws[i], per_layer))
     x = rms_norm(x, params["final_norm"], config.rms_eps)
     head = params["embed"].T if config.tie_embeddings else params["lm_head"]
     return x @ head.to(x.dtype)
@@ -158,10 +175,11 @@ def forward(config: LlamaConfig, params, input_ids, attention_fn=None):
 
 def make_loss_fn(config: LlamaConfig, attention_fn=None) -> Callable:
     """loss_fn(params, batch, rng) for the engine; batch: {input_ids, labels}
-    (-100 = ignore).  ``rng`` is unused: the dense forward draws nothing."""
+    (-100 = ignore).  ``rng`` (the engine's generator) drives random-LTD when
+    the engine configured it."""
 
     def loss_fn(params, batch, rng):
-        logits = forward(config, params, batch["input_ids"], attention_fn=attention_fn)
+        logits = forward(config, params, batch["input_ids"], attention_fn=attention_fn, rng=rng)
         return cross_entropy_loss(logits, batch["labels"])
 
     return loss_fn

@@ -162,6 +162,83 @@ def resolve_attention(attention_fn, device):
     return default_attention(device)
 
 
+# ------------------------------------------------------- random-LTD scoping
+# The engine's random-LTD state (models/transformer.py:168-265 of the JAX
+# package): initialize() wraps the loss function so that the state is in
+# scope while it runs, as it does the configured attention; forwards that
+# drop tokens (llama.forward with a generator) read it with configured_ltd().
+# state["keep"] is the kept-token count the engine ramps between steps.
+_CONFIGURED_LTD = {"state": None, "engaged": False}
+
+# Force-empty pin: scoped_random_ltd(fn, None) installs this sentinel rather
+# than None, so that an inner (training) scope can tell "an outer scope
+# pinned LTD off" (eval) from "no scope active" and leaves the pin alone.
+_LTD_FORCE_EMPTY = object()
+
+
+def scoped_random_ltd(loss_fn, ltd_state):
+    """``loss_fn`` with ``ltd_state`` the configured random-LTD while it runs
+    (``None`` pins the scope empty, which is how the engine's eval keeps LTD
+    to training; the empty pin wins over inner training scopes).  A forward
+    that drops tokens records it on the state (``ltd_state["engaged"]``)."""
+    pin = _LTD_FORCE_EMPTY if ltd_state is None else ltd_state
+
+    def scoped(*args, **kwargs):
+        prev = _CONFIGURED_LTD["state"]
+        if prev is _LTD_FORCE_EMPTY and ltd_state is not None:
+            return loss_fn(*args, **kwargs)
+        _CONFIGURED_LTD["state"] = pin
+        if ltd_state is not None:
+            _CONFIGURED_LTD["engaged"] = False
+        try:
+            return loss_fn(*args, **kwargs)
+        finally:
+            _CONFIGURED_LTD["state"] = prev
+
+    return scoped
+
+
+def configured_ltd():
+    st = _CONFIGURED_LTD["state"]
+    return None if st is _LTD_FORCE_EMPTY else st
+
+
+def configured_ltd_engaged() -> bool:
+    return _CONFIGURED_LTD["engaged"]
+
+
+def random_ltd_scan(layer, x, stacked_params, generator, keep: int):
+    """The layer stack with random layerwise token dropping: the first and
+    last layers see every token; each middle layer processes a random sorted
+    subset of ``keep`` tokens, drawn from ``generator``, with rotary and the
+    causal mask on their original positions (``layer(x, params,
+    positions)``), and the dropped tokens ride the residual stream unchanged.
+    Sorted indices keep causal order, so the attention (flash on the card)
+    runs causally over Sq = Sk = ``keep``.  Each middle layer draws its own
+    subset (the JAX scan splits its key a layer)."""
+    from ..runtime.data_pipeline.random_ltd import (gather_tokens, sample_token_indices,
+                                                    scatter_tokens)
+    from ..runtime.tree import tree_leaves, tree_map
+    per_layer = tree_map(lambda w: w.unbind(0), stacked_params)
+    L = len(tree_leaves(per_layer)[0])
+    take = lambda i: tree_map(lambda ws: ws[i], per_layer)
+    S = x.shape[1]
+    if L < 3 or keep >= S:
+        for i in range(L):
+            x = layer(x, take(i))
+        return x
+    _CONFIGURED_LTD["engaged"] = True
+    st = _CONFIGURED_LTD["state"]
+    if isinstance(st, dict):
+        st["engaged"] = True
+    x = layer(x, take(0))
+    for i in range(1, L - 1):
+        idx = sample_token_indices(generator, S, keep).to(x.device)
+        y = layer(gather_tokens(x, idx), take(i), idx[None, :])
+        x = scatter_tokens(x, y, idx)
+    return layer(x, take(L - 1))
+
+
 def project(x, params, name):
     """``x @ params["w<name>"]``, plus ``params["b<name>"]`` where the
     params hold that bias (Qwen2's q/k/v), in x's dtype."""

@@ -244,7 +244,8 @@ flash_bwd_dq.launches = flash_bwd_dq.tc_launches = 0
 
 class _Flash(torch.autograd.Function):
     """(out, lse); grads are not materialised, so an lse that the caller
-    drops gives ``g_lse = None``."""
+    drops gives ``g_lse = None``.  Differentiable once: a second derivative
+    raises, as JAX's ``jvp`` of the ``custom_vjp`` Pallas call does."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal):
@@ -260,6 +261,12 @@ class _Flash(torch.autograd.Function):
         """dq, dk, dv.  ``delta = rowsum(do * out)`` is a torch reduction
         (XLA-composed in JAX, flash.py:231); the lse cotangent folds into it
         (flash.py:233-234)."""
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "flash attention is differentiable once: a second derivative "
+                "(create_graph=True) would differentiate the backward kernels, which have no "
+                "derivative of their own (JAX's jvp of the custom_vjp Pallas call raises too); "
+                "take Hessian products through plain attention (models.transformer.sdpa)")
         q, k, v, out, lse = ctx.saved_tensors
         do = torch.zeros_like(out) if g_out is None else g_out.contiguous()
         delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2)

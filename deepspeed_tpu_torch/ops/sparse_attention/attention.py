@@ -376,7 +376,8 @@ sparse_bwd_dq.launches = sparse_bwd_dq.tc_launches = 0
 
 class _Sparse(torch.autograd.Function):
     """out; the backward is the dK/dV and dQ kernels from the saved lse
-    (the JAX ``_sparse`` custom VJP, attention.py:356-367)."""
+    (the JAX ``_sparse`` custom VJP, attention.py:356-367).  Differentiable
+    once: a second derivative raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, tables, scale, causal):
@@ -390,6 +391,12 @@ class _Sparse(torch.autograd.Function):
     def backward(ctx, g_out):
         """``delta = rowsum(do * out)`` in fp32 is a torch reduction (XLA-composed
         in JAX, attention.py:268-269)."""
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "block-sparse attention is differentiable once: a second derivative "
+                "(create_graph=True) would differentiate the backward kernels, which have no "
+                "derivative of their own (JAX's jvp of the custom_vjp Pallas call raises too); "
+                "take Hessian products through plain attention (models.transformer.sdpa)")
         q, k, v, out, lse = ctx.saved_tensors
         do = g_out.contiguous()
         delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()

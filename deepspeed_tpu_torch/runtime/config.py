@@ -10,6 +10,7 @@ sections and the training sections its single-GPU engine reads (:class:`Training
 """
 
 import json
+import logging
 from typing import Any, Dict, List, Optional, Union
 
 import torch
@@ -660,9 +661,104 @@ class SparseAttentionConfig(ConfigModel):
                                                 self.num_sliding_window_blocks, attention)
 
 
+class ActivationCheckpointingConfig(ConfigModel):
+    """The ``activation_checkpointing`` section (JAX ``runtime/config.py:126``).
+    Remat belongs to the model (``LlamaConfig.remat_policy``): the engine
+    logs a non-default request and applies nothing, as the JAX engine does."""
+    partition_activations: bool = False
+    contiguous_memory_optimization: bool = False
+    cpu_checkpointing: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+    policy: str = Field("nothing_saveable",
+                        choices=("everything_saveable", "nothing_saveable", "dots_saveable",
+                                 "dots_with_no_batch_dims_saveable", "checkpoint_dots",
+                                 "save_anything_except_these_names", "offload_dot",
+                                 "offload_residuals"))
+
+
+class FaultToleranceConfig(ConfigModel):
+    """The training ``fault_tolerance`` section (JAX ``runtime/config.py:399``).
+    ``heartbeat`` arms the engine's per-rank liveness stamps
+    (``runtime/heartbeat.py``: step, wall clock and phase in
+    ``<heartbeat_dir>/hb.rank<R>.json``, at most one write per
+    ``heartbeat_interval_s``, no device sync); ``DSTPU_HEARTBEAT_DIR`` arms
+    them without the section.  ``collective_timeout_s`` and ``init_retries*``
+    bound multi-process collectives and process-group setup, which the
+    single-GPU port does not have: set away from their defaults they raise
+    ``NotImplementedError`` naming ROADMAP item 11."""
+    heartbeat: bool = False
+    heartbeat_dir: Optional[str] = None
+    heartbeat_interval_s: float = Field(1.0, ge=0.0)
+    collective_timeout_s: Optional[float] = Field(None, gt=0.0)
+    init_retries: int = Field(3, ge=0)
+    init_retry_backoff_s: float = Field(0.5, ge=0.0)
+
+    def model_validate(self):
+        import os
+
+        from .heartbeat import HEARTBEAT_DIR_ENV
+        if self.heartbeat and not self.heartbeat_dir and not os.environ.get(HEARTBEAT_DIR_ENV):
+            raise ValueError("fault_tolerance.heartbeat=true needs heartbeat_dir "
+                             "(or launch under the elastic agent, which exports "
+                             "DSTPU_HEARTBEAT_DIR and overrides this section)")
+        for name, default in (("collective_timeout_s", None), ("init_retries", 3),
+                              ("init_retry_backoff_s", 0.5)):
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"fault_tolerance.{name}={getattr(self, name)!r}: bounded collectives and "
+                    f"process-group retries belong to multi-GPU training, which is not ported "
+                    f"to PyTorch yet (ROADMAP item 11)")
+
+
+class DataSamplingConfig(ConfigModel):
+    """``data_efficiency.data_sampling``: its ``curriculum_learning`` dict
+    feeds the CurriculumScheduler (the flat schedule form or
+    ``curriculum_metrics``, whose ``seqlen`` metric truncates batches).  An
+    unknown key raises, where JAX keeps it."""
+    enabled: bool = True
+    num_workers: int = 0
+    curriculum_learning: Dict[str, Any] = Field(dict)
+
+
+class DataRoutingConfig(ConfigModel):
+    """``data_efficiency.data_routing``: random-LTD (its ``random_ltd`` dict
+    feeds ``RandomLTDScheduler``)."""
+    enabled: bool = False
+    random_ltd: Dict[str, Any] = Field(dict)
+
+
+class DataEfficiencyConfig(ConfigModel):
+    """The ``data_efficiency`` section (JAX ``runtime/config.py:920-975``):
+    curriculum sampling drives the dataloader ``initialize(training_data=)``
+    builds; data routing scopes random-LTD around the loss function."""
+    enabled: bool = False
+    seed: int = Field(1234, ge=0)
+    data_sampling: DataSamplingConfig = Field(DataSamplingConfig)
+    data_routing: DataRoutingConfig = Field(DataRoutingConfig)
+
+    def curriculum_dict(self) -> Optional[Dict[str, Any]]:
+        """The CurriculumScheduler config when curriculum sampling is active,
+        else None."""
+        cl = dict(self.data_sampling.curriculum_learning or {})
+        if not (self.enabled and self.data_sampling.enabled and cl.pop("enabled", False)):
+            return None
+        metrics = cl.pop("curriculum_metrics", None)
+        if metrics:
+            name = "seqlen" if "seqlen" in metrics else next(iter(metrics))
+            if len(metrics) > 1:
+                logging.getLogger(__name__).warning(
+                    f"data_efficiency curriculum_metrics: multiple metrics configured; using "
+                    f"{name!r} for difficulty (seqlen truncation)")
+            return dict(metrics[name])
+        return cl or None
+
+
 # sections of the JAX TrainingConfig that change what a step computes and are
-# not ported yet; any other key the port does not know raises ValueError
-UNPORTED_TRAINING_SECTIONS = ("data_efficiency", )
+# not ported yet (none now); any other key the port does not know raises
+# ValueError
+UNPORTED_TRAINING_SECTIONS = ()
 
 
 class TrainingConfig(ConfigModel):
@@ -671,9 +767,12 @@ class TrainingConfig(ConfigModel):
     under ``"fp16": {"enabled": true}``, fp32 with ``"bf16": {"enabled":
     false}``), gradient clipping, seed, print cadence, the ZeRO stage,
     block-sparse attention, checkpoints (``checkpoint``, ``nebula``,
-    ``checkpoint_tag_validation``), the monitor writers, telemetry and the
-    ops endpoints.  Load it with :func:`load_config`, which refuses the JAX
-    package's other sections."""
+    ``checkpoint_tag_validation``), ``activation_checkpointing``,
+    ``data_efficiency`` (curriculum and random-LTD) and the legacy
+    ``curriculum_learning``, the watchdog (``max_consecutive_skips``), the
+    ``fault_tolerance`` heartbeat, the monitor writers, telemetry and the
+    ops endpoints.  Load it with :func:`load_config`, which raises on a key
+    it does not know."""
     train_batch_size: Optional[int] = Field(None, ge=1)
     train_micro_batch_size_per_gpu: Optional[int] = Field(None, ge=1)
     gradient_accumulation_steps: Optional[int] = Field(None, ge=1)
@@ -686,6 +785,15 @@ class TrainingConfig(ConfigModel):
     bf16: Optional[BF16Config] = None
     zero_optimization: ZeroConfig = Field(ZeroConfig)
     sparse_attention: Optional[SparseAttentionConfig] = None
+    activation_checkpointing: ActivationCheckpointingConfig = Field(ActivationCheckpointingConfig)
+    data_efficiency: DataEfficiencyConfig = Field(DataEfficiencyConfig)
+    # the legacy top-level curriculum section (effective_curriculum)
+    curriculum_learning: Optional[Dict[str, Any]] = None
+    # the train-loop watchdog: NonFiniteLossError after this many consecutive
+    # bad steps (fp16 skipped steps; non-finite loss or grad norm in bf16 and
+    # fp32); 0 disables
+    max_consecutive_skips: int = Field(0, ge=0)
+    fault_tolerance: FaultToleranceConfig = Field(FaultToleranceConfig)
     # monitor writers (TensorBoard / W&B / CSV), top level or under
     # monitor_config, per-step telemetry and the pull-based ops endpoints
     monitor_config: Optional[MonitorConfig] = None
@@ -768,6 +876,18 @@ class TrainingConfig(ConfigModel):
         if self.nebula.enabled:
             return "async"
         return self.checkpoint.checkpoint_engine
+
+    def effective_curriculum(self) -> Optional[Dict[str, Any]]:
+        """The curriculum schedule dict from the data_efficiency section or
+        the legacy top-level curriculum_learning one; None when neither is
+        active."""
+        cur = self.data_efficiency.curriculum_dict()
+        if cur is not None:
+            return cur
+        legacy = dict(self.curriculum_learning or {})
+        if legacy.pop("enabled", False):
+            return legacy
+        return None
 
     @property
     def precision_dtype(self):

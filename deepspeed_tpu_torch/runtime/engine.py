@@ -30,18 +30,33 @@ Checkpoints (``runtime/checkpointing.py``) hold the JAX package's files:
 engine's ``torch.Generator`` state as a ``uint8`` leaf ``torch_rng``, which
 the JAX loader ignores (the JAX ``rng`` leaf is read by nobody here).
 ``load_checkpoint`` takes a checkpoint of either package, matching leaves
-by key.  The training engine has no heartbeat yet (the watchdog is ROADMAP
-item 9d), so the JAX engine's heartbeat stamps around checkpoint IO have no
-counterpart.  ``forward``/``backward``/``step`` are the JAX three-call shim
+by key.  ``forward``/``backward``/``step`` are the JAX three-call shim
 (``engine.py:957-972``): ``step`` stacks the queued micro-batches and runs
 ``train_batch``.
+
+Liveness and divergence (JAX ``engine.py:47, :821, :1021-1058,
+:1153-1289``): the ``fault_tolerance`` heartbeat (``runtime/heartbeat.py``)
+is stamped after every step and around checkpoint IO (phases
+``checkpoint_save``, ``checkpoint_load``, ``resumed``); the watchdog
+(``max_consecutive_skips``) raises :class:`NonFiniteLossError` after that
+many consecutive bad steps: fp16 counts skipped steps from the overflow flag
+it already reads; bf16 and fp32 count non-finite losses or grad norms, and
+read them without a sync of their own: on CUDA a step's two values are
+copied to pinned memory behind an event, and read once the next step has
+been queued (a streak ends one step later than JAX's, never with the
+device drained), on the CPU at once.
 
 On one device the JAX engine takes the fused step too (``engine.py:544``),
 and ZeRO partitions nothing, so every ZeRO stage runs this same step.  The
 engine runs on ``device="cuda"`` unless the caller passes ``device="cpu"``
 (then every kernel's plain version runs); it raises when asked for CUDA
 without a GPU.  ``initialize`` makes the config's ``sparse_attention``
-section the loss function's default attention.
+section the loss function's default attention, scopes the
+``data_efficiency.data_routing`` random-LTD state around it (the engine
+ramps its kept-token count after each step, and ``eval_batch`` pins it
+off), and with ``training_data`` builds the dataloader
+(``runtime/dataloader.py``; a curriculum loader under the
+``data_efficiency`` or legacy ``curriculum_learning`` schedule).
 
 Observability, as in the JAX engine: the monitor writers (``MonitorMaster``)
 and a ``TelemetryCollector`` (``telemetry`` section: per-step records with
@@ -52,8 +67,8 @@ once, on the first step under ``torch.utils.flop_counter.FlopCounterMode``:
 every aten product, the remat recompute included, and nothing inside the
 hand kernels (called through ``ctypes``, as XLA's cost analysis does not see
 inside a Pallas call).  ``ops_server`` publishes ``/metrics``, ``/healthz``
-and ``/statez`` refreshed at the step boundary.  Not ported yet:
-offload, the dataloader and the watchdog (ROADMAP Queue 1).
+and ``/statez`` refreshed at the step boundary.  Not ported yet: ZeRO
+offload (ROADMAP item 12).
 """
 
 import contextlib
@@ -82,11 +97,17 @@ from .checkpointing import (CheckpointError, flatten_with_keys, find_latest_vali
                             validate_checkpoint_tag)
 from .config import OpsServerConfig, TrainingConfig, load_config
 from .grad_accum import accumulate_micro_grads
-from .heartbeat import OPS_DIR_ENV, RESUME_DIR_ENV, RESUME_TAG_ENV
+from .heartbeat import OPS_DIR_ENV, RESUME_DIR_ENV, RESUME_TAG_ENV, build_heartbeat
 from .optimizers import LossScaleState, has_overflow, init_loss_scale, update_loss_scale
 from .tree import tree_leaves, tree_map
 
 logger = logging.getLogger(__name__)
+
+
+class NonFiniteLossError(RuntimeError):
+    """The train-loop watchdog tripped: ``max_consecutive_skips`` successive
+    steps produced a non-finite loss or grad norm (bf16/fp32) or were
+    overflow-skipped (fp16)."""
 
 
 class TrainState(NamedTuple):
@@ -129,10 +150,12 @@ class Engine:
     training mechanics.  ``loss_fn`` receives the params in the compute dtype."""
 
     def __init__(self, loss_fn: Callable, params: Any, config: TrainingConfig,
-                 device="cuda"):
+                 device="cuda", ltd_state: Optional[dict] = None):
         self.device = resolve_device(device)
         self.config = config
         self.loss_fn = loss_fn
+        # the random-LTD state initialize() scoped around loss_fn (or None)
+        self._ltd_state = ltd_state
         (self.train_batch_size, self.micro_batch_size,
          self.gradient_accumulation_steps) = config.resolve_batch_sizes(1)
         self.zero_stage = config.zero_optimization.stage
@@ -166,6 +189,20 @@ class Engine:
         self._in_preempt_save = False
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self._last_grad_norm: Optional[torch.Tensor] = None
+        # the watchdog's streak, and on CUDA the step whose verdict is still
+        # on its way to the host
+        self._consecutive_bad_steps = 0
+        self._watchdog_pending = None
+        # per-rank liveness stamps (the fault_tolerance section or the
+        # agent-exported DSTPU_HEARTBEAT_DIR; a no-op writer otherwise)
+        self.heartbeat = build_heartbeat(config.fault_tolerance)
+        act = config.activation_checkpointing
+        if act.cpu_checkpointing or act.policy != "nothing_saveable":
+            logger.info(f"activation_checkpointing requests policy="
+                        f"{'cpu_checkpointing' if act.cpu_checkpointing else act.policy}: remat "
+                        f"belongs to the model (LlamaConfig.remat_policy="
+                        f"{'offload_inputs' if act.cpu_checkpointing else repr(act.policy)}); the "
+                        f"engine cannot rewrite it inside a loss function")
         # monitor writers and the per-step telemetry collector (the engine
         # trains on one device)
         self.monitor = MonitorMaster(config)
@@ -248,6 +285,8 @@ class Engine:
     def train_batch(self, batch) -> StepMetrics:
         """One optimizer step on a global batch: leaves [train_batch_size, ...]
         or [gas, micro, ...]."""
+        if self._ltd_state is not None:
+            self._ramp_ltd()
         telemetry = self.telemetry.enabled
         if telemetry:
             self.telemetry.profile_step_boundary(self.global_steps)
@@ -267,6 +306,9 @@ class Engine:
             metrics = self._step(batch)
         if flop_counter is not None:
             self.telemetry.set_flops_per_step(flop_counter.get_total_flops())
+        # liveness stamp: the host step count and the wall clock, throttled
+        # inside the writer; no device value
+        self.heartbeat.stamp(self.global_steps)
         loss_val = None
         t2 = 0.0
         if timed:
@@ -292,9 +334,74 @@ class Engine:
             see_memory_usage(f"after train step {self.global_steps}")
         # ops-plane cache refresh after the record, so a scrape sees THIS step
         self._refresh_ops()
+        self._watchdog_check(metrics, loss_val)
         if self.global_steps % self.config.steps_per_print == 0:
             self._report(metrics, loss_val)
         return metrics
+
+    def _ramp_ltd(self):
+        """Before a step: warn once if the first step never dropped a token
+        (the loss function does not read ``configured_ltd()``), then set the
+        kept-token count to the schedule's value for this step."""
+        st = self._ltd_state
+        if self.global_steps == 1 and not st.get("engaged"):
+            logger.warning("data_routing.random_ltd is configured but the first step never "
+                           "engaged token dropping: this loss_fn does not read "
+                           "configured_ltd() (llama-family forwards with an rng do); training "
+                           "proceeds WITHOUT random-LTD")
+        st["keep"] = st["scheduler"].update_seq(self.global_steps)
+
+    # ------------------------------------------------------------ watchdog
+    def _watchdog_check(self, metrics: StepMetrics, loss_val: Optional[float] = None):
+        """The NaN/Inf sentinel (``max_consecutive_skips``): fp16 counts
+        consecutive skipped steps (the flag is on the host already); bf16
+        and fp32 count consecutive steps with a non-finite loss or grad
+        norm.  One good step resets the streak; reaching the limit raises
+        :class:`NonFiniteLossError`.  On CUDA the values travel to pinned
+        memory behind an event and are read a step later (see the module
+        docstring); with ``loss_val`` already on the host (telemetry or the
+        breakdown synced for it) or on the CPU they are read at once."""
+        limit = self.config.max_consecutive_skips
+        if limit <= 0:
+            return
+        lr = metrics.lr
+        if self.fp16_enabled:
+            self._watchdog_count(metrics.skipped, None, None, lr, self.global_steps)
+            return
+        if self.device.type != "cuda" or loss_val is not None:
+            loss = float(metrics.loss) if loss_val is None else loss_val
+            self._watchdog_count(None, loss, float(metrics.grad_norm), lr, self.global_steps)
+            return
+        host = torch.empty(2, dtype=torch.float32, pin_memory=True)
+        host.copy_(torch.stack([metrics.loss.float(), metrics.grad_norm.float()]),
+                   non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        pending, self._watchdog_pending = (self._watchdog_pending,
+                                           (host, event, lr, self.global_steps))
+        if pending is not None:
+            host, event, lr, step = pending
+            event.synchronize()  # the step before this one: this one stays queued
+            self._watchdog_count(None, float(host[0]), float(host[1]), lr, step)
+
+    def _watchdog_count(self, skipped, loss, grad_norm, lr, step):
+        limit = self.config.max_consecutive_skips
+        bad = skipped if self.fp16_enabled else not (np.isfinite(loss) and np.isfinite(grad_norm))
+        if not bad:
+            self._consecutive_bad_steps = 0
+            return
+        self._consecutive_bad_steps += 1
+        self.telemetry.record_resilience(
+            "watchdog_nonfinite", step=step, samples=self.global_samples,
+            consecutive=self._consecutive_bad_steps, limit=limit, loss=loss, grad_norm=grad_norm)
+        if self._consecutive_bad_steps >= limit:
+            kind = "fp16 overflow-skipped" if self.fp16_enabled else "non-finite loss/grad-norm"
+            raise NonFiniteLossError(
+                f"train-loop watchdog: {self._consecutive_bad_steps} consecutive {kind} steps "
+                f"(max_consecutive_skips={limit}) at global step {step} - last loss={loss}, "
+                f"grad_norm={grad_norm}, lr={float(lr):.3e}. The run has diverged: check the "
+                f"data pipeline for corrupt batches, lower the lr, or resume from the last "
+                f"checkpoint with load_checkpoint(fallback_to_valid=True)")
 
     def _step(self, batch) -> StepMetrics:
         """Grads, norm, clipping, lr and the optimizer step on a gas-layout
@@ -391,6 +498,8 @@ class Engine:
         the newest telemetry record's headline numbers (all cached)."""
         record = self._last_telemetry_record or {}
         return {"global_steps": self.global_steps, "global_samples": self.global_samples,
+                "consecutive_bad_steps": self._consecutive_bad_steps,
+                "heartbeat": bool(getattr(self.heartbeat, "enabled", False)),
                 "rank": self._ops_rank,
                 **{k: record.get(k) for k in ("loss", "step_time_ms", "samples_per_sec",
                                               "tokens_per_sec", "mfu")}}
@@ -420,6 +529,8 @@ class Engine:
                       help_text="absolute training step (checkpoint position)")
         reg.set_gauge(f"{ns}_train_global_samples", self.global_samples,
                       help_text="absolute samples consumed (checkpoint position)")
+        reg.set_gauge(f"{ns}_train_consecutive_bad_steps", self._consecutive_bad_steps,
+                      help_text="current NaN/overflow watchdog streak")
 
     def close_ops(self) -> None:
         """Shut the ops HTTP listener down."""
@@ -429,10 +540,14 @@ class Engine:
     @torch.no_grad()
     def eval_batch(self, batch, rng=None):
         """The loss of ``batch`` (leaves [B, ...]) at the current params, in the
-        compute dtype; no step."""
+        compute dtype; no step.  Random-LTD is pinned off: eval measures the
+        whole model."""
         batch = tree_map(lambda x: _as_tensor(x).to(self.device), batch)
         params = tree_map(lambda p: p.to(self.compute_dtype), self.state.params)
-        out = self.loss_fn(params, batch, rng if rng is not None else self.generator)
+        loss_fn = self.loss_fn
+        if self._ltd_state is not None:
+            loss_fn = transformer.scoped_random_ltd(loss_fn, None)
+        out = loss_fn(params, batch, rng if rng is not None else self.generator)
         return out[0] if isinstance(out, tuple) else out
 
     # ------------------------------------------------------------- queries
@@ -500,6 +615,9 @@ class Engine:
                              "lr_scheduler": self.lr_scheduler.state_dict()})
         ck = self.config.checkpoint
         t0 = time.perf_counter()
+        # phase-stamped, so that a hang dump tells checkpoint IO (slow by
+        # nature) from a wedged step
+        self.heartbeat.stamp(self.global_steps, phase="checkpoint_save", force=True)
         with self.telemetry.annotation("checkpoint_save"):
             save_checkpoint_with_retries(
                 save_dir, tag, self._saved_state(), client_state,
@@ -513,6 +631,7 @@ class Engine:
         if ck.keep_last_n:
             sweep_retention(save_dir, ck.keep_last_n, verify_integrity=ck.verify_integrity)
         self._register_preemption_handler(save_dir)
+        self.heartbeat.stamp(self.global_steps, force=True)
         return tag
 
     def _register_preemption_handler(self, save_dir: str):
@@ -572,6 +691,7 @@ class Engine:
         loss-scale state.  Leaves land on the engine's device.  Returns
         ``(tag, client_state)``."""
         t0 = time.perf_counter()
+        self.heartbeat.stamp(self.global_steps, phase="checkpoint_load", force=True)
         with self.telemetry.annotation("checkpoint_load"):
             tag = self._resolve_load_tag(load_dir, tag, fallback_to_valid)
             template = self._saved_state()
@@ -593,6 +713,9 @@ class Engine:
                 self.lr_scheduler.load_state_dict(client_state["lr_scheduler"])
         self.telemetry.record_events([("Train/Checkpoint/load_time_ms",
                                        (time.perf_counter() - t0) * 1e3, self.global_samples)])
+        # clears the checkpoint_load phase and declares the restart, which the
+        # agent gives its startup grace
+        self.heartbeat.stamp(self.global_steps, phase="resumed", force=True)
         return tag, client_state
 
     @staticmethod
@@ -676,12 +799,8 @@ def _as_tensor(x) -> torch.Tensor:
 
 def initialize(args=None, model=None, loss_fn: Optional[Callable] = None,
                model_parameters: Any = None, training_data=None, config=None,
-               device="cuda", **kwargs):
+               device="cuda", collate_fn=None, **kwargs):
     """See ``deepspeed_tpu_torch.initialize``."""
-    if training_data is not None:
-        raise NotImplementedError("initialize(training_data=...): the dataloader is not ported "
-                                  "to PyTorch yet (ROADMAP Queue 1); pass batches to "
-                                  "engine.train_batch")
     if kwargs:
         raise NotImplementedError(f"initialize() arguments {sorted(kwargs)} are not ported to "
                                   f"PyTorch yet")
@@ -710,5 +829,36 @@ def initialize(args=None, model=None, loss_fn: Optional[Callable] = None,
                     f"block={cfg.sparse_attention.block}) are this engine's default attention for "
                     f"models routed through models.transformer.attention_block")
     fn = transformer.scoped_default_attention(fn, sparse_fn)
-    engine = Engine(fn, model_parameters, cfg, device=device)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+    # random-LTD (deepspeed_tpu/__init__.py:98-104): the state is scoped
+    # around the loss function the same way; forwards that drop tokens read
+    # it, and the engine ramps state["keep"] between steps
+    ltd_state = None
+    if cfg.data_efficiency.enabled and cfg.data_efficiency.data_routing.enabled:
+        from .data_pipeline.random_ltd import RandomLTDScheduler
+        scheduler = RandomLTDScheduler(cfg.data_efficiency.data_routing.random_ltd)
+        ltd_state = {"keep": scheduler.current_tokens, "scheduler": scheduler}
+        fn = transformer.scoped_random_ltd(fn, ltd_state)
+        logger.info(f"data_routing: random-LTD scoped as this engine's token-drop state (keep "
+                    f"ramps {scheduler.min_tokens}->{scheduler.max_tokens} over "
+                    f"{scheduler.total_steps} steps); the engine warns after step 1 if the loss "
+                    f"function never engaged it")
+    engine = Engine(fn, model_parameters, cfg, device=device, ltd_state=ltd_state)
+    dataloader = None
+    if training_data is not None:
+        from .dataloader import CurriculumDataLoader, DeepSpeedDataLoader
+        curriculum = cfg.effective_curriculum()
+        if curriculum is not None:
+            dataloader = CurriculumDataLoader(
+                training_data, batch_size=engine.train_batch_size,
+                gradient_accumulation_steps=engine.gradient_accumulation_steps,
+                curriculum=curriculum,
+                seed=cfg.data_efficiency.seed if cfg.data_efficiency.enabled else cfg.seed,
+                collate_fn=collate_fn)
+            logger.info(f"data_efficiency: curriculum data sampler active (schedule="
+                        f"{curriculum.get('schedule_type', curriculum.get('curriculum_type'))}, "
+                        f"min={curriculum.get('min_difficulty')}, "
+                        f"max={curriculum.get('max_difficulty')})")
+        else:
+            dataloader = DeepSpeedDataLoader(training_data, batch_size=engine.train_batch_size,
+                                             seed=cfg.seed, collate_fn=collate_fn)
+    return engine, engine.optimizer, dataloader, engine.lr_scheduler

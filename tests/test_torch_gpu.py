@@ -10,7 +10,10 @@ serving engines (v2; v1 dense and weight-only int8) and tiny training engines
 (dense with fused AdamW; block-sparse with 8-bit AdamW) on the GPU against the
 same engines on the CPU; BLOOM's paged forward (ALiBi on the kernel's slopes
 operand), GPT-2's, BERT's, Phi's (head dim 80) and GPT-J's (256) forward
-and grads, and BERT's non-causal flash attention.  Every test here needs a card and
+and grads, and BERT's non-causal flash attention; the remat policies
+(host-offloaded inputs, every selective policy bit for bit the default's),
+random-LTD through the flash kernels against the plain attention, and the
+flash and sparse Functions refusing a second derivative.  Every test here needs a card and
 skips without one.  This file imports no JAX, so it runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest tests/test_torch_gpu.py``
 (the suite's conftest imports JAX)."""
@@ -1367,3 +1370,115 @@ def test_fp16_overflow_step_launches_no_fused_adamw(cuda):
     assert not losses["cuda"].skipped and not losses["cpu"].skipped
     assert abs(float(losses["cuda"].loss) - float(losses["cpu"].loss)) <= 2e-3 * float(
         losses["cpu"].loss)
+
+
+def _llama_grads(cfg, params, batch, device, generator=None, ltd_keep=None, attention_fn=None):
+    """(loss, grads) of the tiny Llama's loss on ``device``, optionally under
+    a random-LTD scope keeping ``ltd_keep`` tokens."""
+    from deepspeed_tpu_torch.models import transformer
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves, tree_map
+    p = tree_map(lambda t: t.detach().to(device).requires_grad_(True), params)
+    loss_fn = llama.make_loss_fn(cfg, attention_fn=attention_fn)
+    if ltd_keep is not None:
+        loss_fn = transformer.scoped_random_ltd(loss_fn, {"keep": ltd_keep})
+    b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    loss = loss_fn(p, b, generator)
+    return loss, torch.autograd.grad(loss, tree_leaves(p))
+
+
+def test_offload_checkpoint_parks_pinned_host_bytes_and_matches_plain_grads(cuda):
+    """``remat_policy="offload_inputs"``: after the forward each layer's input
+    (B x S x D x 4 bytes) waits in pinned host memory, the backward takes it
+    back, and the grads equal full recompute's on the card."""
+    import dataclasses
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import offload_checkpoint
+    cfg = llama.LlamaConfig.tiny(vocab=128, hidden=128, layers=3, heads=2, kv_heads=1, seq=64)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = llama.causal_lm_batch(np.random.default_rng(3).integers(0, 128, (2, 64)))
+    ref_loss, ref = _llama_grads(dataclasses.replace(cfg, remat_policy="nothing_saveable"),
+                                 params, batch, cuda)
+    off_cfg = dataclasses.replace(cfg, remat_policy="offload_inputs")
+    offload_checkpoint.host_bytes = offload_checkpoint.peak_host_bytes = 0
+    loss, grads = _llama_grads(off_cfg, params, batch, cuda)
+    assert offload_checkpoint.peak_host_bytes == 3 * 2 * 64 * 128 * 4
+    assert offload_checkpoint.host_bytes == 0
+    assert float(loss) == float(ref_loss)
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("policy", ["nothing_saveable", "dots_saveable", "everything_saveable",
+                                    "save_anything_except_these_names"])
+def test_remat_policies_on_gpu_give_the_default_policy_s_grads(cuda, policy):
+    """bf16 through flash on the card: each policy's loss and grads equal the
+    default policy's bit for bit (a kept product and its recompute are the
+    same cuBLAS call on the same inputs)."""
+    import dataclasses
+    cfg = llama.LlamaConfig.tiny(vocab=128, hidden=256, layers=2, heads=4, kv_heads=2, seq=128)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16)
+    batch = llama.causal_lm_batch(np.random.default_rng(2).integers(0, 128, (2, 128)))
+    ref_loss, ref = _llama_grads(cfg, params, batch, cuda)
+    before = flash.flash_fwd.launches
+    loss, grads = _llama_grads(dataclasses.replace(cfg, remat_policy=policy), params, batch, cuda)
+    # the forward kernel runs again in the recompute under every policy but one
+    assert flash.flash_fwd.launches - before == (2 if policy == "everything_saveable" else 4)
+    assert torch.equal(loss, ref_loss)
+    for g, r in zip(grads, ref):
+        assert torch.equal(g, r)
+
+
+def test_random_ltd_scan_kernel_path_equals_plain_path(cuda):
+    """Random-LTD on the card, fp32: the middle layers run the flash kernels at
+    Sq = Sk = keep on the kept tokens; the same draws (one seeded CUDA
+    generator) through the plain attention give the same loss and grads."""
+    from deepspeed_tpu_torch.models.transformer import sdpa
+    cfg = llama.LlamaConfig.tiny(vocab=128, hidden=128, layers=4, heads=2, kv_heads=1, seq=256)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(1))
+    batch = llama.causal_lm_batch(np.random.default_rng(4).integers(0, 128, (2, 256)))
+    before = flash.flash_fwd.launches
+    out = {}
+    for name, fn in (("kernel", None), ("plain", sdpa)):
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        out[name] = _llama_grads(cfg, params, batch, cuda, generator=gen, ltd_keep=96,
+                                 attention_fn=fn)
+    assert flash.flash_fwd.launches - before == 2 * 4  # forward and recompute, 4 layers
+    torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=1e-4, atol=1e-5)
+    for g, r in zip(out["kernel"][1], out["plain"][1]):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_and_sparse_refuse_a_second_derivative(cuda):
+    from deepspeed_tpu_torch.runtime.eigenvalue import Eigenvalue
+    q = torch.randn(1, 128, 2, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="differentiable once"):
+        Eigenvalue(max_iter=2).compute_eigenvalue(
+            lambda p, b, r: flash.flash_attention(p["q"], p["q"], p["q"]).sum(), {"q": q}, None)
+    fn = sparse.make_config_attention_fn(SparseAttentionConfig(mode="fixed", block=16))
+    with pytest.raises(RuntimeError, match="differentiable once"):
+        Eigenvalue(max_iter=2).compute_eigenvalue(
+            lambda p, b, r: fn(p["q"], p["q"], p["q"]).sum(), {"q": q}, None)
+
+
+def test_watchdog_on_the_card_reads_each_verdict_one_step_late(cuda):
+    """bf16 on CUDA: the watchdog copies each step's loss and grad norm to
+    pinned memory and reads them after the next step is queued, so a streak
+    of ``max_consecutive_skips`` non-finite steps raises one step later than
+    on the CPU, naming the step that completed it."""
+    from deepspeed_tpu_torch.runtime.engine import NonFiniteLossError
+    params = {"w": torch.randn(8, 8, generator=torch.Generator().manual_seed(0)) / 3}
+
+    def loss_fn(p, batch, rng):
+        return ((batch["x"].to(p["w"].dtype) @ p["w"]) ** 2).mean().float()
+
+    engine = deepspeed_tpu_torch.initialize(
+        loss_fn=loss_fn, model_parameters=params,
+        config={"train_batch_size": 2, "bf16": {"enabled": True}, "max_consecutive_skips": 2,
+                "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}})[0]
+    good = {"x": np.ones((2, 8), np.float32)}
+    bad = {"x": np.full((2, 8), np.nan, np.float32)}
+    engine.train_batch(good)
+    engine.train_batch(bad)
+    engine.train_batch(bad)  # the second bad step: its verdict is still on its way
+    assert engine._consecutive_bad_steps == 1
+    with pytest.raises(NonFiniteLossError, match="at global step 3"):
+        engine.train_batch(good)

@@ -76,7 +76,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "deepspeed_tpu_torch.runtime.checkpoint_engine",
                      "deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine",
                      "deepspeed_tpu_torch.runtime.optimizers",
-                     "deepspeed_tpu_torch.utils.safetensors_io"):
+                     "deepspeed_tpu_torch.utils.safetensors_io",
+                     "deepspeed_tpu_torch.runtime.activation_checkpointing",
+                     "deepspeed_tpu_torch.runtime.dataloader",
+                     "deepspeed_tpu_torch.runtime.data_pipeline",
+                     "deepspeed_tpu_torch.runtime.data_pipeline.curriculum_scheduler",
+                     "deepspeed_tpu_torch.runtime.data_pipeline.data_analyzer",
+                     "deepspeed_tpu_torch.runtime.data_pipeline.data_sampler",
+                     "deepspeed_tpu_torch.runtime.data_pipeline.indexed_dataset",
+                     "deepspeed_tpu_torch.runtime.data_pipeline.random_ltd",
+                     "deepspeed_tpu_torch.runtime.progressive_layer_drop",
+                     "deepspeed_tpu_torch.runtime.eigenvalue"):
         assert expected in report["modules"]
 
 

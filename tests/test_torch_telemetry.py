@@ -173,7 +173,7 @@ def test_config_sections_have_the_jax_fields_and_defaults():
         assert cls(jsonl_path="x.jsonl").enabled
     conf = config.load_config({"train_batch_size": 2, "memory_breakdown": True})
     assert conf.telemetry.memory_breakdown and not conf.wall_clock_breakdown
-    assert config.UNPORTED_TRAINING_SECTIONS == ("data_efficiency", )
+    assert config.UNPORTED_TRAINING_SECTIONS == ()
 
 
 def test_memory_stats_and_peak_on_the_cpu():
@@ -231,11 +231,14 @@ def expected_train_flops(cfg, micro, gas, seq):
     """The products of one train step counted from the shapes, on the CPU,
     where the default attention is the plain dense one (differentiated by
     autograd).  Per micro-batch and layer: each weight product forward,
-    twice in the backward (grads of input and weight), and again in the
-    remat recompute but the last one (``w_down``: the recompute stops at
-    the last activation the backward saves); the attention's 2 products
-    forward, 4 backward and 2 in the recompute.  The lm_head runs forward
-    and twice backward; the embedding is a gather."""
+    twice in the backward (grads of input and weight); the attention's 2
+    products forward and 4 backward.  The remat recompute adds, under
+    ``nothing_saveable``, every weight product but the last one (``w_down``:
+    the recompute stops at the last activation the backward saves) and the
+    attention's 2; under ``dots_with_no_batch_dims_saveable`` (the default)
+    the weight products are kept and only the attention's 2 (batched, so
+    not kept) run again.  The lm_head runs forward and twice backward; the
+    embedding is a gather."""
     D, F, L, V = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers, cfg.vocab_size
     H, KV = cfg.num_heads, cfg.num_kv_heads
     Dh = D // H
@@ -245,8 +248,10 @@ def expected_train_flops(cfg, micro, gas, seq):
     attention = 2 * micro * H * seq * seq * Dh
     head = 2 * tokens * D * V
     per_layer = 3 * layer + 6 * attention
-    if cfg.remat:
+    if cfg.remat and cfg.remat_policy in (None, "nothing_saveable"):
         per_layer += layer - w_down + 2 * attention
+    elif cfg.remat and cfg.remat_policy == "dots_with_no_batch_dims_saveable":
+        per_layer += 2 * attention
     return gas * (L * per_layer + 3 * head)
 
 

@@ -239,10 +239,7 @@ def test_engine_refuses_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             deepspeed_tpu_torch.initialize(config=_config(), **kw)  # device defaults to cuda
-    with pytest.raises(NotImplementedError, match="dataloader"):
-        deepspeed_tpu_torch.initialize(config=_config(), training_data=[1], device="cpu", **kw)
-    for bad in ({"data_efficiency": {"enabled": True}},
-                {"zero_optimization": {"stage": 3, "offload_optimizer": {"device": "cpu"}}},
+    for bad in ({"zero_optimization": {"stage": 3, "offload_optimizer": {"device": "cpu"}}},
                 {"optimizer": {"type": "onebitadam", "params": {"lr": 1e-3}}},
                 {"optimizer": {"type": "zero_one_adam", "params": {"lr": 1e-3}}},
                 {"load_universal_checkpoint": True}):
@@ -250,8 +247,15 @@ def test_engine_refuses_what_is_not_ported():
             deepspeed_tpu_torch.initialize(config=_config(**bad), device="cpu", **kw)
     with pytest.raises(ValueError, match="fp16 and bf16"):
         load_config(_config(fp16={"enabled": True}, bf16={"enabled": True}))
-    with pytest.raises(ValueError, match="unknown config field 'max_consecutive_skips'"):
-        load_config(_config(max_consecutive_skips=3))  # the watchdog, ROADMAP item 9d
+    with pytest.raises(ValueError, match="unknown config field 'no_such_section'"):
+        load_config(_config(no_such_section=3))
+    # the dataloader, data_efficiency and the watchdog are ported (ROADMAP 9c, 9d)
+    rows = llama.causal_lm_batch(_ids(62, 8))
+    dataset = [{k: v[i] for k, v in rows.items()} for i in range(8)]
+    _, _, loader, _ = deepspeed_tpu_torch.initialize(
+        config=_config(data_efficiency={"enabled": True}, max_consecutive_skips=3),
+        training_data=dataset, device="cpu", **kw)
+    assert isinstance(loader, deepspeed_tpu_torch.DeepSpeedDataLoader)
     # fp16 with loss scaling and the sgd, adagrad and lamb optimizers are ported
     for ok in ({"fp16": {"enabled": True}, "bf16": None},
                {"optimizer": {"type": "sgd", "params": {"lr": 1e-3, "momentum": 0.9}}},
