@@ -212,6 +212,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      launch formula, a loader resumed at step 3, the heartbeat's last step,
      the fp32 kernels against the plain attention with one fixed index set,
      and the Hessian eigenvalue (equal to the CPU's; refused through flash);
+     host-ops (after train): the two host libraries built with g++, the
+     host C++ CPU-Adam over the 8-layer w_gate leaf against its plain
+     version, ``torch.optim.AdamW(fused=True)`` on CPU tensors and its bound
+     (28 B an element at the host's copy rate), 1 GiB written and read
+     through the aio library, whether the temp dir's filesystem takes
+     O_DIRECT, the host CPU and its threads; train-offload: [train]'s run
+     under ``offload_optimizer: {device: cpu, pin_memory: true}``, 3 steps:
+     step 1's loss bit for bit [train]'s, then within a bf16 limit, sampled
+     params within the Adam rule of [train]'s at step 3, [train]'s flash
+     launches, no fused AdamW, the step split (device, grads to host,
+     CPU-Adam, push) and peak memory beside [train]'s; train-infinity:
+     ``offload_param: nvme`` with the moments in RAM at 2 full-width layers,
+     micro 1 x 2048, 3 steps through ``initialize(layer_fn=, stem_fn=,
+     head_fn=)``: losses and params against a resident engine over the same
+     composition, parameter files only on disk, 2 flash forwards, 1 dK/dV
+     and 1 dQ a layer and step, disk bytes and the step split;
+     train-universal: a narrow Llama offloaded 2 steps, saved, converted by
+     the CLI's ``universal.main`` (in process), resumed by a
+     resident and an offloaded engine with ``load_universal_checkpoint``:
+     the third step against the unbroken run;
   6. train-8bit: the same run with ``fused_adam8bit`` (int8 moments) through
      the AdamW-8bit kernel; train-sparse: the config's ``sparse_attention``
      section (DeepSpeed's documented ``fixed`` example, unidirectional) with
@@ -254,8 +274,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 fp32 matrix products and convolutions run in full fp32 (TF32 is switched
 off), so fp32 comparisons differ only by the order of summation.  Each
 phase's seconds are logged on a ``[seconds]`` line of their own.  The last
-lines are the card's name and power limit, the kernels' JSON record, then
-``{"ok": true, "device": ...}``.
+lines are the host libraries' JSON record (``[host-ops] {...}``), the card's
+name and power limit, the kernels' JSON record, then ``{"ok": true,
+"device": ...}``.
 """
 
 import collections
@@ -349,10 +370,10 @@ def phase_device():
     log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    _build.build_all(KERNEL_SOURCES)
+    _build.build_all(KERNEL_SOURCES + HOST_SOURCES)  # the host libraries' g++ beside nvcc
     paged._lib(), flash._lib(), fused_adam._lib(), sparse._lib(), adam8bit._lib(), quantize._lib()
-    log(f"[device] {len(KERNEL_SOURCES)} kernel libraries ready in "
-        f"{time.perf_counter() - t0:.2f} s, built in parallel")
+    log(f"[device] {len(KERNEL_SOURCES)} kernel libraries and {len(HOST_SOURCES)} host "
+        f"libraries ready in {time.perf_counter() - t0:.2f} s, built in parallel")
     for name in KERNEL_SOURCES:
         log(f"[device] {name}: nvcc {_build.build_seconds.get(name, 0.0):.2f} s")
         for line in _build.build_log.get(name, "").splitlines():
@@ -5592,12 +5613,14 @@ def expected_launches(*, steps, gas, layers, n_leaves, optimizer, sparse,
 
 
 def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=2048,
-                tag="train", optimizer="fused_adam", sparse=None, baseline=None):
+                tag="train", optimizer="fused_adam", sparse=None, baseline=None, after_step=None):
     """Llama-2-7B width, cut to ``layers`` layers, trained in bf16 for
     ``steps`` optimizer steps on one seeded batch through ``initialize`` and
     ``train_batch``, with ``optimizer`` and, where given, the ``sparse``
     attention section; ``baseline`` is an earlier run's summary to print
-    beside this one's.  Returns (launch counts over the steps, summary)."""
+    beside this one's; ``after_step(engine, step)``, where given, is called
+    after each step (1-based).  Returns (launch counts over the steps,
+    summary)."""
     import torch
     from deepspeed_tpu_torch.runtime.tree import tree_leaves
     import deepspeed_tpu_torch
@@ -5641,13 +5664,15 @@ def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     losses, times, norms = [], [], []
-    for _ in range(steps):
+    for i in range(steps):
         t0 = time.perf_counter()
         metrics = engine.train_batch(batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(metrics.loss))
         norms.append(float(metrics.grad_norm))
+        if after_step is not None:
+            after_step(engine, i + 1)
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = expected_launches(steps=steps, gas=gas, layers=layers, n_leaves=n_leaves,
@@ -5664,7 +5689,8 @@ def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=
     step_s = statistics.mean(times[1:])
     summary = {"step_ms": step_s * 1e3, "tokens_s": tokens / step_s,
                "mfu": step_flops / step_s / TRAIN_PEAK_FLOPS, "peak_gb": peak_gb,
-               "tc_launches": tc, "loss1": losses[0], "norm1": norms[0]}
+               "tc_launches": tc, "loss1": losses[0], "norm1": norms[0], "losses": losses,
+               "times": times}
     beside = ""
     if baseline is not None:
         beside = (f" ([train]: {baseline['step_ms']:.1f} ms, {baseline['tokens_s']:.1f} "
@@ -7250,6 +7276,625 @@ def phase_slice_v1(seed=2):
 
 
 # ------------------------------------------------------------------ main
+# --------------------------------------------- ZeRO-Offload and ZeRO-Infinity
+HOST_SOURCES = ("cpu_adam", "aio")  # host C++ built with g++ (ops/_build.py HOST_FLAGS)
+CPU_ADAM_SOURCE = "deepspeed_tpu_torch/csrc/cpu_adam.cpp"
+AIO_SOURCE = "deepspeed_tpu_torch/csrc/aio.cpp"
+CPU_ADAM_HYPER = dict(lr=3e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1)
+CPU_ADAM_LIMIT = 1e-6  # |got - plain| <= limit * (1 + |plain|), the CPU tests' limit
+CPU_ADAM_BYTES = 28  # a step reads p, m, v, g and writes p, m, v: 7 fp32 a element
+# steps of [train] whose params [train-offload] holds its own to: step 1 (one
+# update apart: the optimizers' rounding only) and OFFLOAD_STEPS
+OFFLOAD_SAMPLED_STEPS = (1, 3)
+STEP1_PARAM_ATOL = 1e-6  # one AdamW update of lr <= 3e-5 apart in rounding only
+# bf16 after two more steps: the shares of the elements within 1e-5 of the
+# reference's, pooled and in every leaf.  offload_probe.py's witness on an
+# H100 80GB HBM3 at 700 W (two resident runs one fp32 ulp apart after step
+# 1) keeps 99.77 % pooled and 99.51 % in its least leaf; a leaf left at its
+# step-1 value keeps 3-9 % of its elements (the embedding, whose unbatched
+# rows barely move, 78 %), and a faulted norm leaf leaves the pool at
+# 99.45-99.73 %: the pooled share alone misses it
+BF16_POOLED_SHARE = 0.995
+BF16_LEAF_SHARE = 0.99
+AIO_BYTES = 1 << 30
+AIO_REQUESTS = 8  # the 1 GiB in 8 files, as the swapper writes a layer's leaves
+OFFLOAD_STEPS = 3
+OFFLOAD_SAMPLE = 1 << 20  # elements sampled from each leaf of [train]'s state at step 3
+LOSS_RTOL_BF16 = 2e-3  # losses after bf16 updates of another rounding: a quarter of bf16's eps
+OFFLOAD_PREDICTED_DROP_GB = 22.57  # 12 B a param (fp32 master, m, v) x 1.881 B params
+INFINITY_LAYERS = 2
+INFINITY_STEPS = 3
+UNIVERSAL_WIDTH = dict(vocab=4096, hidden=512, layers=2, heads=4, kv_heads=4, seq=512)
+
+
+def host_line():
+    """(the host CPU's model, its threads and MemTotal as a line, MemTotal bytes)."""
+    import platform
+    model, mem = None, 0
+    try:  # lscpu names ARM parts too, where /proc/cpuinfo has no "model name"
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        model = next((line.split(":", 1)[1].strip() for line in out.splitlines()
+                      if line.startswith("Model name")), None)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if model in (None, "unknown"):  # a virtual CPU may hide its name: family and model
+        with open("/proc/cpuinfo") as fh:
+            info = {k.strip(): v.strip() for k, v in (line.split(":", 1) for line in fh
+                                                      if ":" in line)}
+        model = " ".join(f"{k} {info[k]}" for k in ("vendor_id", "cpu family", "model")
+                         if k in info) or "unknown"
+    model = f"{model} ({platform.machine()})"
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemTotal"):
+                mem = int(line.split()[1]) * 1024
+    return (f"{model}, {os.cpu_count()} threads ({len(os.sched_getaffinity(0))} usable), "
+            f"MemTotal {mem / 1e9:.1f} GB"), mem
+
+
+def odirect_probe(root):
+    """Whether ``root``'s filesystem takes an O_DIRECT write of one aligned
+    block (the aio library falls back to buffered I/O per file, unsaid)."""
+    import mmap
+    path = os.path.join(root, "odirect_probe.bin")
+    try:
+        fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC | os.O_DIRECT, 0o644)
+    except OSError as exc:
+        return False, f"open refused ({exc.strerror})"
+    try:
+        block = mmap.mmap(-1, 4096)  # page-aligned
+        os.write(fd, block)
+        return True, "accepted"
+    except OSError as exc:
+        return False, f"write refused ({exc.strerror})"
+    finally:
+        os.close(fd)
+        os.unlink(path)
+
+
+def seeded_normal(n, seed, device, scale=1.0, positive=False):
+    """``n`` seeded fp32 normals on ``device`` (absolute values with
+    ``positive``) times ``scale``."""
+    import torch
+    out = torch.randn(n, device=device, generator=torch.Generator(device=device).manual_seed(seed))
+    out = out.abs() if positive else out
+    return out.mul_(scale)
+
+
+def host_ms(fn, runs=3):
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def phase_host_ops(card, n=W_GATE, aio_bytes=AIO_BYTES, device="cuda"):
+    """[host-ops]: the two host libraries.  Builds both with g++; steps
+    DeepSpeedCPUAdam over ``n`` fp32 elements (the 8-layer w_gate leaf, the
+    optimizer rows' shape) laid out as the offloaded step holds them (p and
+    the grad in page-locked flat buffers, m and v pageable), timed before any
+    torch op of this phase runs on the host's cores; holds it against
+    ``cpu_adamw_plain`` on the same inputs (``CPU_ADAM_LIMIT``); times
+    ``torch.optim.AdamW(fused=True)`` on CPU tensors and the bound (28 B an
+    element over the host's memory rate, from 1 GiB ``copy_`` and ``add_``
+    probes); writes and reads ``aio_bytes`` through the aio library under
+    the temp dir's filesystem and probes whether it takes O_DIRECT.  The
+    inputs are drawn on ``device`` (the CPU in a rehearsal).  Returns the
+    host-ops records."""
+    import tempfile
+
+    import torch
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam, cpu_adamw_plain
+    from deepspeed_tpu_torch.ops.aio import AsyncIOHandle
+    from deepspeed_tpu_torch.runtime.swap_tensor.optimizer_swapper import flat_views, host_buffer
+    host, mem = host_line()
+    _build.build_all(HOST_SOURCES)
+    log(f"[host-ops] {card}; host {host}; g++ build "
+        f"{ {k: round(_build.build_seconds.get(k, 0.0), 2) for k in HOST_SOURCES} } s; threads in "
+        f"this process {len(os.listdir('/proc/self/task'))}")
+    # a state Adam could reach: v at least m^2, so that m / sqrt(v) stays bounded
+    p, m, g = (seeded_normal(n, 1, device), seeded_normal(n, 2, device, scale=0.01),
+               seeded_normal(n, 4, device))
+    v = seeded_normal(n, 3, device, scale=1e-4, positive=True).addcmul_(m, m)
+    state = flat_views(host_buffer(2 * n, torch.device(device).type == "cuda"), {"p": n, "g": n})
+    state.update(m=torch.zeros(n), v=torch.zeros(n))
+
+    def load():
+        for key, t in (("p", p), ("m", m), ("v", v), ("g", g)):
+            state[key].copy_(t)
+        _sync(device)
+
+    load()
+    opt = DeepSpeedCPUAdam(**CPU_ADAM_HYPER)
+    args = [state[k] for k in ("p", "m", "v", "g")]
+    steps = iter(range(1, 100))
+    adam_ms = host_ms(lambda: opt.step(*args, step=next(steps)))
+    load()
+    opt.step(*args, step=1)
+    ref = [t.cpu() for t in (p, m, v, g)]
+    b1, b2 = CPU_ADAM_HYPER["betas"]
+    t0 = time.perf_counter()
+    cpu_adamw_plain(*ref, lr=CPU_ADAM_HYPER["lr"], beta1=b1, beta2=b2,
+                    eps=CPU_ADAM_HYPER["eps"], weight_decay=CPU_ADAM_HYPER["weight_decay"], step=1)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = over = 0.0
+    for got, want in zip(args, ref):  # compared on ``device``
+        got, want = got.to(device), want.to(device)
+        diff = (got - want).abs_()
+        err = max(err, float(diff.max()))
+        over = max(over, float((diff - CPU_ADAM_LIMIT * (1 + want.abs())).max()))
+        del got, want, diff
+    if over > 0:
+        raise AssertionError(f"[host-ops] CPU-Adam against the plain version: max abs err "
+                             f"{err:.3e} passes the limit {CPU_ADAM_LIMIT} x (1 + |plain|)")
+    param = torch.nn.Parameter(p.cpu())
+    param.grad = ref[3]
+    del ref
+    library = torch.optim.AdamW([param], lr=CPU_ADAM_HYPER["lr"], betas=(b1, b2),
+                                eps=CPU_ADAM_HYPER["eps"],
+                                weight_decay=CPU_ADAM_HYPER["weight_decay"], fused=True)
+    library_ms = host_ms(library.step)
+    del param, library, p, m, v, g
+    # the host's memory rate, two probes of 1 GiB: a copy_ (its writes also
+    # read the destination's lines first, uncounted) and an in-place add_,
+    # AdamW's pattern; the bound takes the faster
+    src = torch.ones(AIO_BYTES // 4)
+    dst = torch.empty_like(src)
+    copy_rate = 2 * src.nbytes / (host_ms(lambda: dst.copy_(src), runs=5) / 1e3)
+    inplace_rate = 2 * src.nbytes / (host_ms(lambda: src.add_(1.0), runs=5) / 1e3)
+    rate = max(copy_rate, inplace_rate)
+    del src, dst
+    bound_ms = CPU_ADAM_BYTES * n / rate * 1e3
+    cpu_adam = {"name": "cpu_adam", "route": "host C++ (g++ -O3 -march=native -fopenmp)",
+                "source": CPU_ADAM_SOURCE, "replaces": "deepspeed_tpu/csrc/cpu_adam/cpu_adam.cpp",
+                "ms": adam_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                "library_ms": library_ms, "library": "torch.optim.AdamW(fused=True) on CPU tensors",
+                "max_abs_err": err, "threads": opt.threads, "n": n,
+                "copy_gbps": copy_rate / 1e9, "inplace_gbps": inplace_rate / 1e9}
+    log(f"[host-ops] cpu_adam n={n} fp32 ({opt.threads} OpenMP threads; p and grad page-locked, "
+        f"m and v pageable, as the offloaded step): {adam_ms:.1f} ms a step "
+        f"({CPU_ADAM_BYTES * n / adam_ms / 1e6:.2f} GB/s), plain version {plain_ms:.1f} ms, "
+        f"{cpu_adam['library']} {library_ms:.1f} ms, bound {bound_ms:.1f} ms (28 B an element at "
+        f"{rate / 1e9:.2f} GB/s, read + write: copy_ {copy_rate / 1e9:.2f}, in-place add_ "
+        f"{inplace_rate / 1e9:.2f} GB/s); max abs err {err:.3e} "
+        f"against the plain version (limit {CPU_ADAM_LIMIT} x (1 + |plain|))")
+    root = tempfile.mkdtemp(prefix="chip_smoke_aio_")
+    try:
+        odirect, why = odirect_probe(root)
+        usage = shutil.disk_usage(root)
+        bufs = state["p"][:aio_bytes // 4].chunk(AIO_REQUESTS)  # the stepped params
+        outs = [torch.empty_like(b) for b in bufs]
+        handle = AsyncIOHandle(4, use_odirect=True)
+        paths = [os.path.join(root, f"chunk{i}.bin") for i in range(AIO_REQUESTS)]
+        t0 = time.perf_counter()
+        for r in [handle.pwrite(path, b) for path, b in zip(paths, bufs)]:
+            handle.wait(r)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for r in [handle.pread(path, o) for path, o in zip(paths, outs)]:
+            handle.wait(r)
+        read_s = time.perf_counter() - t0
+        handle.close()
+        if not all(torch.equal(a, b) for a, b in zip(bufs, outs)):
+            raise AssertionError("[host-ops] aio read back other bytes than it wrote")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del state, args, bufs, outs
+    aio = {"name": "aio", "route": "host C++ (g++, pread/pwrite thread pool)",
+           "source": AIO_SOURCE, "replaces": "deepspeed_tpu/csrc/aio/aio.cpp",
+           "write_gbps": aio_bytes / write_s / 1e9, "read_gbps": aio_bytes / read_s / 1e9,
+           "write_ms": write_s * 1e3, "read_ms": read_s * 1e3, "odirect": odirect,
+           "bytes": aio_bytes, "requests": AIO_REQUESTS, "threads": 4}
+    log(f"[host-ops] aio {aio_bytes / 2**30:.0f} GiB in {AIO_REQUESTS} files under {root} (disk "
+        f"{usage.total / 1e9:.1f} GB, {usage.free / 1e9:.1f} GB free; O_DIRECT {why}): write "
+        f"{aio['write_gbps']:.3f} GB/s, read {aio['read_gbps']:.3f} GB/s"
+        f"{'' if odirect else ' (buffered: the read is warm, from the page cache)'}")
+    return {"cpu_adam": cpu_adam, "aio": aio, "host": host, "mem_total": mem}
+
+
+def sample_index(n, key):
+    import zlib
+
+    import torch
+    if n <= OFFLOAD_SAMPLE:
+        return torch.arange(n)
+    gen = torch.Generator().manual_seed(zlib.crc32(key.encode()))
+    return torch.randint(0, n, (OFFLOAD_SAMPLE, ), generator=gen)
+
+
+def sampled_leaves(tree):
+    """Up to ``OFFLOAD_SAMPLE`` elements of every leaf, at positions seeded by
+    its key, on the host."""
+    from deepspeed_tpu_torch.runtime.checkpointing import flatten_with_keys
+    out = {}
+    for key, leaf in flatten_with_keys(tree):
+        flat = leaf.detach().reshape(-1)
+        out[key] = flat[sample_index(flat.numel(), key).to(flat.device)].float().cpu()
+    return out
+
+
+def close_shares(got, want):
+    """(max abs diff, {key: share of the leaf's elements within 1e-5}, the
+    share of all the elements) of ``got`` against ``want`` (dicts of host
+    tensors by key)."""
+    worst, shares, close, total = 0.0, {}, 0, 0
+    for key, ref in want.items():
+        diff = (got[key].float() - ref.float()).abs()
+        worst = max(worst, float(diff.max()))
+        n = int((diff <= 1e-5).sum())
+        shares[key] = n / diff.numel()
+        close, total = close + n, total + diff.numel()
+    return worst, shares, close / total
+
+
+def adam_rule(tag, got, want, lrs, pooled_share=0.999, leaf_share=0.999):
+    """Every element within 2 x sum(lr), ``pooled_share`` (99.9 %) of all the
+    elements and ``leaf_share`` of every leaf's within 1e-5; returns a line
+    that says so."""
+    limit = 2.0 * sum(lrs)
+    worst, shares, pooled = close_shares(got, want)
+    low = min(shares, key=shares.get)
+    line = (f"max abs diff {worst:.3e} (limit {limit:.3e}), {pooled:.5%} within 1e-5 (need "
+            f"{pooled_share:.1%}), least leaf {low} {shares[low]:.5%} (need {leaf_share:.1%})")
+    if worst > limit or pooled < pooled_share or shares[low] < leaf_share:
+        raise AssertionError(f"[{tag}] params: {line}; by leaf {shares}")
+    return line
+
+
+def offload_train_config(micro, gas, seed, device="cpu", pin=True, **kw):
+    conf = train_config(micro=micro, gas=gas, bf16=True, seed=seed, optimizer="adamw", **kw)
+    conf["zero_optimization"] = {"stage": 2, "offload_optimizer": {"device": device,
+                                                                   "pin_memory": pin}}
+    return conf
+
+
+def phase_train_offload(card, dense, train_sample, seed=0, layers=TRAIN_LAYERS,
+                        steps=OFFLOAD_STEPS, micro=2, gas=2, seq=2048, device="cuda", cfg=None):
+    """[train-offload]: ``offload_optimizer: {device: cpu, pin_memory: true}``
+    at [train]'s shape (Llama-2-7B width, ``layers`` layers, bf16, the
+    default remat policy, micro x gas x seq, WarmupLR, clip 1.0, the same
+    seed, params and batch), ``steps`` steps.  Gates: step 1's loss equals
+    [train]'s bit for bit; later losses within ``LOSS_RTOL_BF16``; the
+    sampled params (``train_sample``: [train]'s by step) within
+    ``STEP1_PARAM_ATOL`` of [train]'s after step 1 and within the Adam rule
+    (``BF16_POOLED_SHARE`` and ``BF16_LEAF_SHARE``) at step ``steps``;
+    flash launches equal to [train]'s a step and no fused-AdamW launch; one
+    CPU-Adam call a leaf and step.  Reports the step split, the pinning and
+    peak memory beside [train]'s (the push casts on the card: PERF.md).  ``device`` and ``cfg`` (a narrower Llama) rehearse it on the
+    CPU.  Returns (launch counts, summary)."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves
+    tag = "train-offload"
+    on_card = torch.device(device).type == "cuda"
+    cfg = cfg or dataclasses.replace(llama.LlamaConfig.llama2_7b(), num_layers=layers, remat=True)
+    layers = cfg.num_layers
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                               dtype=torch.float32, device=device)
+    n_leaves = len(tree_leaves(params))
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        loss_fn=llama.make_loss_fn(cfg), model_parameters=params, device=device,
+        config=offload_train_config(micro, gas, seed))
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    host = engine._offload_state
+    setup_s = time.perf_counter() - t0
+    n_params = llama.num_params(cfg)
+    log(f"[{tag}] llama2_7b width x {layers} layers, {n_params / 1e9:.3f} B params; host state "
+        f"{12 * n_params / 1e9:.2f} GB (fp32 p, m, v) + {4 * n_params / 1e9:.2f} GB grad staging; "
+        f"pinned {host.pinned_bytes / 1e9:.2f} GB of master params in {host.pin_seconds:.2f} s; "
+        f"set up in {setup_s:.2f} s; CPU-Adam threads {host.opt.threads}")
+    rng = np.random.default_rng(seed)
+    batch = llama.causal_lm_batch(rng.integers(0, cfg.vocab_size, (micro * gas, seq)))
+    _sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    adam_before = DeepSpeedCPUAdam.launches
+    losses, times, parts = [], [], []
+    step1 = None
+    for i in range(steps):
+        t0 = time.perf_counter()
+        metrics = engine.train_batch(batch)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics.loss))
+        parts.append(dict(engine.offload_times))
+        if i == 0:
+            step1 = sampled_leaves(engine._offload_host_state()["params"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+    launches = launch_counts()
+    adam_calls = DeepSpeedCPUAdam.launches - adam_before
+    expected = dict.fromkeys(KERNEL_NAMES, 0)
+    if on_card:
+        expected.update(flash_fwd=steps * gas * layers * 2, flash_bwd_dkdv=steps * gas * layers,
+                        flash_bwd_dq=steps * gas * layers)
+    if launches != expected:
+        raise AssertionError(f"[{tag}] launch counts {launches} != {expected} ([train]'s flash "
+                             f"launches a step, no fused AdamW)")
+    if adam_calls != steps * n_leaves:
+        raise AssertionError(f"[{tag}] {adam_calls} CPU-Adam calls, not {steps} x {n_leaves}")
+    if losses[0] != dense["losses"][0]:
+        raise AssertionError(f"[{tag}] step 1 loss {losses[0]!r} != [train]'s "
+                             f"{dense['losses'][0]!r}: the same params and batch")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[1:], dense["losses"][1:steps])]
+    if max(rel) > LOSS_RTOL_BF16:
+        raise AssertionError(f"[{tag}] losses {losses} against [train]'s "
+                             f"{dense['losses'][:steps]}: relative {rel} > {LOSS_RTOL_BF16}")
+    lrs = [float(engine.lr_schedule(s)) for s in range(steps)]
+    step1_diff = max(float((step1[k] - ref).abs().max()) for k, ref in train_sample[1].items())
+    if step1_diff > STEP1_PARAM_ATOL:
+        raise AssertionError(f"[{tag}] params after step 1 {step1_diff:.3e} from [train]'s "
+                             f"(limit {STEP1_PARAM_ATOL}): the host CPU-Adam's update is not the "
+                             f"fused kernel's")
+    rule = adam_rule(tag, sampled_leaves(engine._offload_host_state()["params"]),
+                     train_sample[steps], lrs, BF16_POOLED_SHARE, BF16_LEAF_SHARE)
+    mean = {k: statistics.mean(p[k] for p in parts[1:]) * 1e3 for k in parts[0]}
+    step_ms = statistics.mean(times[1:]) * 1e3
+    log(f"[{tag}] {steps} steps on {card}: losses {losses} ([train]'s "
+        f"{dense['losses'][:steps]}: step 1 bit for bit, then relative {max(rel):.2e} <= "
+        f"{LOSS_RTOL_BF16}); params (a {OFFLOAD_SAMPLE}-element sample of each of {n_leaves} "
+        f"leaves) against [train]'s: after step 1 max abs diff {step1_diff:.3e} (limit "
+        f"{STEP1_PARAM_ATOL}), at step {steps} {rule}; step ms "
+        f"{[round(t * 1e3, 1) for t in times]}; steps 2-{steps}: {step_ms:.1f} ms a step "
+        f"([train] {dense['step_ms']:.1f} ms) = device compute {mean['compute']:.1f} + grads "
+        f"to host {mean['grads_d2h']:.1f} + CPU-Adam {mean['cpu_adam']:.1f} ("
+        f"{CPU_ADAM_BYTES * n_params / mean['cpu_adam'] / 1e6:.2f} GB/s) + push to the card "
+        f"{mean['push_h2d']:.1f} ms; peak device memory {peak_gb:.2f} GB against [train]'s "
+        f"{dense['peak_gb']:.2f} GB: {dense['peak_gb'] - peak_gb:.2f} GB lower (predicted "
+        f"{OFFLOAD_PREDICTED_DROP_GB:.2f}); launches "
+        f"{ {k: v for k, v in launches.items() if v} }, fused_adamw 0, CPU-Adam {adam_calls}")
+    host.close()
+    del engine
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, {"step_ms": step_ms, "parts_ms": mean, "peak_gb": peak_gb,
+                      "losses": losses, "cpu_adam_calls": adam_calls,
+                      "cpu_adam_gbps": CPU_ADAM_BYTES * n_params / (mean["cpu_adam"] / 1e3) / 1e9,
+                      "pin_s": host.pin_seconds}
+
+
+def infinity_model(cfg, device):
+    """(layer_fn, stem_fn, head_fn) over the port's Llama layer, as
+    ``benchmarks/run_infinity_7b.py`` builds them from JAX's: caller code."""
+    import torch
+    from deepspeed_tpu_torch.models import llama, transformer
+    dev = torch.device(device)
+    attention = transformer.resolve_attention(None, dev)
+    cos, sin = transformer.device_rotary_tables(cfg.hidden_size // cfg.num_heads,
+                                                cfg.max_seq_len, cfg.rope_theta, str(dev))
+
+    def layer_fn(p, x):
+        return llama._layer(cfg, cos, sin, attention, x, p)
+
+    def stem_fn(sp, tokens):
+        return sp["embed"][tokens.long()]
+
+    def head_fn(h, x, labels):
+        x = transformer.rms_norm(x, h["final_norm"], cfg.rms_eps)
+        return transformer.cross_entropy_loss(x @ h["lm_head"].to(x.dtype), labels)
+
+    return layer_fn, stem_fn, head_fn
+
+
+def phase_train_infinity(card, seed=0, layers=INFINITY_LAYERS, steps=INFINITY_STEPS, seq=2048,
+                         device="cuda", cfg=None):
+    """[train-infinity]: ``offload_param: {device: nvme, nvme_path: <temp
+    dir>, buffer_count: 6}`` with ``offload_optimizer: {device: cpu}`` at
+    Llama-2-7B width, ``layers`` layers, micro 1 x seq, ``steps`` steps, bf16,
+    through ``initialize(layer_fn=, stem_fn=, head_fn=)``.  Gates: the losses
+    within ``LOSS_RTOL_BF16`` of a resident engine over the same composition
+    (stem -> layers -> head, no clipping, as the trainer) and its params
+    after ``steps`` steps within the Adam rule; the swap directory holds
+    parameter files only; a layer's flash launches a step are 2 forwards
+    (the stream and the backward's recompute), 1 dK/dV and 1 dQ.  Reports
+    disk bytes a step, the step split and peak memory.  ``device`` and
+    ``cfg`` (a narrower Llama) rehearse it on the CPU.  Returns (launch
+    counts, summary)."""
+    import tempfile
+
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam
+    from deepspeed_tpu_torch.ops.aio import AsyncIOHandle
+    tag = "train-infinity"
+    on_card = torch.device(device).type == "cuda"
+    cfg = cfg or dataclasses.replace(llama.LlamaConfig.llama2_7b(), num_layers=layers,
+                                     remat=False)
+    layers = cfg.num_layers
+    layer_fn, stem_fn, head_fn = infinity_model(cfg, device)
+    base = llama.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                             dtype=torch.float32, device=device)
+    params = {"stem": {"embed": base["embed"]}, "layers": base["layers"],
+              "final_norm": base["final_norm"], "lm_head": base["lm_head"]}
+    del base
+    ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, (1, seq))
+    rows = llama.causal_lm_batch(ids)
+    batch = {"x": rows["input_ids"], "y": rows["labels"]}
+    conf = train_config(micro=1, gas=1, bf16=True, seed=seed, optimizer="adamw")
+    conf["gradient_clipping"] = 0.0  # the streaming trainer does not clip, as JAX's
+
+    def resident_loss(p, b, rng):
+        x = stem_fn(p["stem"], b["x"])
+        for l in range(layers):
+            x = layer_fn({k: {n: w[l] for n, w in v.items()} if isinstance(v, dict) else v[l]
+                          for k, v in p["layers"].items()}, x)
+        return head_fn(p, x, b["y"])
+
+    resident = deepspeed_tpu_torch.initialize(loss_fn=resident_loss, model_parameters=params,
+                                              config=conf, device=device)[0]
+    ref_losses = [float(resident.train_batch(batch).loss)
+                  for _ in range(steps)]
+    ref_flat = {key: leaf.detach().cpu() for key, leaf in flatten_state(resident.state.params)}
+    del resident
+    if on_card:
+        torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_nvme_")
+    try:
+        zero = {"stage": 3, "offload_param": {"device": "nvme", "nvme_path": root,
+                                              "buffer_count": 6},
+                "offload_optimizer": {"device": "cpu"}}
+        t0 = time.perf_counter()
+        engine = deepspeed_tpu_torch.initialize(
+            loss_fn=lambda p, b, r: 0.0, model_parameters=params,
+            config=dict(conf, zero_optimization=zero), layer_fn=layer_fn, head_fn=head_fn,
+            stem_fn=stem_fn, device=device)[0]
+        del params
+        if on_card:
+            torch.cuda.empty_cache()
+        setup_s = time.perf_counter() - t0
+        trainer = engine._nvme_trainer
+        swapper = trainer.swapper
+        files = os.listdir(swapper.dir)
+        if any(".m." in f or ".v." in f for f in files):
+            raise AssertionError(f"[{tag}] moment files in the swap directory: {sorted(files)}")
+        _sync(device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        adam_before, aio_before = DeepSpeedCPUAdam.launches, AsyncIOHandle.requests
+        losses, times, parts, io = [], [], [], []
+        for _ in range(steps):
+            read0, written0 = swapper.bytes_read, swapper.bytes_written
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch).loss))
+            _sync(device)
+            times.append(time.perf_counter() - t0)
+            parts.append(dict(trainer.last_times))
+            io.append((swapper.bytes_read - read0, swapper.bytes_written - written0))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+        launches = launch_counts()
+        adam_calls = DeepSpeedCPUAdam.launches - adam_before
+        aio_requests = AsyncIOHandle.requests - aio_before
+        n_layer_leaves = len(trainer._cpu_m[0])
+        if adam_calls != steps * layers * n_layer_leaves:
+            raise AssertionError(f"[{tag}] {adam_calls} CPU-Adam calls, not {steps} x {layers} "
+                                 f"x {n_layer_leaves}")
+        expected = dict.fromkeys(KERNEL_NAMES, 0)
+        if on_card:
+            expected.update(flash_fwd=2 * layers * steps, flash_bwd_dkdv=layers * steps,
+                            flash_bwd_dq=layers * steps)
+        if launches != expected:
+            raise AssertionError(f"[{tag}] launch counts {launches} != {expected} (a layer a "
+                                 f"step: 2 forwards, 1 dK/dV, 1 dQ)")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+        if max(rel) > LOSS_RTOL_BF16:
+            raise AssertionError(f"[{tag}] losses {losses} against the resident engine's "
+                                 f"{ref_losses}: relative {rel} > {LOSS_RTOL_BF16}")
+        lrs = [float(engine.lr_schedule(s)) for s in range(steps)]
+        got = {"params.stem.embed": trainer.stem["embed"].cpu(),
+               "params.final_norm": trainer.head["final_norm"].cpu(),
+               "params.lm_head": trainer.head["lm_head"].cpu()}
+        got.update({f"params.layers.{k}": v for k, v in
+                    flatten_state(trainer.gather_stacked_params())})
+        got = {k[len("params."):]: v for k, v in got.items()}
+        rule = adam_rule(tag, got, ref_flat, lrs, BF16_POOLED_SHARE, BF16_LEAF_SHARE)
+        n_params = llama.num_params(cfg)
+        mean = {k: statistics.mean(p[k] for p in parts[1:]) * 1e3 for k in parts[0]}
+        step_ms = statistics.mean(times[1:]) * 1e3
+        read_gb, write_gb = (statistics.mean(x[i] for x in io) / 1e9 for i in range(2))
+        log(f"[{tag}] llama2_7b width x {layers} layers ({n_params / 1e9:.3f} B params), micro 1 "
+            f"x seq {seq}, bf16, layers on disk under {root} (buffer_count 6), moments in RAM; set "
+            f"up in {setup_s:.2f} s; {steps} steps on {card}: losses {losses} (resident "
+            f"{ref_losses}: relative {max(rel):.2e} <= {LOSS_RTOL_BF16}); params against the "
+            f"resident engine's: {rule}; step ms "
+            f"{[round(t * 1e3, 1) for t in times]}; steps "
+            f"2-{steps}: {step_ms:.1f} ms = stream-in {mean['stream_in']:.1f} + compute "
+            f"{mean['compute']:.1f} + CPU-Adam and swap-out {mean['adam_swap_out']:.1f} ms; disk "
+            f"{read_gb:.3f} GB read and {write_gb:.3f} GB written a step "
+            f"({read_gb / (step_ms / 1e3):.3f} and {write_gb / (step_ms / 1e3):.3f} GB/s over "
+            f"the step); peak device memory {peak_gb:.2f} GB; launches "
+            f"{ {k: v for k, v in launches.items() if v} }, CPU-Adam {adam_calls}, aio requests "
+            f"{aio_requests}; swap files {len(files)}, parameters only")
+        swapper.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, {"step_ms": step_ms, "parts_ms": mean, "peak_gb": peak_gb,
+                      "read_gb": read_gb, "write_gb": write_gb, "losses": losses,
+                      "cpu_adam_calls": adam_calls, "aio_requests": aio_requests}
+
+
+def phase_train_universal(card, seed=0, device="cuda", width=None, micro=2, steps=3):
+    """[train-universal] at a narrow Llama (``UNIVERSAL_WIDTH``, bf16, flash
+    at head dim 128): an offloaded engine trains 2 steps and saves, takes a
+    third (the unbroken run); the converter's CLI entry (``universal.main``,
+    what ``python -m deepspeed_tpu_torch.checkpoint.universal`` runs, here in
+    process) converts the save; a resident and an offloaded engine from
+    another seed, each with ``load_universal_checkpoint: true``, resume and
+    take the third step.
+    Gates: the resumed step's loss equals the unbroken one's within
+    ``LOSS_RTOL_BF16`` and the params are within the Adam rule."""
+    import tempfile
+
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.checkpoint import universal
+    from deepspeed_tpu_torch.models import llama
+    tag = "train-universal"
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(**(width or UNIVERSAL_WIDTH)), remat=True)
+    seq = cfg.max_seq_len
+    gen = lambda s: torch.Generator(device=device).manual_seed(s)
+    rng = np.random.default_rng(seed)
+    batches = [llama.causal_lm_batch(rng.integers(0, cfg.vocab_size, (micro, seq)))
+               for _ in range(steps)]
+    engine_of = lambda s, conf: deepspeed_tpu_torch.initialize(
+        loss_fn=llama.make_loss_fn(cfg), config=conf, device=device,
+        model_parameters=llama.init_params(cfg, gen(s), dtype=torch.float32, device=device))[0]
+    root = tempfile.mkdtemp(prefix="chip_smoke_universal_")
+    try:
+        unbroken = engine_of(seed, offload_train_config(micro, 1, seed, pin=device == "cuda"))
+        for b in batches[:-1]:
+            unbroken.train_batch(b)
+        ck = os.path.join(root, "ck")
+        saved = os.path.join(ck, unbroken.save_checkpoint(ck))
+        want_loss = float(unbroken.train_batch(batches[-1]).loss)
+        want = {k: v.clone() for k, v in flatten_state(unbroken._offload_host_state()["params"])}
+        lrs = [float(unbroken.lr_schedule(s)) for s in range(steps)]
+        unbroken._offload_state.close()
+        del unbroken
+        uni = os.path.join(root, "universal")
+        t0 = time.perf_counter()
+        # the CLI's entry (what ``python -m deepspeed_tpu_torch.checkpoint.universal SAVED
+        # UNI`` runs) in this process: a fresh interpreter spends seconds importing torch
+        universal.main([saved, uni])
+        convert_s = time.perf_counter() - t0
+        lines = []
+        for kind, conf in (("resident", train_config(micro=micro, gas=1, bf16=True, seed=seed,
+                                                     optimizer="adamw")),
+                           ("offloaded", offload_train_config(micro, 1, seed,
+                                                              pin=device == "cuda"))):
+            conf["load_universal_checkpoint"] = True
+            engine = engine_of(seed + 1, conf)
+            engine.load_checkpoint(uni)
+            if engine.global_steps != steps - 1:
+                raise AssertionError(f"[{tag}] {kind} resumed at step {engine.global_steps}")
+            loss = float(engine.train_batch(batches[-1]).loss)
+            if abs(loss - want_loss) > LOSS_RTOL_BF16 * abs(want_loss):
+                raise AssertionError(f"[{tag}] {kind} resumed step loss {loss} against the "
+                                     f"unbroken run's {want_loss}")
+            got = dict(flatten_state(engine._master_params()))
+            rule = adam_rule(tag, {k: v.cpu() for k, v in got.items()}, want, lrs)
+            lines.append(f"{kind}: loss {loss!r} (unbroken {want_loss!r}), params {rule}")
+            if kind == "offloaded":
+                engine._offload_state.close()
+            del engine
+        log(f"[{tag}] Llama {UNIVERSAL_WIDTH if width is None else width} bf16 on {card}: "
+            f"offloaded 2 steps, save, the CLI's main converted in {convert_s:.2f} s "
+            f"({len(os.listdir(os.path.join(uni, 'zero')))} atom dirs); resumed step 3, "
+            f"{'; '.join(lines)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "deepspeed_tpu_torch")):
@@ -7305,14 +7950,29 @@ def main() -> int:
             phase_slice_spec()
         with phase_timer("slice-families"):
             phase_slice_families()
+    train_sample = {}
+
+    def sample_train_state(engine, step):
+        if step in OFFLOAD_SAMPLED_STEPS:
+            train_sample[step] = sampled_leaves(engine.state.params)
+
     with phase_timer("train"):
-        train_launches, dense = phase_train(card)
+        train_launches, dense = phase_train(card, after_step=sample_train_state)
+    with phase_timer("host-ops"):
+        host_ops = phase_host_ops(card)
+    with phase_timer("train-offload"):
+        offload_launches, offload = phase_train_offload(card, dense, train_sample)
+    del train_sample
     with phase_timer("train-telemetry"):
         phase_train_telemetry(card, dense)
     with phase_timer("train-remat"):
         remat_launches = phase_train_remat(card, dense)
     with phase_timer("train-data"):
         data_launches = phase_train_data(card)
+    with phase_timer("train-infinity"):
+        infinity_launches, infinity = phase_train_infinity(card)
+    with phase_timer("train-universal"):
+        phase_train_universal(card)
     with phase_timer("train-8bit"):
         adam8_launches, _ = phase_train(card, tag="train-8bit", optimizer="fused_adam8bit",
                                         baseline=dense)
@@ -7390,6 +8050,8 @@ def main() -> int:
                         "train_remat_launches": {policy: remat_launches[policy][name]
                                                  for policy in remat_launches},
                         "train_data_launches": data_launches[name],
+                        "train_offload_launches": offload_launches[name],
+                        "train_infinity_launches": infinity_launches[name],
                         "variant": FLASH_VARIANTS[name]})
     adam = train_recs["fused_adamw"]
     kernels.append({"name": "fused_adamw", "route": "cuda", "source": ADAM_SOURCE,
@@ -7404,6 +8066,7 @@ def main() -> int:
                     "train_remat_launches": {policy: remat_launches[policy]["fused_adamw"]
                                              for policy in remat_launches},
                     "train_data_launches": data_launches["fused_adamw"],
+                    "train_offload_launches": offload_launches["fused_adamw"],
                     "bf16_grad": {k: train_recs["fused_adamw_bf16_grad"][k] for k in fields}})
     for name in ("sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq"):
         kernels.append({"name": name, "route": "cuda", "source": SPARSE_SOURCE,
@@ -7435,6 +8098,13 @@ def main() -> int:
                     "max_abs_err": quant_rec["max_abs_err"], **{k: quant_rec[k] for k in fields},
                     "shape": f"n={W_GATE_FULL} (Llama-2-7B's stacked w_gate leaf) bf16, groups "
                              f"of 2048"})
+    # the host libraries of the offload paths: not TPU kernels, so a line of their own
+    host_ops["cpu_adam"].update(train_offload_launches=offload["cpu_adam_calls"],
+                                train_offload_gbps=offload["cpu_adam_gbps"],
+                                train_infinity_launches=infinity["cpu_adam_calls"])
+    host_ops["aio"].update(train_infinity_requests=infinity["aio_requests"])
+    log("[host-ops] " + json.dumps({"host": host_ops["host"],
+                                    "host_ops": [host_ops["cpu_adam"], host_ops["aio"]]}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

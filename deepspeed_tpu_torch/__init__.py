@@ -29,7 +29,11 @@ def initialize(args=None, model=None, loss_fn=None, model_parameters=None, train
     resumes with ``save_checkpoint``/``load_checkpoint`` (files the JAX
     package reads and writes too).  The engine runs on ``device`` ("cuda"
     unless the caller passes "cpu") and raises when asked for CUDA without a
-    GPU.
+    GPU.  Under ``zero_optimization.offload_param: {device: nvme}`` the
+    layers stream from disk: pass ``layer_fn(params_l, x) -> x``,
+    ``head_fn(head_params, x, labels) -> loss`` and optionally
+    ``stem_fn(stem_params, tokens) -> x``, with ``model_parameters`` a dict
+    holding the stacked ``layers`` (and ``stem``) beside the head's leaves.
     """
     from .runtime.engine import initialize as _initialize
     return _initialize(args=args, model=model, loss_fn=loss_fn,

@@ -11,6 +11,14 @@ translation units at once (one ``nvcc -c`` each), linked into its one
 library: the paged source's kernel instances, and the flash source's by head
 dim, would otherwise build one after another.  Nothing is compiled when a
 module is imported: the CPU-only test box has no ``nvcc``.
+
+Host libraries are built the same way: a ``csrc/<name>.cpp`` (plain C
+interface, no CUDA) compiles with ``g++`` and the JAX package's flags
+(``HOST_FLAGS``: ``-O3 -shared -fPIC -std=c++17 -march=native -fopenmp``)
+into the same directory, named by a hash of its source, those flags and the
+host CPU's model and feature flags (``-march=native`` code runs on that CPU
+alone), and ``load(name)`` returns it.  A machine without ``g++`` raises
+:class:`KernelBuildError`, as one without ``nvcc`` does for a kernel.
 """
 
 import concurrent.futures
@@ -31,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 # -D<macro>=<part>, linked into the one library: name -> (macro, parts)
 SPLIT_SOURCES = {"paged_attention": ("PAGED_PART", 7), "flash_attention": ("FLASH_PART", 5)}
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-march=native", "-fopenmp")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}  # kernel name -> seconds nvcc took in this process
@@ -51,9 +60,30 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def is_host(name: str) -> bool:
+    """Whether ``name`` is a host library (``csrc/<name>.cpp``, built by g++)."""
+    return (CSRC_DIR / f"{name}.cpp").exists()
+
+
+def _host_cpu() -> bytes:
+    """The CPU's model and feature flags: ``-march=native`` builds for this
+    CPU alone, so a build directory copied to another host rebuilds."""
+    try:
+        with open("/proc/cpuinfo", "rb") as fh:
+            lines = [line for line in fh if line.startswith((b"model name", b"flags"))]
+    except OSError:
+        return b""
+    return b"".join(sorted(set(lines)))
+
+
 def library_path(name: str) -> Path:
     """The build of ``csrc/<name>.cu``, named by a hash of its source, the
-    shared headers (``csrc/*.cuh``) and the flags."""
+    shared headers (``csrc/*.cuh``) and the flags; of ``csrc/<name>.cpp``,
+    by a hash of its source and ``HOST_FLAGS``."""
+    if is_host(name):
+        digest = hashlib.sha256((CSRC_DIR / f"{name}.cpp").read_bytes()
+                                + " ".join(HOST_FLAGS).encode() + _host_cpu()).hexdigest()
+        return BUILD_DIR / f"lib{name}.{digest[:16]}.so"
     parts = [(CSRC_DIR / f"{name}.cu").read_bytes()]
     parts += [header.read_bytes() for header in sorted(CSRC_DIR.glob("*.cuh"))]
     flags = " ".join(NVCC_FLAGS) + str(SPLIT_SOURCES.get(name))
@@ -62,10 +92,13 @@ def library_path(name: str) -> Path:
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a build of this exact source exists."""
+    """Compile ``csrc/<name>.cu`` (or ``.cpp``) unless a build of this exact
+    source exists."""
     out = library_path(name)
     if out.exists():
         return out
+    if is_host(name):
+        return _build_host(name, out)
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -98,6 +131,27 @@ def build(name: str) -> Path:
     return out
 
 
+def _build_host(name: str, out: Path) -> Path:
+    """``g++`` on ``csrc/<name>.cpp`` into ``out``."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise KernelBuildError(f"g++ not found on PATH: the host library csrc/{name}.cpp needs "
+                               f"a C++ compiler")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [cxx, *HOST_FLAGS, str(CSRC_DIR / f"{name}.cpp"), "-o", str(tmp), "-lpthread"]
+    t0 = time.perf_counter()
+    proc = _run(cmd)
+    build_seconds[name] = time.perf_counter() - t0
+    build_log[name] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(f"g++ failed on csrc/{name}.cpp (exit {proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout + proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
 def _run(cmd) -> subprocess.CompletedProcess:
     return subprocess.run(cmd, capture_output=True, text=True)
 
@@ -113,7 +167,8 @@ def build_all(names) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu`` (or ``.cpp``), built on
+    first use."""
     lib: Optional[ctypes.CDLL] = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))

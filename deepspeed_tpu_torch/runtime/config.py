@@ -571,10 +571,37 @@ class NebulaConfig(ConfigModel):
     enable_nebula_load: bool = True
 
 
-class OffloadConfig(ConfigModel):
-    """``offload_param`` / ``offload_optimizer``: only ``device: none`` is
-    accepted; offload is not ported."""
+class OffloadParamConfig(ConfigModel):
+    """``zero_optimization.offload_param``, JAX's fields (the reference's
+    DeepSpeedZeroOffloadParamConfig).  Read: ``device`` (only ``nvme``
+    engages layer streaming; ``cpu`` alone changes nothing, as in JAX),
+    ``nvme_path`` and ``buffer_count`` (the host buffer pool).
+    ``buffer_size``, ``max_in_cpu`` and ``pin_memory`` are accepted and read
+    by nothing, as in JAX (no pool buffer is copied to the GPU)."""
     device: str = Field("none", choices=("none", "cpu", "nvme"))
+    nvme_path: Optional[str] = None
+    buffer_count: int = Field(5, ge=1)
+    buffer_size: int = Field(10**8, ge=1)
+    max_in_cpu: int = Field(10**9, ge=0)
+    pin_memory: bool = False
+
+
+class OffloadOptimizerConfig(ConfigModel):
+    """``zero_optimization.offload_optimizer``, JAX's fields (the reference's
+    DeepSpeedZeroOffloadOptimizerConfig).  Read: ``device`` (``cpu``: master
+    params and moments in host RAM; ``nvme``: the moments on disk under
+    ``nvme_path``) and, on a CUDA engine, ``pin_memory`` (one page-locked
+    buffer for the master params and one for the grads' staging).
+    ``buffer_count``, ``pipeline_read``, ``pipeline_write``, ``fast_init``
+    and ``ratio`` are accepted and read by nothing, as in JAX."""
+    device: str = Field("none", choices=("none", "cpu", "nvme"))
+    nvme_path: Optional[str] = None
+    buffer_count: int = Field(4, ge=1)
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    fast_init: bool = False
+    ratio: float = Field(1.0, ge=0.0, le=1.0)
 
 
 class ZeroConfig(ConfigModel):
@@ -582,8 +609,8 @@ class ZeroConfig(ConfigModel):
     where ZeRO has no data-parallel group to partition params, grads or
     optimizer state over, so each stage runs the same step."""
     stage: int = Field(0, ge=0, le=3)
-    offload_param: Optional[OffloadConfig] = None
-    offload_optimizer: Optional[OffloadConfig] = None
+    offload_param: Optional[OffloadParamConfig] = None
+    offload_optimizer: Optional[OffloadOptimizerConfig] = None
 
 
 class OptimizerConfig(ConfigModel):
@@ -765,9 +792,11 @@ class TrainingConfig(ConfigModel):
     """The training config the port's engine reads: the batch triple,
     optimizer, scheduler, precision (bf16 by default, fp16 with loss scaling
     under ``"fp16": {"enabled": true}``, fp32 with ``"bf16": {"enabled":
-    false}``), gradient clipping, seed, print cadence, the ZeRO stage,
-    block-sparse attention, checkpoints (``checkpoint``, ``nebula``,
-    ``checkpoint_tag_validation``), ``activation_checkpointing``,
+    false}``), gradient clipping, seed, print cadence, the ZeRO stage and
+    its ``offload_optimizer``/``offload_param`` sections, block-sparse
+    attention, checkpoints (``checkpoint``, ``nebula``,
+    ``checkpoint_tag_validation``, ``load_universal_checkpoint``),
+    ``activation_checkpointing``,
     ``data_efficiency`` (curriculum and random-LTD) and the legacy
     ``curriculum_learning``, the watchdog (``max_consecutive_skips``), the
     ``fault_tolerance`` heartbeat, the monitor writers, telemetry and the
@@ -823,15 +852,6 @@ class TrainingConfig(ConfigModel):
             object.__setattr__(self, "bf16", BF16Config(enabled=not self.fp16.enabled))
         if self.checkpoint.tag_validation is not None:
             object.__setattr__(self, "checkpoint_tag_validation", self.checkpoint.tag_validation)
-        if self.load_universal_checkpoint:
-            raise NotImplementedError("load_universal_checkpoint: the universal checkpoint "
-                                      "format (checkpoint/universal.py) is not ported to PyTorch "
-                                      "yet (ROADMAP item 12)")
-        for name in ("offload_param", "offload_optimizer"):
-            section = getattr(self.zero_optimization, name)
-            if section is not None and section.device != "none":
-                raise NotImplementedError(f"zero_optimization.{name} (device "
-                                          f"{section.device!r}) is not ported to PyTorch yet")
 
     def resolve_batch_sizes(self, dp_world_size: int):
         """(train_batch, micro_batch, gas), solving for any missing member of

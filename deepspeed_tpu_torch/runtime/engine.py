@@ -67,8 +67,24 @@ once, on the first step under ``torch.utils.flop_counter.FlopCounterMode``:
 every aten product, the remat recompute included, and nothing inside the
 hand kernels (called through ``ctypes``, as XLA's cost analysis does not see
 inside a Pallas call).  ``ops_server`` publishes ``/metrics``, ``/healthz``
-and ``/statez`` refreshed at the step boundary.  Not ported yet: ZeRO
-offload (ROADMAP item 12).
+and ``/statez`` refreshed at the step boundary.
+
+ZeRO-Offload and ZeRO-Infinity (JAX ``engine.py:235-478``, ``:805-820``):
+``zero_optimization.offload_optimizer: {device: cpu | nvme}`` keeps the
+fp32 master params and Adam moments on the host (the moments on disk with
+``nvme``) in an ``OffloadedAdamState``; the device holds only the
+compute-dtype copy, refreshed in place after each host step.  A step
+accumulates the grads on the device, takes the global norm and clips there,
+copies the fp32 grads to host (one pinned staging buffer with
+``pin_memory``; CPU-Adam starts on a leaf once its copy has landed), steps
+the host C++ CPU-Adam at the host lr, and pushes the params back.
+``offload_param: {device: nvme}`` hands training to a ``SwappedLayerTrainer``
+(the layers' params on disk, streamed one layer at a time) built from
+``initialize``'s ``layer_fn``/``head_fn``/``stem_fn``; ``offload_param:
+{device: cpu}`` alone changes nothing, as in JAX.  Checkpoints of an
+offloaded engine hold the resident layout, and ``load_universal_checkpoint:
+true`` resumes either kind of engine from ``checkpoint/universal.py``'s
+atoms.
 """
 
 import contextlib
@@ -91,10 +107,10 @@ from ..monitor.telemetry import TelemetryCollector
 from ..utils import safetensors_io
 from ..utils.memory import see_memory_usage
 from . import lr_schedules, optimizers
-from .checkpointing import (CheckpointError, flatten_with_keys, find_latest_valid_tag,
-                            get_latest_tag, load_checkpoint_dir, read_metadata,
-                            save_checkpoint_with_retries, sweep_retention,
-                            validate_checkpoint_tag)
+from .checkpointing import (CheckpointError, _restore_leaf, find_latest_valid_tag,
+                            flatten_with_keys, get_latest_tag, load_checkpoint_dir,
+                            map_with_keys, read_metadata, save_checkpoint_with_retries,
+                            sweep_retention, validate_checkpoint_tag)
 from .config import OpsServerConfig, TrainingConfig, load_config
 from .grad_accum import accumulate_micro_grads
 from .heartbeat import OPS_DIR_ENV, RESUME_DIR_ENV, RESUME_TAG_ENV, build_heartbeat
@@ -150,7 +166,9 @@ class Engine:
     training mechanics.  ``loss_fn`` receives the params in the compute dtype."""
 
     def __init__(self, loss_fn: Callable, params: Any, config: TrainingConfig,
-                 device="cuda", ltd_state: Optional[dict] = None):
+                 device="cuda", ltd_state: Optional[dict] = None,
+                 layer_fn: Optional[Callable] = None, head_fn: Optional[Callable] = None,
+                 stem_fn: Optional[Callable] = None):
         self.device = resolve_device(device)
         self.config = config
         self.loss_fn = loss_fn
@@ -229,12 +247,42 @@ class Engine:
                                      owner="training engine")
         self.ops = self._ops.server if self._ops is not None else None
 
-        master = tree_map(lambda p: _as_tensor(p).detach().to(
-            device=self.device, dtype=torch.float32).clone(), params)
-        self.state = TrainState(step=0, params=master, opt_state=self.optimizer.init(master),
-                                loss_scale=(init_loss_scale(config.fp16) if self.fp16_enabled
-                                            else None))
-        n_params = sum(p.numel() for p in tree_leaves(master))
+        zero = config.zero_optimization
+        off = zero.offload_optimizer
+        self.offload_device = off.device if (off is not None and off.device != "none") else None
+        self._offload_state = None
+        self._nvme_trainer = None
+        off_p = zero.offload_param
+        if off_p is not None and off_p.device == "nvme":
+            # ZeRO-Infinity: the caller supplies the layer structure that an
+            # opaque loss function hides (JAX engine.py:235-259)
+            if layer_fn is None or head_fn is None:
+                raise ValueError(
+                    "offload_param: nvme streams one layer at a time, which needs the layer "
+                    "structure the opaque loss_fn hides - pass layer_fn(params_l, x) -> x and "
+                    "head_fn(head_params, x, labels) -> loss to initialize(), with "
+                    "model_parameters = {'layers': stacked [L, ...] tree, ...head leaves}")
+            if not (isinstance(params, dict) and "layers" in params):
+                raise ValueError("offload_param: nvme expects model_parameters to be a dict "
+                                 "with a stacked 'layers' subtree ([L, ...] leaves)")
+            if self.gradient_accumulation_steps != 1:
+                raise ValueError(
+                    f"offload_param: nvme streams layers on ONE process/device "
+                    f"(gas={self.gradient_accumulation_steps}, dp=1 requested) - set "
+                    f"gradient_accumulation_steps=1")
+            self._init_nvme_trainer(params, off_p, layer_fn, head_fn, stem_fn)
+            self.state = None
+            return
+        if self.offload_device is not None:
+            self._init_offload(params, off)
+            self.state = None
+        else:
+            master = tree_map(lambda p: _as_tensor(p).detach().to(
+                device=self.device, dtype=torch.float32).clone(), params)
+            self.state = TrainState(step=0, params=master, opt_state=self.optimizer.init(master),
+                                    loss_scale=(init_loss_scale(config.fp16) if self.fp16_enabled
+                                                else None))
+        n_params = sum(int(np.prod(tuple(p.shape))) for p in tree_leaves(params))
         logger.info(f"Engine: device={self.device} zero_stage={self.zero_stage} "
                     f"batch={self.train_batch_size} (micro={self.micro_batch_size} x gas="
                     f"{self.gradient_accumulation_steps}) dtype={self.compute_dtype} "
@@ -262,6 +310,191 @@ class Engine:
         return tree_map(lambda p: p.detach().to(self.compute_dtype).requires_grad_(True),
                         self.state.params)
 
+    # ------------------------------------------------------------- offload
+    def _offload_adam_params(self, what: str, allowed) -> Dict[str, Any]:
+        """The optimizer section's params for a host CPU-Adam; any optimizer
+        but ``allowed`` raises ``ValueError``, as in JAX."""
+        opt_cfg = self.config.optimizer
+        opt_type = (opt_cfg.type if opt_cfg else "adamw").lower()
+        if opt_type not in allowed:
+            raise ValueError(f"{what} steps with the host CPU-Adam (csrc/cpu_adam.cpp); optimizer "
+                             f"'{opt_type}' is not supported (adam/adamw)")
+        opt_params = dict(opt_cfg.params) if opt_cfg else {}
+        return dict(betas=tuple(opt_params.get("betas", (0.9, 0.999))),
+                    eps=float(opt_params.get("eps", 1e-8)),
+                    weight_decay=float(opt_params.get("weight_decay", 0.0)))
+
+    def _init_nvme_trainer(self, params, off_p, layer_fn, head_fn, stem_fn):
+        """ZeRO-Infinity (JAX ``engine.py:362-405``): the layers' fp32 masters go
+        to disk under ``nvme_path``, the moments too unless
+        ``offload_optimizer`` is ``cpu`` (then in RAM); the head and, with a
+        ``stem_fn``, the ``stem`` group stay on the device."""
+        import tempfile
+
+        from .swap_tensor.partitioned_param_swapper import (AsyncPartitionedParameterSwapper,
+                                                            SwappedLayerTrainer)
+        adam = self._offload_adam_params("offload_param: nvme",
+                                         ("adam", "adamw", "fusedadam", "fused_adam"))
+        path = off_p.nvme_path or tempfile.mkdtemp(prefix="dstpu_nvme_")
+        swapper = AsyncPartitionedParameterSwapper(path, buffer_count=off_p.buffer_count)
+        stacked = params["layers"]
+        num_layers = int(tree_leaves(stacked)[0].shape[0])
+        off_o = self.config.zero_optimization.offload_optimizer
+        opt_device = "cpu" if (off_o is not None and off_o.device == "cpu") else "nvme"
+        trainer = SwappedLayerTrainer(
+            layer_fn, num_layers, head_fn, swapper, lr=self.base_lr, **adam,
+            compute_dtype=self.compute_dtype, stem_fn=stem_fn, optimizer_device=opt_device,
+            offload_activations=self.config.activation_checkpointing.cpu_checkpointing,
+            device=self.device)
+        # "stem" is reserved only when a stem_fn claims it
+        head_keys = ("layers", "stem") if stem_fn is not None else ("layers", )
+        trainer.init_from_stacked(stacked, {k: v for k, v in params.items() if k not in head_keys},
+                                  stem_params=params.get("stem") if stem_fn is not None else None)
+        self._nvme_trainer = trainer
+        logger.info(f"Engine: ZeRO-Infinity NVMe param streaming - {num_layers} layers, "
+                    f"buffer_count={off_p.buffer_count}, moments={opt_device}, path={path}")
+
+    def _init_offload(self, params, off):
+        """ZeRO-Offload (JAX ``engine.py:407-441``): fp32 master params and Adam
+        moments on the host (``cpu``) or the moments on disk (``nvme``); the
+        device holds the compute-dtype copy only."""
+        from .swap_tensor.optimizer_swapper import OffloadedAdamState, flat_views, host_buffer
+        if self.fp16_enabled:
+            raise ValueError("optimizer offload requires bf16/fp32 (fp16 dynamic loss "
+                             "scaling is not supported on the host-offload path)")
+        adam = self._offload_adam_params("optimizer offload", ("adam", "adamw"))
+        flat = dict(flatten_with_keys(params))
+        self._offload_shapes = {k: tuple(leaf.shape) for k, leaf in flat.items()}
+        self._offload_template = map_with_keys(lambda key, _: key, params)
+        pin = off.pin_memory and self.device.type == "cuda"
+        self._offload_state = OffloadedAdamState(
+            flat, device=self.offload_device, nvme_path=off.nvme_path, lr=self.base_lr,
+            pin_memory=pin, **adam)
+        sizes = {k: int(np.prod(shape)) for k, shape in self._offload_shapes.items()}
+        self._grad_staging = flat_views(host_buffer(sum(sizes.values()), pin), sizes)
+        # the compute copy: persistent autograd leaves, refreshed in place
+        self._compute = tree_map(
+            lambda key: torch.empty(self._offload_shapes[key], dtype=self.compute_dtype,
+                                    device=self.device).requires_grad_(True),
+            self._offload_template)
+        self._compute_by_key = dict(flatten_with_keys(self._compute))
+        self._push_compute_params()
+        # seconds of the last offloaded step by part (device compute, grads to
+        # host, CPU-Adam, push), host clock: the step waits for the device
+        # before the grads' copy and after the push
+        self.offload_times: Dict[str, float] = {}
+
+    @torch.no_grad()
+    def _push_compute_params(self):
+        """Refresh the device's compute copy from the host masters with
+        ``copy_`` (cast on the device; the leaves and their holders stay
+        valid).  The copies are queued behind the step that read the old
+        values, so they never overwrite params the device still reads."""
+        params = self._offload_state.params
+        for key, leaf in self._compute_by_key.items():
+            leaf.copy_(params[key].view(leaf.shape), non_blocking=True)
+
+    def _offload_step(self, batch) -> StepMetrics:
+        """The offloaded step (JAX ``_offload_train_batch``, ``engine.py:452-478``)."""
+        clock = time.perf_counter
+        t0 = clock()
+        gas = self.gradient_accumulation_steps
+        grads, loss_sum = accumulate_micro_grads(self.loss_fn, self._compute, batch,
+                                                 [self.generator] * gas, 1.0)
+        loss = loss_sum / gas
+        divisor = float(np.float32(gas))
+        for g in tree_leaves(grads):
+            g.div_(divisor)
+        norm = optimizers.global_grad_norm(grads)
+        clip = self.config.gradient_clipping
+        if clip > 0:
+            grads, norm = optimizers.clip_by_global_norm(grads, clip, precomputed_norm=norm)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        t1 = clock()
+        events = {}
+        staging = self._grad_staging
+        for key, g in flatten_with_keys(grads):
+            staging[key].copy_(g.reshape(-1), non_blocking=True)
+            if cuda:
+                events[key] = torch.cuda.Event()
+                events[key].record()
+        waited = [0.0]
+
+        def ready(key):  # CPU-Adam reads a leaf's grads once their copy has landed
+            if cuda:
+                w0 = clock()
+                events[key].synchronize()
+                waited[0] += clock() - w0
+
+        lr = float(self.lr_schedule(self.global_steps))
+        t2 = clock()
+        self._offload_state.step({k: staging[k] for k in self._compute_by_key}, lr=lr,
+                                 ready=ready)
+        del grads
+        t3 = clock()
+        self._push_compute_params()
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        t4 = clock()
+        self.offload_times = {"compute": t1 - t0, "grads_d2h": t2 - t1 + waited[0],
+                              "cpu_adam": t3 - t2 - waited[0], "push_h2d": t4 - t3}
+        self.global_steps += 1
+        self.global_samples += self.train_batch_size
+        self.lr_scheduler.last_step = self.global_steps
+        self._last_grad_norm = norm
+        return StepMetrics(loss=loss, grad_norm=norm, lr=lr, skipped=False, loss_scale=1.0)
+
+    def _offload_host_state(self) -> Dict[str, Any]:
+        """The host state as a tree with the resident state's keys (JAX
+        ``engine.py:1218-1230``), plus the engine's ``torch_rng``; the params
+        are views of the host masters."""
+        sd = self._offload_state.state_dict()
+        tree = lambda flat: tree_map(lambda key: flat[key].view(self._offload_shapes[key]),
+                                     self._offload_template)
+        return {"step": sd["step"], "params": tree(self._offload_state.params),
+                "opt_state": {"step": sd["step"], "exp_avg": tree(sd["m"]),
+                              "exp_avg_sq": tree(sd["v"])},
+                "torch_rng": self.generator.get_state().numpy()}
+
+    def _nvme_guard(self, what: str):
+        if self._nvme_trainer is not None:
+            raise NotImplementedError(
+                f"{what} is not available on the offload_param:nvme streaming path - state "
+                f"lives in the swapper's NVMe files (persistent across runs at nvme_path); "
+                f"use the trainer's forward() for inference, and point a new engine at the "
+                f"same nvme_path to resume")
+
+    def _nvme_train_batch(self, batch) -> StepMetrics:
+        """The ZeRO-Infinity step (JAX ``engine.py:805-820``): the trainer
+        streams the layers; the batch goes through whole."""
+        self.telemetry.profile_step_boundary(self.global_steps)
+        lr = float(self.lr_schedule(self.global_steps))
+        t0 = time.perf_counter()
+        with self.telemetry.step_annotation(self.global_steps):
+            loss = self._nvme_trainer.train_step(batch, lr=lr)
+        step_time = time.perf_counter() - t0
+        metrics = StepMetrics(loss=torch.tensor(loss, dtype=torch.float32),
+                              grad_norm=torch.tensor(0.0), lr=lr, skipped=False, loss_scale=1.0)
+        self.global_steps += 1
+        self.global_samples += self.train_batch_size
+        self.lr_scheduler.last_step = self.global_steps
+        self.heartbeat.stamp(self.global_steps)
+        if self.telemetry.enabled:
+            self.telemetry.set_flops_per_step(None)  # the streamed loop is no one program
+            x = _as_tensor(batch["x"])
+            self._last_telemetry_record = self.telemetry.record_train_step(
+                step=self.global_steps, samples=self.global_samples, loss=loss, grad_norm=0.0,
+                lr=lr, step_time_s=step_time,
+                tokens=(self.train_batch_size * int(x.shape[1])
+                        if x.dim() > 1 and not x.is_floating_point() else None))
+        self._refresh_ops()
+        self._watchdog_check(metrics, loss)
+        if self.global_steps % self.config.steps_per_print == 0:
+            self._report(metrics, loss)
+        return metrics
+
     # ---------------------------------------------------------------- step
     def _loss_scale(self) -> float:
         ls = self.state.loss_scale
@@ -284,7 +517,10 @@ class Engine:
 
     def train_batch(self, batch) -> StepMetrics:
         """One optimizer step on a global batch: leaves [train_batch_size, ...]
-        or [gas, micro, ...]."""
+        or [gas, micro, ...] (under ``offload_param: nvme``, ``{"x", "y"}``
+        taken whole)."""
+        if self._nvme_trainer is not None:
+            return self._nvme_train_batch(batch)
         if self._ltd_state is not None:
             self._ramp_ltd()
         telemetry = self.telemetry.enabled
@@ -297,13 +533,16 @@ class Engine:
             batch = self._gas_layout(batch)
         t1 = time.perf_counter() if timed else 0.0
         flop_counter = None
-        if self.telemetry.wants_flops():
+        if self.telemetry.wants_flops() and self._offload_state is not None:
+            self.telemetry.set_flops_per_step(None)  # the step is no one device program
+        elif self.telemetry.wants_flops():
             # the step's FLOPs, counted once on the first step and this batch
             from torch.utils.flop_counter import FlopCounterMode
             flop_counter = FlopCounterMode(display=False)
         with self.telemetry.step_annotation(self.global_steps), \
                 flop_counter if flop_counter is not None else contextlib.nullcontext():
-            metrics = self._step(batch)
+            metrics = (self._step(batch) if self._offload_state is None
+                       else self._offload_step(batch))
         if flop_counter is not None:
             self.telemetry.set_flops_per_step(flop_counter.get_total_flops())
         # liveness stamp: the host step count and the wall clock, throttled
@@ -542,8 +781,12 @@ class Engine:
         """The loss of ``batch`` (leaves [B, ...]) at the current params, in the
         compute dtype; no step.  Random-LTD is pinned off: eval measures the
         whole model."""
+        self._nvme_guard("eval_batch")
         batch = tree_map(lambda x: _as_tensor(x).to(self.device), batch)
-        params = tree_map(lambda p: p.to(self.compute_dtype), self.state.params)
+        if self._offload_state is not None:
+            params = tree_map(lambda p: p.detach(), self._compute)
+        else:
+            params = tree_map(lambda p: p.to(self.compute_dtype), self.state.params)
         loss_fn = self.loss_fn
         if self._ltd_state is not None:
             loss_fn = transformer.scoped_random_ltd(loss_fn, None)
@@ -561,15 +804,23 @@ class Engine:
 
     def get_fp32_params(self):
         """The fp32 master params as a tree of numpy arrays (copies)."""
-        return tree_map(lambda p: p.detach().to("cpu", copy=True).numpy(), self.state.params)
+        self._nvme_guard("get_fp32_params")
+        return tree_map(lambda p: p.detach().to("cpu", copy=True).numpy(), self._master_params())
+
+    def _master_params(self):
+        """The fp32 master params: on the device, or the host's under offload."""
+        if self._offload_state is not None:
+            return self._offload_host_state()["params"]
+        return self.state.params
 
     def save_16bit_model(self, save_dir: str, filename: str = "model.safetensors") -> str:
         """The params cast to the compute dtype, in one safetensors file
         keyed by their leaf keys (``layers.attn.wq``), as the JAX engine
         writes it; bf16 leaves are ``"BF16"``.  Returns the file's path."""
+        self._nvme_guard("save_16bit_model")
         os.makedirs(save_dir, exist_ok=True)
         out = {key: p.detach().to(self.compute_dtype)
-               for key, p in flatten_with_keys(self.state.params)}
+               for key, p in flatten_with_keys(self._master_params())}
         path = os.path.join(save_dir, filename)
         safetensors_io.save_file(out, path)
         logger.info(f"saved 16-bit model weights ({len(out)} leaves) -> {path}")
@@ -595,7 +846,9 @@ class Engine:
                 kind, max_queue=self.config.checkpoint.async_max_queue)
         return self._ckpt_engine
 
-    def _saved_state(self) -> _SavedState:
+    def _saved_state(self):
+        if self._offload_state is not None:
+            return self._offload_host_state()
         return _SavedState(*self.state, torch_rng=self.generator.get_state().numpy())
 
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
@@ -607,6 +860,7 @@ class Engine:
         ``keep_last_n`` retention runs and, with
         ``checkpoint.save_on_preemption``, the SIGTERM handler is armed.
         Returns the tag."""
+        self._nvme_guard("save_checkpoint")
         tag = tag or f"global_step{self.global_steps}"
         self._validate_tag(tag)
         client_state = dict(client_state or {})
@@ -689,34 +943,197 @@ class Engine:
         ``global_steps``, ``global_samples`` and the scheduler;
         ``load_optimizer_states=False`` keeps this engine's optimizer and
         loss-scale state.  Leaves land on the engine's device.  Returns
-        ``(tag, client_state)``."""
+        ``(tag, client_state)``.  With ``load_universal_checkpoint`` the
+        directory is a universal one (or holds one under ``<tag>/``)."""
+        self._nvme_guard("load_checkpoint")
         t0 = time.perf_counter()
         self.heartbeat.stamp(self.global_steps, phase="checkpoint_load", force=True)
         with self.telemetry.annotation("checkpoint_load"):
-            tag = self._resolve_load_tag(load_dir, tag, fallback_to_valid)
-            template = self._saved_state()
-            template = template._replace(
-                torch_rng=self._generator_template(load_dir, tag, template.torch_rng))
-            saved, client_state = load_checkpoint_dir(
-                load_dir, tag, template, self.device,
-                load_optimizer_states=load_optimizer_states,
-                validate=False)  # _resolve_load_tag validated it
-            self.state = TrainState(step=saved.step, params=saved.params,
-                                    opt_state=saved.opt_state, loss_scale=saved.loss_scale)
-            if saved.torch_rng is not None:
-                self.generator.set_state(torch.from_numpy(np.array(saved.torch_rng)))
-            self.global_steps = client_state.get("global_steps", 0)
-            self.global_samples = client_state.get("global_samples", 0)
-            self._ops_steps_base = self.global_steps
-            self._ops_samples_base = self.global_samples
-            if "lr_scheduler" in client_state:
-                self.lr_scheduler.load_state_dict(client_state["lr_scheduler"])
+            if self.config.load_universal_checkpoint:
+                tag, client_state = self._load_universal_checkpoint(load_dir, tag,
+                                                                    load_optimizer_states)
+            else:
+                tag = self._resolve_load_tag(load_dir, tag, fallback_to_valid)
+                if self._offload_state is not None:
+                    client_state = self._load_checkpoint_offload(load_dir, tag,
+                                                                 load_optimizer_states)
+                else:
+                    client_state = self._load_checkpoint_resident(load_dir, tag,
+                                                                  load_optimizer_states)
+            self._restore_counters(client_state)
         self.telemetry.record_events([("Train/Checkpoint/load_time_ms",
                                        (time.perf_counter() - t0) * 1e3, self.global_samples)])
         # clears the checkpoint_load phase and declares the restart, which the
         # agent gives its startup grace
         self.heartbeat.stamp(self.global_steps, phase="resumed", force=True)
         return tag, client_state
+
+    def _restore_counters(self, client_state: Dict[str, Any]) -> None:
+        self.global_steps = client_state.get("global_steps", 0)
+        self.global_samples = client_state.get("global_samples", 0)
+        self._ops_steps_base = self.global_steps
+        self._ops_samples_base = self.global_samples
+        if "lr_scheduler" in client_state:
+            self.lr_scheduler.load_state_dict(client_state["lr_scheduler"])
+
+    def _load_checkpoint_resident(self, load_dir, tag, load_optimizer_states):
+        template = self._saved_state()
+        template = template._replace(
+            torch_rng=self._generator_template(load_dir, tag, template.torch_rng))
+        saved, client_state = load_checkpoint_dir(
+            load_dir, tag, template, self.device, load_optimizer_states=load_optimizer_states,
+            validate=False)  # _resolve_load_tag validated it
+        self.state = TrainState(step=saved.step, params=saved.params,
+                                opt_state=saved.opt_state, loss_scale=saved.loss_scale)
+        if saved.torch_rng is not None:
+            self.generator.set_state(torch.from_numpy(np.array(saved.torch_rng)))
+        return client_state
+
+    def _load_checkpoint_offload(self, load_dir, tag, load_optimizer_states):
+        """A checkpoint into the host state (JAX ``engine.py:1360-1385``): params,
+        moments and step by key, whichever engine wrote it."""
+        ckpt_dir = os.path.join(load_dir, tag)
+        meta = read_metadata(ckpt_dir)
+        host = self._offload_state
+        sd = {"m": {}, "v": {}, "step": 0}
+        for entry in meta["manifest"]:
+            key = entry["key"]
+            path = os.path.join(ckpt_dir, key + ".npy")
+            if key.startswith("params."):
+                host.params[key[len("params."):]].copy_(
+                    torch.from_numpy(np.load(path).astype(np.float32).ravel()))
+            elif key.startswith("opt_state.exp_avg_sq.") and load_optimizer_states:
+                sd["v"][key[len("opt_state.exp_avg_sq."):]] = np.load(path)
+            elif key.startswith("opt_state.exp_avg.") and load_optimizer_states:
+                sd["m"][key[len("opt_state.exp_avg."):]] = np.load(path)
+            elif key in ("step", "opt_state.step"):
+                sd["step"] = int(np.load(path))
+            elif key == "torch_rng":
+                self._load_generator(np.load(path), tag)
+        if load_optimizer_states and sd["m"]:
+            host.load_state_dict(sd)
+        self._push_compute_params()
+        return meta.get("client_state", {})
+
+    def _load_generator(self, state: np.ndarray, tag: str) -> None:
+        current = self.generator.get_state()
+        if tuple(state.shape) != tuple(current.shape):
+            logger.warning(f"checkpoint {tag}: torch_rng of shape {tuple(state.shape)} comes from "
+                           f"a generator of another device type; keeping the engine's seeded "
+                           f"generator")
+            return
+        self.generator.set_state(torch.from_numpy(np.array(state)))
+
+    def _load_universal_checkpoint(self, load_dir, tag, load_optimizer_states=True):
+        """Resume from the universal atom format (JAX ``engine.py:1387-1500``),
+        resident or offloaded.  ``load_dir`` holds ``universal_metadata.json``
+        or has a ``<tag>/`` that does.  Param leaves come from their ``fp32``
+        atoms; optimizer leaves match atoms by the same suffix discovery the
+        converter used, so a different optimizer resumes too (unmatched
+        moments warn and keep their values); atoms stripped of vocab padding
+        are zero-padded back on dim 0."""
+        from ..checkpoint.universal import PARAM_ATOM, load_universal
+        udir = load_dir
+        if not os.path.exists(os.path.join(udir, "universal_metadata.json")):
+            tag = tag or get_latest_tag(load_dir)
+            if tag is not None and os.path.exists(os.path.join(load_dir, tag,
+                                                               "universal_metadata.json")):
+                udir = os.path.join(load_dir, tag)
+            else:
+                raise FileNotFoundError(
+                    f"load_universal_checkpoint: no universal_metadata.json under {load_dir}"
+                    + (f" or {load_dir}/{tag}" if tag else "")
+                    + " - convert a checkpoint first (python -m "
+                      "deepspeed_tpu_torch.checkpoint.universal)")
+        data = load_universal(udir)
+        atoms, passthrough = data["params"], data["passthrough"]
+        stripped_to = data.get("strip_vocab_padding")
+        by_len = sorted(atoms, key=len, reverse=True)
+
+        def lookup(key: str):
+            if key.startswith("params."):
+                p = key[len("params."):]
+                return atoms[p][PARAM_ATOM] if p in atoms else None
+            if key.startswith("opt_state."):
+                if not load_optimizer_states:
+                    return None
+                rest = key[len("opt_state."):]
+                for p in by_len:
+                    if rest.endswith("." + p):
+                        got = atoms[p].get(rest[:-(len(p) + 1)])
+                        if got is not None:
+                            return got
+                return passthrough.get(key)
+            return passthrough.get(key)
+
+        def fit(arr: np.ndarray, want, key: str) -> np.ndarray:
+            want = tuple(want)
+            if tuple(arr.shape) != want:
+                # re-pad only atoms the converter recorded as vocab-stripped: a
+                # bare dim-0 mismatch (another layer count) stays an error
+                if (stripped_to is not None and arr.ndim == len(want) and arr.ndim >= 1
+                        and arr.shape[0] == stripped_to and arr.shape[0] < want[0]
+                        and tuple(arr.shape[1:]) == want[1:]):
+                    pad = np.zeros((want[0] - arr.shape[0], ) + tuple(arr.shape[1:]), arr.dtype)
+                    logger.info(f"universal load: re-padded {key} dim0 {arr.shape[0]} -> "
+                                f"{want[0]} (vocab padding)")
+                    arr = np.concatenate([arr, pad], axis=0)
+                else:
+                    raise ValueError(f"universal atom {key} shape {arr.shape} != model {want}")
+            return arr
+
+        if self._offload_state is not None:
+            host = self._offload_state
+            cur = host.state_dict() if load_optimizer_states else None
+            any_moment = False
+            sd = {"m": {}, "v": {}, "step": int(passthrough.get("opt_state.step", 0))}
+            for key, shape in self._offload_shapes.items():
+                a = atoms.get(key)
+                if a is None:
+                    logger.warning(f"universal load: no atom for param {key}; keeping current")
+                    a = {}
+                else:
+                    host.params[key].copy_(torch.from_numpy(
+                        fit(a[PARAM_ATOM], shape, key).astype(np.float32).ravel()))
+                if load_optimizer_states:
+                    for atom_name, slot in (("exp_avg", "m"), ("exp_avg_sq", "v")):
+                        if atom_name in a:
+                            sd[slot][key] = fit(a[atom_name], shape, key).ravel()
+                            any_moment = True
+                        else:
+                            sd[slot][key] = cur[slot][key]
+                    extra = sorted(set(a) - {PARAM_ATOM, "exp_avg", "exp_avg_sq"})
+                    if a and (extra or "exp_avg" not in a):
+                        logger.warning(f"universal load (offload): param {key} has atoms "
+                                       f"{sorted(a)} but the host-offload Adam consumes "
+                                       f"exp_avg/exp_avg_sq only - unmatched moments keep "
+                                       f"their current values")
+            if load_optimizer_states and any_moment:
+                host.load_state_dict(sd)
+            if "torch_rng" in passthrough:
+                self._load_generator(passthrough["torch_rng"], "universal")
+            self._push_compute_params()
+        else:
+            def leaf(key, cur):
+                arr = lookup(key)
+                if arr is None:
+                    skip = (not load_optimizer_states) and key.split(".")[0] in ("opt_state",
+                                                                                 "loss_scale")
+                    if not skip:
+                        logger.warning(f"universal load: no atom/passthrough for {key}; "
+                                       f"keeping current value")
+                    return cur
+                if key == "torch_rng":
+                    self._load_generator(arr, "universal")
+                    return cur
+                want = tuple(cur.shape) if isinstance(cur, (torch.Tensor, np.ndarray)) else ()
+                return _restore_leaf(fit(np.asarray(arr), want, key), cur, key, self.device)
+
+            saved = map_with_keys(leaf, self._saved_state())
+            self.state = TrainState(step=saved.step, params=saved.params,
+                                    opt_state=saved.opt_state, loss_scale=saved.loss_scale)
+        logger.info(f"loaded universal checkpoint from {udir} ({len(atoms)} parameter atoms)")
+        return tag, data.get("client_state", {})
 
     @staticmethod
     def _generator_template(load_dir: str, tag: str, current: np.ndarray):
@@ -801,6 +1218,8 @@ def initialize(args=None, model=None, loss_fn: Optional[Callable] = None,
                model_parameters: Any = None, training_data=None, config=None,
                device="cuda", collate_fn=None, **kwargs):
     """See ``deepspeed_tpu_torch.initialize``."""
+    # ZeRO-Infinity's layer structure (deepspeed_tpu/__init__.py:113-116)
+    stream_fns = {name: kwargs.pop(name, None) for name in ("layer_fn", "head_fn", "stem_fn")}
     if kwargs:
         raise NotImplementedError(f"initialize() arguments {sorted(kwargs)} are not ported to "
                                   f"PyTorch yet")
@@ -842,7 +1261,7 @@ def initialize(args=None, model=None, loss_fn: Optional[Callable] = None,
                     f"ramps {scheduler.min_tokens}->{scheduler.max_tokens} over "
                     f"{scheduler.total_steps} steps); the engine warns after step 1 if the loss "
                     f"function never engaged it")
-    engine = Engine(fn, model_parameters, cfg, device=device, ltd_state=ltd_state)
+    engine = Engine(fn, model_parameters, cfg, device=device, ltd_state=ltd_state, **stream_fns)
     dataloader = None
     if training_data is not None:
         from .dataloader import CurriculumDataLoader, DeepSpeedDataLoader

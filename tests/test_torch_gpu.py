@@ -1482,3 +1482,87 @@ def test_watchdog_on_the_card_reads_each_verdict_one_step_late(cuda):
     assert engine._consecutive_bad_steps == 1
     with pytest.raises(NonFiniteLossError, match="at global step 3"):
         engine.train_batch(good)
+
+
+def _offload_conf(**zero):
+    return {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+            "gradient_clipping": 1.0, "bf16": {"enabled": False},
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3, "weight_decay": 0.1}},
+            "zero_optimization": {"stage": 2, **zero}}
+
+
+def test_offload_pinned_step_on_gpu_matches_cpu(cuda):
+    """``offload_optimizer: {device: cpu, pin_memory: true}`` on the card: the
+    master params and the grads' staging are page-locked, the step takes
+    the host CPU-Adam once a leaf and no fused-AdamW launch, and losses and
+    params follow the same offloaded engine on the CPU."""
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam
+    cfg = llama.LlamaConfig.tiny(vocab=128, hidden=128, layers=2, heads=2, kv_heads=1, seq=64)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    conf = _offload_conf(offload_optimizer={"device": "cpu", "pin_memory": True})
+    engines = {dev: deepspeed_tpu_torch.initialize(loss_fn=llama.make_loss_fn(cfg),
+                                                   model_parameters=params, config=conf,
+                                                   device=dev)[0] for dev in ("cpu", "cuda")}
+    host = engines["cuda"]._offload_state
+    assert host.pinned_bytes == 4 * sum(p.numel() for p in _leaves(params))
+    assert all(t.is_pinned() for t in host.params.values())
+    assert all(t.is_pinned() for t in engines["cuda"]._grad_staging.values())
+    assert engines["cpu"]._offload_state.pinned_bytes == 0
+    batch = llama.causal_lm_batch(np.random.default_rng(1).integers(0, 128, (4, 64)))
+    before = (fused_adamw_flat.launches, DeepSpeedCPUAdam.launches, flash.flash_fwd.launches)
+    for _ in range(2):
+        losses = [float(engines[dev].train_batch(batch).loss) for dev in ("cpu", "cuda")]
+        assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[0])
+    assert fused_adamw_flat.launches == before[0]
+    assert DeepSpeedCPUAdam.launches - before[1] == 2 * 2 * len(list(_leaves(params)))
+    assert flash.flash_fwd.launches - before[2] == 2 * 2 * 2 * 2  # steps x gas x layers x remat
+    got, want = engines["cuda"].get_fp32_params(), engines["cpu"].get_fp32_params()
+    for a, b in zip(_leaves(got), _leaves(want)):
+        assert float(np.abs(a - b).max()) <= 2 * 2e-3
+    host.close()
+
+
+def test_infinity_streams_layers_through_flash_on_gpu(cuda, tmp_path):
+    """``offload_param: nvme`` with the moments in RAM, a tiny Llama's layers
+    streamed through the flash kernels on the card: each layer and step
+    launches 2 forwards (the stream, the backward's recompute), 1 dK/dV and
+    1 dQ; losses and stacked params follow the same engine on the CPU."""
+    from deepspeed_tpu_torch.models import transformer
+    cfg = llama.LlamaConfig.tiny(vocab=128, hidden=128, layers=2, heads=2, kv_heads=2, seq=64)
+    base = llama.init_params(cfg, torch.Generator().manual_seed(0))
+
+    def build(dev):
+        d = torch.device(dev)
+        attention = transformer.resolve_attention(None, d)
+        cos, sin = transformer.device_rotary_tables(64, 64, cfg.rope_theta, str(d))
+        layer_fn = lambda p, x: llama._layer(cfg, cos, sin, attention, x, p)
+        stem_fn = lambda sp, t: sp["embed"][t.long()]
+
+        def head_fn(h, x, labels):
+            x = transformer.rms_norm(x, h["final_norm"], cfg.rms_eps)
+            return transformer.cross_entropy_loss(x @ h["lm_head"].to(x.dtype), labels)
+
+        params = {"stem": {"embed": base["embed"]}, "layers": base["layers"],
+                  "final_norm": base["final_norm"], "lm_head": base["lm_head"]}
+        conf = {"train_micro_batch_size_per_gpu": 2, "bf16": {"enabled": False},
+                "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+                "zero_optimization": {"stage": 3, "offload_optimizer": {"device": "cpu"},
+                                      "offload_param": {"device": "nvme", "buffer_count": 6,
+                                                        "nvme_path": str(tmp_path / dev)}}}
+        return deepspeed_tpu_torch.initialize(loss_fn=lambda p, b, r: 0.0, model_parameters=params,
+                                              config=conf, device=dev, layer_fn=layer_fn,
+                                              stem_fn=stem_fn, head_fn=head_fn)[0]
+
+    engines = {dev: build(dev) for dev in ("cpu", "cuda")}
+    rows = llama.causal_lm_batch(np.random.default_rng(2).integers(0, 128, (2, 64)))
+    batch = {"x": rows["input_ids"], "y": rows["labels"]}
+    fns = (flash.flash_fwd, flash.flash_bwd_dkdv, flash.flash_bwd_dq)
+    before = [fn.launches for fn in fns]
+    for _ in range(2):
+        losses = [float(engines[dev].train_batch(batch).loss) for dev in ("cpu", "cuda")]
+        assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[0])
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [8, 4, 4]
+    got = engines["cuda"]._nvme_trainer.gather_stacked_params()
+    want = engines["cpu"]._nvme_trainer.gather_stacked_params()
+    for a, b in zip(_leaves(got), _leaves(want)):
+        assert float((a - b).abs().max()) <= 2 * 2e-3

@@ -1,5 +1,5 @@
 """The port stands alone: importing ``deepspeed_tpu_torch`` (every submodule)
-and ``chip_smoke`` pulls in neither ``jax``, ``deepspeed_tpu`` nor
+and ``chip_smoke`` (with ``offload_probe``) pulls in neither ``jax``, ``deepspeed_tpu`` nor
 ``safetensors`` (absent on the card's machine), and the port's source spells
 no such import."""
 
@@ -21,6 +21,7 @@ mods = [m.name for m in pkgutil.walk_packages(deepspeed_tpu_torch.__path__,
 for name in mods:
     importlib.import_module(name)
 import chip_smoke  # guarded by __main__: importing it runs nothing
+import offload_probe  # so is the offload probe
 leaked = sorted(m for m in sys.modules
                 if m in ("jax", "deepspeed_tpu", "safetensors")
                 or m.startswith(("jax.", "jaxlib", "deepspeed_tpu.", "safetensors.")))
@@ -86,7 +87,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "deepspeed_tpu_torch.runtime.data_pipeline.indexed_dataset",
                      "deepspeed_tpu_torch.runtime.data_pipeline.random_ltd",
                      "deepspeed_tpu_torch.runtime.progressive_layer_drop",
-                     "deepspeed_tpu_torch.runtime.eigenvalue"):
+                     "deepspeed_tpu_torch.runtime.eigenvalue",
+                     "deepspeed_tpu_torch.ops.adam.cpu_adam",
+                     "deepspeed_tpu_torch.ops.aio",
+                     "deepspeed_tpu_torch.runtime.swap_tensor",
+                     "deepspeed_tpu_torch.runtime.swap_tensor.optimizer_swapper",
+                     "deepspeed_tpu_torch.runtime.swap_tensor.partitioned_param_swapper",
+                     "deepspeed_tpu_torch.checkpoint",
+                     "deepspeed_tpu_torch.checkpoint.universal",
+                     "deepspeed_tpu_torch.utils.tensor_fragment"):
         assert expected in report["modules"]
 
 
@@ -95,7 +104,7 @@ def test_port_source_spells_no_jax_import():
                          r"from\s+(jax|jaxlib|deepspeed_tpu|safetensors)(\.|\s))", re.MULTILINE)
     files = [f for f in sorted(PACKAGE.rglob("*.py"))
              if "build" not in f.relative_to(PACKAGE).parts]  # kernel build outputs
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "offload_probe.py"]
     assert len(files) > 10
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert offenders == []

@@ -239,10 +239,8 @@ def test_engine_refuses_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             deepspeed_tpu_torch.initialize(config=_config(), **kw)  # device defaults to cuda
-    for bad in ({"zero_optimization": {"stage": 3, "offload_optimizer": {"device": "cpu"}}},
-                {"optimizer": {"type": "onebitadam", "params": {"lr": 1e-3}}},
-                {"optimizer": {"type": "zero_one_adam", "params": {"lr": 1e-3}}},
-                {"load_universal_checkpoint": True}):
+    for bad in ({"optimizer": {"type": "onebitadam", "params": {"lr": 1e-3}}},
+                {"optimizer": {"type": "zero_one_adam", "params": {"lr": 1e-3}}}):
         with pytest.raises(NotImplementedError):
             deepspeed_tpu_torch.initialize(config=_config(**bad), device="cpu", **kw)
     with pytest.raises(ValueError, match="fp16 and bf16"):
@@ -256,8 +254,12 @@ def test_engine_refuses_what_is_not_ported():
         config=_config(data_efficiency={"enabled": True}, max_consecutive_skips=3),
         training_data=dataset, device="cpu", **kw)
     assert isinstance(loader, deepspeed_tpu_torch.DeepSpeedDataLoader)
-    # fp16 with loss scaling and the sgd, adagrad and lamb optimizers are ported
+    # fp16 with loss scaling and the sgd, adagrad and lamb optimizers are
+    # ported; so are ZeRO-Offload and load_universal_checkpoint (ROADMAP 12)
     for ok in ({"fp16": {"enabled": True}, "bf16": None},
+               {"zero_optimization": {"stage": 3, "offload_optimizer": {"device": "cpu"}},
+                "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}},
+               {"load_universal_checkpoint": True},
                {"optimizer": {"type": "sgd", "params": {"lr": 1e-3, "momentum": 0.9}}},
                {"optimizer": {"type": "adagrad", "params": {"lr": 1e-3}}},
                {"optimizer": {"type": "lamb", "params": {"lr": 1e-3}}},
