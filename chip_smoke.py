@@ -132,8 +132,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      the spec families agree with the counters), the cycling workload of
      the bench's spec A/B at full width (attention output zeroed, 16
      self-continued 512-token prompts, 128 new tokens, spec off against
-     n-gram k 8, best of 2: acceptance >= 0.5) and the target attached as
-     its own drafter (k 15, the tensor-core verify; both pools reclaimed);
+     n-gram k 8, one measured pass: acceptance >= 0.5) and the target
+     attached as its own drafter (k 15, the tensor-core verify; both pools
+     reclaimed);
      serve-qwen2, serve-mixtral, serve-opt, serve-gptj: ``build_engine``
      under each family's key, bf16, seeded random weights, the fast path
      with graphs, at full width (Qwen2-7B, OPT-125m and GPT-J-6B at full
@@ -192,8 +193,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      against the step formula (every flash forward, dK/dV and dQ launch a
      tensor-core one), one more step under torch.profiler; train-telemetry:
      a fresh engine on the same config with telemetry (a record a step, the
-     first step's FLOPs counted by FlopCounterMode and held to the count
-     from the shapes, mfu against the peak named by the device) and the ops
+     first step's FLOPs counted by FlopCounterMode, each flash launch adding
+     its plain version's, and held to the count from the shapes, mfu
+     against the peak named by the device) and the ops
      endpoint, 6 steps, a torch.profiler step window (the steps neither
      profiled nor writing its trace timed apart, the trace export alone);
      both under LlamaConfig's default remat policy
@@ -231,7 +233,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      train-universal: a narrow Llama offloaded 2 steps, saved, converted by
      the CLI's ``universal.main`` (in process), resumed by a
      resident and an offloaded engine with ``load_universal_checkpoint``:
-     the third step against the unbroken run;
+     the third step against the unbroken run; train-hybrid: a
+     ``DeepSpeedHybridEngine`` on [train]'s model, config and batch with
+     LoRA (rank 16, wq and wv): greedy rollouts, two steps, the flip, the
+     rollouts again, fuse/unfuse/fuse, a step; served logits bit for bit
+     the current weights' (a stale leaf planted across the flip must fail
+     that), one inference engine, the train step on the base weights,
+     launches by part, the peak and the flip's memory, one step through
+     the FLOPs profiler with its per-module table; compress: every method
+     of ``init_compression`` on [train]'s shapes (kept shares, levels,
+     untouched leaves), ``redundancy_clean`` to a 4-of-8-layer student
+     trained 2 steps; profile: a small Llama's step counted on the card and
+     the CPU (equal), and [train-hybrid]'s against the shapes' count;
+     evoformer: Evoformer attention at an MSA shape, card against CPU,
+     forward and gradients in fp32 and bf16;
   6. train-8bit: the same run with ``fused_adam8bit`` (int8 moments) through
      the AdamW-8bit kernel; train-sparse: the config's ``sparse_attention``
      section (DeepSpeed's documented ``fixed`` example, unidirectional) with
@@ -4663,6 +4678,9 @@ def phase_slice_fleet(device="cuda", cfg=None):
 # -------------------------------------------------- speculative decoding
 SPEC_NGRAM = {"enabled": True, "drafter": "ngram", "k": 4}
 SPEC_CYCLE = {"enabled": True, "drafter": "ngram", "k": 8}
+# measured passes of the cycling A/B after its warm pass (one, so that the
+# whole run fits its 1200 s on a slower host)
+SPEC_CYCLE_TIMED = 1
 SPEC_SELF = {"enabled": True, "drafter": "model", "k": 15, "adaptive_k": False}
 SPEC_CYCLE_REQUESTS, SPEC_CYCLE_PROMPT, SPEC_CYCLE_NEW = 16, 512, 128
 SPEC_DRAFT_BLOCKS = 1280  # the drafter's pool: [serve]'s prompts need about 1,040 blocks
@@ -4852,8 +4870,8 @@ def serve_spec(card, cfg, params, kw, prompts, max_new, results, warm_wall, seed
     2. The cycling workload of ``bench.measure_serving_spec`` at full width:
        ``wo`` zeroed, 16 seeded 8-token seeds continued 504 tokens by the
        spec-off engine, then 128 new tokens spec off and on (n-gram, k 8),
-       each engine warmed once and timed best of 2 through
-       ``_fused_decode``: every request finished, acceptance >= 0.5, no warm
+       each engine warmed once and timed over ``SPEC_CYCLE_TIMED`` pass(es)
+       through ``_fused_decode``: every request finished, acceptance >= 0.5, no warm
        recompile (the captures of each pass are printed).
     3. The target attached as its own drafter (k 15, adaptive off) on
        [serve]'s prompts, cold then warm: every request ok, both pools
@@ -4936,15 +4954,16 @@ def serve_spec(card, cfg, params, kw, prompts, max_new, results, warm_wall, seed
         f"lengths {[b for _, b in entered]}")
     walls, streams, builds = {}, {}, {}
     for name, eng in (("off", eng_off), ("on", eng_on)):
-        # one warm pass, then the best of 2 (the bench takes 3); the
-        # controller carries its EWMA from pass to pass, so a timed pass may
-        # still reach a new bucket: its captures are printed
+        # one warm pass, then SPEC_CYCLE_TIMED measured ones, the best kept
+        # (the bench takes 3); the controller carries its EWMA from pass to
+        # pass, so a timed pass may still reach a new bucket: its captures
+        # are printed
         built = eng.ledger.total
         spec_drive(eng, cyc_prompts, SPEC_CYCLE_NEW)
         warm = eng.ledger.total - built
         timed = []
         best = 0.0
-        for _ in range(2):
+        for _ in range(SPEC_CYCLE_TIMED):
             built = eng.ledger.total
             toks, wall, finals = spec_drive(eng, cyc_prompts, SPEC_CYCLE_NEW)
             timed.append(eng.ledger.total - built)
@@ -4963,8 +4982,9 @@ def serve_spec(card, cfg, params, kw, prompts, max_new, results, warm_wall, seed
     ratio = walls["on"] / walls["off"] if walls["off"] else float("nan")
     departs = [cycle_departure(p, f[len(p):]) for p, f in zip(cyc_prompts, streams["on"])]
     log(f"[serve-spec] cycling workload on {card} ({SPEC_CYCLE_REQUESTS} requests of "
-        f"{SPEC_CYCLE_PROMPT} tokens, {SPEC_CYCLE_NEW} new, wo zeroed, best of 2 after a warm "
-        f"pass, through _fused_decode): spec off {walls['off']:.1f} tok/s, spec on (n-gram k "
+        f"{SPEC_CYCLE_PROMPT} tokens, {SPEC_CYCLE_NEW} new, wo zeroed, best of "
+        f"{SPEC_CYCLE_TIMED} after a warm pass, through _fused_decode): spec off "
+        f"{walls['off']:.1f} tok/s, spec on (n-gram k "
         f"{SPEC_CYCLE['k']}) {walls['on']:.1f} tok/s, ratio {ratio:.3f}; {line}; captures off "
         f"{json.dumps(eng_off.ledger.by_site)}, on {json.dumps(eng_on.ledger.by_site)}, "
         f"captures in the warm pass and the timed passes: off {builds['off']}, on "
@@ -5708,16 +5728,19 @@ def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=
     return launches, summary
 
 
-def train_step_products(cfg, micro, gas, seq):
-    """The FLOPs ``FlopCounterMode`` must count in one [train] step on the
-    card, from the shapes: per micro-batch and layer, each weight product
-    forward and twice in the backward (grads of input and weight); under
-    ``nothing_saveable`` again in the remat recompute but ``w_down``
-    (non-reentrant checkpointing stops the recompute at the last activation
-    the backward saves), under the default ``dots_with_no_batch_dims_saveable``
-    not at all (the products are kept); the lm_head forward and twice
-    backward; the embedding a gather; nothing from the flash kernels, which
-    run through ctypes where the counter cannot see."""
+def train_step_products(cfg, micro, gas, seq, attention=True):
+    """The FLOPs the profiler's count (``FlopCounterMode``) must hold for one
+    [train] step on the card, from the shapes: per micro-batch and layer,
+    each weight product forward and twice in the backward (grads of input
+    and weight); under ``nothing_saveable`` again in the remat recompute but
+    ``w_down`` (non-reentrant checkpointing stops the recompute at the last
+    activation the backward saves), under the default
+    ``dots_with_no_batch_dims_saveable`` not at all (the products are kept);
+    the lm_head forward and twice backward; the embedding a gather.  With
+    ``attention``, what each flash launch adds for its plain version:
+    ``4 B H S^2 Dh`` a forward (run twice, forward and remat recompute, but
+    under ``everything_saveable``), 8 for dK/dV, 6 for dQ; without it, the
+    products alone (the count before the kernels were counted)."""
     D, F, L, V = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers, cfg.vocab_size
     H, KV = cfg.num_heads, cfg.num_kv_heads
     Dh = D // H
@@ -5726,7 +5749,9 @@ def train_step_products(cfg, micro, gas, seq):
     w_down = 2 * tokens * F * D
     head = 2 * tokens * D * V
     recompute = layer - w_down if cfg.remat_policy in (None, "nothing_saveable") else 0
-    return gas * (L * (3 * layer + recompute) + 3 * head)
+    forwards = 1 if cfg.remat_policy == "everything_saveable" or not cfg.remat else 2
+    attn = (4 * forwards + 8 + 6) * micro * H * seq * seq * Dh if attention else 0
+    return gas * (L * (3 * layer + recompute + attn) + 3 * head)
 
 
 def phase_train_telemetry(card, baseline, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2,
@@ -5795,6 +5820,7 @@ def phase_train_telemetry(card, baseline, seed=0, layers=TRAIN_LAYERS, steps=6, 
     keys = ("loss", "step_time_ms", "samples_per_sec", "tokens_per_sec", "flops_per_step",
             "tflops_per_sec", "mfu", "hbm")
     want = train_step_products(cfg, micro, gas, seq)
+    products = train_step_products(cfg, micro, gas, seq, attention=False)
     tel = engine.telemetry
     flops = records[0]["flops_per_step"] if records else None
     last = records[-1] if records else {}
@@ -5818,7 +5844,9 @@ def phase_train_telemetry(card, baseline, seed=0, layers=TRAIN_LAYERS, steps=6, 
         f"{micro} x {gas} x {seq} tokens, telemetry + step window [2, 3) + ops endpoint, "
         f"{steps} steps on {card}: {len(records)} train_step records, losses "
         f"{[round(r['loss'], 4) for r in records]}; flops_per_step {flops:.6e} counted by "
-        f"FlopCounterMode on step 1 = predicted {want:.6e} ({(flops - want) / want:+.2e}; "
+        f"FlopCounterMode on step 1, the flash launches' plain FLOPs included, = predicted "
+        f"{want:.6e} ({(flops - want) / want:+.2e}; products alone {products:.6e}, mfu under "
+        f"that count {[round(r['mfu'] * products / flops, 4) for r in records]}; "
         f"phase_train's analytic step_flops {llama.flops_per_token(cfg, seq) * micro * gas * seq:.6e} "
         f"counts model FLOPs with attention and without remat); mfu "
         f"{[round(r['mfu'], 4) for r in records]} (peak {tel.peak_flops_per_chip / 1e12:.0f} "
@@ -7895,6 +7923,527 @@ def phase_train_universal(card, seed=0, device="cuda", width=None, micro=2, step
         shutil.rmtree(root, ignore_errors=True)
 
 
+# [train-hybrid]: RLHF's train <-> generate flip over [train]'s model, with
+# LoRA adapters of rank HYBRID_RANK on attn.wq and attn.wv of every layer
+HYBRID_RANK = 16
+HYBRID_ALPHA = 32.0
+HYBRID_PROMPTS, HYBRID_PROMPT_LEN, HYBRID_NEW = 4, 128, 64
+HYBRID_STALE_LEAF = ("layers", "mlp", "w_down")  # the leaf the planted fault leaves stale
+
+
+def hybrid_lora(cfg, seed, device):
+    """Seeded adapters {"a": [L, in, r], "b": [L, r, out], "alpha"} on wq and wv."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    L, D = cfg.num_layers, cfg.hidden_size
+    kv = cfg.num_kv_heads * (D // cfg.num_heads)
+
+    def adapter(out):
+        return {"a": torch.randn((L, D, HYBRID_RANK), generator=gen, device=device) * 0.02,
+                "b": torch.randn((L, HYBRID_RANK, out), generator=gen, device=device) * 0.02,
+                "alpha": HYBRID_ALPHA}
+
+    return {"layers": {"attn": {"wq": adapter(D), "wv": adapter(kv)}}}
+
+
+def hybrid_reference(engine, cfg, ids):
+    """``llama.forward`` over the engine's current weights (the masters cast
+    to the compute dtype, with the adapters fused the same way when the
+    engine serves them fused) through ``sdpa``: the v1 engine's cached
+    forward passes its attention a mask, which ``flash_attention`` hands to
+    ``sdpa`` as JAX's hands it to XLA (``flash.py:389-390``), so generation
+    launches no flash kernel in either package."""
+    import torch
+    from deepspeed_tpu_torch.models.transformer import sdpa
+    from deepspeed_tpu_torch.runtime.tree import tree_map
+    params = tree_map(lambda p: p.to(engine.compute_dtype), engine.state.params)
+    if engine._lora is not None and engine._lora_fused:
+        params = engine._fuse_lora_tree(params, engine._lora)
+    from deepspeed_tpu_torch.models import llama
+    with torch.no_grad():
+        return llama.forward(cfg, params, torch.as_tensor(ids, device=engine.device),
+                             attention_fn=sdpa)
+
+
+def launches_since(before):
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def phase_train_hybrid(card, dense, seed=0, layers=TRAIN_LAYERS, micro=2, gas=2, seq=2048,
+                       device="cuda", cfg=None, lr=3e-4):
+    """[train-hybrid]: a ``DeepSpeedHybridEngine`` on [train]'s model, config
+    and batch (Llama-2-7B width, ``layers`` layers, bf16, remat, fused AdamW,
+    micro x gas x seq) with LoRA adapters (rank 16) on attn.wq and attn.wv of
+    every layer.  In order: a greedy ``generate`` of 4 prompts of 128 tokens
+    and 64 new ones; two train steps; the flip (timed), a prefill (timed) and
+    the greedy rollouts again; fuse, unfuse, fuse; one more step.  Gates: (a)
+    ``eval_forward`` equals ``llama.forward`` over the current weights cast
+    to bf16 (through ``sdpa``, the attention the cached forward's masked
+    call takes), bit for bit, and a planted fault (the flip leaves
+    ``HYBRID_STALE_LEAF`` stale) fails that check; (b) the rollouts change
+    after the steps; (c) fused logits equal a manual fuse, unfuse gives the
+    base logits back and fuse again the fused ones, bit for bit; (d) one
+    ``InferenceEngine`` object serves the phase; (e) the train step sees the
+    base weights: one batch's loss through ``accumulate_gradients`` (no
+    optimizer step) with the adapters attached equals it with them detached;
+    (f) flash forward, dK/dV, dQ and fused AdamW launches by part
+    (generation: none, the cached forward's attention is masked and runs
+    ``sdpa``, as JAX's runs XLA; training: the step formula for the three
+    steps and the two (e) passes), every one a tensor-core launch; (g) the peak at most [train]'s
+    (``dense``) plus one bf16 copy of the weights, the KV cache and 1 GB,
+    and the second flip's peak no higher than the first's (which allocates
+    the serving buffers), the bytes held after it within 64 MiB of the
+    first's.
+    Then one step profiled by ``FlopsProfiler`` with its per-module table.
+    Returns (launches by part, summary); ``device="cpu"`` with ``cfg`` (a
+    tiny LlamaConfig) and a larger ``lr`` (a tiny model's greedy rollouts
+    outlast two steps at [train]'s) rehearses it on the CPU, without the
+    launch and memory gates."""
+    import torch
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.profiling.flops_profiler import FlopsProfiler
+    from deepspeed_tpu_torch.runtime.config import load_config
+    from deepspeed_tpu_torch.runtime.hybrid_engine import DeepSpeedHybridEngine
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves
+    on_card = torch.device(device).type == "cuda"
+    if cfg is None:
+        cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), num_layers=layers, remat=True)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                               dtype=torch.float32, device=device)
+    n_leaves = len(tree_leaves(params))
+    lora = hybrid_lora(cfg, seed + 1, device)
+    engine = DeepSpeedHybridEngine(
+        loss_fn=llama.make_loss_fn(cfg), params=params,
+        config=load_config(train_config(micro=micro, gas=gas, bf16=True, seed=seed, lr=lr)),
+        device=device, model_module=llama, model_config=cfg, lora_params=lora)
+    del params
+    rng = np.random.default_rng(seed)
+    batch = llama.causal_lm_batch(rng.integers(0, cfg.vocab_size, (micro * gas, seq)))
+    prompts = np.random.default_rng(seed + 1).integers(1, cfg.vocab_size,
+                                                       (HYBRID_PROMPTS, HYBRID_PROMPT_LEN))
+    n_params = llama.num_params(cfg)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    log(f"[train-hybrid] llama2_7b width x {L} layers ({n_params / 1e9:.3f} B params), bf16, "
+        f"remat, fused_adam, {micro} x {gas} x {seq} tokens a step, LoRA rank {HYBRID_RANK} on "
+        f"attn.wq and attn.wv of {L} layers; set up in {time.perf_counter() - t0:.2f} s")
+
+    def served_matches():
+        served = engine.eval_forward(prompts)
+        return torch.equal(served, hybrid_reference(engine, cfg, prompts)), served
+
+    def gen():
+        out = engine.generate(prompts, max_new_tokens=HYBRID_NEW, temperature=0.0)
+        _sync(device)
+        return out
+
+    reset_launch_counts()
+    parts = {"generate": dict.fromkeys(KERNEL_NAMES, 0), "train": dict.fromkeys(KERNEL_NAMES, 0)}
+
+    def add(part, before):
+        for k, v in launches_since(before).items():
+            parts[part][k] += v
+
+    # 1. the first flip (it builds the inference engine) and the rollouts
+    held0 = torch.cuda.memory_allocated() if on_card else 0
+    before = launch_counts()
+    t1 = time.perf_counter()
+    gen1 = gen()
+    first_s = time.perf_counter() - t1
+    add("generate", before)
+    inf = engine._inf_engine
+    flip1_peak = torch.cuda.max_memory_allocated() - held0 if on_card else 0
+    held1 = torch.cuda.memory_allocated() if on_card else 0
+    # 2. two train steps
+    losses, times = [], []
+
+    def step():
+        b = launch_counts()
+        ts = time.perf_counter()
+        m = engine.train_batch(batch)
+        _sync(device)
+        times.append(time.perf_counter() - ts)
+        losses.append(float(m.loss))
+        add("train", b)
+
+    step()
+    step()
+    # 3. the flip, a prefill, the rollouts again
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    t1 = time.perf_counter()
+    engine._refresh_inference()
+    _sync(device)
+    flip_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    engine.generate(prompts, max_new_tokens=1, temperature=0.0)
+    _sync(device)
+    prefill_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    gen2 = gen()
+    gen_s = time.perf_counter() - t1
+    add("generate", before)
+    flip2_peak = torch.cuda.max_memory_allocated() - held1 if on_card else 0
+    held2 = torch.cuda.memory_allocated() if on_card else 0
+    if np.array_equal(gen1, gen2):
+        raise AssertionError("[train-hybrid] (b) the rollouts did not change after two steps")
+    # 4. fuse (as attached), unfuse, fuse
+    before = launch_counts()
+    ok_fused, fused = served_matches()
+    engine.unfuse_lora_weight()
+    ok_base, base = served_matches()
+    engine.fuse_lora_weight()
+    fused_again = engine.eval_forward(prompts)
+    add("generate", before)
+    if not (ok_fused and ok_base and torch.equal(fused_again, fused)
+            and not torch.equal(fused, base)):
+        raise AssertionError(f"[train-hybrid] (a)/(c) served logits: fused = manual fuse "
+                             f"{ok_fused}, base = llama.forward {ok_base}, fuse again "
+                             f"{torch.equal(fused_again, fused)}, fused != base "
+                             f"{not torch.equal(fused, base)}")
+    # 5. one more step, then the planted fault: the flip skips one leaf
+    step()
+    write_leaf = engine._write_leaf
+
+    def stale(path, buf, src, adapter):
+        if path != HYBRID_STALE_LEAF:
+            write_leaf(path, buf, src, adapter)
+
+    before = launch_counts()
+    engine._write_leaf = stale
+    caught = not served_matches()[0]
+    engine._write_leaf = write_leaf
+    engine._params_version = -1
+    ok_after, _ = served_matches()
+    add("generate", before)
+    if not caught or not ok_after:
+        raise AssertionError(f"[train-hybrid] (a) stale {'.'.join(HYBRID_STALE_LEAF)} caught "
+                             f"{caught}; fresh flip matches {ok_after}")
+    # (e) the train step sees the base weights
+    before = launch_counts()
+    grads, with_lora = engine.accumulate_gradients(batch)
+    del grads
+    engine.set_lora(None)
+    grads, without = engine.accumulate_gradients(batch)
+    del grads
+    add("train", before)
+    if not torch.equal(with_lora, without):
+        raise AssertionError(f"[train-hybrid] (e) loss with the adapters {float(with_lora)} != "
+                             f"without {float(without)}")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    # (d), (f), (g)
+    if engine._inf_engine is not inf:
+        raise AssertionError("[train-hybrid] (d) the inference engine was rebuilt")
+    passes = 3 + 2  # three optimizer steps and the two (e) gradient passes
+    want_gen = dict.fromkeys(KERNEL_NAMES, 0)  # masked attention: sdpa, no kernel
+    want_train = expected_launches(steps=3, gas=gas, layers=L, n_leaves=n_leaves,
+                                   optimizer="fused_adam", sparse=None)
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        want_train[name] = want_train[name] * passes // 3
+    wrappers = _kernel_wrappers()
+    tc = {name: wrappers[name].tc_launches for name in ("flash_fwd", "flash_bwd_dkdv",
+                                                         "flash_bwd_dq")}
+    bound_gb = dense["peak_gb"] + 2 * n_params / 1e9 + kv_cache_gb(cfg) + 1.0
+    if on_card:
+        total = {k: parts["generate"][k] + parts["train"][k] for k in KERNEL_NAMES}
+        if (parts["generate"] != want_gen or parts["train"] != want_train
+                or any(tc[k] != total[k] for k in tc)):
+            raise AssertionError(f"[train-hybrid] (f) launches {parts} != generate {want_gen}, "
+                                 f"train {want_train}; tensor-core {tc}")
+        if peak > bound_gb or flip2_peak > flip1_peak or held2 > held1 + 2**26:
+            raise AssertionError(f"[train-hybrid] (g) peak {peak:.2f} GB (bound {bound_gb:.2f}); "
+                                 f"flip peaks {flip1_peak} then {flip2_peak} B; held {held1} "
+                                 f"then {held2} B")
+    step_s = statistics.mean(times[1:])
+    decode_tps = HYBRID_PROMPTS * (HYBRID_NEW - 1) / max(gen_s - prefill_s, 1e-9)
+    summary = {"step_ms": step_s * 1e3, "flip_ms": flip_s * 1e3, "prefill_ms": prefill_s * 1e3,
+               "decode_tokens_s": decode_tps, "peak_gb": peak, "first_generate_s": first_s,
+               "flip1_peak_b": flip1_peak, "flip2_peak_b": flip2_peak, "losses": losses}
+    log(f"[train-hybrid] on {card}: losses {[round(x, 4) for x in losses]}; step ms "
+        f"{[round(t * 1e3, 1) for t in times]} (steps 2-3 mean {step_s * 1e3:.1f}; [train]: "
+        f"{dense['step_ms']:.1f}); the flip (cast of {n_params / 1e9:.3f} B params into the "
+        f"serving buffers) {flip_s * 1e3:.1f} ms; prefill of {HYBRID_PROMPTS} x "
+        f"{HYBRID_PROMPT_LEN} {prefill_s * 1e3:.1f} ms; {HYBRID_NEW} new tokens in "
+        f"{gen_s * 1e3:.1f} ms: {decode_tps:.1f} decode tokens/s; first generate (builds the "
+        f"engine) {first_s:.2f} s; rollouts changed at "
+        f"{int((gen1 != gen2).any(axis=1).sum())} of {HYBRID_PROMPTS} prompts")
+    log(f"[train-hybrid] (a) eval_forward = llama.forward (sdpa) bit for bit, fused and not; "
+        f"the stale {'.'.join(HYBRID_STALE_LEAF)} caught; (c) fuse/unfuse/fuse bit for bit; (d) one "
+        f"InferenceEngine; (e) loss {float(with_lora):.6f} with and without the adapters; (f) "
+        f"launches generate {({k: v for k, v in parts['generate'].items() if v})}, train "
+        f"{({k: v for k, v in parts['train'].items() if v})}, tensor-core {tc}; (g) peak "
+        f"{peak:.2f} GB (bound {bound_gb:.2f}: [train] {dense['peak_gb']:.2f} + bf16 weights "
+        f"{2 * n_params / 1e9:.2f} + KV {kv_cache_gb(cfg):.3f} + 1), flip peaks "
+        f"{flip1_peak / 1e9:.3f} then {flip2_peak / 1e9:.3f} GB, held {held1 / 1e9:.3f} then "
+        f"{held2 / 1e9:.3f} GB")
+    # one step's count through the FLOPs profiler, and its per-module table
+    profiler = FlopsProfiler(engine)
+    t1 = time.perf_counter()
+    res = profiler.profile_train_step(batch)
+    _sync(device)
+    summary["profile_s"] = time.perf_counter() - t1
+    summary["profile"] = res
+    table = profiler.print_model_profile(tokens=micro * gas * seq, top_k=10)
+    log(f"[train-hybrid] FlopsProfiler.profile_train_step in {summary['profile_s']:.2f} s: "
+        f"{res.human()} (bytes: every aten op's operands and results, unfused, plus the "
+        f"kernels' own)\n" + table)
+    del engine
+    if on_card:
+        torch.cuda.empty_cache()
+    return parts, summary
+
+
+def kv_cache_gb(cfg):
+    """The v1 engine's bf16 KV cache for [train-hybrid]'s rollouts."""
+    dh = cfg.hidden_size // cfg.num_heads
+    return (2 * cfg.num_layers * HYBRID_PROMPTS * (HYBRID_PROMPT_LEN + HYBRID_NEW)
+            * cfg.num_kv_heads * dh * 2 / 1e9)
+
+
+def compress_config():
+    """One group of each method over Llama's tree."""
+    return {"weight_quantization": {"different_groups": {
+                "wq": {"params": {"target_bits": 8}, "modules": ["attn\\."]}}},
+            "sparse_pruning": {"different_groups": {
+                "sp": {"params": {"dense_ratio": 0.5}, "modules": ["mlp\\."]}}},
+            "head_pruning": {"shared_parameters": {"num_heads": 32}, "different_groups": {
+                "hp": {"params": {"dense_ratio": 0.75}, "modules": ["attn\\.wo"]}}},
+            "row_pruning": {"different_groups": {
+                "rp": {"params": {"dense_ratio": 0.5}, "modules": ["^lm_head$"]}}},
+            "channel_pruning": {"different_groups": {
+                "cp": {"params": {"dense_ratio": 0.5}, "modules": ["^embed$"]}}}}
+
+
+def phase_compress(card, seed=5, layers=TRAIN_LAYERS, micro=2, gas=2, seq=2048, device="cuda",
+                   cfg=None, heads=32):
+    """[compress]: fresh seeded fp32 params of [train]'s shapes on the card;
+    ``init_compression`` with one group of each method (int8 weight
+    quantization on attn.*, sparse pruning at 0.5 on mlp.*, head pruning at
+    0.75 of 32 heads on attn.wo, row pruning on lm_head, channel pruning on
+    embed), each method also timed alone.  Gates: the kept share of each
+    mask is its target k with only threshold ties above it (#(> t) < k <=
+    #(>= t)), heads within one of 24 in each layer; each quantized leaf at
+    most 255 levels; leaves no group matches returned unchanged.  Then
+    ``redundancy_clean`` keeps 4 of 8 teacher layers under
+    ``module_name_prefix`` "layers": the student's layers equal teacher
+    layers ``linspace(0, 7, 4).round()`` bit for bit, and the 4-layer
+    student trains 2 steps through the kernels (finite losses, launches =
+    the step formula).  Returns the student's launches."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import compression
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.runtime.checkpointing import flatten_with_paths
+    on_card = torch.device(device).type == "cuda"
+    if cfg is None:
+        cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), num_layers=layers, remat=True)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    teacher = llama.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                                dtype=torch.float32, device=device)
+    conf = compress_config()
+    conf["head_pruning"]["shared_parameters"]["num_heads"] = heads
+    times = {}
+    for method in conf:
+        _sync(device)
+        t0 = time.perf_counter()
+        alone = compression.init_compression(teacher, {method: conf[method]})
+        _sync(device)
+        times[method] = (time.perf_counter() - t0) * 1e3
+        del alone
+    t0 = time.perf_counter()
+    out = compression.init_compression(teacher, conf)
+    _sync(device)
+    times["all five"] = (time.perf_counter() - t0) * 1e3
+    flat_in, flat_out = dict(flatten_with_paths(teacher)), dict(flatten_with_paths(out))
+    report, bad = {}, []
+
+    def kept_check(name, kept, scores, density):
+        k = max(1, int(round(scores.numel() * density)))
+        t = torch.sort(scores.reshape(-1)).values[-k]
+        above = int((scores > t).sum())
+        report[name] = f"{kept}/{scores.numel()} (target {k}, +{kept - k} ties)"
+        if not above < k <= kept == int((scores >= t).sum()):
+            bad.append(f"{name}: kept {kept}, target {k}, above the threshold {above}")
+
+    for name in ("wq", "wk", "wv", "wo"):
+        levels = int(torch.unique(flat_out[("layers", "attn", name)]).numel())
+        report[f"attn.{name} levels"] = levels
+        if levels > 255:
+            bad.append(f"attn.{name}: {levels} levels")
+    for name in ("w_gate", "w_up", "w_down"):
+        w = flat_in[("layers", "mlp", name)]
+        kept_check(f"mlp.{name}", int((flat_out[("layers", "mlp", name)] != 0).sum()),
+                   w.abs(), 0.5)
+    wo = flat_out[("layers", "attn", "wo")]
+    dh = wo.shape[1] // heads
+    kept_heads = (wo.reshape(wo.shape[0], heads, dh, -1) != 0).flatten(2).any(-1).sum(-1)
+    report["attn.wo heads kept"] = kept_heads.tolist()
+    if any(abs(int(h) - round(0.75 * heads)) > 1 for h in kept_heads):
+        bad.append(f"attn.wo heads kept {kept_heads.tolist()}")
+    head = flat_in[("lm_head", )]
+    kept_check("lm_head rows", int((flat_out[("lm_head", )] != 0).any(0).sum()),
+               head.abs().sum(0), 0.5)
+    emb = flat_in[("embed", )]
+    kept_check("embed channels", int((flat_out[("embed", )] != 0).any(1).sum()),
+               emb.abs().sum(1), 0.5)
+    untouched = [p for p in flat_in if p not in {("layers", "attn", n) for n in
+                                                 ("wq", "wk", "wv", "wo")}
+                 | {("layers", "mlp", n) for n in ("w_gate", "w_up", "w_down")}
+                 | {("lm_head", ), ("embed", )}]
+    if any(flat_out[p] is not flat_in[p] or not torch.equal(flat_out[p], flat_in[p])
+           for p in untouched):
+        bad.append("an untouched leaf changed")
+    if bad:
+        raise AssertionError(f"[compress] {bad}")
+    del teacher, flat_in
+    keep = np.linspace(0, cfg.num_layers - 1, 4).round().astype(int).tolist()
+    t0 = time.perf_counter()
+    student = compression.redundancy_clean(out, {"layer_reduction": {
+        "enabled": True, "keep_number_layer": 4, "teacher_layer": cfg.num_layers,
+        "module_name_prefix": "layers"}})
+    _sync(device)
+    times["redundancy_clean"] = (time.perf_counter() - t0) * 1e3
+    for path, leaf in flatten_with_paths(student["layers"]):
+        whole = flat_out[("layers", ) + path]
+        if not all(torch.equal(leaf[i], whole[j]) for i, j in enumerate(keep)):
+            raise AssertionError(f"[compress] student layer of {'.'.join(path)} != teacher "
+                                 f"layers {keep}")
+    del out, flat_out
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    scfg = dataclasses.replace(cfg, num_layers=4)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        loss_fn=llama.make_loss_fn(scfg), model_parameters=student,
+        config=train_config(micro=micro, gas=gas, bf16=True, seed=seed), device=device)
+    n_leaves = len(list(flatten_with_paths(student)))
+    del student
+    batch = llama.causal_lm_batch(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (micro * gas, seq)))
+    reset_launch_counts()
+    losses = [float(engine.train_batch(batch).loss) for _ in range(2)]
+    _sync(device)
+    launches = launch_counts()
+    want = expected_launches(steps=2, gas=gas, layers=4, n_leaves=n_leaves,
+                             optimizer="fused_adam", sparse=None)
+    if not all(np.isfinite(losses)) or (on_card and launches != want):
+        raise AssertionError(f"[compress] student losses {losses}, launches {launches} != {want}")
+    log(f"[compress] llama2_7b width x {cfg.num_layers} layers fp32 on {card}: ms by method "
+        f"{ {k: round(v, 1) for k, v in times.items()} } (the largest leaf "
+        f"{cfg.num_layers * cfg.hidden_size * cfg.intermediate_size} elements sorted); {report}; "
+        f"untouched leaves the same objects; student layers {keep} of {cfg.num_layers} bit for "
+        f"bit; peak {peak:.2f} GB; student 2 steps, losses {[round(x, 4) for x in losses]}, "
+        f"launches {({k: v for k, v in launches.items() if v})} = step formula")
+    del engine
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches
+
+
+PROFILE_WIDTH = dict(vocab=4096, hidden=512, layers=2, heads=4, kv_heads=4, seq=512)
+
+
+def phase_profile(card, hybrid, seed=0, micro=2, gas=2, seq=512, layers=TRAIN_LAYERS,
+                  hybrid_seq=2048):
+    """[profile]: one step of a 2-layer, width-512 Llama (``PROFILE_WIDTH``,
+    bf16, flash at head dim 128) profiled by ``FlopsProfiler`` on the card
+    and on the CPU, both through ``flash_attention`` (the CPU runs its plain
+    versions, the card's launches add theirs): FLOPs within 0.5 %.  Then
+    [train-hybrid]'s profiled step (``hybrid``) against the count from its
+    shapes (:func:`train_step_products`: products and the flash launches'
+    plain FLOPs), within 1 %."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.attention.flash import flash_attention
+    from deepspeed_tpu_torch.profiling.flops_profiler import FlopsProfiler
+    cfg = llama.LlamaConfig.tiny(**PROFILE_WIDTH)
+    batch = llama.causal_lm_batch(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (micro * gas, seq)))
+    res = {}
+    for device in ("cuda", "cpu"):
+        params = llama.init_params(cfg, torch.Generator().manual_seed(seed))
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(
+            loss_fn=llama.make_loss_fn(cfg, attention_fn=flash_attention),
+            model_parameters=params,
+            config=train_config(micro=micro, gas=gas, bf16=True, seed=seed), device=device)
+        t0 = time.perf_counter()
+        res[device] = FlopsProfiler(engine).profile_train_step(batch)
+        _sync(device)
+        res[device + "_s"] = time.perf_counter() - t0
+        del engine
+    want = train_step_products(cfg, micro, gas, seq)
+    card_f, cpu_f = res["cuda"].flops, res["cpu"].flops
+    big = dataclasses.replace(llama.LlamaConfig.llama2_7b(), num_layers=layers, remat=True)
+    hybrid_want = train_step_products(big, micro, gas, hybrid_seq)
+    hybrid_products = train_step_products(big, micro, gas, hybrid_seq, attention=False)
+    got = hybrid.flops
+    if (abs(card_f - cpu_f) > 0.005 * cpu_f or abs(card_f - want) > 0.01 * want
+            or abs(got - hybrid_want) > 0.01 * hybrid_want):
+        raise AssertionError(f"[profile] FLOPs card {card_f:.6e} vs CPU {cpu_f:.6e}; "
+                             f"[train-hybrid] {got:.6e} vs {hybrid_want:.6e}")
+    log(f"[profile] one step of Llama {PROFILE_WIDTH} ({micro} x {gas} x {seq}) on {card}: "
+        f"FLOPs card {card_f:.6e} ({res['cuda_s']:.2f} s), CPU {cpu_f:.6e} "
+        f"({res['cpu_s']:.2f} s), {(card_f - cpu_f) / cpu_f:+.2e} apart; from the shapes "
+        f"{want:.6e}; bytes card {res['cuda'].bytes_accessed:.6e}, CPU "
+        f"{res['cpu'].bytes_accessed:.6e}. [train-hybrid]'s step: profiled {got:.6e} FLOPs, "
+        f"from the shapes {hybrid_want:.6e} ({(got - hybrid_want) / hybrid_want:+.2e}): "
+        f"products {hybrid_products:.6e} + flash (4 forward + 4 recompute + 8 dK/dV + 6 dQ) "
+        f"B H S^2 Dh {hybrid_want - hybrid_products:.6e} "
+        f"({(hybrid_want - hybrid_products) / hybrid_products:+.2%} over the products)")
+
+
+EVO_SHAPE = (128, 256, 8, 32)  # MSA rows, residues, heads, head dim
+EVO_TOL = {"float32": 2e-5, "bfloat16": 2.0**-5}  # of the reference's largest magnitude
+
+
+def phase_evoformer(card, seed=0, shape=EVO_SHAPE, device="cuda"):
+    """[evoformer]: ``evoformer_attention`` (remat) with a mask bias
+    [rows, 1, 1, S] and a pair bias [1, H, S, S] at an MSA shape of 128
+    rows x 256 residues x 8 heads x 32, forward and the gradients of q, k, v
+    and the pair bias, on the card in fp32 and bf16 against the CPU's fp32
+    on the same (bf16-representable) inputs: within ``EVO_TOL`` of the
+    reference's largest magnitude (fp32 2e-5; bf16 2^-5, eight bf16 ulps)."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention.evoformer import evoformer_attention
+    rows, s, h, d = shape
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, g = (torch.randn(rows, s, h, d, generator=gen).bfloat16().float()
+                  for _ in range(4))
+    mask = torch.where(torch.rand(rows, 1, 1, s, generator=gen) < 0.1, -1e9, 0.0)
+    pair = torch.randn(1, h, s, s, generator=gen).bfloat16().float()
+
+    def run(dev, dtype):
+        ts = [t.to(dev, dtype).requires_grad_(True) for t in (q, k, v)]
+        pb = pair.to(dev, dtype).requires_grad_(True)
+        t0 = time.perf_counter()
+        out = evoformer_attention(*ts, [mask.to(dev, dtype), pb], remat=True)
+        grads = torch.autograd.grad((out * g.to(dev, dtype)).sum(), ts + [pb])
+        _sync(dev)
+        return [x.detach().float().cpu() for x in (out, *grads)], time.perf_counter() - t0
+
+    ref, cpu_s = run("cpu", torch.float32)
+    lines = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        run(device, dtype)  # warm-up
+        got, t = run(device, dtype)
+        errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, ref)]
+        if max(errs) > EVO_TOL[name] or not all(bool(torch.isfinite(a).all()) for a in got):
+            raise AssertionError(f"[evoformer] {name}: errors (out, dq, dk, dv, dpair) {errs} "
+                                 f"over {EVO_TOL[name]}")
+        lines.append(f"{name} {t * 1e3:.1f} ms, max |err| / max |ref| (out, dq, dk, dv, dpair) "
+                     f"{[f'{e:.2e}' for e in errs]} <= {EVO_TOL[name]:.2e}")
+    log(f"[evoformer] {rows} rows x {s} residues x {h} heads x {d}, mask and pair bias, remat, "
+        f"forward + backward on {card} against the CPU's fp32 ({cpu_s:.2f} s): "
+        + "; ".join(lines))
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "deepspeed_tpu_torch")):
@@ -7973,6 +8522,14 @@ def main() -> int:
         infinity_launches, infinity = phase_train_infinity(card)
     with phase_timer("train-universal"):
         phase_train_universal(card)
+    with phase_timer("train-hybrid"):
+        hybrid_launches, hybrid = phase_train_hybrid(card, dense)
+    with phase_timer("compress"):
+        compress_launches = phase_compress(card)
+    with phase_timer("profile"):
+        phase_profile(card, hybrid["profile"])
+    with phase_timer("evoformer"):
+        phase_evoformer(card)
     with phase_timer("train-8bit"):
         adam8_launches, _ = phase_train(card, tag="train-8bit", optimizer="fused_adam8bit",
                                         baseline=dense)
@@ -8052,6 +8609,9 @@ def main() -> int:
                         "train_data_launches": data_launches[name],
                         "train_offload_launches": offload_launches[name],
                         "train_infinity_launches": infinity_launches[name],
+                        "train_hybrid_launches": {part: hybrid_launches[part][name]
+                                                  for part in hybrid_launches},
+                        "compress_student_launches": compress_launches[name],
                         "variant": FLASH_VARIANTS[name]})
     adam = train_recs["fused_adamw"]
     kernels.append({"name": "fused_adamw", "route": "cuda", "source": ADAM_SOURCE,
@@ -8067,6 +8627,8 @@ def main() -> int:
                                              for policy in remat_launches},
                     "train_data_launches": data_launches["fused_adamw"],
                     "train_offload_launches": offload_launches["fused_adamw"],
+                    "train_hybrid_launches": hybrid_launches["train"]["fused_adamw"],
+                    "compress_student_launches": compress_launches["fused_adamw"],
                     "bf16_grad": {k: train_recs["fused_adamw_bf16_grad"][k] for k in fields}})
     for name in ("sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq"):
         kernels.append({"name": name, "route": "cuda", "source": SPARSE_SOURCE,

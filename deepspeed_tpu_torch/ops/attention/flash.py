@@ -33,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from .. import _build, use_kernel
+from .. import _build, count_kernel, use_kernel
 
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -191,6 +191,7 @@ def flash_fwd(q, k, v, scale: float, causal: bool):
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError_t {rc}")
     flash_fwd.launches += 1
     flash_fwd.tc_launches += uses_tensor_cores(q.dtype)
+    count_kernel(flash_fwd_reference, (q, k, v, scale, causal), (out, lse))
     return out, lse
 
 
@@ -212,6 +213,7 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, scale: float, causal: bool):
         raise RuntimeError(f"flash_bwd_dkdv kernel launch failed: cudaError_t {rc}")
     flash_bwd_dkdv.launches += 1
     flash_bwd_dkdv.tc_launches += uses_tensor_cores(q.dtype)
+    count_kernel(flash_bwd_dkdv_reference, (q, k, v, do, lse, delta, scale, causal), (dk, dv))
     return dk, dv
 
 
@@ -232,11 +234,14 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: cudaError_t {rc}")
     flash_bwd_dq.launches += 1
     flash_bwd_dq.tc_launches += uses_tensor_cores(q.dtype)
+    count_kernel(flash_bwd_dq_reference, (q, k, v, do, lse, delta, scale, causal), (dq, ))
     return dq
 
 
 # kernel launches in this process (the CPU path never counts); tc_launches
-# counts those of them that went to the tensor-core kernels
+# counts those of them that went to the tensor-core kernels.  A launch also
+# adds its plain version's FLOPs and its own bytes to an open profiler count
+# (ops.count_kernel), so a step counts the same FLOPs on the CPU and the card
 flash_fwd.launches = flash_fwd.tc_launches = 0
 flash_bwd_dkdv.launches = flash_bwd_dkdv.tc_launches = 0
 flash_bwd_dq.launches = flash_bwd_dq.tc_launches = 0

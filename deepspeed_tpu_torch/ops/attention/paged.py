@@ -36,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from .. import _build, use_kernel
+from .. import _build, count_kernel, use_kernel
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (32, 64, 80, 128, 256)
@@ -269,6 +269,12 @@ def paged_attention(q, kpool, vpool, tables, lengths, start_pos, n_tokens, *, bl
     paged_attention.launches += 1
     paged_attention.tc_launches += route == "prefill_tc"
     paged_attention.decode_launches += route == "decode"
+    # the kernel reads the blocks its tables name, not the whole pool
+    kv_bytes = 2 * tables.numel() * math.prod(kpool.shape[1:]) * kpool.element_size()
+    count_kernel(paged_attention_reference,
+                 (q, kpool, vpool, tables, lengths, start_pos, n_tokens, scale, window,
+                  alibi_slopes), (out, ),
+                 nbytes=kv_bytes + sum(x.numel() * x.element_size() for x in (q, out, *ints)))
     return out
 
 

@@ -33,7 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import _build, use_kernel
+from .. import _build, count_kernel, use_kernel
 from ..attention import flash
 from ..attention.flash import _round
 
@@ -315,6 +315,7 @@ def sparse_fwd(q, k, v, tables: _Tables, scale: float, causal: bool):
         raise RuntimeError(f"sparse_fwd kernel launch failed: cudaError_t {rc}")
     sparse_fwd.launches += 1
     sparse_fwd.tc_launches += flash.uses_tensor_cores(q.dtype)
+    count_kernel(sparse_fwd_reference, (q, k, v, tables, scale, causal), (out, lse))
     return out, lse
 
 
@@ -340,6 +341,8 @@ def sparse_bwd_dkdv(q, k, v, do, lse, delta, tables: _Tables, scale: float, caus
         raise RuntimeError(f"sparse_bwd_dkdv kernel launch failed: cudaError_t {rc}")
     sparse_bwd_dkdv.launches += 1
     sparse_bwd_dkdv.tc_launches += flash.uses_tensor_cores(q.dtype)
+    count_kernel(sparse_bwd_dkdv_reference, (q, k, v, do, lse, delta, tables, scale, causal),
+                 (dk, dv))
     return dk, dv
 
 
@@ -364,11 +367,14 @@ def sparse_bwd_dq(q, k, v, do, lse, delta, tables: _Tables, scale: float, causal
         raise RuntimeError(f"sparse_bwd_dq kernel launch failed: cudaError_t {rc}")
     sparse_bwd_dq.launches += 1
     sparse_bwd_dq.tc_launches += flash.uses_tensor_cores(q.dtype)
+    count_kernel(sparse_bwd_dq_reference, (q, k, v, do, lse, delta, tables, scale, causal),
+                 (dq, ))
     return dq
 
 
 # kernel launches in this process (the CPU path never counts); tc_launches
-# counts those that went to the tensor-core kernels
+# counts those that went to the tensor-core kernels; each launch adds its
+# plain version's FLOPs and its own bytes to an open count (ops.count_kernel)
 sparse_fwd.launches = sparse_fwd.tc_launches = 0
 sparse_bwd_dkdv.launches = sparse_bwd_dkdv.tc_launches = 0
 sparse_bwd_dq.launches = sparse_bwd_dq.tc_launches = 0

@@ -76,20 +76,29 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def flatten_with_keys(tree, path=()) -> Iterator[Tuple[str, Any]]:
-    """``(key, leaf)`` of every leaf of ``tree`` in JAX's leaf order:
+def flatten_with_paths(tree, path=()) -> Iterator[Tuple[tuple, Any]]:
+    """``(path, leaf)`` of every leaf of ``tree`` in JAX's leaf order:
     NamedTuple fields in declaration order, dict keys sorted; None holds no
-    leaf."""
+    leaf.  ``".".join(map(str, path))`` is the key JAX's ``key_of`` makes
+    from ``tree_flatten_with_path`` (``compression/compress.py:81-82``)."""
     if tree is None:
         return
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from flatten_with_keys(tree[k], path + (k, ))
+            yield from flatten_with_paths(tree[k], path + (k, ))
     elif _is_namedtuple(tree):
         for name in tree._fields:
-            yield from flatten_with_keys(getattr(tree, name), path + (name, ))
+            yield from flatten_with_paths(getattr(tree, name), path + (name, ))
     else:
-        yield _leaf_key(path), tree
+        yield path, tree
+
+
+def flatten_with_keys(tree) -> Iterator[Tuple[str, Any]]:
+    """``(key, leaf)`` of every leaf of ``tree`` in JAX's leaf order, the key
+    the dotted path with any character outside ``[A-Za-z0-9_.-]`` made ``_``
+    (a file name)."""
+    for path, leaf in flatten_with_paths(tree):
+        yield _leaf_key(path), leaf
 
 
 def map_with_keys(fn, tree, path=()):

@@ -454,6 +454,86 @@ class MonitorConfig(ConfigModel):
     csv_monitor: CSVConfig = Field(CSVConfig)
 
 
+class CommsLoggerConfig(ConfigModel):
+    """The ``comms_logger`` section (JAX ``runtime/config.py:154``).  The JAX
+    engine logs its ``comm/`` collectives with it; the single-GPU port runs
+    none, so ``enabled`` raises ``NotImplementedError`` naming ROADMAP item
+    11 and the other fields are accepted."""
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: List[str] = Field(list)
+
+    def model_validate(self):
+        if self.enabled:
+            raise NotImplementedError("comms_logger.enabled=True: the collectives it logs belong "
+                                      "to multi-GPU training, which is not ported to PyTorch yet "
+                                      "(ROADMAP item 11)")
+
+
+class FlopsProfilerConfig(ConfigModel):
+    """The ``flops_profiler`` section (JAX ``runtime/config.py:189``), with
+    its fields and bounds.  No JAX code reads them (``profiling/`` is driven
+    by its callers), and none here either."""
+    enabled: bool = False
+    profile_step: int = Field(1, ge=0)
+    module_depth: int = -1
+    top_modules: int = Field(1, ge=1)
+    detailed: bool = True
+    output_file: Optional[str] = None
+
+
+class MeshConfig(ConfigModel):
+    """The ``mesh`` section (JAX ``runtime/config.py:258``): device-mesh axis
+    sizes, one of which may be -1 (the devices left).  JAX's validation, then:
+    a mesh that resolves to one device (every axis 1, or one axis -1 and the
+    rest 1) is the port's one GPU; any larger size raises
+    ``NotImplementedError`` naming ROADMAP item 11."""
+    data: int = -1
+    fsdp: int = 1
+    tensor: int = 1
+    sequence: int = 1
+    expert: int = 1
+    pipe: int = 1
+    axis_order: List[str] = Field(lambda: ["pipe", "data", "fsdp", "expert", "sequence",
+                                           "tensor"])
+
+    def model_validate(self):
+        sizes = self.axis_sizes()
+        wild = [a for a, s in sizes.items() if s == -1]
+        if len(wild) > 1:
+            raise ValueError(f"MeshConfig: at most one axis may be -1, got {wild}")
+        for a, s in sizes.items():
+            if s < 1 and s != -1:
+                raise ValueError(f"MeshConfig.{a}={s} must be >=1 or -1")
+        known = set(sizes)
+        seen = set()
+        for a in self.axis_order:
+            if a not in known:
+                raise ValueError(f"MeshConfig.axis_order: unknown axis {a!r}; valid axes: "
+                                 f"{sorted(known)}")
+            if a in seen:
+                raise ValueError(f"MeshConfig.axis_order: duplicate axis {a!r}")
+            seen.add(a)
+        wide = {a: s for a, s in sizes.items() if s > 1}
+        if wide:
+            raise NotImplementedError(f"mesh {wide}: a mesh over more than one device belongs "
+                                      f"to multi-GPU training, which is not ported to PyTorch "
+                                      f"yet (ROADMAP item 11)")
+
+    def axis_sizes(self):
+        return {a: getattr(self, a) for a in ("data", "fsdp", "tensor", "sequence", "expert",
+                                              "pipe")}
+
+
+class GradientCompressionConfig(ConfigModel):
+    """The ``gradient_compression`` section (JAX ``runtime/config.py:364``):
+    accepted and read by no code, as in JAX."""
+    enabled: bool = False
+    freeze_step: int = Field(100, ge=0)
+
+
 class TelemetryConfig(ConfigModel):
     """Unified telemetry (``monitor/telemetry.py``), with the JAX package's
     fields, defaults and validation.
@@ -605,12 +685,48 @@ class OffloadOptimizerConfig(ConfigModel):
 
 
 class ZeroConfig(ConfigModel):
-    """ZeRO stage.  Every stage is accepted: the port trains on one device,
-    where ZeRO has no data-parallel group to partition params, grads or
-    optimizer state over, so each stage runs the same step."""
+    """The ``zero_optimization`` section with JAX's fields, defaults and
+    bounds.  Every stage is accepted: the port trains on one device, where
+    ZeRO has no data-parallel group to partition params, grads or optimizer
+    state over, so each stage runs the same step.  The offload sections act
+    (ZeRO-Offload, ZeRO-Infinity); the bucket, persistence, ZeRO++ and MiCS
+    knobs size collectives and partitions and are accepted and unused, as
+    they are on one device in JAX."""
     stage: int = Field(0, ge=0, le=3)
+    contiguous_gradients: bool = True
+    reduce_scatter: bool = True
+    reduce_bucket_size: int = Field(int(5e8), ge=0)
+    allgather_partitions: bool = True
+    allgather_bucket_size: int = Field(int(5e8), ge=0)
+    overlap_comm: Optional[bool] = None
+    round_robin_gradients: bool = False
     offload_param: Optional[OffloadParamConfig] = None
     offload_optimizer: Optional[OffloadOptimizerConfig] = None
+    sub_group_size: int = Field(int(1e9), ge=0)
+    prefetch_bucket_size: int = Field(int(5e7), ge=0,
+                                      deprecated_names=("stage3_prefetch_bucket_size", ))
+    param_persistence_threshold: int = Field(
+        int(1e5), ge=0, deprecated_names=("stage3_param_persistence_threshold", ))
+    model_persistence_threshold: int = Field(
+        int(1e14), ge=0, deprecated_names=("stage3_model_persistence_threshold", ))
+    max_live_parameters: int = Field(int(1e9), ge=0,
+                                     deprecated_names=("stage3_max_live_parameters", ))
+    max_reuse_distance: int = Field(int(1e9), ge=0,
+                                    deprecated_names=("stage3_max_reuse_distance", ))
+    gather_16bit_weights_on_model_save: bool = Field(
+        False, deprecated_names=("stage3_gather_16bit_weights_on_model_save", ))
+    ignore_unused_parameters: bool = True
+    zero_hpz_partition_size: int = Field(1, ge=1)
+    zero_quantized_weights: bool = False
+    zero_quantized_gradients: bool = False
+    mics_shard_size: int = Field(-1, deprecated_names=("mics_shard_size_", ))
+    mics_hierarchical_params_gather: bool = False
+    elastic_checkpoint: bool = False
+
+    def model_validate(self):
+        if self.overlap_comm is None:
+            # JAX's (and the reference's) default: on for stage 3
+            object.__setattr__(self, "overlap_comm", self.stage == 3)
 
 
 class OptimizerConfig(ConfigModel):
@@ -783,8 +899,8 @@ class DataEfficiencyConfig(ConfigModel):
 
 
 # sections of the JAX TrainingConfig that change what a step computes and are
-# not ported yet (none now); any other key the port does not know raises
-# ValueError
+# not ported yet: none, every field of JAX's TrainingConfig is one here; any
+# other key raises ValueError
 UNPORTED_TRAINING_SECTIONS = ()
 
 
@@ -800,8 +916,11 @@ class TrainingConfig(ConfigModel):
     ``data_efficiency`` (curriculum and random-LTD) and the legacy
     ``curriculum_learning``, the watchdog (``max_consecutive_skips``), the
     ``fault_tolerance`` heartbeat, the monitor writers, telemetry and the
-    ops endpoints.  Load it with :func:`load_config`, which raises on a key
-    it does not know."""
+    ops endpoints; the serving sections, so that one dict configures the
+    training and the serving engines; and every other field of JAX's
+    ``TrainingConfig`` (each commented below with what the port does with
+    it).  Load it with :func:`load_config`, which raises on a key it does not
+    know."""
     train_batch_size: Optional[int] = Field(None, ge=1)
     train_micro_batch_size_per_gpu: Optional[int] = Field(None, ge=1)
     gradient_accumulation_steps: Optional[int] = Field(None, ge=1)
@@ -839,6 +958,36 @@ class TrainingConfig(ConfigModel):
     use_node_local_storage: bool = False
     wall_clock_breakdown: bool = False
     memory_breakdown: bool = False
+    # JAX acts on these, and one GPU acts the same way: a mesh that resolves
+    # to one device; the serving sections, validated by the models the
+    # serving engines read (one dict configures both engines); elasticity, a
+    # dict read by elasticity.compute_elastic_config
+    mesh: MeshConfig = Field(MeshConfig)
+    serving_resilience: ServingResilienceConfig = Field(ServingResilienceConfig)
+    serving_fastpath: ServingFastpathConfig = Field(ServingFastpathConfig)
+    serving_spec_decode: ServingSpecDecodeConfig = Field(ServingSpecDecodeConfig)
+    serving_tracing: ServingTracingConfig = Field(ServingTracingConfig)
+    serving_fault_tolerance: ServingFaultToleranceConfig = Field(ServingFaultToleranceConfig)
+    serving_kv_observability: KVObservabilityConfig = Field(KVObservabilityConfig)
+    serving_prefix_cache: ServingPrefixCacheConfig = Field(ServingPrefixCacheConfig)
+    serving_perf: ServingPerfConfig = Field(ServingPerfConfig)
+    serving_fleet: ServingFleetConfig = Field(ServingFleetConfig)
+    serving_qos: ServingQosConfig = Field(ServingQosConfig)
+    elasticity: Optional[Dict[str, Any]] = None
+    # JAX acts on these, and acting needs more than one GPU: a mesh over
+    # several devices and comms_logger.enabled raise NotImplementedError
+    # naming ROADMAP item 11 (MeshConfig, CommsLoggerConfig)
+    comms_logger: CommsLoggerConfig = Field(CommsLoggerConfig)
+    # no JAX code reads these: accepted and ignored, as in JAX; autotuning
+    # stays a dict until the autotuner is ported
+    prescale_gradients: bool = False
+    gradient_predivide_factor: float = Field(1.0, gt=0.0)
+    sparse_gradients: bool = False
+    communication_data_type: Optional[str] = None
+    gradient_compression: GradientCompressionConfig = Field(GradientCompressionConfig)
+    flops_profiler: FlopsProfilerConfig = Field(FlopsProfilerConfig)
+    dump_state: bool = False
+    autotuning: Optional[Dict[str, Any]] = None
 
     def model_validate(self):
         if self.memory_breakdown and not self.telemetry.memory_breakdown:
@@ -930,6 +1079,9 @@ def load_config(config: Union[str, dict, TrainingConfig, None]) -> TrainingConfi
             config = json.load(fh)
     if not isinstance(config, dict):
         raise TypeError(f"config must be a path, dict, or TrainingConfig; got {type(config)}")
+    # the ZeRO aliases JAX's load_config drops
+    config = {k: v for k, v in config.items()
+              if k not in ("zero_allow_untested_optimizer", "zero_force_ds_cpu_optimizer")}
     unported = [k for k in UNPORTED_TRAINING_SECTIONS if k in config]
     if unported:
         raise NotImplementedError(f"the PyTorch port does not implement the training config "

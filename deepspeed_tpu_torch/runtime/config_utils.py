@@ -2,14 +2,18 @@
 
 Counterpart of ``deepspeed_tpu/runtime/config_utils.py``, cut to what the
 serving configs use: class annotations declare fields, ``Field(default, ge=,
-gt=, le=, choices=)`` bounds them, nested ``ConfigModel`` sections are built
-from dicts, and an unknown key raises, naming it.
+gt=, le=, choices=)`` bounds them (``deprecated_names=`` gives older
+spellings), nested ``ConfigModel`` sections are built from dicts, and an
+unknown key raises, naming it.
 """
 
 import copy
 import dataclasses
+import logging
 import typing
 from typing import Any, Optional, Union
+
+logger = logging.getLogger(__name__)
 
 
 class _MISSING:
@@ -28,6 +32,8 @@ class Field:
     gt: Optional[float] = None
     le: Optional[float] = None
     choices: Optional[tuple] = None
+    # older spellings of the field, accepted with a warning
+    deprecated_names: tuple = ()
 
     def resolve_default(self):
         if callable(self.default) and self.default is not MISSING:
@@ -99,9 +105,14 @@ class ConfigModel:
                 raw = klass.__dict__.get(name, MISSING)
                 fields[name] = (tp, raw if isinstance(raw, Field) else Field(default=raw))
         cls._fields = fields
+        cls._aliases = {alias: name for name, (_, field) in fields.items()
+                        for alias in field.deprecated_names}
 
     def __init__(self, **kwargs):
         cls = type(self)
+        for alias in [k for k in kwargs if k in cls._aliases]:
+            logger.warning(f"Config field '{alias}' is deprecated, use '{cls._aliases[alias]}'")
+            kwargs[cls._aliases[alias]] = kwargs.pop(alias)
         for key in kwargs:
             if key not in cls._fields:
                 raise ValueError(f"{cls.__name__}: unknown config field '{key}'. "

@@ -63,10 +63,10 @@ and a ``TelemetryCollector`` (``telemetry`` section: per-step records with
 loss, step time, tokens/s, ``mfu`` and device memory, and a
 ``torch.profiler`` step window); ``wall_clock_breakdown`` or telemetry add
 ONE ``float(loss)`` sync a step.  The step's FLOPs for ``mfu`` are counted
-once, on the first step under ``torch.utils.flop_counter.FlopCounterMode``:
-every aten product, the remat recompute included, and nothing inside the
-hand kernels (called through ``ctypes``, as XLA's cost analysis does not see
-inside a Pallas call).  ``ops_server`` publishes ``/metrics``, ``/healthz``
+once, on the first step, by ``profiling.flops_profiler.count_ops``: every
+aten product, the remat recompute included, and for each hand kernel the
+products of its plain version (so a step counts the same FLOPs on the CPU
+and the card).  ``ops_server`` publishes ``/metrics``, ``/healthz``
 and ``/statez`` refreshed at the step boundary.
 
 ZeRO-Offload and ZeRO-Infinity (JAX ``engine.py:235-478``, ``:805-820``):
@@ -306,7 +306,10 @@ class Engine:
         return tree_map(fix, batch)
 
     def _compute_params(self):
-        """The compute-dtype copy of the master params, as autograd leaves."""
+        """The compute-dtype copy of the master params, as autograd leaves
+        (under ``offload_optimizer``, the device's persistent copy)."""
+        if self._offload_state is not None:
+            return self._compute
         return tree_map(lambda p: p.detach().to(self.compute_dtype).requires_grad_(True),
                         self.state.params)
 
@@ -536,15 +539,16 @@ class Engine:
         if self.telemetry.wants_flops() and self._offload_state is not None:
             self.telemetry.set_flops_per_step(None)  # the step is no one device program
         elif self.telemetry.wants_flops():
-            # the step's FLOPs, counted once on the first step and this batch
-            from torch.utils.flop_counter import FlopCounterMode
-            flop_counter = FlopCounterMode(display=False)
+            # the step's FLOPs, counted once on the first step and this batch,
+            # with the FLOPs profiler's count (the hand kernels included)
+            from ..profiling.flops_profiler import count_ops
+            flop_counter = count_ops()
         with self.telemetry.step_annotation(self.global_steps), \
                 flop_counter if flop_counter is not None else contextlib.nullcontext():
             metrics = (self._step(batch) if self._offload_state is None
                        else self._offload_step(batch))
         if flop_counter is not None:
-            self.telemetry.set_flops_per_step(flop_counter.get_total_flops())
+            self.telemetry.set_flops_per_step(flop_counter.flops)
         # liveness stamp: the host step count and the wall clock, throttled
         # inside the writer; no device value
         self.heartbeat.stamp(self.global_steps)

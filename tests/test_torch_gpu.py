@@ -1566,3 +1566,59 @@ def test_infinity_streams_layers_through_flash_on_gpu(cuda, tmp_path):
     want = engines["cpu"]._nvme_trainer.gather_stacked_params()
     for a, b in zip(_leaves(got), _leaves(want)):
         assert float((a - b).abs().max()) <= 2 * 2e-3
+
+
+def test_flash_launches_count_their_plain_versions_flops(cuda):
+    """On the card a FLOP count holds what the plain versions add on the CPU:
+    the same forward and backward through flash_attention on both."""
+    from deepspeed_tpu_torch.profiling.flops_profiler import count_ops
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 64, 4, 64, generator=g) for _ in range(3))
+    counts = {}
+    for dev in ("cpu", "cuda"):
+        ts = [t.to(dev, torch.bfloat16 if dev == "cuda" else torch.float32).requires_grad_(True)
+              for t in (q, k, v)]
+        with count_ops() as count:
+            flash.flash_attention(*ts, causal=True).float().sum().backward()
+        counts[dev] = (count.flops, count.bytes_accessed)
+    assert counts["cuda"][0] == counts["cpu"][0] == (4 + 8 + 6) * 2 * 4 * 64 * 64 * 64
+    assert counts["cuda"][1] > 0
+
+
+def test_hybrid_engine_on_gpu_matches_cpu(cuda):
+    """The hybrid engine in fp32 on the card and the CPU: the same logits
+    before and after a step (flash against the plain attention), the same
+    greedy rollouts, one inference engine, LoRA fused within the same
+    limit."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.runtime.config import load_config
+    from deepspeed_tpu_torch.runtime.hybrid_engine import DeepSpeedHybridEngine
+    from deepspeed_tpu_torch.runtime.tree import tree_map
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab=128, hidden=256, layers=2, heads=4,
+                                                     kv_heads=2, seq=64), remat=False)
+    base = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    conf = {"train_micro_batch_size_per_gpu": 2, "bf16": {"enabled": False},
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}}
+    rng = np.random.default_rng(0)
+    lora = {"layers": {"attn": {"wq": {"a": rng.normal(size=(2, 256, 8)).astype(np.float32) * .1,
+                                       "b": rng.normal(size=(2, 8, 256)).astype(np.float32) * .1,
+                                       "alpha": 16.0}}}}
+    ids = rng.integers(1, 128, (2, 16))
+    batch = llama.causal_lm_batch(rng.integers(0, 128, (2, 64)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = DeepSpeedHybridEngine(loss_fn=llama.make_loss_fn(cfg),
+                                    params=tree_map(lambda p: p.clone(), base),
+                                    config=load_config(conf), device=dev, model_module=llama,
+                                    model_config=cfg, inference_config={"max_seq_len": 64})
+        first = eng.eval_forward(ids).cpu()
+        inf = eng._inf_engine
+        eng.train_batch(batch)
+        gen = eng.generate(ids, max_new_tokens=8, temperature=0.0)
+        eng.set_lora(lora)
+        out[dev] = (first, eng.eval_forward(ids).cpu(), gen, eng._inf_engine is inf)
+    for a, b in zip(out["cpu"][:2], out["cuda"][:2]):
+        assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(a.abs().max()))
+    np.testing.assert_array_equal(out["cpu"][2], out["cuda"][2])
+    assert out["cuda"][3]

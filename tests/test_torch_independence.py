@@ -95,7 +95,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "deepspeed_tpu_torch.runtime.swap_tensor.partitioned_param_swapper",
                      "deepspeed_tpu_torch.checkpoint",
                      "deepspeed_tpu_torch.checkpoint.universal",
-                     "deepspeed_tpu_torch.utils.tensor_fragment"):
+                     "deepspeed_tpu_torch.utils.tensor_fragment",
+                     "deepspeed_tpu_torch.compression",
+                     "deepspeed_tpu_torch.compression.basic_layer",
+                     "deepspeed_tpu_torch.compression.compress",
+                     "deepspeed_tpu_torch.runtime.hybrid_engine",
+                     "deepspeed_tpu_torch.profiling",
+                     "deepspeed_tpu_torch.profiling.flops_profiler",
+                     "deepspeed_tpu_torch.elasticity",
+                     "deepspeed_tpu_torch.elasticity.elasticity",
+                     "deepspeed_tpu_torch.ops.attention.evoformer"):
         assert expected in report["modules"]
 
 
