@@ -94,7 +94,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      torch.profiler splits
      the device time by kernel (decode, merge, prefill and the CUDA-core
      kernel apart); the reference loop (``serving_fastpath.enabled=False``)
-     and the fast path serve the same prompts in two pairs, in turns,
+     and the fast path serve the same prompts in one pair, in turns,
      after one untimed serve of the reference; with
      nothing shared between the prompts the prefix cache (on by default)
      leaves the loop's 62 forward steps and 47 host syncs as they were;
@@ -233,7 +233,22 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      train-universal: a narrow Llama offloaded 2 steps, saved, converted by
      the CLI's ``universal.main`` (in process), resumed by a
      resident and an offloaded engine with ``load_universal_checkpoint``:
-     the third step against the unbroken run; train-hybrid: a
+     the third step against the unbroken run; accelerator:
+     ``get_accelerator()``'s name, count and memory, its events against
+     ``torch.cuda.Event``'s around 10 bf16 products of 4096^2, a captured
+     graph replayed bit for bit, pinned memory, the synchronized timer, the
+     nccl backend; env-report: ``env_report.main()``, every library built
+     and the card named; autotune: the autotuner over Llama-2-7B width at 2
+     layers, seq 2048, ZeRO-0, grid search over micro-batches 1, 2, 4 and
+     256 (the last admitted by the memory arithmetic at 8x the card's
+     memory, refused by the card and pruned on ``OutOfMemoryError``), each
+     experiment's FLOPs and launches against the shapes and the step
+     formula, no memory left behind, the winner's written config trained 2
+     steps; train-elastic: ``launcher.runner.main --elastic 1`` over this
+     script's ``--elastic-worker`` (a narrow Llama saving every step):
+     generation 0 crashes after step 2, the agent respawns it pinned to
+     ``global_step2``, and steps 3-4 equal an unbroken run bit for bit;
+     train-hybrid: a
      ``DeepSpeedHybridEngine`` on [train]'s model, config and batch with
      LoRA (rank 16, wq and wv): greedy rollouts, two steps, the flip, the
      rollouts again, fuse/unfuse/fuse, a step; served logits bit for bit
@@ -2820,12 +2835,16 @@ def serve_telemetry(card, cfg, params, kw, off, prompts, max_new, results, first
     torch.cuda.empty_cache()
 
 
+# [serve-pairs]'s timed serves, in turns: one pair, for the run's time budget
+SERVE_PAIR = ("reference", "fast path")
+
+
 def serve_pairs(card, cfg, params, kw, fast, prompts, max_new, busy):
     """The parent's loop (``serving_fastpath.enabled=False``: rebuild and
     upload every step, one sync a step, pow2 table widths, eager bursts)
     against the fast path on the same prompts: the reference engine's first
-    serve (its warm-up, untimed), then two pairs in turns (reference, fast,
-    fast, reference): wall of each timed serve,
+    serve (its warm-up, untimed), then one pair in turns (``SERVE_PAIR``:
+    reference, fast): wall of each timed serve,
     device busy time of each loop from one profiled serve, idle share.  In
     bf16 the two loops may pick different split-K widths (pow2 against
     stepped tables), so tokens can differ: the first diverging position of
@@ -2839,7 +2858,7 @@ def serve_pairs(card, cfg, params, kw, fast, prompts, max_new, busy):
     walls = {name: [] for name in engines}
     outs = {}
     ref.generate(prompts, max_new_tokens=max_new, strict=False)
-    for name in ("reference", "fast path", "fast path", "reference"):
+    for name in SERVE_PAIR:
         outs[name], wall = serve_timed(engines[name], prompts, max_new)
         walls[name].append(wall)
     busy["reference"] = profile_device(
@@ -7002,8 +7021,9 @@ def phase_train_slice(seed=1, steps=2, micro=2, gas=2, seq=128, tag="train-slice
     grad_err, grad_rel, grad_rms = 0.0, 0.0, []
     for i, (g_gpu, g_cpu) in enumerate(zip(tree_leaves(grads["cuda"]),
                                            tree_leaves(grads["cpu"]))):
+        g_cpu = g_cpu.to(g_gpu.device)  # compared on the card, the same fp32 arithmetic
         top = g_cpu.abs().max().item()
-        err = _max_err(f"[{tag}] step-1 grad of leaf {i}", g_gpu.cpu(), g_cpu, 1e-4 * top, 1e-4)
+        err = _max_err(f"[{tag}] step-1 grad of leaf {i}", g_gpu, g_cpu, 1e-4 * top, 1e-4)
         grad_err, grad_rel = max(grad_err, err), max(grad_rel, err / top if top else 0.0)
         grad_rms.append(_rms(g_cpu))
     del grads
@@ -7060,7 +7080,9 @@ def params_agree(tag, engines, lrs, steps):
     worst, n_close, n_total = 0.0, 0, 0
     for p_gpu, p_cpu in zip(tree_leaves(engines["cuda"].state.params),
                             tree_leaves(engines["cpu"].state.params)):
-        diff = (p_gpu.cpu() - p_cpu).abs()
+        # compared on the card: the same fp32 arithmetic, without the host's
+        # passes over every leaf
+        diff = (p_gpu - p_cpu.to(p_gpu.device)).abs()
         worst = max(worst, diff.max().item())
         n_close += int((diff <= 1e-5).sum())
         n_total += diff.numel()
@@ -7923,6 +7945,424 @@ def phase_train_universal(card, seed=0, device="cuda", width=None, micro=2, step
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------- the operator's toolkit
+def phase_accelerator(card, n=4096, reps=10):
+    """[accelerator]: ``get_accelerator()`` on the card.  Gates: device
+    name ``cuda:0`` and count 1; ``total_memory()`` the device's; its events'
+    ``elapsed_time`` over ``reps`` n x n bf16 products within 5 % of
+    ``torch.cuda.Event``'s around the same products; a captured graph's
+    replay equal to the eager product bit for bit; ``pin_memory`` pinned;
+    ``SynchronizedWallClockTimer`` (sync) around the products reading at
+    least their event time; the backend ``nccl``."""
+    import torch
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.utils.timer import SynchronizedWallClockTimer
+    acc = get_accelerator()
+    props = torch.cuda.get_device_properties(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a, b, a2 = (torch.randn(n, n, device="cuda", generator=gen).bfloat16() for _ in range(3))
+
+    def products():
+        for _ in range(reps):
+            out = a @ b
+        return out
+
+    products()
+    acc.synchronize()
+    ours = [acc.Event(enable_timing=True) for _ in range(2)]
+    theirs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ours[0].record()
+    theirs[0].record()
+    products()
+    theirs[1].record()
+    ours[1].record()
+    ours[1].synchronize()
+    acc_ms, ref_ms = ours[0].elapsed_time(ours[1]), theirs[0].elapsed_time(theirs[1])
+    graph = acc.create_graph()
+    static = a.clone()
+    acc.capture_to_graph(graph, lambda x: x @ b, static)
+    replayed = acc.replay_graph(graph, a2).clone()
+    eager = a2 @ b
+    pinned = acc.pin_memory(torch.randn(1 << 20))
+    timers = SynchronizedWallClockTimer()
+    ev = [acc.Event(enable_timing=True) for _ in range(2)]
+    timers("products").start(sync=True)
+    ev[0].record()
+    products()
+    ev[1].record()
+    timers("products").stop(sync=True)
+    timer_ms, event_ms = timers("products").elapsed(), ev[0].elapsed_time(ev[1])
+    checks = {"device_name": acc.device_name(0) == "cuda:0", "device_count": acc.device_count() == 1,
+              "total_memory": acc.total_memory() == props.total_memory,
+              "events": abs(acc_ms - ref_ms) <= 0.05 * ref_ms,
+              "graph_replay": torch.equal(replayed, eager),
+              "pin_memory": pinned.is_pinned() and acc.is_pinned(pinned),
+              "timer": timer_ms >= event_ms,
+              "backend": acc.communication_backend_name() == "nccl"}
+    if not all(checks.values()):
+        raise AssertionError(f"[accelerator] failed {[k for k, ok in checks.items() if not ok]}: "
+                             f"events {acc_ms} vs {ref_ms} ms, timer {timer_ms} vs {event_ms} ms, "
+                             f"memory {acc.total_memory()} vs {props.total_memory}")
+    flops = 2.0 * n ** 3 * reps
+    log(f"[accelerator] get_accelerator() on {card}: {acc.device_name(0)} x "
+        f"{acc.device_count()}, total_memory {acc.total_memory()} B; {reps} x {n}^2 bf16 "
+        f"products: accelerator events {acc_ms:.4f} ms, torch.cuda.Event {ref_ms:.4f} ms "
+        f"({(acc_ms - ref_ms) / ref_ms:+.3%}; {flops / acc_ms / 1e9:.1f} TFLOP/s); "
+        f"SynchronizedWallClockTimer(sync) {timer_ms:.4f} ms >= events {event_ms:.4f} ms; a "
+        f"captured graph's replay equals the eager product bit for bit; pin_memory pinned; "
+        f"backend {acc.communication_backend_name()}")
+
+
+def phase_env_report(card):
+    """[env-report]: ``env_report.main()`` in this process.  Gates: every
+    library row of ``ops/_build.py`` reads built, and the devices row names
+    the card."""
+    import io
+
+    import torch
+    from deepspeed_tpu_torch import env_report
+    from deepspeed_tpu_torch.ops import _build
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = env_report.main()
+    lines = [re.sub(r"\x1b\[[0-9;]*m", "", line) for line in buf.getvalue().splitlines()]
+    rows = {line.split()[0]: line for line in lines
+            if line.split() and line.split()[0] in _build.library_names()}
+    devices = [line for line in lines if line.strip().startswith("devices")]
+    name = torch.cuda.get_device_name(0)
+    if (rc != 0 or sorted(rows) != sorted(_build.library_names())
+            or not all(row.endswith("[OKAY]") for row in rows.values())
+            or len(devices) != 1 or name not in devices[0]):
+        raise AssertionError(f"[env-report] rc {rc}, rows {rows}, devices {devices}")
+    log(f"[env-report] on {card}: {len(rows)} libraries built and loaded "
+        f"({', '.join(rows)}); " + "; ".join(line.strip() for line in lines
+                                              if line.startswith("  ")))
+
+
+AUTOTUNE_LAYERS = 2
+AUTOTUNE_SEQ = 2048
+AUTOTUNE_MICRO = [1, 2, 4, 256]  # 256 passes the memory arithmetic; the card must refuse it
+AUTOTUNE_MEMORY_FACTOR = 8  # device_memory = this x the card's
+AUTOTUNE_LEAK_BYTES = 64 << 20
+
+
+def phase_autotune(card, seed=0, layers=AUTOTUNE_LAYERS, seq=AUTOTUNE_SEQ, micro=AUTOTUNE_MICRO,
+                   device="cuda", cfg=None):
+    """[autotune]: the autotuner over Llama-2-7B width (``layers`` layers,
+    bf16, flash, ``fused_adam``, the default remat policy, seq ``seq``, gas
+    1), ZeRO-0, grid search over the micro-batches ``micro``, one warm-up
+    and two measured steps an experiment, ``device_memory`` 8x the card's.
+    ``ModelInfo`` counts the params and takes ``micro_batch_probe``'s peak
+    at micro-batch 1.  Gates: each micro-batch but the last reports
+    throughput, latency and FLOPs/s, its FLOPs one step's count from the
+    shapes (within 1 %, as [profile]), its flash and AdamW launches the step
+    formula (three steps and the profiler's forward and backward), all on
+    tensor cores; the last is pruned with ``OutOfMemoryError`` in the log;
+    memory allocated after the search within 64 MiB of before; the winner
+    the highest measured throughput; the written config loads and trains 2
+    steps with falling finite losses.  Returns the launches of the
+    experiments, summed."""
+    import logging
+    import tempfile
+
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.autotuning import Autotuner, AutotuningConfig, ModelInfo
+    from deepspeed_tpu_torch.autotuning.autotuner import make_engine_runner
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves
+    tag = "autotune"
+    on_card = device == "cuda"
+    clock = {"start": time.perf_counter()}
+    cfg = cfg or dataclasses.replace(llama.LlamaConfig.llama2_7b(), num_layers=layers, remat=True)
+    params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                               dtype=torch.float32, device=device)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    n_leaves = len(tree_leaves(params))
+    loss_fn = llama.make_loss_fn(cfg)
+    rng = np.random.default_rng(seed)
+    batch_of = lambda rows: llama.causal_lm_batch(rng.integers(0, cfg.vocab_size, (rows, seq)))
+    base = train_config(micro=1, gas=1, bf16=True, seed=seed)
+    probe = deepspeed_tpu_torch.initialize(loss_fn=loss_fn, config=base, device=device,
+                                           model_parameters=tree_map_clone(params))[0]
+    clock["params"] = time.perf_counter()
+    act = micro_batch_probe(probe, batch_of(1))["peak"]
+    del probe
+    _free_cuda()
+    clock["probe"] = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    total = torch.cuda.get_device_properties(0).total_memory if on_card else 80 << 30
+    section = {"enabled": True, "zero_stages": [0], "fast": True, "tuner_type": "gridsearch",
+               "start_profile_step": 1, "end_profile_step": 3, "micro_batch_sizes": list(micro),
+               "device_memory": AUTOTUNE_MEMORY_FACTOR * total,
+               "exps_dir": os.path.join(root, "exps"), "results_dir": os.path.join(root, "results")}
+    user = dict(base, autotuning=section)
+    at_cfg = AutotuningConfig(**section)
+    info = ModelInfo(num_params=n_params, activation_mem_per_mbs=max(int(act), 1))
+    inner = make_engine_runner(loss_fn, params, example_batch_fn=batch_of,
+                               autotuning_config=at_cfg, device=device)
+    per = {}
+
+    def runner(exp):
+        mbs = exp["train_micro_batch_size_per_gpu"]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = inner(exp)
+        wrappers = _kernel_wrappers()
+        per[mbs] = {"metrics": metrics, "launches": launch_counts(), "wall": time.perf_counter() - t0,
+                    "tc": {k: wrappers[k].tc_launches for k in ("flash_fwd", "flash_bwd_dkdv",
+                                                                 "flash_bwd_dq")},
+                    "peak": torch.cuda.max_memory_allocated() if on_card else 0}
+        return metrics
+
+    warnings = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    handler = Capture(level=logging.WARNING)
+    tuner_logger = logging.getLogger("deepspeed_tpu_torch")
+    tuner_logger.addHandler(handler)
+    try:
+        _free_cuda()
+        before = torch.cuda.memory_allocated() if on_card else 0
+        t0 = time.perf_counter()
+        tuner = Autotuner(info, runner, user_config=user, dp_size=1, config=at_cfg)
+        candidates = tuner.micro_batch_candidates(0)
+        best = tuner.tune()
+        tune_s = time.perf_counter() - t0
+        _free_cuda()
+        after = torch.cuda.memory_allocated() if on_card else 0
+        path = tuner.write_results()
+    finally:
+        tuner_logger.removeHandler(handler)
+    measured = {m: r for m, r in per.items() if r["metrics"] is not None}
+    pruned = sorted(set(per) - set(measured))
+    oom_logged = [w for w in warnings if "OutOfMemoryError" in w]
+    summed = dict.fromkeys(KERNEL_NAMES, 0)
+    bad = []
+    for mbs, r in measured.items():
+        want = expected_launches(steps=4, gas=1, layers=cfg.num_layers, n_leaves=n_leaves,
+                                 optimizer="fused_adam", sparse=None)
+        want["fused_adamw"] = 3 * n_leaves  # the profiler's step runs no optimizer
+        if not on_card:
+            want = dict.fromkeys(KERNEL_NAMES, 0)
+        flops = r["metrics"]["flops"] * r["metrics"]["latency"]
+        shapes = train_step_products(cfg, mbs, 1, seq)
+        r["step_flops"], r["shape_flops"] = flops, shapes
+        if (r["launches"] != want or any(r["tc"][k] != r["launches"][k] for k in r["tc"])
+                or abs(flops - shapes) > 0.01 * shapes
+                or not all(np.isfinite(list(r["metrics"].values())))):
+            bad.append((mbs, r["launches"], want, r["tc"], flops, shapes))
+        for k, v in r["launches"].items():
+            summed[k] += v
+    top = max(measured, key=lambda m: measured[m]["metrics"]["throughput"]) if measured else None
+    want_pruned = [micro[-1]] if on_card else []
+    if (candidates != list(micro) or sorted(measured) != sorted(micro[:-1] if on_card else micro)
+            or pruned != want_pruned or (on_card and not oom_logged) or bad
+            or abs(after - before) > AUTOTUNE_LEAK_BYTES or best is None
+            or best["train_micro_batch_size_per_gpu"] != top or path is None):
+        raise AssertionError(f"[{tag}] candidates {candidates}, measured {sorted(measured)}, "
+                             f"pruned {pruned}, OOM warnings {oom_logged}, bad {bad}, memory "
+                             f"{before} -> {after}, best {best and best.get('train_micro_batch_size_per_gpu')}"
+                             f" vs top {top}, results {path}")
+    from deepspeed_tpu_torch.runtime.config import load_config
+    clock["search"] = time.perf_counter()
+    winner = deepspeed_tpu_torch.initialize(loss_fn=loss_fn, model_parameters=tree_map_clone(params),
+                                            config=load_config(path), device=device)[0]
+    batch = batch_of(winner.train_batch_size)
+    losses = [float(winner.train_batch(batch).loss) for _ in range(2)]
+    del winner, params
+    _free_cuda()
+    shutil.rmtree(root, ignore_errors=True)
+    clock["winner"] = time.perf_counter()
+    if not all(np.isfinite(losses)) or not losses[1] < losses[0]:
+        raise AssertionError(f"[{tag}] the written config's losses not finite and falling: {losses}")
+    lines = []
+    for mbs in sorted(per):
+        r = per[mbs]
+        if r["metrics"] is None:
+            lines.append(f"micro {mbs}: pruned ({oom_logged[0][:90] if oom_logged else 'no OOM'}"
+                         f"), {r['wall']:.2f} s")
+            continue
+        m = r["metrics"]
+        lines.append(f"micro {mbs}: {m['throughput']:.3f} samples/s, step {m['latency'] * 1e3:.1f} "
+                     f"ms, {m['flops'] / 1e12:.1f} TFLOP/s (mfu {m['flops'] / TRAIN_PEAK_FLOPS:.4f}), "
+                     f"FLOPs {r['step_flops']:.6e} vs shapes {r['shape_flops']:.6e} "
+                     f"({(r['step_flops'] - r['shape_flops']) / r['shape_flops']:+.2e}), peak "
+                     f"{r['peak'] / 1e9:.2f} GB, {r['wall']:.2f} s")
+    log(f"[{tag}] Llama-2-7B width x {cfg.num_layers} layers ({n_params / 1e9:.3f} B params), "
+        f"bf16, flash, fused_adam, seq {seq}, gas 1 on {card}: activation_mem_per_mbs "
+        f"{act / 1e9:.3f} GB (micro_batch_probe's peak at micro 1), device_memory "
+        f"{AUTOTUNE_MEMORY_FACTOR} x {total / 1e9:.2f} GB, so micro-batches up to "
+        f"{tuner.max_micro_batch(0)} pass the memory arithmetic; seconds: params and probe "
+        f"engine {clock['params'] - clock['start']:.2f}, probe {clock['probe'] - clock['params']:.2f},"
+        f" search {tune_s:.2f} (with the results {clock['search'] - clock['probe']:.2f}), the "
+        f"written config's engine and 2 steps {clock['winner'] - clock['search']:.2f}; "
+        + "; ".join(lines)
+        + f"; winner micro {top}, memory allocated {before} -> {after} B; the written config "
+        f"trained 2 steps: losses {[round(x, 4) for x in losses]}; launches (summed) "
+        f"{ {k: v for k, v in summed.items() if v} } = step formula a micro-batch")
+    return summed
+
+
+def tree_map_clone(params):
+    from deepspeed_tpu_torch.runtime.tree import tree_map
+    return tree_map(lambda p: p.detach().clone(), params)
+
+
+def _free_cuda():
+    import gc
+
+    import torch
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+ELASTIC_STEPS = 4
+ELASTIC_CRASH_AFTER = 2  # generation 0 exits after saving this step
+ELASTIC_MICRO = 2
+
+
+def elastic_run(ck, out, device="cuda", seed=0, crash=True):
+    """Train [train-universal]'s narrow Llama (bf16, flash, ``fused_adam``,
+    no remat) for ``ELASTIC_STEPS`` steps, saving a checkpoint under ``ck`` after each
+    step and resuming the agent's pinned tag when there is one (``ck``
+    None: no checkpoints, the unbroken run).  Generation 0 (with ``crash``)
+    exits with code 1 after saving step ``ELASTIC_CRASH_AFTER``.  Returns
+    (and, with ``out``, appends as a JSON line) the losses of the steps it
+    took, a SHA-256 of each final param and the launch counts."""
+    import hashlib
+
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.runtime.heartbeat import RESUME_TAG_ENV
+    generation = int(os.environ.get("DSTPU_ELASTIC_RESTART", "0"))
+    # no remat: each generation is a new process, and there the first
+    # torch.utils.checkpoint call imports torch._dynamo (8-11 s a process on
+    # the card's host)
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(**UNIVERSAL_WIDTH), remat=False)
+    batches = resume_batches(cfg, ELASTIC_STEPS, cfg.max_seq_len, ELASTIC_MICRO, seed + 7)
+    engine = deepspeed_tpu_torch.initialize(
+        loss_fn=llama.make_loss_fn(cfg), device=device,
+        config=train_config(micro=ELASTIC_MICRO, gas=1, bf16=True, seed=seed),
+        model_parameters=llama.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                                           dtype=torch.float32, device=device))[0]
+    pinned = os.environ.get(RESUME_TAG_ENV)
+    if ck is not None and pinned:
+        engine.load_checkpoint(ck)
+    rec = {"pid": os.getpid(), "generation": generation, "resume_tag": pinned,
+           "start_step": engine.global_steps, "first_step_t": time.time(), "losses": [],
+           "step_s": [], "save_s": []}
+    reset_launch_counts()
+    while engine.global_steps < ELASTIC_STEPS:
+        t0 = time.perf_counter()
+        rec["losses"].append(float(engine.train_batch(batches[engine.global_steps]).loss))
+        t1 = time.perf_counter()
+        if ck is not None:
+            engine.save_checkpoint(ck)
+        rec["step_s"].append(t1 - t0)
+        rec["save_s"].append(time.perf_counter() - t1)
+        if crash and ck is not None and generation == 0 and engine.global_steps == ELASTIC_CRASH_AFTER:
+            rec["crash_t"] = time.time()
+            with open(out, "a") as fh:
+                fh.write(json.dumps(rec) + "\n")
+            os._exit(1)  # a crash: no cleanup, no final save
+    wrappers = _kernel_wrappers()
+    rec["launches"] = launch_counts()
+    rec["tc"] = {k: wrappers[k].tc_launches for k in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+    rec["checksums"] = {k: hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
+                        for k, v in flatten_state(engine.state.params)}
+    rec["n_leaves"] = len(rec["checksums"])
+    if out is not None:
+        with open(out, "a") as fh:
+            fh.write(json.dumps(rec) + "\n")
+    return rec
+
+
+def elastic_worker(out, ck, device="cuda") -> int:
+    """``python3 chip_smoke.py --elastic-worker OUT CK DEVICE``: one
+    generation of [train-elastic]'s supervised worker (``elastic_run``)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 as the parent runs it
+    torch.backends.cudnn.allow_tf32 = False
+    elastic_run(ck, out, device=device)
+    return 0
+
+
+def phase_train_elastic(card, device="cuda"):
+    """[train-elastic]: ``launcher.runner.main`` with ``--elastic 1``, a
+    checkpoint dir, a heartbeat timeout of 60 s and a ds config whose
+    ``elasticity`` section allows world size 1 only, over this script's
+    ``--elastic-worker``: generation 0 crashes after saving step 2, the
+    agent respawns at the same size pinned to the consensus tag, generation
+    1 resumes and finishes steps 3-4.  Gates: rc 0 and one restart; the
+    pinned tag ``global_step2``; steps 3-4's losses and the final params
+    equal an unbroken run's in this process bit for bit; the worker's flash
+    and AdamW launches the step formula; no worker process and no heartbeat
+    directory left."""
+    import tempfile
+
+    from deepspeed_tpu_torch.launcher import runner
+    tag = "train-elastic"
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    tmp = tempfile.gettempdir()
+    stamps_before = {n for n in os.listdir(tmp) if n.startswith("dstpu_hb_")}
+    ck, out, conf = (os.path.join(root, n) for n in ("ck", "workers.jsonl", "ds.json"))
+    with open(conf, "w") as fh:
+        json.dump({"elasticity": {"enabled": True, "max_train_batch_size": ELASTIC_MICRO,
+                                  "micro_batch_sizes": [ELASTIC_MICRO], "min_gpus": 1,
+                                  "max_gpus": 1}}, fh)
+    try:
+        t0 = time.perf_counter()
+        rc = runner.main(["--elastic", "1", "--max_restarts", "2", "--checkpoint_dir", ck,
+                          "--heartbeat_timeout", "60", "--ds_config", conf,
+                          os.path.abspath(__file__), "--elastic-worker", out, ck, device])
+        wall = time.perf_counter() - t0
+        with open(out) as fh:
+            gens = [json.loads(line) for line in fh]
+        unbroken = elastic_run(None, None, device=device, crash=False)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    stamps_after = {n for n in os.listdir(tmp) if n.startswith("dstpu_hb_")}
+    alive = [g["pid"] for g in gens if os.path.exists(f"/proc/{g['pid']}")]
+    last = gens[-1] if gens else {}
+    n_leaves = last.get("n_leaves", 0)
+    done = ELASTIC_STEPS - ELASTIC_CRASH_AFTER
+    # no remat: one flash forward a layer and step, as under everything_saveable
+    want = (expected_launches(steps=done, gas=1, layers=UNIVERSAL_WIDTH["layers"],
+                              n_leaves=n_leaves, optimizer="fused_adam", sparse=None,
+                              policy="everything_saveable")
+            if device == "cuda" else dict.fromkeys(KERNEL_NAMES, 0))
+    checks = {"rc": rc == 0, "generations": [g["generation"] for g in gens] == [0, 1],
+              "pinned": last.get("resume_tag") == f"global_step{ELASTIC_CRASH_AFTER}"
+              and last.get("start_step") == ELASTIC_CRASH_AFTER,
+              "losses": last.get("losses") == unbroken["losses"][ELASTIC_CRASH_AFTER:],
+              "params": last.get("checksums") == unbroken["checksums"],
+              "launches": last.get("launches") == want,
+              "tensor_cores": all(last.get("tc", {}).get(k) == want[k] for k in last.get("tc", {})),
+              "no_workers_left": not alive, "no_stamps_left": stamps_after <= stamps_before}
+    if not all(checks.values()):
+        raise AssertionError(f"[{tag}] failed {[k for k, ok in checks.items() if not ok]}: rc {rc}, "
+                             f"generations {gens}, unbroken losses {unbroken['losses']}, launches "
+                             f"want {want}, alive {alive}, stamps {stamps_after - stamps_before}")
+    restart_s = last["first_step_t"] - gens[0]["crash_t"]
+    log(f"[{tag}] launcher.runner.main --elastic 1 over {len(gens)} worker generations on {card}: "
+        f"rc {rc}, one restart, pinned {last['resume_tag']}; generation 0 losses "
+        f"{[round(x, 4) for x in gens[0]['losses']]}, generation 1 losses "
+        f"{[round(x, 4) for x in last['losses']]} = the unbroken run's steps "
+        f"{ELASTIC_CRASH_AFTER + 1}-{ELASTIC_STEPS} bit for bit, {n_leaves} final params equal "
+        f"(SHA-256); restart wall {restart_s:.2f} s from the crash to generation 1's first step; "
+        f"agent wall {wall:.2f} s; seconds a step (then a save) by generation "
+        f"{[[round(x, 2) for x in g['step_s']] for g in gens]} "
+        f"({[[round(x, 2) for x in g['save_s']] for g in gens]}); generation 1 launches "
+        f"{ {k: v for k, v in last['launches'].items() if v} } = step formula")
+    return last["launches"]
+
+
 # [train-hybrid]: RLHF's train <-> generate flip over [train]'s model, with
 # LoRA adapters of rank HYBRID_RANK on attn.wq and attn.wv of every layer
 HYBRID_RANK = 16
@@ -8453,6 +8893,8 @@ def main() -> int:
     sys.path.insert(0, here)
     if sys.argv[1:2] == ["--serving-worker"]:
         return serving_worker(*sys.argv[2:6])
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        return elastic_worker(*sys.argv[2:5])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8522,6 +8964,14 @@ def main() -> int:
         infinity_launches, infinity = phase_train_infinity(card)
     with phase_timer("train-universal"):
         phase_train_universal(card)
+    with phase_timer("accelerator"):
+        phase_accelerator(card)
+    with phase_timer("env-report"):
+        phase_env_report(card)
+    with phase_timer("autotune"):
+        autotune_launches = phase_autotune(card)
+    with phase_timer("train-elastic"):
+        elastic_launches = phase_train_elastic(card)
     with phase_timer("train-hybrid"):
         hybrid_launches, hybrid = phase_train_hybrid(card, dense)
     with phase_timer("compress"):
@@ -8612,6 +9062,8 @@ def main() -> int:
                         "train_hybrid_launches": {part: hybrid_launches[part][name]
                                                   for part in hybrid_launches},
                         "compress_student_launches": compress_launches[name],
+                        "autotune_launches": autotune_launches[name],
+                        "train_elastic_launches": elastic_launches[name],
                         "variant": FLASH_VARIANTS[name]})
     adam = train_recs["fused_adamw"]
     kernels.append({"name": "fused_adamw", "route": "cuda", "source": ADAM_SOURCE,
@@ -8629,6 +9081,8 @@ def main() -> int:
                     "train_offload_launches": offload_launches["fused_adamw"],
                     "train_hybrid_launches": hybrid_launches["train"]["fused_adamw"],
                     "compress_student_launches": compress_launches["fused_adamw"],
+                    "autotune_launches": autotune_launches["fused_adamw"],
+                    "train_elastic_launches": elastic_launches["fused_adamw"],
                     "bf16_grad": {k: train_recs["fused_adamw_bf16_grad"][k] for k in fields}})
     for name in ("sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq"):
         kernels.append({"name": name, "route": "cuda", "source": SPARSE_SOURCE,

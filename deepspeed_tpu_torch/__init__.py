@@ -7,6 +7,8 @@ kernel written by hand for Hopper (``csrc/``), built at first use.  Entry
 points run on ``device="cuda"`` unless the caller asks for the CPU.
 """
 
+__version__ = "0.1.0"
+
 from .runtime.checkpointing import CheckpointError
 from .runtime.config import TrainingConfig, load_config
 from .runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
@@ -52,3 +54,12 @@ def init_inference(model_module=None, model_config=None, params=None, config=Non
     from .inference.engine import init_inference as _init_inference
     return _init_inference(model_module=model_module, model_config=model_config, params=params,
                            config=config, hf_model=hf_model, **kwargs)
+
+
+def add_config_arguments(parser):
+    """Add the ``--deepspeed`` and ``--deepspeed_config`` arguments to an
+    ``argparse`` parser (``deepspeed_tpu.add_config_arguments``)."""
+    group = parser.add_argument_group("DeepSpeed-TPU", "DeepSpeed-TPU configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true")
+    group.add_argument("--deepspeed_config", default=None, type=str)
+    return parser

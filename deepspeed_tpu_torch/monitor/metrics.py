@@ -31,7 +31,7 @@ population can never read a device value):
 
 import math
 import re
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 from .tracing import StreamingHistogram
 
@@ -834,3 +834,35 @@ def populate_from_router(reg: MetricsRegistry, router) -> None:
                         help_text="quota_exceeded sheds surfaced to the "
                                   "caller (tenant-global — never re-routed "
                                   "to a sibling replica)")
+
+
+def populate_from_agent(reg: MetricsRegistry, agent,
+                        heartbeats: Optional[Dict[int, Dict[str, Any]]] = None,
+                        alive_ranks: Optional[Iterable[int]] = None,
+                        now: Optional[float] = None) -> None:
+    """Elastic agent liveness → registry: restart/world state plus per-rank
+    heartbeat ages and steps from the last liveness sweep: the rank-liveness
+    gauges a fleet router admits on."""
+    # function-local: this module stays import-light, and the age math is
+    # the liveness helper's own
+    from ..runtime.heartbeat import heartbeat_age
+    reg.set_counter(f"{reg.namespace}_elastic_restarts_total",
+                    agent.restart_count,
+                    help_text="worker-group restarts (rescales included)")
+    reg.set_gauge(f"{reg.namespace}_elastic_max_restarts", agent.max_restarts,
+                  help_text="restart budget")
+    heartbeats = heartbeats if heartbeats is not None else agent._last_heartbeats
+    alive = set(alive_ranks) if alive_ranks is not None else None
+    for rank, record in sorted(heartbeats.items()):
+        labels = {"rank": str(rank)}
+        reg.set_gauge(f"{reg.namespace}_rank_step",
+                      record.get("step", 0), labels=labels,
+                      help_text="last stamped training step per rank")
+        if now is not None:
+            reg.set_gauge(f"{reg.namespace}_rank_heartbeat_age_seconds",
+                          heartbeat_age(record, now), labels=labels,
+                          help_text="seconds since the rank's last heartbeat stamp")
+        if alive is not None:
+            reg.set_gauge(f"{reg.namespace}_rank_alive",
+                          1.0 if rank in alive else 0.0, labels=labels,
+                          help_text="1 while the rank's process is running")

@@ -166,6 +166,60 @@ def build_all(names) -> None:
         future.result()
 
 
+def library_names():
+    """Every library this module builds: the CUDA sources (``csrc/*.cu``),
+    then the host ones (``csrc/*.cpp``)."""
+    return ([path.stem for path in sorted(CSRC_DIR.glob("*.cu"))]
+            + [path.stem for path in sorted(CSRC_DIR.glob("*.cpp"))])
+
+
+class OpBuilder:
+    """One library of ``csrc/`` as a builder object (the JAX package's
+    ``ops/op_builder.py`` interface): ``name`` is the source's stem."""
+    name = "base"
+
+    def is_compatible(self) -> bool:
+        """Whether this machine has the library's compiler."""
+        if is_host(self.name):
+            return shutil.which("g++") is not None
+        try:
+            find_nvcc()
+        except KernelBuildError:
+            return False
+        return True
+
+    def lib_path(self) -> str:
+        return str(library_path(self.name))
+
+    def build(self) -> str:
+        return str(build(self.name))
+
+    def load(self) -> ctypes.CDLL:
+        return load(self.name)
+
+
+def _builder_class(lib: str) -> type:
+    words = "".join(part.capitalize() for part in lib.split("_"))
+    return type(f"{words}Builder", (OpBuilder, ), {"name": lib, "__module__": __name__})
+
+
+# the JAX package's two builder names, then one class a CUDA library
+BUILDERS = {"CPUAdamBuilder": _builder_class("cpu_adam"),
+            "AsyncIOBuilder": _builder_class("aio")}
+BUILDERS.update({cls.__name__: cls for cls in map(_builder_class, library_names())
+                 if cls.name not in ("cpu_adam", "aio")})
+
+
+def builder_class(name: str) -> type:
+    """The builder class of one library, by its class name
+    (``CPUAdamBuilder``, ``FlashAttentionBuilder``) or its source's stem."""
+    by_stem = {cls.name: cls for cls in BUILDERS.values()}
+    cls = BUILDERS.get(name) or by_stem.get(name)
+    if cls is None:
+        raise ValueError(f"no op builder {name!r}; known: {sorted(BUILDERS)}")
+    return cls
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu`` (or ``.cpp``), built on
     first use."""

@@ -46,9 +46,9 @@ def _requant(x, qmax):
     """Abs-max int8 codes and scales of ``x`` [groups, group_size] fp32:
     scale = absmax / qmax (1 where absmax is 0), code = clip(round(x / scale))
     with round half to even."""
-    absmax = x.abs().amax(dim=1, keepdim=True)
+    absmax = torch.maximum(x.amax(dim=1, keepdim=True), x.amin(dim=1, keepdim=True).neg_())
     scale = torch.where(absmax == 0.0, torch.ones_like(absmax), absmax / qmax)
-    return torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int8), scale
+    return torch.div(x, scale).round_().clamp_(-qmax, qmax).to(torch.int8), scale
 
 
 def _step_groups(p, m8, v8, sm, sv, g, s):
@@ -56,13 +56,19 @@ def _step_groups(p, m8, v8, sm, sv, g, s):
     codes and scales of the same k groups; writes the codes and scales in
     place and returns the new p."""
     lr, b1, b2, eps, wd, bc1, bc2, omb1, omb2, qmax = s
-    m = m8.float() * sm
-    u = v8.float() * sv  # u = sqrt(v)
-    m_new = b1 * m + omb1 * g
-    v_new = b2 * (u * u) + (omb2 * g) * g
+    # each line one float32 rounding a element, as the kernel's, on a few
+    # scratch buffers: m_new = b1 m + (1 - b1) g, v_new = b2 u^2 + ((1 - b2)
+    # g) g with u = sqrt(v) decoded, p - lr ((m_new / bc1) / (sqrt(v_new /
+    # bc2) + eps) + wd p)
+    t = torch.mul(g, omb1)
+    m_new = m8.float().mul_(sm).mul_(b1).add_(t)
+    v_new = v8.float().mul_(sv)
+    v_new.mul_(v_new).mul_(b2).add_(torch.mul(g, omb2, out=t).mul_(g))
     u_new = torch.sqrt(v_new)
-    update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps) + wd * p
-    p_new = p - lr * update
+    torch.div(v_new, bc2, out=t).sqrt_().add_(eps)
+    update = torch.div(m_new, bc1).div_(t)
+    update.add_(torch.mul(p, wd, out=t)).mul_(lr)
+    p_new = torch.sub(p, update, out=update)
     for codes, scales, x in ((m8, sm, m_new), (v8, sv, u_new)):
         q, scale = _requant(x, qmax)
         codes.copy_(q)

@@ -40,16 +40,20 @@ def adamw_scalars(lr, beta1, beta2, eps, weight_decay, step):
 def fused_adamw_flat_reference(p, m, v, g, *, lr, beta1=0.9, beta2=0.999, eps=1e-8,
                                weight_decay=0.0, step=1):
     """Plain version of the kernel, operation for operation (each a float32
-    rounding): ``fused_adam.py:57-65``."""
+    rounding): ``fused_adam.py:57-65``.  In place on two scratch buffers:
+    ``m = b1 m + (1 - b1) g``, ``v = b2 v + (1 - b2) g g``, ``p -= lr ((m /
+    bc1) / (sqrt(v / bc2) + eps) + wd p)``."""
     lr, b1, b2, eps, wd, bc1, bc2, omb1, omb2 = adamw_scalars(lr, beta1, beta2, eps,
                                                               weight_decay, step)
     gf = g.float()
-    m_new = b1 * m + omb1 * gf
-    v_new = b2 * v + omb2 * gf * gf
-    update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps) + wd * p
-    p.sub_(lr * update)
-    m.copy_(m_new)
-    v.copy_(v_new)
+    t = torch.mul(gf, omb1)
+    m.mul_(b1).add_(t)
+    torch.mul(gf, omb2, out=t).mul_(gf)
+    v.mul_(b2).add_(t)
+    torch.div(v, bc2, out=t).sqrt_().add_(eps)
+    update = torch.div(m, bc1).div_(t)
+    update.add_(torch.mul(p, wd, out=t)).mul_(lr)
+    p.sub_(update)
     return p, m, v
 
 
@@ -91,9 +95,11 @@ def fused_lion_flat_reference(p, m, g, *, lr, beta1=0.9, beta2=0.99, weight_deca
     float32 rounding; sign(0) = 0): ``fused_adam.py:90-95``."""
     lr, b1, b2, wd, omb1, omb2 = lion_scalars(lr, beta1, beta2, weight_decay)
     gf = g.float()
-    c = b1 * m + omb1 * gf
-    p.sub_(lr * (torch.sign(c) + wd * p))
-    m.copy_(b2 * m + omb2 * gf)
+    t = torch.mul(gf, omb1)
+    c = torch.mul(m, b1).add_(t).sign_()
+    c.add_(torch.mul(p, wd, out=t)).mul_(lr)
+    p.sub_(c)
+    m.mul_(b2).add_(torch.mul(gf, omb2, out=t))
     return p, m
 
 

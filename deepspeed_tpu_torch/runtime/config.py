@@ -978,8 +978,9 @@ class TrainingConfig(ConfigModel):
     # several devices and comms_logger.enabled raise NotImplementedError
     # naming ROADMAP item 11 (MeshConfig, CommsLoggerConfig)
     comms_logger: CommsLoggerConfig = Field(CommsLoggerConfig)
-    # no JAX code reads these: accepted and ignored, as in JAX; autotuning
-    # stays a dict until the autotuner is ported
+    # the engine reads none of these: accepted and ignored, as in JAX;
+    # autotuning stays a dict, which the autotuner parses
+    # (autotuning/config.py), as in JAX
     prescale_gradients: bool = False
     gradient_predivide_factor: float = Field(1.0, gt=0.0)
     sparse_gradients: bool = False

@@ -4,7 +4,8 @@ Counterpart of ``deepspeed_tpu/runtime/config_utils.py``, cut to what the
 serving configs use: class annotations declare fields, ``Field(default, ge=,
 gt=, le=, choices=)`` bounds them (``deprecated_names=`` gives older
 spellings), nested ``ConfigModel`` sections are built from dicts, and an
-unknown key raises, naming it.
+unknown key raises, naming it, unless the subclass sets ``allow_extra =
+True`` (then it is kept in ``_extra``).
 """
 
 import copy
@@ -108,15 +109,20 @@ class ConfigModel:
         cls._aliases = {alias: name for name, (_, field) in fields.items()
                         for alias in field.deprecated_names}
 
+    allow_extra = False
+
     def __init__(self, **kwargs):
         cls = type(self)
         for alias in [k for k in kwargs if k in cls._aliases]:
             logger.warning(f"Config field '{alias}' is deprecated, use '{cls._aliases[alias]}'")
             kwargs[cls._aliases[alias]] = kwargs.pop(alias)
+        extra = {key: kwargs.pop(key) for key in list(kwargs)
+                 if key not in cls._fields and cls.allow_extra}
         for key in kwargs:
             if key not in cls._fields:
                 raise ValueError(f"{cls.__name__}: unknown config field '{key}'. "
                                  f"Valid fields: {sorted(cls._fields)}")
+        object.__setattr__(self, "_extra", extra)
         for name, (tp, field) in cls._fields.items():
             if name in kwargs:
                 value = _coerce(kwargs[name], tp, f"{cls.__name__}.{name}")

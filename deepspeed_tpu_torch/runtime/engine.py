@@ -105,7 +105,9 @@ from ..monitor.monitor import MonitorMaster
 from ..monitor.ops_server import OpsPublisher
 from ..monitor.telemetry import TelemetryCollector
 from ..utils import safetensors_io
+from ..utils.logging import log_dist
 from ..utils.memory import see_memory_usage
+from ..utils.timer import ThroughputTimer
 from . import lr_schedules, optimizers
 from .checkpointing import (CheckpointError, _restore_leaf, find_latest_valid_tag,
                             flatten_with_keys, get_latest_tag, load_checkpoint_dir,
@@ -228,6 +230,9 @@ class Engine:
                                             batch_size=self.train_batch_size, n_chips=1)
         self._last_telemetry_record: Optional[Dict[str, Any]] = None
         self._breakdown_acc = [0.0, 0.0, 0]
+        # samples/sec for the steps_per_print line: started every step, read
+        # (one device sync) on the printed steps only, as JAX's
+        self.throughput = ThroughputTimer(batch_size=self.train_batch_size, device=self.device)
         # pull-based ops plane: rank 0 serves /metrics + /healthz + /statez
         # over the telemetry caches; every rank publishes per-rank files when
         # DSTPU_OPS_DIR (or ops_server.textfile_dir) is set.  The cache
@@ -473,6 +478,7 @@ class Engine:
         """The ZeRO-Infinity step (JAX ``engine.py:805-820``): the trainer
         streams the layers; the batch goes through whole."""
         self.telemetry.profile_step_boundary(self.global_steps)
+        self.throughput.start()
         lr = float(self.lr_schedule(self.global_steps))
         t0 = time.perf_counter()
         with self.telemetry.step_annotation(self.global_steps):
@@ -543,6 +549,7 @@ class Engine:
             # with the FLOPs profiler's count (the hand kernels included)
             from ..profiling.flops_profiler import count_ops
             flop_counter = count_ops()
+        self.throughput.start()
         with self.telemetry.step_annotation(self.global_steps), \
                 flop_counter if flop_counter is not None else contextlib.nullcontext():
             metrics = (self._step(batch) if self._offload_state is None
@@ -704,18 +711,29 @@ class Engine:
         return self.train_batch(stacked)
 
     def _report(self, metrics: StepMetrics, loss: Optional[float]) -> None:
-        """The steps_per_print line and the monitor writers' events."""
+        """The steps_per_print line and the monitor writers' events, with
+        JAX's fields in JAX's order (``engine.py:_maybe_report``)."""
+        elapsed = self.throughput.stop()
         loss = float(metrics.loss) if loss is None else loss
         norm = float(metrics.grad_norm)
-        logger.info(f"step={self.global_steps} loss={loss:.4f} lr={metrics.lr:.3e} "
-                    f"grad_norm={norm:.3f}")
+        log_dist(f"step={self.global_steps} loss={loss:.4f} lr={float(metrics.lr):.3e} "
+                 f"grad_norm={norm:.3f}"
+                 + (f" loss_scale={float(metrics.loss_scale):.0f}" if self.fp16_enabled else "")
+                 + (f" samples/sec={self.throughput.avg_samples_per_sec():.1f}" if elapsed else ""),
+                 ranks=[0])
         if not self.monitor.enabled:
             return
         samples = self.global_samples
         events = [("Train/Samples/train_loss", loss, samples),
                   ("Train/Samples/lr", float(metrics.lr), samples),
                   ("Train/Samples/grad_norm", norm, samples)]
+        if self.fp16_enabled:
+            events.append(("Train/Samples/loss_scale", float(metrics.loss_scale), samples))
         rec = self._last_telemetry_record
+        if elapsed and (rec is None or rec.get("samples_per_sec") is None):
+            # telemetry's per-step rate supersedes the running average
+            events.append(("Train/Samples/samples_per_sec", self.throughput.avg_samples_per_sec(),
+                           samples))
         if rec is not None:
             for key in ("step_time_ms", "samples_per_sec", "tokens_per_sec", "tflops_per_sec",
                         "mfu"):

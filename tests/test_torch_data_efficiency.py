@@ -327,6 +327,9 @@ def test_ltd_not_engaged_warns(caplog):
                 "data_efficiency": {"enabled": True, "data_routing": {
                     "enabled": True, "random_ltd": RANDOM_LTD}}})
     batch = {"x": np.ones((2, 4), np.float32)}
+    # initialize() logs an INFO note that names the warning: only what the
+    # steps log counts
+    caplog.clear()
     with caplog.at_level(logging.WARNING, logger="deepspeed_tpu_torch.runtime.engine"):
         engine.train_batch(batch)
         assert "never engaged" not in caplog.text

@@ -13,7 +13,9 @@ operand), GPT-2's, BERT's, Phi's (head dim 80) and GPT-J's (256) forward
 and grads, and BERT's non-causal flash attention; the remat policies
 (host-offloaded inputs, every selective policy bit for bit the default's),
 random-LTD through the flash kernels against the plain attention, and the
-flash and sparse Functions refusing a second derivative.  Every test here needs a card and
+flash and sparse Functions refusing a second derivative; the CUDA accelerator, the
+environment report, the autotuner's runner pruning an out-of-memory point and the
+elastic agent restarting a worker on the card.  Every test here needs a card and
 skips without one.  This file imports no JAX, so it runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest tests/test_torch_gpu.py``
 (the suite's conftest imports JAX)."""
@@ -1622,3 +1624,82 @@ def test_hybrid_engine_on_gpu_matches_cpu(cuda):
         assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(a.abs().max()))
     np.testing.assert_array_equal(out["cpu"][2], out["cuda"][2])
     assert out["cuda"][3]
+
+
+def test_accelerator_on_gpu(cuda):
+    """``get_accelerator()`` on the card: name, count and memory; its events
+    are torch.cuda.Event's; a captured graph replays the eager product bit
+    for bit with new inputs; pinned memory; the synchronized timer reads at
+    least the device time of what it timed; the backend is nccl."""
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.utils.timer import SynchronizedWallClockTimer
+    acc = get_accelerator()
+    assert acc.device_name(0) == "cuda:0" and acc.device_count() == torch.cuda.device_count()
+    assert acc.total_memory() == torch.cuda.get_device_properties(0).total_memory
+    assert acc.communication_backend_name() == "nccl"
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a, b, a2 = (torch.randn(512, 512, device="cuda", generator=gen).bfloat16() for _ in range(3))
+    graph = acc.create_graph()
+    acc.capture_to_graph(graph, lambda x: x @ b, a.clone())
+    assert torch.equal(acc.replay_graph(graph, a2), a2 @ b)
+    assert acc.is_pinned(acc.pin_memory(torch.ones(1024)))
+    timers = SynchronizedWallClockTimer()
+    ev = [acc.Event(enable_timing=True) for _ in range(2)]
+    timers("mm").start(sync=True)
+    ev[0].record()
+    for _ in range(20):
+        a @ b
+    ev[1].record()
+    timers("mm").stop(sync=True)
+    assert timers("mm").elapsed() >= ev[0].elapsed_time(ev[1]) > 0
+
+
+def test_env_report_reads_every_library_built_on_gpu(cuda, capsys):
+    from deepspeed_tpu_torch import env_report
+    rows = env_report.op_report()
+    assert [r[0] for r in rows] and all(r[1] and r[2] for r in rows), rows
+    assert env_report.main() == 0
+    assert torch.cuda.get_device_name(0) in capsys.readouterr().out
+
+
+def test_autotune_runner_prunes_an_oom_and_frees_every_engine_on_gpu(cuda):
+    """The runner on a tiny Llama on the card: a micro-batch that fits
+    reports finite metrics, one the card refuses is pruned (None), and the
+    memory allocated after them equals the memory before within 16 MiB."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.autotuning.autotuner import make_engine_runner
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab=32000, hidden=256, layers=2, heads=2,
+                                                     kv_heads=2, seq=1024), remat=True)
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                               device="cuda")
+    rng = np.random.default_rng(0)
+    runner = make_engine_runner(
+        llama.make_loss_fn(cfg), params, warmup_steps=1, measure_steps=1,
+        example_batch_fn=lambda n: llama.causal_lm_batch(rng.integers(0, 32000, (n, 1024))))
+    conf = {"gradient_accumulation_steps": 1, "bf16": {"enabled": True},
+            "optimizer": {"type": "fused_adam", "params": {"lr": 1e-4}}}
+    # the first experiment also makes what a process keeps once (cuBLAS's
+    # workspace): measure from after it
+    assert runner(dict(conf, train_micro_batch_size_per_gpu=2)) is not None
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    assert runner(dict(conf, train_micro_batch_size_per_gpu=4096)) is None
+    metrics = runner(dict(conf, train_micro_batch_size_per_gpu=2))
+    assert metrics is not None and all(np.isfinite(list(metrics.values())))
+    assert abs(torch.cuda.memory_allocated() - before) <= 16 << 20
+
+
+def test_elastic_agent_restarts_a_gpu_worker(cuda, tmp_path):
+    """The agent over a worker that takes the card: generation 0 exits 1,
+    generation 1 sees the restart ordinal and RANK, and runs on cuda."""
+    import sys
+
+    from deepspeed_tpu_torch.elasticity import DSElasticAgent
+    script = ("import os, sys, torch\n"
+              "assert torch.cuda.is_available()\n"
+              "x = torch.ones(4, device='cuda').sum().item()\n"
+              "sys.exit(1 if os.environ['DSTPU_ELASTIC_RESTART'] == '0' else 0)\n")
+    agent = DSElasticAgent([sys.executable, "-c", script], world_size=1, max_restarts=2,
+                           poll_interval=0.05)
+    assert agent.run() == 0 and agent.restart_count == 1

@@ -104,7 +104,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "deepspeed_tpu_torch.profiling.flops_profiler",
                      "deepspeed_tpu_torch.elasticity",
                      "deepspeed_tpu_torch.elasticity.elasticity",
-                     "deepspeed_tpu_torch.ops.attention.evoformer"):
+                     "deepspeed_tpu_torch.ops.attention.evoformer",
+                     "deepspeed_tpu_torch.utils.logging",
+                     "deepspeed_tpu_torch.utils.timer",
+                     "deepspeed_tpu_torch.utils.comms_logging",
+                     "deepspeed_tpu_torch.accelerator",
+                     "deepspeed_tpu_torch.accelerator.abstract_accelerator",
+                     "deepspeed_tpu_torch.accelerator.cuda_accelerator",
+                     "deepspeed_tpu_torch.env_report",
+                     "deepspeed_tpu_torch.autotuning",
+                     "deepspeed_tpu_torch.autotuning.__main__",
+                     "deepspeed_tpu_torch.autotuning.autotuner",
+                     "deepspeed_tpu_torch.autotuning.config",
+                     "deepspeed_tpu_torch.autotuning.tuner",
+                     "deepspeed_tpu_torch.launcher",
+                     "deepspeed_tpu_torch.launcher.launch",
+                     "deepspeed_tpu_torch.launcher.runner",
+                     "deepspeed_tpu_torch.elasticity.__main__",
+                     "deepspeed_tpu_torch.elasticity.elastic_agent"):
         assert expected in report["modules"]
 
 

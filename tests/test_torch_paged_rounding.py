@@ -12,6 +12,8 @@ kernel in interpret mode and its dense fallback) on prefill-shaped cases,
 and that the host geometry of the kernel's row blocks and key ranges covers
 every row and key for any group."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -221,16 +223,24 @@ FAULT_CASES = [
 ]
 
 
+@functools.lru_cache(maxsize=None)
+def _fault_case(index, dtype):
+    """(arguments, fp32 plain version, P-rounding plain version, whether the
+    unfaulted emulation is within the limit) of ``FAULT_CASES[index]``:
+    computed once and shared by the case's five faults."""
+    name, N, T, H, KV, Dh, bs, lengths, n_tokens, window, alibi = FAULT_CASES[index]
+    _, t = _inputs(11 + index, N, T, H, KV, Dh, bs, lengths, n_tokens, alibi, dtype)
+    ref, rounded = _limits(t, Dh, window, dtype)
+    args = _args(t, Dh, window)
+    return args, ref, rounded, flash.tensor_core_limit(emulate_prefill(*args), ref, rounded)[0]
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp16"])
 @pytest.mark.parametrize("fault", FAULTS)
 @pytest.mark.parametrize("case", FAULT_CASES, ids=_ids(FAULT_CASES))
 def test_limit_rejects_prefill_faults(dtype, fault, case):
-    name, N, T, H, KV, Dh, bs, lengths, n_tokens, window, alibi = case
-    _, t = _inputs(11 + FAULT_CASES.index(case), N, T, H, KV, Dh, bs, lengths, n_tokens, alibi,
-                   dtype)
-    ref, rounded = _limits(t, Dh, window, dtype)
-    args = _args(t, Dh, window)
-    assert flash.tensor_core_limit(emulate_prefill(*args), ref, rounded)[0]
+    args, ref, rounded, clean_within = _fault_case(FAULT_CASES.index(case), dtype)
+    assert clean_within
     ok, _, ratio, _ = flash.tensor_core_limit(emulate_prefill(*args, fault=fault), ref, rounded)
     assert not ok, f"{fault} passed at {ratio:.3f} of the limit"
 
