@@ -113,7 +113,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      counterfactual, the device runs exactly the positions the cache left,
      the census invariant holds, pool and prefix tree drain, and every block
      the tree registered holds its bytes until its last mapper releases it;
-     two on/off pairs in turns, then one serve of each under
+     one on/off pair in turns, then one serve of each under
      torch.profiler; serve-qos: an engine with tracing and multi-tenant QoS
      on serves [serve]'s prompts in the default tenant with [serve]'s
      counters, tokens and paged launches, then an interactive tenant's 4
@@ -293,13 +293,24 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      model in fp16 with a dynamic loss scale from 2**32: skipped steps
      launch no fused AdamW and halve the scale, then falling losses, fp16
      flash on tensor cores, a mid-run checkpoint resumed bit for bit;
+     train-dp: two data-parallel ranks sharing the card, each a process of
+     this script (``--dp-worker``) in one gloo group, train Llama-2-7B width
+     at 2 layers, seq 2048, bf16, micro 1 a rank x gas 2, 3 steps, with the
+     comms logger on: params equal on both ranks after every step, losses
+     and a params sample held to a one-process micro 1 x gas 4 run on the
+     same global batch, launches and all-reduce count and bytes the step
+     formula, no worker left;
   8. serve-v1: ``init_inference`` with Llama-2-7B at full width and depth in
      bf16, 8 prompts of 512 tokens, 64 greedy new tokens through
      ``generate``; serve-v1-int8: the same with weight-only int8 (11 leaves
      packed by the quantize kernel at construction, one layer dequantized at
      a time), its logits against the dense engine's and its peak memory
      against the dense one's; slice-v1: a 2-layer full-width v1 engine in
-     fp32, dense and int8, on CUDA against the same engine on the CPU.
+     fp32, dense and int8, on CUDA against the same engine on the CPU;
+  9. comm: a world-size-1 NCCL group in this process, every collective of
+     ``deepspeed_tpu_torch.comm`` on CUDA tensors equal to the identity it
+     is over one rank, ``collective_bandwidth`` from 1 MB to 256 MB logged
+     as world-1 latency, then the group destroyed.
 
 fp32 matrix products and convolutions run in full fp32 (TF32 is switched
 off), so fp32 comparisons differ only by the order of summation.  Each
@@ -2519,7 +2530,7 @@ def phase_serve(card, seed=0):
 def serve_tracing(card, cfg, params, kw, off, prompts, max_new, results, first, warm, wall_off):
     """[serve] with request tracing on: a second engine, tracing on and a
     Chrome trace under chiprun_out/, serves the same prompts cold and then
-    warm in turns with the tracing-off engine (on, off, on).  Gates: every
+    warm in turns with the tracing-off engine (on, off).  Gates: every
     serve's ServeCounters equal to the tracing-off engine's (the cold one's
     to its first serve, captures included; the warm ones' to its warm
     serve: 62 forward steps, 47 host syncs), the same tokens, a complete
@@ -2560,7 +2571,7 @@ def serve_tracing(card, cfg, params, kw, off, prompts, max_new, results, first, 
         return wall
 
     wall_cold = serve("on", first, "cold serve")
-    for name in ("on", "off", "on"):
+    for name in ("on", "off"):
         walls[name].append(serve(name, warm, "warm serve"))
     n_events, n_counter = check_chrome_trace("serve-tracing", path, len(prompts))
     tr = traced.tracer
@@ -2572,7 +2583,7 @@ def serve_tracing(card, cfg, params, kw, off, prompts, max_new, results, first, 
         f"tracks, {n_counter} kv_pool samples")
     log(f"[serve-tracing] last traced warm serve on {card}: {latency_line(tr)}")
     cost = statistics.mean(walls["on"]) - statistics.mean(walls["off"])
-    log(f"[serve-tracing] warm walls in turns (off, on, off, on) on {card}: tracing off "
+    log(f"[serve-tracing] warm walls in turns (off, on, off) on {card}: tracing off "
         + ", ".join(f"{w:.3f}" for w in walls["off"]) + " s, on "
         + ", ".join(f"{w:.3f}" for w in walls["on"]) + f" s; tracing costs {cost * 1e3:+.1f} ms "
         f"a serve ({cost / statistics.mean(walls['off']):+.2%}, not gated); recorder "
@@ -2582,11 +2593,12 @@ def serve_tracing(card, cfg, params, kw, off, prompts, max_new, results, first, 
 
 
 def observed_turns(tag, card, engine, off, prompts, max_new, results, first, warm, wall_off,
-                   before=None):
+                   before=None, turns=("on", "off")):
     """A second engine of [serve]'s model with an observability feature on:
     its cold serve, then warm serves in turns with the feature-off engine
-    ``off`` (on, off, on).  Every serve's ServeCounters equal the off
-    engine's (the cold one's its first serve, captures included; the warm
+    ``off`` (``turns``: on, off; a phase whose gates read a second warm
+    serve of its own passes on, off, on).  Every serve's ServeCounters
+    equal the off engine's (the cold one's its first serve, captures included; the warm
     ones' its warm serve) and its tokens [serve]'s.  ``before(engine)``
     runs before each warm serve of ``engine`` (a reset, a scraper).
     Returns (cold wall, walls by side, the last warm serve's results)."""
@@ -2610,7 +2622,7 @@ def observed_turns(tag, card, engine, off, prompts, max_new, results, first, war
 
     _, wall_cold = serve("on", first, "cold serve")
     last = None
-    for name in ("on", "off", "on"):
+    for name in turns:
         got, wall = serve(name, warm, "warm serve")
         walls[name].append(wall)
         last = got if name == "on" else last
@@ -2618,7 +2630,7 @@ def observed_turns(tag, card, engine, off, prompts, max_new, results, first, war
     log(f"[{tag}] on {card}: cold serve {wall_cold:.3f} s with ServeCounters equal to the "
         f"feature-off engine's first serve ({first['compiles']} captures); warm serves with "
         f"ServeCounters equal to its warm serve ({warm['host_syncs']} host syncs), tokens "
-        f"identical; warm walls in turns (off, on, off, on): off "
+        f"identical; warm walls in turns (off, {', '.join(turns)}): off "
         + ", ".join(f"{w:.3f}" for w in walls["off"]) + " s, on "
         + ", ".join(f"{w:.3f}" for w in walls["on"]) + f" s; on costs {cost * 1e3:+.1f} ms a "
         f"serve ({cost / statistics.mean(walls['off']):+.2%}, not gated)")
@@ -2804,7 +2816,7 @@ def serve_telemetry(card, cfg, params, kw, off, prompts, max_new, results, first
         "dtype": off.config.dtype, "seed": off.config.seed,
         "serving_tracing": {"enabled": True}})
     observed_turns("serve-telemetry", card, engine, off, prompts, max_new, results, first, warm,
-                   wall_off)
+                   wall_off, turns=("on", "off", "on"))
     collector.close()
     with open(os.path.join(out, "telemetry.jsonl")) as fh:
         records = [json.loads(line) for line in fh]
@@ -2900,8 +2912,11 @@ def profile_device(run, card, tag, label, wall_ms, needles, top=12):
     (``needles``: (group, substring of the kernel name) pairs; then matrix
     products and the rest), and the top ``top`` kernels.  The device's idle
     share is its busy time against ``wall_ms``, the unprofiled run's wall,
-    since the profiler slows the host down.  Returns the busy ms (None where
-    the profiler saw no CUDA kernel)."""
+    since the profiler slows the host down.  The times are read from the
+    profiler's raw CUDA events (kernels, copies, sets) by name, without
+    ``key_averages()``, which first builds an event tree of every host-side
+    event too (hundreds of thousands a serve, seconds of host time).
+    Returns the busy ms (None where the profiler saw no CUDA kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2912,19 +2927,20 @@ def profile_device(run, card, tag, label, wall_ms, needles, top=12):
     prof_ms = (time.perf_counter() - t0) * 1e3
     groups = {key: 0.0 for key, _ in needles}
     groups.update(matmul=0.0, other=0.0)
-    kernels = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+    by_name = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        kernels.append((us / 1e3, evt.count, evt.key))
-        name = evt.key.lower()
+        ms, count = by_name.get(evt.name(), (0.0, 0))
+        by_name[evt.name()] = (ms + evt.duration_ns() / 1e6, count + 1)
+    kernels = []
+    for kernel, (ms, count) in by_name.items():
+        kernels.append((ms, count, kernel))
+        name = kernel.lower()
         key = next((key for key, needle in needles if needle in name), None)
         if key is None:
             key = "matmul" if any(k in name for k in MATMUL_NEEDLES) else "other"
-        groups[key] += us / 1e3
+        groups[key] += ms
     busy = sum(groups.values())
     if busy == 0.0:
         log(f"[{tag}] device time not measured: the profiler saw no CUDA kernels")
@@ -3424,8 +3440,8 @@ def phase_serve_prefix(card, cfg, params, kw, seed=0):
     32-256 tokens and two that are exactly the prompt, in 4 waves, 32 greedy
     new tokens each, through the cache-on engine (the default) and a
     cache-off one.  The first serve of each is checked (the cache-on one
-    with every shared block watched) and builds its graphs; then two pairs
-    in turns (on, off, off, on); then one serve of each under
+    with every shared block watched) and builds its graphs; then one pair
+    in turns (on, off); then one serve of each under
     torch.profiler.  Both engines
     trace requests: each serve's TTFT, TBT and end-to-end percentiles
     (from ``put`` to the first token, between tokens, to ``flush``) show
@@ -3469,7 +3485,7 @@ def phase_serve_prefix(card, cfg, params, kw, seed=0):
             prefix_launches = dict(zip(("launches", "tc_launches", "decode_launches"),
                                        r["launches"]))
         runs[name].append(r)
-    for name in ("cache on", "cache off", "cache off", "cache on"):
+    for name in ("cache on", "cache off"):
         got, r = prefix_serve(engines[name], prompts, waves, max_new)
         if got != outs[name]:
             raise AssertionError(f"[serve-prefix] {name}: a repeated serve's tokens differ at "
@@ -3484,7 +3500,7 @@ def phase_serve_prefix(card, cfg, params, kw, seed=0):
             + ", ".join(f"{r['wall']:.3f}" for r in rs[1:]) + " s (in turns); programs built "
             f"after the first serve: {sum(sum(r['built'].values()) for r in rs[1:])}")
         log(f"[serve-prefix] {name}, last timed serve on {card}: {rs[-1]['latency']}")
-        log(f"[serve-prefix] {name}, TTFT p50/p95/p99 of the two timed serves on {card}: "
+        log(f"[serve-prefix] {name}, TTFT p50/p95/p99 of the timed serve on {card}: "
             + ", ".join(f"{r['ttft']['p50'] * 1e3:.3f} / {r['ttft']['p95'] * 1e3:.3f} / "
                         f"{r['ttft']['p99'] * 1e3:.3f} ms" for r in rs[1:]))
     busy = {}
@@ -3951,7 +3967,7 @@ def phase_slice_recover(device="cuda", cfg=None):
     loop stops at flush 2), found by heartbeat staleness (stamps every
     HEARTBEAT_INTERVAL_S, HANG_TIMEOUT_S after the last one, STARTUP_GRACE_S
     before the first); budget exhaustion (a crash at flush 1 of every
-    generation, ``max_restarts=1``), where the supervisor degrades to
+    generation, ``max_restarts=0``), where the supervisor degrades to
     drain-only and finalizes every journaled request ``failed``; and the
     crash case's journal replayed by the port to the state of the
     in-process crash's.  Gates: recovered tokens identical to the
@@ -4011,7 +4027,7 @@ def phase_slice_recover(device="cuda", cfg=None):
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
         futures = {fault: pool.submit(supervise_worker, "slice-recover", fault, cfg, device,
                                       ops=fault == "crash",
-                                      **({"max_restarts": 1} if fault == "always" else {}))
+                                      **({"max_restarts": 0} if fault == "always" else {}))
                    for fault in ("crash", "hang", "always")}
         runs = {fault: f.result() for fault, f in futures.items()}
     sup, report, workers, secs, journal = runs["crash"]
@@ -4071,12 +4087,12 @@ def phase_slice_recover(device="cuda", cfg=None):
     sup, report, workers, secs, journal = runs["always"]
     state = report["state"]
     statuses = {u: e.terminal["status"] if e.terminal else None for u, e in state.entries.items()}
-    if (not report["degraded"] or report["generations"] != 3 or len(state.entries) != len(prompts)
+    if (not report["degraded"] or report["generations"] != 2 or len(state.entries) != len(prompts)
             or set(statuses.values()) != {"failed"} or len(report["results"]) != len(prompts)
             or "degraded" not in [e["event"] for e in sup.recorder.tail()]):
         raise AssertionError(f"[slice-recover] budget: degraded {report['degraded']}, "
                              f"{report['generations']} generations, statuses {statuses}")
-    log(f"[slice-recover] over a subprocess on {device}: restart budget (max_restarts=1, a crash "
+    log(f"[slice-recover] over a subprocess on {device}: restart budget (max_restarts=0, a crash "
         f"at flush 1 of every generation) exhausted after {report['restarts']} failures, "
         f"degraded to drain-only, the drain generation failed too, all {len(state.entries)} "
         f"journaled requests finalized failed; {len(workers)} workers, none left running; "
@@ -5664,6 +5680,7 @@ def phase_train(card, seed=0, layers=TRAIN_LAYERS, steps=6, micro=2, gas=2, seq=
     from deepspeed_tpu_torch.runtime.tree import tree_leaves
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import llama
+    collect_garbage(tag)
     cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), num_layers=layers, remat=True)
     t0 = time.perf_counter()
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
@@ -6336,6 +6353,8 @@ def train_dense_family(card, key, module, cfg, seq, seed=0, device="cuda", cut="
     tag = f"train-{key}"
     on_card = torch.device(device).type == "cuda"
     micro, gas, steps, lr = DENSE_MICRO, DENSE_GAS, DENSE_STEPS, DENSE_LR[key]
+    if on_card:
+        collect_garbage(tag)
     t0 = time.perf_counter()
     params = module.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
                                 dtype=torch.float32, device=device)
@@ -8221,6 +8240,23 @@ def _free_cuda():
         torch.cuda.empty_cache()
 
 
+def collect_garbage(tag):
+    """Collect what earlier phases left in reference cycles (their engines'
+    tensors among it) before a phase that measures or needs the card's
+    memory, and log what was held and what the collection freed.  Without
+    it the cycles live until the interpreter's own collector happens to run,
+    which is up to how many objects the phases before allocated."""
+    import torch
+    if not torch.cuda.is_available():
+        _free_cuda()
+        return
+    held = torch.cuda.memory_allocated()
+    _free_cuda()
+    log(f"[{tag}] memory allocated at the phase's start {held / 1e9:.2f} GB, "
+        f"{(held - torch.cuda.memory_allocated()) / 1e9:.2f} GB of it in reference cycles "
+        f"of earlier phases, collected")
+
+
 ELASTIC_STEPS = 4
 ELASTIC_CRASH_AFTER = 2  # generation 0 exits after saving this step
 ELASTIC_MICRO = 2
@@ -8361,6 +8397,308 @@ def phase_train_elastic(card, device="cuda"):
         f"({[[round(x, 2) for x in g['save_s']] for g in gens]}); generation 1 launches "
         f"{ {k: v for k, v in last['launches'].items() if v} } = step formula")
     return last["launches"]
+
+
+# [train-dp]: two data-parallel ranks sharing the card, each a process of this
+# script (--dp-worker) in one gloo group, against a one-process run
+DP_WORLD, DP_LAYERS, DP_STEPS, DP_MICRO, DP_GAS, DP_SEQ = 2, 2, 3, 1, 2, 2048
+DP_LOSS_RTOL = 1e-3  # bf16 losses of the two runs (the grads sum in another order)
+DP_TIMEOUT_S = 300
+
+
+def dp_model():
+    """Llama-2-7B at full width, ``DP_LAYERS`` layers, no remat (each rank is
+    a new process, and the first checkpoint call imports torch._dynamo: 8-11
+    s a process on the card's host), fp32 params on the card from seed 0."""
+    import torch
+    from deepspeed_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), num_layers=DP_LAYERS, remat=False)
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                               dtype=torch.float32, device="cuda")
+    return cfg, params
+
+
+def dp_batch(cfg):
+    """The global batch of every step: micro x gas x ranks rows of DP_SEQ tokens."""
+    from deepspeed_tpu_torch.models import llama
+    rng = np.random.default_rng(17)
+    return llama.causal_lm_batch(rng.integers(0, cfg.vocab_size, (
+        DP_MICRO * DP_GAS * DP_WORLD, DP_SEQ)))
+
+
+def params_checksum(params):
+    """Two 64-bit sums over every param's bits (plain and position-weighted),
+    on the device: equal params give equal sums, and any bit that differs
+    moves both."""
+    import torch
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves
+    plain = weighted = None
+    chunk = 1 << 24
+    for leaf in tree_leaves(params):
+        bits = leaf.detach().reshape(-1).view(torch.int32)
+        for i in range(0, bits.numel(), chunk):
+            c = bits[i:i + chunk].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), device=c.device) % 1000003 + 1
+            a, b = c.sum(), (c * w).sum()
+            plain, weighted = (a, b) if plain is None else (plain + a, weighted + b)
+    return [int(plain), int(weighted)]
+
+
+def dp_worker(out, port, rank) -> int:
+    """``python3 chip_smoke.py --dp-worker OUT PORT RANK``: one rank of
+    [train-dp].  Joins the gloo group, builds the engine (which broadcasts
+    rank 0's params), waits for the parent's ``go`` file, then trains
+    DP_STEPS steps on the global batch and writes its losses, step times,
+    params checksums after every step, launch counts, comms-logger records
+    and a params sample under ``OUT``."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 as the parent runs it
+    torch.backends.cudnn.allow_tf32 = False
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.runtime.tree import tree_leaves
+    from deepspeed_tpu_torch.utils.comms_logging import get_comms_logger
+    rank = int(rank)
+    t0 = time.perf_counter()
+    comm.init_distributed(dist_backend="gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                          world_size=DP_WORLD, timeout=DP_TIMEOUT_S)
+    cfg, params = dp_model()
+    conf = train_config(micro=DP_MICRO, gas=DP_GAS, bf16=True, seed=0)
+    conf["comms_logger"] = {"enabled": True}
+    engine = deepspeed_tpu_torch.initialize(loss_fn=llama.make_loss_fn(cfg),
+                                            model_parameters=params, config=conf,
+                                            device="cuda")[0]
+    n_leaves = len(tree_leaves(params))
+    del params
+    _free_cuda()
+    rec = {"pid": os.getpid(), "rank": rank, "sizes": [engine.world_size, engine.dp_world_size,
+                                                       engine.train_batch_size],
+           "setup_s": time.perf_counter() - t0, "n_leaves": n_leaves,
+           "n_params": sum(p.numel() for p in tree_leaves(engine.state.params)),
+           "losses": [], "step_s": [], "checksums": []}
+    batch = dp_batch(cfg)
+    go = os.path.join(out, "go")
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    while not os.path.exists(go) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    comm.barrier()  # both ranks start their steps together
+    cl = get_comms_logger()
+    cl.comms_dict.clear()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for _ in range(DP_STEPS):
+        _sync("cuda")
+        t1 = time.perf_counter()
+        m = engine.train_batch(batch)
+        rec["losses"].append(float(m.loss))
+        _sync("cuda")
+        rec["step_s"].append(time.perf_counter() - t1)
+        rec["checksums"].append(params_checksum(engine.state.params))
+    wrappers = _kernel_wrappers()
+    rec["launches"] = launch_counts()
+    rec["tc"] = {k: wrappers[k].tc_launches for k in ("flash_fwd", "flash_bwd_dkdv",
+                                                       "flash_bwd_dq")}
+    rec["all_reduce"] = {str(size): [e[0], e[1]] for size, e in cl.comms_dict["all_reduce"].items()}
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.save(sampled_leaves(engine.state.params), os.path.join(out, f"sample{rank}.pt"))
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+    comm.barrier()  # both ranks done before either tears the group down
+    comm.destroy_process_group()
+    return 0
+
+
+def dp_reference():
+    """The one-process run [train-dp] is held to: the same model and global
+    batch at micro 1 x gas 4.  Returns (losses, sample, launch counts, step
+    seconds, the lr of each step)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import llama
+    cfg, params = dp_model()
+    engine = deepspeed_tpu_torch.initialize(
+        loss_fn=llama.make_loss_fn(cfg), model_parameters=params, device="cuda",
+        config=train_config(micro=DP_MICRO, gas=DP_GAS * DP_WORLD, bf16=True, seed=0))[0]
+    del params
+    batch = dp_batch(cfg)
+    reset_launch_counts()
+    losses, times = [], []
+    for _ in range(DP_STEPS):
+        _sync("cuda")
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch).loss))
+        _sync("cuda")
+        times.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    sample = sampled_leaves(engine.state.params)
+    lrs = [float(engine.lr_schedule(i)) for i in range(DP_STEPS)]
+    del engine
+    _free_cuda()
+    return losses, sample, launches, times, lrs
+
+
+def phase_train_dp(card):
+    """[train-dp]: Llama-2-7B at full width, DP_LAYERS layers, seq DP_SEQ,
+    bf16, ``fused_adam``, micro DP_MICRO a rank x gas DP_GAS, DP_STEPS steps,
+    ``comms_logger`` on, over DP_WORLD ranks that share the card: each a
+    process of this script (``--dp-worker``) calling ``init_distributed(
+    dist_backend="gloo")`` (NCCL refuses two ranks on one device).  While
+    they start, this process trains the same model on the same global batch
+    at micro 1 x gas 4 alone.  Gates: after every step the ranks' params
+    checksums are equal; every rank's losses within DP_LOSS_RTOL of the
+    one-process run's and its params sample by the port's Adam rule (every
+    element within 2 x sum(lr), 99.9 % within 1e-5); each rank's flash and
+    AdamW launches the step formula (no remat), every flash launch a
+    tensor-core one; the comms logger's all_reduce count and bytes a step
+    the formula (one flat fp32 gradient buffer, 4 bytes a param, and the
+    loss, 4 bytes); no worker left running.  Logs each rank's step time and
+    the gradient all-reduce's share of it (not gated).  Returns each rank's
+    launch counts."""
+    import socket
+    import tempfile
+
+    import torch
+    tag = "train-dp"
+    host = host_line()[0]
+    collect_garbage(tag)  # the two ranks share the card with this process
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    logs = [open(os.path.join(root, f"worker{r}.log"), "w") for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", root,
+                               str(port), str(r)], stdout=logs[r],
+                              stderr=subprocess.STDOUT)
+             for r in range(DP_WORLD)]
+    try:
+        ref_losses, ref_sample, ref_launches, ref_times, lrs = dp_reference()
+        with open(os.path.join(root, "go"), "w") as fh:
+            fh.write("go")
+        rcs = [p.wait(timeout=DP_TIMEOUT_S) for p in procs]
+        wall = time.perf_counter() - t0
+        tails = [open(os.path.join(root, f"worker{r}.log")).read()[-3000:]
+                 for r in range(DP_WORLD)]
+        if any(rcs):
+            raise AssertionError(f"[{tag}] worker exit codes {rcs}: {tails}")
+        recs = [json.load(open(os.path.join(root, f"rank{r}.json"))) for r in range(DP_WORLD)]
+        samples = [torch.load(os.path.join(root, f"sample{r}.pt")) for r in range(DP_WORLD)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for fh in logs:
+            fh.close()
+        shutil.rmtree(root, ignore_errors=True)
+    alive = [r["pid"] for r in recs if os.path.exists(f"/proc/{r['pid']}")]
+    n_leaves, n_params = recs[0]["n_leaves"], recs[0]["n_params"]
+    want = expected_launches(steps=DP_STEPS, gas=DP_GAS, layers=DP_LAYERS, n_leaves=n_leaves,
+                             optimizer="fused_adam", sparse=None, policy="everything_saveable")
+    ref_want = expected_launches(steps=DP_STEPS, gas=DP_GAS * DP_WORLD, layers=DP_LAYERS,
+                                 n_leaves=n_leaves, optimizer="fused_adam", sparse=None,
+                                 policy="everything_saveable")
+    comms = {str(4 * n_params): DP_STEPS, "4": DP_STEPS}
+    rule = adam_rule(tag, samples[0], ref_sample, lrs)
+    checks = {
+        "sizes": all(r["sizes"] == [DP_WORLD, DP_WORLD, DP_MICRO * DP_GAS * DP_WORLD]
+                     for r in recs),
+        "identical": recs[0]["checksums"] == recs[1]["checksums"]
+        and recs[0]["losses"] == recs[1]["losses"]
+        and all(torch.equal(samples[0][k], samples[1][k]) for k in samples[0]),
+        "losses": all(abs(a - b) <= DP_LOSS_RTOL * abs(b)
+                      for r in recs for a, b in zip(r["losses"], ref_losses)),
+        "launches": all(r["launches"] == want for r in recs) and ref_launches == ref_want,
+        "tensor_cores": all(r["tc"][k] == want[k] for r in recs for k in r["tc"]),
+        "comms": all({k: v[0] for k, v in r["all_reduce"].items()} == comms for r in recs),
+        "no_workers_left": not alive}
+    if not all(checks.values()):
+        raise AssertionError(f"[{tag}] failed {[k for k, ok in checks.items() if not ok]}: "
+                             f"losses {[r['losses'] for r in recs]} vs {ref_losses}, checksums "
+                             f"{[r['checksums'] for r in recs]}, launches "
+                             f"{[r['launches'] for r in recs]} want {want}, reference "
+                             f"{ref_launches} want {ref_want}, all_reduce "
+                             f"{[{k: v[0] for k, v in r['all_reduce'].items()} for r in recs]} "
+                             f"want {comms}, alive {alive}")
+    for r in recs:
+        step = statistics.mean(r["step_s"][1:])
+        grads_ms = statistics.mean(r["all_reduce"][str(4 * n_params)][1][1:])
+        log(f"[{tag}] rank {r['rank']} of {DP_WORLD} (gloo, both on one {card}; host {host}): "
+            f"set up in {r['setup_s']:.2f} s; losses {[round(x, 4) for x in r['losses']]}; step "
+            f"s {[round(x, 3) for x in r['step_s']]} (first includes warm-up); steps "
+            f"2-{DP_STEPS}: {step * 1e3:.1f} ms a step, of which the gradient all-reduce "
+            f"({4 * n_params / 1e9:.3f} GB fp32, one flat buffer) {grads_ms:.1f} ms "
+            f"({grads_ms / 1e3 / step:.1%}; not gated); peak memory {r['peak_gb']:.2f} GB")
+    log(f"[{tag}] llama2_7b width x {DP_LAYERS} layers ({n_params / 1e9:.3f} B params), seq "
+        f"{DP_SEQ}, bf16, fused_adam, micro {DP_MICRO} x gas {DP_GAS} x {DP_WORLD} ranks, "
+        f"{DP_STEPS} steps on {card} (host {host}): params checksums equal on both ranks after "
+        f"every step; losses {[round(x, 4) for x in recs[0]['losses']]} within "
+        f"{DP_LOSS_RTOL} of the one-process micro 1 x gas {DP_GAS * DP_WORLD} run's "
+        f"{[round(x, 4) for x in ref_losses]} (its steps "
+        f"{[round(t * 1e3, 1) for t in ref_times]} ms); params sample {rule}; launches a rank "
+        f"{ {k: v for k, v in want.items() if v} } = step formula, every flash launch a "
+        f"tensor-core one; all_reduce a rank {comms} = {DP_STEPS} steps x (grads, loss); no "
+        f"worker left; phase wall {wall:.1f} s")
+    return [r["launches"] for r in recs]
+
+
+def phase_comm(card):
+    """[comm]: a world-size-1 NCCL group in this process.  Every facade
+    collective runs on CUDA tensors through it and must be the identity it
+    is over one rank (the host ones JAX's reduction over the contributor
+    axis); ``collective_bandwidth`` sweeps 1 MB to 256 MB (bf16) of each op,
+    logged as world-1 latency (no rate gate); then the group is destroyed."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.comm import benchmark
+    from deepspeed_tpu_torch.parallel import MeshTopology, set_topology
+    tag, backend, device = "comm", "nccl", "cuda"
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    comm.init_distributed(dist_backend=backend, init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                          world_size=1)
+    try:
+        topo = MeshTopology.from_axis_dict({"data": 1})
+        set_topology(topo)
+        pg = comm.ProcessGroup("data", topo).torch_group()
+        if pg is None or dist.get_backend(pg) != backend:
+            raise AssertionError(f"[{tag}] the data axis has no {backend} group: {pg}")
+        x = torch.randn(64, 32, device=device, generator=torch.Generator(device).manual_seed(5))
+        got = {"all_reduce sum": (comm.all_reduce(x, "data"), x),
+               "all_reduce avg": (comm.all_reduce(x, "data", op="avg"), x),
+               "all_reduce max": (comm.all_reduce(x, "data", op="max"), x),
+               "all_reduce min": (comm.all_reduce(x, "data", op="min"), x),
+               "all_gather": (comm.all_gather(x, "data"), x),
+               "all_gather untiled": (comm.all_gather(x, "data", tiled=False), x[None]),
+               "reduce_scatter": (comm.reduce_scatter(x, "data", scatter_dim=1), x),
+               "all_to_all": (comm.all_to_all(x, "data", split_dim=0, concat_dim=1), x),
+               "ppermute": (comm.ppermute(x, "data", [(0, 0)]), x),
+               "ppermute, no sender": (comm.ppermute(x, "data", []), torch.zeros_like(x)),
+               "broadcast": (comm.broadcast(x, "data"), x),
+               "host_all_reduce": (comm.host_all_reduce(x, op="sum"), x.sum(0)),
+               "host_broadcast": (comm.host_broadcast(x), x)}
+        bad = [name for name, (a, b) in got.items()
+               if not (a.device == x.device and torch.equal(a, b))]
+        if bad or comm.axis_index("data") != 0:
+            raise AssertionError(f"[{tag}] not the identity over one rank: {bad}")
+        comm.barrier(timeout_s=30.0)
+        sweep = {}
+        for op in ("all_reduce", "all_gather", "reduce_scatter", "all_to_all"):
+            sweep[op] = [benchmark.collective_bandwidth(op, elems=mb * (1 << 20) // 2,
+                                                        axis="data", topology=topo, iters=5,
+                                                        device=device)["time_ms"]
+                         for mb in (1, 4, 16, 64, 256)]
+    finally:
+        comm.destroy_process_group()
+    log(f"[{tag}] world-size-1 {backend} group on {card} (host {host_line()[0]}): {len(got)} "
+        f"collectives on {device} tensors equal to the identity, axis_index 0, bounded barrier; "
+        f"world-1 latency (ms) at 1 / 4 / 16 / 64 / 256 MB bf16: "
+        + "; ".join(f"{op} " + " / ".join(f"{t:.4f}" for t in ts) for op, ts in sweep.items())
+        + "; group destroyed")
 
 
 # [train-hybrid]: RLHF's train <-> generate flip over [train]'s model, with
@@ -8895,6 +9233,8 @@ def main() -> int:
         return serving_worker(*sys.argv[2:6])
     if sys.argv[1:2] == ["--elastic-worker"]:
         return elastic_worker(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(*sys.argv[2:5])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -9000,10 +9340,14 @@ def main() -> int:
         fp16_launches, _ = phase_train_fp16(
             card, {f"[train-resume] fused_adam, {RESUME_LAYERS} layers": resumed["fused_adam"]
                    ["step_ms"], f"[train] {TRAIN_LAYERS} layers": dense["step_ms"]})
+    with phase_timer("train-dp"):
+        dp_launches = phase_train_dp(card)
     with phase_timer("serve-v1, serve-v1-int8"):
         _, quant_launches = phase_serve_v1(card)
     with phase_timer("slice-v1"):
         phase_slice_v1()
+    with phase_timer("comm"):
+        phase_comm(card)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s on {card}")
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": "paged_attention", "route": "cuda", "source": SOURCE,
@@ -9064,6 +9408,7 @@ def main() -> int:
                         "compress_student_launches": compress_launches[name],
                         "autotune_launches": autotune_launches[name],
                         "train_elastic_launches": elastic_launches[name],
+                        "train_dp_launches": [rank[name] for rank in dp_launches],
                         "variant": FLASH_VARIANTS[name]})
     adam = train_recs["fused_adamw"]
     kernels.append({"name": "fused_adamw", "route": "cuda", "source": ADAM_SOURCE,
@@ -9083,6 +9428,7 @@ def main() -> int:
                     "compress_student_launches": compress_launches["fused_adamw"],
                     "autotune_launches": autotune_launches["fused_adamw"],
                     "train_elastic_launches": elastic_launches["fused_adamw"],
+                    "train_dp_launches": [rank["fused_adamw"] for rank in dp_launches],
                     "bf16_grad": {k: train_recs["fused_adamw_bf16_grad"][k] for k in fields}})
     for name in ("sparse_fwd", "sparse_bwd_dkdv", "sparse_bwd_dq"):
         kernels.append({"name": name, "route": "cuda", "source": SPARSE_SOURCE,

@@ -9,14 +9,18 @@ points run on ``device="cuda"`` unless the caller asks for the CPU.
 
 __version__ = "0.1.0"
 
+from . import comm
+from .comm import init_distributed
+from .parallel.mesh import MeshTopology
 from .runtime.checkpointing import CheckpointError
 from .runtime.config import TrainingConfig, load_config
 from .runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
 
 
 def initialize(args=None, model=None, loss_fn=None, model_parameters=None, training_data=None,
-               config=None, device="cuda", collate_fn=None, **kwargs):
-    """Build a single-GPU training engine (``deepspeed_tpu.initialize``).
+               config=None, device="cuda", collate_fn=None, dist_init_required=None, **kwargs):
+    """Build a training engine (``deepspeed_tpu.initialize``): one GPU, or
+    data-parallel ranks of a process group.
 
     The model is a loss function ``loss_fn(params, batch, rng) -> loss`` over
     a params tree of tensors (nested dicts), e.g.
@@ -36,11 +40,22 @@ def initialize(args=None, model=None, loss_fn=None, model_parameters=None, train
     ``head_fn(head_params, x, labels) -> loss`` and optionally
     ``stem_fn(stem_params, tokens) -> x``, with ``model_parameters`` a dict
     holding the stacked ``layers`` (and ``stem``) beside the head's leaves.
+
+    Before the engine, the config's ``fault_tolerance`` retry defaults and
+    collective timeout are applied and ``init_distributed`` runs (unless
+    ``dist_init_required`` is False): it starts the process group from the
+    launcher's env (``MASTER_ADDR``, ``WORLD_SIZE``, ``RANK``; ``gloo`` for a
+    CPU engine, ``nccl`` for a CUDA one) and is a no-op in a single process
+    or when a group is already up.  Above one rank the engine trains
+    data-parallel over the ``mesh`` section's ``data`` axis: each rank passes
+    the same global batch and keeps its own rows; the dataloader yields the
+    global batch.
     """
     from .runtime.engine import initialize as _initialize
     return _initialize(args=args, model=model, loss_fn=loss_fn,
                        model_parameters=model_parameters, training_data=training_data,
-                       config=config, device=device, collate_fn=collate_fn, **kwargs)
+                       config=config, device=device, collate_fn=collate_fn,
+                       dist_init_required=dist_init_required, **kwargs)
 
 
 def init_inference(model_module=None, model_config=None, params=None, config=None,

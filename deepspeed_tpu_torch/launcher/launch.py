@@ -10,8 +10,11 @@ info the node is alone and runs a process for each of its GPUs (at least
 one).  Each process gets ``RANK``, ``LOCAL_RANK``,
 ``LOCAL_WORLD_SIZE``, ``WORLD_SIZE`` and ``NODE_RANK``, takes
 ``cuda:LOCAL_RANK`` when a GPU is present, and runs the script as
-``__main__``.  Nothing here calls ``init_process_group``: the script does,
-from that env (``MASTER_ADDR``/``MASTER_PORT`` come from the runner).
+``__main__`` (with ``-m``/``--module``, the script is a module name, run as
+``python -m`` runs it: ``launch -m deepspeed_tpu_torch.comm.benchmark``).
+Nothing here calls ``init_process_group``: the script does, from that env
+(``MASTER_ADDR``/``MASTER_PORT`` come from the runner), as
+``deepspeed_tpu_torch.initialize`` and ``init_distributed`` do.
 
 The exit code is the first failing process's; a failure ends the node's
 other processes (SIGTERM, a grace, then SIGKILL), and each is reaped.
@@ -60,14 +63,18 @@ def _node_layout():
 def _worker(argv: List[str]) -> None:
     """One process: take cuda:LOCAL_RANK where there is a GPU (the
     ``/dev/nvidiactl`` device node exists; torch is imported only then),
-    then run the script as ``__main__``."""
+    then run the script (or, after ``--module``, the module) as ``__main__``."""
     if os.path.exists("/dev/nvidiactl"):
         import torch
         if torch.cuda.is_available():
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-    script, args = argv[0], argv[1:]
+    module = argv[:1] == ["--module"]
+    script, args = argv[int(module)], argv[int(module) + 1:]
     sys.argv = [script] + list(args)
-    runpy.run_path(script, run_name="__main__")
+    if module:
+        runpy.run_module(script, run_name="__main__", alter_sys=True)
+    else:
+        runpy.run_path(script, run_name="__main__")
 
 
 def _stop(procs, grace_s):
@@ -89,6 +96,8 @@ def main(argv=None) -> int:
         _worker(argv[1:])
         return 0
     parser = argparse.ArgumentParser(description="per-node launcher: one process per local GPU")
+    parser.add_argument("-m", "--module", action="store_true",
+                        help="user_script is a module name, run as python -m runs it")
     parser.add_argument("user_script")
     parser.add_argument("user_args", nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
@@ -100,8 +109,9 @@ def main(argv=None) -> int:
                    LOCAL_WORLD_SIZE=str(local), WORLD_SIZE=str(world_size), NODE_RANK=str(node),
                    PYTHONPATH=path)
         procs.append(subprocess.Popen(
-            [sys.executable, "-u", "-m", "deepspeed_tpu_torch.launcher.launch", "--local_worker",
-             args.user_script] + list(args.user_args), env=env))
+            [sys.executable, "-u", "-m", "deepspeed_tpu_torch.launcher.launch", "--local_worker"]
+            + (["--module"] if args.module else []) + [args.user_script] + list(args.user_args),
+            env=env))
     logger.info(f"node {node}: {local} processes, ranks {first}-{first + local - 1} of "
                 f"{world_size}")
     prev = {}

@@ -29,10 +29,12 @@ dirs are swept on the next save.  Loads validate manifest completeness and
 sizes (CRC32s too with ``verify_integrity``) and can fall back to the newest
 valid earlier tag.
 
-The port trains on one process and one device, so every leaf is whole on
-the host before it is written: the JAX package's streaming of sharded
-leaves into memmapped files (``checkpointing.py:398-451``) has no
-counterpart here, and multi-GPU saves wait for ROADMAP item 11.
+Data-parallel ranks hold identical replicas, so every leaf is whole on
+each rank: at a world size above 1 rank 0 alone writes (``on_rank0``), the
+others wait for its outcome under a bounded wait (a failed save raises on
+every rank), and every rank loads the same files.  Two ranks never write one
+file.  The JAX package's streaming of sharded leaves into memmapped files
+(``checkpointing.py:398-451``) waits for sharded state (ROADMAP item 11b).
 """
 
 import json
@@ -401,6 +403,36 @@ def save_checkpoint_with_retries(save_dir: str, tag: str, state, client_state: D
                 on_retry(attempt + 1, exc)
             if delay > 0:
                 time.sleep(delay)
+
+
+def on_rank0(save):
+    """Run ``save()`` on rank 0 alone while every other rank waits for its
+    outcome, broadcast from rank 0 under the bounded wait of
+    ``comm.bounded_collective`` (``fault_tolerance.collective_timeout_s``); at a
+    world size of 1 just ``save()``.  A failed save raises on every rank: rank
+    0 raises its own error, the others a :class:`CheckpointError` naming it,
+    so no rank goes on as if the checkpoint existed.  Returns what ``save``
+    returned (None on the other ranks)."""
+    import torch.distributed as dist
+
+    from ..comm import comm
+    if comm.get_world_size() == 1:
+        return save()
+    result, failure = None, None
+    if comm.get_rank() == 0:
+        try:
+            result = save()
+        except Exception as exc:  # raised after every rank has heard of it
+            failure = exc
+    outcome = [None if failure is None else f"{type(failure).__name__}: {failure}"]
+    comm.bounded_collective(dist.broadcast_object_list, outcome, src=0,
+                            name="checkpoint_save")
+    if failure is not None:
+        raise failure
+    if outcome[0] is not None:
+        raise CheckpointError(f"rank 0 failed to save the checkpoint ({outcome[0]}); "
+                              f"rank {comm.get_rank()} saved nothing either")
+    return result
 
 
 def _jsonable(obj):

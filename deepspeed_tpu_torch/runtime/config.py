@@ -455,21 +455,15 @@ class MonitorConfig(ConfigModel):
 
 
 class CommsLoggerConfig(ConfigModel):
-    """The ``comms_logger`` section (JAX ``runtime/config.py:154``).  The JAX
-    engine logs its ``comm/`` collectives with it; the single-GPU port runs
-    none, so ``enabled`` raises ``NotImplementedError`` naming ROADMAP item
-    11 and the other fields are accepted."""
+    """The ``comms_logger`` section (JAX ``runtime/config.py:154``): the
+    engine configures ``utils/comms_logging.py`` with it, which times and
+    records every ``comm/`` collective, and with ``enabled`` adds the
+    summary to the monitor events."""
     enabled: bool = False
     verbose: bool = False
     prof_all: bool = True
     debug: bool = False
     prof_ops: List[str] = Field(list)
-
-    def model_validate(self):
-        if self.enabled:
-            raise NotImplementedError("comms_logger.enabled=True: the collectives it logs belong "
-                                      "to multi-GPU training, which is not ported to PyTorch yet "
-                                      "(ROADMAP item 11)")
 
 
 class FlopsProfilerConfig(ConfigModel):
@@ -484,12 +478,17 @@ class FlopsProfilerConfig(ConfigModel):
     output_file: Optional[str] = None
 
 
+# the ROADMAP item that ports each mesh axis but "data" (ROADMAP item 11)
+MESH_AXIS_ITEMS = {"fsdp": ("11b", "ZeRO sharding"), "tensor": ("11c", "tensor parallelism"),
+                   "sequence": ("11d", "sequence parallelism"),
+                   "expert": ("11e", "expert parallelism"), "pipe": ("11f", "pipeline parallelism")}
+
+
 class MeshConfig(ConfigModel):
-    """The ``mesh`` section (JAX ``runtime/config.py:258``): device-mesh axis
-    sizes, one of which may be -1 (the devices left).  JAX's validation, then:
-    a mesh that resolves to one device (every axis 1, or one axis -1 and the
-    rest 1) is the port's one GPU; any larger size raises
-    ``NotImplementedError`` naming ROADMAP item 11."""
+    """The ``mesh`` section (JAX ``runtime/config.py:258``): axis sizes of
+    the grid of ranks (``parallel/mesh.py``), one of which may be -1 (the
+    ranks left), with JAX's validation.  The engine checks the product
+    against the world size, as ``MeshTopology.build`` does."""
     data: int = -1
     fsdp: int = 1
     tensor: int = 1
@@ -516,11 +515,6 @@ class MeshConfig(ConfigModel):
             if a in seen:
                 raise ValueError(f"MeshConfig.axis_order: duplicate axis {a!r}")
             seen.add(a)
-        wide = {a: s for a, s in sizes.items() if s > 1}
-        if wide:
-            raise NotImplementedError(f"mesh {wide}: a mesh over more than one device belongs "
-                                      f"to multi-GPU training, which is not ported to PyTorch "
-                                      f"yet (ROADMAP item 11)")
 
     def axis_sizes(self):
         return {a: getattr(self, a) for a in ("data", "fsdp", "tensor", "sequence", "expert",
@@ -827,10 +821,11 @@ class FaultToleranceConfig(ConfigModel):
     (``runtime/heartbeat.py``: step, wall clock and phase in
     ``<heartbeat_dir>/hb.rank<R>.json``, at most one write per
     ``heartbeat_interval_s``, no device sync); ``DSTPU_HEARTBEAT_DIR`` arms
-    them without the section.  ``collective_timeout_s`` and ``init_retries*``
-    bound multi-process collectives and process-group setup, which the
-    single-GPU port does not have: set away from their defaults they raise
-    ``NotImplementedError`` naming ROADMAP item 11."""
+    them without the section.  ``collective_timeout_s`` bounds host-level
+    collectives (``comm.bounded_collective``; the engine sets it), and
+    ``init_retries`` / ``init_retry_backoff_s`` bound the process-group
+    setup that ``initialize`` runs (``comm.init_distributed``); the env the
+    elastic agent exports wins over both."""
     heartbeat: bool = False
     heartbeat_dir: Optional[str] = None
     heartbeat_interval_s: float = Field(1.0, ge=0.0)
@@ -846,13 +841,6 @@ class FaultToleranceConfig(ConfigModel):
             raise ValueError("fault_tolerance.heartbeat=true needs heartbeat_dir "
                              "(or launch under the elastic agent, which exports "
                              "DSTPU_HEARTBEAT_DIR and overrides this section)")
-        for name, default in (("collective_timeout_s", None), ("init_retries", 3),
-                              ("init_retry_backoff_s", 0.5)):
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"fault_tolerance.{name}={getattr(self, name)!r}: bounded collectives and "
-                    f"process-group retries belong to multi-GPU training, which is not ported "
-                    f"to PyTorch yet (ROADMAP item 11)")
 
 
 class DataSamplingConfig(ConfigModel):
@@ -958,8 +946,8 @@ class TrainingConfig(ConfigModel):
     use_node_local_storage: bool = False
     wall_clock_breakdown: bool = False
     memory_breakdown: bool = False
-    # JAX acts on these, and one GPU acts the same way: a mesh that resolves
-    # to one device; the serving sections, validated by the models the
+    # JAX acts on these, and so does the port: the mesh (its data axis; the
+    # other axes above 1 raise, naming their ROADMAP item); the serving sections, validated by the models the
     # serving engines read (one dict configures both engines); elasticity, a
     # dict read by elasticity.compute_elastic_config
     mesh: MeshConfig = Field(MeshConfig)
@@ -974,9 +962,7 @@ class TrainingConfig(ConfigModel):
     serving_fleet: ServingFleetConfig = Field(ServingFleetConfig)
     serving_qos: ServingQosConfig = Field(ServingQosConfig)
     elasticity: Optional[Dict[str, Any]] = None
-    # JAX acts on these, and acting needs more than one GPU: a mesh over
-    # several devices and comms_logger.enabled raise NotImplementedError
-    # naming ROADMAP item 11 (MeshConfig, CommsLoggerConfig)
+    # the engine configures the comms logger with this section
     comms_logger: CommsLoggerConfig = Field(CommsLoggerConfig)
     # the engine reads none of these: accepted and ignored, as in JAX;
     # autotuning stays a dict, which the autotuner parses
@@ -991,6 +977,13 @@ class TrainingConfig(ConfigModel):
     autotuning: Optional[Dict[str, Any]] = None
 
     def model_validate(self):
+        wide = {a: s for a, s in self.mesh.axis_sizes().items() if a != "data" and s > 1}
+        if wide:
+            a = next(iter(wide))
+            raise NotImplementedError(f"mesh.{a}={wide[a]}: {MESH_AXIS_ITEMS[a][1]} over the "
+                                      f"'{a}' axis is not ported to PyTorch yet (ROADMAP item "
+                                      f"{MESH_AXIS_ITEMS[a][0]}); the port trains data-parallel "
+                                      f"over 'data'")
         if self.memory_breakdown and not self.telemetry.memory_breakdown:
             # the reference's top-level memory_breakdown key routes to the
             # see_memory_usage cadence the telemetry section controls

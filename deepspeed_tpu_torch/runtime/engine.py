@@ -1,6 +1,6 @@
-"""The training engine, single GPU.
+"""The training engine: one GPU, or data-parallel ranks.
 
-Counterpart of ``deepspeed_tpu/runtime/engine.py`` for one device: an fp32
+Counterpart of ``deepspeed_tpu/runtime/engine.py``: an fp32
 master copy of the params, a compute-dtype copy made at every step,
 micro-batch gradient accumulation in fp32, global-norm clipping, the lr
 schedule and the optimizer step.  The step follows ``engine.py:586-655``:
@@ -47,8 +47,33 @@ been queued (a streak ends one step later than JAX's, never with the
 device drained), on the CPU at once.
 
 On one device the JAX engine takes the fused step too (``engine.py:544``),
-and ZeRO partitions nothing, so every ZeRO stage runs this same step.  The
-engine runs on ``device="cuda"`` unless the caller passes ``device="cpu"``
+and ZeRO partitions nothing, so every ZeRO stage runs this same step.
+
+Data parallelism (JAX on a ``data``-only mesh, ZeRO stage 0): the engine
+builds the ``mesh`` section's topology (``parallel/mesh.py``) over the
+process group's ranks, checking its product against the world size as JAX
+checks it against the devices.  It broadcasts the params from rank 0 (the
+reference's ``_broadcast_model``); ``train_batch`` takes the global batch
+that JAX's takes, and rank ``r`` keeps rows ``[r*micro, (r+1)*micro)`` of
+each micro-batch, the rows JAX's ``data`` sharding puts on device ``r``.
+After accumulation and before the norm the fp32 grads are averaged over
+the ``data`` group in one in-place all-reduce (``comm.all_reduce``) of the
+flat fp32 buffer they were summed in (``grad_accum``), so every rank clips,
+tests for fp16 overflow and steps on identical values, and every rank skips
+together; the reported loss is the mean over the ranks (the mean of each
+rank's mean, which differs from JAX's global token mean when masked ranks
+hold unequal token counts).  Telemetry counts the whole job: a record's
+samples and tokens are the global batch's, its FLOPs every rank's (this
+rank's count times the group's size), and MFU divides them over one device
+a rank.  Checkpoints are written by rank 0 alone, and a save that fails
+there raises on every rank (``checkpointing.on_rank0``).  ZeRO stages 1-3 and the offload paths above
+one rank raise, naming ROADMAP item 11b.  At one rank everything runs as on
+one GPU.  The engine sets the collective timeout from its
+``fault_tolerance`` section (unconditionally: a later engine never inherits
+an earlier one's), and with ``comms_logger.enabled`` configures the comms
+logger and adds its summary to the monitor events.
+
+The engine runs on ``device="cuda"`` unless the caller passes ``device="cpu"``
 (then every kernel's plain version runs); it raises when asked for CUDA
 without a GPU.  ``initialize`` makes the config's ``sparse_attention``
 section the loss function's default attention, scopes the
@@ -99,11 +124,14 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..comm import comm as dist_comm
+from ..comm.groups import get_data_parallel_group
 from ..models import transformer
 from ..monitor.metrics import populate_from_telemetry
 from ..monitor.monitor import MonitorMaster
 from ..monitor.ops_server import OpsPublisher
 from ..monitor.telemetry import TelemetryCollector
+from ..parallel.mesh import MeshTopology, get_topology_or_none, set_topology
 from ..utils import safetensors_io
 from ..utils.logging import log_dist
 from ..utils.memory import see_memory_usage
@@ -111,10 +139,11 @@ from ..utils.timer import ThroughputTimer
 from . import lr_schedules, optimizers
 from .checkpointing import (CheckpointError, _restore_leaf, find_latest_valid_tag,
                             flatten_with_keys, get_latest_tag, load_checkpoint_dir,
-                            map_with_keys, read_metadata, save_checkpoint_with_retries,
-                            sweep_retention, validate_checkpoint_tag)
+                            map_with_keys, on_rank0, read_metadata,
+                            save_checkpoint_with_retries, sweep_retention,
+                            validate_checkpoint_tag)
 from .config import OpsServerConfig, TrainingConfig, load_config
-from .grad_accum import accumulate_micro_grads
+from .grad_accum import accumulate_micro_grads, accumulate_micro_grads_flat
 from .heartbeat import OPS_DIR_ENV, RESUME_DIR_ENV, RESUME_TAG_ENV, build_heartbeat
 from .optimizers import LossScaleState, has_overflow, init_loss_scale, update_loss_scale
 from .tree import tree_leaves, tree_map
@@ -176,9 +205,20 @@ class Engine:
         self.loss_fn = loss_fn
         # the random-LTD state initialize() scoped around loss_fn (or None)
         self._ltd_state = ltd_state
+        # this engine's config owns the process default: None resets it
+        dist_comm.set_default_collective_timeout(config.fault_tolerance.collective_timeout_s)
+        if config.comms_logger.enabled:
+            dist_comm.configure(config.comms_logger)
+        self.topology = _topology(config)
+        self.world_size = self.topology.world_size
+        self.dp_world_size = self.topology.get_data_parallel_world_size()
+        self.dp_group = get_data_parallel_group(self.topology)
+        self.dp_rank = self.dp_group.rank()
         (self.train_batch_size, self.micro_batch_size,
-         self.gradient_accumulation_steps) = config.resolve_batch_sizes(1)
+         self.gradient_accumulation_steps) = config.resolve_batch_sizes(self.dp_world_size)
         self.zero_stage = config.zero_optimization.stage
+        if self.world_size > 1:
+            self._refuse_above_one_rank(config)
 
         opt_cfg = config.optimizer
         opt_params = dict(opt_cfg.params) if opt_cfg else {}
@@ -223,11 +263,13 @@ class Engine:
                         f"belongs to the model (LlamaConfig.remat_policy="
                         f"{'offload_inputs' if act.cpu_checkpointing else repr(act.policy)}); the "
                         f"engine cannot rewrite it inside a loss function")
-        # monitor writers and the per-step telemetry collector (the engine
-        # trains on one device)
+        # monitor writers and the per-step telemetry collector, which counts
+        # the whole data-parallel job: the global batch's samples and tokens,
+        # every rank's FLOPs, one device a rank
         self.monitor = MonitorMaster(config)
         self.telemetry = TelemetryCollector(config.telemetry, monitor=self.monitor,
-                                            batch_size=self.train_batch_size, n_chips=1)
+                                            batch_size=self.train_batch_size,
+                                            n_chips=self.dp_world_size)
         self._last_telemetry_record: Optional[Dict[str, Any]] = None
         self._breakdown_acc = [0.0, 0.0, 0]
         # samples/sec for the steps_per_print line: started every step, read
@@ -284,20 +326,39 @@ class Engine:
         else:
             master = tree_map(lambda p: _as_tensor(p).detach().to(
                 device=self.device, dtype=torch.float32).clone(), params)
+            if self.dp_world_size > 1:
+                # every replica starts from rank 0's params (_broadcast_model)
+                master = tree_map(lambda p: dist_comm.broadcast(p, self.dp_group, src=0),
+                                  master)
             self.state = TrainState(step=0, params=master, opt_state=self.optimizer.init(master),
                                     loss_scale=(init_loss_scale(config.fp16) if self.fp16_enabled
                                                 else None))
         n_params = sum(int(np.prod(tuple(p.shape))) for p in tree_leaves(params))
         logger.info(f"Engine: device={self.device} zero_stage={self.zero_stage} "
                     f"batch={self.train_batch_size} (micro={self.micro_batch_size} x gas="
-                    f"{self.gradient_accumulation_steps}) dtype={self.compute_dtype} "
+                    f"{self.gradient_accumulation_steps} x dp={self.dp_world_size}) "
+                    f"dtype={self.compute_dtype} "
                     f"optimizer={self.optimizer.name} params={n_params / 1e6:.2f}M")
+
+    def _refuse_above_one_rank(self, config):
+        """What data parallelism does not cover yet raises above one rank."""
+        zero = config.zero_optimization
+        offload = [name for name, off in (("offload_optimizer", zero.offload_optimizer),
+                                          ("offload_param", zero.offload_param))
+                   if off is not None and off.device != "none"]
+        if zero.stage > 0 or offload:
+            what = f"ZeRO stage {zero.stage}" if zero.stage > 0 else " and ".join(offload)
+            raise NotImplementedError(
+                f"{what} over {self.world_size} ranks: sharded ZeRO state is not ported to "
+                f"PyTorch yet (ROADMAP item 11b); above one rank the port trains "
+                f"data-parallel with ZeRO stage 0")
 
     # ------------------------------------------------------------- batches
     def _gas_layout(self, batch):
-        """Leaves [train_batch_size, ...] or [gas, micro, ...] -> tensors
-        [gas, micro, ...] on the device."""
-        gas = self.gradient_accumulation_steps
+        """Leaves [train_batch_size, ...] or [gas, micro x dp, ...] -> this
+        rank's tensors [gas, micro, ...] on the device: rank r keeps rows
+        [r*micro, (r+1)*micro) of each micro-batch."""
+        gas, dp = self.gradient_accumulation_steps, self.dp_world_size
 
         def fix(x):
             x = _as_tensor(x)
@@ -306,9 +367,25 @@ class Engine:
             elif not (x.dim() >= 2 and x.shape[0] == gas):
                 raise ValueError(f"batch leading dim {x.shape[0]} matches neither "
                                  f"train_batch_size={self.train_batch_size} nor gas={gas}")
+            if dp > 1:
+                micro = self.micro_batch_size
+                if x.shape[1] != micro * dp:
+                    raise ValueError(f"a micro-batch of {x.shape[1]} rows over {dp} data-parallel "
+                                     f"ranks: micro_batch={micro} x dp={dp} rows expected")
+                x = x[:, self.dp_rank * micro:(self.dp_rank + 1) * micro]
             return x.to(self.device)
 
         return tree_map(fix, batch)
+
+    def _average_over_ranks(self, flat, loss):
+        """Average the grads and the loss over the data-parallel group: the
+        grads' flat fp32 buffer in one in-place all-reduce (summed, then
+        divided by the group's size), the loss in one of its own."""
+        if self.dp_world_size == 1:
+            return loss
+        dist_comm.all_reduce(flat, self.dp_group, op="sum", inplace=True)
+        flat.div_(self.dp_world_size)
+        return dist_comm.all_reduce(loss, self.dp_group, op="avg")
 
     def _compute_params(self):
         """The compute-dtype copy of the master params, as autograd leaves
@@ -517,12 +594,10 @@ class Engine:
 
     def _accumulate(self, batch, scale: float):
         gas = self.gradient_accumulation_steps
-        grads, loss_sum = accumulate_micro_grads(self.loss_fn, self._compute_params(), batch,
-                                                 [self.generator] * gas, scale)
-        divisor = float(np.float32(gas) * np.float32(scale))  # float32, as JAX's gas * scale
-        for g in tree_leaves(grads):
-            g.div_(divisor)
-        return grads, loss_sum / gas
+        flat, grads, loss_sum = accumulate_micro_grads_flat(
+            self.loss_fn, self._compute_params(), batch, [self.generator] * gas, scale)
+        flat.div_(float(np.float32(gas) * np.float32(scale)))  # float32, as JAX's gas * scale
+        return grads, self._average_over_ranks(flat, loss_sum / gas)
 
     def train_batch(self, batch) -> StepMetrics:
         """One optimizer step on a global batch: leaves [train_batch_size, ...]
@@ -555,7 +630,8 @@ class Engine:
             metrics = (self._step(batch) if self._offload_state is None
                        else self._offload_step(batch))
         if flop_counter is not None:
-            self.telemetry.set_flops_per_step(flop_counter.flops)
+            # this rank's count, for its 1/dp share of the global batch
+            self.telemetry.set_flops_per_step(flop_counter.flops * self.dp_world_size)
         # liveness stamp: the host step count and the wall clock, throttled
         # inside the writer; no device value
         self.heartbeat.stamp(self.global_steps)
@@ -742,6 +818,9 @@ class Engine:
             for key, value in (rec.get("hbm") or {}).items():
                 if value is not None:
                     events.append((f"Train/HBM/{key}", float(value), samples))
+        if self.config.comms_logger.enabled:
+            # the comms logger's summary rides the same monitor event stream
+            events.extend(dist_comm.monitor_events(samples))
         self.monitor.write_events(events)
 
     def _batch_tokens(self, batch) -> Optional[int]:
@@ -804,7 +883,14 @@ class Engine:
         compute dtype; no step.  Random-LTD is pinned off: eval measures the
         whole model."""
         self._nvme_guard("eval_batch")
-        batch = tree_map(lambda x: _as_tensor(x).to(self.device), batch)
+        dp, r = self.dp_world_size, self.dp_rank
+
+        def share(x):  # above one rank, this rank's rows (JAX shards them over data)
+            x = _as_tensor(x)
+            n = x.shape[0] // dp
+            return x[r * n:(r + 1) * n].to(self.device)
+
+        batch = tree_map(share, batch)
         if self._offload_state is not None:
             params = tree_map(lambda p: p.detach(), self._compute)
         else:
@@ -813,7 +899,8 @@ class Engine:
         if self._ltd_state is not None:
             loss_fn = transformer.scoped_random_ltd(loss_fn, None)
         out = loss_fn(params, batch, rng if rng is not None else self.generator)
-        return out[0] if isinstance(out, tuple) else out
+        loss = out[0] if isinstance(out, tuple) else out
+        return dist_comm.all_reduce(loss, self.dp_group, op="avg") if dp > 1 else loss
 
     # ------------------------------------------------------------- queries
     @property
@@ -851,9 +938,23 @@ class Engine:
     # --------------------------------------------------------- checkpointing
     def _validate_tag(self, tag: str):
         """Cross-process tag consistency (JAX ``engine.py:1103-1120``): every
-        process must save under the same tag.  The port trains in one
-        process, where there is nothing to compare, whatever
-        ``checkpoint_tag_validation`` says."""
+        process must save under the same tag.  Above one rank the tag's CRC32
+        is compared over the world in one all-reduce (the largest of the CRC
+        and of its negation); a mismatch warns or, under
+        ``checkpoint_tag_validation: fail``, raises ``ValueError``."""
+        import zlib
+        mode = self.config.checkpoint_tag_validation.lower()
+        if mode == "ignore" or self.world_size <= 1:
+            return
+        crc = float(zlib.crc32(tag.encode()))
+        both = dist_comm.all_reduce(
+            torch.tensor([crc, -crc], dtype=torch.float64, device=self.device),
+            self.topology.axis_names, op="max", log_name="checkpoint_tag")
+        if float(both[0]) != -float(both[1]):
+            msg = f"checkpoint tag {tag!r} differs across processes"
+            if mode == "fail":
+                raise ValueError(msg)
+            logger.warning(msg)
 
     @property
     def checkpoint_engine(self):
@@ -894,7 +995,8 @@ class Engine:
         # phase-stamped, so that a hang dump tells checkpoint IO (slow by
         # nature) from a wedged step
         self.heartbeat.stamp(self.global_steps, phase="checkpoint_save", force=True)
-        with self.telemetry.annotation("checkpoint_save"):
+
+        def save():
             save_checkpoint_with_retries(
                 save_dir, tag, self._saved_state(), client_state,
                 engine=self.checkpoint_engine, retries=ck.save_retries,
@@ -902,10 +1004,13 @@ class Engine:
                 on_retry=lambda attempt, exc: self.telemetry.record_resilience(
                     "save_retry", step=self.global_steps, samples=self.global_samples, tag=tag,
                     attempt=attempt, error=repr(exc)))
+            if ck.keep_last_n:
+                sweep_retention(save_dir, ck.keep_last_n, verify_integrity=ck.verify_integrity)
+
+        with self.telemetry.annotation("checkpoint_save"):
+            on_rank0(save)  # above one rank, rank 0 writes and the others wait for it
         self.telemetry.record_events([("Train/Checkpoint/save_time_ms",
                                        (time.perf_counter() - t0) * 1e3, self.global_samples)])
-        if ck.keep_last_n:
-            sweep_retention(save_dir, ck.keep_last_n, verify_integrity=ck.verify_integrity)
         self._register_preemption_handler(save_dir)
         self.heartbeat.stamp(self.global_steps, force=True)
         return tag
@@ -1231,6 +1336,19 @@ class Engine:
         return found
 
 
+def _topology(config: TrainingConfig) -> MeshTopology:
+    """The ``mesh`` section over the process group's ranks (1 without a
+    group), set as the process's topology; one already set with the same
+    axes is reused, so that engines built one after another share its
+    process groups."""
+    world = dist_comm.get_world_size()
+    topo = get_topology_or_none()
+    if topo is None or topo.shape != MeshTopology.resolve(config.mesh, world):
+        topo = MeshTopology.build(config.mesh, world_size=world)
+    set_topology(topo)
+    return topo
+
+
 def _as_tensor(x) -> torch.Tensor:
     """A batch leaf (tensor, numpy array or nested list) as a tensor."""
     return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
@@ -1238,7 +1356,8 @@ def _as_tensor(x) -> torch.Tensor:
 
 def initialize(args=None, model=None, loss_fn: Optional[Callable] = None,
                model_parameters: Any = None, training_data=None, config=None,
-               device="cuda", collate_fn=None, **kwargs):
+               device="cuda", collate_fn=None, dist_init_required: Optional[bool] = None,
+               **kwargs):
     """See ``deepspeed_tpu_torch.initialize``."""
     # ZeRO-Infinity's layer structure (deepspeed_tpu/__init__.py:113-116)
     stream_fns = {name: kwargs.pop(name, None) for name in ("layer_fn", "head_fn", "stem_fn")}
@@ -1248,6 +1367,15 @@ def initialize(args=None, model=None, loss_fn: Optional[Callable] = None,
     cfg = load_config(config)
     if args is not None and getattr(args, "deepspeed_config", None) and config is None:
         cfg = load_config(args.deepspeed_config)
+    # the fault-tolerance knobs land BEFORE the process group starts: the
+    # retry loop they bound runs inside init_distributed (deepspeed_tpu/
+    # __init__.py:51-58); the agent-exported env still wins over them
+    dist_comm.set_init_retry_defaults(cfg.fault_tolerance.init_retries,
+                                      cfg.fault_tolerance.init_retry_backoff_s)
+    dist_comm.set_default_collective_timeout(cfg.fault_tolerance.collective_timeout_s)
+    if dist_init_required is None or dist_init_required:
+        dist_comm.init_distributed(dist_backend="gloo" if torch.device(device).type == "cpu"
+                                   else "nccl")
     fn = loss_fn
     if fn is None and model is not None:
         fn = getattr(model, "loss_fn", model if callable(model) else None)

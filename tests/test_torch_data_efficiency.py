@@ -465,9 +465,11 @@ def test_training_sections_load():
                         "fault_tolerance": {"heartbeat": False}})
     assert conf.max_consecutive_skips == 2
     assert conf.effective_curriculum() == CURRICULUM  # the legacy section
-    for bad in ({"collective_timeout_s": 5.0}, {"init_retries": 1}):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            load_config({"train_batch_size": 2, "fault_tolerance": bad})
+    # the knobs that bound collectives and process-group setup load (ROADMAP 11a)
+    for knobs in ({"collective_timeout_s": 5.0}, {"init_retries": 1},
+                  {"init_retry_backoff_s": 0.25}):
+        ft = load_config({"train_batch_size": 2, "fault_tolerance": knobs}).fault_tolerance
+        assert all(getattr(ft, k) == v for k, v in knobs.items())
     with pytest.raises(ValueError, match="unknown config field 'future_key'"):
         load_config({"train_batch_size": 2, "data_efficiency": {"future_key": 1}})
     with pytest.raises(ValueError, match="heartbeat_dir"):

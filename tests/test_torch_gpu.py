@@ -14,8 +14,9 @@ and grads, and BERT's non-causal flash attention; the remat policies
 (host-offloaded inputs, every selective policy bit for bit the default's),
 random-LTD through the flash kernels against the plain attention, and the
 flash and sparse Functions refusing a second derivative; the CUDA accelerator, the
-environment report, the autotuner's runner pruning an out-of-memory point and the
-elastic agent restarting a worker on the card.  Every test here needs a card and
+environment report, the autotuner's runner pruning an out-of-memory point, the
+elastic agent restarting a worker on the card, and the collective microbench's
+CLI under the per-node launcher at one rank (NCCL).  Every test here needs a card and
 skips without one.  This file imports no JAX, so it runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest tests/test_torch_gpu.py``
 (the suite's conftest imports JAX)."""
@@ -1703,3 +1704,28 @@ def test_elastic_agent_restarts_a_gpu_worker(cuda, tmp_path):
     agent = DSElasticAgent([sys.executable, "-c", script], world_size=1, max_restarts=2,
                            poll_interval=0.05)
     assert agent.run() == 0 and agent.restart_count == 1
+
+
+def test_comm_benchmark_cli_under_the_launcher_at_one_rank(cuda):
+    """``launch -m deepspeed_tpu_torch.comm.benchmark`` on a one-card host:
+    one process, a world-size-1 NCCL group from the launcher's env, and
+    JAX's line for an axis of one rank."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               CUDA_VISIBLE_DEVICES=os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0],
+               PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    env.pop("DSTPU_WORLD_INFO", None)
+    run = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch", "-m",
+                          "deepspeed_tpu_torch.comm.benchmark", "--elems", "1048576", "--iters",
+                          "2"], env=env, cwd=root, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    assert "axis 'data' has world size 1" in run.stdout
+    assert "torch.distributed initialized: rank 0/1" in run.stdout + run.stderr
+    assert "(nccl)" in run.stdout + run.stderr

@@ -121,7 +121,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "deepspeed_tpu_torch.launcher.launch",
                      "deepspeed_tpu_torch.launcher.runner",
                      "deepspeed_tpu_torch.elasticity.__main__",
-                     "deepspeed_tpu_torch.elasticity.elastic_agent"):
+                     "deepspeed_tpu_torch.elasticity.elastic_agent",
+                     "deepspeed_tpu_torch.comm",
+                     "deepspeed_tpu_torch.comm.comm",
+                     "deepspeed_tpu_torch.comm.groups",
+                     "deepspeed_tpu_torch.comm.benchmark",
+                     "deepspeed_tpu_torch.parallel",
+                     "deepspeed_tpu_torch.parallel.mesh"):
         assert expected in report["modules"]
 
 

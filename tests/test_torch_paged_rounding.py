@@ -42,6 +42,18 @@ CASES = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The emulations are thousands of small products, which one torch thread
+    runs faster than several; and a test worker that starts a thread a core
+    oversubscribes the cores that the run's other workers share (the file
+    took about ten times longer so).  Restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _ids(cases):
     return [c[0] for c in cases]
 

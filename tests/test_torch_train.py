@@ -243,6 +243,14 @@ def test_engine_refuses_what_is_not_ported():
                 {"optimizer": {"type": "zero_one_adam", "params": {"lr": 1e-3}}}):
         with pytest.raises(NotImplementedError):
             deepspeed_tpu_torch.initialize(config=_config(**bad), device="cpu", **kw)
+    # a mesh over 2 data-parallel ranks loads, and at one rank the engine
+    # raises JAX's MeshTopology error; another axis names its item (ROADMAP 11)
+    conf = _config(mesh={"data": 2})
+    assert load_config(conf).mesh.data == 2
+    with pytest.raises(ValueError, match="multiply to 2 but 1 devices are present"):
+        deepspeed_tpu_torch.initialize(config=conf, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11c"):
+        load_config(_config(mesh={"tensor": 2}))
     with pytest.raises(ValueError, match="fp16 and bf16"):
         load_config(_config(fp16={"enabled": True}, bf16={"enabled": True}))
     with pytest.raises(ValueError, match="unknown config field 'no_such_section'"):
